@@ -1,0 +1,153 @@
+"""User-facing serving surface: ServeConfig, build_scheduler and
+generate() (port of the single-device part of
+flexflow_tpu/serving/api.py). `FFModel.generate` delegates here."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+from flexflow_tpu_torch.ops.attention import check_mode
+from flexflow_tpu_torch.serving.engine import GenerationEngine
+from flexflow_tpu_torch.serving.kv_cache import KVCache, PagedKVCache
+from flexflow_tpu_torch.serving.scheduler import (
+    ContinuousBatchingScheduler,
+    Request,
+    StaticBatchingScheduler,
+)
+
+_SCHEDULERS = {
+    "continuous": ContinuousBatchingScheduler,
+    "static": StaticBatchingScheduler,
+}
+
+# options of the reference's ServeConfig this port does not take yet:
+# field -> (the only value accepted, the ROADMAP item that brings the rest)
+_NOT_PORTED = {
+    "temperature": (0.0, "Port queue: sampling"),
+    "admission": ("reserve", "Port queue: preemption and swap"),
+    "kv_dtype": ("fp32", "Port queue: int8 KV pools (kernel #6)"),
+    "prefix_cache": (False, "Port queue: prefix cache"),
+    "spec_draft": ("", "Port queue: speculative decoding (kernels #7-#9)"),
+    "token_budget": (0, "Port queue: chunked prefill"),
+    "serve_async": (False, "Port queue: async engine"),
+}
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Serving knobs: the reference's defaults — paged KV layout with
+    16-token pages, the continuous scheduler, greedy decoding and an
+    fp32 cache."""
+
+    max_seqs: int = 8  # KV-cache slots = max in-flight requests
+    max_seq_len: int = 256  # max tokens per sequence (prompt + generation)
+    scheduler: str = "continuous"  # "continuous" | "static"
+    eos_token: Optional[int] = None
+    prefill_buckets: Tuple[int, ...] = ()  # () = powers of two
+    kv_layout: str = "paged"  # "paged" | "slot"
+    kv_page_size: int = 0  # 0 = auto (16, halved to divide max_len)
+    kv_pages: int = 0  # 0 = max_seqs * max_seq_len / page_size
+    decode_kernel: str = "auto"
+    debug_invariants: bool = False
+    temperature: float = 0.0
+    admission: str = "reserve"
+    kv_dtype: str = "fp32"
+    prefix_cache: bool = False
+    spec_draft: str = ""
+    token_budget: int = 0
+    serve_async: bool = False
+
+    def __post_init__(self):
+        for name, (only, item) in _NOT_PORTED.items():
+            if getattr(self, name) != only:
+                raise NotImplementedError(
+                    f"ServeConfig.{name}={getattr(self, name)!r} is not ported "
+                    f"yet (ROADMAP, {item}); this port takes {only!r}"
+                )
+        if self.scheduler not in _SCHEDULERS:
+            raise ValueError(
+                f"scheduler must be one of {sorted(_SCHEDULERS)}, got {self.scheduler!r}"
+            )
+        if self.max_seqs < 1 or self.max_seq_len < 2:
+            raise ValueError("max_seqs >= 1 and max_seq_len >= 2 required")
+        if self.kv_layout not in ("paged", "slot"):
+            raise ValueError(f"kv_layout must be 'paged' or 'slot', got {self.kv_layout!r}")
+        if self.kv_page_size < 0 or self.kv_pages < 0:
+            raise ValueError("kv_page_size and kv_pages must be >= 0")
+        if self.kv_page_size and self.max_seq_len % self.kv_page_size:
+            raise ValueError(
+                f"max_seq_len {self.max_seq_len} is not divisible by "
+                f"kv_page_size {self.kv_page_size}"
+            )
+        check_mode(self.decode_kernel)
+
+    @staticmethod
+    def from_config(cfg) -> "ServeConfig":
+        """Lift the serve_* fields of an FFConfig."""
+        return ServeConfig(
+            max_seqs=cfg.serve_max_seqs,
+            max_seq_len=cfg.serve_max_seq_len,
+            scheduler=cfg.serve_scheduler,
+            eos_token=cfg.serve_eos_token if cfg.serve_eos_token >= 0 else None,
+            kv_layout=cfg.serve_kv_layout,
+            kv_page_size=cfg.serve_kv_page_size,
+            kv_pages=cfg.serve_kv_pages,
+            decode_kernel=cfg.serve_decode_kernel,
+        )
+
+
+def build_scheduler(model, serve: ServeConfig):
+    """(scheduler, engine, cache) wired to a compiled model — the pieces
+    generate() uses, exposed for callers that drive iterations
+    themselves."""
+    if serve.kv_layout == "paged":
+        cache = PagedKVCache.from_model(
+            model,
+            max_seqs=serve.max_seqs,
+            max_len=serve.max_seq_len,
+            buckets=serve.prefill_buckets or None,
+            page_size=serve.kv_page_size,
+            num_pages=serve.kv_pages,
+        )
+    else:
+        cache = KVCache.from_model(
+            model,
+            max_seqs=serve.max_seqs,
+            max_len=serve.max_seq_len,
+            buckets=serve.prefill_buckets or None,
+        )
+    engine = GenerationEngine(model, cache, decode_kernel=serve.decode_kernel)
+    sched = _SCHEDULERS[serve.scheduler](engine, debug_invariants=serve.debug_invariants)
+    return sched, engine, cache
+
+
+def generate(
+    model,
+    prompts: Sequence[Sequence[int]],
+    max_new_tokens: int = 16,
+    serve: Optional[ServeConfig] = None,
+    eos_token: Optional[int] = None,
+) -> List[List[int]]:
+    """Generate greedy continuations for token-id prompts; returns the
+    generated tokens (prompt excluded) in the prompts' order. An invalid
+    request becomes a FAILED entry with an empty continuation instead of
+    an exception that loses the whole batch."""
+    serve = serve or ServeConfig()
+    if eos_token is None:
+        eos_token = serve.eos_token
+    sched, _, _ = build_scheduler(model, serve)
+    reqs = [
+        Request(
+            rid=i,
+            prompt=list(map(int, p)),
+            max_new_tokens=max_new_tokens,
+            eos_token=eos_token,
+        )
+        for i, p in enumerate(prompts)
+    ]
+    for r in reqs:
+        sched.submit(r, strict=False)
+    done = sched.run()
+    by_rid = {r.rid: r for r in done}
+    return [by_rid[i].generated for i in range(len(reqs))]
