@@ -8,12 +8,15 @@ Run from the root of a checkout on a machine with one CUDA card:
 It imports torch, numpy and the port only, and fails (non-zero exit, no
 result line) on any failed phase:
 
-  1. build   — compiles every kernel of the serving path from csrc/ with
-               nvcc for sm_90a and prints the build time and ptxas report;
-  2. kernels — each kernel against its plain PyTorch version at the
-               serving path's shapes (8 sequences x 16 heads x 64,
-               max_len 512, 16-row pages, 256 pages; w = 1 and 5),
-               atol 1e-4, with times, bounds and a library yardstick;
+  1. build   — compiles every kernel source of csrc/ with nvcc for
+               sm_90a, all at once, and prints each build's time and
+               ptxas report;
+  2. kernels — after a 2 s warm-up that brings the card to its working
+               clock, each decode kernel against its plain PyTorch
+               version at the serving path's shapes (8 sequences x 16
+               heads x 64, max_len 512, 16-row pages, 256 pages; w = 1
+               and 5), atol 1e-4, with times, bounds, a library
+               yardstick and the card's clocks and power;
   3. serve   — the flagship decoder LM (12 layers, hidden 1024, 16
                heads, ff 4096, vocab 32000, seeded random weights) serves
                32 requests on 8 slots x 512 tokens under the default
@@ -23,9 +26,33 @@ result line) on any failed phase:
                give token-identical greedy streams (the slot layout runs
                the contiguous kernel), and cached decode logits match a
                full no-cache forward within 1e-3;
+  5. flash kernels — #1-#3 against their plain versions at the flagship
+               training shape (q, k, v [8, 512, 16, 64]), causal and
+               not, and ragged (sq 500, sq != sk): O and LSE within atol
+               1e-4, dQ, dK, dV within atol 1e-4 and rtol 1e-3, with
+               times, bounds, the library call (SDPA forward, SDPA
+               backward for the #2 + #3 pair), the port's dense core and
+               the card's clocks and power;
+  6. train   — the flagship Transformer (examples/transformer.py: 12 x
+               [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
+               batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
+               fit() for 10 iterations of seeded randn data; each flash
+               kernel must run 12 times per step and the loss stay
+               finite; samples/s, step ms, peak memory and a profiled
+               step's device busy share and top device ops;
+  7. training checks — from the same weights and batch, the flash kernels
+               and the dense core give each weight's gradient within 1e-3
+               of its largest entry, and one step of each agrees (loss
+               1e-5 relative, weights 1e-5 absolute, printed beside the
+               step's own size; peak memory of both); the
+               loss falls over 10 steps on one batch; and the causal
+               decoder LM at full width (2 layers, tokens [8, 512],
+               sparse CE, SGD lr 0.01) trains through fit() for 4
+               iterations with each flash kernel run 2 times per step;
 
-then prints the kernels' JSON line, the card's name and power limit, and
-as its last line {"ok": true, "device": {...}}.
+then prints the kernels' JSON line (launches: the serving path's for
+#4 and #5, the flagship training run's for #1-#3), the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,13 +72,30 @@ ATOL_LOGITS = 1e-3  # cached decode vs full forward through 12 fp32 layers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 
+ATOL_GRAD, RTOL_GRAD = 1e-4, 1e-3  # flash backward kernels vs plain versions
+RTOL_STEP_LOSS = ATOL_STEP_WEIGHTS = 1e-5  # flash vs dense core, one step
+# flash vs dense core, each weight's gradient against its own largest
+# entry: summation order gives ~1e-6..1e-5 through 12 fp32 layers, a wrong
+# backward (mask, scale, delta) gives O(1)
+RTOL_GRAD_FLASH_DENSE = 1e-3
+# a gradient that is 0 in exact arithmetic (the key bias: softmax ignores
+# a constant added to a row) is held against this share of the model's
+# largest gradient instead of its own rounding noise
+GRAD_FLOOR = 1e-4
+
 FLAGSHIP = dict(layers=12, hidden=1024, heads=16, vocab=32000, max_seqs=8, max_len=512)
 NUM_REQUESTS = 32
+# the flagship Transformer of examples/transformer.py and its training run
+TRAIN = dict(layers=12, hidden=1024, heads=16, batch=8, seq=512, steps=10)
+LM_TRAIN = dict(layers=2, steps=4)
 
-# kernel wrapper -> the TPU kernel it replaces
+# kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "flash_verify": "flexflow_tpu/ops/pallas/decode_kernel.py:235",
-    "paged_flash_verify": "flexflow_tpu/ops/pallas/decode_kernel.py:342",
+    "flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
+    "paged_flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
+    "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
+    "flash_dq": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
+    "flash_dkv": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
 
 
@@ -64,17 +108,28 @@ def require(cond, msg: str) -> None:
 
 
 def build_kernels():
+    """Build every kernel source at once (one nvcc each, in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    def timed(lib_fn):
+        t0 = time.perf_counter()
+        lib_fn()
+        return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    dk._lib()
-    build_s = time.perf_counter() - t0
-    print(f"[build] {dk.SOURCE}: {build_s:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in _build.build_logs.get(dk.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build]   {line.strip()}")
-    return build_s
+    with ThreadPoolExecutor(2) as pool:
+        times = dict(zip((dk.SOURCE, fk.SOURCE), pool.map(timed, (dk._lib, fk._lib))))
+    print(f"[build] {len(times)} sources in {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for source, build_s in times.items():
+        print(f"[build] {source}: {build_s:.2f} s")
+        for line in _build.build_logs.get(source, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+                print(f"[build]   {line.strip()}")
+    return times
 
 
 # -- 2. kernels vs plain versions ----------------------------------------------
@@ -223,6 +278,28 @@ def check_kernels():
                 f"library sdpa {row['library_ms']:.4f} ms"
             )
     return rows
+
+
+def smi_sample() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def warm_card(seconds=2.0):
+    """Keep the card busy with fp32 matrix products for `seconds`, so the
+    timings that follow start at its working clock, not its idle one."""
+    import torch
+
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
 
 
 # -- 3. serve the flagship LM ----------------------------------------------------
@@ -421,6 +498,364 @@ def check_decode_logits(model, n_new=12):
     return err
 
 
+# -- 5. flash kernels vs plain versions --------------------------------------------
+
+
+def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED):
+    """Seeded q, k, v, dO and the plain forward's (O, LSE) and delta."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    g = torch.Generator().manual_seed(seed + 7 * sq + sk + d + int(causal))
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device) for s in (sq, sk, sk))
+    do = torch.randn(b, sq, h, d, generator=g).to(device)
+    o, lse = fk.flash_fwd_ref(q, k, v, causal)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, causal=causal)
+
+
+def flash_calls(x):
+    """{kernel: (kernel call, plain call)} on the inputs x."""
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    fwd = (x["q"], x["k"], x["v"], x["causal"])
+    bwd = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["causal"])
+    return {
+        "flash_fwd": (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
+        "flash_dq": (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
+        "flash_dkv": (lambda: fk.flash_dkv(*bwd), lambda: fk.flash_dkv_ref(*bwd)),
+    }
+
+
+def flash_bound_ms(x, name):
+    """Least time on these inputs: every operand read once and every
+    output written once at 3.35 TB/s, against 2 flops per multiply-add of
+    the kernel's products over the visible (query, key) pairs at 67
+    TFLOP/s fp32 (2 products forward, 3 for dQ, 4 for dK/dV)."""
+    b, sq, h, d = x["q"].shape
+    sk = x["k"].shape[1]
+    pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if x["causal"] else sq * sk)
+    qo, kv, rows = b * sq * h * d, b * sk * h * d, b * h * sq
+    nbytes = 4 * {
+        "flash_fwd": 2 * qo + 2 * kv + rows,            # q, k, v in; O, LSE out
+        "flash_dq": 3 * qo + 2 * kv + 2 * rows,         # q, dO, k, v, lse, delta in; dQ out
+        "flash_dkv": 2 * qo + 4 * kv + 2 * rows,        # q, dO, k, v, lse, delta in; dK, dV out
+    }[name]
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * pairs * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_backend(fn) -> str:
+    """Name of the device kernel that takes most of one call of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        return "not measured"
+    return max(events, key=lambda e: e.self_device_time_total).key[:80]
+
+
+def check_flash_kernels():
+    """Kernels #1-#3 against their plain versions at the flagship training
+    shape, causal and not, and two ragged shapes; times of the flagship
+    (non-causal) case, which the training path runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops import attention as attn
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    device = torch.device("cuda")
+    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    rows = {name: {"max_abs_err": 0.0} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True)]
+    for cb, sq, sk, ch, cd, causal in cases:
+        x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
+        for name, (kernel, plain) in flash_calls(x).items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            if name == "flash_fwd":
+                ok = err <= ATOL_KERNEL
+            else:
+                ok = all(torch.allclose(a, r, atol=ATOL_GRAD, rtol=RTOL_GRAD) for a, r in zip(got, want))
+            print(f"[kernels] {name} {(cb, sq, sk, ch, cd)} causal={causal}: max |kernel - plain| = {err:.3e}")
+            require(finite and ok, f"{name} {(cb, sq, sk, ch, cd)} causal={causal}: error {err}")
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    for causal in (False, True):
+        x = flash_inputs(device, b, s, s, h, d, causal)
+        tag = "causal" if causal else "non-causal"
+        for name, (kernel, plain) in flash_calls(x).items():
+            ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush)
+            bound, by = flash_bound_ms(x, name)
+            print(f"[kernels] {name} {tag}: {ms:.4f} ms (bound {bound:.4f} ms, {by}), plain {plain_ms:.4f} ms")
+            if not causal:
+                rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        # yardsticks, timed only: PyTorch's SDPA and the port's dense core
+        qt, kt, vt, dot = (x[n].transpose(1, 2).contiguous().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        out = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        lib_fwd, lib_bwd = time_ms(sdpa, flush), time_ms(sdpa_bwd, flush)
+        qd, kd, vd = (x[n].detach().clone().requires_grad_(True) for n in ("q", "k", "v"))
+
+        def dense():
+            o = attn.scaled_dot_product_attention(qd, kd, vd, causal=causal)
+            return torch.autograd.grad(o, (qd, kd, vd), x["do"])
+
+        dense_ms = time_ms(dense, flush)
+        print(f"[kernels] {tag}: library SDPA forward {lib_fwd:.4f} ms ({library_backend(sdpa)}), "
+              f"backward (#2 + #3) {lib_bwd:.4f} ms ({library_backend(sdpa_bwd)}); "
+              f"the port's dense core forward + backward {dense_ms:.4f} ms")
+        if not causal:
+            rows["flash_fwd"]["library_ms"] = lib_fwd
+            rows["flash_dq"]["library_ms"] = rows["flash_dkv"]["library_ms"] = lib_bwd
+            rows["dense_ms"] = dense_ms
+        del out
+    return rows
+
+
+# -- 6. train the flagship Transformer -------------------------------------------
+
+
+def build_transformer(device, layers, hidden, heads, batch, seq, use_flash="auto", seed=SEED, **_):
+    """examples/transformer.py's build_transformer, reproduced on the port:
+    12 x [MHA -> dense+ReLU -> dense] -> dense(1), SGD lr 0.01, MSE."""
+    from flexflow_tpu_torch import ActiMode, FFConfig, FFModel, LossType, SGDOptimizer
+
+    model = FFModel(FFConfig(batch_size=batch, learning_rate=0.01, seed=seed))
+    t = model.create_tensor([batch, seq, hidden], name="x")
+    for _ in range(layers):
+        t = model.multihead_attention(t, t, t, hidden, heads)
+        t = model.dense(t, hidden, activation=ActiMode.RELU, use_bias=False)
+        t = model.dense(t, hidden, use_bias=False)
+    t = model.dense(t, 1, use_bias=False)
+    for node in model.graph.nodes.values():
+        if node.op_type.name == "MULTIHEAD_ATTENTION":
+            node.params["use_flash"] = use_flash
+    model.compile(
+        optimizer=SGDOptimizer(lr=0.01),
+        loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+        metrics=[],
+        device=device,
+    )
+    return model
+
+
+def synthetic_batch(batch, seq, hidden, seed=SEED):
+    """examples/transformer.py's synthetic_batch: seeded randn x and label."""
+    rng = np.random.RandomState(seed)
+    return {
+        "x": rng.randn(batch, seq, hidden).astype(np.float32),
+        "label": rng.randn(batch, seq, 1).astype(np.float32),
+    }
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_train_step(model, batch):
+    """Device time by kernel over one train step (torch.profiler); None
+    when the profiler sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = model.executor.train_step()
+    tensors = model.executor.shard_batch(batch)
+    sync(model.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.params, model.opt_state, loss, _ = step(model.params, model.opt_state, tensors, 0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_us = sum(e.self_device_time_total for e in events)
+    if not events or device_us <= 0:
+        print("[profile] no device time recorded: device busy share not measured")
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    out = dict(
+        wall_ms=1e3 * wall_s,
+        device_ms=device_us / 1e3,
+        device_busy_share=device_us / 1e6 / wall_s,
+        top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top],
+    )
+    print("[profile] train step: " + json.dumps(out))
+    return out
+
+
+def train_flagship(device, **geo):
+    """fit() over `steps` batches; each flash kernel must run once per
+    layer per step and the losses stay finite."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    geo = dict(TRAIN, **geo)
+    t0 = time.perf_counter()
+    model = build_transformer(device, **geo)
+    nparams = sum(w.numel() for ws in model.params.values() for w in ws)
+    data = synthetic_batch(geo["batch"] * geo["steps"], geo["seq"], geo["hidden"])
+    print(f"[train] flagship Transformer: {nparams / 1e6:.1f} M params, built in {time.perf_counter() - t0:.2f} s")
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        sync(device)
+        torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    hist = model.fit(data["x"], data["label"], epochs=1, batch_size=geo["batch"])
+    sync(device)
+    launches = dict(fk.LAUNCHES)
+    steps = hist[0]["iterations"]
+    require(steps == geo["steps"], f"fit ran {steps} steps, not {geo['steps']}")
+    mean_loss = hist[0]["loss_sum"] / max(1, hist[0]["train_all"])
+    require(np.isfinite(mean_loss), f"non-finite training loss {mean_loss}")
+    if cuda:
+        for name, n in launches.items():
+            require(n == geo["layers"] * steps, f"{name} launches {n} != {geo['layers']} layers x {steps} steps")
+    thpt = hist[0]["throughput"]
+    summary = dict(
+        steps=steps,
+        mean_loss=mean_loss,
+        samples_per_s=thpt,
+        mean_step_ms=1e3 * geo["batch"] / thpt if thpt else None,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        launches=launches,
+    )
+    print("[train] " + json.dumps(summary))
+    return model, data, summary, launches
+
+
+# -- 7. training checks on the card ---------------------------------------------------
+
+
+def one_step(model, batch):
+    """One train step; (loss, peak device memory in GB or None)."""
+    import torch
+
+    cuda = model.device.type == "cuda"
+    sync(model.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    step = model.executor.train_step()
+    model.params, model.opt_state, loss, _ = step(model.params, model.opt_state, model.executor.shard_batch(batch), 0)
+    sync(model.device)
+    return float(loss), (torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def _max_abs(ts):
+    return max(float(t.detach().abs().max()) for t in ts)
+
+
+def check_flash_vs_dense(model, data, **geo):
+    """From the same weights on one batch, the flash kernels (#1 forward,
+    #2 and #3 backward) and the dense core give the same gradient of every
+    weight, measured against that gradient's own size; then one step of
+    each gives the same loss and weights, and the step's own size is
+    printed beside the weights' limit."""
+    from flexflow_tpu_torch.runtime.interop import params_from_host
+
+    geo = dict(TRAIN, **geo)
+    dense = build_transformer(model.device, use_flash=False, **geo)
+    params_from_host(dense, model.executor.export_host_params(model.params))
+    batch = {k: v[: geo["batch"]] for k, v in data.items()}
+    flash_g = model.executor.grad_fn()(model.params, model.executor.shard_batch(batch))
+    dense_g = dense.executor.grad_fn()(dense.params, dense.executor.shard_batch(batch))
+    grad_size = _max_abs(t for gs in dense_g.values() for t in gs)
+    floor = GRAD_FLOOR * grad_size
+    grad_rel, worst = 0.0, None
+    for g, gs in dense_g.items():
+        for i, (a, b) in enumerate(zip(flash_g[g], gs)):
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+            if rel >= grad_rel:
+                grad_rel, worst = rel, (g, i)
+    del flash_g, dense_g
+    before = [w.detach().clone() for ws in dense.params.values() for w in ws]
+    flash_loss, flash_gb = one_step(model, batch)
+    dense_loss, dense_gb = one_step(dense, batch)
+    after = [w.detach() for ws in dense.params.values() for w in ws]
+    step_max = _max_abs(a - b for a, b in zip(after, before))
+    step_mean = float(sum((a - b).abs().sum() for a, b in zip(after, before)) / sum(b.numel() for b in before))
+    del before
+    rel = abs(flash_loss - dense_loss) / max(abs(dense_loss), 1e-30)
+    err = max(
+        float((a.detach() - b.detach()).abs().max())
+        for g, ws in model.params.items()
+        for a, b in zip(ws, dense.params[g])
+    )
+    print(f"[checks] flash vs dense core, same weights and batch: gradients max |diff| / max |grad| "
+          f"{grad_rel:.2e} (worst: guid {worst[0]} weight {worst[1]}; largest |grad| {grad_size:.3e}, "
+          f"limit {RTOL_GRAD_FLASH_DENSE:.0e}); one step: loss {flash_loss:.6f} vs {dense_loss:.6f} "
+          f"(rel {rel:.2e}), weights max |diff| {err:.2e} (limit {ATOL_STEP_WEIGHTS:.0e}) against a step of "
+          f"max |dw| {step_max:.3e}, mean |dw| {step_mean:.3e}; peak memory {flash_gb} vs {dense_gb} GB")
+    require(grad_rel <= RTOL_GRAD_FLASH_DENSE, f"flash and dense gradients differ by {grad_rel} relative at {worst}")
+    require(rel <= RTOL_STEP_LOSS, f"flash and dense losses differ by {rel} relative")
+    require(err <= ATOL_STEP_WEIGHTS, f"flash and dense weights differ by {err}")
+    return dict(grad_rel=grad_rel, loss_rel=rel, weights_err=err, step_max=step_max, step_mean=step_mean,
+                peak_gb_flash=flash_gb, peak_gb_dense=dense_gb)
+
+
+def check_loss_falls(model, data, steps=10):
+    batch = {k: v[: model.config.batch_size] for k, v in data.items()}
+    losses = [one_step(model, batch)[0] for _ in range(steps)]
+    print(f"[checks] {steps} steps on one batch: loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return losses
+
+
+def train_causal_lm(device, layers=LM_TRAIN["layers"], steps=LM_TRAIN["steps"]):
+    """The decoder LM at full width trains through fit() with sparse CE;
+    each flash kernel runs once per layer per step (causal)."""
+    import torch
+
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models import build_decoder_lm
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    b, s, vocab = FLAGSHIP["max_seqs"], FLAGSHIP["max_len"], FLAGSHIP["vocab"]
+    model = FFModel(FFConfig(batch_size=b, seed=SEED))
+    tok = model.create_tensor([b, s], dtype=DataType.INT32, name="tokens")
+    build_decoder_lm(model, tok, vocab_size=vocab, hidden=FLAGSHIP["hidden"], num_heads=FLAGSHIP["heads"],
+                     num_layers=layers, ff_dim=4 * FLAGSHIP["hidden"])
+    model.compile(SGDOptimizer(lr=0.01), LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [], device=device)
+    rng = np.random.RandomState(SEED)
+    tokens = rng.randint(0, vocab, (b * steps, s + 1)).astype(np.int32)
+    sync(device)
+    fk.reset_launches()
+    hist = model.fit(tokens[:, :-1], tokens[:, 1:], epochs=1, batch_size=b)
+    sync(device)
+    launches = dict(fk.LAUNCHES)
+    mean_loss = hist[0]["loss_sum"] / max(1, hist[0]["train_all"])
+    require(hist[0]["iterations"] == steps and np.isfinite(mean_loss), f"causal LM: {hist}")
+    if torch.device(device).type == "cuda":
+        for name, n in launches.items():
+            require(n == layers * steps, f"causal LM: {name} launches {n} != {layers} x {steps}")
+    print(f"[checks] causal decoder LM, {layers} layers: {steps} steps, mean loss {mean_loss:.4f} "
+          f"(ln {vocab} = {np.log(vocab):.4f}), {hist[0]['throughput']:.2f} samples/s, launches {launches}")
+    return launches
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -439,32 +874,52 @@ def main() -> int:
     if pkg_root != ROOT:
         print(f"chip_smoke: flexflow_tpu_torch comes from {pkg_root}, not {ROOT}", file=sys.stderr)
         return 2
-    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
-
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
     build_kernels()
+    smi_idle = smi_sample()
+    warm_card()
+    smi_before = smi_sample()
     rows = check_kernels()
+    print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
+          f"at the start [{smi_idle}], after a 2 s warm-up, before the decode kernel "
+          f"timings [{smi_before}], after them [{smi_sample()}]")
     model, _, main_launches = serve_flagship("cuda")
     profile_decode(model)
     del model
     model2, layout_launches = check_layouts("cuda")
     check_decode_logits(model2)
+    del model2
+    # after the serving phases, so the decode profile stays the run's
+    # first profiler session (library_backend opens one), as it was
+    # before the training phases existed
+    smi_before = smi_sample()
+    flash_rows = check_flash_kernels()
+    print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
+          f"before the flash kernel timings [{smi_before}], after them [{smi_sample()}]")
+    rows.update((k, v) for k, v in flash_rows.items() if k in KERNELS)
+    model3, data, _, train_launches = train_flagship("cuda")
+    profile_train_step(model3, {k: v[: TRAIN["batch"]] for k, v in data.items()})
+    check_flash_vs_dense(model3, data)
+    check_loss_falls(model3, data)
+    del model3
+    train_causal_lm("cuda")
     launches = {
         "paged_flash_verify": main_launches["paged_flash_verify"],
         "flash_verify": layout_launches["slot"]["flash_verify"],
+        **train_launches,
     }
     for name, n in launches.items():
         require(n > 0, f"{name} was never launched on its path")
     line = {"kernels": []}
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         line["kernels"].append(
             {
                 "name": name,
                 "route": "cuda",
-                "source": "flexflow_tpu_torch/csrc/" + dk.SOURCE,
+                "source": "flexflow_tpu_torch/csrc/" + source,
                 "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": r["max_abs_err"],

@@ -1,8 +1,8 @@
 """Core enums for flexflow_tpu_torch (port of flexflow_tpu/core/types.py).
 
-The vocabulary (operator types, activation modes, data types) is the
-reference's, so a PCG built by either package names the same ops; the
-jnp dtype maps become torch.dtype maps.
+The vocabulary (operator types, activation modes, data types, losses, metrics,
+computation modes) is the reference's, so a PCG built by either package
+names the same ops; the jnp dtype maps become torch.dtype maps.
 """
 
 from __future__ import annotations
@@ -125,3 +125,31 @@ class AggrMode(enum.Enum):
     NONE = enum.auto()
     SUM = enum.auto()
     AVG = enum.auto()
+
+
+class LossType(enum.Enum):
+    """reference: ffconst.h LossType"""
+
+    CATEGORICAL_CROSSENTROPY = enum.auto()
+    SPARSE_CATEGORICAL_CROSSENTROPY = enum.auto()
+    MEAN_SQUARED_ERROR_AVG_REDUCE = enum.auto()
+    MEAN_SQUARED_ERROR_SUM_REDUCE = enum.auto()
+    IDENTITY = enum.auto()
+
+
+class MetricsType(enum.Enum):
+    """reference: metrics_functions.h:12-45"""
+
+    ACCURACY = enum.auto()
+    CATEGORICAL_CROSSENTROPY = enum.auto()
+    SPARSE_CATEGORICAL_CROSSENTROPY = enum.auto()
+    MEAN_SQUARED_ERROR = enum.auto()
+    ROOT_MEAN_SQUARED_ERROR = enum.auto()
+    MEAN_ABSOLUTE_ERROR = enum.auto()
+
+
+class CompMode(enum.Enum):
+    """reference: ffconst.h CompMode {COMP_MODE_TRAINING, COMP_MODE_INFERENCE}"""
+
+    TRAINING = enum.auto()
+    INFERENCE = enum.auto()

@@ -1,5 +1,5 @@
 """Model builders."""
 
-from flexflow_tpu_torch.models.nlp import build_decoder_lm
+from flexflow_tpu_torch.models.nlp import build_decoder_lm, build_transformer_encoder
 
-__all__ = ["build_decoder_lm"]
+__all__ = ["build_decoder_lm", "build_transformer_encoder"]

@@ -1,9 +1,31 @@
-"""NLP workloads (port of flexflow_tpu/models/nlp.py: the decoder LM the
-serving path runs)."""
+"""NLP workloads (port of flexflow_tpu/models/nlp.py: the Transformer
+encoder the flagship benchmark trains and the decoder LM the serving
+path runs)."""
 
 from __future__ import annotations
 
 from flexflow_tpu_torch.core.types import ActiMode
+
+
+def build_transformer_encoder(
+    ff,
+    input_tensor,
+    hidden: int = 1024,
+    num_heads: int = 16,
+    num_layers: int = 12,
+    dropout: float = 0.0,
+):
+    """reference: examples/cpp/Transformer/transformer.cc:33-45 — per layer:
+    MHA then dense(relu)+dense, no residuals/LN in the reference benchmark;
+    final dense(1). The same calls as the reference builder, so both
+    packages give the same graph and guids."""
+    t = input_tensor
+    for _ in range(num_layers):
+        t = ff.multihead_attention(t, t, t, hidden, num_heads, dropout=dropout,
+                                   bias=False)
+        t = ff.dense(t, hidden, activation=ActiMode.RELU, use_bias=False)
+        t = ff.dense(t, hidden, use_bias=False)
+    return ff.dense(t, 1, use_bias=False)
 
 
 def build_decoder_lm(

@@ -1,15 +1,19 @@
-"""Multi-head attention (port of the single-device, serving-path part of
+"""Multi-head attention (port of the single-device part of
 flexflow_tpu/ops/attention.py).
 
 Layouts are the reference's: activations [b, s, e], per-head tensors
 [b, s, h, d], projection kernels wq/wk/wv [e, h, d] and wo [h, d, e].
-The dense lowering and prefill run `scaled_dot_product_attention`, plain
-matmul and softmax with the reference's -1e30 mask fill. Decode runs
-through the CUDA kernel seam (`decode_attention` /
-`paged_decode_attention` -> ops/cuda/decode_kernel.py), whose wrappers
-take the plain PyTorch version for CPU tensors. Sequence parallelism,
-flash attention for long sequences and attention-probability dropout
-are not ported yet (ROADMAP, Port queue).
+The MHA lowering runs its core through the flash kernels #1-#3
+(`ops/cuda/flash_kernel.flash_attention`, an autograd Function whose
+backward is kernels #2 and #3) or through the dense core
+`scaled_dot_product_attention` (plain matmul and softmax with the
+reference's -1e30 mask fill), by the node's `use_flash` param. The
+serving prefill calls the dense core directly, as the reference does.
+Decode runs through the CUDA kernel seam (`decode_attention` /
+`paged_decode_attention` -> ops/cuda/decode_kernel.py). Every kernel
+wrapper takes its plain PyTorch version for CPU tensors. Sequence
+parallelism and attention-probability dropout are not ported yet
+(ROADMAP, Port queue).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorShape
 from flexflow_tpu_torch.core.types import OperatorType
 from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 from flexflow_tpu_torch.ops.registry import register_op
 
 # the decode-core modes this slice takes: the kernel on CUDA tensors,
@@ -122,19 +127,48 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, kernel="aut
     return dk.paged_flash_decode(q, k_pool, v_pool, block_tables, lengths)
 
 
+# Flash-or-dense rule. use_flash "auto" and True both go through the
+# flash wrapper, False runs the dense core. On a CUDA tensor the wrapper
+# launches the kernels or raises: a shape that flash_kernel.supports()
+# refuses (not fp32, or head_dim not a multiple of 8 up to 128) needs
+# use_flash=False, and never falls back to the dense core unasked. On a
+# CPU tensor the wrapper takes its plain version, whatever the shape.
+# The reference's thresholds do not carry over: its "auto" took
+# flash only past a 2 GiB score tensor (_FLASH_SCORE_BYTES) and scanned
+# dense attention over batch chunks under _DENSE_MONO/CHUNK_SCORE_BYTES
+# (_chunked_dense_attention, set_dense_caps), all v5e measurements of a
+# chip with another memory system. On the H100 the dense core stores the
+# [b, h, s, s] probabilities for its backward (134 MB per layer at the
+# flagship shape) where the kernels keep O(s * d), and the card's rule is
+# for its own measurements to set (chip_smoke.py times both cores).
+FLASH_MODES = ("auto", True, False)
+
+
 def _lower_mha(params):
     causal = params.get("causal", False)
     use_bias = params.get("bias", True)
     dropout = params.get("dropout", 0.0)
+    use_flash = params.get("use_flash", "auto")
+    if use_flash not in FLASH_MODES:
+        raise ValueError(f"use_flash must be 'auto', True or False, got {use_flash!r}")
 
     def fn(ins, ws, ctx):
         if dropout > 0.0 and ctx is not None and ctx.train:
             raise NotImplementedError(
-                "mha: attention dropout is training, not ported yet "
-                "(ROADMAP, Port queue: slice 2, training)"
+                "mha: attention-probability dropout is not ported yet "
+                "(ROADMAP, Port queue: attention dropout)"
             )
         q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
-        attn = scaled_dot_product_attention(q, k, v, causal=causal)
+        if use_flash is False:
+            attn = scaled_dot_product_attention(q, k, v, causal=causal)
+        elif q.is_cuda and not fk.supports(q.shape[1], k.shape[1], q.shape[-1], q.dtype):
+            raise ValueError(
+                f"mha: the flash kernels do not take head_dim {q.shape[-1]} "
+                f"in {q.dtype} (use_flash={use_flash!r}); set the node's "
+                "use_flash=False for the dense core"
+            )
+        else:
+            attn = fk.flash_attention(q, k, v, causal=causal)
         return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
 
     return fn

@@ -29,6 +29,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+# one lock per source, so several sources build at once from threads
+_source_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register / shared-memory report) per source
 build_logs: Dict[str, str] = {}
@@ -69,8 +71,11 @@ def library_path(source_name: str) -> str:
 
 def load(source_name: str) -> ctypes.CDLL:
     """Build csrc/<source_name> if its library is missing, then load it
-    (once per process)."""
+    (once per process). Calls for different sources from different
+    threads build in parallel."""
     with _lock:
+        source_lock = _source_locks.setdefault(source_name, threading.Lock())
+    with source_lock:
         lib = _loaded.get(source_name)
         if lib is not None:
             return lib

@@ -10,7 +10,10 @@ live on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+import functools
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.core.types import OperatorType
@@ -18,11 +21,25 @@ from flexflow_tpu_torch.core.types import OperatorType
 
 @dataclasses.dataclass(frozen=True)
 class LowerCtx:
-    """Execution context threaded through lowered ops. The serving slice
-    always runs with train=False; the mesh and rng fields of the
-    reference arrive with training and parallel strategies."""
+    """Execution context threaded through lowered ops: whether this is a
+    training forward, and the seed of the node's own random generator
+    (None when the caller passed no seed; the counterpart of the
+    reference's per-node fold_in(rng, guid) key). The reference's mesh
+    fields arrive with parallel strategies."""
 
     train: bool = False
+    seed: Optional[int] = None
+    device: Optional[torch.device] = None
+
+    @functools.cached_property
+    def rng(self) -> Optional[torch.Generator]:
+        """The node's torch.Generator on `device`, made on first read so
+        that a step whose lowerings draw no random numbers makes none."""
+        if self.seed is None:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        return gen
 
 
 @dataclasses.dataclass

@@ -5,7 +5,10 @@
 order in both packages, and the port's builders record the same nodes
 with the same weight shapes, so the same builder calls on both sides
 give graphs whose weights line up guid for guid. `params_from_host`
-checks that they do and places the arrays on the model's device.
+checks that they do and places the arrays on the model's device, as
+leaf tensors that train exactly like `init_params` ones;
+`opt_state_from_host` does the same for optimizer state in the layout
+of `Executor.export_host_opt_state` (either package's).
 """
 
 from __future__ import annotations
@@ -67,3 +70,38 @@ def params_from_host(
         raise ValueError(f"weights for guids the port's graph lacks: {extra}")
     model.params = params
     return params
+
+
+def opt_state_from_host(model, host_state) -> dict:
+    """Install optimizer state saved by either package's
+    `export_host_opt_state` ({"step": scalar, "velocity" / "m" / "v":
+    {guid: [array]}}) as the compiled `model`'s opt_state and return it.
+    Each mirror subtree must match the model's weights guid for guid and
+    shape for shape; the keys must be the model optimizer's."""
+    if model.executor is None:
+        raise RuntimeError("compile() the model before loading optimizer state")
+    want = model.optimizer.init_state(model.params)
+    if set(host_state) != set(want):
+        raise ValueError(
+            f"optimizer state keys {sorted(host_state)} are not "
+            f"{model.optimizer}'s {sorted(want)}"
+        )
+    state = {}
+    for key, val in host_state.items():
+        if not isinstance(val, Mapping):
+            state[key] = int(np.asarray(val))
+            continue
+        tree = {}
+        for guid, ws in want[key].items():
+            arrays = list(val.get(guid, ()))
+            if len(arrays) != len(ws) or any(
+                tuple(np.shape(a)) != tuple(w.shape) for a, w in zip(arrays, ws)
+            ):
+                raise ValueError(f"optimizer state '{key}' for node {guid} does not match its weights")
+            tree[guid] = [
+                torch.as_tensor(np.array(a), dtype=w.dtype).to(model.device)
+                for a, w in zip(arrays, ws)
+            ]
+        state[key] = tree
+    model.opt_state = state
+    return state

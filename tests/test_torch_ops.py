@@ -31,6 +31,7 @@ from flexflow_tpu.ops.registry import _ensure_registered as jax_registered
 from flexflow_tpu.ops.registry import infer_shapes as jinfer
 from flexflow_tpu.ops.registry import lower_op as jlower
 from flexflow_tpu_torch import DataType, FFConfig, FFModel
+from flexflow_tpu_torch import SGDOptimizer as TSGD
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.core.types import ActiMode, OperatorType
@@ -262,11 +263,21 @@ def test_compile_without_device_raises_without_a_card():
 
 
 def test_training_compile_is_not_ported():
-    model = FFModel()
+    """Training compiles now; what is not ported is the reference's lazy
+    touched-rows update of embedding tables: an embedding model with a
+    stateful optimizer under sparse_embedding_update=True raises rather
+    than train to other numbers."""
+    model = FFModel(FFConfig(batch_size=2))
+    assert model.config.sparse_embedding_update
     tok = model.create_tensor([2, 8], dtype=DataType.INT32, name="tokens")
     build_decoder_lm(model, tok, vocab_size=VOCAB, hidden=16, num_heads=2, num_layers=1, ff_dim=32)
-    with pytest.raises(NotImplementedError, match="training"):
-        model.compile(device="cpu", optimizer=object())
+    model.compile(TSGD(lr=0.01, momentum=0.9), device="cpu")
+    assert model.executor.sparse_embedding_guids() == [min(model.graph.nodes) + 1]
+    with pytest.raises(NotImplementedError, match="sparse-embedding"):
+        model.executor.train_step()
+    x = np.zeros((2, 8), np.int32)
+    with pytest.raises(NotImplementedError, match="sparse-embedding"):
+        model.fit(x, x, verbose=False)
 
 
 # -- import hygiene ----------------------------------------------------------------
@@ -288,7 +299,10 @@ def test_port_modules_load_without_jax():
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import chip_smoke, flexflow_tpu_torch, flexflow_tpu_torch.serving,"
         " flexflow_tpu_torch.models, flexflow_tpu_torch.runtime.interop,"
-        " flexflow_tpu_torch.ops.cuda.decode_kernel;"
+        " flexflow_tpu_torch.ops.cuda.decode_kernel,"
+        " flexflow_tpu_torch.ops.cuda.flash_kernel,"
+        " flexflow_tpu_torch.runtime.loss, flexflow_tpu_torch.runtime.metrics,"
+        " flexflow_tpu_torch.runtime.optimizer, flexflow_tpu_torch.runtime.dataloader;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flexflow_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
