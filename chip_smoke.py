@@ -14,9 +14,12 @@ result line) on any failed phase:
   2. kernels — after a 2 s warm-up that brings the card to its working
                clock, each decode kernel against its plain PyTorch
                version at the serving path's shapes (8 sequences x 16
-               heads x 64, max_len 512, 16-row pages, 256 pages; w = 1
-               and 5), atol 1e-4, with times, bounds, a library
-               yardstick and the card's clocks and power;
+               heads x 64, max_len 512, 16-row pages, 256 pages): #4 and
+               #5 at w = 1 and 5 (atol 1e-4), #6 on int8 pools with a
+               scale-0 page at w = 1 and 5, #7-#9 under a seeded random
+               draft tree at w = 13 (atol 1e-5), with times, bounds, a
+               library yardstick where PyTorch has one and the card's
+               clocks and power;
   3. serve   — the flagship decoder LM (12 layers, hidden 1024, 16
                heads, ff 4096, vocab 32000, seeded random weights) serves
                32 requests on 8 slots x 512 tokens under the default
@@ -26,6 +29,24 @@ result line) on any failed phase:
                give token-identical greedy streams (the slot layout runs
                the contiguous kernel), and cached decode logits match a
                full no-cache forward within 1e-3;
+  4b. spec   — speculative decoding and int8 pools: the flagship LM
+               serves 8 long requests (bench_serve._long_requests: 1-4
+               token prompts, 496 new tokens) plain on fp32 pools (a),
+               with token-tree speculation (n-gram drafts, spec_k 4,
+               spec_branch 3, w = 13) on fp32 pools (b, kernel #8),
+               plain on int8 pools (c, #6) and tree spec on int8 pools
+               (d, #9); at 2 layers, tree spec on the slot layout (e, #7)
+               and linear spec on int8 pools (f, #6 at w = 5), each beside
+               a plain run. Every request finishes, each leg's kernel
+               runs steps x layers times, and each greedy spec stream
+               equals its plain leg's but where it first differs at a
+               near-tie of the plain run's top two logits (<= 1e-4 on
+               fp32 pools, <= 1e-2 on int8 pools, whose round trip
+               turns GEMM noise into int8 steps), and the spec run's
+               logit gaps stay that close to the plain run's before any
+               divergence; tokens/s, verify steps, acceptance, accepted
+               tokens per verify and KV pool bytes, and a profiled
+               window of (b)'s, (c)'s and (d)'s steps;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, and ragged (sq 500, sq != sk): O and LSE within atol
@@ -51,12 +72,14 @@ result line) on any failed phase:
                iterations with each flash kernel run 2 times per step;
 
 then prints the kernels' JSON line (launches: the serving path's for
-#4 and #5, the flagship training run's for #1-#3), the card's name and
+#4 and #5, legs (c), (e), (b) and (d) for #6-#9, the flagship training
+run's for #1-#3), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,6 +91,20 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 ATOL_KERNEL = 1e-4  # fp32 kernel vs plain version: summation order only
+# kernels #6-#9 vs plain versions: the staged int8 rows are dequantized
+# exactly as the plain version does, so only summation order differs
+ATOL_SPEC_KERNEL = 1e-5
+# a spec stream may first differ from its plain leg only where the plain
+# run's top two logits lie this close: a near-tie that two cuBLAS GEMM
+# shapes (8 decode rows against 8 x w verify rows) may order either way
+NEAR_TIE = 1e-4
+# the same on int8 pools. There the GEMM noise now and then moves a K/V
+# element across a rounding boundary (one int8 step is 1/127 of its row's
+# range), and a tree commit re-quantizes every moved row under its new
+# page's scale, as the reference's _compact_rows does; the two runs'
+# logits drift apart by up to ~2e-3 before any divergence, where the fp32
+# legs stay under 1e-5. A wrong kernel moves them by O(0.1).
+NEAR_TIE_INT8 = 1e-2
 ATOL_LOGITS = 1e-3  # cached decode vs full forward through 12 fp32 layers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
@@ -85,6 +122,10 @@ GRAD_FLOOR = 1e-4
 
 FLAGSHIP = dict(layers=12, hidden=1024, heads=16, vocab=32000, max_seqs=8, max_len=512)
 NUM_REQUESTS = 32
+# the speculative-decoding legs: bench_serve._long_requests(32000, 512, 8)
+SPEC_REQUESTS = 8
+TREE = dict(spec_draft="ngram", spec_k=4, spec_branch=3)  # w = 13
+LINEAR = dict(spec_draft="ngram", spec_k=4)  # w = 5
 # the flagship Transformer of examples/transformer.py and its training run
 TRAIN = dict(layers=12, hidden=1024, heads=16, batch=8, seq=512, steps=10)
 LM_TRAIN = dict(layers=2, steps=4)
@@ -93,6 +134,10 @@ LM_TRAIN = dict(layers=2, steps=4)
 KERNELS = {
     "flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
     "paged_flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
+    "paged_flash_verify_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
+    "flash_verify_tree": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
+    "paged_flash_verify_tree": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
+    "paged_flash_verify_tree_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
@@ -142,6 +187,8 @@ def kernel_inputs(device, w, b=8, h=16, d=64, max_len=512, page=16, num_pages=25
     its visible range and one dead row whose pages are all sentinels."""
     import torch
 
+    from flexflow_tpu_torch.ops.attention import tree_allowed_mask
+
     rng = np.random.default_rng(seed + w)
     lengths = rng.integers(0, max_len - w + 1, size=b).astype(np.int32)
     lengths[0], lengths[1] = 0, max_len - w
@@ -156,7 +203,7 @@ def kernel_inputs(device, w, b=8, h=16, d=64, max_len=512, page=16, num_pages=25
     tables[2, 0] = num_pages  # a hole inside row 2's visible range
     tables[b - 1, :] = num_pages  # a dead row
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
-    return dict(
+    x = dict(
         q=f(b, w, h, d),
         k_cache=f(b, max_len, h, d),
         v_cache=f(b, max_len, h, d),
@@ -165,6 +212,19 @@ def kernel_inputs(device, w, b=8, h=16, d=64, max_len=512, page=16, num_pages=25
         tables=torch.from_numpy(tables).to(device),
         lengths=torch.from_numpy(lengths).to(device),
     )
+    # int8 pools with per-(page, head) scales, row 0's first page never
+    # written (scale 0), and a seeded random draft tree per row
+    i8 = lambda: torch.from_numpy(rng.integers(-127, 128, (num_pages, page, h, d)).astype(np.int8)).to(device)
+    x["k8"], x["v8"] = i8(), i8()
+    for name in ("k_scale", "v_scale"):
+        sc = rng.uniform(0.001, 0.05, (num_pages, h)).astype(np.float32)
+        sc[tables[0, 0]] = 0.0
+        x[name] = torch.from_numpy(sc).to(device)
+    parents = np.full((b, w), -1, dtype=np.int32)
+    for j in range(1, w):
+        parents[:, j] = rng.integers(0, j, size=b)
+    x["allowed"] = tree_allowed_mask(torch.from_numpy(parents).to(device), x["lengths"], w, max_len)
+    return x
 
 
 def visible_masks(x):
@@ -181,24 +241,44 @@ def visible_masks(x):
     num_pages = x["k_pool"].shape[0]
     on_page = ((x["tables"] >= 0) & (x["tables"] < num_pages)).long().repeat_interleave(page, dim=1).bool()
     paged_pairs = stair & on_page[:, None, :]
+    # the tree kernels see the mask under the chunk gate p < lengths + w
+    tree = x["allowed"] & (kpos[None, :] < lengths[:, None] + w)[:, None, :]
+    paged_tree = tree & on_page[:, None, :]
     return {
         "flash_verify": (stair, stair.any(dim=1)),
         "paged_flash_verify": (paged_pairs, paged_pairs.any(dim=1)),
+        "paged_flash_verify_quant": (paged_pairs, paged_pairs.any(dim=1)),
+        "flash_verify_tree": (tree, tree.any(dim=1)),
+        "paged_flash_verify_tree": (paged_tree, paged_tree.any(dim=1)),
+        "paged_flash_verify_tree_quant": (paged_tree, paged_tree.any(dim=1)),
     }
 
 
 def bound_ms(x, name):
     """Least time for the function on this run's inputs: each input byte
-    read once (only the K/V rows some query sees), each output byte
-    written once, against the flops of the two products."""
+    read once (only the K/V rows some query sees, as int8 on the int8
+    pools, with the scales of the pages they lie on, and the mask bytes
+    of the positions a tree kernel visits), each output byte written
+    once, against the flops of the two products (and of the dequant
+    multiplies)."""
     pairs, rows = visible_masks(x)[name]
     b, w, h, d = x["q"].shape
-    nbytes = 4 * (2 * b * w * h * d + b + 2 * int(rows.sum()) * h * d)
-    if name == "paged_flash_verify":
+    quant = name.endswith("_quant")
+    nrows = int(rows.sum())
+    nbytes = 4 * (2 * b * w * h * d + b) + (1 if quant else 4) * 2 * nrows * h * d
+    if name.startswith("paged"):
         nbytes += 4 * x["tables"].numel()
-    flops = 4.0 * int(pairs.sum()) * h * d
+    if quant:
+        page = x["k_pool"].shape[1]
+        pages = x["tables"].long().repeat_interleave(page, dim=1)
+        nbytes += 4 * 2 * h * pages[rows].unique().numel()
+    if "tree" in name:
+        L = x["allowed"].shape[-1]
+        nbytes += w * int((x["lengths"].long() + w).clamp(max=L).sum())
+    flops = 4.0 * int(pairs.sum()) * h * d + (2.0 * nrows * h * d if quant else 0.0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
 
 
 def time_ms(fn, flush, iters=50, warmup=10):
@@ -280,6 +360,74 @@ def check_kernels():
     return rows
 
 
+def check_spec_kernels():
+    """Kernels #6-#9 against their plain versions at the serving shape
+    of check_kernels: #6 at w = 1 and 5, #7-#9 at w = 13 under a seeded
+    random draft tree per row, atol 1e-5. Each is timed at its path's
+    width as #4 and #5 are (#6 at w = 1, the int8 decode step; the tree
+    kernels at w = 13), with its bound and its plain version; #7 and #8
+    also with masked SDPA under the tree mask as the library yardstick.
+    No PyTorch call dequantizes int8 inside attention, so #6 and #9 have
+    none."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+
+    device = torch.device("cuda")
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    tree_names = ("flash_verify_tree", "paged_flash_verify_tree", "paged_flash_verify_tree_quant")
+    timed_at = dict({"paged_flash_verify_quant": 1}, **dict.fromkeys(tree_names, 13))
+    rows = {}
+    for w, names in ((1, ("paged_flash_verify_quant",)), (5, ("paged_flash_verify_quant",)), (13, tree_names)):
+        x = kernel_inputs(device, w)
+        quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
+        args = {
+            "paged_flash_verify_quant": quant,
+            "flash_verify_tree": (x["q"], x["k_cache"], x["v_cache"], x["lengths"], x["allowed"]),
+            "paged_flash_verify_tree": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"], x["allowed"]),
+            "paged_flash_verify_tree_quant": quant + (x["allowed"],),
+        }
+        masks = visible_masks(x)
+        for name in names:
+            kernel = lambda fn=getattr(dk, name), a=args[name]: fn(*a)
+            plain = lambda fn=getattr(dk, name + "_ref"), a=args[name]: fn(*a)
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            require(bool(torch.isfinite(out).all()), f"{name} w={w}: non-finite output")
+            err = float((out - ref).abs().max())
+            print(f"[kernels] {name} w={w}: max |kernel - plain| = {err:.3e}")
+            require(err <= ATOL_SPEC_KERNEL, f"{name} w={w}: error {err} > {ATOL_SPEC_KERNEL}")
+            row = rows.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if w != timed_at[name]:
+                continue
+            row["ms"] = time_ms(kernel, flush)
+            row["plain_ms"] = time_ms(plain, flush)
+            row["bound_ms"], row["bound_by"] = bound_ms(x, name)
+            if name.endswith("_quant"):
+                row["library_ms"] = None
+                library = "none: no PyTorch call dequantizes int8 pages inside attention"
+            else:
+                if name == "flash_verify_tree":
+                    kv = (x["k_cache"], x["v_cache"])
+                else:
+                    safe = x["tables"].long().clamp(0, x["k_pool"].shape[0] - 1)
+                    kv = tuple(p[safe].reshape(x["q"].shape[0], -1, *p.shape[2:]) for p in (x["k_pool"], x["v_pool"]))
+                mask = masks[name][0][:, None]  # [b, 1, w, L]
+                qt, kt, vt = x["q"].transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                row["library_ms"] = time_ms(sdpa, flush)
+                library = f"masked sdpa {row['library_ms']:.4f} ms"
+            print(
+                f"[kernels] {name} w={w}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
+                f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, library {library}"
+            )
+    return rows
+
+
 def smi_sample() -> str:
     """The card's SM clock, its maximum, power draw and temperature now."""
     return subprocess.run(
@@ -335,9 +483,10 @@ def mixed_requests(vocab, max_len, n):
     ]
 
 
-def serve(model, requests, **serve_kw):
+def serve(model, requests, instrument=None, **serve_kw):
     """Run `requests` to completion on a fresh scheduler; returns
-    (finished requests, stats, launches per kernel during the run)."""
+    (finished requests, stats, launches per kernel during the run, the
+    KV cache). `instrument(scheduler)` runs before the requests do."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
@@ -345,13 +494,77 @@ def serve(model, requests, **serve_kw):
 
     cfg = dict(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"])
     cfg.update(serve_kw)
-    sched, _, _ = build_scheduler(model, ServeConfig(**cfg))
+    sched, _, cache = build_scheduler(model, ServeConfig(**cfg))
+    if instrument is not None:
+        instrument(sched)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     dk.reset_launches()
     done = sched.run(requests)
     launches = dict(dk.LAUNCHES)
-    return done, sched.stats, launches
+    return done, sched.stats, launches, cache
+
+
+def record_top2(sched, top):
+    """Wrap a plain scheduler's prefill and decode so that top[rid][i] is
+    (gap, first, second): the gap between the two largest logits its
+    engine saw when it picked the request's i-th generated token, and
+    those two tokens."""
+    engine = sched.engine
+    prefill, decode = engine.prefill, engine.decode
+
+    def top2(logits):
+        vals, ids = logits.topk(2, dim=-1)
+        return (vals[:, 0] - vals[:, 1]).cpu().numpy(), ids.cpu().numpy()
+
+    def prefill_rec(params, prompts, slots):
+        nxt, last = prefill(params, prompts, slots)
+        gaps, ids = top2(last)
+        for i, s in enumerate(slots):
+            top[sched.running[s].rid] = [(float(gaps[i]), *map(int, ids[i]))]
+        return nxt, last
+
+    def decode_rec(params, tokens, active):
+        nxt, logits = decode(params, tokens, active)
+        gaps, ids = top2(logits)
+        for s in np.nonzero(active)[0]:
+            top[sched.running[int(s)].rid].append((float(gaps[s]), *map(int, ids[s])))
+        return nxt, logits
+
+    engine.prefill, engine.decode = prefill_rec, decode_rec
+
+
+def record_spec_top(sched, top, out):
+    """Wrap a speculative scheduler's commits so that out[rid][i] is the
+    gap its verify logits put between the plain run's top two tokens
+    (`top`, record_top2) behind the request's i-th generated token: held
+    against the plain run's own gap, the logit noise between the two
+    runs' GEMM shapes."""
+    from flexflow_tpu_torch.serving import accept_drafts, accept_tree
+
+    def rows_used(logits, plan):
+        if isinstance(plan, list):  # a linear draft
+            return list(range(accept_drafts(logits, plan)[0] + 1))
+        return [0] + [1 + n for n in accept_tree(logits, plan)[0]]
+
+    def wrap(commit):
+        def recorded(step):
+            for slot, plan in step.plan.items():
+                req = step.participants[slot]
+                if sched.running.get(slot) is not req:
+                    continue
+                base = len(req.generated)
+                for k, r in enumerate(rows_used(step.logits[slot], plan)):
+                    if base + k < len(top[req.rid]):
+                        _, t1, t2 = top[req.rid][base + k]
+                        row = step.logits[slot, r]
+                        out.setdefault(req.rid, {})[base + k] = float(row[t1] - row[t2])
+            return commit(step)
+
+        return recorded
+
+    sched._commit_verify = wrap(sched._commit_verify)
+    sched._commit_verify_tree = wrap(sched._commit_verify_tree)
 
 
 def serve_flagship(device, layers=FLAGSHIP["layers"]):
@@ -364,7 +577,7 @@ def serve_flagship(device, layers=FLAGSHIP["layers"]):
     print(f"[serve] flagship LM: {nparams / 1e6:.1f} M params, built in {time.perf_counter() - t0:.2f} s")
     # warm-up (allocator, library handles); not measured
     serve(model, [Request(rid=i, prompt=[1 + i], max_new_tokens=8) for i in range(4)])
-    done, stats, launches = serve(model, mixed_requests(geo["vocab"], geo["max_len"], NUM_REQUESTS))
+    done, stats, launches, _ = serve(model, mixed_requests(geo["vocab"], geo["max_len"], NUM_REQUESTS))
     bad = [(r.rid, r.status, r.error) for r in done if r.status != RequestStatus.FINISHED]
     require(len(done) == NUM_REQUESTS and not bad, f"requests not FINISHED: {bad}")
     require(
@@ -392,9 +605,11 @@ def serve_flagship(device, layers=FLAGSHIP["layers"]):
     return model, summary, launches
 
 
-def profile_decode(model, steps=16):
-    """Device time by kernel over a short decode window (torch.profiler);
-    None when the profiler sees no device activity."""
+def profile_decode(model, steps=16, label="decode", **serve_kw):
+    """Device time by kernel over a window of `steps` scheduler
+    iterations, all slots busy (torch.profiler): decode steps, or verify
+    steps under a spec ServeConfig (`serve_kw`). None when the profiler
+    sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -402,10 +617,12 @@ def profile_decode(model, steps=16):
     from flexflow_tpu_torch.serving import Request, ServeConfig, build_scheduler
 
     sched, _, _ = build_scheduler(
-        model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"])
+        model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], **serve_kw)
     )
+    # a verify step may commit up to w tokens per slot
+    budget = min(FLAGSHIP["max_len"] - 8, 64 * (steps + 4))
     for i in range(FLAGSHIP["max_seqs"]):
-        sched.submit(Request(rid=i, prompt=[i + 1, i + 2], max_new_tokens=steps + 4))
+        sched.submit(Request(rid=i, prompt=[i + 1, i + 2], max_new_tokens=budget))
     sched.step()  # admission prefill + first decode, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -426,10 +643,12 @@ def profile_decode(model, steps=16):
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(
+        label=label,
         steps=steps,
         wall_ms_per_step=1e3 * wall_s / steps,
         device_ms_per_step=device_us / 1e3 / steps,
         device_busy_share=device_us / 1e6 / wall_s,
+        device_ops_per_step=sum(e.count for e in events) / steps,
         top=[(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count // steps) for e in top],
     )
     print("[profile] " + json.dumps(out))
@@ -449,7 +668,7 @@ def check_layouts(device, layers=2):
     streams, launches = {}, {}
     for layout in ("slot", "paged"):
         reqs = mixed_requests(geo["vocab"], 64, 8)
-        done, stats, launches[layout] = serve(model, reqs, kv_layout=layout)
+        done, stats, launches[layout], _ = serve(model, reqs, kv_layout=layout)
         require(all(r.status == RequestStatus.FINISHED for r in done), f"{layout}: unfinished requests")
         kernel = "flash_verify" if layout == "slot" else "paged_flash_verify"
         require(
@@ -496,6 +715,155 @@ def check_decode_logits(model, n_new=12):
     print(f"[checks] decode logits vs full forward: max |diff| = {err:.3e} (atol {ATOL_LOGITS})")
     require(err <= ATOL_LOGITS, f"decode logits differ from the full forward by {err}")
     return err
+
+
+# -- 4b. speculative decoding and int8 pools -----------------------------------------
+
+
+def long_requests(vocab, max_len, n):
+    """bench_serve._long_requests: prompts of 1-4 tokens and max_len - 16
+    new tokens each — the acceptance-friendly speculative regime (greedy
+    random LMs enter cycles that prompt lookup drafts)."""
+    from flexflow_tpu_torch.serving import Request
+
+    return [
+        Request(rid=i, prompt=[(i * 5 + j) % vocab for j in range(1 + i % 4)], max_new_tokens=max_len - 16)
+        for i in range(n)
+    ]
+
+
+def pool_bytes(cache) -> int:
+    """Bytes of the KV pools (and the int8 scale side pools)."""
+    pools = [cache.k, cache.v, getattr(cache, "k_scale", {}), getattr(cache, "v_scale", {})]
+    return sum(t.numel() * t.element_size() for p in pools for t in p.values())
+
+
+def compare_streams(name, done, plain, top, spec_top, near_tie):
+    """Each stream of `done` equals its plain leg's (`plain`), or first
+    differs where the plain run's top two logits lay within `near_tie`;
+    the spec run's gaps between those two tokens stay within `near_tie`
+    of the plain run's over the tokens before any divergence. Returns
+    (near-ties as (request, token index, gap), the largest |spec gap -
+    plain gap| over those tokens)."""
+    ties, noise = [], 0.0
+    for r in done:
+        want, got = plain[r.rid], list(r.generated)
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        for j, g in spec_top.get(r.rid, {}).items():
+            if j < i:
+                noise = max(noise, abs(g - top[r.rid][j][0]))
+        if got == want:
+            continue
+        gap = top[r.rid][i][0] if i < len(top[r.rid]) else float("inf")
+        require(
+            gap <= near_tie,
+            f"{name}: request {r.rid} first differs from its plain stream at token {i}, "
+            f"where the plain run's top two logits are {gap:.3e} apart (> {near_tie})",
+        )
+        print(f"[spec] {name}: request {r.rid} first differs from its plain stream at token {i}, a near-tie: "
+              f"the plain run's top two logits are {gap:.3e} apart (<= {near_tie}), which the two runs' "
+              f"GEMM shapes may order either way")
+        ties.append((r.rid, i, gap))
+    require(noise <= near_tie, f"{name}: spec and plain logit gaps differ by {noise:.3e} (> {near_tie})")
+    return ties, noise
+
+
+def serve_leg(name, model, layers, kernel, plain=None, **serve_kw):
+    """One serving leg of SPEC_REQUESTS long requests: every request
+    finishes at full length, `kernel` launches steps x layers times and
+    no other decode kernel launches. A plain leg (plain=None) records its
+    top two logits per token; a spec leg's streams are held against
+    `plain`, (streams, top) of its plain leg. Returns (streams, top,
+    summary, launches)."""
+    reqs = long_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], SPEC_REQUESTS)
+    if plain is None:
+        top = {}
+        instrument = lambda sched: record_top2(sched, top)
+    else:
+        top, spec_top = plain[1], {}
+        instrument = lambda sched: record_spec_top(sched, top, spec_top)
+    done, stats, launches, cache = serve(model, reqs, instrument=instrument, **serve_kw)
+    bad = [(r.rid, r.status, r.error, len(r.generated)) for r in done
+           if not r.ok or len(r.generated) != r.max_new_tokens]
+    require(len(done) == SPEC_REQUESTS and not bad, f"{name}: requests not FINISHED at full length: {bad}")
+    spec = "spec_draft" in serve_kw
+    steps = stats.verify_steps if spec else stats.decode_steps
+    require(steps > 0 and (stats.decode_steps == 0 or not spec), f"{name}: {stats}")
+    require(
+        launches[kernel] == steps * layers,
+        f"{name}: {kernel} launches {launches[kernel]} != {steps} steps x {layers} layers",
+    )
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    require(not others, f"{name}: other decode kernels launched: {others}")
+    near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
+    ties, noise = compare_streams(name, done, plain[0], top, spec_top, near_tie) if spec else ([], None)
+    step_s = stats.verify_s if spec else stats.decode_s
+    summary = dict(
+        leg=name,
+        layers=layers,
+        tokens=stats.tokens_generated,
+        elapsed_s=stats.elapsed_s,
+        tokens_per_s=stats.tokens_per_s,
+        decode_steps=stats.decode_steps,
+        verify_steps=stats.verify_steps,
+        mean_step_ms=1e3 * step_s / steps,
+        acceptance_rate=stats.acceptance_rate,
+        accepted_per_verify=stats.draft_tokens_accepted / stats.verify_steps if spec else None,
+        tree_nodes_per_verify=stats.tree_nodes_proposed / stats.verify_steps if spec else None,
+        kv_pool_bytes=pool_bytes(cache),
+        kernel=kernel,
+        launches=launches[kernel],
+        near_ties=len(ties),
+        max_gap_noise=noise,
+    )
+    print("[spec] " + json.dumps(summary))
+    return {r.rid: list(r.generated) for r in done}, top, summary, launches
+
+
+def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
+    """The flagship LM serves SPEC_REQUESTS long requests in four legs —
+    (a) plain fp32 paged (#5), (b) tree spec fp32 paged (w 13, #8), (c)
+    plain int8 paged (#6 at w 1), (d) tree spec int8 paged (#9) — and at
+    `small_layers` layers (e) tree spec on the slot layout (#7) beside a
+    plain slot run, and (f) linear spec on int8 pools (#6 at w 5) beside
+    a plain int8 run. Greedy spec streams equal their plain leg's, near-
+    ties excepted (compare_streams). On the card it also profiles a
+    window of (b)'s, (c)'s and (d)'s steps. Returns the launches of
+    #6-#9 on their legs: (c), (e), (b) and (d)."""
+    from flexflow_tpu_torch.serving import Request
+
+    warm = lambda: [Request(rid=i, prompt=[1 + i, 2 + i], max_new_tokens=8) for i in range(4)]
+    model = build_lm(device, **dict(FLAGSHIP, layers=layers))
+    int8, tree_int8 = dict(kv_dtype="int8"), dict(TREE, kv_dtype="int8")
+    for kw in ({}, TREE, int8, tree_int8):  # warm-up, not measured
+        serve(model, warm(), **kw)
+    a, a_top, *_ = serve_leg("a: plain, fp32 paged", model, layers, "paged_flash_verify")
+    *_, b_launches = serve_leg("b: tree spec, fp32 paged", model, layers, "paged_flash_verify_tree",
+                               plain=(a, a_top), **TREE)
+    c, c_top, _, c_launches = serve_leg("c: plain, int8 paged", model, layers, "paged_flash_verify_quant", **int8)
+    *_, d_launches = serve_leg("d: tree spec, int8 paged", model, layers, "paged_flash_verify_tree_quant",
+                               plain=(c, c_top), **tree_int8)
+    if model.device.type == "cuda":
+        for label, kw in (("b: tree spec verify, fp32 paged", TREE), ("c: decode, int8 paged", int8),
+                          ("d: tree spec verify, int8 paged", tree_int8)):
+            profile_decode(model, label=label, **kw)
+    del model
+    small = build_lm(device, **dict(FLAGSHIP, layers=small_layers))
+    slot, linear_int8 = dict(kv_layout="slot"), dict(LINEAR, kv_dtype="int8")
+    for kw in (slot, dict(TREE, **slot), int8, linear_int8):
+        serve(small, warm(), **kw)
+    s, s_top, *_ = serve_leg("plain, slot", small, small_layers, "flash_verify", **slot)
+    *_, e_launches = serve_leg("e: tree spec, slot", small, small_layers, "flash_verify_tree",
+                               plain=(s, s_top), **TREE, **slot)
+    i, i_top, *_ = serve_leg("plain, int8 paged", small, small_layers, "paged_flash_verify_quant", **int8)
+    serve_leg("f: linear spec, int8 paged", small, small_layers, "paged_flash_verify_quant",
+              plain=(i, i_top), **linear_int8)
+    return {
+        "paged_flash_verify_quant": c_launches["paged_flash_verify_quant"],
+        "flash_verify_tree": e_launches["flash_verify_tree"],
+        "paged_flash_verify_tree": b_launches["paged_flash_verify_tree"],
+        "paged_flash_verify_tree_quant": d_launches["paged_flash_verify_tree_quant"],
+    }
 
 
 # -- 5. flash kernels vs plain versions --------------------------------------------
@@ -882,6 +1250,7 @@ def main() -> int:
     warm_card()
     smi_before = smi_sample()
     rows = check_kernels()
+    rows.update(check_spec_kernels())
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"at the start [{smi_idle}], after a 2 s warm-up, before the decode kernel "
           f"timings [{smi_before}], after them [{smi_sample()}]")
@@ -891,6 +1260,11 @@ def main() -> int:
     model2, layout_launches = check_layouts("cuda")
     check_decode_logits(model2)
     del model2
+    spec_launches = serve_spec("cuda")
+    # the spec legs' recording wrappers close reference cycles around
+    # their schedulers, engines and pools: free them before the training
+    # phases measure peak memory
+    gc.collect()
     # after the serving phases, so the decode profile stays the run's
     # first profiler session (library_backend opens one), as it was
     # before the training phases existed
@@ -908,6 +1282,7 @@ def main() -> int:
     launches = {
         "paged_flash_verify": main_launches["paged_flash_verify"],
         "flash_verify": layout_launches["slot"]["flash_verify"],
+        **spec_launches,
         **train_launches,
     }
     for name, n in launches.items():

@@ -46,3 +46,12 @@ class FFConfig:
     serve_kv_page_size: int = 0
     serve_kv_pages: int = 0
     serve_decode_kernel: str = "auto"
+    # K/V pool element type, "fp32" | "int8" (int8 keeps fp32 scales per
+    # page per head; paged layout only)
+    serve_kv_dtype: str = "fp32"
+    # speculative decoding: draft source ("" = off, "ngram" = prompt
+    # lookup), draft length per verify, and branches per tree level
+    # (> 1 verifies a deduped token tree of up to k * branch nodes)
+    serve_spec_draft: str = ""
+    serve_spec_k: int = 4
+    serve_spec_branch: int = 1

@@ -9,8 +9,11 @@ backward is kernels #2 and #3) or through the dense core
 `scaled_dot_product_attention` (plain matmul and softmax with the
 reference's -1e30 mask fill), by the node's `use_flash` param. The
 serving prefill calls the dense core directly, as the reference does.
-Decode runs through the CUDA kernel seam (`decode_attention` /
-`paged_decode_attention` -> ops/cuda/decode_kernel.py). Every kernel
+Decode and speculative verify run through the CUDA kernel seam
+(`decode_attention`, `paged_decode_attention`, `verify_attention`,
+`paged_verify_attention` -> ops/cuda/decode_kernel.py, kernels #4-#9):
+the staircase or the token-tree mask (`tree_allowed_mask`), over fp32
+caches or int8 paged pools with per-(page, head) scales. Every kernel
 wrapper takes its plain PyTorch version for CPU tensors. Sequence
 parallelism and attention-probability dropout are not ported yet
 (ROADMAP, Port queue).
@@ -115,15 +118,117 @@ def decode_attention(q, k_cache, v_cache, lengths, kernel="auto"):
     return dk.flash_decode(q, k_cache, v_cache, lengths)
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, kernel="auto"):
+def tree_ancestor_matrix(parents):
+    """Ancestor-or-self closure of a draft tree, threaded as data.
+
+    parents: [b, w] int — parents[i, j] is the verify-row index of row
+    j's parent within the same w-row window, -1 for the root (row 0;
+    padding rows use j - 1, which degenerates to the linear chain), each
+    parent index below its child's. Returns [b, w, w] bool with
+    anc[i, j, a] True iff row a is an ancestor of row j or j itself.
+    Pointer doubling: ceil(log2(w)) rounds cover any chain inside a
+    w-row window."""
+    b, w = parents.shape
+    anc = torch.eye(w, dtype=torch.bool, device=parents.device).expand(b, w, w)
+    if w == 1:
+        return anc
+    ptr = parents.long()
+    for _ in range(max(1, math.ceil(math.log2(w)))):
+        valid = ptr >= 0
+        safe = ptr.clamp(0, w - 1)
+        rows = torch.gather(anc, 1, safe[:, :, None].expand(b, w, w))
+        anc = anc | (rows & valid[:, :, None])
+        ptr = torch.where(valid, torch.gather(ptr, 1, safe), ptr)
+    return anc
+
+
+def tree_allowed_mask(tree_parents, lengths, w, klen):
+    """[b, w, klen] bool verify visibility for a draft tree: query row j
+    of sequence i sees cache position p iff p < lengths[i] (the committed
+    prefix) or p falls inside the w-row verify window at the offset of
+    one of row j's ancestors (or j itself). Chain parents
+    (parents[j] = j - 1) reproduce the staircase p <= lengths[i] + j."""
+    b = tree_parents.shape[0]
+    anc = tree_ancestor_matrix(tree_parents)  # [b, w, w]
+    kpos = torch.arange(klen, device=tree_parents.device)[None, None, :]
+    base = lengths.long()[:, None, None]
+    rel = kpos - base  # window offset of each key position
+    window = (rel >= 0) & (rel < w)
+    idx = rel.clamp(0, w - 1).expand(b, w, klen)
+    in_tree = torch.gather(anc, 2, idx)
+    return (kpos < base) | (window & in_tree)
+
+
+def _verify_mask(tree_parents, allowed, lengths, w, klen):
+    """The tree mask a verify call runs under: the precomputed `allowed`
+    (the engine builds it once per step, not once per layer), else one
+    built from `tree_parents`; None for the staircase."""
+    if allowed is None and tree_parents is not None:
+        allowed = tree_allowed_mask(tree_parents, lengths, w, klen)
+    return allowed
+
+
+def verify_attention(
+    q, k_cache, v_cache, lengths, kernel="auto", tree_parents=None, allowed=None
+):
+    """Speculative-decoding verify: w query positions per sequence (the
+    last emitted token plus the drafted continuation) attend against the
+    contiguous cache in one call. q: [b, w, h, d]; k_cache/v_cache:
+    [b, max_len, h, d], already holding the w fresh rows at positions
+    lengths[i]..lengths[i] + w - 1; lengths: [b] int32, the position of
+    the first of them. Query j sees positions <= lengths[i] + j (kernel
+    #4), or, with tree_parents [b, w] or a precomputed `allowed`
+    [b, w, max_len], the token-tree ancestor mask (kernel #7)."""
+    check_mode(kernel)
+    allowed = _verify_mask(tree_parents, allowed, lengths, q.shape[1], k_cache.shape[1])
+    if allowed is not None:
+        return dk.flash_verify_tree(q, k_cache, v_cache, lengths, allowed)
+    return dk.flash_verify(q, k_cache, v_cache, lengths)
+
+
+def paged_verify_attention(
+    q, k_pool, v_pool, block_tables, lengths, kernel="auto",
+    k_scale=None, v_scale=None, tree_parents=None, allowed=None,
+):
+    """Verify attention against the block-paged cache: verify_attention's
+    function over pools walked through the block table (kernel #5), over
+    int8 pools with k_scale/v_scale [num_pages, heads] fp32 (#6), and
+    under the token-tree mask over logical positions (#8, and #9 on int8
+    pools)."""
+    check_mode(kernel)
+    klen = block_tables.shape[1] * k_pool.shape[1]
+    allowed = _verify_mask(tree_parents, allowed, lengths, q.shape[1], klen)
+    quant = k_scale is not None
+    if allowed is not None:
+        if quant:
+            return dk.paged_flash_verify_tree_quant(
+                q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed
+            )
+        return dk.paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed)
+    if quant:
+        return dk.paged_flash_verify_quant(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths
+        )
+    return dk.paged_flash_verify(q, k_pool, v_pool, block_tables, lengths)
+
+
+def paged_decode_attention(
+    q, k_pool, v_pool, block_tables, lengths, kernel="auto", k_scale=None, v_scale=None
+):
     """One-query attention against the block-paged cache. q: [b, 1, h, d];
     k_pool/v_pool: [num_pages, page_size, h, d]; block_tables:
     [b, pages_per_seq] int32 (sentinel num_pages for unallocated
     entries); lengths: [b] int32. The kernel seam: paged_flash_decode
-    (kernel #5). Rows whose visible pages are all sentinels return 0,
-    where the reference's dense path softmaxes stale rows; both happen
-    only for dead slots, whose outputs the scheduler discards."""
+    (kernel #5), or paged_flash_decode_quant (#6) on int8 pools with
+    k_scale/v_scale [num_pages, heads]. Rows whose visible pages are all
+    sentinels return 0, where the reference's dense path softmaxes stale
+    rows; both happen only for dead slots, whose outputs the scheduler
+    discards."""
     check_mode(kernel)
+    if k_scale is not None:
+        return dk.paged_flash_decode_quant(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths
+        )
     return dk.paged_flash_decode(q, k_pool, v_pool, block_tables, lengths)
 
 

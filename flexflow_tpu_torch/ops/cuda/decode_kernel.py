@@ -1,28 +1,43 @@
 """Flash-decode kernels against the serving KV cache (port of
-flexflow_tpu/ops/pallas/decode_kernel.py, kernels #4 and #5 of the
-family: `_decode_kernel` and `_paged_kernel`).
+flexflow_tpu/ops/pallas/decode_kernel.py, kernels #4-#9 of the family).
 
 The device code is CUDA C++ for Hopper in flexflow_tpu_torch/csrc/
 decode_kernel.cu, built on first use by ops/cuda/_build.py and called
-through ctypes on PyTorch's current stream. Two entry points share one
-device body, as the JAX family does:
+through ctypes on PyTorch's current stream. One device body, templated
+on the layout, the pool type and the mask, serves six entry points, as
+the JAX family shares one body between decode and verify:
 
-  * `flash_verify(q, k_cache, v_cache, lengths)` — w queries per
+  * `flash_verify(q, k_cache, v_cache, lengths)` (#4) — w queries per
     sequence against the contiguous cache [b, max_len, h, d] under the
     staircase mask key_pos <= lengths[b] + j; `flash_decode` is its
     w == 1 case (ops/attention.decode_attention's semantics).
-  * `paged_flash_verify(q, k_pool, v_pool, block_tables, lengths)` —
-    the same over pools [num_pages, page_size, h, d] walked through the
-    block table; `paged_flash_decode` is its w == 1 case. Positions on
-    sentinel pages (table entries outside [0, num_pages)) contribute
+  * `paged_flash_verify(q, k_pool, v_pool, block_tables, lengths)` (#5)
+    — the same over pools [num_pages, page_size, h, d] walked through
+    the block table; `paged_flash_decode` is its w == 1 case. Positions
+    on sentinel pages (table entries outside [0, num_pages)) contribute
     nothing, and a row that sees no allocated page returns zeros.
+  * `paged_flash_verify_quant(q, k_pool, v_pool, k_scale, v_scale,
+    block_tables, lengths)` (#6) — #5 over int8 pools with one fp32
+    scale per (page, head), dequantized inside the page walk;
+    `paged_flash_decode_quant` is its w == 1 case.
+  * `flash_verify_tree(q, k_cache, v_cache, lengths, allowed)` (#7),
+    `paged_flash_verify_tree(..., block_tables, lengths, allowed)` (#8)
+    and `paged_flash_verify_tree_quant(...)` (#9) — #4, #5 and #6 with
+    the token-tree visibility mask `allowed` [b, w, max_len] (> 0 or
+    True = visible; ops/attention.tree_allowed_mask) in place of the
+    staircase. On the paged layout the mask is over logical positions.
 
-Beside each kernel sits its plain PyTorch version (`flash_verify_ref`,
-`paged_flash_verify_ref`) computing the same function. A wrapper picks
-by the device of its input alone: a CPU tensor goes to the plain
-version, a CUDA tensor launches the kernel or raises. `LAUNCHES` counts
-kernel launches per entry point, so a run can show that its decode
-steps went through the kernels.
+Every variant reads only positions < lengths[b] + w (the chunk gate).
+Two TPU limits do not carry over: the int8 kernels take any page size
+that holds whole 16-byte loads (the reference needed 32-row int8 pages,
+`_INT8_SUBLANES`), and the tree kernels take w up to MAX_W (the
+reference fell back to dense attention past `_MAX_TREE_W` = 32).
+
+Beside each kernel sits its plain PyTorch version (`*_ref`) computing
+the same function. A wrapper picks by the device of its input alone: a
+CPU tensor goes to the plain version, a CUDA tensor launches the kernel
+or raises. `LAUNCHES` counts kernel launches per entry point, so a run
+can show that its steps went through the kernels.
 """
 
 from __future__ import annotations
@@ -38,11 +53,19 @@ from flexflow_tpu_torch.ops.cuda import _build
 
 SOURCE = "decode_kernel.cu"
 
-# query rows per sequence the kernels take (the reference's _MAX_W)
+# query rows per sequence the kernels take (the reference's _MAX_W); the
+# tree variants take the same, where the reference stopped at 32
 MAX_W = 64
 
 # kernel launches per entry point since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"flash_verify": 0, "paged_flash_verify": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_verify": 0,
+    "paged_flash_verify": 0,
+    "paged_flash_verify_quant": 0,
+    "flash_verify_tree": 0,
+    "paged_flash_verify_tree": 0,
+    "paged_flash_verify_tree_quant": 0,
+}
 
 # chunk rows staged per loop iteration are capped here and by the
 # shared-memory budget below; one block runs per SM at the serving grid
@@ -66,35 +89,29 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = _build.load(SOURCE)
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ff_decode_smem_bytes.argtypes = [I, I, I]
+        lib.ff_decode_smem_bytes.argtypes = [I, I, I, I]
         lib.ff_decode_smem_bytes.restype = L
         lib.ff_decode_smem_limit.argtypes = []
         lib.ff_decode_smem_limit.restype = L
         lib.ff_cuda_error_string.argtypes = [I]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_flash_verify_f32.argtypes = (
-            [P] * 5 + [I] * 6 + [L] * 9 + [F, P]
-        )
-        lib.ff_flash_verify_f32.restype = I
-        lib.ff_paged_flash_verify_f32.argtypes = (
-            [P] * 6 + [I] * 8 + [L] * 10 + [F, P]
-        )
-        lib.ff_paged_flash_verify_f32.restype = I
+        lib.ff_decode_attention.argtypes = [P] * 9 + [I] * 11 + [L] * 12 + [F, P]
+        lib.ff_decode_attention.restype = I
         _bound = lib
     return _bound
 
 
 @functools.lru_cache(maxsize=None)
-def pick_chunk(w: int, d: int, unit: int) -> int:
+def pick_chunk(w: int, d: int, unit: int, tree: bool = False) -> int:
     """Rows staged per loop iteration: the largest multiple of `unit`
     (the page size on the paged layout) up to _MAX_CHUNK whose staging
-    buffers fit the shared-memory budget."""
+    buffers (and, for a tree, mask rows) fit the shared-memory budget."""
     lib = _lib()
     budget = min(_SMEM_BUDGET, lib.ff_decode_smem_limit())
     best = 0
     chunk = unit
     while chunk <= max(unit, _MAX_CHUNK):
-        if lib.ff_decode_smem_bytes(w, d, chunk) > budget:
+        if lib.ff_decode_smem_bytes(w, d, chunk, int(tree)) > budget:
             break
         best = chunk
         chunk += unit
@@ -128,55 +145,124 @@ def _staircase(lengths, w, klen):
     return kpos[None, None, :] <= (lengths.long()[:, None, None] + qoff[None, :, None])
 
 
+def _tree_visible(allowed, lengths, w):
+    """[b, w, klen] bool: the tree mask (> 0 visible) under the chunk gate
+    key_pos < lengths[i] + w that every kernel variant applies."""
+    klen = allowed.shape[-1]
+    kpos = torch.arange(klen, device=lengths.device)
+    gate = kpos[None, :] < lengths.long()[:, None] + w
+    return (allowed > 0) & gate[:, None, :]
+
+
+def gather_pages(pool, block_tables, scale=None):
+    """Each sequence's pages as a contiguous [b, pages * page_size, h, d]
+    view (sentinel entries clamped to a real page), and the [b, L] mask of
+    positions on real pages. With an int8 pool, `scale` [num_pages, h]
+    dequantizes each page in fp32, as the reference's
+    attention._dequant_pages does; a page never written has scale 0 and
+    reads as zeros."""
+    num_pages, page_size, h, d = pool.shape
+    tbl = block_tables.long()
+    safe = tbl.clamp(0, num_pages - 1)
+    pages = pool[safe]  # [b, np, ps, h, d]
+    if scale is not None:
+        pages = pages.float() * scale[safe][:, :, None, :, None]
+    on_page = ((tbl >= 0) & (tbl < num_pages)).repeat_interleave(page_size, dim=1)
+    return pages.reshape(tbl.shape[0], -1, h, d), on_page
+
+
+def _scale_of(q, sm_scale):
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
 def flash_verify_ref(q, k_cache, v_cache, lengths, sm_scale=None):
     """Plain version of flash_verify: staircase-masked attention of q
     [b, w, h, d] against k/v [b, max_len, h, d]. Returns [b, w, h, d]."""
-    b, w, h, d = q.shape
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    allowed = _staircase(lengths, w, k_cache.shape[1])
-    return _masked_attention(q, k_cache, v_cache, allowed, scale)
+    allowed = _staircase(lengths, q.shape[1], k_cache.shape[1])
+    return _masked_attention(q, k_cache, v_cache, allowed, _scale_of(q, sm_scale))
 
 
 def paged_flash_verify_ref(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     """Plain version of paged_flash_verify: gathers each sequence's pages
     into a contiguous view and masks positions on sentinel pages as well
     as past the staircase."""
-    b, w, h, d = q.shape
-    num_pages, page_size = k_pool.shape[0], k_pool.shape[1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    tbl = block_tables.long()
-    real = (tbl >= 0) & (tbl < num_pages)
-    safe = tbl.clamp(0, num_pages - 1)
-    k = k_pool[safe].reshape(b, -1, h, d)
-    v = v_pool[safe].reshape(b, -1, h, d)
-    on_page = real.repeat_interleave(page_size, dim=1)  # [b, L]
-    allowed = _staircase(lengths, w, k.shape[1]) & on_page[:, None, :]
-    return _masked_attention(q, k, v, allowed, scale)
+    k, on_page = gather_pages(k_pool, block_tables)
+    v, _ = gather_pages(v_pool, block_tables)
+    allowed = _staircase(lengths, q.shape[1], k.shape[1]) & on_page[:, None, :]
+    return _masked_attention(q, k, v, allowed, _scale_of(q, sm_scale))
+
+
+def paged_flash_verify_quant_ref(
+    q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, sm_scale=None
+):
+    """Plain version of paged_flash_verify_quant: the int8 pages
+    dequantized with their (page, head) scales, then #5's function."""
+    k, on_page = gather_pages(k_pool, block_tables, k_scale)
+    v, _ = gather_pages(v_pool, block_tables, v_scale)
+    allowed = _staircase(lengths, q.shape[1], k.shape[1]) & on_page[:, None, :]
+    return _masked_attention(q, k, v, allowed, _scale_of(q, sm_scale))
+
+
+def flash_verify_tree_ref(q, k_cache, v_cache, lengths, allowed, sm_scale=None):
+    """Plain version of flash_verify_tree: attention of q [b, w, h, d]
+    against k/v [b, max_len, h, d] where query row j sees position p iff
+    allowed[b, j, p] > 0 and p < lengths[b] + w."""
+    vis = _tree_visible(allowed, lengths, q.shape[1])
+    return _masked_attention(q, k_cache, v_cache, vis, _scale_of(q, sm_scale))
+
+
+def paged_flash_verify_tree_ref(
+    q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale=None
+):
+    """Plain version of paged_flash_verify_tree: the tree mask over
+    logical positions, and positions on sentinel pages dropped."""
+    k, on_page = gather_pages(k_pool, block_tables)
+    v, _ = gather_pages(v_pool, block_tables)
+    vis = _tree_visible(allowed, lengths, q.shape[1]) & on_page[:, None, :]
+    return _masked_attention(q, k, v, vis, _scale_of(q, sm_scale))
+
+
+def paged_flash_verify_tree_quant_ref(
+    q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale=None
+):
+    """Plain version of paged_flash_verify_tree_quant: #6's dequant and
+    #8's tree mask."""
+    k, on_page = gather_pages(k_pool, block_tables, k_scale)
+    v, _ = gather_pages(v_pool, block_tables, v_scale)
+    vis = _tree_visible(allowed, lengths, q.shape[1]) & on_page[:, None, :]
+    return _masked_attention(q, k, v, vis, _scale_of(q, sm_scale))
 
 
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def _check_operands(q, caches, lengths, tables=None):
-    """Raise on anything the kernel does not take: it reads fp32 through
-    16-byte loads with head_dim contiguous, int32 lengths/tables."""
+def _check_operands(q, caches, lengths, tables=None, quant=False):
+    """Raise on anything the kernel does not take: it reads the cache
+    through 16-byte loads with head_dim contiguous (4 fp32 or 16 int8
+    elements each), fp32 queries, int32 lengths/tables."""
     dev = q.device
     b, w, h, d = q.shape
     if not 1 <= w <= MAX_W:
         raise ValueError(f"decode kernel: w={w} outside [1, {MAX_W}]")
     if d % 4:
         raise ValueError(f"decode kernel: head_dim {d} is not a multiple of 4")
+    if quant and d % 16:
+        raise ValueError(
+            f"decode kernel: head_dim {d} is not a multiple of 16, which int8 rows need"
+        )
     for name, t in (("q", q),) + caches:
+        want = torch.int8 if quant and name != "q" else torch.float32
+        vec = 16 if want == torch.int8 else 4
         if t.device != dev:
             raise ValueError(f"decode kernel: {name} on {t.device}, q on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"decode kernel: {name} is {t.dtype}, needs float32")
+        if t.dtype != want:
+            raise TypeError(f"decode kernel: {name} is {t.dtype}, needs {want}")
         if t.dim() != 4 or t.shape[2:] != (h, d):
             raise ValueError(
                 f"decode kernel: {name} shape {tuple(t.shape)} does not end "
                 f"in (heads, head_dim) = ({h}, {d})"
             )
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]):
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(
                 f"decode kernel: {name} strides {t.stride()} are not "
                 "16-byte aligned with head_dim contiguous"
@@ -194,10 +280,97 @@ def _check_operands(q, caches, lengths, tables=None):
         raise ValueError(f"decode kernel: lengths shape {tuple(lengths.shape)} != ({b},)")
 
 
+def _check_scales(k_scale, v_scale, num_pages, h, dev):
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (
+            t.device != dev or t.dtype != torch.float32
+            or t.shape != (num_pages, h) or not t.is_contiguous()
+        ):
+            raise ValueError(
+                f"decode kernel: {name} must be a contiguous float32 "
+                f"[{num_pages}, {h}] tensor on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+
+
+def _mask_operand(allowed, b, w, klen, dev):
+    """The tree mask as the kernel reads it: uint8 [b, w, klen], last dim
+    contiguous, nonzero = visible. A bool mask is reinterpreted in place;
+    a float mask keeps the reference's "> 0 is visible" meaning."""
+    if allowed.device != dev or allowed.shape != (b, w, klen):
+        raise ValueError(
+            f"decode kernel: allowed must be [{b}, {w}, {klen}] on {dev}, got "
+            f"{tuple(allowed.shape)} on {allowed.device}"
+        )
+    if allowed.dtype == torch.float32:
+        allowed = allowed > 0
+    if allowed.dtype == torch.bool:
+        allowed = allowed.view(torch.uint8)
+    if allowed.dtype != torch.uint8:
+        raise TypeError(f"decode kernel: allowed is {allowed.dtype}, needs bool, uint8 or float32")
+    if not allowed.is_contiguous():
+        raise ValueError(f"decode kernel: allowed strides {allowed.stride()} are not contiguous")
+    return allowed
+
+
 def _raise_on(code: int, name: str) -> None:
     if code:
         msg = _lib().ff_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {code})")
+
+
+def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
+    """Check the operands, launch the variant `name` selects and count it.
+    k/v are the contiguous caches (tables None) or the pools."""
+    b, w, h, d = q.shape
+    paged, quant, tree = tables is not None, scales is not None, allowed is not None
+    _check_operands(q, (("k", k), ("v", v)), lengths, tables, quant=quant)
+    if v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} shapes differ")
+    if paged:
+        num_pages, page_size = k.shape[0], k.shape[1]
+        if tables.dim() != 2 or tables.shape[0] != b:
+            raise ValueError(
+                f"{name}: block_tables shape {tuple(tables.shape)} does not have {b} rows"
+            )
+        max_len = tables.shape[1] * page_size
+        if quant:
+            _check_scales(*scales, num_pages, h, q.device)
+    else:
+        num_pages, page_size, max_len = 0, 8, k.shape[1]
+        if k.shape[0] != b:
+            raise ValueError(f"{name}: caches {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if tree:
+        allowed = _mask_operand(allowed, b, w, max_len, q.device)
+    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    lib = _lib()
+    chunk = pick_chunk(w, d, page_size, tree)
+    ks, vs = scales if quant else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.ff_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+            ptr(tables), lengths.data_ptr(), ptr(allowed), out.data_ptr(),
+            int(paged), int(quant), int(tree),
+            b, w, h, d, max_len, chunk, page_size, num_pages,
+            tables.stride(0) if paged else 0,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            allowed.stride(0) if tree else 0, allowed.stride(1) if tree else 0,
+            _scale_of(q, sm_scale), stream,
+        )
+    _raise_on(code, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _no_kernel(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
 def flash_verify(q, k_cache, v_cache, lengths, sm_scale=None):
@@ -206,36 +379,8 @@ def flash_verify(q, k_cache, v_cache, lengths, sm_scale=None):
     lengths: [b] int32. Returns [b, w, h, d] float32."""
     if q.device.type == "cpu":
         return flash_verify_ref(q, k_cache, v_cache, lengths, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_verify: no kernel for device {q.device}")
-    _check_operands(q, (("k_cache", k_cache), ("v_cache", v_cache)), lengths)
-    b, w, h, d = q.shape
-    max_len = k_cache.shape[1]
-    if k_cache.shape[0] != b or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"flash_verify: caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
-            f"do not match q {tuple(q.shape)}"
-        )
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
-    lib = _lib()
-    chunk = pick_chunk(w, d, 8)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.ff_flash_verify_f32(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            b, w, h, d, max_len, chunk,
-            q.stride(0), q.stride(1), q.stride(2),
-            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-            scale, stream,
-        )
-    _raise_on(code, "flash_verify")
-    LAUNCHES["flash_verify"] += 1
-    return out
+    _no_kernel("flash_verify", q)
+    return _launch("flash_verify", q, k_cache, v_cache, lengths, sm_scale)
 
 
 def flash_decode(q, k_cache, v_cache, lengths, **kw):
@@ -250,48 +395,85 @@ def paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     [0, num_pages) are unallocated); lengths: [b] int32. Returns
     [b, w, h, d] float32."""
     if q.device.type == "cpu":
-        return paged_flash_verify_ref(
-            q, k_pool, v_pool, block_tables, lengths, sm_scale
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_verify: no kernel for device {q.device}")
-    _check_operands(
-        q, (("k_pool", k_pool), ("v_pool", v_pool)), lengths, block_tables
+        return paged_flash_verify_ref(q, k_pool, v_pool, block_tables, lengths, sm_scale)
+    _no_kernel("paged_flash_verify", q)
+    return _launch(
+        "paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables
     )
-    b, w, h, d = q.shape
-    num_pages, page_size = k_pool.shape[0], k_pool.shape[1]
-    if v_pool.shape != k_pool.shape:
-        raise ValueError("paged_flash_verify: k_pool and v_pool shapes differ")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b:
-        raise ValueError(
-            f"paged_flash_verify: block_tables shape {tuple(block_tables.shape)} "
-            f"does not have {b} rows"
-        )
-    pages_per_seq = block_tables.shape[1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
-    lib = _lib()
-    chunk = pick_chunk(w, d, page_size)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.ff_paged_flash_verify_f32(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, w, h, d, num_pages, page_size, pages_per_seq, chunk,
-            block_tables.stride(0),
-            q.stride(0), q.stride(1), q.stride(2),
-            k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
-            v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
-            scale, stream,
-        )
-    _raise_on(code, "paged_flash_verify")
-    LAUNCHES["paged_flash_verify"] += 1
-    return out
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, **kw):
     """Single-query paged flash decode — the w == 1 case of
     paged_flash_verify."""
     return paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, **kw)
+
+
+def paged_flash_verify_quant(
+    q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, sm_scale=None
+):
+    """paged_flash_verify over int8 pools [num_pages, page_size, h, d]
+    with fp32 per-(page, head) scale side pools k_scale/v_scale
+    [num_pages, h]: each page's rows are dequantized inside the page
+    walk. head_dim must be a multiple of 16. Returns [b, w, h, d]
+    float32."""
+    if q.device.type == "cpu":
+        return paged_flash_verify_quant_ref(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, sm_scale
+        )
+    _no_kernel("paged_flash_verify_quant", q)
+    return _launch(
+        "paged_flash_verify_quant", q, k_pool, v_pool, lengths, sm_scale,
+        tables=block_tables, scales=(k_scale, v_scale),
+    )
+
+
+def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, **kw):
+    """Single-query int8 paged flash decode — the w == 1 case of
+    paged_flash_verify_quant."""
+    return paged_flash_verify_quant(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, **kw
+    )
+
+
+def flash_verify_tree(q, k_cache, v_cache, lengths, allowed, sm_scale=None):
+    """w-query flash attention against the contiguous cache under a
+    token-tree mask: allowed [b, w, max_len] (bool, uint8 or float32;
+    > 0 = query row j may see the position). Other shapes as
+    flash_verify."""
+    if q.device.type == "cpu":
+        return flash_verify_tree_ref(q, k_cache, v_cache, lengths, allowed, sm_scale)
+    _no_kernel("flash_verify_tree", q)
+    return _launch(
+        "flash_verify_tree", q, k_cache, v_cache, lengths, sm_scale, allowed=allowed
+    )
+
+
+def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale=None):
+    """Tree-masked w-query flash attention walking the block table:
+    allowed [b, w, pages_per_seq * page_size] over LOGICAL positions.
+    Other shapes as paged_flash_verify."""
+    if q.device.type == "cpu":
+        return paged_flash_verify_tree_ref(
+            q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale
+        )
+    _no_kernel("paged_flash_verify_tree", q)
+    return _launch(
+        "paged_flash_verify_tree", q, k_pool, v_pool, lengths, sm_scale,
+        tables=block_tables, allowed=allowed,
+    )
+
+
+def paged_flash_verify_tree_quant(
+    q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale=None
+):
+    """paged_flash_verify_tree over int8 pools with fp32 per-(page,
+    head) scales — #6's dequant and #8's tree mask."""
+    if q.device.type == "cpu":
+        return paged_flash_verify_tree_quant_ref(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale
+        )
+    _no_kernel("paged_flash_verify_tree_quant", q)
+    return _launch(
+        "paged_flash_verify_tree_quant", q, k_pool, v_pool, lengths, sm_scale,
+        tables=block_tables, scales=(k_scale, v_scale), allowed=allowed,
+    )

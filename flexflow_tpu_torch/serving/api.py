@@ -1,6 +1,9 @@
-"""User-facing serving surface: ServeConfig, build_scheduler and
-generate() (port of the single-device part of
-flexflow_tpu/serving/api.py). `FFModel.generate` delegates here."""
+"""User-facing serving surface: ServeConfig, build_proposer,
+build_scheduler and generate() (port of the single-device part of
+flexflow_tpu/serving/api.py). `FFModel.generate` delegates here.
+Speculative decoding (`spec_draft="ngram"`, linear or token-tree by
+`spec_branch`) and int8 paged KV pools (`kv_dtype="int8"`) run through
+the CUDA kernels #4-#9 on the card."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 from flexflow_tpu_torch.ops.attention import check_mode
+from flexflow_tpu_torch.ops.cuda.decode_kernel import MAX_W
 from flexflow_tpu_torch.serving.engine import GenerationEngine
 from flexflow_tpu_torch.serving.kv_cache import KVCache, PagedKVCache
 from flexflow_tpu_torch.serving.scheduler import (
@@ -15,6 +19,7 @@ from flexflow_tpu_torch.serving.scheduler import (
     Request,
     StaticBatchingScheduler,
 )
+from flexflow_tpu_torch.serving.spec import NGramDraftProposer
 
 _SCHEDULERS = {
     "continuous": ContinuousBatchingScheduler,
@@ -26,9 +31,7 @@ _SCHEDULERS = {
 _NOT_PORTED = {
     "temperature": (0.0, "Port queue: sampling"),
     "admission": ("reserve", "Port queue: preemption and swap"),
-    "kv_dtype": ("fp32", "Port queue: int8 KV pools (kernel #6)"),
     "prefix_cache": (False, "Port queue: prefix cache"),
-    "spec_draft": ("", "Port queue: speculative decoding (kernels #7-#9)"),
     "token_budget": (0, "Port queue: chunked prefill"),
     "serve_async": (False, "Port queue: async engine"),
 }
@@ -37,8 +40,12 @@ _NOT_PORTED = {
 @dataclasses.dataclass
 class ServeConfig:
     """Serving knobs: the reference's defaults — paged KV layout with
-    16-token pages, the continuous scheduler, greedy decoding and an
-    fp32 cache."""
+    16-token pages, the continuous scheduler, greedy decoding, an fp32
+    cache and no speculation. kv_dtype "int8" stores the paged pools as
+    int8 with an fp32 scale per (page, head). spec_draft "ngram" turns
+    on speculative decoding with prompt-lookup drafts of spec_k tokens
+    (n-gram size spec_ngram); spec_branch > 1 verifies a token tree of
+    up to spec_k * spec_branch nodes instead of one chain."""
 
     max_seqs: int = 8  # KV-cache slots = max in-flight requests
     max_seq_len: int = 256  # max tokens per sequence (prompt + generation)
@@ -52,9 +59,12 @@ class ServeConfig:
     debug_invariants: bool = False
     temperature: float = 0.0
     admission: str = "reserve"
-    kv_dtype: str = "fp32"
+    kv_dtype: str = "fp32"  # "fp32" | "int8" (paged layout only)
     prefix_cache: bool = False
-    spec_draft: str = ""
+    spec_draft: str = ""  # "" (off) | "ngram"
+    spec_k: int = 4
+    spec_branch: int = 1
+    spec_ngram: int = 2
     token_budget: int = 0
     serve_async: bool = False
 
@@ -80,6 +90,29 @@ class ServeConfig:
                 f"max_seq_len {self.max_seq_len} is not divisible by "
                 f"kv_page_size {self.kv_page_size}"
             )
+        if self.kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp32' or 'int8', got {self.kv_dtype!r}")
+        if self.kv_dtype == "int8" and self.kv_layout != "paged":
+            raise ValueError(
+                "kv_dtype='int8' requires kv_layout='paged' (the scale side "
+                "pools are per page)"
+            )
+        if self.spec_draft == "model":
+            raise NotImplementedError(
+                "ServeConfig.spec_draft='model' is not ported yet (ROADMAP, "
+                "Port queue: the small-model draft); this port takes '' or 'ngram'"
+            )
+        if self.spec_draft not in ("", "ngram"):
+            raise ValueError(f"spec_draft must be '' or 'ngram', got {self.spec_draft!r}")
+        if self.spec_k < 1 or self.spec_branch < 1 or self.spec_ngram < 1:
+            raise ValueError("spec_k, spec_branch and spec_ngram must be >= 1")
+        if self.spec_draft:
+            w = 1 + self.spec_k * self.spec_branch
+            if w > MAX_W:
+                raise ValueError(
+                    f"a verify of 1 + spec_k * spec_branch = {w} rows exceeds "
+                    f"the decode kernels' {MAX_W}"
+                )
         check_mode(self.decode_kernel)
 
     @staticmethod
@@ -93,8 +126,20 @@ class ServeConfig:
             kv_layout=cfg.serve_kv_layout,
             kv_page_size=cfg.serve_kv_page_size,
             kv_pages=cfg.serve_kv_pages,
+            kv_dtype=cfg.serve_kv_dtype,
+            spec_draft=cfg.serve_spec_draft,
+            spec_k=cfg.serve_spec_k,
+            spec_branch=cfg.serve_spec_branch,
             decode_kernel=cfg.serve_decode_kernel,
         )
+
+
+def build_proposer(serve: ServeConfig):
+    """The DraftProposer a ServeConfig asks for (None when speculative
+    decoding is off)."""
+    if not serve.spec_draft:
+        return None
+    return NGramDraftProposer(n=serve.spec_ngram)
 
 
 def build_scheduler(model, serve: ServeConfig):
@@ -109,6 +154,7 @@ def build_scheduler(model, serve: ServeConfig):
             buckets=serve.prefill_buckets or None,
             page_size=serve.kv_page_size,
             num_pages=serve.kv_pages,
+            kv_dtype=serve.kv_dtype,
         )
     else:
         cache = KVCache.from_model(
@@ -118,7 +164,13 @@ def build_scheduler(model, serve: ServeConfig):
             buckets=serve.prefill_buckets or None,
         )
     engine = GenerationEngine(model, cache, decode_kernel=serve.decode_kernel)
-    sched = _SCHEDULERS[serve.scheduler](engine, debug_invariants=serve.debug_invariants)
+    sched = _SCHEDULERS[serve.scheduler](
+        engine,
+        proposer=build_proposer(serve),
+        spec_k=serve.spec_k,
+        spec_branch=serve.spec_branch,
+        debug_invariants=serve.debug_invariants,
+    )
     return sched, engine, cache
 
 

@@ -1,5 +1,6 @@
-"""Prefill + single-token decode over a compiled FFModel (port of the
-prefill/decode part of flexflow_tpu/serving/engine.py).
+"""Prefill, single-token decode and speculative verify over a compiled
+FFModel (port of the synchronous step functions of
+flexflow_tpu/serving/engine.py).
 
 The engine re-executes the model's PCG through `Executor.forward_values`
 with one op hook, MULTIHEAD_ATTENTION. The hook computes the exact
@@ -9,26 +10,36 @@ mha_project_out) and swaps only the attention core:
   * **prefill**: causal attention over the (bucket-padded) prompts,
     exactly the full forward, writing each layer's K/V rows into the
     admitted slots' cache rows. The last prompt position's logits give
-    the first generated token.
+    the first generated token. On int8 pools the prompts attend over
+    the int8 round trip of their own rows, which is what later steps
+    read back from the pool.
   * **decode**: one query position per slot. The new K/V row is written
     at `lengths[slot]` for active slots only, then the decode kernel
     (ops/attention.decode_attention / paged_decode_attention, which
     reach the CUDA kernels of ops/cuda/decode_kernel.py) attends over
     the cache.
+  * **verify** / **verify_tree**: w query positions per slot (the last
+    emitted token and its draft, a chain or a token tree), all w K/V
+    rows written at lengths[slot] + j, attention under the staircase or
+    the tree mask (built once per step from the parent table). Lengths
+    do not move: the scheduler accepts a prefix and commits it with
+    cache.truncate.
 
 Both cache layouts are served by the same hooks: the paged steps route
-rows through the slot's block table, and `decode()` claims a sequence's
-next page before the step when it is about to cross a page boundary.
-Every write destination is computed and masked on the host — torch
-raises on an out-of-bounds index, where the reference relied on JAX
-dropping out-of-bounds scatter rows. All host-built index tensors of a
-step travel to the device in one int32 copy.
+rows through the slot's block table and claim a sequence's pages before
+the step. int8 paged pools are written by `_quant_scatter` (one fp32
+scale per page and head, claimed from the page's first row). Every write
+destination is computed and masked on the host — torch raises on an
+out-of-bounds index, where the reference relied on JAX dropping
+out-of-bounds scatter rows. All host-built index tensors of a step
+travel to the device in one int32 copy.
 
 Greedy argmax picks tokens. The reference's kernel-failure handler,
 which switched the engine to dense attention for good after any kernel
-error, is deliberately absent: a failing kernel raises. Speculative
-verify, chunked prefill, multi-step decode, token trees, adapters and
-int8 pools are not ported yet (ROADMAP, Port queue: serving features).
+error, is deliberately absent: a failing kernel raises. Sampling,
+chunked prefill, multi-step decode, adapters and the async dispatch /
+reconcile split are not ported yet (ROADMAP, Port queue: serving
+features).
 """
 
 from __future__ import annotations
@@ -45,7 +56,10 @@ from flexflow_tpu_torch.ops.attention import (
     mha_project_out,
     mha_project_qkv,
     paged_decode_attention,
+    paged_verify_attention,
     scaled_dot_product_attention,
+    tree_allowed_mask,
+    verify_attention,
 )
 
 
@@ -60,6 +74,15 @@ def _to_device(device, parts: Sequence[np.ndarray]):
         out.append(buf[off:off + n].view(np.shape(p)))
         off += n
     return out
+
+
+def quant_plan(dest: np.ndarray, page_size: int):
+    """Host half of an int8 write to flat pool rows `dest` [N]: (dest,
+    each row's page, the indices of the rows that land on a page's first
+    row, and those rows' pages) — the operands of _quant_scatter."""
+    dest = np.asarray(dest, dtype=np.int64)
+    first = np.nonzero(dest % page_size == 0)[0]
+    return [dest, dest // page_size, first, dest[first] // page_size]
 
 
 class GenerationEngine:
@@ -96,6 +119,7 @@ class GenerationEngine:
                     "the KV-cache engine supports self-attention only"
                 )
         self.paged = bool(getattr(cache, "paged", False))
+        self.quantized = bool(getattr(cache, "quantized", False))
 
     def _forward_logits(self, params, tokens, hook) -> torch.Tensor:
         return self.executor.logits(
@@ -108,6 +132,55 @@ class GenerationEngine:
     def _pick(logits: torch.Tensor) -> np.ndarray:
         """Greedy: logits [n, vocab] -> token ids [n] on the host."""
         return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., heads, head_dim] -> [N, heads, head_dim]."""
+        spec = self.cache.spec
+        return t.reshape(-1, spec.num_heads, spec.head_dim)
+
+    # -- int8 pool writes ----------------------------------------------------
+
+    def _quant_scatter(self, pool, scale, rows, dest, page, claim_rows, claim_pages, round_trip=False):
+        """Quantize `rows` [N, heads, head_dim] into the int8 `pool` at
+        flat rows `dest` [N] (every one a real page), in place, with the
+        host-built operands of quant_plan. A page's fp32 scale comes from
+        the abs-max of its FIRST row / 127 and is re-derived whenever a
+        batch writes that row (a freed page keeps a stale scale on the
+        device, and a reallocated page must quantize from its new
+        content); other rows reuse the stored scale and clip at
+        ±127·scale. torch.round rounds half to even, as jnp.round does.
+        With `round_trip`, returns the dequantized rows (scales are never
+        negative, so a scale-0 page gives zeros): what a later pool
+        reader will see, for callers (prefill) whose attention must read
+        the same."""
+        f32 = rows.float()
+        if claim_rows.numel():  # a shape, known on the host: no device sync
+            scale[claim_pages] = f32[claim_rows].abs().amax(dim=-1) / 127.0
+        s = scale[page]  # [N, heads]
+        safe = torch.where(s > 0, s, 1.0)
+        q = (f32 / safe[:, :, None]).round_().clamp_(-127, 127).to(torch.int8)
+        spec = self.cache.spec
+        pool.view(-1, spec.num_heads, spec.head_dim)[dest] = q
+        return q.float() * s[:, :, None] if round_trip else None
+
+    def _write(self, g, k_rows, v_rows, dest_parts, round_trip=False):
+        """Write one layer's new K/V rows into the cache: dest_parts is
+        (slots, positions) on the slot layout, (dest,) on fp32 pools and
+        quant_plan's four operands on int8 pools. With `round_trip` on
+        int8 pools, returns the rows as the pool now holds them."""
+        cache = self.cache
+        if not self.quantized:
+            cache.commit(g, *dest_parts, k_rows, v_rows)
+            return None
+        return tuple(
+            self._quant_scatter(pool[g], scale[g], rows, *dest_parts, round_trip=round_trip)
+            for pool, scale, rows in ((cache.k, cache.k_scale, k_rows), (cache.v, cache.v_scale, v_rows))
+        )
+
+    def _scales(self, g):
+        if not self.quantized:
+            return {}
+        return dict(k_scale=self.cache.k_scale[g], v_scale=self.cache.v_scale[g])
 
     # -- prefill -------------------------------------------------------------
 
@@ -143,10 +216,10 @@ class GenerationEngine:
             # bucket padding past a prompt's allocated pages is not written
             real = pages != spec.num_pages
             dest = (pages * ps + pos % ps)[real]
-            tok_t, last_t, real_t, dest_t = _to_device(
-                self.device, [tokens, plens - 1, real, dest]
+            parts = quant_plan(dest, ps) if self.quantized else [dest]
+            tok_t, last_t, real_t, *dest_t = _to_device(
+                self.device, [tokens, plens - 1, np.nonzero(real.ravel())[0]] + parts
             )
-            real_t = real_t.bool()
         else:
             tok_t, last_t, slots_t, pos_t = _to_device(
                 self.device, [tokens, plens - 1, slots_np, np.arange(bucket)]
@@ -158,7 +231,12 @@ class GenerationEngine:
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
             if self.paged:
-                cache.commit(g, dest_t, k[real_t], v[real_t])
+                kf, vf = self._rows(k), self._rows(v)
+                trip = self._write(g, kf[real_t], vf[real_t], dest_t, round_trip=True)
+                if trip is not None:
+                    # attend over the int8 round trip, as later steps will
+                    kf[real_t], vf[real_t] = trip
+                    k, v = kf.view(k.shape), vf.view(v.shape)
             else:
                 cache.commit(g, slots_t[:, None], pos_t[None, :], k, v)
             attn = scaled_dot_product_attention(q, k, v, causal=True)
@@ -199,22 +277,26 @@ class GenerationEngine:
         if self.paged:
             ps = spec.page_size
             pos = lengths[idx]
-            host += [cache.block_tables[idx, pos // ps] * ps + pos % ps, cache.block_tables]
-            tok_t, len_t, idx_t, dest_t, tables_t = _to_device(self.device, host)
+            dest = cache.block_tables[idx, pos // ps] * ps + pos % ps
+            parts = quant_plan(dest, ps) if self.quantized else [dest]
+            tok_t, len_t, idx_t, tables_t, *dest_t = _to_device(
+                self.device, host + [cache.block_tables] + parts
+            )
         else:
             tok_t, len_t, idx_t, pos_t = _to_device(self.device, host + [lengths[idx]])
+            dest_t = (idx_t, pos_t)
 
         def hook(node, ins, ws, ctx):
             g = node.guid
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            self._write(g, k[idx_t, 0], v[idx_t, 0], dest_t)
             if self.paged:
-                cache.commit(g, dest_t, k[idx_t, 0], v[idx_t, 0])
                 attn = paged_decode_attention(
-                    q, cache.k[g], cache.v[g], tables_t, len_t, kernel=self.decode_kernel
+                    q, cache.k[g], cache.v[g], tables_t, len_t,
+                    kernel=self.decode_kernel, **self._scales(g),
                 )
             else:
-                cache.commit(g, idx_t, pos_t, k[idx_t, 0], v[idx_t, 0])
                 attn = decode_attention(
                     q, cache.k[g], cache.v[g], len_t, kernel=self.decode_kernel
                 )
@@ -224,3 +306,125 @@ class GenerationEngine:
         nxt = self._pick(logits)
         cache.lengths[active] += 1
         return nxt, logits
+
+    # -- speculative verify ----------------------------------------------------
+
+    def _verify_scatter_dest(self, w: int, lengths: np.ndarray, draft_lens: np.ndarray):
+        """Host destinations of a verify write: (rows, dest) where `rows`
+        indexes the [max_seqs * w] fresh K/V rows that are written and
+        `dest` is each one's flat cache row (slot * max_len + position on
+        the slot layout, page * page_size + offset on the paged one). Row
+        j of slot s lands at position lengths[s] + j when j < draft_lens[s]
+        and the position is inside max_len (and, paged, on a claimed
+        page); pad rows, inactive slots and overflow are never written."""
+        spec = self.cache.spec
+        pos = lengths[:, None].astype(np.int64) + np.arange(w)[None, :]
+        valid = (np.arange(w)[None, :] < draft_lens[:, None]) & (pos < spec.max_len)
+        if self.paged:
+            ps = spec.page_size
+            page_idx = np.clip(pos // ps, 0, spec.max_pages_per_seq - 1)
+            entry = np.take_along_axis(self.cache.block_tables, page_idx, axis=1).astype(np.int64)
+            valid &= entry != spec.num_pages
+            flat = entry * ps + pos % ps
+        else:
+            flat = np.arange(spec.max_seqs)[:, None] * spec.max_len + pos
+        return np.nonzero(valid.ravel())[0], flat[valid]
+
+    @torch.no_grad()
+    def _verify(self, params, tokens, draft_lens, parents=None) -> np.ndarray:
+        spec = self.cache.spec
+        cache = self.cache
+        tokens = np.asarray(tokens, dtype=np.int32)
+        draft_lens = np.asarray(draft_lens, dtype=np.int32)
+        if tokens.ndim != 2 or tokens.shape[0] != spec.max_seqs:
+            raise ValueError(
+                f"tokens must be [max_seqs={spec.max_seqs}, w], got {tokens.shape}"
+            )
+        w = tokens.shape[1]
+        if w < 1:
+            raise ValueError("verify needs at least one token column")
+        if draft_lens.shape != (spec.max_seqs,):
+            raise ValueError("draft_lens must be [max_seqs]")
+        for slot in np.nonzero(draft_lens)[0]:
+            need = int(cache.lengths[slot]) + int(draft_lens[slot])
+            if draft_lens[slot] > w or need > spec.max_len:
+                raise ValueError(
+                    f"slot {int(slot)}: draft_lens {int(draft_lens[slot])} "
+                    f"overruns width {w} or max_len {spec.max_len}"
+                )
+        if self.paged:
+            # claim every page the fresh rows touch BEFORE the step
+            for slot in np.nonzero(draft_lens)[0]:
+                start = int(cache.lengths[slot])
+                for p in range(start, start + int(draft_lens[slot])):
+                    cache.ensure_position(int(slot), p)
+        lengths = cache.lengths.copy()
+        rows, dest = self._verify_scatter_dest(w, lengths, draft_lens)
+        host = [tokens, lengths, rows]
+        if self.paged:
+            ps = spec.page_size
+            host += [cache.block_tables] + (quant_plan(dest, ps) if self.quantized else [dest])
+        else:
+            host += [dest // spec.max_len, dest % spec.max_len]
+        if parents is not None:
+            host.append(parents)
+        dev = _to_device(self.device, host)
+        # the tree mask, once per step for every layer
+        allowed = tree_allowed_mask(dev.pop(), dev[1], w, spec.max_len) if parents is not None else None
+        tok_t, len_t, rows_t = dev[:3]
+        tables_t, dest_t = (dev[3], dev[4:]) if self.paged else (None, dev[3:])
+
+        def hook(node, ins, ws, ctx):
+            g = node.guid
+            use_bias = node.params.get("bias", True)
+            q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            self._write(g, self._rows(k)[rows_t], self._rows(v)[rows_t], dest_t)
+            if self.paged:
+                attn = paged_verify_attention(
+                    q, cache.k[g], cache.v[g], tables_t, len_t,
+                    kernel=self.decode_kernel, allowed=allowed, **self._scales(g),
+                )
+            else:
+                attn = verify_attention(
+                    q, cache.k[g], cache.v[g], len_t,
+                    kernel=self.decode_kernel, allowed=allowed,
+                )
+            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+
+        return self._forward_logits(params, tok_t, hook).cpu().numpy()
+
+    def verify(self, params, tokens: np.ndarray, draft_lens: np.ndarray) -> np.ndarray:
+        """One speculative verify step (SpecInfer's scoring call),
+        synchronous. tokens [max_seqs, w]: column 0 is each slot's last
+        emitted (not yet cached) token, columns 1..draft_lens[s]-1 its
+        drafted continuation; draft_lens [max_seqs] = real rows per slot
+        (0 for inactive slots). Writes the real rows' K/V (claiming paged
+        slots' pages first) under the staircase mask and does NOT advance
+        lengths. Returns the logits [max_seqs, w, V] on the host: row
+        [s, j] is the model's distribution for the token following
+        tokens[s, j]."""
+        return self._verify(params, tokens, draft_lens)
+
+    def verify_tree(
+        self,
+        params,
+        tokens: np.ndarray,
+        draft_lens: np.ndarray,
+        parents: np.ndarray,
+    ) -> np.ndarray:
+        """Token-tree verify: as verify, with columns 1.. holding draft
+        tree nodes in topological order and parents [max_seqs, w] mapping
+        each row to its parent row (-1 for row 0, chain padding past
+        draft_lens). Row j attends the committed prefix and its own
+        root-to-j chain only; the mask is built once per step from
+        `parents`, so every tree topology of width w runs the same
+        kernels."""
+        parents = np.asarray(parents, dtype=np.int32)
+        tokens = np.asarray(tokens)
+        if parents.shape != tokens.shape:
+            raise ValueError(
+                f"parents must match tokens shape {tokens.shape}, got {parents.shape}"
+            )
+        if np.any(parents >= np.arange(tokens.shape[1])[None, :]):
+            raise ValueError("parents must be topological: parents[:, j] < j")
+        return self._verify(params, tokens, draft_lens, parents)

@@ -15,9 +15,15 @@ The reference's arrays are functional: each jitted step returns fresh
 ones and `commit` swaps them in. Here the pools are written in place:
 `commit` scatters a step's new K/V rows into the cache tensors at
 explicit, masked destinations (torch raises on an out-of-bounds index
-where JAX silently drops the write). Prefix sharing, swap-to-host,
-optimistic admission, host partitions and int8 pools are not ported yet
-(ROADMAP, Port queue: serving features).
+where JAX silently drops the write). Under `kv_dtype="int8"` the paged
+pools hold int8 rows with one fp32 scale per (page, head) in the side
+pools `k_scale`/`v_scale` [num_pages, heads]; the engine's
+`_quant_scatter` writes them. `truncate` is speculative decoding's
+rollback on both layouts: it moves a slot's visible length, compacts a
+token tree's accepted rows into contiguous positions, and on the paged
+layout returns pages past the new length to the pool under the reserve
+ledger. Prefix sharing, swap-to-host, optimistic admission and host
+partitions are not ported yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ class KVCacheSpec:
     buckets: Tuple[int, ...]
     page_size: int = 0
     num_pages: int = 0
+    kv_dtype: str = "fp32"  # "fp32" | "int8" (paged layout only)
 
     def bucket(self, length: int) -> int:
         """Smallest bucket >= length (prefill pad target)."""
@@ -113,6 +120,24 @@ def _derive_geometry(model):
         raise ValueError(f"attention layers disagree on (heads, head_dim): {geom}")
     heads, head_dim = geom.pop()
     return guids, heads, head_dim
+
+
+def _compaction(new_len: int, src_rows: Sequence[int], max_len: int):
+    """(sources, destinations) int64 arrays of a tree commit's row moves:
+    the accepted rows at `src_rows` go to [new_len - len(src_rows),
+    new_len). Positions are non-decreasing and each source sits at or
+    after its destination (topological node order guarantees both).
+    None when every row is already in place (a chain)."""
+    srcs = [int(p) for p in src_rows]
+    dests = list(range(new_len - len(srcs), new_len))
+    if dests[0] < 0:
+        raise ValueError(f"{len(srcs)} compacted rows do not fit under new_len {new_len}")
+    for s, d in zip(srcs, dests):
+        if not d <= s < max_len:
+            raise ValueError(f"source row {s} outside [{d}, {max_len})")
+    if srcs == dests:
+        return None
+    return np.asarray(srcs, dtype=np.int64), np.asarray(dests, dtype=np.int64)
 
 
 class KVCache:
@@ -166,6 +191,28 @@ class KVCache:
         self.k[g].index_put_((slots, positions), k_rows.to(self.dtype))
         self.v[g].index_put_((slots, positions), v_rows.to(self.dtype))
 
+    def truncate(self, slot: int, new_len: int, src_rows: Optional[Sequence[int]] = None) -> None:
+        """Set the slot's visible length to `new_len` (speculative-decode
+        rollback: verify writes every draft row, acceptance keeps a
+        prefix; new_len may also exceed the current length, since verify
+        commits through this call). Rows past new_len stay as stale data
+        that the lengths mask hides. src_rows (tree-verify commit): the
+        accepted root-to-leaf rows' absolute positions, in path order,
+        compacted into [new_len - len(src_rows), new_len) first."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not active")
+        if not 0 <= new_len <= self.spec.max_len:
+            raise ValueError(f"new_len {new_len} outside [0, {self.spec.max_len}]")
+        if src_rows is not None and len(src_rows):
+            moves = _compaction(new_len, src_rows, self.spec.max_len)
+            if moves is not None:
+                si, di = (torch.as_tensor(m, device=self.device) for m in moves)
+                for g in self.spec.layer_guids:
+                    # the gather on the right copies before the scatter
+                    self.k[g][slot, di] = self.k[g][slot, si]
+                    self.v[g][slot, di] = self.v[g][slot, si]
+        self.lengths[slot] = new_len
+
     def check_invariants(self) -> None:
         """Assert the slot bookkeeping is consistent."""
         spec = self.spec
@@ -208,6 +255,11 @@ class PagedKVCache:
                 f"num_pages {spec.num_pages} cannot hold even one max_len "
                 f"sequence ({spec.max_len // spec.page_size} pages of {spec.page_size})"
             )
+        if spec.kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp32' or 'int8', got {spec.kv_dtype!r}")
+        self.quantized = spec.kv_dtype == "int8"
+        if self.quantized:
+            dtype = torch.int8
         self.spec = spec
         self.dtype = dtype
         self.device = torch.device(device)
@@ -217,6 +269,17 @@ class PagedKVCache:
         }
         self.v: Dict[int, torch.Tensor] = {
             g: torch.zeros(shape, dtype=dtype, device=self.device) for g in spec.layer_guids
+        }
+        # int8 side pools: fp32 scale per (page, head); 0 marks a page
+        # whose first row has not been written (the engine's scatter
+        # claims it). Empty under fp32.
+        scales = (spec.num_pages, spec.num_heads)
+        guids = spec.layer_guids if self.quantized else ()
+        self.k_scale: Dict[int, torch.Tensor] = {
+            g: torch.zeros(scales, dtype=torch.float32, device=self.device) for g in guids
+        }
+        self.v_scale: Dict[int, torch.Tensor] = {
+            g: torch.zeros(scales, dtype=torch.float32, device=self.device) for g in guids
         }
         self.lengths = np.zeros(spec.max_seqs, dtype=np.int32)
         self.block_tables = np.full(
@@ -318,6 +381,77 @@ class PagedKVCache:
         self.k[g].view(flat).index_put_((dest,), k_rows.reshape(flat).to(self.dtype))
         self.v[g].view(flat).index_put_((dest,), v_rows.reshape(flat).to(self.dtype))
 
+    def truncate(self, slot: int, new_len: int, src_rows: Optional[Sequence[int]] = None) -> None:
+        """Set the slot's visible length to `new_len` and return every
+        page past ceil(new_len / page_size) to the free list — the
+        speculative-decode rollback. Returned pages go back under the
+        slot's admission reserve (`_reserved` grows by the pages released,
+        capped at the slot's worst case), so a later re-growth still finds
+        them. new_len may exceed the current length but never the pages
+        the slot holds. src_rows: see KVCache.truncate; the rows move
+        through the block table before any page is released."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not active")
+        spec = self.spec
+        if not 0 <= new_len <= spec.max_len:
+            raise ValueError(f"new_len {new_len} outside [0, {spec.max_len}]")
+        keep = self._pages_for(new_len)
+        if keep > self._held[slot]:
+            raise ValueError(
+                f"new_len {new_len} needs {keep} pages but slot {slot} "
+                f"holds {int(self._held[slot])}"
+            )
+        if src_rows is not None and len(src_rows):
+            moves = _compaction(new_len, src_rows, spec.max_len)
+            if moves is not None:
+                self._compact_rows(slot, *moves)
+        old_resv = max(0, int(self._max_pages[slot] - self._held[slot]))
+        for pi in range(keep, spec.max_pages_per_seq):
+            page = int(self.block_tables[slot, pi])
+            if page != spec.num_pages:
+                heapq.heappush(self._free_pages, page)
+                self.block_tables[slot, pi] = spec.num_pages
+                self._held[slot] -= 1
+        self._reserved += max(0, int(self._max_pages[slot] - self._held[slot])) - old_resv
+        self.lengths[slot] = new_len
+
+    def _compact_rows(self, slot: int, srcs: np.ndarray, dests: np.ndarray) -> None:
+        """Move rows at positions `srcs` to `dests` of `slot`, resolving
+        both through the block table. On int8 pools each moved row is
+        dequantized with its source page's scale and requantized under
+        its destination page's; a destination page whose FIRST row is
+        among the moves re-derives its scale from that row (the
+        _quant_scatter claim rule), so the committed bytes match a
+        sequential decode of the accepted path up to the int8 round trip.
+        All gathers run before any scatter."""
+        spec = self.spec
+        ps = spec.page_size
+        pages = self.block_tables[slot]
+        for pos in np.concatenate([srcs, dests]):
+            if pages[pos // ps] == spec.num_pages:
+                raise ValueError(f"slot {slot} position {int(pos)} has no mapped page")
+        sf = pages[srcs // ps].astype(np.int64) * ps + srcs % ps
+        df = pages[dests // ps].astype(np.int64) * ps + dests % ps
+        first = np.nonzero(df % ps == 0)[0]  # moves onto a page's first row
+        si, di, spi, dpi, fi, fpi = (
+            torch.as_tensor(a, device=self.device)
+            for a in (sf, df, sf // ps, df // ps, first, df[first] // ps)
+        )
+        flat = (-1, spec.num_heads, spec.head_dim)
+        for g in spec.layer_guids:
+            for pool, scale in (
+                (self.k[g], self.k_scale.get(g)), (self.v[g], self.v_scale.get(g))
+            ):
+                f = pool.view(flat)
+                if scale is None:
+                    f[di] = f[si]
+                    continue
+                deq = f[si].float() * scale[spi][:, :, None]
+                scale[fpi] = deq[fi].abs().amax(dim=-1) / 127.0
+                s = scale[dpi]
+                safe = torch.where(s > 0, s, torch.ones_like(s))
+                f[di] = torch.round(deq / safe[:, :, None]).clamp_(-127, 127).to(torch.int8)
+
     def check_invariants(self) -> None:
         """Assert the allocator's accounting re-derives from the block
         tables: every page is in exactly one table or on the free heap,
@@ -353,9 +487,11 @@ class PagedKVCache:
         buckets: Optional[Sequence[int]] = None,
         page_size: int = 0,
         num_pages: int = 0,
+        kv_dtype: str = "fp32",
     ) -> "PagedKVCache":
         """Defaults pick the vLLM-style page size and a pool with exactly
-        the slot layout's capacity (max_seqs * max_len rows)."""
+        the slot layout's capacity (max_seqs * max_len rows). kv_dtype
+        "int8" makes int8 pools with fp32 scale side pools."""
         guids, heads, head_dim = _derive_geometry(model)
         if page_size <= 0:
             page_size = default_page_size(max_len)
@@ -370,5 +506,6 @@ class PagedKVCache:
             buckets=tuple(buckets) if buckets else default_buckets(max_len),
             page_size=page_size,
             num_pages=num_pages,
+            kv_dtype=kv_dtype,
         )
         return PagedKVCache(spec, dtype, model.device)

@@ -12,10 +12,18 @@ decodes until every member finishes before the next is admitted.
 Every request ends in exactly one terminal status: FINISHED, FAILED
 (bad input, non-finite logits, an engine fault), CANCELLED or
 TIMED_OUT. A fault retires only the requests it touches and the queue
-behind them keeps serving. Stats are plain attributes. The async loop,
-speculative decoding, chunked prefill, multi-step decode, preemption,
-swap, tenancy, journal and telemetry are not ported yet (ROADMAP, Port
-queue: serving features).
+behind them keeps serving. Stats are plain attributes.
+
+With a `proposer` (serving/spec.py) every iteration after admission is
+one speculative step instead of a decode: the proposer drafts up to
+`spec_k` tokens per slot (a deduped token tree of up to spec_k *
+spec_branch nodes when spec_branch > 1), one batched verify scores them,
+the acceptance rule keeps the longest agreeing prefix (path) plus one
+token of the target's, and cache.truncate commits it. Greedy
+speculative streams equal plain greedy streams. The async loop, chunked
+prefill, multi-step decode, preemption, swap, tenancy, journal, fault
+injection and telemetry are not ported yet (ROADMAP, Port queue:
+serving features).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.serving.kv_cache import PagePoolExhausted
+from flexflow_tpu_torch.serving.spec import DraftTree, accept_drafts, accept_tree
 
 
 class RequestStatus:
@@ -131,6 +140,17 @@ class SchedulerStats:
     cancelled_requests: int = 0
     timed_out_requests: int = 0
     step_faults: int = 0
+    # speculative decoding (verify iterations only); under token trees
+    # draft_tokens_proposed counts each tree's DEPTH (the most one verify
+    # could accept), so acceptance_rate keeps its meaning, and the node
+    # count lives in tree_nodes_proposed
+    verify_steps: int = 0
+    tree_verify_steps: int = 0
+    tree_nodes_proposed: int = 0
+    draft_tokens_proposed: int = 0
+    draft_tokens_accepted: int = 0
+    draft_faults: int = 0  # proposer faults degraded to plain decode
+    verify_s: float = 0.0  # wall time of verify steps, as decode_s
 
     @property
     def tokens_per_s(self) -> float:
@@ -144,18 +164,57 @@ class SchedulerStats:
     def mean_decode_step_s(self) -> float:
         return self.decode_s / self.decode_steps if self.decode_steps else 0.0
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify steps accepted."""
+        if not self.draft_tokens_proposed:
+            return 0.0
+        return self.draft_tokens_accepted / self.draft_tokens_proposed
+
+
+@dataclasses.dataclass
+class _VerifyStep:
+    """A verify step's record for its commit: the per-slot drafts (token
+    lists, or DraftTrees), the cache lengths before the step, the
+    requests that took part, and the host logits [max_seqs, w, V]."""
+
+    plan: Dict[int, object]
+    lengths: np.ndarray
+    participants: Dict[int, Request]
+    logits: np.ndarray
+
 
 def _finite_rows(logits: torch.Tensor) -> np.ndarray:
     return torch.isfinite(logits).all(dim=-1).cpu().numpy()
 
 
 class _SchedulerBase:
-    """Shared admission/decode machinery."""
+    """Shared admission/decode/verify machinery. `proposer` switches the
+    per-iteration step from plain decode to speculative draft/verify."""
 
-    def __init__(self, engine, params=None, debug_invariants: bool = False):
+    def __init__(
+        self,
+        engine,
+        params=None,
+        proposer=None,
+        spec_k: int = 4,
+        spec_branch: int = 1,
+        debug_invariants: bool = False,
+    ):
         self.engine = engine
         self.cache = engine.cache
         self.params = params if params is not None else engine.model.params
+        self.proposer = proposer
+        self.spec_k = int(spec_k)
+        if proposer is not None and self.spec_k < 1:
+            raise ValueError("speculative decoding needs spec_k >= 1")
+        # spec_branch > 1 verifies a deduped token tree of up to
+        # spec_k * spec_branch nodes; the verify width is fixed at
+        # 1 + that, and the tree's shape rides in as a parent table
+        self.spec_branch = int(spec_branch)
+        if self.spec_branch < 1:
+            raise ValueError(f"spec_branch must be >= 1, got {spec_branch}")
+        self._tree_nodes = self.spec_k * self.spec_branch
         self.debug_invariants = bool(debug_invariants)
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}  # slot -> request
@@ -229,6 +288,8 @@ class _SchedulerBase:
         req.finish_iter = self._iter
         req.finish_time = time.perf_counter()
         if req.slot is not None and self.running.get(req.slot) is req:
+            if self.proposer is not None:
+                self.proposer.retire(req)
             del self.running[req.slot]
             self.cache.free(req.slot)
             req.slot = None
@@ -286,6 +347,8 @@ class _SchedulerBase:
             admitted.append(req)
         if not admitted:
             return admitted
+        if self.proposer is not None:
+            self.proposer.admit(admitted)
         t0 = time.perf_counter()
         try:
             nxt, last = self.engine.prefill(
@@ -317,24 +380,27 @@ class _SchedulerBase:
 
     # -- decode --------------------------------------------------------------
 
-    def _secure_pages(self, slots: Sequence[int]) -> None:
-        """Claim the page each stepping slot writes this iteration before
-        the step; under the reserve policy the claims are guaranteed, and
-        a PagePoolExhausted fails just that slot."""
+    def _secure_pages(self, widths: Dict[int, int]) -> None:
+        """Claim every page this iteration's step writes before the step:
+        slot s writes rows lengths[s] .. lengths[s] + widths[s] - 1.
+        Under the reserve policy the claims are guaranteed, and a
+        PagePoolExhausted fails just that slot."""
         if not getattr(self.cache, "paged", False):
             return
-        for slot in sorted(slots):
+        for slot in sorted(widths):
             req = self.running.get(slot)
             if req is None:
                 continue
+            start = int(self.cache.lengths[slot])
             try:
-                self.cache.ensure_position(slot, int(self.cache.lengths[slot]))
+                for pos in range(start, start + widths[slot]):
+                    self.cache.ensure_position(slot, pos)
             except PagePoolExhausted as e:
                 self._fail(req, str(e))
 
     def _decode_once(self) -> None:
         """One decode step over every running slot."""
-        self._secure_pages(list(self.running))
+        self._secure_pages({slot: 1 for slot in self.running})
         stepped = dict(self.running)
         if not stepped:
             return
@@ -362,6 +428,196 @@ class _SchedulerBase:
                 self._fail(req, f"non-finite logits at iteration {self._iter}")
                 continue
             self._emit(req, int(nxt[slot]))
+
+    # -- speculative decoding --------------------------------------------------
+
+    def _propose(self, k: int) -> Dict[int, List[int]]:
+        """Draft tokens for the running slots; a proposer fault degrades
+        THIS iteration to plain decode (empty proposals make every verify
+        row a w=1 decode) instead of killing the run."""
+        try:
+            return self.proposer.propose(dict(self.running), k)
+        except Exception:
+            self.stats.draft_faults += 1
+            return {}
+
+    def _propose_trees(self) -> Dict[int, DraftTree]:
+        """Tree twin of _propose: one deduped token tree per running slot
+        (up to spec_k deep, spec_branch alternatives per level)."""
+        try:
+            return self.proposer.propose_trees(dict(self.running), self.spec_k, self.spec_branch)
+        except Exception:
+            self.stats.draft_faults += 1
+            return {}
+
+    def _run_verify(self, plan, widths: Dict[int, int], call) -> Optional[np.ndarray]:
+        """Claim every page the plan's rows write (`widths` rows per
+        slot), then run the engine's verify `call(plan)`; bookkeeping
+        shared by both verify kinds. Returns the host logits, or None
+        when nothing ran."""
+        self._secure_pages(widths)
+        for slot in [s for s in plan if s not in self.running]:
+            del plan[slot]  # a failed page claim retired it
+        if not plan:
+            return None
+        t0 = time.perf_counter()
+        try:
+            logits = call(plan)
+        except Exception as e:
+            self._fail_all_running(f"verify step failed: {e!r}")
+            return None
+        spec = self.cache.spec
+        self.stats.verify_s += time.perf_counter() - t0
+        self.stats.verify_steps += 1
+        self.stats.slot_steps += spec.max_seqs
+        self.stats.busy_slot_steps += len(plan)
+        return logits
+
+    def _verify_dispatch_step(self, proposals) -> Optional[_VerifyStep]:
+        """One linear speculative step up to its logits: cap each slot's
+        drafts to its remaining budget and the cache horizon (a verify
+        emits up to k_s + 1 tokens and writes k_s + 1 rows, which also
+        keeps paged verify inside the admission reserve), claim the pages,
+        and run one batched verify of width spec_k + 1."""
+        spec = self.cache.spec
+        k = self.spec_k
+        lengths = self.cache.lengths.copy()
+        plan: Dict[int, List[int]] = {}
+        for slot, req in sorted(self.running.items()):
+            k_s = min(
+                len(proposals.get(slot) or ()),
+                k,
+                req.max_new_tokens - len(req.generated) - 1,
+                spec.max_len - int(lengths[slot]) - 1,
+            )
+            plan[slot] = list(proposals.get(slot) or ())[: max(0, k_s)]
+        participants = dict(self.running)
+
+        def call(plan):
+            tokens = np.zeros((spec.max_seqs, k + 1), dtype=np.int32)
+            draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
+            for slot, drafts in plan.items():
+                tokens[slot, 0] = participants[slot].generated[-1]
+                tokens[slot, 1 : 1 + len(drafts)] = drafts
+                draft_lens[slot] = 1 + len(drafts)
+            return self.engine.verify(self.params, tokens, draft_lens)
+
+        logits = self._run_verify(plan, {s: 1 + len(d) for s, d in plan.items()}, call)
+        if logits is None:
+            return None
+        return _VerifyStep(plan, lengths, participants, logits)
+
+    def _commit_verify(self, step: _VerifyStep) -> None:
+        """Per slot: accept a prefix of the drafts against the step's
+        pre-step lengths, roll the cache to the accepted length (paged
+        slots return surplus pages), and emit accepted + 1 tokens. EOS
+        inside the accepted run retires the request at the EOS."""
+        for slot in sorted(step.plan):
+            req = step.participants[slot]
+            if self.running.get(slot) is not req:
+                continue
+            drafts = step.plan[slot]
+            old_len = int(step.lengths[slot])
+            if not np.isfinite(step.logits[slot, : 1 + len(drafts)]).all():
+                self._fail(req, f"non-finite logits at iteration {self._iter}")
+                continue
+            accepted, emitted = accept_drafts(
+                step.logits[slot], drafts, slot=slot, base_len=old_len
+            )
+            # commit BEFORE emitting: _emit may retire the request, which
+            # frees the slot
+            self.cache.truncate(slot, old_len + accepted + 1)
+            self.proposer.rollback(slot, old_len + accepted + 1)
+            self.stats.draft_tokens_proposed += len(drafts)
+            self.stats.draft_tokens_accepted += accepted
+            self._emit_run(req, emitted)
+
+    def _verify_tree_dispatch_step(self, trees) -> Optional[_VerifyStep]:
+        """One tree speculative step up to its logits: prune each slot's
+        tree to its budget (depth) and horizon (nodes), claim the pages
+        its 1 + nodes rows need, and run one batched tree verify of fixed
+        width 1 + spec_k * spec_branch."""
+        spec = self.cache.spec
+        w = 1 + self._tree_nodes
+        lengths = self.cache.lengths.copy()
+        plan: Dict[int, DraftTree] = {}
+        for slot, req in sorted(self.running.items()):
+            # every node writes a cache row (horizon cap), but accepted
+            # tokens are bounded by the depth (request budget cap)
+            max_nodes = min(self._tree_nodes, spec.max_len - int(lengths[slot]) - 1)
+            max_depth = req.max_new_tokens - len(req.generated) - 1
+            tree = trees.get(slot) or DraftTree([], [])
+            plan[slot] = tree.prune(max(0, max_nodes), max(0, max_depth))
+        participants = dict(self.running)
+
+        def call(plan):
+            tokens = np.zeros((spec.max_seqs, w), dtype=np.int32)
+            draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
+            # pad rows and columns keep a chain topology (parent j - 1)
+            parents = np.tile(np.arange(-1, w - 1, dtype=np.int32), (spec.max_seqs, 1))
+            for slot, tree in plan.items():
+                tokens[slot, 0] = participants[slot].generated[-1]
+                tokens[slot, 1 : 1 + tree.nodes] = tree.tokens
+                parents[slot] = tree.row_parents(w)
+                draft_lens[slot] = 1 + tree.nodes
+            return self.engine.verify_tree(self.params, tokens, draft_lens, parents)
+
+        logits = self._run_verify(plan, {s: 1 + t.nodes for s, t in plan.items()}, call)
+        if logits is None:
+            return None
+        self.stats.tree_verify_steps += 1
+        self.stats.tree_nodes_proposed += sum(t.nodes for t in plan.values())
+        return _VerifyStep(plan, lengths, participants, logits)
+
+    def _commit_verify_tree(self, step: _VerifyStep) -> None:
+        """Per slot: walk the tree against the logits, accept the longest
+        surviving root-to-leaf path, compact its scattered rows into
+        contiguous positions (truncate with src_rows; dead branches' rows
+        and pages go back in the same call), and emit len(path) + 1
+        tokens. Proposed counts the tree's depth, accepted the path."""
+        for slot in sorted(step.plan):
+            req = step.participants[slot]
+            if self.running.get(slot) is not req:
+                continue
+            tree = step.plan[slot]
+            old_len = int(step.lengths[slot])
+            if not np.isfinite(step.logits[slot, : 1 + tree.nodes]).all():
+                self._fail(req, f"non-finite logits at iteration {self._iter}")
+                continue
+            path, emitted = accept_tree(step.logits[slot], tree, slot=slot, base_len=old_len)
+            # node i's row sits at position old_len + 1 + i
+            self.cache.truncate(
+                slot, old_len + len(path) + 1, src_rows=[old_len + 1 + n for n in path]
+            )
+            self.proposer.rollback(slot, old_len + len(path) + 1)
+            self.stats.draft_tokens_proposed += tree.depth()
+            self.stats.draft_tokens_accepted += len(path)
+            self._emit_run(req, emitted)
+
+    def _emit_run(self, req: Request, tokens: Sequence[int]) -> None:
+        for t in tokens:
+            self._emit(req, int(t))
+            if req.finished:
+                break  # EOS or budget mid-verify: nothing past it
+
+    def _verify_once(self) -> None:
+        """One speculative iteration: draft, one batched verify, and the
+        commit, synchronously."""
+        if self.spec_branch > 1:
+            step = self._verify_tree_dispatch_step(self._propose_trees())
+            if step is not None:
+                self._commit_verify_tree(step)
+        else:
+            step = self._verify_dispatch_step(self._propose(self.spec_k))
+            if step is not None:
+                self._commit_verify(step)
+
+    def _generate_once(self) -> None:
+        """The iteration's generation step over the running slots."""
+        if self.proposer is not None:
+            self._verify_once()
+        else:
+            self._decode_once()
 
     # -- the loop ------------------------------------------------------------
 
@@ -401,7 +657,7 @@ class ContinuousBatchingScheduler(_SchedulerBase):
         self._begin_iteration()
         self._admit()
         if self.running:
-            self._decode_once()
+            self._generate_once()
         self._end_iteration()
 
 
@@ -414,7 +670,7 @@ class StaticBatchingScheduler(_SchedulerBase):
         if not self.running:
             self._admit()
         if self.running:
-            self._decode_once()
+            self._generate_once()
         self._end_iteration()
 
 

@@ -59,10 +59,90 @@ def test_kernels_match_plain_versions(w):
     out = dk.flash_verify(q, k, v, lens)
     pout = dk.paged_flash_verify(q, kp, vp, tbl, lens)
     torch.cuda.synchronize()
-    assert dk.LAUNCHES == {"flash_verify": 1, "paged_flash_verify": 1}
+    assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), flash_verify=1, paged_flash_verify=1)
     torch.testing.assert_close(out, dk.flash_verify_ref(q, k, v, lens), atol=ATOL, rtol=0)
     torch.testing.assert_close(pout, dk.paged_flash_verify_ref(q, kp, vp, tbl, lens), atol=ATOL, rtol=0)
     assert float(pout[5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_quant_and_tree_kernels_match_plain_versions(w):
+    """#6-#9 at serving widths (16 heads x 64, 16-row pages) with ragged
+    lengths, a sentinel hole, a dead row, a scale-0 page and a seeded
+    random tree per row; one launch counted per call."""
+    from flexflow_tpu_torch.ops.attention import tree_allowed_mask
+
+    dev = _card()
+    rng = np.random.default_rng(100 + w)
+    b, h, d, max_len, page, num_pages = 6, 16, 64, 256, 16, 128
+    lengths = np.array([0, 5, max_len - w, 30, 77, 9], dtype=np.int32)
+    lens = torch.from_numpy(lengths).to(dev)
+    tables = np.full((b, max_len // page), num_pages, dtype=np.int32)
+    perm = list(rng.permutation(num_pages))
+    for i, ln in enumerate(lengths):
+        for p in range(-(-(int(ln) + w) // page)):
+            tables[i, p] = perm.pop()
+    tables[3, 1] = num_pages  # hole
+    tables[5, :] = num_pages  # dead row
+    tbl = torch.from_numpy(tables).to(dev)
+    q = _rand(rng, dev, b, w, h, d)
+    k, v = _rand(rng, dev, b, max_len, h, d), _rand(rng, dev, b, max_len, h, d)
+    kp, vp = _rand(rng, dev, num_pages, page, h, d), _rand(rng, dev, num_pages, page, h, d)
+    k8, v8 = (torch.from_numpy(rng.integers(-127, 128, (num_pages, page, h, d)).astype(np.int8)).to(dev)
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.001, 0.05, (num_pages, h)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    ks[tables[0, 0]] = 0.0  # a page never written
+    vs[tables[0, 0]] = 0.0
+    par = np.full((b, w), -1, dtype=np.int32)
+    for j in range(1, w):
+        par[:, j] = rng.integers(0, j, size=b)
+    mask = tree_allowed_mask(torch.from_numpy(par).to(dev), lens, w, max_len)
+    calls = {
+        "paged_flash_verify_quant": (q, k8, v8, ks, vs, tbl, lens),
+        "flash_verify_tree": (q, k, v, lens, mask),
+        "paged_flash_verify_tree": (q, kp, vp, tbl, lens, mask),
+        "paged_flash_verify_tree_quant": (q, k8, v8, ks, vs, tbl, lens, mask),
+    }
+    dk.reset_launches()
+    outs = {name: getattr(dk, name)(*args) for name, args in calls.items()}
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **dict.fromkeys(calls, 1))
+    for name, args in calls.items():
+        ref = getattr(dk, name + "_ref")(*args)
+        torch.testing.assert_close(outs[name], ref, atol=ATOL, rtol=0, msg=name)
+    assert float(outs["paged_flash_verify_tree_quant"][5].abs().max()) == 0.0
+
+
+def test_quant_and_tree_kernels_reject_what_they_do_not_take():
+    """w = 65, head_dim 8 on int8 pools, fp32 pools where int8 is
+    expected, misshapen scales and a strided mask raise before a launch."""
+    dev = _card()
+    b, h, d, page, num_pages = 2, 2, 64, 16, 8
+    lens = torch.zeros(b, dtype=torch.int32, device=dev)
+    tbl = torch.zeros(b, 2, dtype=torch.int32, device=dev)
+    k8 = torch.zeros(num_pages, page, h, d, dtype=torch.int8, device=dev)
+    ks = torch.zeros(num_pages, h, device=dev)
+    k32 = torch.zeros(b, 2 * page, h, d, device=dev)
+    dk.reset_launches()
+    with pytest.raises(ValueError, match="w="):
+        dk.paged_flash_verify_quant(torch.zeros(b, 65, h, d, device=dev), k8, k8, ks, ks, tbl, lens)
+    with pytest.raises(ValueError, match="w="):
+        wide = torch.zeros(b, 65, h, d, device=dev)
+        dk.flash_verify_tree(wide, k32, k32, lens, torch.ones(b, 65, 2 * page, dtype=torch.bool, device=dev))
+    q = torch.zeros(b, 1, h, d, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k8n = torch.zeros(num_pages, page, h, 8, dtype=torch.int8, device=dev)
+        dk.paged_flash_verify_quant(q[..., :8], k8n, k8n, ks, ks, tbl, lens)
+    with pytest.raises(TypeError):
+        kf = torch.zeros(num_pages, page, h, d, device=dev)
+        dk.paged_flash_verify_quant(q, kf, kf, ks, ks, tbl, lens)
+    with pytest.raises(ValueError, match="k_scale"):
+        dk.paged_flash_verify_quant(q, k8, k8, ks[:, :1], ks, tbl, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.ones(b, 1, 4 * page, dtype=torch.bool, device=dev)[..., ::2]
+        dk.flash_verify_tree(q, k32, k32, lens, strided)
+    assert sum(dk.LAUNCHES.values()) == 0
 
 
 def test_kernel_rejects_what_it_does_not_take():
@@ -95,6 +175,20 @@ def test_small_lm_serves_identically_on_both_layouts():
         assert dk.LAUNCHES[kernel] > 0
     assert streams["slot"] == streams["paged"]
     assert all(len(s) == 12 for s in streams["paged"])
+    # speculative decoding (linear and tree) and int8 pools through
+    # kernels #6-#9: every stream finishes at full length
+    legs = {
+        "flash_verify_tree": dict(kv_layout="slot", spec_draft="ngram", spec_k=3, spec_branch=2),
+        "paged_flash_verify_tree": dict(spec_draft="ngram", spec_k=3, spec_branch=2),
+        "paged_flash_verify_quant": dict(kv_dtype="int8"),
+        "paged_flash_verify_tree_quant": dict(kv_dtype="int8", spec_draft="ngram", spec_k=3, spec_branch=2),
+    }
+    for kernel, kw in legs.items():
+        dk.reset_launches()
+        out = model.generate(
+            prompts, max_new_tokens=12, serve_config=ServeConfig(max_seqs=2, max_seq_len=64, **kw)
+        )
+        assert dk.LAUNCHES[kernel] > 0 and all(len(s) == 12 for s in out), kernel
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,9 +1,10 @@
-"""flexflow_tpu_torch decode kernels (ops/cuda/decode_kernel.py): the
-plain PyTorch versions the wrappers take for CPU tensors against the JAX
-package's Pallas kernels (interpret mode) and its dense attention paths,
-and the wrappers' device dispatch and operand checks. The CUDA kernels
-themselves are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+"""flexflow_tpu_torch decode kernels (ops/cuda/decode_kernel.py, #4-#9):
+the plain PyTorch versions the wrappers take for CPU tensors against the
+JAX package's Pallas kernels (interpret mode; its int8 kernels only at
+32-row pages) and its dense attention paths (int8 at 8- and 16-row
+pages, token trees), and the wrappers' device dispatch and operand
+checks. The CUDA kernels themselves are held against these plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance: atol 1e-5 for fp32 attention at these sizes; the two sides
 differ only in summation order."""
@@ -18,6 +19,7 @@ from flexflow_tpu.ops.attention import (
     decode_attention as jax_decode_attention,
     paged_decode_attention as jax_paged_decode_attention,
     paged_verify_attention as jax_paged_verify_attention,
+    tree_allowed_mask as jax_tree_allowed_mask,
     verify_attention as jax_verify_attention,
 )
 from flexflow_tpu.ops.pallas import decode_kernel as jdk
@@ -129,7 +131,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     dk.reset_launches()
     out = dk.flash_decode(*_t(q, k, v, lens))
     torch.testing.assert_close(out, dk.flash_verify_ref(*_t(q, k, v, lens)))
-    assert dk.LAUNCHES == {"flash_verify": 0, "paged_flash_verify": 0}
+    assert dk.LAUNCHES == dict.fromkeys(dk.LAUNCHES, 0) and "flash_verify" in dk.LAUNCHES
 
 
 def test_kernel_operand_checks():
@@ -158,3 +160,210 @@ def test_unknown_device_raises():
     with pytest.raises(ValueError, match="no kernel"):
         dk.flash_verify(q, q, q, torch.zeros(1, dtype=torch.int32, device="meta"))
 
+
+# -- kernels #6-#9: int8 pools and the token-tree mask -------------------------------
+
+
+def _quant(rng, kp, vp, tbl, zero_page=True):
+    """int8 pools with one fp32 scale per (page, head) from fp32 pools of
+    the same shape; the first page row 0 maps gets scale 0 (a page never
+    written reads as zeros)."""
+    num_pages, h = kp.shape[0], kp.shape[2]
+    k8 = rng.integers(-127, 128, size=kp.shape).astype(np.int8)
+    v8 = rng.integers(-127, 128, size=vp.shape).astype(np.int8)
+    ks = rng.uniform(0.001, 0.05, size=(num_pages, h)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.05, size=(num_pages, h)).astype(np.float32)
+    if zero_page:
+        ks[tbl[0, 0]] = vs[tbl[0, 0]] = 0.0
+    return k8, v8, ks, vs
+
+
+def _parents(rng, b, w):
+    """A seeded random tree per row: row 0 is the root, row j's parent
+    is any earlier row."""
+    par = np.full((b, w), -1, dtype=np.int32)
+    for j in range(1, w):
+        par[:, j] = rng.integers(0, j, size=b)
+    return par
+
+
+def _masks(par, lens, w, klen):
+    """The tree mask from both packages' tree_allowed_mask."""
+    jmask = np.asarray(jax_tree_allowed_mask(jnp.asarray(par), jnp.asarray(lens), w, klen))
+    tmask = tattn.tree_allowed_mask(*_t(par, lens), w, klen).numpy()
+    np.testing.assert_array_equal(tmask, jmask)
+    return tmask
+
+
+@pytest.mark.parametrize("w", [1, 5, 13])
+def test_quant_plain_versions_match_pallas_interpreter(w):
+    """#6 (staircase) and #9 (tree) over int8 pools against the Pallas
+    kernels in interpret mode at 32-row pages (the reference's int8
+    kernels take no other), with a sentinel hole, a dead row and a
+    scale-0 page."""
+    rng = np.random.default_rng(10 + w)
+    page = 32
+    lengths = [3, 64 - w, 9, 20]
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 12, lengths)
+    tbl[1, 0] = 12  # a hole inside row 1's visible range
+    tbl[3, :] = 12  # a dead row
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+    pools = (q, k8, v8, ks, vs, tbl, lens)
+    ours = dk.paged_flash_verify_quant(*_t(*pools)).numpy()
+    kern = np.asarray(jdk.paged_flash_verify_quant(*map(jnp.asarray, pools), interpret=True))
+    np.testing.assert_allclose(ours, kern, atol=ATOL)
+    np.testing.assert_allclose(ours[3], 0.0)
+    mask = _masks(_parents(rng, 4, w), lens, w, tbl.shape[1] * page)
+    ours = dk.paged_flash_verify_tree_quant(*_t(*pools, mask)).numpy()
+    kern = np.asarray(
+        jdk.paged_flash_verify_tree_quant(
+            *map(jnp.asarray, pools), jnp.asarray(mask, jnp.float32), interpret=True
+        )
+    )
+    np.testing.assert_allclose(ours, kern, atol=ATOL)
+
+
+@pytest.mark.parametrize("w", [1, 13])
+@pytest.mark.parametrize("page", [8, 32])
+def test_tree_plain_versions_match_pallas_interpreter(w, page):
+    """#7 on the contiguous cache and #8 on pools with a hole and a dead
+    row, under a random tree mask, against the Pallas kernels."""
+    rng = np.random.default_rng(20 + w + page)
+    q, k, v, lens = _contig(rng, 3, w, 2, 16, 64, [0, 17, 64 - w])
+    mask = _masks(_parents(rng, 3, w), lens, w, 64)
+    ours = dk.flash_verify_tree(*_t(q, k, v, lens, mask)).numpy()
+    kern = np.asarray(
+        jdk.flash_verify_tree(*map(jnp.asarray, (q, k, v, lens)), jnp.asarray(mask, jnp.float32), interpret=True)
+    )
+    np.testing.assert_allclose(ours, kern, atol=ATOL)
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 32, [2, page, 64 - w, 9])
+    tbl[2, 0] = 32  # hole
+    tbl[3, :] = 32  # dead row
+    mask = _masks(_parents(rng, 4, w), lens, w, 64)
+    ours = dk.paged_flash_verify_tree(*_t(q, kp, vp, tbl, lens, mask)).numpy()
+    kern = np.asarray(
+        jdk.paged_flash_verify_tree(
+            *map(jnp.asarray, (q, kp, vp, tbl, lens)), jnp.asarray(mask, jnp.float32), interpret=True
+        )
+    )
+    np.testing.assert_allclose(ours, kern, atol=ATOL)
+    np.testing.assert_allclose(ours[3], 0.0)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_plain_versions_match_jax_dense_paths(page):
+    """At the pages the reference's int8 kernels refuse, #6-#9's plain
+    versions against the reference's dense paths (paged_verify_attention
+    with scales and tree_parents, verify_attention with tree_parents,
+    paged_decode_attention with scales) on live rows; the port's
+    attention seams give the same with the mask precomputed."""
+    rng = np.random.default_rng(30 + page)
+    for w in (1, 5, 13):
+        lengths = [3, 64 - w, 9, page]
+        q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 40, lengths)
+        k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+        par = _parents(rng, 4, w)
+        mask = _masks(par, lens, w, 64)
+        jq = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        jargs = list(map(jnp.asarray, (q, k8, v8, tbl, lens)))
+        targs = _t(q, k8, v8, tbl, lens)
+        tq = dict(zip(("k_scale", "v_scale"), _t(ks, vs)))
+        cases = [
+            (dk.paged_flash_verify_quant(*_t(q, k8, v8, ks, vs, tbl, lens)),
+             jax_paged_verify_attention(*jargs, **jq)),
+            (dk.paged_flash_verify_tree_quant(*_t(q, k8, v8, ks, vs, tbl, lens, mask)),
+             jax_paged_verify_attention(*jargs, **jq, tree_parents=jnp.asarray(par))),
+            (dk.paged_flash_verify_tree(*_t(q, kp, vp, tbl, lens, mask)),
+             jax_paged_verify_attention(*map(jnp.asarray, (q, kp, vp, tbl, lens)), tree_parents=jnp.asarray(par))),
+            (tattn.paged_verify_attention(*targs, **tq, allowed=_t(mask)[0]),
+             jax_paged_verify_attention(*jargs, **jq, tree_parents=jnp.asarray(par))),
+            (tattn.paged_verify_attention(*targs, **tq, tree_parents=_t(par)[0]),
+             jax_paged_verify_attention(*jargs, **jq, tree_parents=jnp.asarray(par))),
+        ]
+        qc, kc, vc, lc = _contig(rng, 3, w, 2, 16, 64, [0, 30, 64 - w])
+        cpar = _parents(rng, 3, w)
+        cmask = _masks(cpar, lc, w, 64)
+        cases.append(
+            (dk.flash_verify_tree(*_t(qc, kc, vc, lc, cmask)),
+             jax_verify_attention(*map(jnp.asarray, (qc, kc, vc, lc)), tree_parents=jnp.asarray(cpar)))
+        )
+        cases.append(
+            (tattn.verify_attention(*_t(qc, kc, vc, lc), tree_parents=_t(cpar)[0]),
+             jax_verify_attention(*map(jnp.asarray, (qc, kc, vc, lc)), tree_parents=jnp.asarray(cpar)))
+        )
+        if w == 1:
+            cases.append(
+                (tattn.paged_decode_attention(*targs, **tq),
+                 jax_paged_decode_attention(*jargs, **jq))
+            )
+        for ours, ref in cases:
+            np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_chain_parents_reproduce_the_staircase():
+    """A tree of chain parents is the linear verify: the mask equals the
+    staircase, and #7/#8/#9's plain versions equal #4/#5/#6's."""
+    rng = np.random.default_rng(40)
+    w = 6
+    q, kp, vp, tbl, lens = _paged(rng, 3, w, 2, 16, 16, 16, [0, 7, 40])
+    chain = np.tile(np.arange(-1, w - 1, dtype=np.int32), (3, 1))
+    mask = tattn.tree_allowed_mask(*_t(chain, lens), w, 64)
+    torch.testing.assert_close(mask, dk._staircase(_t(lens)[0], w, 64))
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+    torch.testing.assert_close(
+        dk.paged_flash_verify_tree(*_t(q, kp, vp, tbl, lens), mask),
+        dk.paged_flash_verify(*_t(q, kp, vp, tbl, lens)), atol=ATOL, rtol=0,
+    )
+    torch.testing.assert_close(
+        dk.paged_flash_verify_tree_quant(*_t(q, k8, v8, ks, vs, tbl, lens), mask),
+        dk.paged_flash_verify_quant(*_t(q, k8, v8, ks, vs, tbl, lens)), atol=ATOL, rtol=0,
+    )
+    qc, kc, vc, lc = _contig(rng, 3, w, 2, 16, 64, [0, 7, 58])
+    cmask = tattn.tree_allowed_mask(*_t(chain, lc), w, 64)
+    torch.testing.assert_close(
+        dk.flash_verify_tree(*_t(qc, kc, vc, lc), cmask),
+        dk.flash_verify(*_t(qc, kc, vc, lc)), atol=ATOL, rtol=0,
+    )
+
+
+def test_scale_zero_page_reads_as_zeros():
+    """A page with scale 0 contributes zero vectors at its visible
+    positions: the int8 plain version equals fp32 attention over the
+    dequantized pools with that page zeroed."""
+    rng = np.random.default_rng(41)
+    q, kp, vp, tbl, lens = _paged(rng, 2, 3, 2, 16, 16, 8, [20, 5])
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+    ours = dk.paged_flash_verify_quant(*_t(q, k8, v8, ks, vs, tbl, lens))
+    kd = torch.from_numpy(k8).float() * torch.from_numpy(ks)[:, None, :, None]
+    vd = torch.from_numpy(v8).float() * torch.from_numpy(vs)[:, None, :, None]
+    assert float(kd[tbl[0, 0]].abs().max()) == 0.0
+    ref = dk.paged_flash_verify(*_t(q), kd, vd, *_t(tbl, lens))
+    torch.testing.assert_close(ours, ref, atol=ATOL, rtol=0)
+
+
+def test_quant_and_tree_operand_checks():
+    """What the int8 and tree launches reject, on CPU tensors."""
+    rng = np.random.default_rng(42)
+    q, kp, vp, tbl, lens = _t(*_paged(rng, 2, 3, 2, 16, 16, 8, [3, 9]))
+    k8, v8 = kp.to(torch.int8), vp.to(torch.int8)
+    dk._check_operands(q, (("k", k8), ("v", v8)), lens, tbl, quant=True)  # accepted
+    with pytest.raises(TypeError):
+        dk._check_operands(q, (("k", kp), ("v", vp)), lens, tbl, quant=True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dk._check_operands(q[..., :8], (("k", k8[..., :8]), ("v", v8[..., :8])), lens, tbl, quant=True)
+    with pytest.raises(ValueError, match="strides"):
+        odd = torch.zeros(8, 16, 2, 24, dtype=torch.int8)[..., :16]  # rows 24 bytes apart
+        dk._check_operands(q, (("k", odd), ("v", v8)), lens, tbl, quant=True)
+    scales = torch.zeros(8, 2)
+    dk._check_scales(scales, scales, 8, 2, q.device)  # accepted
+    with pytest.raises(ValueError, match="k_scale"):
+        dk._check_scales(scales[:, :1], scales, 8, 2, q.device)
+    mask = torch.ones(2, 3, 64, dtype=torch.bool)
+    assert dk._mask_operand(mask, 2, 3, 64, q.device).dtype == torch.uint8
+    assert dk._mask_operand(mask.float(), 2, 3, 64, q.device).dtype == torch.uint8
+    with pytest.raises(ValueError, match="contiguous"):
+        dk._mask_operand(torch.ones(2, 64, 3, dtype=torch.bool).transpose(1, 2), 2, 3, 64, q.device)
+    with pytest.raises(ValueError, match="allowed must be"):
+        dk._mask_operand(mask[:, :2], 2, 3, 64, q.device)
+    with pytest.raises(TypeError):
+        dk._mask_operand(mask.long(), 2, 3, 64, q.device)

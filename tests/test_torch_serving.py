@@ -192,13 +192,17 @@ def test_request_lifecycle(lms):
 
 
 def test_serve_config_takes_only_the_slice():
-    for kw in (dict(temperature=0.7), dict(admission="optimistic"), dict(kv_dtype="int8"),
-               dict(prefix_cache=True), dict(spec_draft="ngram"), dict(token_budget=64),
+    for kw in (dict(temperature=0.7), dict(admission="optimistic"), dict(spec_draft="model"),
+               dict(prefix_cache=True), dict(token_budget=64),
                dict(serve_async=True), dict(decode_kernel="pallas")):
         with pytest.raises(NotImplementedError):
             ServeConfig(**kw)
-    with pytest.raises(ValueError):
-        ServeConfig(kv_layout="ring")
-    with pytest.raises(ValueError):
-        ServeConfig(max_seq_len=30, kv_page_size=16)
+    for kw in (dict(kv_layout="ring"), dict(max_seq_len=30, kv_page_size=16),
+               dict(kv_dtype="int8", kv_layout="slot"), dict(kv_dtype="bf16"),
+               dict(spec_draft="ngram", spec_k=8, spec_branch=8),
+               dict(spec_draft="ngram", spec_k=64)):
+        with pytest.raises(ValueError):
+            ServeConfig(**kw)
+    # the widest verify the decode kernels take: 1 + 9 * 7 = 64 rows
+    ServeConfig(spec_draft="ngram", spec_k=9, spec_branch=7, kv_dtype="int8")
     assert ServeConfig().kv_layout == "paged" and ServeConfig().scheduler == "continuous"
