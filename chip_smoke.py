@@ -17,9 +17,12 @@ result line) on any failed phase:
                heads x 64, max_len 512, 16-row pages, 256 pages): #4 and
                #5 at w = 1 and 5 (atol 1e-4), #6 on int8 pools with a
                scale-0 page at w = 1 and 5, #7-#9 under a seeded random
-               draft tree at w = 13 (atol 1e-5), with times, bounds, a
-               library yardstick where PyTorch has one and the card's
-               clocks and power;
+               draft tree at w = 13 and #7, #8 (the split-KV tree body of
+               tree_kernel.cu) also at w = 64 (atol 1e-5), with times,
+               bounds, a library yardstick where PyTorch has one and the
+               card's clocks and power, and for #7 and #8 (with their
+               plain versions and the library call) the profiler's
+               device time and the host time of one call;
   3. serve   — the flagship decoder LM (12 layers, hidden 1024, 16
                heads, ff 4096, vocab 32000, seeded random weights) serves
                32 requests on 8 slots x 512 tokens under the default
@@ -46,7 +49,8 @@ result line) on any failed phase:
                logit gaps stay that close to the plain run's before any
                divergence; tokens/s, verify steps, acceptance, accepted
                tokens per verify and KV pool bytes, and a profiled
-               window of (b)'s, (c)'s and (d)'s steps;
+               window of (b)'s, (c)'s and (d)'s steps with the leg's
+               kernel's device time per launch beside the step's GEMMs;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, and ragged (sq 500, sq != sk): O and LSE within atol
@@ -135,12 +139,20 @@ KERNELS = {
     "flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
     "paged_flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
     "paged_flash_verify_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
-    "flash_verify_tree": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
-    "paged_flash_verify_tree": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
+    "flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
+    "paged_flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
     "paged_flash_verify_tree_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
+}
+
+# kernel wrapper -> substrings of the device functions its launches run,
+# as the profiler names them
+KERNEL_SYMBOLS = {
+    "paged_flash_verify_tree": ("tree_attention_kernel",),
+    "paged_flash_verify_quant": ("decode_attention_kernel<true, true, false>",),
+    "paged_flash_verify_tree_quant": ("decode_attention_kernel<true, true, true>",),
 }
 
 
@@ -166,8 +178,9 @@ def build_kernels():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        times = dict(zip((dk.SOURCE, fk.SOURCE), pool.map(timed, (dk._lib, fk._lib))))
+    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        times = dict(zip(builds, pool.map(timed, builds.values())))
     print(f"[build] {len(times)} sources in {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for source, build_s in times.items():
         print(f"[build] {source}: {build_s:.2f} s")
@@ -304,6 +317,57 @@ def time_ms(fn, flush, iters=50, warmup=10):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+# a device-side spin (clock cycles, ~0.1 s at 1980 MHz) queued before
+# host_ms's calls, longer than the host takes to queue them
+HOST_HOLD_CYCLES = 200_000_000
+
+
+def host_ms(fn, iters=50, warmup=5):
+    """Median host time of one call while the card is held busy by a
+    spin queued first, so that no call waits on the device: a wrapper's
+    checks, allocations and launch. time_ms counts it too where it
+    outlasts the L2 flush queued before the call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_HOLD_CYCLES)
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(times))
+
+
+def device_ms(fn, flush, iters=20):
+    """Device time of one call from the profiler: the kernels that `iters`
+    calls run, each after an L2 flush, less the flush's own kernels (by
+    name). None where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+    flush_keys = device_us(flush)
+
+    def calls():
+        for _ in range(iters):
+            flush()
+            fn()
+
+    us = sum(t for k, t in device_us(calls).items() if k not in flush_keys)
+    return us / 1e3 / iters if us > 0 else None
+
+
 def check_kernels():
     import torch
     import torch.nn.functional as F
@@ -363,12 +427,16 @@ def check_kernels():
 def check_spec_kernels():
     """Kernels #6-#9 against their plain versions at the serving shape
     of check_kernels: #6 at w = 1 and 5, #7-#9 at w = 13 under a seeded
-    random draft tree per row, atol 1e-5. Each is timed at its path's
-    width as #4 and #5 are (#6 at w = 1, the int8 decode step; the tree
-    kernels at w = 13), with its bound and its plain version; #7 and #8
-    also with masked SDPA under the tree mask as the library yardstick.
-    No PyTorch call dequantizes int8 inside attention, so #6 and #9 have
-    none."""
+    random draft tree per row, and #7, #8 also at w = 64 (the widest tree
+    ServeConfig takes), atol 1e-5. Each is timed at its path's width as
+    #4 and #5 are (#6 at w = 1, the int8 decode step; the tree kernels at
+    w = 13; #7 and #8 again at w = 64, printed only), with its bound
+    and its plain version; #7 and #8 also with masked SDPA under the tree
+    mask as the library yardstick (for #8 on K/V gathered from the pages
+    before the timer starts, so its number leaves out the gather), and
+    for #7, #8, their plain versions and SDPA the profiler's device time
+    and the host time of one call beside the timer's. No PyTorch call
+    dequantizes int8 inside attention, so #6 and #9 have none."""
     import torch
     import torch.nn.functional as F
 
@@ -378,9 +446,11 @@ def check_spec_kernels():
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
     tree_names = ("flash_verify_tree", "paged_flash_verify_tree", "paged_flash_verify_tree_quant")
-    timed_at = dict({"paged_flash_verify_quant": 1}, **dict.fromkeys(tree_names, 13))
+    fp32_tree = tree_names[:2]
+    timed = {("paged_flash_verify_quant", 1), *((n, 13) for n in tree_names), *((n, 64) for n in fp32_tree)}
     rows = {}
-    for w, names in ((1, ("paged_flash_verify_quant",)), (5, ("paged_flash_verify_quant",)), (13, tree_names)):
+    cases = ((1, ("paged_flash_verify_quant",)), (5, ("paged_flash_verify_quant",)), (13, tree_names), (64, fp32_tree))
+    for w, names in cases:
         x = kernel_inputs(device, w)
         quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
         args = {
@@ -402,13 +472,12 @@ def check_spec_kernels():
             require(err <= ATOL_SPEC_KERNEL, f"{name} w={w}: error {err} > {ATOL_SPEC_KERNEL}")
             row = rows.setdefault(name, {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if w != timed_at[name]:
+            if (name, w) not in timed:
                 continue
-            row["ms"] = time_ms(kernel, flush)
-            row["plain_ms"] = time_ms(plain, flush)
-            row["bound_ms"], row["bound_by"] = bound_ms(x, name)
+            t = dict(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush))
+            t["bound_ms"], t["bound_by"] = bound_ms(x, name)
             if name.endswith("_quant"):
-                row["library_ms"] = None
+                t["library_ms"] = None
                 library = "none: no PyTorch call dequantizes int8 pages inside attention"
             else:
                 if name == "flash_verify_tree":
@@ -419,12 +488,26 @@ def check_spec_kernels():
                 mask = masks[name][0][:, None]  # [b, 1, w, L]
                 qt, kt, vt = x["q"].transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
                 sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-                row["library_ms"] = time_ms(sdpa, flush)
-                library = f"masked sdpa {row['library_ms']:.4f} ms"
+                t["library_ms"] = time_ms(sdpa, flush)
+                library = f"masked sdpa {t['library_ms']:.4f} ms"
+                if name.startswith("paged"):
+                    library += " (on K/V gathered from the pages before the timer starts)"
+            if w != 64:  # the kernels line keeps the path's width
+                row.update(t)
             print(
-                f"[kernels] {name} w={w}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
-                f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, library {library}"
+                f"[kernels] {name} w={w}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+                f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {library}"
             )
+            if name in fp32_tree:
+                # time_ms counts a call's host side where it outlasts the
+                # flush: the profiler's device time and the host time of
+                # each call tell the two apart
+                fns = {"kernel": kernel, "plain": plain, "library": sdpa}
+                split = {
+                    who: dict(ms=t[key], device_ms=device_ms(fn, flush), host_ms=host_ms(fn))
+                    for (who, fn), key in zip(fns.items(), ("ms", "plain_ms", "library_ms"))
+                }
+                print("[timing] " + json.dumps(dict(name=name, w=w, **split)))
     return rows
 
 
@@ -605,15 +688,18 @@ def serve_flagship(device, layers=FLAGSHIP["layers"]):
     return model, summary, launches
 
 
-def profile_decode(model, steps=16, label="decode", **serve_kw):
+def profile_decode(model, steps=16, label="decode", kernel=None, **serve_kw):
     """Device time by kernel over a window of `steps` scheduler
     iterations, all slots busy (torch.profiler): decode steps, or verify
-    steps under a spec ServeConfig (`serve_kw`). None when the profiler
-    sees no device activity."""
+    steps under a spec ServeConfig (`serve_kw`). With `kernel`, a wrapper
+    of KERNEL_SYMBOLS, also that kernel's device time per wrapper call
+    beside the device time of the step's GEMMs.
+    None when the profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
     from flexflow_tpu_torch.serving import Request, ServeConfig, build_scheduler
 
     sched, _, _ = build_scheduler(
@@ -625,6 +711,7 @@ def profile_decode(model, steps=16, label="decode", **serve_kw):
         sched.submit(Request(rid=i, prompt=[i + 1, i + 2], max_new_tokens=budget))
     sched.step()  # admission prefill + first decode, outside the window
     torch.cuda.synchronize()
+    calls0 = dict(dk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -651,6 +738,22 @@ def profile_decode(model, steps=16, label="decode", **serve_kw):
         device_ops_per_step=sum(e.count for e in events) / steps,
         top=[(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count // steps) for e in top],
     )
+    if kernel is not None:
+        calls = dk.LAUNCHES[kernel] - calls0[kernel]
+        kern_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in KERNEL_SYMBOLS[kernel]))
+        gemm_us = sum(e.self_device_time_total for e in events if "gemm" in e.key.lower() or "gemv" in e.key.lower())
+        out["kernel"] = dict(
+            name=kernel,
+            calls=calls,
+            device_ms_per_call=kern_us / 1e3 / calls if calls and kern_us else None,
+            device_ms_per_step=kern_us / 1e3 / steps,
+            gemm_ms_per_step=gemm_us / 1e3 / steps,
+        )
+        per_call = "not measured" if out["kernel"]["device_ms_per_call"] is None else \
+            f"{out['kernel']['device_ms_per_call']:.4f} ms"
+        print(f"[profile] {label}: {kernel} {per_call} of device time per call ({calls} calls, "
+              f"{out['kernel']['device_ms_per_step']:.4f} ms per step) beside the step's GEMMs "
+              f"{out['kernel']['gemm_ms_per_step']:.4f} ms per step")
     print("[profile] " + json.dumps(out))
     return out
 
@@ -844,9 +947,12 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     *_, d_launches = serve_leg("d: tree spec, int8 paged", model, layers, "paged_flash_verify_tree_quant",
                                plain=(c, c_top), **tree_int8)
     if model.device.type == "cuda":
-        for label, kw in (("b: tree spec verify, fp32 paged", TREE), ("c: decode, int8 paged", int8),
-                          ("d: tree spec verify, int8 paged", tree_int8)):
-            profile_decode(model, label=label, **kw)
+        for label, kernel, kw in (
+            ("b: tree spec verify, fp32 paged", "paged_flash_verify_tree", TREE),
+            ("c: decode, int8 paged", "paged_flash_verify_quant", int8),
+            ("d: tree spec verify, int8 paged", "paged_flash_verify_tree_quant", tree_int8),
+        ):
+            profile_decode(model, label=label, kernel=kernel, **kw)
     del model
     small = build_lm(device, **dict(FLAGSHIP, layers=small_layers))
     slot, linear_int8 = dict(kv_layout="slot"), dict(LINEAR, kv_dtype="int8")

@@ -3,7 +3,7 @@
 // shared library with a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/decode_kernel.py.
 //
-// What it replaces: the six Pallas TPU kernels of
+// What it replaces: four Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/decode_kernel.py, one device body templated on
 // three compile-time flags, as the JAX family shares one body between
 // decode (w == 1) and verify (w queries):
@@ -11,9 +11,10 @@
 //     0      0      0    _decode_kernel :235 (flash_verify)              #4
 //     1      0      0    _paged_kernel :342 (paged_flash_verify)         #5
 //     1      1      0    _paged_kernel_quant :476                        #6
-//     0      0      1    _tree_kernel :626 (flash_verify_tree)           #7
-//     1      0      1    _paged_tree_kernel :732                         #8
 //     1      1      1    _paged_tree_kernel_quant :849                   #9
+// The fp32 tree verifies, _tree_kernel :626 (#7) and _paged_tree_kernel
+// :732 (#8), have their own split-KV body in tree_kernel.cu; here the kTree
+// flag serves #9 alone, until the tree body takes int8 pages.
 //   * kPaged: the cache is pools [num_pages, page, h, d] walked through the
 //     block table; rows on a sentinel page (table entry outside
 //     [0, num_pages)) are neither read nor counted.
@@ -315,7 +316,7 @@ const char* ff_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One entry for the six variants. q [b, w, h, d] fp32 (head_dim
+// One entry for the four variants. q [b, w, h, d] fp32 (head_dim
 // contiguous); out [b, w, h, d] contiguous fp32; lengths [b] int32.
 // Contiguous layout (paged == 0): k/v [b, max_len, h, d] fp32, strides
 // (batch, position, head). Paged layout: k/v [num_pages, page_size, h, d]
@@ -325,7 +326,8 @@ const char* ff_cuda_error_string(int code) {
 // unallocated. tree != 0: allowed [b, w, max_len] uint8 with strides
 // (m_sb, m_sw), nonzero = visible. chunk is a multiple of page_size on the
 // paged layout. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a combination no variant serves.
+// cudaErrorInvalidValue for a combination no variant serves (the fp32
+// tree verifies are tree_kernel.cu's).
 int ff_decode_attention(const void* q, const void* k, const void* v,
                         const void* k_scale, const void* v_scale,
                         const void* tables, const void* lengths,
@@ -348,9 +350,7 @@ int ff_decode_attention(const void* q, const void* k, const void* v,
   const int variant = (paged ? 4 : 0) | (quant ? 2 : 0) | (tree ? 1 : 0);
   switch (variant) {
     case 0: return launch<false, false, false>(p, b, s);
-    case 1: return launch<false, false, true>(p, b, s);
     case 4: return launch<true, false, false>(p, b, s);
-    case 5: return launch<true, false, true>(p, b, s);
     case 6: return launch<true, true, false>(p, b, s);
     case 7: return launch<true, true, true>(p, b, s);
     default: return (int)cudaErrorInvalidValue;  // int8 needs the paged layout

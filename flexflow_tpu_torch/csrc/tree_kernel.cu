@@ -1,0 +1,535 @@
+// Token-tree verify attention over fp32 caches, for Hopper (sm_90a): the
+// device body of kernels #7 and #8. Built by flexflow_tpu_torch/ops/cuda/
+// _build.py with nvcc into a shared library with a plain C interface,
+// loaded through ctypes by flexflow_tpu_torch/ops/cuda/decode_kernel.py.
+//
+// What it replaces: two Pallas TPU kernels of
+// flexflow_tpu/ops/pallas/decode_kernel.py,
+//   kPaged
+//     0    _tree_kernel :626 (flash_verify_tree)                  #7
+//     1    _paged_tree_kernel :732 (paged_flash_verify_tree)      #8
+// w query rows per sequence (the draft tree's nodes) against the KV cache,
+// where row j sees position p iff allowed[b, j, p] != 0 (a uint8 mask over
+// logical positions) and p < lengths[b] + w (the chunk gate). On the paged
+// layout rows on a sentinel page (table entry outside [0, num_pages)) are
+// neither read nor counted. A masked entry contributes p = 0, and a row
+// that sees nothing yields acc / max(l, 1e-30) = 0. The int8 tree kernel
+// (#9) stays on decode_kernel.cu's body.
+//
+// What bounds it: the bytes of the visible K/V rows. At the serving shape
+// (8 sequences x 16 heads x 64, w = 13, max_len 512) the two products are
+// under 0.25 GFLOP, a few microseconds at the card's fp32 rate, against
+// ~6 us to read the rows once, so the design is about spreading the reads
+// over the whole card and keeping the arithmetic off shared-memory
+// round trips:
+//   * split-KV (flash-decoding): the grid is (splits, h, b); each block owns
+//     `span` consecutive positions (a multiple of 64 and a whole number of
+//     pages, at most 64 splits: decode_kernel.py's _TREE_SPAN_UNIT and
+//     _TREE_MAX_SPLITS, which pick_splits keeps and kSpanUnit and
+//     kMaxSplits here enforce), chosen on the host from b, h and max_len
+//     alone so that the grid fills the SMs several times over; `lengths`
+//     stays on the device,
+//     and a block whose range starts at or past min(lengths[b] + w,
+//     max_len) exits at once; the split index is the fastest grid index,
+//     so such blocks free their slots as soon as they are scheduled and
+//     every block with positions to read can be resident at once;
+//   * each block keeps its running (m, l) per query row and an fp32
+//     accumulator in registers; where a sequence has one live split its
+//     block writes the output, else each live block writes one partial
+//     per query row and counts its arrival on the (sequence, head)'s
+//     counter (atomicInc, which returns the counter to 0 as the last one
+//     arrives, so it is zero again for the next call); the last to arrive
+//     merges the partials exactly, M = max m_s, out = sum e^(m_s - M)
+//     acc_s / max(sum e^(m_s - M) l_s, 1e-30), over the partials with
+//     l_s > 0 only, so all-masked ranges drop out and a row that sees
+//     nothing gives 0 with no NaN. Empty blocks exit at once: one launch
+//     per call, no merge kernel;
+//   * register tiling: 128 threads as 8 x 16; thread (ty, tx) owns query
+//     rows ty + 8 i (kRm of them, the w bucket: w <= 16, 32 or 64) and key
+//     rows tx + 16 j of each chunk (32 rows at w <= 16 or head_dim > 128,
+//     else 64) for the scores (dot products over head_dim straight from
+//     shared memory, no shuffles), and the same query rows times head_dim
+//     columns 4 tx + 64 k (kCn of them: head_dim <= 64, 128 or 256) of the
+//     accumulator, so each staged V element is loaded once per thread and
+//     used for all of its rows; the row max and sum reduce across the 16 threads that
+//     share a row;
+//   * Q, K, V and the mask are staged with 16-byte (mask: 4-byte) loads;
+//     rows are padded to head_dim + 4 floats against bank conflicts; each
+//     row's cache offset is resolved once per chunk (one page lookup per
+//     row, not per element); the length, the first chunk's page lookups
+//     and the Q tile are loaded together, and the mask words before K/V
+//     are stored, so a block waits on device memory twice per chunk, not
+//     four times; shared memory is 26 KB per block at w <= 16, head_dim
+//     64, so 8 blocks share an SM.
+// Left to later work: a block stages a chunk and then computes it, and
+// the blocks of an SM do so in step; double-buffered cp.async staging
+// would overlap the two.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kTx = 16;                // threads across key rows / head_dim
+constexpr int kTy = kThreads / kTx;    // threads across query rows
+constexpr int kSpanUnit = 64;          // a split's span is a multiple of it
+constexpr float kMask = -1e30f;
+constexpr int kMaxSplits = 64;         // the merge weights fit the K/V tiles
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* lengths;
+  const int* tables;        // paged only: [b, pages_per_seq] page ids
+  const uint8_t* allowed;   // [b, w, max_len], last dim contiguous
+  float* out;               // [b, w, h, d] contiguous
+  float* part_acc;          // splits > 1: [b, h, splits, w, d]
+  float* part_ml;           // splits > 1: [b, h, splits, w, 2] (m, l)
+  unsigned int* counters;   // splits > 1: [b * h] arrivals, zero at rest
+  int w, h, d;
+  int max_len;    // positions a sequence can hold
+  int span;       // positions per split, a multiple of kSpanUnit
+  int splits;
+  int page_size;  // paged only
+  int num_pages;  // paged only: entries outside [0, num_pages) are sentinels
+  int mask_vec4;  // the mask rows may be read as 4-byte words
+  int64_t tbl_sb;
+  int64_t q_sb, q_sw, q_sh;
+  // contiguous: (batch, position, head) strides; paged: (page, row, head)
+  int64_t k_s0, k_s1, k_sh;
+  int64_t v_s0, v_s1, v_sh;
+  int64_t m_sb, m_sw;
+  float scale;
+};
+
+__host__ __device__ constexpr int row_stride(int cn) { return 64 * cn + 4; }
+
+// Key rows staged per loop iteration: 32 for w <= 16, where the smaller
+// tiles let 8 blocks share an SM, so that every block of a call at the
+// serving shape is resident at once, and for head_dim > 128, whose rows
+// would otherwise not fit shared memory at w = 64; 64 for wider trees,
+// whose tiles are the larger cost. Both divide kSpanUnit.
+__host__ __device__ constexpr int chunk_rows(int rm, int cn) {
+  return rm == 2 || cn == 4 ? 32 : 64;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int rm, int cn) {
+  return sizeof(float) * (size_t)(rm * kTy * row_stride(cn) +
+                                  2 * chunk_rows(rm, cn) * row_stride(cn) +
+                                  rm * kTy * (chunk_rows(rm, cn) + 4)) +
+         2 * sizeof(int64_t) * chunk_rows(rm, cn) + (size_t)rm * kTy * chunk_rows(rm, cn);
+}
+
+// Element offsets of position `pos`'s K and V rows of head ih (head
+// included), or -1 where the row lies on a sentinel page.
+template <bool kPaged>
+__device__ __forceinline__ void row_offsets(const Params& p, int ib, int ih, int pos,
+                                            int64_t& ko, int64_t& vo) {
+  if (kPaged) {
+    const int page = p.tables[ib * p.tbl_sb + pos / p.page_size];
+    if (page >= 0 && page < p.num_pages) {
+      const int64_t row = pos % p.page_size;
+      ko = page * p.k_s0 + row * p.k_s1 + ih * p.k_sh;
+      vo = page * p.v_s0 + row * p.v_s1 + ih * p.v_sh;
+    }
+  } else {
+    ko = ib * p.k_s0 + pos * p.k_s1 + ih * p.k_sh;
+    vo = ib * p.v_s0 + pos * p.v_s1 + ih * p.v_sh;
+  }
+}
+
+template <bool kPaged, int kRm, int kCn>
+__global__ void __launch_bounds__(kThreads)
+    tree_attention_kernel(const Params p) {
+  constexpr int kWb = kRm * kTy;      // query rows of the tile
+  constexpr int kChunk = chunk_rows(kRm, kCn);
+  constexpr int kKn = kChunk / kTx;   // key rows per thread in the scores
+  constexpr int kPs = kChunk + 4;     // padded row stride of the p tile
+  constexpr int kDs = row_stride(kCn);
+  constexpr int kC4 = 16 * kCn;       // float4 columns of a staged row
+  constexpr int kRs = kThreads / kC4; // rows staged per pass
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [kWb][kDs]
+  float* k_s = q_s + kWb * kDs;                  // [kChunk][kDs]
+  float* v_s = k_s + kChunk * kDs;               // [kChunk][kDs]
+  float* p_s = v_s + kChunk * kDs;               // [kWb][kPs]
+  // cache offsets of this chunk's rows (head included), -1 = not read
+  int64_t* koff_s = reinterpret_cast<int64_t*>(p_s + kWb * kPs);
+  int64_t* voff_s = koff_s + kChunk;
+  uint8_t* vis_s = reinterpret_cast<uint8_t*>(voff_s + kChunk);  // [kWb][kChunk]
+
+  const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
+  const int w = p.w, d = p.d, d4 = p.d / 4;
+  const int lo = is * p.span;
+  // the length, the first chunk's row offsets and the Q tile are loaded
+  // together (the last two lie inside the cache whatever the length)
+  const int length = p.lengths[ib];
+  int64_t ko = -1, vo = -1;
+  if (tid < kChunk && lo + tid < p.max_len) row_offsets<kPaged>(p, ib, ih, lo + tid, ko, vo);
+  constexpr int kQn = kWb * kC4 / kThreads;  // Q float4s per thread
+  float4 qv[kQn];
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+#pragma unroll
+  for (int u = 0; u < kQn; ++u) {
+    const int i = tid + u * kThreads, j = i / kC4, c = i % kC4;
+    qv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < w && c < d4) qv[u] = *reinterpret_cast<const float4*>(qb + j * p.q_sw + 4 * c);
+  }
+  // positions [0, end) are visible to at least one query row
+  const int end = min(length + w, p.max_len);
+  const int hi = min(lo + p.span, end);
+  if (lo >= hi) {  // nothing to read in this range
+    if (is == 0)  // nor in any (lengths[b] + w <= 0): the output is 0
+      for (int i = tid; i < w * d; i += kThreads)
+        p.out[(((int64_t)ib * w + i / d) * p.h + ih) * d + i % d] = 0.f;
+    return;
+  }
+  const int live = (end + p.span - 1) / p.span;  // splits with positions to read
+#pragma unroll
+  for (int u = 0; u < kQn; ++u) {
+    const int i = tid + u * kThreads;
+    reinterpret_cast<float4*>(q_s + (i / kC4) * kDs)[i % kC4] = qv[u];
+  }
+
+  float acc[kRm][4 * kCn];
+  float m_r[kRm], l_r[kRm];
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) {
+    m_r[i] = kMask;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * kCn; ++e) acc[i][e] = 0.f;
+  }
+
+  const int sc = tid % kC4, sr = tid / kC4;  // this thread's staging column, first row
+  const uint8_t* mb = p.allowed + ib * p.m_sb;
+  for (int k0 = lo; k0 < hi; k0 += kChunk) {
+    const int rows = min(kChunk, hi - k0);
+    // where each row of the chunk lives, or -1 (past the range or on a
+    // sentinel page)
+    if (tid < kChunk) {
+      if (k0 != lo) {
+        ko = vo = -1;
+        if (k0 + tid < p.max_len) row_offsets<kPaged>(p, ib, ih, k0 + tid, ko, vo);
+      }
+      koff_s[tid] = tid < rows ? ko : -1;
+      voff_s[tid] = tid < rows ? vo : -1;
+    }
+    __syncthreads();
+
+    // this chunk's mask words, then K and V (zeros where a row is not
+    // read, so p = 0 meets finite values), then the mask with the page
+    // check folded in
+    constexpr int kMw = kWb * (kChunk / 4) / kThreads;  // mask words per thread
+    uint32_t mw[kMw];
+#pragma unroll
+    for (int u = 0; u < kMw; ++u) {
+      const int i = tid + u * kThreads;
+      const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
+      uint32_t word = 0;
+      if (j < w) {
+        const uint8_t* mr = mb + j * p.m_sw + k0 + c;
+        if (p.mask_vec4 && c + 4 <= rows) {
+          word = *reinterpret_cast<const uint32_t*>(mr);
+        } else {
+          for (int e = 0; e < 4 && c + e < rows; ++e) word |= (uint32_t)mr[e] << (8 * e);
+        }
+      }
+      mw[u] = word;
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk / kRs; ++u) {
+      const int r = sr + u * kRs;
+      const int64_t ko = koff_s[r], vo = voff_s[r];
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (ko >= 0 && sc < d4) {
+        kv = __ldg(reinterpret_cast<const float4*>(p.k + ko) + sc);
+        vv = __ldg(reinterpret_cast<const float4*>(p.v + vo) + sc);
+      }
+      reinterpret_cast<float4*>(k_s + r * kDs)[sc] = kv;
+      reinterpret_cast<float4*>(v_s + r * kDs)[sc] = vv;
+    }
+#pragma unroll
+    for (int u = 0; u < kMw; ++u) {
+      const int i = tid + u * kThreads;
+      const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
+      uint32_t vis = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (((mw[u] >> (8 * e)) & 0xffu) && koff_s[c + e] >= 0) vis |= 1u << (8 * e);
+      reinterpret_cast<uint32_t*>(vis_s + j * kChunk)[c / 4] = vis;
+    }
+    __syncthreads();
+
+    // scores of the thread's (query row, key row) micro-tile over head_dim
+    float s[kRm][kKn];
+#pragma unroll
+    for (int i = 0; i < kRm; ++i)
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) s[i][j] = 0.f;
+    const float4* q4 = reinterpret_cast<const float4*>(q_s + ty * kDs);
+    const float4* k4 = reinterpret_cast<const float4*>(k_s + tx * kDs);
+#pragma unroll 4
+    for (int c = 0; c < d4; ++c) {
+      float4 kk[kKn];
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) kk[j] = k4[j * kTx * (kDs / 4) + c];
+#pragma unroll
+      for (int i = 0; i < kRm; ++i) {
+        const float4 qq = q4[i * kTy * (kDs / 4) + c];
+#pragma unroll
+        for (int j = 0; j < kKn; ++j)
+          s[i][j] += qq.x * kk[j].x + qq.y * kk[j].y + qq.z * kk[j].z + qq.w * kk[j].w;
+      }
+    }
+
+    // online softmax per query row, reduced across the 16 threads of the row
+#pragma unroll
+    for (int i = 0; i < kRm; ++i) {
+      const int row = ty + i * kTy;
+      bool seen[kKn];
+      float mx = kMask;
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) {
+        seen[j] = vis_s[row * kChunk + tx + j * kTx] != 0;
+        s[i][j] = seen[j] ? s[i][j] * p.scale : kMask;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = kTx / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float corr = expf(m_r[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) {
+        const float pr = seen[j] ? expf(s[i][j] - m_new) : 0.f;
+        p_s[row * kPs + tx + j * kTx] = pr;
+        sum += pr;
+      }
+#pragma unroll
+      for (int o = kTx / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l_r[i] = l_r[i] * corr + sum;
+      m_r[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * kCn; ++e) acc[i][e] *= corr;
+    }
+    __syncthreads();
+
+    // acc += p @ V: four key rows per step, each V float4 used for all rows
+    const int rows4 = (rows + 3) & ~3;
+    for (int r = 0; r < rows4; r += 4) {
+      float4 pp[kRm];
+#pragma unroll
+      for (int i = 0; i < kRm; ++i)
+        pp[i] = *reinterpret_cast<const float4*>(p_s + (ty + i * kTy) * kPs + r);
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const float* vr = v_s + r * kDs + 4 * tx + 64 * k;
+        const float4 v0 = *reinterpret_cast<const float4*>(vr);
+        const float4 v1 = *reinterpret_cast<const float4*>(vr + kDs);
+        const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * kDs);
+        const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * kDs);
+#pragma unroll
+        for (int i = 0; i < kRm; ++i) {
+          acc[i][4 * k] += pp[i].x * v0.x + pp[i].y * v1.x + pp[i].z * v2.x + pp[i].w * v3.x;
+          acc[i][4 * k + 1] += pp[i].x * v0.y + pp[i].y * v1.y + pp[i].z * v2.y + pp[i].w * v3.y;
+          acc[i][4 * k + 2] += pp[i].x * v0.z + pp[i].y * v1.z + pp[i].z * v2.z + pp[i].w * v3.z;
+          acc[i][4 * k + 3] += pp[i].x * v0.w + pp[i].y * v1.w + pp[i].z * v2.w + pp[i].w * v3.w;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (live == 1) {  // the only split with positions: the output itself
+#pragma unroll
+    for (int i = 0; i < kRm; ++i) {
+      const int row = ty + i * kTy;
+      if (row >= w) continue;
+      const float l = fmaxf(l_r[i], 1e-30f);
+      float* o = p.out + (((int64_t)ib * w + row) * p.h + ih) * d;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const int c = 4 * tx + 64 * k;
+        if (c < d)
+          *reinterpret_cast<float4*>(o + c) =
+              make_float4(acc[i][4 * k] / l, acc[i][4 * k + 1] / l,
+                          acc[i][4 * k + 2] / l, acc[i][4 * k + 3] / l);
+      }
+    }
+    return;
+  }
+
+  // a partial per query row, then the arrival count
+  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits * w;  // split 0, row 0
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) {
+    const int row = ty + i * kTy;
+    if (row >= w) continue;
+    const int64_t r = base + (int64_t)is * w + row;
+    float* o = p.part_acc + r * d;
+#pragma unroll
+    for (int k = 0; k < kCn; ++k) {
+      const int c = 4 * tx + 64 * k;
+      if (c < d)
+        *reinterpret_cast<float4*>(o + c) =
+            make_float4(acc[i][4 * k], acc[i][4 * k + 1], acc[i][4 * k + 2], acc[i][4 * k + 3]);
+    }
+    if (tx == 0) {
+      p.part_ml[2 * r] = m_r[i];
+      p.part_ml[2 * r + 1] = l_r[i];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last_s;
+  if (tid == 0)
+    last_s = atomicInc(p.counters + ib * p.h + ih, (unsigned)(live - 1)) == (unsigned)(live - 1);
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // the last block to arrive merges the live partials (read from L2): the
+  // (m, l) of every (split, row) into shared memory at once, then each
+  // row's weights e^(m_s - M) (0 where l_s = 0), then the accumulators;
+  // partial rows base + s * w + j of splits 0..live-1 are contiguous
+  static_assert(3 * kMaxSplits * kWb + kWb <= kWb * kDs + 2 * kChunk * kDs + kWb * kPs,
+                "the merge's scratch does not fit the tiles");
+  float2* ml_s = reinterpret_cast<float2*>(q_s);                 // [live * w]
+  float* wt = reinterpret_cast<float*>(ml_s + kMaxSplits * kWb);  // [live * w]
+  float* den = wt + kMaxSplits * kWb;                             // [w] max(sum e l, 1e-30)
+  const float2* ml2 = reinterpret_cast<const float2*>(p.part_ml) + base;
+  for (int i = tid; i < live * w; i += kThreads) ml_s[i] = __ldcg(ml2 + i);
+  __syncthreads();
+  for (int j = tid; j < w; j += kThreads) {
+    float m = kMask;
+    for (int s = 0; s < live; ++s)
+      if (ml_s[s * w + j].y > 0.f) m = fmaxf(m, ml_s[s * w + j].x);
+    float sum = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float2 x = ml_s[s * w + j];
+      const float e = x.y > 0.f ? expf(x.x - m) : 0.f;
+      wt[s * w + j] = e;
+      sum += e * x.y;
+    }
+    den[j] = fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  // every live block wrote its whole partial (zeros where it saw nothing),
+  // so each load is of finite values; kBatch of them are issued before
+  // the first is used
+  constexpr int kBatch = 8;
+  const float4* acc4 = reinterpret_cast<const float4*>(p.part_acc) + base * d4;
+  float4* out4 = reinterpret_cast<float4*>(p.out);
+  for (int i = tid; i < w * d4; i += kThreads) {
+    const int j = i / d4, c = i - j * d4;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < live; s0 += kBatch) {
+      float4 a[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        a[u] = s0 + u < live ? __ldcg(acc4 + (int64_t)((s0 + u) * w + j) * d4 + c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const float e = s0 + u < live ? wt[(s0 + u) * w + j] : 0.f;
+        num.x += e * a[u].x;
+        num.y += e * a[u].y;
+        num.z += e * a[u].z;
+        num.w += e * a[u].w;
+      }
+    }
+    const float l = den[j];
+    out4[(((int64_t)ib * w + j) * p.h + ih) * d4 + c] =
+        make_float4(num.x / l, num.y / l, num.z / l, num.w / l);
+  }
+}
+
+template <bool kPaged, int kRm, int kCn>
+int launch_tile(const Params& p, int b, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes(kRm, kCn);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tree_attention_kernel<kPaged, kRm, kCn>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)  // all of the SM's L1/shared split to shared: more blocks
+      e = cudaFuncSetAttribute(tree_attention_kernel<kPaged, kRm, kCn>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  dim3 grid(p.splits, p.h, b);
+  tree_attention_kernel<kPaged, kRm, kCn><<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPaged, int kRm>
+int launch_cols(const Params& p, int b, cudaStream_t stream) {
+  if (p.d <= 64) return launch_tile<kPaged, kRm, 1>(p, b, stream);
+  if (p.d <= 128) return launch_tile<kPaged, kRm, 2>(p, b, stream);
+  return launch_tile<kPaged, kRm, 4>(p, b, stream);
+}
+
+template <bool kPaged>
+int launch_bucket(const Params& p, int b, cudaStream_t stream) {
+  if (p.w <= 2 * kTy) return launch_cols<kPaged, 2>(p, b, stream);
+  if (p.w <= 4 * kTy) return launch_cols<kPaged, 4>(p, b, stream);
+  return launch_cols<kPaged, 8>(p, b, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ff_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Tree verify over fp32 caches. q [b, w, h, d] fp32 (head_dim contiguous);
+// out [b, w, h, d] contiguous; lengths [b] int32. Contiguous layout (paged
+// == 0): k/v [b, max_len, h, d], strides (batch, position, head). Paged: k/v
+// [num_pages, page_size, h, d], strides (page, row, head), tables
+// [b, max_len / page_size] int32 with entries outside [0, num_pages)
+// unallocated. allowed [b, w, max_len] uint8 with strides (m_sb, m_sw),
+// nonzero = visible. head_dim is a multiple of 4 up to 256. splits x span
+// cover max_len, span a multiple of kSpanUnit (and of page_size when
+// paged), splits at most kMaxSplits; with splits > 1, part_acc holds
+// b * h * splits * w * d floats, part_ml b * h * splits * w * 2, and
+// counters b * h unsigned ints that are zero (the launch leaves them zero). One launch on `stream`;
+// returns cudaGetLastError() after it, or cudaErrorInvalidValue for a shape
+// the body does not take.
+int ff_tree_attention(const void* q, const void* k, const void* v,
+                      const void* tables, const void* lengths,
+                      const void* allowed, void* out, void* part_acc,
+                      void* part_ml, void* counters, int paged, int b, int w,
+                      int h, int d, int max_len, int span, int splits,
+                      int page_size, int num_pages, long long tbl_sb,
+                      long long q_sb, long long q_sw, long long q_sh,
+                      long long k_s0, long long k_s1, long long k_sh,
+                      long long v_s0, long long v_s1, long long v_sh,
+                      long long m_sb, long long m_sw,
+                      float scale, void* stream) {
+  if (w < 1 || w > 8 * kTy || d < 4 || d > 256 || d % 4 || splits < 1 ||
+      splits > kMaxSplits || span < 1 || span % kSpanUnit ||
+      (long long)span * splits < max_len ||
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // the mask rows may be read as 4-byte words where they are so aligned
+  const int mask_vec4 = (uintptr_t)allowed % 4 == 0 && m_sb % 4 == 0 && m_sw % 4 == 0;
+  Params p{(const float*)q, (const float*)k, (const float*)v,
+           (const int*)lengths, (const int*)tables, (const uint8_t*)allowed,
+           (float*)out, (float*)part_acc, (float*)part_ml, (unsigned int*)counters,
+           w, h, d, max_len, span, splits, paged ? page_size : 1, num_pages,
+           mask_vec4, tbl_sb, q_sb, q_sw, q_sh, k_s0, k_s1, k_sh,
+           v_s0, v_s1, v_sh, m_sb, m_sw, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  return paged ? launch_bucket<true>(p, b, s) : launch_bucket<false>(p, b, s);
+}
+
+}  // extern "C"

@@ -1,11 +1,14 @@
 """Flash-decode kernels against the serving KV cache (port of
 flexflow_tpu/ops/pallas/decode_kernel.py, kernels #4-#9 of the family).
 
-The device code is CUDA C++ for Hopper in flexflow_tpu_torch/csrc/
-decode_kernel.cu, built on first use by ops/cuda/_build.py and called
-through ctypes on PyTorch's current stream. One device body, templated
-on the layout, the pool type and the mask, serves six entry points, as
-the JAX family shares one body between decode and verify:
+The device code is CUDA C++ for Hopper, built on first use by
+ops/cuda/_build.py and called through ctypes on PyTorch's current
+stream. csrc/decode_kernel.cu holds one device body, templated on the
+layout, the pool type and the mask, for #4, #5, #6 and #9, as the JAX
+family shares one body between decode and verify; csrc/tree_kernel.cu
+holds the split-KV, register-tiled body of the fp32 tree verifies #7
+and #8 (one launch per call: the blocks of a sequence's positions merge
+their partials in the last of them to finish). The entry points:
 
   * `flash_verify(q, k_cache, v_cache, lengths)` (#4) — w queries per
     sequence against the contiguous cache [b, max_len, h, d] under the
@@ -52,6 +55,7 @@ import torch
 from flexflow_tpu_torch.ops.cuda import _build
 
 SOURCE = "decode_kernel.cu"
+TREE_SOURCE = "tree_kernel.cu"
 
 # query rows per sequence the kernels take (the reference's _MAX_W); the
 # tree variants take the same, where the reference stopped at 32
@@ -75,7 +79,21 @@ _SMEM_BUDGET = 160 * 1024
 
 _MASK = -1e30  # the reference's finite mask fill
 
+# the tree body (tree_kernel.cu, whose kSpanUnit and kMaxSplits refuse a
+# launch that breaks these): a split's span is a multiple of
+# _TREE_SPAN_UNIT positions (a whole number of its 32- or 64-row chunks),
+# a call takes at most _TREE_MAX_SPLITS, head_dim is at most _TREE_MAX_D,
+# and the host aims for this many blocks per SM
+_TREE_SPAN_UNIT = 64
+_TREE_MAX_SPLITS = 64
+_TREE_MAX_D = 256
+_BLOCKS_PER_SM = 8
+
 _bound: Optional[ctypes.CDLL] = None
+_tree_bound: Optional[ctypes.CDLL] = None
+# (device index, stream) -> the tree body's per-(sequence, head) arrival
+# counters, zero between calls (each launch leaves them zero)
+_counters: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -99,6 +117,53 @@ def _lib() -> ctypes.CDLL:
         lib.ff_decode_attention.restype = I
         _bound = lib
     return _bound
+
+
+def _tree_lib() -> ctypes.CDLL:
+    """The built tree-verify library with its C signatures declared."""
+    global _tree_bound
+    if _tree_bound is None:
+        lib = _build.load(TREE_SOURCE)
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.ff_cuda_error_string.argtypes = [I]
+        lib.ff_cuda_error_string.restype = ctypes.c_char_p
+        lib.ff_tree_attention.argtypes = [P] * 10 + [I] * 10 + [L] * 12 + [F, P]
+        lib.ff_tree_attention.restype = I
+        _tree_bound = lib
+    return _tree_bound
+
+
+@functools.lru_cache(maxsize=None)
+def pick_splits(b: int, h: int, max_len: int, unit: int, sms: int):
+    """(splits, span) of the tree body's grid (splits, h, b): each block
+    owns `span` positions, a multiple of _TREE_SPAN_UNIT and of `unit`
+    (the page size on the paged layout), and splits x span covers
+    max_len. From the shape alone, never from `lengths` (that would read
+    a device tensor to the host on every layer): enough splits that the
+    grid holds _BLOCKS_PER_SM blocks per SM, none shorter than a step of
+    span unit and unit, and at most _TREE_MAX_SPLITS."""
+    step = math.lcm(_TREE_SPAN_UNIT, unit)
+    most = min(_TREE_MAX_SPLITS, -(-max_len // step))
+    want = -(-_BLOCKS_PER_SM * sms // max(1, b * h))
+    splits = max(1, min(want, most))
+    span = -(-(-(-max_len // splits)) // step) * step
+    return -(-max_len // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _arrival_counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least n int32 zeros for the tree body's arrival counts on
+    `stream`; a launch leaves them zero, so they are made once per stream
+    (and again only to grow), on that stream."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,17 +378,18 @@ def _mask_operand(allowed, b, w, klen, dev):
     return allowed
 
 
-def _raise_on(code: int, name: str) -> None:
+def _raise_on(code: int, name: str, lib: ctypes.CDLL) -> None:
     if code:
-        msg = _lib().ff_cuda_error_string(code).decode()
+        msg = lib.ff_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {code})")
 
 
-def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
-    """Check the operands, launch the variant `name` selects and count it.
-    k/v are the contiguous caches (tables None) or the pools."""
+def _geometry(name, q, k, v, lengths, tables=None, scales=None, allowed=None):
+    """Check the operands every body takes; returns (num_pages,
+    page_size, max_len, the mask as the kernels read it or None). k/v are
+    the contiguous caches (tables None) or the pools."""
     b, w, h, d = q.shape
-    paged, quant, tree = tables is not None, scales is not None, allowed is not None
+    paged, quant = tables is not None, scales is not None
     _check_operands(q, (("k", k), ("v", v)), lengths, tables, quant=quant)
     if v.shape != k.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} shapes differ")
@@ -340,8 +406,56 @@ def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=
         num_pages, page_size, max_len = 0, 8, k.shape[1]
         if k.shape[0] != b:
             raise ValueError(f"{name}: caches {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if tree:
+    if allowed is not None:
         allowed = _mask_operand(allowed, b, w, max_len, q.device)
+    return num_pages, page_size, max_len, allowed
+
+
+def _launch_tree(name, q, k, v, lengths, allowed, sm_scale, tables=None):
+    """#7 (tables None) and #8 on the tree body of tree_kernel.cu: check
+    the operands, launch it and count the launch."""
+    b, w, h, d = q.shape
+    paged = tables is not None
+    num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, allowed=allowed)
+    if d > _TREE_MAX_D:
+        raise ValueError(f"{name}: head_dim {d} > {_TREE_MAX_D}, which the tree kernel's tiles do not take")
+    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    lib = _tree_lib()
+    splits, span = pick_splits(b, h, max_len, page_size if paged else 1, _sm_count(q.device.index))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_acc = part_ml = counters = None
+        if splits > 1:  # the partials: accumulators [b, h, splits, w, d], then (m, l)
+            rows = b * h * splits * w
+            part = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+            part_acc = part.data_ptr()
+            part_ml = part_acc + 4 * rows * d
+            counters = _arrival_counters(q.device, stream, b * h).data_ptr()
+        code = lib.ff_tree_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if tables is None else tables.data_ptr(),
+            lengths.data_ptr(), allowed.data_ptr(), out.data_ptr(), part_acc, part_ml, counters,
+            int(paged), b, w, h, d, max_len, span, splits, page_size, num_pages,
+            tables.stride(0) if paged else 0,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            allowed.stride(0), allowed.stride(1),
+            _scale_of(q, sm_scale), stream,
+        )
+    _raise_on(code, name, lib)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
+    """#4-#6 and #9 on decode_kernel.cu's body: check the operands, launch
+    the variant `name` selects and count it. k/v are the contiguous
+    caches (tables None) or the pools."""
+    b, w, h, d = q.shape
+    paged, quant, tree = tables is not None, scales is not None, allowed is not None
+    num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
     out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
@@ -363,7 +477,7 @@ def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=
             allowed.stride(0) if tree else 0, allowed.stride(1) if tree else 0,
             _scale_of(q, sm_scale), stream,
         )
-    _raise_on(code, name)
+    _raise_on(code, name, lib)
     LAUNCHES[name] += 1
     return out
 
@@ -439,27 +553,25 @@ def flash_verify_tree(q, k_cache, v_cache, lengths, allowed, sm_scale=None):
     """w-query flash attention against the contiguous cache under a
     token-tree mask: allowed [b, w, max_len] (bool, uint8 or float32;
     > 0 = query row j may see the position). Other shapes as
-    flash_verify."""
+    flash_verify; on the card head_dim may be at most 256."""
     if q.device.type == "cpu":
         return flash_verify_tree_ref(q, k_cache, v_cache, lengths, allowed, sm_scale)
     _no_kernel("flash_verify_tree", q)
-    return _launch(
-        "flash_verify_tree", q, k_cache, v_cache, lengths, sm_scale, allowed=allowed
-    )
+    return _launch_tree("flash_verify_tree", q, k_cache, v_cache, lengths, allowed, sm_scale)
 
 
 def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale=None):
     """Tree-masked w-query flash attention walking the block table:
     allowed [b, w, pages_per_seq * page_size] over LOGICAL positions.
-    Other shapes as paged_flash_verify."""
+    Other shapes as paged_flash_verify; on the card head_dim may be at
+    most 256."""
     if q.device.type == "cpu":
         return paged_flash_verify_tree_ref(
             q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree", q)
-    return _launch(
-        "paged_flash_verify_tree", q, k_pool, v_pool, lengths, sm_scale,
-        tables=block_tables, allowed=allowed,
+    return _launch_tree(
+        "paged_flash_verify_tree", q, k_pool, v_pool, lengths, allowed, sm_scale, tables=block_tables
     )
 
 

@@ -114,6 +114,97 @@ def test_quant_and_tree_kernels_match_plain_versions(w):
     assert float(outs["paged_flash_verify_tree_quant"][5].abs().max()) == 0.0
 
 
+def _tree_operands(rng, dev, b, w, h, d, max_len, page, lengths, hole_row, dead_row):
+    """Caches, pools with a table per row (sentinels past each length, a
+    sentinel hole in `hole_row` and a dead `dead_row`) and a seeded random
+    draft tree per row, for #7 and #8."""
+    from flexflow_tpu_torch.ops.attention import tree_allowed_mask
+
+    num_pages = b * (max_len // page) + 8
+    tables = np.full((b, max_len // page), num_pages, dtype=np.int32)
+    perm = list(rng.permutation(num_pages))
+    for i, ln in enumerate(lengths):
+        for p in range(-(-(int(ln) + w) // page)):
+            tables[i, p] = perm.pop()
+    tables[hole_row, 1] = num_pages
+    tables[dead_row, :] = num_pages
+    lens = torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(dev)
+    par = np.full((b, w), -1, dtype=np.int32)
+    for j in range(1, w):
+        par[:, j] = rng.integers(0, j, size=b)
+    return dict(
+        q=_rand(rng, dev, b, w, h, d),
+        k=_rand(rng, dev, b, max_len, h, d),
+        v=_rand(rng, dev, b, max_len, h, d),
+        kp=_rand(rng, dev, num_pages, page, h, d),
+        vp=_rand(rng, dev, num_pages, page, h, d),
+        tbl=torch.from_numpy(tables).to(dev),
+        lens=lens,
+        mask=tree_allowed_mask(torch.from_numpy(par).to(dev), lens, w, max_len),
+    )
+
+
+def _check_tree_body(x, dead_row):
+    """#7 and #8 once each: one launch counted per call, both within atol
+    1e-5 of their plain versions (summation order only), finite, the dead
+    row exactly 0, and the arrival counters back at zero."""
+    dk.reset_launches()
+    out = dk.flash_verify_tree(x["q"], x["k"], x["v"], x["lens"], x["mask"])
+    pout = dk.paged_flash_verify_tree(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), flash_verify_tree=1, paged_flash_verify_tree=1)
+    assert all(int(c.abs().sum()) == 0 for c in dk._counters.values())
+    ref = dk.flash_verify_tree_ref(x["q"], x["k"], x["v"], x["lens"], x["mask"])
+    pref = dk.paged_flash_verify_tree_ref(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(pout).all())
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pout, pref, atol=1e-5, rtol=0)
+    assert float(pout[dead_row].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("w", [1, 13, 33, 64])
+def test_tree_body_matches_plain_versions(w, d):
+    """#7 and #8 on the split-KV tree body at 8 sequences x 16 heads,
+    max_len 512, 16-row pages: lengths 0 and max_len - w, a visible range
+    ending exactly on a split boundary and one a row short of it, a
+    length on the boundary, a sentinel hole and a dead row."""
+    dev = _card()
+    rng = np.random.default_rng(200 + w + d)
+    b, h, max_len, page = 8, 16, 512, 16
+    splits, span = dk.pick_splits(b, h, max_len, page, dk._sm_count(torch.cuda.current_device()))
+    assert splits > 1
+    edge = span * (splits // 2)
+    lengths = [0, max_len - w, edge - w, edge - w - 1, edge, 77, 300, 9]
+    _check_tree_body(_tree_operands(rng, dev, b, w, h, d, max_len, page, lengths, hole_row=5, dead_row=7), 7)
+
+
+@pytest.mark.parametrize("max_len", [62, 250])
+@pytest.mark.parametrize("d", [16, 96, 160])
+def test_tree_body_takes_ragged_shapes(d, max_len):
+    """Head dims short of the tile (16, 96, 160), 2-row pages, a max_len that
+    is no multiple of 4 or of the split (mask rows read bytewise), one
+    split (62) or several (250)."""
+    dev = _card()
+    rng = np.random.default_rng(300 + d + max_len)
+    b, w, h, page = 5, 5, 2, 2
+    lengths = [0, max_len - w, min(64, max_len) - w, min(64, max_len) - w - 1, 30]
+    _check_tree_body(_tree_operands(rng, dev, b, w, h, d, max_len, page, lengths, hole_row=2, dead_row=4), 4)
+
+
+def test_tree_body_rejects_wide_heads():
+    """head_dim 260 is past the tree body's tiles (256): a ValueError
+    before any launch."""
+    dev = _card()
+    q = torch.zeros(1, 3, 2, 260, device=dev)
+    k = torch.zeros(1, 64, 2, 260, device=dev)
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    dk.reset_launches()
+    with pytest.raises(ValueError, match="head_dim 260"):
+        dk.flash_verify_tree(q, k, k, lens, torch.ones(1, 3, 64, dtype=torch.bool, device=dev))
+    assert sum(dk.LAUNCHES.values()) == 0
+
+
 def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     """w = 65, head_dim 8 on int8 pools, fp32 pools where int8 is
     expected, misshapen scales and a strided mask raise before a launch."""

@@ -9,6 +9,9 @@ versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 Tolerance: atol 1e-5 for fp32 attention at these sizes; the two sides
 differ only in summation order."""
 
+import functools
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -367,3 +370,121 @@ def test_quant_and_tree_operand_checks():
         dk._mask_operand(mask[:, :2], 2, 3, 64, q.device)
     with pytest.raises(TypeError):
         dk._mask_operand(mask.long(), 2, 3, 64, q.device)
+
+
+# -- the fp32 tree body's split-then-merge rule (csrc/tree_kernel.cu) -----------------
+
+
+def _split_then_merge(q, k, v, vis, lengths, span):
+    """A plain model of the tree body of #7 and #8: positions are cut into
+    splits of `span`; each split gives a partial (m, l, acc) per query row
+    over the visible entries of `vis` [b, w, L] (gated and page-checked),
+    a split that starts at or past min(lengths + w, L) is empty (the
+    kernel writes nothing for it; here m = -1e30, l = 0 and an accumulator
+    of NaN, which the merge must never read), and the merge takes
+    M = max m_s over the partials with l_s > 0 and returns
+    sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s, 1e-30) over those.
+    Returns the output [b, w, h, d] and the counts of empty and of live
+    but all-masked (sequence, split, query row) partials."""
+    b, w, h, d = q.shape
+    L = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    end = (lengths.long() + w).clamp(max=L)
+    parts, empty_n, masked_n = [], 0, 0
+    for lo in range(0, L, span):
+        seen = vis[:, None, :, lo:lo + span].expand(b, h, w, -1)
+        sc = s[..., lo:lo + span].masked_fill(~seen, -1e30)
+        m = sc.amax(-1)
+        p = torch.where(seen, torch.exp(sc - m[..., None]), torch.zeros(()))
+        l = p.sum(-1)
+        acc = torch.einsum("bhqk,bkhd->bhqd", p, v[:, lo:lo + span])
+        empty = (lo >= end)[:, None, None].expand(b, h, w)
+        m = m.masked_fill(empty, -1e30)
+        l = l.masked_fill(empty, 0.0)
+        acc = acc.masked_fill(empty[..., None], float("nan"))
+        empty_n += int(empty.sum())
+        masked_n += int((~empty & (l == 0)).sum())
+        parts.append((m, l, acc))
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    live = l > 0
+    big = m.masked_fill(~live, -1e30).amax(0)
+    e = torch.where(live, torch.exp(m - big), torch.zeros(()))
+    num = torch.where(live[..., None], e[..., None] * acc, torch.zeros(())).sum(0)
+    den = (e * l).sum(0)
+    return (num / den.clamp_min(1e-30)[..., None]).transpose(1, 2), empty_n, masked_n
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_case(w, page):
+    """The inputs of test_tree_plain_versions_match_pallas_interpreter
+    (same seed, same draws) and the Pallas kernels' outputs on them."""
+    rng = np.random.default_rng(20 + w + page)
+    q, k, v, lens = _contig(rng, 3, w, 2, 16, 64, [0, 17, 64 - w])
+    mask = _masks(_parents(rng, 3, w), lens, w, 64)
+    kern = np.asarray(
+        jdk.flash_verify_tree(*map(jnp.asarray, (q, k, v, lens)), jnp.asarray(mask, jnp.float32), interpret=True)
+    )
+    contig = (q, k, v, lens, mask, kern)
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 32, [2, page, 64 - w, 9])
+    tbl[2, 0] = 32  # hole
+    tbl[3, :] = 32  # dead row
+    mask = _masks(_parents(rng, 4, w), lens, w, 64)
+    kern = np.asarray(
+        jdk.paged_flash_verify_tree(
+            *map(jnp.asarray, (q, kp, vp, tbl, lens)), jnp.asarray(mask, jnp.float32), interpret=True
+        )
+    )
+    return contig, (q, kp, vp, tbl, lens, mask, kern)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("w", [1, 13])
+@pytest.mark.parametrize("page", [8, 32])
+def test_tree_split_then_merge_matches_plain_and_pallas(page, w, splits):
+    """The merge rule of the tree body over S splits (a span of
+    ceil(64 / S) positions, whole pages on the paged layout) against #7's
+    and #8's plain versions and the Pallas kernels in interpret mode, with
+    empty splits (row 0 has length 0 or 2), all-masked splits (row 2's
+    sentinel hole on the paged layout) and a dead row that must give
+    exactly 0. atol 1e-5: summation order only."""
+    (q, k, v, lens, mask, kern), (pq, kp, vp, tbl, plens, pmask, pkern) = _tree_case(w, page)
+    q, k, v, lens, mask = _t(q, k, v, lens, mask)
+    vis = dk._tree_visible(mask, lens, w)
+    ours, empty, _ = _split_then_merge(q, k, v, vis, lens, -(-64 // splits))
+    np.testing.assert_allclose(ours.numpy(), dk.flash_verify_tree_ref(q, k, v, lens, mask).numpy(), atol=ATOL)
+    np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
+    assert (empty > 0) == (splits > 1)
+
+    pq, kp, vp, tbl, plens, pmask = _t(pq, kp, vp, tbl, plens, pmask)
+    kg, on_page = dk.gather_pages(kp, tbl)
+    vg, _ = dk.gather_pages(vp, tbl)
+    vis = dk._tree_visible(pmask, plens, w) & on_page[:, None, :]
+    span = -(-(-(-64 // splits)) // page) * page
+    ours, empty, masked = _split_then_merge(pq, kg, vg, vis, plens, span)
+    ref = dk.paged_flash_verify_tree_ref(pq, kp, vp, tbl, plens, pmask)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
+    np.testing.assert_allclose(ours.numpy(), pkern, atol=ATOL)
+    assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
+    assert masked > 0 and (empty > 0) == (64 // span > 1)
+
+
+@pytest.mark.parametrize(
+    "b, h, max_len, unit",
+    [(8, 16, 512, 16), (8, 16, 512, 1), (1, 1, 64, 16), (2, 4, 1000, 24), (64, 32, 4096, 16), (3, 2, 250, 2)],
+)
+def test_tree_split_rule(b, h, max_len, unit):
+    """pick_splits: each split a multiple of 64 positions (a whole
+    number of the kernel's chunks) and of pages, the splits just covering
+    max_len and at most 64, and at least
+    half the blocks per SM the rule aims at on a 132-SM card where
+    max_len allows (rounding the span to whole chunks takes the rest),
+    one split where one block per (sequence, head) already gives them."""
+    target = dk._BLOCKS_PER_SM * 132
+    splits, span = dk.pick_splits(b, h, max_len, unit, sms=132)
+    assert span % 64 == 0 and span % unit == 0 and splits <= 64
+    assert (splits - 1) * span < max_len <= splits * span
+    assert 2 * b * h * splits >= target or span == math.lcm(64, unit)
+    if b * h >= target:
+        assert splits == 1
+    if (b, h, max_len, unit) == (8, 16, 512, 16):  # the serving shape
+        assert (splits, span) == (8, 64)
