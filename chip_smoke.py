@@ -53,11 +53,16 @@ result line) on any failed phase:
                kernel's device time per launch beside the step's GEMMs;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
-               not, and ragged (sq 500, sq != sk): O and LSE within atol
-               1e-4, dQ, dK, dV within atol 1e-4 and rtol 1e-3, with
-               times, bounds, the library call (SDPA forward, SDPA
-               backward for the #2 + #3 pair), the port's dense core and
-               the card's clocks and power;
+               not, and ragged (sq 500, sq != sk, head_dim 24 and 128):
+               O and LSE within atol 1e-4, dQ, dK, dV within atol 1e-4
+               and rtol 1e-3, with times (the event timer's and the
+               profiler's device time per call), bounds, the library
+               call (SDPA forward, SDPA backward for the #2 + #3 pair,
+               with the device kernel each runs), the port's dense core,
+               each kernel's registers, spills, shared memory and blocks
+               per SM, the count of tensor-core (HMMA) instructions in
+               each flash library's SASS, and the card's clocks and
+               power;
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
                [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
                batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
@@ -112,6 +117,9 @@ NEAR_TIE_INT8 = 1e-2
 ATOL_LOGITS = 1e-3  # cached decode vs full forward through 12 fp32 layers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM, TF32 tensor cores, dense; fp32-accurate products take 3 passes
+TF32_FLOPS_PER_S = 495e12
+TF32_PASSES = 3
 
 ATOL_GRAD, RTOL_GRAD = 1e-4, 1e-3  # flash backward kernels vs plain versions
 RTOL_STEP_LOSS = ATOL_STEP_WEIGHTS = 1e-5  # flash vs dense core, one step
@@ -143,8 +151,8 @@ KERNELS = {
     "paged_flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
     "paged_flash_verify_tree_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
-    "flash_dq": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
-    "flash_dkv": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
+    "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
+    "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
 
 # kernel wrapper -> substrings of the device functions its launches run,
@@ -153,6 +161,9 @@ KERNEL_SYMBOLS = {
     "paged_flash_verify_tree": ("tree_attention_kernel",),
     "paged_flash_verify_quant": ("decode_attention_kernel<true, true, false>",),
     "paged_flash_verify_tree_quant": ("decode_attention_kernel<true, true, true>",),
+    "flash_fwd": ("flash_fwd_kernel",),
+    "flash_dq": ("flash_dq_mma_kernel",),
+    "flash_dkv": ("flash_dkv_mma_kernel",),
 }
 
 
@@ -178,7 +189,7 @@ def build_kernels():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib}
+    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib, fk.BWD_SOURCE: fk._bwd_lib}
     with ThreadPoolExecutor(len(builds)) as pool:
         times = dict(zip(builds, pool.map(timed, builds.values())))
     print(f"[build] {len(times)} sources in {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -1004,9 +1015,11 @@ def flash_calls(x):
 
 def flash_bound_ms(x, name):
     """Least time on these inputs: every operand read once and every
-    output written once at 3.35 TB/s, against 2 flops per multiply-add of
-    the kernel's products over the visible (query, key) pairs at 67
-    TFLOP/s fp32 (2 products forward, 3 for dQ, 4 for dK/dV)."""
+    output written once at 3.35 TB/s, against the kernel's products over
+    the visible (query, key) pairs (2 forward, 3 for dQ, 4 for dK/dV) at
+    their fp32-accurate rate on this card: 3 TF32 passes of 2 flops per
+    multiply-add at 495 TFLOP/s (3xTF32 on the dense tensor cores, 700 W),
+    an effective 165 TFLOP/s, above the 67 TFLOP/s of fp32 FMAs."""
     b, sq, h, d = x["q"].shape
     sk = x["k"].shape[1]
     pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if x["causal"] else sq * sk)
@@ -1016,9 +1029,53 @@ def flash_bound_ms(x, name):
         "flash_dq": 3 * qo + 2 * kv + 2 * rows,         # q, dO, k, v, lse, delta in; dQ out
         "flash_dkv": 2 * qo + 4 * kv + 2 * rows,        # q, dO, k, v, lse, delta in; dK, dV out
     }[name]
-    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * pairs * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    flops = TF32_PASSES * {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * pairs * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_opcodes(source):
+    """{opcode: count} over the SASS of the library built from
+    csrc/<source> (cuobjdump beside nvcc); None without cuobjdump."""
+    import collections
+    import re
+
+    from flexflow_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", _build.library_path(source)], capture_output=True, text=True,
+                         timeout=120, check=True)
+    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", res.stdout, re.M)
+    return collections.Counter(ops)
+
+
+def flash_resources(d):
+    """Each flash kernel's ptxas report (registers, spills, shared memory)
+    at head_dim d's instantiation, its blocks per SM on this card, and
+    the tensor-core instructions of each flash library's SASS."""
+    from flexflow_tpu_torch.ops.cuda import _build
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    symbol = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_mma_kernel", "flash_dkv": "flash_dkv_mma_kernel"}
+    for name, sym in symbol.items():
+        source = fk.SOURCE if name == "flash_fwd" else fk.BWD_SOURCE
+        occ = fk.occupancy(name, d)
+        print(f"[resources] {name} at head_dim {d}: " + json.dumps(occ))
+        log = _build.build_logs.get(source, "").splitlines()
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line and sym in line:
+                entry = line.split("'")[1] if "'" in line else sym
+                info = [x.strip() for x in log[i + 1 : i + 4] if "registers" in x or "spill" in x]
+                print(f"[resources]   ptxas {entry}: {'; '.join(info)}")
+    for source in (fk.SOURCE, fk.BWD_SOURCE):
+        ops = sass_opcodes(source)
+        if ops is None:
+            print(f"[resources] {source}: cuobjdump not found, SASS not read")
+            continue
+        print(f"[resources] {source}: {ops.get('HMMA', 0)} HMMA instructions in its SASS; top opcodes "
+              + json.dumps(ops.most_common(14)))
 
 
 def library_backend(fn) -> str:
@@ -1038,18 +1095,21 @@ def library_backend(fn) -> str:
 
 def check_flash_kernels():
     """Kernels #1-#3 against their plain versions at the flagship training
-    shape, causal and not, and two ragged shapes; times of the flagship
-    (non-causal) case, which the training path runs."""
+    shape, causal and not, and ragged shapes (sq != sk both ways, head_dim
+    24 and 128); times of the flagship (non-causal) case, which the
+    training path runs, by the event timer and by the profiler's device
+    time, beside SDPA's and the port's dense core; the kernels' resources
+    at the flagship head_dim."""
     import torch
     import torch.nn.functional as F
 
     from flexflow_tpu_torch.ops import attention as attn
-    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     device = torch.device("cuda")
     b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
     rows = {name: {"max_abs_err": 0.0} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
-    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True)]
+    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True),
+             (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False)]
     for cb, sq, sk, ch, cd, causal in cases:
         x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
         for name, (kernel, plain) in flash_calls(x).items():
@@ -1073,10 +1133,13 @@ def check_flash_kernels():
     for causal in (False, True):
         x = flash_inputs(device, b, s, s, h, d, causal)
         tag = "causal" if causal else "non-causal"
+        dev = {}
         for name, (kernel, plain) in flash_calls(x).items():
             ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush)
+            dev[name] = device_ms(kernel, flush)
             bound, by = flash_bound_ms(x, name)
-            print(f"[kernels] {name} {tag}: {ms:.4f} ms (bound {bound:.4f} ms, {by}), plain {plain_ms:.4f} ms")
+            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[name]} ms (bound {bound:.4f} ms, {by}), "
+                  f"plain {plain_ms:.4f} ms")
             if not causal:
                 rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         # yardsticks, timed only: PyTorch's SDPA and the port's dense core
@@ -1085,6 +1148,7 @@ def check_flash_kernels():
         out = sdpa()
         sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
         lib_fwd, lib_bwd = time_ms(sdpa, flush), time_ms(sdpa_bwd, flush)
+        lib_fwd_dev, lib_bwd_dev = device_ms(sdpa, flush), device_ms(sdpa_bwd, flush)
         qd, kd, vd = (x[n].detach().clone().requires_grad_(True) for n in ("q", "k", "v"))
 
         def dense():
@@ -1092,14 +1156,17 @@ def check_flash_kernels():
             return torch.autograd.grad(o, (qd, kd, vd), x["do"])
 
         dense_ms = time_ms(dense, flush)
-        print(f"[kernels] {tag}: library SDPA forward {lib_fwd:.4f} ms ({library_backend(sdpa)}), "
-              f"backward (#2 + #3) {lib_bwd:.4f} ms ({library_backend(sdpa_bwd)}); "
-              f"the port's dense core forward + backward {dense_ms:.4f} ms")
+        pair = None if None in (dev["flash_dq"], dev["flash_dkv"]) else dev["flash_dq"] + dev["flash_dkv"]
+        print(f"[kernels] {tag}: library SDPA forward {lib_fwd:.4f} ms, device {lib_fwd_dev} ms "
+              f"({library_backend(sdpa)}), backward (#2 + #3) {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
+              f"({library_backend(sdpa_bwd)}); #2 + #3 device {pair} ms; the port's dense core forward + "
+              f"backward {dense_ms:.4f} ms")
         if not causal:
             rows["flash_fwd"]["library_ms"] = lib_fwd
             rows["flash_dq"]["library_ms"] = rows["flash_dkv"]["library_ms"] = lib_bwd
             rows["dense_ms"] = dense_ms
         del out
+    flash_resources(d)
     return rows
 
 
@@ -1147,8 +1214,9 @@ def sync(device):
 
 
 def profile_train_step(model, batch):
-    """Device time by kernel over one train step (torch.profiler); None
-    when the profiler sees no device activity."""
+    """Device time by kernel over one train step (torch.profiler), and
+    each flash kernel's device ms and launches in it; None when the
+    profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1170,10 +1238,15 @@ def profile_train_step(model, batch):
         print("[profile] no device time recorded: device busy share not measured")
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    flash = {}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        mine = [e for e in events if any(k in e.key for k in KERNEL_SYMBOLS[name])]
+        flash[name] = (sum(e.self_device_time_total for e in mine) / 1e3, sum(e.count for e in mine))
     out = dict(
         wall_ms=1e3 * wall_s,
         device_ms=device_us / 1e3,
         device_busy_share=device_us / 1e6 / wall_s,
+        flash_ms_and_launches=flash,
         top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top],
     )
     print("[profile] train step: " + json.dumps(out))

@@ -1,21 +1,14 @@
-// Flash attention forward and backward for Hopper (sm_90a), fp32. Built by
+// Flash attention forward for Hopper (sm_90a), fp32. Built by
 // flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a shared library with
 // a plain C interface, loaded through ctypes by
-// flexflow_tpu_torch/ops/cuda/flash_kernel.py.
+// flexflow_tpu_torch/ops/cuda/flash_kernel.py. The backward (#2, #3) is
+// csrc/flash_bwd_kernel.cu.
 //
-// What it replaces: the three Pallas TPU kernels of
-// flexflow_tpu/ops/pallas/flash_kernel.py —
-//   * flash_fwd_kernel replaces _fwd_kernel (:129, pallas_call in _fwd :198):
-//     O = softmax(Q K^T * scale) V with the row log-sum-exp LSE;
-//   * flash_dq_kernel replaces _dq_kernel (:230, pallas_call :384):
-//     dQ = sum over key tiles of dS K, dS = P * (dO V^T - delta) * scale;
-//   * flash_dkv_kernel replaces _dkv_kernel (:269, pallas_call :419):
-//     dV = sum over query tiles of P^T dO and dK = dS^T Q.
-// As on the TPU the backward is two kernels, one accumulating over key tiles
-// and one over query tiles, so no two blocks write the same output row: no
-// atomics, and the gradients are the same from run to run.
+// What it replaces: flash_fwd_kernel replaces the Pallas TPU kernel
+// _fwd_kernel of flexflow_tpu/ops/pallas/flash_kernel.py (:129, pallas_call
+// in _fwd :198): O = softmax(Q K^T * scale) V with the row log-sum-exp LSE.
 //
-// What bounds it: operations. Each (64 x 64) tile pair costs 2-4 products of
+// What bounds it: operations. Each (64 x 64) tile pair costs 2 products of
 // depth head_dim, against 16-32 KB of operands that every block of a
 // (batch, head) shares through L2; at the flagship shape (b 8, s 512, h 16,
 // d 64) one forward is 8.6 GFLOP for 67 MB of q, k, v and o, far past the
@@ -23,28 +16,27 @@
 // design keeps the [s, s] scores out of device memory and does the products
 // with fp32 FMAs (the model is fp32 end to end and TF32 stays off):
 //   * one block of 256 threads per (64-row tile, batch * head); a loop inside
-//     the block over the other operand's tiles takes the place of the TPU's
-//     sequential grid axis;
+//     the block over the key tiles takes the place of the TPU's sequential
+//     grid axis;
 //   * tiles are staged in shared memory, transposed ([d][64]) where a product
 //     reads them along head_dim, so each thread reads 16-byte vectors and
 //     does a 4 x 4 (scores) or 4 x 4*kG (outputs) register tile of FMAs;
 //   * the softmax state (m, l) and the output accumulators live in registers;
 //     a row's 64 scores sit in 16 neighbouring lanes and are reduced with
 //     shuffles;
-//   * masked and padded entries weigh exactly 0: p is set to 0 for them in
-//     forward and backward, whatever the running max is, and rows past the
-//     end of a ragged tile are zero-filled and never stored;
+//   * masked and padded entries weigh exactly 0: p is set to 0 for them
+//     whatever the running max is, and rows past the end of a ragged tile
+//     are zero-filled and never stored;
 //   * the causal mask is qpos >= kpos from a shared origin (also when
-//     sq != sk); the forward and dQ loops stop at the diagonal key tile and
-//     the dK/dV loop starts at the diagonal query tile;
+//     sq != sk); the loop stops at the diagonal key tile;
 //   * [b, s, h, d] operands are read in place through their strides: no
 //     transpose to [b, h, s, d] (a layout artefact of the TPU tiling), and
-//     LSE/delta are [b, h, s] rows, not the TPU's 128-lane broadcasts.
+//     LSE is [b, h, s] rows, not the TPU's 128-lane broadcasts.
 // The v5e tiles (_TUNED = {"block_q": 512, "block_k": 1024}, set_tuned_blocks,
 // the calibration table's flash_blocks) do not carry over: 64 x 64 tiles are
 // what 227 KB of shared memory and the register file take here, and the
-// ragged tail is masked, so any sequence length works. Tensor cores (TF32,
-// bf16 wgmma), TMA and pipelined stages are later work.
+// ragged tail is masked, so any sequence length works. Tensor cores (the
+// backward's 3xTF32 mma helpers), TMA and pipelined stages are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,16 +53,12 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* dout;   // backward: dO [b, sq, h, d]
-  const float* lse;    // backward: [b, h, sq]
-  const float* delta;  // backward: [b, h, sq], rowsum(dO * O) - g_lse
-  float* out0;         // fwd: O; dq: dQ; dkv: dK (contiguous [b, s, h, d])
-  float* out1;         // fwd: LSE [b, h, sq]; dkv: dV
+  float* out0;         // O (contiguous [b, sq, h, d])
+  float* out1;         // LSE [b, h, sq]
   int h, sq, sk, d;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
-  int64_t g_sb, g_ss, g_sh;
   float scale;
   int causal;
 };
@@ -123,22 +111,16 @@ __device__ __forceinline__ void tile_product(const float* At, const float* Bt,
 }
 
 // acc[i][g][:] += sum_r A(row ty*4 + i, r) * B[r][4*(tx + 16 g) : +4] over
-// the 64 rows r of a score tile A stored row-major [64][kPS]. kTransA reads
-// A transposed (A(x, r) = S[r][x]), as dK and dV need.
-template <int kG, bool kTransA>
+// the 64 rows r of a score tile A stored row-major [64][kPS].
+template <int kG>
 __device__ __forceinline__ void accumulate(const float* S, const float* B,
                                            int ld, int d4, int ty, int tx,
                                            float acc[4][kG][4]) {
 #pragma unroll 2
   for (int r = 0; r < kTile; ++r) {
     float a[4];
-    if (kTransA) {
-      const float4 x = *reinterpret_cast<const float4*>(S + r * kPS + ty * 4);
-      a[0] = x.x; a[1] = x.y; a[2] = x.z; a[3] = x.w;
-    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = S[(ty * 4 + i) * kPS + r];
-    }
+    for (int i = 0; i < 4; ++i) a[i] = S[(ty * 4 + i) * kPS + r];
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       if (tx + 16 * g < d4) {
@@ -272,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     }
     store_tile(ps, ty, tx, s);
     __syncthreads();
-    accumulate<kG, false>(ps, vs, ld, d4, ty, tx, acc);
+    accumulate<kG>(ps, vs, ld, d4, ty, tx, acc);
   }
 
   float lnz[4];
@@ -289,169 +271,34 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 }
 
-// P and dS of one (query tile, key tile) pair from the score and dP tiles:
-// p = exp(s * scale - lse), ds = p * (dp - delta) * scale, 0 where masked.
-// lse_s / dl_s hold the query tile's rows.
-__device__ __forceinline__ void probs_and_ds(const Params& p, int q0, int k0,
-                                             int ty, int tx, const float* lse_s,
-                                             const float* dl_s, float s[4][4],
-                                             float dp[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = visible(p, q0 + r, k0 + tx * 4 + j);
-      const float pr = ok ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
-      s[i][j] = pr;
-      dp[i][j] = pr * (dp[i][j] - dl_s[r]) * p.scale;
-    }
-  }
-}
-
-// The query tile's LSE and delta rows (0 past sq).
-__device__ __forceinline__ void load_rows(const Params& p, int ib, int ih,
-                                          int q0, float* lse_s, float* dl_s) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + q0 + r;
-    const bool in = q0 + r < p.sq;
-    lse_s[r] = in ? p.lse[off] : 0.f;
-    dl_s[r] = in ? p.delta[off] : 0.f;
-  }
-}
-
-// -- backward: dQ ---------------------------------------------------------------
-
-template <int kG>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int d = p.d, d4 = d / 4, ld = d + 4;
-  float* qt = reinterpret_cast<float*>(smem4);  // [d][64]
-  float* gt = qt + d * kTile;                    // dO^T [d][64]
-  float* kt = gt + d * kTile;                    // [d][64]
-  float* ks = kt + d * kTile;                    // [64][ld]
-  float* vt = ks + kTile * ld;                   // [d][64]
-  float* dss = vt + d * kTile;                   // dS [64][kPS]
-  float* lse_s = dss + kTile * kPS;              // [64]
-  float* dl_s = lse_s + kTile;                   // [64]
-  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
-  load_tile<false, true>(p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0, p.sq, d,
-                         nullptr, 0, qt);
-  load_tile<false, true>(p.dout + ib * p.g_sb + ih * p.g_sh, p.g_ss, q0, p.sq,
-                         d, nullptr, 0, gt);
-  load_rows(p, ib, ih, q0, lse_s, dl_s);
-
-  float acc[4][kG][4];
-  zero_acc<kG>(acc);
-  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<true, true>(kb, p.k_ss, k0, p.sk, d, ks, ld, kt);
-    load_tile<false, true>(vb, p.v_ss, k0, p.sk, d, nullptr, 0, vt);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product(qt, kt, d, ty, tx, s);
-    tile_product(gt, vt, d, ty, tx, dp);
-    probs_and_ds(p, q0, k0, ty, tx, lse_s, dl_s, s, dp);
-    store_tile(dss, ty, tx, dp);
-    __syncthreads();
-    accumulate<kG, false>(dss, ks, ld, d4, ty, tx, acc);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<kG>(p.out0, ib, ih, p.h, p.sq, q0, d, ty, tx, acc, one);
-}
-
-// -- backward: dK, dV -------------------------------------------------------------
-
-template <int kG>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int d = p.d, d4 = d / 4, ld = d + 4;
-  float* kt = reinterpret_cast<float*>(smem4);  // [d][64]
-  float* vt = kt + d * kTile;                    // [d][64]
-  float* qt = vt + d * kTile;                    // [d][64]
-  float* qs = qt + d * kTile;                    // [64][ld]
-  float* gt = qs + kTile * ld;                   // dO^T [d][64]
-  float* gs = gt + d * kTile;                    // dO [64][ld]
-  float* ps = gs + kTile * ld;                   // P, then dS [64][kPS]
-  float* lse_s = ps + kTile * kPS;               // [64]
-  float* dl_s = lse_s + kTile;                   // [64]
-  const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-  const float* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
-  load_tile<false, true>(p.k + ib * p.k_sb + ih * p.k_sh, p.k_ss, k0, p.sk, d,
-                         nullptr, 0, kt);
-  load_tile<false, true>(p.v + ib * p.v_sb + ih * p.v_sh, p.v_ss, k0, p.sk, d,
-                         nullptr, 0, vt);
-
-  float dk[4][kG][4], dv[4][kG][4];
-  zero_acc<kG>(dk);
-  zero_acc<kG>(dv);
-  // causal: query tiles above the diagonal see none of these keys
-  const int q_start = p.causal ? (k0 / kTile) * kTile : 0;
-  for (int q0 = q_start; q0 < p.sq; q0 += kTile) {
-    __syncthreads();
-    load_tile<true, true>(qb, p.q_ss, q0, p.sq, d, qs, ld, qt);
-    load_tile<true, true>(gb, p.g_ss, q0, p.sq, d, gs, ld, gt);
-    load_rows(p, ib, ih, q0, lse_s, dl_s);
-    __syncthreads();
-    // rows i of s and dp are queries, columns j keys
-    float s[4][4], dp[4][4];
-    tile_product(qt, kt, d, ty, tx, s);
-    tile_product(gt, vt, d, ty, tx, dp);
-    probs_and_ds(p, q0, k0, ty, tx, lse_s, dl_s, s, dp);
-    store_tile(ps, ty, tx, s);
-    __syncthreads();
-    accumulate<kG, true>(ps, gs, ld, d4, ty, tx, dv);  // dV += P^T dO
-    __syncthreads();
-    store_tile(ps, ty, tx, dp);
-    __syncthreads();
-    accumulate<kG, true>(ps, qs, ld, d4, ty, tx, dk);  // dK += dS^T Q
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<kG>(p.out0, ib, ih, p.h, p.sk, k0, d, ty, tx, dk, one);
-  store_rows<kG>(p.out1, ib, ih, p.h, p.sk, k0, d, ty, tx, dv, one);
-}
-
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
-
-size_t smem_bytes(int kind, int d) {
+size_t smem_bytes(int d) {
   const size_t tr = (size_t)d * kTile, rm = (size_t)kTile * (d + 4);
-  const size_t sc = (size_t)kTile * kPS, rows = 2 * kTile;
-  size_t n = 0;
-  if (kind == kFwd) n = 2 * tr + rm + sc;
-  if (kind == kDq) n = 4 * tr + rm + sc + rows;
-  if (kind == kDkv) n = 4 * tr + 2 * rm + sc + rows;
-  return n * sizeof(float);
+  return (2 * tr + rm + (size_t)kTile * kPS) * sizeof(float);
 }
 
-template <int kG>
-void* kernel_of(int kind) {
-  if (kind == kFwd) return (void*)flash_fwd_kernel<kG>;
-  if (kind == kDq) return (void*)flash_dq_kernel<kG>;
-  return (void*)flash_dkv_kernel<kG>;
+void* kernel_of(int d) {
+  return d <= 64 ? (void*)flash_fwd_kernel<1> : (void*)flash_fwd_kernel<2>;
 }
 
-int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
-  static bool configured[3][2] = {};
+int configure(int d) {
+  static bool configured[2] = {};
+  const int gi = d <= 64 ? 0 : 1;
+  if (configured[gi]) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel_of(d), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  configured[gi] = true;
+  return 0;
+}
+
+int launch(const Params& p, int b, cudaStream_t stream) {
   if (p.d % 8 != 0 || p.d <= 0 || p.d > 128) return (int)cudaErrorInvalidValue;
-  const int gi = p.d <= 64 ? 0 : 1;
-  void* fn = gi == 0 ? kernel_of<1>(kind) : kernel_of<2>(kind);
-  const size_t smem = smem_bytes(kind, p.d);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (!configured[kind][gi]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    configured[kind][gi] = true;
-  }
-  dim3 grid((rows + kTile - 1) / kTile, b * p.h);
+  const int err = configure(p.d);
+  if (err) return err;
+  dim3 grid((p.sq + kTile - 1) / kTile, b * p.h);
   void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, stream);
+  cudaError_t e = cudaLaunchKernel(kernel_of(p.d), grid, dim3(kThreads), args,
+                                   smem_bytes(p.d), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -464,9 +311,26 @@ const char* ff_flash_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Shared-memory bytes of one block of kernel `kind` (0 fwd, 1 dq, 2 dkv).
-long long ff_flash_smem_bytes(int kind, int d) {
-  return (long long)smem_bytes(kind, d);
+// What one block of the forward at head_dim d takes and how many fit an
+// SM: out = {registers per thread, local (spill) bytes per thread, dynamic
+// shared bytes, threads, blocks per SM}.
+int ff_flash_occupancy(int d, int* out) {
+  if (d % 8 != 0 || d <= 0 || d > 128) return (int)cudaErrorInvalidValue;
+  int err = configure(d);
+  if (err) return err;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel_of(d));
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_of(d), kThreads,
+                                                      smem_bytes(d));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem_bytes(d);
+  out[3] = kThreads;
+  out[4] = blocks;
+  return 0;
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d] fp32 with head_dim contiguous and
@@ -478,46 +342,10 @@ int ff_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                      long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh,
                      float scale, int causal, void* stream) {
-  Params p{(const float*)q, (const float*)k, (const float*)v, nullptr,
-           nullptr, nullptr, (float*)o, (float*)lse, h, sq, sk, d,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0,
-           scale, causal};
-  return launch(kFwd, p, b, sq, (cudaStream_t)stream);
-}
-
-// As above plus dO [b, sq, h, d] (strides g_*), lse and delta contiguous
-// [b, h, sq]; dq contiguous [b, sq, h, d].
-int ff_flash_dq_f32(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dq, int b, int h, int sq, int sk, int d,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    long long g_sb, long long g_ss, long long g_sh,
-                    float scale, int causal, void* stream) {
-  Params p{(const float*)q, (const float*)k, (const float*)v,
-           (const float*)dout, (const float*)lse, (const float*)delta,
-           (float*)dq, nullptr, h, sq, sk, d,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           g_sb, g_ss, g_sh, scale, causal};
-  return launch(kDq, p, b, sq, (cudaStream_t)stream);
-}
-
-// As ff_flash_dq_f32, writing dk and dv contiguous [b, sk, h, d].
-int ff_flash_dkv_f32(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int b, int h, int sq, int sk, int d,
-                     long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long g_sb, long long g_ss, long long g_sh,
-                     float scale, int causal, void* stream) {
-  Params p{(const float*)q, (const float*)k, (const float*)v,
-           (const float*)dout, (const float*)lse, (const float*)delta,
-           (float*)dk, (float*)dv, h, sq, sk, d,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           g_sb, g_ss, g_sh, scale, causal};
-  return launch(kDkv, p, b, sk, (cudaStream_t)stream);
+  Params p{(const float*)q, (const float*)k, (const float*)v, (float*)o,
+           (float*)lse, h, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+           v_sb, v_ss, v_sh, scale, causal};
+  return launch(p, b, (cudaStream_t)stream);
 }
 
 }  // extern "C"

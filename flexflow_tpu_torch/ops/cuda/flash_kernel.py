@@ -2,9 +2,11 @@
 flexflow_tpu/ops/pallas/flash_kernel.py, kernels #1-#3 of the family:
 `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`).
 
-The device code is CUDA C++ for Hopper in flexflow_tpu_torch/csrc/
-flash_kernel.cu, built on first use by ops/cuda/_build.py and called
-through ctypes on PyTorch's current stream:
+The device code is CUDA C++ for Hopper, built on first use by
+ops/cuda/_build.py and called through ctypes on PyTorch's current
+stream: the forward in flexflow_tpu_torch/csrc/flash_kernel.cu (fp32
+FMAs), the backward in csrc/flash_bwd_kernel.cu (fp32-accurate 3xTF32
+products on the tensor cores):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
@@ -43,6 +45,7 @@ from torch.autograd.function import once_differentiable
 from flexflow_tpu_torch.ops.cuda import _build
 
 SOURCE = "flash_kernel.cu"
+BWD_SOURCE = "flash_bwd_kernel.cu"
 
 MAX_HEAD_DIM = 128
 # grid y is batch * heads
@@ -54,6 +57,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 _MASK = -1e30  # the reference's finite mask fill
 
 _bound: Optional[ctypes.CDLL] = None
+_bwd_bound: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -75,23 +79,50 @@ def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
 
 
 def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built forward library (#1) with its C signatures declared."""
     global _bound
     if _bound is None:
         lib = _build.load(SOURCE)
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.ff_flash_cuda_error_string.argtypes = [I]
         lib.ff_flash_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_flash_smem_bytes.argtypes = [I, I]
-        lib.ff_flash_smem_bytes.restype = L
+        lib.ff_flash_occupancy.argtypes = [I, P]
+        lib.ff_flash_occupancy.restype = I
         lib.ff_flash_fwd_f32.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
         lib.ff_flash_fwd_f32.restype = I
+        _bound = lib
+    return _bound
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    """The built backward library (#2, #3) with its C signatures declared."""
+    global _bwd_bound
+    if _bwd_bound is None:
+        lib = _build.load(BWD_SOURCE)
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.ff_flash_bwd_cuda_error_string.argtypes = [I]
+        lib.ff_flash_bwd_cuda_error_string.restype = ctypes.c_char_p
+        lib.ff_flash_bwd_occupancy.argtypes = [I, I, P]
+        lib.ff_flash_bwd_occupancy.restype = I
         lib.ff_flash_dq_f32.argtypes = [P] * 7 + [I] * 5 + [L] * 12 + [F, I, P]
         lib.ff_flash_dq_f32.restype = I
         lib.ff_flash_dkv_f32.argtypes = [P] * 8 + [I] * 5 + [L] * 12 + [F, I, P]
         lib.ff_flash_dkv_f32.restype = I
-        _bound = lib
-    return _bound
+        _bwd_bound = lib
+    return _bwd_bound
+
+
+def occupancy(name: str, d: int) -> Dict[str, int]:
+    """What one block of kernel `name` ("flash_fwd", "flash_dq" or
+    "flash_dkv") takes at head_dim d on the current card, and how many
+    blocks fit an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 5)()
+    if name == "flash_fwd":
+        code = _lib().ff_flash_occupancy(d, out)
+    else:
+        code = _bwd_lib().ff_flash_bwd_occupancy(0 if name == "flash_dq" else 1, d, out)
+    _raise_on(code, name)
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
 
 
 def _scale(d: int, sm_scale: Optional[float]) -> float:
@@ -202,7 +233,10 @@ def _strides(*ts):
 
 def _raise_on(code: int, name: str) -> None:
     if code:
-        msg = _lib().ff_flash_cuda_error_string(code).decode()
+        if name == "flash_fwd":
+            msg = _lib().ff_flash_cuda_error_string(code).decode()
+        else:
+            msg = _bwd_lib().ff_flash_bwd_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {code})")
 
 
@@ -260,7 +294,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, sm_scale=None):
         return dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = _lib().ff_flash_dq_f32(
+        code = _bwd_lib().ff_flash_dq_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, sq, sk, d, *_strides(q, k, v, do),
@@ -285,7 +319,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, sm_scale=None):
         return dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = _lib().ff_flash_dkv_f32(
+        code = _bwd_lib().ff_flash_dkv_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, sq, sk, d, *_strides(q, k, v, do),

@@ -308,6 +308,45 @@ def test_flash_kernels_match_plain_versions(shape, causal):
     torch.testing.assert_close(dv, rdv, atol=ATOL, rtol=1e-3)
 
 
+def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
+    q, do = _rand(rng, dev, b, sq, h, d), _rand(rng, dev, b, sq, h, d)
+    k, v = _rand(rng, dev, b, sk, h, d), _rand(rng, dev, b, sk, h, d)
+    o, lse = fk.flash_fwd_ref(q, k, v, causal)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, causal
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (15, 17), (17, 15), (65, 200), (200, 65), (1, 200), (200, 1), (65, 65)])
+def test_flash_backward_matches_plain_versions_at_mma_edges(sq, sk, causal, d):
+    """#2 and #3 where the tiles are ragged against mma's 16 rows and 8
+    columns as well as the 64-row tiles: sq, sk in {1, 15, 17, 65, 200},
+    sk < sq and sk > sq, every head_dim bucket."""
+    dev = _card()
+    args = _flash_backward_operands(np.random.default_rng(sq * 1000 + sk + d), dev, 2, sq, sk, 3, d, causal)
+    fk.reset_launches()
+    dq = fk.flash_dq(*args)
+    dk_, dv = fk.flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    rdk, rdv = fk.flash_dkv_ref(*args)
+    torch.testing.assert_close(dq, fk.flash_dq_ref(*args), atol=ATOL, rtol=1e-3)
+    torch.testing.assert_close(dk_, rdk, atol=ATOL, rtol=1e-3)
+    torch.testing.assert_close(dv, rdv, atol=ATOL, rtol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_is_bit_identical_across_calls(causal):
+    """No atomics: two calls on the same inputs give the same bits."""
+    dev = _card()
+    args = _flash_backward_operands(np.random.default_rng(9), dev, 2, 300, 260, 4, 64, causal)
+    first = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    second = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_kernel_rejects_what_it_does_not_take():
     dev = _card()
     q = torch.zeros(1, 8, 2, 64, device=dev)

@@ -170,3 +170,52 @@ def test_supports():
     assert not fk.supports(512, 512, 60, torch.float32)
     assert not fk.supports(512, 512, 64, torch.bfloat16)
     assert not fk.supports(0, 512, 64, torch.float32)
+
+
+def _tf32_rna(x):
+    """A plain model of PTX cvt.rna.tf32.f32: round a float32 to a 10-bit
+    mantissa, to nearest with ties away from zero. Float32 bits are sign
+    and magnitude, so adding half of the 13 dropped bits' range to the
+    magnitude and clearing them does exactly that."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x):
+    """The kernel's split (flash_bwd_kernel.cu split()): big = x toward
+    zero in TF32, small = tf32_rna(x - big), so x = big + small to ~2^-21."""
+    big = (x.view(torch.int32) & -0x2000).view(torch.float32)
+    return big, _tf32_rna(x - big)
+
+
+def test_tf32_model_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-11 - 2**-20, 1 + 2**-11 + 2**-20])
+    want = [1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 1 + 2**-10]
+    assert _tf32_rna(x).tolist() == want
+    big, small = _tf32_split(x)
+    assert big.tolist() == [1.0, 1 + 2**-10, -1.0, 1.0, 1.0]
+    assert torch.equal(_tf32_rna(big), big) and torch.equal(_tf32_rna(small), small)
+
+
+def test_three_tf32_passes_keep_fp32_accuracy_where_one_does_not():
+    """Why flash_bwd_kernel.cu takes three TF32 passes per product: with
+    its split x = big + small, small_a big_b + big_a small_b + big_a big_b
+    (the small terms first, fp32 accumulation, 8-deep k-steps as
+    mma.sync's m16n8k8) stays within 1e-6 of a float64 product of
+    64 x 64 tiles at the flagship's value scale (unit-normal operands, as
+    the training run's q, k, v and dO); one TF32 pass of the operands
+    rounded to nearest is off by ~4e-4."""
+    rng = np.random.RandomState(11)
+    a, b = (torch.from_numpy(rng.randn(64, 64).astype(np.float32)) for _ in range(2))
+    exact = a.double() @ b.double()
+    (a_big, a_small), (b_big, b_small) = _tf32_split(a), _tf32_split(b)
+    a_one, b_one = _tf32_rna(a), _tf32_rna(b)
+    three, one = torch.zeros(64, 64), torch.zeros(64, 64)
+    for k in range(0, 64, 8):
+        ks = slice(k, k + 8)
+        three = three + a_small[:, ks] @ b_big[ks]
+        three = three + a_big[:, ks] @ b_small[ks]
+        three = three + a_big[:, ks] @ b_big[ks]
+        one = one + a_one[:, ks] @ b_one[ks]
+    rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
+    assert rel(three) < 1e-6
+    assert rel(one) > 1e-4
