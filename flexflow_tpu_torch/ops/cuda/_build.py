@@ -3,7 +3,8 @@
 Each source under flexflow_tpu_torch/csrc/ is compiled with `nvcc` for
 Hopper (`sm_90a`) into a shared library with a plain C interface, then
 loaded with ctypes. The library lands in flexflow_tpu_torch/_build/
-(listed in .gitignore), named by a hash of its source and flags, so the
+(listed in .gitignore), named by a hash of its source, the csrc/ headers
+it includes and the flags, so the
 first call in a fresh checkout builds it and later calls load it. Nothing
 here runs at import: the CPU test suite imports every module of the port
 on machines without nvcc.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,12 +60,31 @@ def nvcc_command(nvcc: str, source: str, output: str) -> list:
     return [nvcc, *NVCC_FLAGS, "-o", output, source]
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources_of(source_name: str) -> list:
+    """csrc/<source_name> and every csrc/ file it `#include "..."`s, at
+    any depth, in the order they are first met."""
+    seen = [source_name]
+    for name in seen:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                inc = os.path.normpath(os.path.join(os.path.dirname(name), inc.decode()))
+                if inc not in seen and os.path.exists(os.path.join(CSRC, inc)):
+                    seen.append(inc)
+    return seen
+
+
 def library_path(source_name: str) -> str:
     """Where the library built from csrc/<source_name> lives: the name
-    carries a hash of the source text and the flags, so an edited source
-    never loads a stale build."""
-    with open(os.path.join(CSRC, source_name), "rb") as f:
-        h = hashlib.sha256(f.read())
+    carries a hash of the source text, of every csrc/ header it includes
+    and of the flags, so an edited source or header never loads a stale
+    build."""
+    h = hashlib.sha256()
+    for name in sources_of(source_name):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source_name)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

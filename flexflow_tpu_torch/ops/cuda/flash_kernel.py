@@ -4,9 +4,9 @@ flexflow_tpu/ops/pallas/flash_kernel.py, kernels #1-#3 of the family:
 
 The device code is CUDA C++ for Hopper, built on first use by
 ops/cuda/_build.py and called through ctypes on PyTorch's current
-stream: the forward in flexflow_tpu_torch/csrc/flash_kernel.cu (fp32
-FMAs), the backward in csrc/flash_bwd_kernel.cu (fp32-accurate 3xTF32
-products on the tensor cores):
+stream: the forward in flexflow_tpu_torch/csrc/flash_kernel.cu, the
+backward in csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32
+products on the tensor cores (helpers shared in csrc/flash_common.cuh):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
@@ -47,7 +47,7 @@ from flexflow_tpu_torch.ops.cuda import _build
 SOURCE = "flash_kernel.cu"
 BWD_SOURCE = "flash_bwd_kernel.cu"
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
@@ -67,7 +67,7 @@ def reset_launches() -> None:
 
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this shape: fp32, head_dim a multiple of 8
-    up to 128, non-empty sequences. Any sequence length works (the ragged
+    up to 256, non-empty sequences. Any sequence length works (the ragged
     tail of a tile is masked)."""
     return (
         dtype == torch.float32

@@ -6,8 +6,12 @@ the flash kernels. Every test here needs the card and skips without one
 
 This file imports no jax, so it also runs where only torch is
 installed: `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
-Tolerance: atol 1e-4 — fp32 kernels against fp32 plain versions, which
-differ in summation order only; gradients also rtol 1e-3."""
+Tolerances: the decode kernels atol 1e-4 — fp32 kernels against fp32
+plain versions, which differ in summation order only. The flash kernels
+#1-#3 at the reference's own scale (tests/test_flash_kernel.py): O and
+LSE atol 2e-5 (the reference's bound taken as absolute, with no relative
+term, so that no entry's bound exceeds the decode kernels' 1e-4), dQ, dK
+and dV atol 5e-5 and rtol 5e-4."""
 
 import numpy as np
 import pytest
@@ -21,7 +25,9 @@ from flexflow_tpu_torch.serving import ServeConfig
 
 pytestmark = pytest.mark.cuda
 
-ATOL = 1e-4
+ATOL = 1e-4  # decode kernels #4-#9
+FWD_TOL = 2e-5  # flash forward #1: O and LSE, absolute
+GRAD_ATOL, GRAD_RTOL = 5e-5, 5e-4  # flash backward #2, #3
 
 
 def _card():
@@ -283,10 +289,17 @@ def test_small_lm_serves_identically_on_both_layouts():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 256, 256, 4, 64), (2, 200, 77, 3, 128), (1, 96, 160, 2, 8)])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 256, 256, 4, 64), (2, 200, 77, 3, 128), (1, 96, 160, 2, 8),
+     # the reference's test shapes (tests/test_flash_kernel.py)
+     (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32),
+     # head_dims past 128: two output-column chunks
+     (2, 200, 77, 3, 136), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256)],
+)
 def test_flash_kernels_match_plain_versions(shape, causal):
-    """Kernels #1-#3 at ragged and sq != sk shapes, head_dim 8 to 128;
-    one launch counted per call."""
+    """Kernels #1-#3 at ragged and sq != sk shapes and at the reference's
+    test shapes, head_dim 8 to 256; one launch counted per call."""
     dev = _card()
     b, sq, sk, h, d = shape
     rng = np.random.default_rng(sq + d)
@@ -300,12 +313,12 @@ def test_flash_kernels_match_plain_versions(shape, causal):
     dk_, dv = fk.flash_dkv(q, k, v, do, rlse, delta, causal)
     torch.cuda.synchronize()
     assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
-    torch.testing.assert_close(o, ro, atol=ATOL, rtol=0)
-    torch.testing.assert_close(lse, rlse, atol=ATOL, rtol=0)
+    torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
     rdk, rdv = fk.flash_dkv_ref(q, k, v, do, rlse, delta, causal)
-    torch.testing.assert_close(dq, fk.flash_dq_ref(q, k, v, do, rlse, delta, causal), atol=ATOL, rtol=1e-3)
-    torch.testing.assert_close(dk_, rdk, atol=ATOL, rtol=1e-3)
-    torch.testing.assert_close(dv, rdv, atol=ATOL, rtol=1e-3)
+    torch.testing.assert_close(dq, fk.flash_dq_ref(q, k, v, do, rlse, delta, causal), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    torch.testing.assert_close(dk_, rdk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    torch.testing.assert_close(dv, rdv, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
@@ -316,13 +329,18 @@ def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
     return q, k, v, do, lse, delta, causal
 
 
-@pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 96, 128])
+MMA_EDGE_DIMS = [8, 16, 24, 40, 64, 96, 128, 136, 160, 256]
+MMA_EDGE_LENGTHS = [(1, 1), (15, 17), (17, 15), (65, 200), (200, 65), (1, 200), (200, 1), (65, 65)]
+
+
+@pytest.mark.parametrize("d", MMA_EDGE_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("sq,sk", [(1, 1), (15, 17), (17, 15), (65, 200), (200, 65), (1, 200), (200, 1), (65, 65)])
+@pytest.mark.parametrize("sq,sk", MMA_EDGE_LENGTHS)
 def test_flash_backward_matches_plain_versions_at_mma_edges(sq, sk, causal, d):
     """#2 and #3 where the tiles are ragged against mma's 16 rows and 8
     columns as well as the 64-row tiles: sq, sk in {1, 15, 17, 65, 200},
-    sk < sq and sk > sq, every head_dim bucket."""
+    sk < sq and sk > sq, every head_dim bucket (past 128: uneven and even
+    output-column chunks)."""
     dev = _card()
     args = _flash_backward_operands(np.random.default_rng(sq * 1000 + sk + d), dev, 2, sq, sk, 3, d, causal)
     fk.reset_launches()
@@ -331,9 +349,42 @@ def test_flash_backward_matches_plain_versions_at_mma_edges(sq, sk, causal, d):
     torch.cuda.synchronize()
     assert fk.LAUNCHES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
     rdk, rdv = fk.flash_dkv_ref(*args)
-    torch.testing.assert_close(dq, fk.flash_dq_ref(*args), atol=ATOL, rtol=1e-3)
-    torch.testing.assert_close(dk_, rdk, atol=ATOL, rtol=1e-3)
-    torch.testing.assert_close(dv, rdv, atol=ATOL, rtol=1e-3)
+    torch.testing.assert_close(dq, fk.flash_dq_ref(*args), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    torch.testing.assert_close(dk_, rdk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    torch.testing.assert_close(dv, rdv, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("d", MMA_EDGE_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", MMA_EDGE_LENGTHS)
+def test_flash_forward_matches_plain_version_at_mma_edges(sq, sk, causal, d):
+    """#1 at the backward's mma edges: O and LSE of every row, rows that
+    see one key (causal row 0) included, finite and within 2e-5."""
+    dev = _card()
+    rng = np.random.default_rng(sq * 1000 + sk + d + 7)
+    q = _rand(rng, dev, 2, sq, 3, d)
+    k, v = _rand(rng, dev, 2, sk, 3, d), _rand(rng, dev, 2, sk, 3, d)
+    fk.reset_launches()
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+    ro, rlse = fk.flash_fwd_ref(q, k, v, causal)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_is_bit_identical_across_calls(causal, d):
+    """#1: each output row is written by one block, so two calls on the
+    same inputs give the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(19)
+    q, k, v = (_rand(rng, dev, 2, s, 4, d) for s in (300, 260, 260))
+    first, second = fk.flash_fwd(q, k, v, causal), fk.flash_fwd(q, k, v, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -348,34 +399,76 @@ def test_flash_backward_is_bit_identical_across_calls(causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
+    """bf16, head_dim 264 (past the kernels' 256) or 60 (no multiple of 8)
+    and mixed devices raise before any launch."""
     dev = _card()
+    fk.reset_launches()
     q = torch.zeros(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         fk.flash_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
-    wide = torch.zeros(1, 8, 2, 160, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    wide = torch.zeros(1, 8, 2, 264, device=dev)
+    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
         fk.flash_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="head_dim 60"):
+        fk.flash_fwd(q[..., :60], q[..., :60], q[..., :60])
     with pytest.raises(ValueError):
         fk.flash_fwd(q, q.cpu(), q)
+    assert sum(fk.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("use_flash", ["auto", True])
 def test_mha_raises_where_the_flash_kernels_do_not_take_the_shape(use_flash):
     """On a CUDA tensor the MHA lowering launches the flash kernels or
-    raises: head_dim 160 never falls back to the dense core unasked."""
+    raises: head_dim 264 never falls back to the dense core unasked."""
     from flexflow_tpu_torch.core.types import OperatorType
     from flexflow_tpu_torch.ops.registry import LowerCtx, lower_op
 
     dev = _card()
-    p = {"embed_dim": 320, "num_heads": 2, "bias": False, "use_flash": use_flash}
-    x = torch.zeros(1, 8, 320, device=dev)
-    ws = [torch.zeros(320, 2, 160, device=dev)] * 3 + [torch.zeros(2, 160, 320, device=dev)]
+    p = {"embed_dim": 528, "num_heads": 2, "bias": False, "use_flash": use_flash}
+    x = torch.zeros(1, 8, 528, device=dev)
+    ws = [torch.zeros(528, 2, 264, device=dev)] * 3 + [torch.zeros(2, 264, 528, device=dev)]
     fk.reset_launches()
-    with pytest.raises(ValueError, match="head_dim 160"):
+    with pytest.raises(ValueError, match="head_dim 264"):
         lower_op(OperatorType.MULTIHEAD_ATTENTION, p)([x] * 3, ws, LowerCtx())
     assert fk.LAUNCHES["flash_fwd"] == 0
     (dense,) = lower_op(OperatorType.MULTIHEAD_ATTENTION, dict(p, use_flash=False))([x] * 3, ws, LowerCtx())
-    assert dense.shape == (1, 8, 320)
+    assert dense.shape == (1, 8, 528)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_with_head_dim_160_trains_through_the_flash_kernels(monkeypatch, causal):
+    """An MHA with head_dim 160 on a CUDA tensor launches #1-#3 once each
+    for a forward and backward; its output and gradients match the same
+    lowering on the same card with the kernels' plain versions in their
+    place."""
+    from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
+    from flexflow_tpu_torch.core.types import DataType, OperatorType
+    from flexflow_tpu_torch.ops.registry import LowerCtx, infer_shapes, lower_op
+
+    dev = _card()
+    p = {"embed_dim": 320, "num_heads": 2, "bias": False, "causal": causal}
+    shape = ParallelTensorShape.make((2, 70, 320), DataType.FLOAT)
+    _, wshapes = infer_shapes(OperatorType.MULTIHEAD_ATTENTION, [shape] * 3, p)
+    rng = np.random.default_rng(160)
+    host = [rng.standard_normal((2, 70, 320)).astype(np.float32)]
+    host += [(0.05 * rng.standard_normal(s.logical_sizes)).astype(np.float32) for s in wshapes]
+
+    def run():
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in host]
+        (out,) = lower_op(OperatorType.MULTIHEAD_ATTENTION, p)([leaves[0]] * 3, leaves[1:], LowerCtx())
+        (out * torch.cos(out)).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    fk.reset_launches()
+    got = run()
+    assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        monkeypatch.setattr(fk, name, getattr(fk, name + "_ref"))
+    want = run()
+    torch.testing.assert_close(got[0], want[0], atol=FWD_TOL, rtol=0)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 def test_flash_backward_reads_an_expanded_gradient():
@@ -388,7 +481,7 @@ def test_flash_backward_reads_an_expanded_gradient():
     ref = [t.detach().clone().requires_grad_(True) for t in leaves]
     fk.flash_fwd_ref(*ref, causal=True)[0].sum().backward()
     for a, b in zip(leaves, ref):
-        torch.testing.assert_close(a.grad, b.grad, atol=ATOL, rtol=1e-3)
+        torch.testing.assert_close(a.grad, b.grad, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 def test_small_transformer_trains_through_the_flash_kernels():

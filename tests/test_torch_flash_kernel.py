@@ -9,6 +9,7 @@ Tolerances are the reference's own: forward and LSE 2e-5; gradients atol
 5e-5, rtol 5e-4."""
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -96,6 +97,51 @@ def test_lse_cotangent_matches_jax():
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+def test_wide_heads_match_jax(d, causal):
+    """head_dim 160 and 256, which the kernels take in two output-column
+    chunks: forward, LSE and the gradients through the port's custom
+    backward against the Pallas kernels in the interpreter."""
+    rng = np.random.RandomState(d + int(causal))
+    q, k, v = (rng.randn(1, 128, H, d).astype(np.float32) for _ in range(3))
+    jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
+
+    def jloss(q, k, v):
+        o = _jax_flash(q, k, v, causal)
+        return jnp.sum(o * jnp.cos(o))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _leaves(q, k, v)
+    o, lse = fk.flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=FWD_TOL)
+    (o * torch.cos(o)).sum().backward()
+    for t, j in zip((tq, tk, tv), jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/ header the
+    source includes, at any depth, so an edited header never loads a
+    stale build; system headers (<...>) are not followed."""
+    from flexflow_tpu_torch.ops.cuda import _build
+
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "kernel.cu").write_text('#include <cuda_runtime.h>\n#include "common.cuh"\nint f();\n')
+    (tmp_path / "common.cuh").write_text('#pragma once\n  #  include "inner.cuh"\nint g();\n')
+    (tmp_path / "inner.cuh").write_text("int h();\n")
+    assert _build.sources_of("kernel.cu") == ["kernel.cu", "common.cuh", "inner.cuh"]
+    paths = [_build.library_path("kernel.cu")]
+    (tmp_path / "common.cuh").write_text('#pragma once\n  #  include "inner.cuh"\nint g(int);\n')
+    paths.append(_build.library_path("kernel.cu"))
+    (tmp_path / "inner.cuh").write_text("int h(int);\n")
+    paths.append(_build.library_path("kernel.cu"))
+    assert len(set(paths)) == 3
+    assert all(os.path.basename(p).startswith("libkernel-") for p in paths)
+    assert _build.library_path("kernel.cu") == paths[-1]
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_ragged_lengths_match_the_dense_core(causal):
     """Lengths no TPU tile divides (sq 100, sk 100 and 37): the port masks
     the ragged tail, so it holds against the dense core there."""
@@ -166,7 +212,10 @@ def test_mha_lowering_picks_its_core_by_use_flash_alone(monkeypatch, use_flash, 
 def test_supports():
     assert fk.supports(512, 512, 64, torch.float32)
     assert fk.supports(500, 37, 128, torch.float32)  # ragged lengths are fine
-    assert not fk.supports(512, 512, 160, torch.float32)
+    # past 128 the kernels cut the output columns into two chunks, up to 256
+    assert fk.supports(512, 512, 160, torch.float32)
+    assert fk.supports(512, 512, 256, torch.float32)
+    assert not fk.supports(512, 512, 264, torch.float32)
     assert not fk.supports(512, 512, 60, torch.float32)
     assert not fk.supports(512, 512, 64, torch.bfloat16)
     assert not fk.supports(0, 512, 64, torch.float32)
@@ -219,3 +268,36 @@ def test_three_tf32_passes_keep_fp32_accuracy_where_one_does_not():
     rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
     assert rel(three) < 1e-6
     assert rel(one) > 1e-4
+
+
+def _round_toward_zero(x):
+    """float64 -> the float32 next to it toward zero: how the tensor cores
+    round an mma's fp32 sum."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def test_fresh_accumulators_stop_the_drift_of_truncating_mma_chains():
+    """Why the kernels' long products take fresh accumulators (product_nt's
+    kFresh past head_dim 128, #1's accumulate_pv): in a model of
+    mma.sync's 3xTF32 passes whose fp32 sums round toward zero, a 64 x 64
+    product of depth 256 taken as one chain of 96 mma's drifts to 2.6e-6
+    of its largest entry; each 8-deep k-step into a fresh accumulator,
+    added in fp32, stays at 2.9e-7."""
+    rng = np.random.RandomState(12)
+    a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((64, 256), (256, 64)))
+    exact = a.double() @ b.double()
+    (a_big, a_small), (b_big, b_small) = _tf32_split(a), _tf32_split(b)
+    chain, fresh = torch.zeros(64, 64), torch.zeros(64, 64)
+    for k in range(0, 256, 8):
+        ks = slice(k, k + 8)
+        step = torch.zeros(64, 64)
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            part = x[:, ks].double() @ y[ks].double()  # exact: 8 products of TF32 values
+            chain = _round_toward_zero(chain.double() + part)
+            step = _round_toward_zero(step.double() + part)
+        fresh = fresh + step
+    rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
+    assert rel(fresh) < 1e-6
+    assert rel(chain) > 5 * rel(fresh)
