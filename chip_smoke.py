@@ -17,18 +17,25 @@ result line) on any failed phase:
                heads x 64, max_len 512, 16-row pages, 256 pages): #4 and
                #5 at w = 1 and 5 (atol 1e-4), #6 on int8 pools with a
                scale-0 page at w = 1 and 5, #7-#9 under a seeded random
-               draft tree at w = 13 and #7, #8 (the split-KV tree body of
-               tree_kernel.cu) also at w = 64 (atol 1e-5), with times,
-               bounds, a library yardstick where PyTorch has one and the
-               card's clocks and power, and for #4, #5 and their SDPA
-               yardstick and for #7 and #8 (with their plain versions and
-               the library call) the profiler's device time and the host
-               time of one call;
+               draft tree at w = 13 and #7, #8 also at w = 64 (atol
+               1e-5), with times, bounds, a library yardstick where
+               PyTorch has one and the card's clocks and power, and for
+               every timed kernel (#5 also at w = 5), its plain version
+               and the library call the profiler's device time and the
+               host time of one call; then #5 and #9 (on the split-KV
+               body of tree_kernel.cu at head_dim <= 256, on
+               decode_kernel.cu's past it) at the edges of their card
+               tests: widths 1-64, head_dim 16, 128, 256 and 320, a
+               ragged max_len at 2-row pages, lengths 0 and max_len - w,
+               holes, scale-0 pages, dead rows exactly 0, repeat calls
+               bit-identical, and w = 64 at head_dim 320 refused as
+               before;
   3. serve   — the flagship decoder LM (12 layers, hidden 1024, 16
                heads, ff 4096, vocab 32000, seeded random weights) serves
                32 requests on 8 slots x 512 tokens under the default
                paged ServeConfig; every request must finish and the paged
-               kernel must run once per layer per decode step;
+               kernel must run once per layer per decode step; a profiled
+               window of 16 decode steps with #5's device time per call;
   4. checks  — at 2 layers and full width: the slot and paged layouts
                give token-identical greedy streams (the slot layout runs
                the contiguous kernel), and cached decode logits match a
@@ -50,8 +57,9 @@ result line) on any failed phase:
                logit gaps stay that close to the plain run's before any
                divergence; tokens/s, verify steps, acceptance, accepted
                tokens per verify and KV pool bytes, and a profiled
-               window of (b)'s, (c)'s and (d)'s steps with the leg's
-               kernel's device time per launch beside the step's GEMMs;
+               window of (a)'s, (b)'s, (c)'s and (d)'s steps with the
+               leg's kernel's device time per launch beside the step's
+               GEMMs;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, 160 and
@@ -153,22 +161,34 @@ LM_TRAIN = dict(layers=2, steps=4)
 # kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
     "flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
-    "paged_flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
+    "paged_flash_verify": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
     "paged_flash_verify_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
     "flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
     "paged_flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
-    "paged_flash_verify_tree_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
+    "paged_flash_verify_tree_quant": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
 
 # kernel wrapper -> substrings of the device functions its launches run,
-# as the profiler names them
+# as the profiler names them: each kernel's own instantiations, so that
+# no kernel's time counts under another's (#5 and #9 run on the split
+# body of tree_kernel.cu, and on decode_kernel.cu's past head_dim 256)
 KERNEL_SYMBOLS = {
-    "paged_flash_verify_tree": ("tree_attention_kernel",),
+    "flash_verify": ("decode_attention_kernel<false, false, false>",),
+    "paged_flash_verify": (
+        "single_query_kernel<true, false,",
+        "tree_attention_kernel<true, false, true,",
+        "decode_attention_kernel<true, false, false>",
+    ),
     "paged_flash_verify_quant": ("decode_attention_kernel<true, true, false>",),
-    "paged_flash_verify_tree_quant": ("decode_attention_kernel<true, true, true>",),
+    "flash_verify_tree": ("tree_attention_kernel<false, false, false,",),
+    "paged_flash_verify_tree": ("tree_attention_kernel<true, false, false,",),
+    "paged_flash_verify_tree_quant": (
+        "tree_attention_kernel<true, true, false,",
+        "decode_attention_kernel<true, true, true>",
+    ),
     "flash_fwd": ("flash_fwd_mma_kernel",),
     "flash_dq": ("flash_dq_mma_kernel",),
     "flash_dkv": ("flash_dkv_mma_kernel",),
@@ -420,9 +440,10 @@ def check_kernels():
             require(err <= ATOL_KERNEL, f"{name} w={w}: error {err} > {ATOL_KERNEL}")
             row = rows.setdefault(name, {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if w != 1:
+            # timings at the decode path's shapes (w = 1), and #5 at w = 5
+            # too (the linear verify on fp32 pools), printed only
+            if w != 1 and name != "paged_flash_verify":
                 continue
-            # timings at the decode path's shapes (w = 1)
             if name == "flash_verify":
                 kv = (x["k_cache"], x["v_cache"])
             else:
@@ -431,25 +452,31 @@ def check_kernels():
             mask = masks[name][0][:, None]  # [b, 1, w, L]
             qt, kt, vt = x["q"].transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-            row["ms"] = time_ms(kernel, flush)
-            row["plain_ms"] = time_ms(plain, flush)
-            row["library_ms"] = time_ms(library, flush)
-            row["bound_ms"], row["bound_by"] = bound_ms(x, name)
+            t = dict(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush), library_ms=time_ms(library, flush))
+            t["bound_ms"], t["bound_by"] = bound_ms(x, name)
+            if w == 1:  # the kernels line keeps the decode path's width
+                row.update(t)
             print(
-                f"[kernels] {name} w=1: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
-                f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-                f"library sdpa {row['library_ms']:.4f} ms"
+                f"[kernels] {name} w={w}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+                f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+                f"library sdpa {t['library_ms']:.4f} ms"
             )
             # the event timer counts a call's host side where it outlasts
-            # the flush: the profiler's device time of the kernel and of
-            # SDPA compare like with like
-            fns = {"kernel": kernel, "library": library}
-            split = {
-                who: dict(ms=row[key], device_ms=device_ms(fn, flush), host_ms=host_ms(fn))
-                for (who, fn), key in zip(fns.items(), ("ms", "library_ms"))
-            }
-            print("[timing] " + json.dumps(dict(name=name, w=w, **split)))
+            # the flush: the profiler's device time and the host time of
+            # each call tell the two apart
+            print_timing(name, w, t, flush, kernel=kernel, plain=plain, library=library)
     return rows
+
+
+def print_timing(name, w, t, flush, **fns):
+    """One [timing] line: for each of `fns` (kernel, plain, library) the
+    event timer's ms from `t`, the profiler's device ms and the host ms
+    of one call."""
+    split = {
+        who: dict(ms=t["ms" if who == "kernel" else who + "_ms"], device_ms=device_ms(fn, flush), host_ms=host_ms(fn))
+        for who, fn in fns.items()
+    }
+    print("[timing] " + json.dumps(dict(name=name, w=w, **split)))
 
 
 def check_spec_kernels():
@@ -526,17 +553,79 @@ def check_spec_kernels():
                 f"[kernels] {name} w={w}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
                 f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {library}"
             )
-            if name in fp32_tree:
-                # time_ms counts a call's host side where it outlasts the
-                # flush: the profiler's device time and the host time of
-                # each call tell the two apart
-                fns = {"kernel": kernel, "plain": plain, "library": sdpa}
-                split = {
-                    who: dict(ms=t[key], device_ms=device_ms(fn, flush), host_ms=host_ms(fn))
-                    for (who, fn), key in zip(fns.items(), ("ms", "plain_ms", "library_ms"))
-                }
-                print("[timing] " + json.dumps(dict(name=name, w=w, **split)))
+            # time_ms counts a call's host side where it outlasts the
+            # flush: the profiler's device time and the host time of each
+            # call tell the two apart
+            fns = dict(kernel=kernel, plain=plain) if name.endswith("_quant") else \
+                dict(kernel=kernel, plain=plain, library=sdpa)
+            print_timing(name, w, t, flush, **fns)
     return rows
+
+
+# the edges of #5's and #9's card tests (tests/test_torch_cuda.py): head
+# dims short of a tile (16), at the tiles' top (256) and past it (320, on
+# decode_kernel.cu's body), as (head_dim, max_len, page): a ragged max_len
+# at 2-row pages, the serving shape, and the wide head at 16-row pages
+SPLIT_BODY_EDGES = ((16, 250, 2), (128, 512, 16), (256, 250, 2), (320, 128, 16))
+SPLIT_BODY_WIDTHS = {"paged_flash_verify": (1, 5, 13, 64), "paged_flash_verify_tree_quant": (1, 13, 33, 64)}
+
+
+def check_split_body_edges(device="cuda"):
+    """#5 and #9 against their plain versions at the card tests' edges:
+    each width of SPLIT_BODY_WIDTHS at each shape of SPLIT_BODY_EDGES,
+    with lengths 0 and max_len - w, a sentinel hole, a dead row that must
+    give exactly 0 and (for #9) a scale-0 page (kernel_inputs), called
+    twice: one launch counted per call under the kernel's own name, the
+    two outputs bit-identical, the error within ATOL_KERNEL (summation
+    order over up to 320 columns of int8 values up to 127 x 0.05 moves
+    #9 by up to ~2.5e-5; ATOL_SPEC_KERNEL holds at the path's head_dim
+    64, check_spec_kernels). At head_dim 320 the wrappers take
+    decode_kernel.cu's body, by head_dim alone; at w = 64 that body's
+    shared memory holds no 320-wide chunk, and both must raise before any
+    launch, as they did before the split body took them. The kernels
+    line keeps the errors at the path's shapes."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+
+    device = torch.device(device)
+    for name, widths in SPLIT_BODY_WIDTHS.items():
+        worst = 0.0
+        for w in widths:
+            for d, max_len, page in SPLIT_BODY_EDGES:
+                h = 16 if max_len == 512 else 2
+                x = kernel_inputs(device, w, h=h, d=d, max_len=max_len, page=page,
+                                  num_pages=8 * (max_len // page))
+                if name.endswith("_quant"):
+                    args = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"],
+                            x["allowed"])
+                else:
+                    args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"])
+                fn = getattr(dk, name)
+                case = f"{name} w={w} d={d} max_len={max_len} page={page}"
+                dk.reset_launches()
+                if d > dk._TREE_MAX_D and w == 64:
+                    try:
+                        fn(*args)
+                    except ValueError as e:
+                        require("shared memory" in str(e), f"{case}: {e}")
+                    else:
+                        raise RuntimeError(f"{case}: took a shape decode_kernel.cu's body never took")
+                    require(sum(dk.LAUNCHES.values()) == 0, f"{case}: launched before raising")
+                    print(f"[kernels] {case}: raises before any launch, as before ({dk._TREE_MAX_D} < d)")
+                    continue
+                out, again = fn(*args), fn(*args)
+                torch.cuda.synchronize()
+                require(dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{name: 2}), f"{case}: {dk.LAUNCHES}")
+                ref = getattr(dk, name + "_ref")(*args)
+                err = float((out - ref).abs().max())
+                require(bool(torch.isfinite(out).all()) and err <= ATOL_KERNEL, f"{case}: error {err} > {ATOL_KERNEL}")
+                require(torch.equal(out, again), f"{case}: two calls differ")
+                require(float(out[-1].abs().max()) == 0.0, f"{case}: the dead row is not 0")
+                worst = max(worst, err)
+        print(f"[kernels] {name} at widths {widths} x (head_dim, max_len, page) {SPLIT_BODY_EDGES}: "
+              f"max |kernel - plain| = {worst:.3e} (atol {ATOL_KERNEL}), repeat calls bit-identical, "
+              f"dead rows 0")
 
 
 def smi_sample() -> str:
@@ -976,6 +1065,7 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
                                plain=(c, c_top), **tree_int8)
     if model.device.type == "cuda":
         for label, kernel, kw in (
+            ("a: decode, fp32 paged", "paged_flash_verify", {}),
             ("b: tree spec verify, fp32 paged", "paged_flash_verify_tree", TREE),
             ("c: decode, int8 paged", "paged_flash_verify_quant", int8),
             ("d: tree spec verify, int8 paged", "paged_flash_verify_tree_quant", tree_int8),
@@ -1460,11 +1550,12 @@ def main() -> int:
     smi_before = smi_sample()
     rows = check_kernels()
     rows.update(check_spec_kernels())
+    check_split_body_edges()
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"at the start [{smi_idle}], after a 2 s warm-up, before the decode kernel "
           f"timings [{smi_before}], after them [{smi_sample()}]")
     model, _, main_launches = serve_flagship("cuda")
-    profile_decode(model)
+    profile_decode(model, kernel="paged_flash_verify")
     del model
     model2, layout_launches = check_layouts("cuda")
     check_decode_logits(model2)

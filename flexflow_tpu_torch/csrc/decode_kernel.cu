@@ -12,9 +12,11 @@
 //     1      0      0    _paged_kernel :342 (paged_flash_verify)         #5
 //     1      1      0    _paged_kernel_quant :476                        #6
 //     1      1      1    _paged_tree_kernel_quant :849                   #9
-// The fp32 tree verifies, _tree_kernel :626 (#7) and _paged_tree_kernel
-// :732 (#8), have their own split-KV body in tree_kernel.cu; here the kTree
-// flag serves #9 alone, until the tree body takes int8 pages.
+// #4 and #6 run here always; #5 and #9 only at head_dim > 256, past the
+// register tiles of tree_kernel.cu's split-KV body, which serves them (and
+// the fp32 tree verifies _tree_kernel :626 (#7) and _paged_tree_kernel
+// :732 (#8)) at head_dim <= 256. The wrapper picks the body by head_dim
+// alone, before any launch.
 //   * kPaged: the cache is pools [num_pages, page, h, d] walked through the
 //     block table; rows on a sentinel page (table entry outside
 //     [0, num_pages)) are neither read nor counted.
@@ -64,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dequant.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -106,16 +110,6 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
-}
-
-// 16 int8 values times their page's scale, as four float4 in shared memory
-__device__ __forceinline__ void store_dequant(float* dst, int4 raw, float s) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    d4[u] = make_float4((float)b[4 * u] * s, (float)b[4 * u + 1] * s,
-                        (float)b[4 * u + 2] * s, (float)b[4 * u + 3] * s);
 }
 
 template <bool kPaged, bool kQuant, bool kTree>

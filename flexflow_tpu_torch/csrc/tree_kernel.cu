@@ -1,26 +1,38 @@
-// Token-tree verify attention over fp32 caches, for Hopper (sm_90a): the
-// device body of kernels #7 and #8. Built by flexflow_tpu_torch/ops/cuda/
-// _build.py with nvcc into a shared library with a plain C interface,
-// loaded through ctypes by flexflow_tpu_torch/ops/cuda/decode_kernel.py.
+// Split-KV verify and decode attention against the serving KV cache, for
+// Hopper (sm_90a): the device body of kernels #5, #7, #8 and #9. Built by
+// flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a shared library
+// with a plain C interface, loaded through ctypes by
+// flexflow_tpu_torch/ops/cuda/decode_kernel.py.
 //
-// What it replaces: two Pallas TPU kernels of
-// flexflow_tpu/ops/pallas/decode_kernel.py,
-//   kPaged
-//     0    _tree_kernel :626 (flash_verify_tree)                  #7
-//     1    _paged_tree_kernel :732 (paged_flash_verify_tree)      #8
-// w query rows per sequence (the draft tree's nodes) against the KV cache,
-// where row j sees position p iff allowed[b, j, p] != 0 (a uint8 mask over
-// logical positions) and p < lengths[b] + w (the chunk gate). On the paged
-// layout rows on a sentinel page (table entry outside [0, num_pages)) are
-// neither read nor counted. A masked entry contributes p = 0, and a row
-// that sees nothing yields acc / max(l, 1e-30) = 0. The int8 tree kernel
-// (#9) stays on decode_kernel.cu's body.
+// What it replaces: four Pallas TPU kernels of
+// flexflow_tpu/ops/pallas/decode_kernel.py, one body templated on three
+// flags:
+//   kPaged kQuant kStair
+//     0      0      0    _tree_kernel :626 (flash_verify_tree)            #7
+//     1      0      0    _paged_tree_kernel :732 (paged_flash_verify_tree) #8
+//     1      1      0    _paged_tree_kernel_quant :849                    #9
+//     1      0      1    _paged_kernel :342 (paged_flash_verify)          #5
+// (kQuant x kStair would be #6 and kStair alone on the contiguous cache
+// #4; both still run on decode_kernel.cu's body, as do #5 and #9 at
+// head_dim > 256, which the wrapper routes there by head_dim alone.)
+// w query rows per sequence against the cache, where row j sees position p
+// iff allowed[b, j, p] != 0 (a uint8 mask over logical positions; the
+// tree verifies) or p <= lengths[b] + j (kStair: the staircase of decode
+// and linear verify, no mask read), and p < lengths[b] + w (the chunk
+// gate). On the paged layout rows on a sentinel page (table entry outside
+// [0, num_pages)) are neither read nor counted. kQuant: the pools are int8
+// with one fp32 scale per (page, head); each row is read with 16-byte
+// loads and multiplied by its page's scale on the way into the fp32 tile,
+// as the reference dequantizes (attention._dequant_pages), so the staged
+// values are bit-identical to the dense dequant; a page with scale 0
+// reads as zeros. A masked entry contributes p = 0, and a row that sees
+// nothing yields acc / max(l, 1e-30) = 0.
 //
 // What bounds it: the bytes of the visible K/V rows. At the serving shape
 // (8 sequences x 16 heads x 64, w = 13, max_len 512) the two products are
 // under 0.25 GFLOP, a few microseconds at the card's fp32 rate, against
-// ~6 us to read the rows once, so the design is about spreading the reads
-// over the whole card and keeping the arithmetic off shared-memory
+// ~6 us to read the fp32 rows once, so the design is about spreading the
+// reads over the whole card and keeping the arithmetic off shared-memory
 // round trips:
 //   * split-KV (flash-decoding): the grid is (splits, h, b); each block owns
 //     `span` consecutive positions (a multiple of 64 and a whole number of
@@ -34,7 +46,8 @@
 //     so such blocks free their slots as soon as they are scheduled and
 //     every block with positions to read can be resident at once;
 //   * each block keeps its running (m, l) per query row and an fp32
-//     accumulator in registers; where a sequence has one live split its
+//     accumulator in registers (fp64 in #9's tile at w <= 16: see Accum
+//     below); where a sequence has one live split its
 //     block writes the output, else each live block writes one partial
 //     per query row and counts its arrival on the (sequence, head)'s
 //     counter (atomicInc, which returns the counter to 0 as the last one
@@ -44,8 +57,9 @@
 //     l_s > 0 only, so all-masked ranges drop out and a row that sees
 //     nothing gives 0 with no NaN. Empty blocks exit at once: one launch
 //     per call, no merge kernel;
-//   * register tiling: 128 threads as 8 x 16; thread (ty, tx) owns query
-//     rows ty + 8 i (kRm of them, the w bucket: w <= 16, 32 or 64) and key
+//   * register tiling (tree_attention_kernel, w > 1, and every tree): 128
+//     threads as 8 x 16; thread (ty, tx) owns query rows ty + 8 i (kRm of
+//     them, the w bucket: w <= 16, 32 or 64) and key
 //     rows tx + 16 j of each chunk (32 rows at w <= 16 or head_dim > 128,
 //     else 64) for the scores (dot products over head_dim straight from
 //     shared memory, no shuffles), and the same query rows times head_dim
@@ -55,18 +69,33 @@
 //     share a row;
 //   * Q, K, V and the mask are staged with 16-byte (mask: 4-byte) loads;
 //     rows are padded to head_dim + 4 floats against bank conflicts; each
-//     row's cache offset is resolved once per chunk (one page lookup per
-//     row, not per element); the length, the first chunk's page lookups
-//     and the Q tile are loaded together, and the mask words before K/V
-//     are stored, so a block waits on device memory twice per chunk, not
-//     four times; shared memory is 26 KB per block at w <= 16, head_dim
-//     64, so 8 blocks share an SM.
-// Left to later work: a block stages a chunk and then computes it, and
+//     row's cache offset (and page scale) is resolved once per chunk (one
+//     page lookup per row, not per element); the length, the first chunk's
+//     page lookups and the Q tile are loaded together, and the mask words
+//     before K/V are stored, so a block waits on device memory twice per
+//     chunk, not four times; shared memory is 26 KB per block at w <= 16,
+//     head_dim 64, so 8 blocks share an SM;
+//   * one query row (single_query_kernel, kStair at w = 1: every decode
+//     step): the 8 x 16 tile would leave 7 of its 8 query rows empty, so
+//     the 128 threads go across key rows and head_dim instead. Half-warp
+//     ty reads positions lo + ty + 8 i, lane tx head_dim columns
+//     4 tx + 64 k, straight from device memory into registers (4 rows per
+//     half-warp in flight at head_dim <= 64, 8 / kCn above: a 32- or
+//     16-row pass; 8 rows at head_dim 64 took 126 registers and 16% more
+//     time, 50% more at short contexts); each score
+//     is reduced across the half-warp's 16 lanes with shuffles, and each
+//     half-warp keeps its own running (m, l, acc), so the loop has no
+//     barrier and no shared memory; the block merges its 8 states by the
+//     same exact rule as the splits, then writes the output or its
+//     partial.
+// Left to later work: the tile stages a chunk and then computes it, and
 // the blocks of an SM do so in step; double-buffered cp.async staging
 // would overlap the two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dequant.cuh"
 
 namespace {
 
@@ -79,11 +108,13 @@ constexpr int kMaxSplits = 64;         // the merge weights fit the K/V tiles
 
 struct Params {
   const float* q;
-  const float* k;
-  const float* v;
+  const void* k;            // float, or int8_t under kQuant
+  const void* v;
+  const float* k_scale;     // quant only: [num_pages, h] contiguous
+  const float* v_scale;
   const int* lengths;
   const int* tables;        // paged only: [b, pages_per_seq] page ids
-  const uint8_t* allowed;   // [b, w, max_len], last dim contiguous
+  const uint8_t* allowed;   // tree only: [b, w, max_len], last dim contiguous
   float* out;               // [b, w, h, d] contiguous
   float* part_acc;          // splits > 1: [b, h, splits, w, d]
   float* part_ml;           // splits > 1: [b, h, splits, w, 2] (m, l)
@@ -97,7 +128,8 @@ struct Params {
   int mask_vec4;  // the mask rows may be read as 4-byte words
   int64_t tbl_sb;
   int64_t q_sb, q_sw, q_sh;
-  // contiguous: (batch, position, head) strides; paged: (page, row, head)
+  // contiguous: (batch, position, head) strides; paged: (page, row, head);
+  // in elements of the cache's type
   int64_t k_s0, k_s1, k_sh;
   int64_t v_s0, v_s1, v_sh;
   int64_t m_sb, m_sw;
@@ -105,6 +137,19 @@ struct Params {
 };
 
 __host__ __device__ constexpr int row_stride(int cn) { return 64 * cn + 4; }
+
+// The type the scores, the running (m, l) and the accumulator are summed
+// in: fp64 for the int8 pools at w <= 16 (the spec path's tile), whose
+// dequantized values reach 127 x scale, several times the fp32 caches':
+// there fp32 sums over head_dim and over the chunk drift by ~4e-6 from
+// exact, where the plain version's own rounding is ~8e-6
+// (scripts/decode_split_body.py). Each 4-term partial (4 columns of a
+// score, 4 key rows of P V) is still formed in fp32 and only the running
+// sums are fp64: 2e-6 from exact at 30% more time than fp32 sums, where
+// fp64 products cost 70%. fp32 elsewhere, where the wider tiles'
+// registers hold no more.
+template <bool kWide> struct Accum { using T = float; };
+template <> struct Accum<true> { using T = double; };
 
 // Key rows staged per loop iteration: 32 for w <= 16, where the smaller
 // tiles let 8 blocks share an SM, so that every block of a call at the
@@ -118,21 +163,27 @@ __host__ __device__ constexpr int chunk_rows(int rm, int cn) {
 __host__ __device__ constexpr size_t smem_bytes(int rm, int cn) {
   return sizeof(float) * (size_t)(rm * kTy * row_stride(cn) +
                                   2 * chunk_rows(rm, cn) * row_stride(cn) +
-                                  rm * kTy * (chunk_rows(rm, cn) + 4)) +
+                                  rm * kTy * (chunk_rows(rm, cn) + 4) +
+                                  2 * chunk_rows(rm, cn)) +
          2 * sizeof(int64_t) * chunk_rows(rm, cn) + (size_t)rm * kTy * chunk_rows(rm, cn);
 }
 
 // Element offsets of position `pos`'s K and V rows of head ih (head
-// included), or -1 where the row lies on a sentinel page.
-template <bool kPaged>
+// included) and, under kQuant, their page's scales; left as they are
+// (-1, 0) where the row lies on a sentinel page.
+template <bool kPaged, bool kQuant>
 __device__ __forceinline__ void row_offsets(const Params& p, int ib, int ih, int pos,
-                                            int64_t& ko, int64_t& vo) {
+                                            int64_t& ko, int64_t& vo, float& ks, float& vs) {
   if (kPaged) {
     const int page = p.tables[ib * p.tbl_sb + pos / p.page_size];
     if (page >= 0 && page < p.num_pages) {
       const int64_t row = pos % p.page_size;
       ko = page * p.k_s0 + row * p.k_s1 + ih * p.k_sh;
       vo = page * p.v_s0 + row * p.v_s1 + ih * p.v_sh;
+      if (kQuant) {
+        ks = p.k_scale[page * p.h + ih];
+        vs = p.v_scale[page * p.h + ih];
+      }
     }
   } else {
     ko = ib * p.k_s0 + pos * p.k_s1 + ih * p.k_sh;
@@ -140,250 +191,17 @@ __device__ __forceinline__ void row_offsets(const Params& p, int ib, int ih, int
   }
 }
 
-template <bool kPaged, int kRm, int kCn>
-__global__ void __launch_bounds__(kThreads)
-    tree_attention_kernel(const Params p) {
-  constexpr int kWb = kRm * kTy;      // query rows of the tile
-  constexpr int kChunk = chunk_rows(kRm, kCn);
-  constexpr int kKn = kChunk / kTx;   // key rows per thread in the scores
-  constexpr int kPs = kChunk + 4;     // padded row stride of the p tile
-  constexpr int kDs = row_stride(kCn);
-  constexpr int kC4 = 16 * kCn;       // float4 columns of a staged row
-  constexpr int kRs = kThreads / kC4; // rows staged per pass
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kWb][kDs]
-  float* k_s = q_s + kWb * kDs;                  // [kChunk][kDs]
-  float* v_s = k_s + kChunk * kDs;               // [kChunk][kDs]
-  float* p_s = v_s + kChunk * kDs;               // [kWb][kPs]
-  // cache offsets of this chunk's rows (head included), -1 = not read
-  int64_t* koff_s = reinterpret_cast<int64_t*>(p_s + kWb * kPs);
-  int64_t* voff_s = koff_s + kChunk;
-  uint8_t* vis_s = reinterpret_cast<uint8_t*>(voff_s + kChunk);  // [kWb][kChunk]
-
-  const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
-  const int w = p.w, d = p.d, d4 = p.d / 4;
-  const int lo = is * p.span;
-  // the length, the first chunk's row offsets and the Q tile are loaded
-  // together (the last two lie inside the cache whatever the length)
-  const int length = p.lengths[ib];
-  int64_t ko = -1, vo = -1;
-  if (tid < kChunk && lo + tid < p.max_len) row_offsets<kPaged>(p, ib, ih, lo + tid, ko, vo);
-  constexpr int kQn = kWb * kC4 / kThreads;  // Q float4s per thread
-  float4 qv[kQn];
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-#pragma unroll
-  for (int u = 0; u < kQn; ++u) {
-    const int i = tid + u * kThreads, j = i / kC4, c = i % kC4;
-    qv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < w && c < d4) qv[u] = *reinterpret_cast<const float4*>(qb + j * p.q_sw + 4 * c);
-  }
-  // positions [0, end) are visible to at least one query row
-  const int end = min(length + w, p.max_len);
-  const int hi = min(lo + p.span, end);
-  if (lo >= hi) {  // nothing to read in this range
-    if (is == 0)  // nor in any (lengths[b] + w <= 0): the output is 0
-      for (int i = tid; i < w * d; i += kThreads)
-        p.out[(((int64_t)ib * w + i / d) * p.h + ih) * d + i % d] = 0.f;
-    return;
-  }
-  const int live = (end + p.span - 1) / p.span;  // splits with positions to read
-#pragma unroll
-  for (int u = 0; u < kQn; ++u) {
-    const int i = tid + u * kThreads;
-    reinterpret_cast<float4*>(q_s + (i / kC4) * kDs)[i % kC4] = qv[u];
-  }
-
-  float acc[kRm][4 * kCn];
-  float m_r[kRm], l_r[kRm];
-#pragma unroll
-  for (int i = 0; i < kRm; ++i) {
-    m_r[i] = kMask;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * kCn; ++e) acc[i][e] = 0.f;
-  }
-
-  const int sc = tid % kC4, sr = tid / kC4;  // this thread's staging column, first row
-  const uint8_t* mb = p.allowed + ib * p.m_sb;
-  for (int k0 = lo; k0 < hi; k0 += kChunk) {
-    const int rows = min(kChunk, hi - k0);
-    // where each row of the chunk lives, or -1 (past the range or on a
-    // sentinel page)
-    if (tid < kChunk) {
-      if (k0 != lo) {
-        ko = vo = -1;
-        if (k0 + tid < p.max_len) row_offsets<kPaged>(p, ib, ih, k0 + tid, ko, vo);
-      }
-      koff_s[tid] = tid < rows ? ko : -1;
-      voff_s[tid] = tid < rows ? vo : -1;
-    }
-    __syncthreads();
-
-    // this chunk's mask words, then K and V (zeros where a row is not
-    // read, so p = 0 meets finite values), then the mask with the page
-    // check folded in
-    constexpr int kMw = kWb * (kChunk / 4) / kThreads;  // mask words per thread
-    uint32_t mw[kMw];
-#pragma unroll
-    for (int u = 0; u < kMw; ++u) {
-      const int i = tid + u * kThreads;
-      const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
-      uint32_t word = 0;
-      if (j < w) {
-        const uint8_t* mr = mb + j * p.m_sw + k0 + c;
-        if (p.mask_vec4 && c + 4 <= rows) {
-          word = *reinterpret_cast<const uint32_t*>(mr);
-        } else {
-          for (int e = 0; e < 4 && c + e < rows; ++e) word |= (uint32_t)mr[e] << (8 * e);
-        }
-      }
-      mw[u] = word;
-    }
-#pragma unroll
-    for (int u = 0; u < kChunk / kRs; ++u) {
-      const int r = sr + u * kRs;
-      const int64_t ko = koff_s[r], vo = voff_s[r];
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (ko >= 0 && sc < d4) {
-        kv = __ldg(reinterpret_cast<const float4*>(p.k + ko) + sc);
-        vv = __ldg(reinterpret_cast<const float4*>(p.v + vo) + sc);
-      }
-      reinterpret_cast<float4*>(k_s + r * kDs)[sc] = kv;
-      reinterpret_cast<float4*>(v_s + r * kDs)[sc] = vv;
-    }
-#pragma unroll
-    for (int u = 0; u < kMw; ++u) {
-      const int i = tid + u * kThreads;
-      const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
-      uint32_t vis = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (((mw[u] >> (8 * e)) & 0xffu) && koff_s[c + e] >= 0) vis |= 1u << (8 * e);
-      reinterpret_cast<uint32_t*>(vis_s + j * kChunk)[c / 4] = vis;
-    }
-    __syncthreads();
-
-    // scores of the thread's (query row, key row) micro-tile over head_dim
-    float s[kRm][kKn];
-#pragma unroll
-    for (int i = 0; i < kRm; ++i)
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) s[i][j] = 0.f;
-    const float4* q4 = reinterpret_cast<const float4*>(q_s + ty * kDs);
-    const float4* k4 = reinterpret_cast<const float4*>(k_s + tx * kDs);
-#pragma unroll 4
-    for (int c = 0; c < d4; ++c) {
-      float4 kk[kKn];
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) kk[j] = k4[j * kTx * (kDs / 4) + c];
-#pragma unroll
-      for (int i = 0; i < kRm; ++i) {
-        const float4 qq = q4[i * kTy * (kDs / 4) + c];
-#pragma unroll
-        for (int j = 0; j < kKn; ++j)
-          s[i][j] += qq.x * kk[j].x + qq.y * kk[j].y + qq.z * kk[j].z + qq.w * kk[j].w;
-      }
-    }
-
-    // online softmax per query row, reduced across the 16 threads of the row
-#pragma unroll
-    for (int i = 0; i < kRm; ++i) {
-      const int row = ty + i * kTy;
-      bool seen[kKn];
-      float mx = kMask;
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) {
-        seen[j] = vis_s[row * kChunk + tx + j * kTx] != 0;
-        s[i][j] = seen[j] ? s[i][j] * p.scale : kMask;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = kTx / 2; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float corr = expf(m_r[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) {
-        const float pr = seen[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_s[row * kPs + tx + j * kTx] = pr;
-        sum += pr;
-      }
-#pragma unroll
-      for (int o = kTx / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l_r[i] = l_r[i] * corr + sum;
-      m_r[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 4 * kCn; ++e) acc[i][e] *= corr;
-    }
-    __syncthreads();
-
-    // acc += p @ V: four key rows per step, each V float4 used for all rows
-    const int rows4 = (rows + 3) & ~3;
-    for (int r = 0; r < rows4; r += 4) {
-      float4 pp[kRm];
-#pragma unroll
-      for (int i = 0; i < kRm; ++i)
-        pp[i] = *reinterpret_cast<const float4*>(p_s + (ty + i * kTy) * kPs + r);
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) {
-        const float* vr = v_s + r * kDs + 4 * tx + 64 * k;
-        const float4 v0 = *reinterpret_cast<const float4*>(vr);
-        const float4 v1 = *reinterpret_cast<const float4*>(vr + kDs);
-        const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * kDs);
-        const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * kDs);
-#pragma unroll
-        for (int i = 0; i < kRm; ++i) {
-          acc[i][4 * k] += pp[i].x * v0.x + pp[i].y * v1.x + pp[i].z * v2.x + pp[i].w * v3.x;
-          acc[i][4 * k + 1] += pp[i].x * v0.y + pp[i].y * v1.y + pp[i].z * v2.y + pp[i].w * v3.y;
-          acc[i][4 * k + 2] += pp[i].x * v0.z + pp[i].y * v1.z + pp[i].z * v2.z + pp[i].w * v3.z;
-          acc[i][4 * k + 3] += pp[i].x * v0.w + pp[i].y * v1.w + pp[i].z * v2.w + pp[i].w * v3.w;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (live == 1) {  // the only split with positions: the output itself
-#pragma unroll
-    for (int i = 0; i < kRm; ++i) {
-      const int row = ty + i * kTy;
-      if (row >= w) continue;
-      const float l = fmaxf(l_r[i], 1e-30f);
-      float* o = p.out + (((int64_t)ib * w + row) * p.h + ih) * d;
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) {
-        const int c = 4 * tx + 64 * k;
-        if (c < d)
-          *reinterpret_cast<float4*>(o + c) =
-              make_float4(acc[i][4 * k] / l, acc[i][4 * k + 1] / l,
-                          acc[i][4 * k + 2] / l, acc[i][4 * k + 3] / l);
-      }
-    }
-    return;
-  }
-
-  // a partial per query row, then the arrival count
-  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits * w;  // split 0, row 0
-#pragma unroll
-  for (int i = 0; i < kRm; ++i) {
-    const int row = ty + i * kTy;
-    if (row >= w) continue;
-    const int64_t r = base + (int64_t)is * w + row;
-    float* o = p.part_acc + r * d;
-#pragma unroll
-    for (int k = 0; k < kCn; ++k) {
-      const int c = 4 * tx + 64 * k;
-      if (c < d)
-        *reinterpret_cast<float4*>(o + c) =
-            make_float4(acc[i][4 * k], acc[i][4 * k + 1], acc[i][4 * k + 2], acc[i][4 * k + 3]);
-    }
-    if (tx == 0) {
-      p.part_ml[2 * r] = m_r[i];
-      p.part_ml[2 * r + 1] = l_r[i];
-    }
-  }
+// Called by every thread of a live block after it wrote its partials
+// (rows base + is * w + j): counts the block's arrival on its (sequence,
+// head)'s counter, and the last block to arrive merges the live partials
+// (read from L2) into the output: the (m, l) of every (split, row) into
+// `scratch` at once, then each row's weights e^(m_s - M) (0 where l_s =
+// 0), then the accumulators. scratch holds 3 * kMaxSplits * w + w floats,
+// 8-byte aligned; partial rows base + s * w + j of splits 0..live-1 are
+// contiguous.
+__device__ void arrive_and_merge(const Params& p, int ib, int ih, int live, int64_t base,
+                                 float* scratch) {
+  const int tid = threadIdx.x, w = p.w, d4 = p.d / 4;
   __threadfence();
   __syncthreads();
   __shared__ int last_s;
@@ -393,15 +211,9 @@ __global__ void __launch_bounds__(kThreads)
   if (!last_s) return;
   __threadfence();
 
-  // the last block to arrive merges the live partials (read from L2): the
-  // (m, l) of every (split, row) into shared memory at once, then each
-  // row's weights e^(m_s - M) (0 where l_s = 0), then the accumulators;
-  // partial rows base + s * w + j of splits 0..live-1 are contiguous
-  static_assert(3 * kMaxSplits * kWb + kWb <= kWb * kDs + 2 * kChunk * kDs + kWb * kPs,
-                "the merge's scratch does not fit the tiles");
-  float2* ml_s = reinterpret_cast<float2*>(q_s);                 // [live * w]
-  float* wt = reinterpret_cast<float*>(ml_s + kMaxSplits * kWb);  // [live * w]
-  float* den = wt + kMaxSplits * kWb;                             // [w] max(sum e l, 1e-30)
+  float2* ml_s = reinterpret_cast<float2*>(scratch);              // [live * w]
+  float* wt = reinterpret_cast<float*>(ml_s + kMaxSplits * w);     // [live * w]
+  float* den = wt + kMaxSplits * w;                                // [w] max(sum e l, 1e-30)
   const float2* ml2 = reinterpret_cast<const float2*>(p.part_ml) + base;
   for (int i = tid; i < live * w; i += kThreads) ml_s[i] = __ldcg(ml2 + i);
   __syncthreads();
@@ -449,38 +261,508 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPaged, int kRm, int kCn>
+template <bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
+__global__ void __launch_bounds__(kThreads)
+    tree_attention_kernel(const Params p) {
+  using Acc = typename Accum<kQuant && kRm == 2>::T;
+  constexpr int kWb = kRm * kTy;      // query rows of the tile
+  constexpr int kChunk = chunk_rows(kRm, kCn);
+  constexpr int kKn = kChunk / kTx;   // key rows per thread in the scores
+  constexpr int kPs = kChunk + 4;     // padded row stride of the p tile
+  constexpr int kDs = row_stride(kCn);
+  constexpr int kC4 = 16 * kCn;       // float4 columns of a staged row
+  constexpr int kRs = kThreads / kC4; // rows staged per pass
+  constexpr int kC16 = 4 * kCn;       // 16-byte int8 columns of a staged row
+  constexpr int kRs8 = kThreads / kC16;  // int8 rows staged per pass
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [kWb][kDs]
+  float* k_s = q_s + kWb * kDs;                  // [kChunk][kDs]
+  float* v_s = k_s + kChunk * kDs;               // [kChunk][kDs]
+  float* p_s = v_s + kChunk * kDs;               // [kWb][kPs]
+  float* ks_s = p_s + kWb * kPs;                 // quant: [kChunk] page scales
+  float* vs_s = ks_s + kChunk;
+  // cache offsets of this chunk's rows (head included), -1 = not read
+  int64_t* koff_s = reinterpret_cast<int64_t*>(vs_s + kChunk);
+  int64_t* voff_s = koff_s + kChunk;
+  uint8_t* vis_s = reinterpret_cast<uint8_t*>(voff_s + kChunk);  // tree: [kWb][kChunk]
+
+  const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
+  const int w = p.w, d = p.d, d4 = p.d / 4;
+  const int lo = is * p.span;
+  // the length, the first chunk's row offsets and the Q tile are loaded
+  // together (the last two lie inside the cache whatever the length)
+  const int length = p.lengths[ib];
+  int64_t ko = -1, vo = -1;
+  float ksc = 0.f, vsc = 0.f;
+  if (tid < kChunk && lo + tid < p.max_len)
+    row_offsets<kPaged, kQuant>(p, ib, ih, lo + tid, ko, vo, ksc, vsc);
+  constexpr int kQn = kWb * kC4 / kThreads;  // Q float4s per thread
+  float4 qv[kQn];
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+#pragma unroll
+  for (int u = 0; u < kQn; ++u) {
+    const int i = tid + u * kThreads, j = i / kC4, c = i % kC4;
+    qv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < w && c < d4) qv[u] = *reinterpret_cast<const float4*>(qb + j * p.q_sw + 4 * c);
+  }
+  // positions [0, end) are visible to at least one query row
+  const int end = min(length + w, p.max_len);
+  const int hi = min(lo + p.span, end);
+  if (lo >= hi) {  // nothing to read in this range
+    if (is == 0)  // nor in any (lengths[b] + w <= 0): the output is 0
+      for (int i = tid; i < w * d; i += kThreads)
+        p.out[(((int64_t)ib * w + i / d) * p.h + ih) * d + i % d] = 0.f;
+    return;
+  }
+  const int live = (end + p.span - 1) / p.span;  // splits with positions to read
+#pragma unroll
+  for (int u = 0; u < kQn; ++u) {
+    const int i = tid + u * kThreads;
+    reinterpret_cast<float4*>(q_s + (i / kC4) * kDs)[i % kC4] = qv[u];
+  }
+
+  Acc acc[kRm][4 * kCn];
+  Acc m_r[kRm], l_r[kRm];
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) {
+    m_r[i] = kMask;
+    l_r[i] = 0;
+#pragma unroll
+    for (int e = 0; e < 4 * kCn; ++e) acc[i][e] = 0;
+  }
+
+  const int sc = tid % kC4, sr = tid / kC4;     // this thread's fp32 staging column, first row
+  const int sc8 = tid % kC16, sr8 = tid / kC16;  // the same for int8 rows
+  const uint8_t* mb = p.allowed + ib * p.m_sb;
+  for (int k0 = lo; k0 < hi; k0 += kChunk) {
+    const int rows = min(kChunk, hi - k0);
+    // where each row of the chunk lives, or -1 (past the range or on a
+    // sentinel page), and its page's scales
+    if (tid < kChunk) {
+      if (k0 != lo) {
+        ko = vo = -1;
+        ksc = vsc = 0.f;
+        if (k0 + tid < p.max_len) row_offsets<kPaged, kQuant>(p, ib, ih, k0 + tid, ko, vo, ksc, vsc);
+      }
+      koff_s[tid] = tid < rows ? ko : -1;
+      voff_s[tid] = tid < rows ? vo : -1;
+      if (kQuant) {
+        ks_s[tid] = tid < rows ? ksc : 0.f;
+        vs_s[tid] = tid < rows ? vsc : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // this chunk's mask words (tree), then K and V (zeros where a row is
+    // not read, so p = 0 meets finite values), then the mask with the
+    // page check folded in
+    constexpr int kMw = kStair ? 1 : kWb * (kChunk / 4) / kThreads;  // mask words per thread
+    uint32_t mw[kMw];
+    if (!kStair) {
+#pragma unroll
+      for (int u = 0; u < kMw; ++u) {
+        const int i = tid + u * kThreads;
+        const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
+        uint32_t word = 0;
+        if (j < w) {
+          const uint8_t* mr = mb + j * p.m_sw + k0 + c;
+          if (p.mask_vec4 && c + 4 <= rows) {
+            word = *reinterpret_cast<const uint32_t*>(mr);
+          } else {
+            for (int e = 0; e < 4 && c + e < rows; ++e) word |= (uint32_t)mr[e] << (8 * e);
+          }
+        }
+        mw[u] = word;
+      }
+    }
+    if (kQuant) {
+      const int8_t* k8 = static_cast<const int8_t*>(p.k);
+      const int8_t* v8 = static_cast<const int8_t*>(p.v);
+#pragma unroll
+      for (int u = 0; u < kChunk / kRs8; ++u) {
+        const int r = sr8 + u * kRs8;
+        const int64_t ko = koff_s[r], vo = voff_s[r];
+        int4 kr = make_int4(0, 0, 0, 0), vr = kr;
+        if (ko >= 0 && 16 * sc8 < d) {
+          kr = __ldg(reinterpret_cast<const int4*>(k8 + ko) + sc8);
+          vr = __ldg(reinterpret_cast<const int4*>(v8 + vo) + sc8);
+        }
+        store_dequant(k_s + r * kDs + 16 * sc8, kr, ks_s[r]);
+        store_dequant(v_s + r * kDs + 16 * sc8, vr, vs_s[r]);
+      }
+    } else {
+      const float* kf = static_cast<const float*>(p.k);
+      const float* vf = static_cast<const float*>(p.v);
+#pragma unroll
+      for (int u = 0; u < kChunk / kRs; ++u) {
+        const int r = sr + u * kRs;
+        const int64_t ko = koff_s[r], vo = voff_s[r];
+        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+        if (ko >= 0 && sc < d4) {
+          kv = __ldg(reinterpret_cast<const float4*>(kf + ko) + sc);
+          vv = __ldg(reinterpret_cast<const float4*>(vf + vo) + sc);
+        }
+        reinterpret_cast<float4*>(k_s + r * kDs)[sc] = kv;
+        reinterpret_cast<float4*>(v_s + r * kDs)[sc] = vv;
+      }
+    }
+    if (!kStair) {
+#pragma unroll
+      for (int u = 0; u < kMw; ++u) {
+        const int i = tid + u * kThreads;
+        const int j = i / (kChunk / 4), c = 4 * (i % (kChunk / 4));
+        uint32_t vis = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (((mw[u] >> (8 * e)) & 0xffu) && koff_s[c + e] >= 0) vis |= 1u << (8 * e);
+        reinterpret_cast<uint32_t*>(vis_s + j * kChunk)[c / 4] = vis;
+      }
+    }
+    __syncthreads();
+
+    // scores of the thread's (query row, key row) micro-tile over head_dim
+    Acc s[kRm][kKn];
+#pragma unroll
+    for (int i = 0; i < kRm; ++i)
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) s[i][j] = 0;
+    const float4* q4 = reinterpret_cast<const float4*>(q_s + ty * kDs);
+    const float4* k4 = reinterpret_cast<const float4*>(k_s + tx * kDs);
+#pragma unroll 4
+    for (int c = 0; c < d4; ++c) {
+      float4 kk[kKn];
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) kk[j] = k4[j * kTx * (kDs / 4) + c];
+#pragma unroll
+      for (int i = 0; i < kRm; ++i) {
+        const float4 qq = q4[i * kTy * (kDs / 4) + c];
+#pragma unroll
+        for (int j = 0; j < kKn; ++j)
+          s[i][j] += (Acc)(qq.x * kk[j].x + qq.y * kk[j].y + qq.z * kk[j].z + qq.w * kk[j].w);
+      }
+    }
+
+    // staircase: key row tx + 16 j is read (on a real page, inside the
+    // range) and lies at or before lengths[b] + row
+    bool on[kKn];
+    if (kStair) {
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) on[j] = koff_s[tx + j * kTx] >= 0;
+    }
+    const int stair0 = length - k0 - tx;  // + row - 16 j: the last visible key row's slack
+
+    // online softmax per query row, reduced across the 16 threads of the row
+#pragma unroll
+    for (int i = 0; i < kRm; ++i) {
+      const int row = ty + i * kTy;
+      bool seen[kKn];
+      Acc mx = kMask;
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) {
+        seen[j] = kStair ? on[j] && j * kTx <= stair0 + row
+                         : vis_s[row * kChunk + tx + j * kTx] != 0;
+        s[i][j] = seen[j] ? s[i][j] * p.scale : (Acc)kMask;
+        mx = max(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = kTx / 2; o > 0; o >>= 1)
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const Acc m_new = max(m_r[i], mx);
+      const Acc corr = expf((float)(m_r[i] - m_new));
+      Acc sum = 0;
+#pragma unroll
+      for (int j = 0; j < kKn; ++j) {
+        const float pr = seen[j] ? expf((float)(s[i][j] - m_new)) : 0.f;
+        p_s[row * kPs + tx + j * kTx] = pr;
+        sum += pr;
+      }
+#pragma unroll
+      for (int o = kTx / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l_r[i] = l_r[i] * corr + sum;
+      m_r[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * kCn; ++e) acc[i][e] *= corr;
+    }
+    __syncthreads();
+
+    // acc += p @ V: four key rows per step, each V float4 used for all rows
+    const int rows4 = (rows + 3) & ~3;
+    for (int r = 0; r < rows4; r += 4) {
+      float4 pp[kRm];
+#pragma unroll
+      for (int i = 0; i < kRm; ++i)
+        pp[i] = *reinterpret_cast<const float4*>(p_s + (ty + i * kTy) * kPs + r);
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const float* vr = v_s + r * kDs + 4 * tx + 64 * k;
+        const float4 v0 = *reinterpret_cast<const float4*>(vr);
+        const float4 v1 = *reinterpret_cast<const float4*>(vr + kDs);
+        const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * kDs);
+        const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * kDs);
+#pragma unroll
+        for (int i = 0; i < kRm; ++i) {
+          const float px = pp[i].x, py = pp[i].y, pz = pp[i].z, pw = pp[i].w;
+          acc[i][4 * k] += (Acc)(px * v0.x + py * v1.x + pz * v2.x + pw * v3.x);
+          acc[i][4 * k + 1] += (Acc)(px * v0.y + py * v1.y + pz * v2.y + pw * v3.y);
+          acc[i][4 * k + 2] += (Acc)(px * v0.z + py * v1.z + pz * v2.z + pw * v3.z);
+          acc[i][4 * k + 3] += (Acc)(px * v0.w + py * v1.w + pz * v2.w + pw * v3.w);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (live == 1) {  // the only split with positions: the output itself
+#pragma unroll
+    for (int i = 0; i < kRm; ++i) {
+      const int row = ty + i * kTy;
+      if (row >= w) continue;
+      const Acc l = max(l_r[i], (Acc)1e-30f);
+      float* o = p.out + (((int64_t)ib * w + row) * p.h + ih) * d;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const int c = 4 * tx + 64 * k;
+        if (c < d)
+          *reinterpret_cast<float4*>(o + c) =
+              make_float4(acc[i][4 * k] / l, acc[i][4 * k + 1] / l,
+                          acc[i][4 * k + 2] / l, acc[i][4 * k + 3] / l);
+      }
+    }
+    return;
+  }
+
+  // a partial per query row, then the arrival count and the merge (its
+  // scratch in the Q, K and V tiles)
+  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits * w;  // split 0, row 0
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) {
+    const int row = ty + i * kTy;
+    if (row >= w) continue;
+    const int64_t r = base + (int64_t)is * w + row;
+    float* o = p.part_acc + r * d;
+#pragma unroll
+    for (int k = 0; k < kCn; ++k) {
+      const int c = 4 * tx + 64 * k;
+      if (c < d)
+        *reinterpret_cast<float4*>(o + c) =
+            make_float4(acc[i][4 * k], acc[i][4 * k + 1], acc[i][4 * k + 2], acc[i][4 * k + 3]);
+    }
+    if (tx == 0) {
+      p.part_ml[2 * r] = m_r[i];
+      p.part_ml[2 * r + 1] = l_r[i];
+    }
+  }
+  static_assert(3 * kMaxSplits * kWb + kWb <= kWb * kDs + 2 * kChunk * kDs + kWb * kPs,
+                "the merge's scratch does not fit the tiles");
+  arrive_and_merge(p, ib, ih, live, base, q_s);
+}
+
+// 4 cache elements of a row at element offset `off` + 4 c: fp32, or int8
+// times the page's scale
+template <bool kQuant>
+__device__ __forceinline__ float4 load4(const void* base, int64_t off, int c, float s) {
+  if (kQuant) {
+    const char4 r = __ldg(reinterpret_cast<const char4*>(static_cast<const int8_t*>(base) + off) + c);
+    return make_float4((float)r.x * s, (float)r.y * s, (float)r.z * s, (float)r.w * s);
+  }
+  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(base) + off) + c);
+}
+
+// One query row under the staircase (w = 1: position p visible iff
+// p <= lengths[b]): see the header. Half-warp ty holds positions
+// k0 + ty + 8 i of each pass, lane tx head_dim columns 4 tx + 64 k.
+template <bool kPaged, bool kQuant, int kCn>
+__global__ void __launch_bounds__(kThreads)
+    single_query_kernel(const Params p) {
+  constexpr int kR = kCn == 1 ? 4 : 8 / kCn;  // positions per half-warp per pass
+  constexpr int kPass = kTy * kR;    // positions per pass: 32, 32 or 16
+  __shared__ float4 acc_s[kTy][16 * kCn];  // each half-warp's accumulator
+  __shared__ float2 ml_s[kTy];             // and its (m, l)
+  __shared__ float2 scratch2[(3 * kMaxSplits + 2) / 2];  // the merge's, w = 1
+
+  const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
+  const int d = p.d, d4 = p.d / 4;
+  const int lo = is * p.span;
+  // the length, the first pass's row offsets and q are loaded together
+  const int length = p.lengths[ib];
+  int64_t ko[kR], vo[kR];
+  float ks[kR], vs[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    ko[i] = vo[i] = -1;
+    ks[i] = vs[i] = 0.f;
+    const int pos = lo + ty + kTy * i;
+    if (pos < p.max_len) row_offsets<kPaged, kQuant>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
+  }
+  float4 qv[kCn];
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+#pragma unroll
+  for (int k = 0; k < kCn; ++k) {
+    const int c = tx + 16 * k;
+    qv[k] = c < d4 ? __ldg(reinterpret_cast<const float4*>(qb) + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int end = min(length + 1, p.max_len);  // positions [0, end) are visible
+  const int hi = min(lo + p.span, end);
+  if (lo >= hi) {  // nothing to read in this range
+    if (is == 0)  // nor in any (lengths[b] < 0): the output is 0
+      for (int c = tid; c < d; c += kThreads) p.out[((int64_t)ib * p.h + ih) * d + c] = 0.f;
+    return;
+  }
+  const int live = (end + p.span - 1) / p.span;  // splits with positions to read
+
+  float m = kMask, l = 0.f;
+  float acc[4 * kCn];
+#pragma unroll
+  for (int e = 0; e < 4 * kCn; ++e) acc[e] = 0.f;
+  for (int k0 = lo; k0 < hi; k0 += kPass) {
+    if (k0 != lo) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        ko[i] = vo[i] = -1;
+        ks[i] = vs[i] = 0.f;
+        const int pos = k0 + ty + kTy * i;
+        if (pos < hi) row_offsets<kPaged, kQuant>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
+      }
+    }
+    // every read of the pass in flight at once
+    bool seen[kR];
+    float4 kk[kR][kCn], vv[kR][kCn];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      seen[i] = k0 + ty + kTy * i < hi && ko[i] >= 0;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const int c = tx + 16 * k;
+        kk[i][k] = vv[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (seen[i] && c < d4) {
+          kk[i][k] = load4<kQuant>(p.k, ko[i], c, ks[i]);
+          vv[i][k] = load4<kQuant>(p.v, vo[i], c, vs[i]);
+        }
+      }
+    }
+    float s[kR];
+    float mx = kMask;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k)
+        dot += qv[k].x * kk[i][k].x + qv[k].y * kk[i][k].y + qv[k].z * kk[i][k].z + qv[k].w * kk[i][k].w;
+#pragma unroll
+      for (int o = kTx / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      s[i] = seen[i] ? dot * p.scale : kMask;
+      mx = fmaxf(mx, s[i]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * kCn; ++e) acc[e] *= corr;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float pr = seen[i] ? expf(s[i] - m_new) : 0.f;
+      sum += pr;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        acc[4 * k] += pr * vv[i][k].x;
+        acc[4 * k + 1] += pr * vv[i][k].y;
+        acc[4 * k + 2] += pr * vv[i][k].z;
+        acc[4 * k + 3] += pr * vv[i][k].w;
+      }
+    }
+    l = l * corr + sum;
+    m = m_new;
+  }
+
+  // the block's 8 half-warp states, merged exactly as the splits are
+#pragma unroll
+  for (int k = 0; k < kCn; ++k)
+    acc_s[ty][tx + 16 * k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+  if (tx == 0) ml_s[ty] = make_float2(m, l);
+  __syncthreads();
+  float big = kMask;
+#pragma unroll
+  for (int t = 0; t < kTy; ++t)
+    if (ml_s[t].y > 0.f) big = fmaxf(big, ml_s[t].x);
+  float e[kTy], den = 0.f;
+#pragma unroll
+  for (int t = 0; t < kTy; ++t) {
+    e[t] = ml_s[t].y > 0.f ? expf(ml_s[t].x - big) : 0.f;
+    den += e[t] * ml_s[t].y;
+  }
+  const float inv = live == 1 ? 1.f / fmaxf(den, 1e-30f) : 1.f;
+  // live == 1: the output; else this split's partial (M, L, acc)
+  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits;  // split 0
+  float4* dst = live == 1 ? reinterpret_cast<float4*>(p.out) + ((int64_t)ib * p.h + ih) * d4
+                          : reinterpret_cast<float4*>(p.part_acc) + (base + is) * d4;
+  for (int c = tid; c < d4; c += kThreads) {
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < kTy; ++t) {
+      const float4 a = acc_s[t][c];
+      num.x += e[t] * a.x;
+      num.y += e[t] * a.y;
+      num.z += e[t] * a.z;
+      num.w += e[t] * a.w;
+    }
+    dst[c] = live == 1 ? make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv) : num;
+  }
+  if (live == 1) return;
+  if (tid == 0) {
+    p.part_ml[2 * (base + is)] = big;
+    p.part_ml[2 * (base + is) + 1] = den;
+  }
+  arrive_and_merge(p, ib, ih, live, base, reinterpret_cast<float*>(scratch2));
+}
+
+template <bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
 int launch_tile(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(kRm, kCn);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_attention_kernel<kPaged, kRm, kCn>,
+        tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)  // all of the SM's L1/shared split to shared: more blocks
-      e = cudaFuncSetAttribute(tree_attention_kernel<kPaged, kRm, kCn>,
+      e = cudaFuncSetAttribute(tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(p.splits, p.h, b);
-  tree_attention_kernel<kPaged, kRm, kCn><<<grid, kThreads, smem, stream>>>(p);
+  tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged, int kRm>
+template <bool kPaged, bool kQuant, bool kStair, int kRm>
 int launch_cols(const Params& p, int b, cudaStream_t stream) {
-  if (p.d <= 64) return launch_tile<kPaged, kRm, 1>(p, b, stream);
-  if (p.d <= 128) return launch_tile<kPaged, kRm, 2>(p, b, stream);
-  return launch_tile<kPaged, kRm, 4>(p, b, stream);
+  if (p.d <= 64) return launch_tile<kPaged, kQuant, kStair, kRm, 1>(p, b, stream);
+  if (p.d <= 128) return launch_tile<kPaged, kQuant, kStair, kRm, 2>(p, b, stream);
+  return launch_tile<kPaged, kQuant, kStair, kRm, 4>(p, b, stream);
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kQuant, int kCn>
+int launch_single(const Params& p, int b, cudaStream_t stream) {
+  dim3 grid(p.splits, p.h, b);
+  single_query_kernel<kPaged, kQuant, kCn><<<grid, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPaged, bool kQuant, bool kStair>
 int launch_bucket(const Params& p, int b, cudaStream_t stream) {
-  if (p.w <= 2 * kTy) return launch_cols<kPaged, 2>(p, b, stream);
-  if (p.w <= 4 * kTy) return launch_cols<kPaged, 4>(p, b, stream);
-  return launch_cols<kPaged, 8>(p, b, stream);
+  if constexpr (kStair) {
+    if (p.w == 1) {
+      if (p.d <= 64) return launch_single<kPaged, kQuant, 1>(p, b, stream);
+      if (p.d <= 128) return launch_single<kPaged, kQuant, 2>(p, b, stream);
+      return launch_single<kPaged, kQuant, 4>(p, b, stream);
+    }
+  }
+  if (p.w <= 2 * kTy) return launch_cols<kPaged, kQuant, kStair, 2>(p, b, stream);
+  if (p.w <= 4 * kTy) return launch_cols<kPaged, kQuant, kStair, 4>(p, b, stream);
+  return launch_cols<kPaged, kQuant, kStair, 8>(p, b, stream);
 }
 
 }  // namespace
@@ -491,45 +773,58 @@ const char* ff_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Tree verify over fp32 caches. q [b, w, h, d] fp32 (head_dim contiguous);
-// out [b, w, h, d] contiguous; lengths [b] int32. Contiguous layout (paged
-// == 0): k/v [b, max_len, h, d], strides (batch, position, head). Paged: k/v
-// [num_pages, page_size, h, d], strides (page, row, head), tables
-// [b, max_len / page_size] int32 with entries outside [0, num_pages)
-// unallocated. allowed [b, w, max_len] uint8 with strides (m_sb, m_sw),
-// nonzero = visible. head_dim is a multiple of 4 up to 256. splits x span
-// cover max_len, span a multiple of kSpanUnit (and of page_size when
-// paged), splits at most kMaxSplits; with splits > 1, part_acc holds
-// b * h * splits * w * d floats, part_ml b * h * splits * w * 2, and
-// counters b * h unsigned ints that are zero (the launch leaves them zero). One launch on `stream`;
-// returns cudaGetLastError() after it, or cudaErrorInvalidValue for a shape
-// the body does not take.
+// Verify or decode attention on the split-KV body. q [b, w, h, d] fp32
+// (head_dim contiguous); out [b, w, h, d] contiguous; lengths [b] int32.
+// Contiguous layout (paged == 0): k/v [b, max_len, h, d], strides (batch,
+// position, head). Paged: k/v [num_pages, page_size, h, d], strides (page,
+// row, head) in elements, tables [b, max_len / page_size] int32 with
+// entries outside [0, num_pages) unallocated. quant != 0 (paged only):
+// k/v int8 with k_scale/v_scale [num_pages, h] contiguous fp32, head_dim a
+// multiple of 16; else fp32. stair != 0: the staircase p <= lengths[b] + j
+// and allowed unused; else allowed [b, w, max_len] uint8 with strides
+// (m_sb, m_sw), nonzero = visible. head_dim is a multiple of 4 up to 256.
+// splits x span cover max_len, span a multiple of kSpanUnit (and of
+// page_size when paged), splits at most kMaxSplits; with splits > 1,
+// part_acc holds b * h * splits * w * d floats, part_ml b * h * splits * w
+// * 2, and counters b * h unsigned ints that are zero (the launch leaves
+// them zero). The variants built: #7 (0, 0, 0), #8 (paged), #9 (paged,
+// quant), #5 (paged, stair). One launch on `stream`; returns
+// cudaGetLastError() after it, or cudaErrorInvalidValue for a shape or
+// variant the body does not take.
 int ff_tree_attention(const void* q, const void* k, const void* v,
+                      const void* k_scale, const void* v_scale,
                       const void* tables, const void* lengths,
                       const void* allowed, void* out, void* part_acc,
-                      void* part_ml, void* counters, int paged, int b, int w,
-                      int h, int d, int max_len, int span, int splits,
-                      int page_size, int num_pages, long long tbl_sb,
-                      long long q_sb, long long q_sw, long long q_sh,
+                      void* part_ml, void* counters, int paged, int quant,
+                      int stair, int b, int w, int h, int d, int max_len,
+                      int span, int splits, int page_size, int num_pages,
+                      long long tbl_sb, long long q_sb, long long q_sw, long long q_sh,
                       long long k_s0, long long k_s1, long long k_sh,
                       long long v_s0, long long v_s1, long long v_sh,
                       long long m_sb, long long m_sw,
                       float scale, void* stream) {
-  if (w < 1 || w > 8 * kTy || d < 4 || d > 256 || d % 4 || splits < 1 ||
-      splits > kMaxSplits || span < 1 || span % kSpanUnit ||
-      (long long)span * splits < max_len ||
+  if (w < 1 || w > 8 * kTy || d < 4 || d > 256 || d % 4 || (quant && d % 16) ||
+      splits < 1 || splits > kMaxSplits || span < 1 || span % kSpanUnit ||
+      (long long)span * splits < max_len || (!stair && allowed == nullptr) ||
+      (quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   // the mask rows may be read as 4-byte words where they are so aligned
   const int mask_vec4 = (uintptr_t)allowed % 4 == 0 && m_sb % 4 == 0 && m_sw % 4 == 0;
-  Params p{(const float*)q, (const float*)k, (const float*)v,
+  Params p{(const float*)q, k, v, (const float*)k_scale, (const float*)v_scale,
            (const int*)lengths, (const int*)tables, (const uint8_t*)allowed,
            (float*)out, (float*)part_acc, (float*)part_ml, (unsigned int*)counters,
            w, h, d, max_len, span, splits, paged ? page_size : 1, num_pages,
            mask_vec4, tbl_sb, q_sb, q_sw, q_sh, k_s0, k_s1, k_sh,
            v_s0, v_s1, v_sh, m_sb, m_sw, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  return paged ? launch_bucket<true>(p, b, s) : launch_bucket<false>(p, b, s);
+  switch ((paged ? 4 : 0) | (quant ? 2 : 0) | (stair ? 1 : 0)) {
+    case 0: return launch_bucket<false, false, false>(p, b, s);  // #7
+    case 4: return launch_bucket<true, false, false>(p, b, s);   // #8
+    case 6: return launch_bucket<true, true, false>(p, b, s);    // #9
+    case 5: return launch_bucket<true, false, true>(p, b, s);    // #5
+    default: return (int)cudaErrorInvalidValue;  // #4 and #6 run on decode_kernel.cu
+  }
 }
 
 }  // extern "C"

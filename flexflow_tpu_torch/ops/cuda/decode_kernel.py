@@ -3,12 +3,23 @@ flexflow_tpu/ops/pallas/decode_kernel.py, kernels #4-#9 of the family).
 
 The device code is CUDA C++ for Hopper, built on first use by
 ops/cuda/_build.py and called through ctypes on PyTorch's current
-stream. csrc/decode_kernel.cu holds one device body, templated on the
-layout, the pool type and the mask, for #4, #5, #6 and #9, as the JAX
-family shares one body between decode and verify; csrc/tree_kernel.cu
-holds the split-KV, register-tiled body of the fp32 tree verifies #7
-and #8 (one launch per call: the blocks of a sequence's positions merge
-their partials in the last of them to finish). The entry points:
+stream. Two device bodies, each templated on the layout, the pool type
+and the mask, as the JAX family shares one body between decode and
+verify:
+
+  * csrc/tree_kernel.cu, the split-KV body (one launch per call over
+    (split, head, sequence) blocks; the blocks of a sequence's positions
+    merge their partials in the last of them to finish): #7 and #8 (fp32
+    tree verifies), #9 (int8 tree verify) and #5 (the staircase on fp32
+    pools; at w = 1, every decode step, a tile of one query row), all at
+    head_dim <= _TREE_MAX_D (256);
+  * csrc/decode_kernel.cu, one block per (sequence, head): #4 and #6,
+    and #5 and #9 at head_dim > 256, chosen by head_dim alone before any
+    launch (the tree body's register tiles stop at 256; this body takes
+    any head_dim whose one-page chunk fits its shared memory, see
+    pick_chunk). #7 and #8 stop at 256.
+
+The entry points:
 
   * `flash_verify(q, k_cache, v_cache, lengths)` (#4) — w queries per
     sequence against the contiguous cache [b, max_len, h, d] under the
@@ -79,11 +90,12 @@ _SMEM_BUDGET = 160 * 1024
 
 _MASK = -1e30  # the reference's finite mask fill
 
-# the tree body (tree_kernel.cu, whose kSpanUnit and kMaxSplits refuse a
-# launch that breaks these): a split's span is a multiple of
-# _TREE_SPAN_UNIT positions (a whole number of its 32- or 64-row chunks),
-# a call takes at most _TREE_MAX_SPLITS, head_dim is at most _TREE_MAX_D,
-# and the host aims for this many blocks per SM
+# the split-KV body (tree_kernel.cu, whose kSpanUnit and kMaxSplits
+# refuse a launch that breaks these): a split's span is a multiple of
+# _TREE_SPAN_UNIT positions (a whole number of its 32- or 64-row chunks
+# and of the one-row tile's 16- or 32-row passes), a call takes at
+# most _TREE_MAX_SPLITS, head_dim is at most _TREE_MAX_D, and the host
+# aims for this many blocks per SM
 _TREE_SPAN_UNIT = 64
 _TREE_MAX_SPLITS = 64
 _TREE_MAX_D = 256
@@ -127,7 +139,7 @@ def _tree_lib() -> ctypes.CDLL:
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.ff_cuda_error_string.argtypes = [I]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_tree_attention.argtypes = [P] * 10 + [I] * 10 + [L] * 12 + [F, P]
+        lib.ff_tree_attention.argtypes = [P] * 12 + [I] * 12 + [L] * 12 + [F, P]
         lib.ff_tree_attention.restype = I
         _tree_bound = lib
     return _tree_bound
@@ -411,12 +423,14 @@ def _geometry(name, q, k, v, lengths, tables=None, scales=None, allowed=None):
     return num_pages, page_size, max_len, allowed
 
 
-def _launch_tree(name, q, k, v, lengths, allowed, sm_scale, tables=None):
-    """#7 (tables None) and #8 on the tree body of tree_kernel.cu: check
-    the operands, launch it and count the launch."""
+def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
+    """#5 (allowed None: the staircase), #7 (tables None), #8 and #9
+    (scales given: int8 pools) on the split-KV body of tree_kernel.cu:
+    check the operands, launch it and count the launch. head_dim at most
+    _TREE_MAX_D; the wrappers send #5 and #9 past it to _launch."""
     b, w, h, d = q.shape
-    paged = tables is not None
-    num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, allowed=allowed)
+    paged, quant, stair = tables is not None, scales is not None, allowed is None
+    num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
     if d > _TREE_MAX_D:
         raise ValueError(f"{name}: head_dim {d} > {_TREE_MAX_D}, which the tree kernel's tiles do not take")
     out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
@@ -424,6 +438,8 @@ def _launch_tree(name, q, k, v, lengths, allowed, sm_scale, tables=None):
         return out
     lib = _tree_lib()
     splits, span = pick_splits(b, h, max_len, page_size if paged else 1, _sm_count(q.device.index))
+    ks, vs = scales if quant else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_acc = part_ml = counters = None
@@ -434,14 +450,14 @@ def _launch_tree(name, q, k, v, lengths, allowed, sm_scale, tables=None):
             part_ml = part_acc + 4 * rows * d
             counters = _arrival_counters(q.device, stream, b * h).data_ptr()
         code = lib.ff_tree_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if tables is None else tables.data_ptr(),
-            lengths.data_ptr(), allowed.data_ptr(), out.data_ptr(), part_acc, part_ml, counters,
-            int(paged), b, w, h, d, max_len, span, splits, page_size, num_pages,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), ptr(tables),
+            lengths.data_ptr(), ptr(allowed), out.data_ptr(), part_acc, part_ml, counters,
+            int(paged), int(quant), int(stair), b, w, h, d, max_len, span, splits, page_size, num_pages,
             tables.stride(0) if paged else 0,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            allowed.stride(0), allowed.stride(1),
+            0 if stair else allowed.stride(0), 0 if stair else allowed.stride(1),
             _scale_of(q, sm_scale), stream,
         )
     _raise_on(code, name, lib)
@@ -450,9 +466,10 @@ def _launch_tree(name, q, k, v, lengths, allowed, sm_scale, tables=None):
 
 
 def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
-    """#4-#6 and #9 on decode_kernel.cu's body: check the operands, launch
-    the variant `name` selects and count it. k/v are the contiguous
-    caches (tables None) or the pools."""
+    """#4 and #6, and #5 and #9 at head_dim > _TREE_MAX_D, on
+    decode_kernel.cu's body: check the operands, launch the variant
+    `name` selects and count it. k/v are the contiguous caches (tables
+    None) or the pools."""
     b, w, h, d = q.shape
     paged, quant, tree = tables is not None, scales is not None, allowed is not None
     num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
@@ -507,13 +524,14 @@ def paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     [b, w, h, d]; k_pool/v_pool: [num_pages, page_size, h, d];
     block_tables: [b, pages_per_seq] int32 (entries outside
     [0, num_pages) are unallocated); lengths: [b] int32. Returns
-    [b, w, h, d] float32."""
+    [b, w, h, d] float32. On the card: the split-KV body of
+    tree_kernel.cu at head_dim <= 256 (at w = 1 its one-row tile),
+    decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_ref(q, k_pool, v_pool, block_tables, lengths, sm_scale)
     _no_kernel("paged_flash_verify", q)
-    return _launch(
-        "paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables
-    )
+    launch = _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
+    return launch("paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables)
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, **kw):
@@ -557,7 +575,7 @@ def flash_verify_tree(q, k_cache, v_cache, lengths, allowed, sm_scale=None):
     if q.device.type == "cpu":
         return flash_verify_tree_ref(q, k_cache, v_cache, lengths, allowed, sm_scale)
     _no_kernel("flash_verify_tree", q)
-    return _launch_tree("flash_verify_tree", q, k_cache, v_cache, lengths, allowed, sm_scale)
+    return _launch_tree("flash_verify_tree", q, k_cache, v_cache, lengths, sm_scale, allowed=allowed)
 
 
 def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale=None):
@@ -571,7 +589,7 @@ def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, s
         )
     _no_kernel("paged_flash_verify_tree", q)
     return _launch_tree(
-        "paged_flash_verify_tree", q, k_pool, v_pool, lengths, allowed, sm_scale, tables=block_tables
+        "paged_flash_verify_tree", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables, allowed=allowed
     )
 
 
@@ -579,13 +597,16 @@ def paged_flash_verify_tree_quant(
     q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale=None
 ):
     """paged_flash_verify_tree over int8 pools with fp32 per-(page,
-    head) scales — #6's dequant and #8's tree mask."""
+    head) scales — #6's dequant and #8's tree mask; head_dim a multiple
+    of 16. On the card: the split-KV body of tree_kernel.cu at head_dim
+    <= 256, decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_tree_quant_ref(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree_quant", q)
-    return _launch(
+    launch = _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
+    return launch(
         "paged_flash_verify_tree_quant", q, k_pool, v_pool, lengths, sm_scale,
         tables=block_tables, scales=(k_scale, v_scale), allowed=allowed,
     )

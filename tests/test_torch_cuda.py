@@ -211,9 +211,127 @@ def test_tree_body_rejects_wide_heads():
     assert sum(dk.LAUNCHES.values()) == 0
 
 
+def _int8_pools(rng, dev, x, page, scale0_row=0):
+    """int8 pools of x's pool shape with one random scale per (page,
+    head), the first page of `scale0_row` never written (scale 0)."""
+    num_pages, _, h, d = x["kp"].shape
+    k8, v8 = (torch.from_numpy(rng.integers(-127, 128, (num_pages, page, h, d)).astype(np.int8)).to(dev)
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.001, 0.05, (num_pages, h)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    first = int(x["tbl"][scale0_row, 0])
+    ks[first] = vs[first] = 0.0
+    return dict(x, k8=k8, v8=v8, ks=ks, vs=vs)
+
+
+def _check_split_body(name, args, atol, dead_row):
+    """One kernel twice on the same operands: two launches counted under
+    `name` and none under any other name, the arrival counters back at
+    zero, finite, within `atol` of the plain version, bit-identical across
+    the two calls, and the dead row exactly 0."""
+    fn, ref_fn = getattr(dk, name), getattr(dk, name + "_ref")
+    dk.reset_launches()
+    out, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{name: 2})
+    assert all(int(c.abs().sum()) == 0 for c in dk._counters.values())
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref_fn(*args), atol=atol, rtol=0)
+    assert torch.equal(out, again)
+    assert float(out[dead_row].abs().max()) == 0.0
+
+
+# (max_len, page): the serving shape, and a ragged max_len at 2-row pages
+SPLIT_BODY_SHAPES = [(512, 16), (250, 2)]
+
+
+def _split_body_operands(w, d, max_len, page, seed):
+    """8 sequences (16 heads at max_len 512, else 2) with lengths 0 and
+    max_len - w, a visible range ending on a split boundary and one a row
+    short of it (each length within [0, max_len - w]), a sentinel hole
+    (row 5), a dead row (7), and fp32 and int8 pools (scale 0 on row 0's
+    first page)."""
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    b, h = 8, 16 if max_len == 512 else 2
+    splits, span = dk.pick_splits(b, h, max_len, page, dk._sm_count(torch.cuda.current_device()))
+    edge = span * max(1, splits // 2)
+    lengths = [min(max(n, 0), max_len - w) for n in (0, max_len - w, edge - w, edge - w - 1, edge, 77, 100, 9)]
+    x = _tree_operands(rng, dev, b, w, h, d, max_len, page, lengths, hole_row=5, dead_row=7)
+    return _int8_pools(rng, dev, x, page)
+
+
+@pytest.mark.parametrize("max_len,page", SPLIT_BODY_SHAPES)
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_paged_verify_on_the_split_body_matches_plain_version(w, d, max_len, page):
+    """#5 (the staircase; at w = 1 the one-row tile) on the split-KV body
+    of tree_kernel.cu at head_dim 16-256, atol 1e-4."""
+    x = _split_body_operands(w, d, max_len, page, 400 + w + d + page)
+    _check_split_body("paged_flash_verify", (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"]), ATOL, 7)
+
+
+@pytest.mark.parametrize("max_len,page", SPLIT_BODY_SHAPES)
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("w", [1, 13, 33, 64])
+def test_int8_tree_verify_on_the_split_body_matches_plain_version(w, d, max_len, page):
+    """#9 (int8 pools, a seeded random tree per row) on the split-KV body
+    of tree_kernel.cu at head_dim 16-256, with a scale-0 page, atol 1e-4
+    as every decode kernel here: the staged rows equal the plain
+    version's dequant, so only summation order differs, but over 128-256
+    columns of values up to 127 x 0.05 that order moves the output by up
+    to ~2.5e-5 (1e-5 holds at head_dim 64, chip_smoke.py's shape)."""
+    x = _split_body_operands(w, d, max_len, page, 500 + w + d + page)
+    args = (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
+    _check_split_body("paged_flash_verify_tree_quant", args, ATOL, 7)
+
+
+@pytest.mark.parametrize("w", [1, 5, 13, 33, 64])
+def test_paged_verify_past_256_runs_where_it_ran_before(w):
+    """head_dim 320, past the split body's tiles: #5 (w 1, 5, 13, 33) and
+    #9 (w 1, 13, 33) run on decode_kernel.cu's body, as they did before
+    the split body took them, counted under their own names; at w = 64
+    that body's shared memory does not hold a 320-wide chunk, and both
+    raise before any launch, as they did then."""
+    d, max_len, page = 320, 128, 16
+    x = _split_body_operands(w, d, max_len, page, 600 + w)
+    stair = (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"])
+    tree8 = (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
+    if w == 64:
+        dk.reset_launches()
+        for name, args in (("paged_flash_verify", stair), ("paged_flash_verify_tree_quant", tree8)):
+            with pytest.raises(ValueError, match="shared memory"):
+                getattr(dk, name)(*args)
+        assert sum(dk.LAUNCHES.values()) == 0
+        return
+    _check_split_body("paged_flash_verify", stair, ATOL, 7)
+    if w != 5:
+        _check_split_body("paged_flash_verify_tree_quant", tree8, ATOL, 7)
+
+
+@pytest.mark.parametrize("d", [256, 320])
+def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
+    """#5 and #9 go to the split body (_launch_tree) at head_dim <= 256
+    and to decode_kernel.cu's body (_launch) past it, whatever the width,
+    and a call launches exactly one of them."""
+    calls = []
+    for fn in ("_launch", "_launch_tree"):
+        real = getattr(dk, fn)
+        monkeypatch.setattr(dk, fn, lambda *a, _f=fn, _r=real, **k: calls.append(_f) or _r(*a, **k))
+    want = "_launch_tree" if d <= dk._TREE_MAX_D else "_launch"
+    for w in (1, 13):
+        x = _split_body_operands(w, d, 128, 16, 700 + w + d)
+        dk.paged_flash_verify(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"])
+        dk.paged_flash_verify_tree_quant(x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
+    torch.cuda.synchronize()
+    assert calls == [want] * 4
+
+
 def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     """w = 65, head_dim 8 on int8 pools, fp32 pools where int8 is
-    expected, misshapen scales and a strided mask raise before a launch."""
+    expected, misshapen scales, a strided mask and int64 tables raise
+    before a launch, on decode_kernel.cu's body (#6) and on the split
+    body (#5, #7, #9)."""
     dev = _card()
     b, h, d, page, num_pages = 2, 2, 64, 16, 8
     lens = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -239,6 +357,25 @@ def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.ones(b, 1, 4 * page, dtype=torch.bool, device=dev)[..., ::2]
         dk.flash_verify_tree(q, k32, k32, lens, strided)
+    # #5 and #9 on the split body check the same before their launch
+    kf32 = torch.zeros(num_pages, page, h, d, device=dev)
+    allowed = torch.ones(b, 1, 2 * page, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="w="):
+        dk.paged_flash_verify(torch.zeros(b, 65, h, d, device=dev), kf32, kf32, tbl, lens)
+    with pytest.raises(ValueError, match="w="):
+        wide_mask = torch.ones(b, 65, 2 * page, dtype=torch.bool, device=dev)
+        dk.paged_flash_verify_tree_quant(torch.zeros(b, 65, h, d, device=dev), k8, k8, ks, ks, tbl, lens, wide_mask)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mask8 = torch.ones(b, 1, 2 * page, dtype=torch.bool, device=dev)
+        dk.paged_flash_verify_tree_quant(q[..., :8], k8n, k8n, ks, ks, tbl, lens, mask8)
+    with pytest.raises(TypeError):
+        dk.paged_flash_verify_tree_quant(q, kf32, kf32, ks, ks, tbl, lens, allowed)
+    with pytest.raises(ValueError, match="k_scale"):
+        dk.paged_flash_verify_tree_quant(q, k8, k8, ks[:, :1], ks, tbl, lens, allowed)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.paged_flash_verify_tree_quant(q, k8, k8, ks, ks, tbl, lens, strided)
+    with pytest.raises(ValueError, match="int32"):
+        dk.paged_flash_verify(q, kf32, kf32, tbl.long(), lens)
     assert sum(dk.LAUNCHES.values()) == 0
 
 

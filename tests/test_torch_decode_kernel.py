@@ -375,17 +375,42 @@ def test_quant_and_tree_operand_checks():
 # -- the fp32 tree body's split-then-merge rule (csrc/tree_kernel.cu) -----------------
 
 
-def _split_then_merge(q, k, v, vis, lengths, span):
-    """A plain model of the tree body of #7 and #8: positions are cut into
-    splits of `span`; each split gives a partial (m, l, acc) per query row
-    over the visible entries of `vis` [b, w, L] (gated and page-checked),
-    a split that starts at or past min(lengths + w, L) is empty (the
-    kernel writes nothing for it; here m = -1e30, l = 0 and an accumulator
-    of NaN, which the merge must never read), and the merge takes
-    M = max m_s over the partials with l_s > 0 and returns
-    sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s, 1e-30) over those.
-    Returns the output [b, w, h, d] and the counts of empty and of live
-    but all-masked (sequence, split, query row) partials."""
+def _partial(s, v, seen):
+    """(m, l, acc) of one range of positions: the running max, the sum of
+    e^(s - m) and the unnormalised accumulator over the entries of `seen`;
+    m = -1e30, l = 0 and acc = 0 where a row sees none of them."""
+    sc = s.masked_fill(~seen, -1e30)
+    m = sc.amax(-1)
+    p = torch.where(seen, torch.exp(sc - m[..., None]), torch.zeros(()))
+    return m, p.sum(-1), torch.einsum("bhqk,bkhd->bhqd", p, v)
+
+
+def _merge(parts):
+    """The exact merge of partials (m_s, l_s, acc_s): M = max m_s over the
+    partials with l_s > 0, then (M, sum e^(m_s - M) l_s, sum e^(m_s - M)
+    acc_s) over those only, so a partial with l_s = 0 is never read."""
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    live = l > 0
+    big = m.masked_fill(~live, -1e30).amax(0)
+    e = torch.where(live, torch.exp(m - big), torch.zeros(()))
+    num = torch.where(live[..., None], e[..., None] * acc, torch.zeros(())).sum(0)
+    return big, (e * l).sum(0), num
+
+
+def _split_then_merge(q, k, v, vis, lengths, span, lanes=1):
+    """A plain model of the split-KV body of #5, #7, #8 and #9: positions
+    are cut into splits of `span`; each split gives a partial (m, l, acc)
+    per query row over the visible entries of `vis` [b, w, L] (gated and
+    page-checked). With `lanes` > 1 (the one-row tile of #5 at w = 1,
+    whose 8 half-warps each take the positions lo + t + 8 i of the split)
+    the split's partial is itself the merge of `lanes` partials. A split
+    that starts at or past min(lengths + w, L) is empty (the kernel writes
+    nothing for it; here m = -1e30, l = 0 and an accumulator of NaN, which
+    the merge must never read), and the merge takes M = max m_s over the
+    partials with l_s > 0 and returns sum e^(m_s - M) acc_s /
+    max(sum e^(m_s - M) l_s, 1e-30) over those. Returns the output
+    [b, w, h, d] and the counts of empty and of live but all-masked
+    (sequence, split, query row) partials."""
     b, w, h, d = q.shape
     L = k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
@@ -393,11 +418,10 @@ def _split_then_merge(q, k, v, vis, lengths, span):
     parts, empty_n, masked_n = [], 0, 0
     for lo in range(0, L, span):
         seen = vis[:, None, :, lo:lo + span].expand(b, h, w, -1)
-        sc = s[..., lo:lo + span].masked_fill(~seen, -1e30)
-        m = sc.amax(-1)
-        p = torch.where(seen, torch.exp(sc - m[..., None]), torch.zeros(()))
-        l = p.sum(-1)
-        acc = torch.einsum("bhqk,bkhd->bhqd", p, v[:, lo:lo + span])
+        lane = torch.arange(seen.shape[-1]) % lanes
+        m, l, acc = _merge(
+            [_partial(s[..., lo:lo + span], v[:, lo:lo + span], seen & (lane == t)) for t in range(lanes)]
+        )
         empty = (lo >= end)[:, None, None].expand(b, h, w)
         m = m.masked_fill(empty, -1e30)
         l = l.masked_fill(empty, 0.0)
@@ -405,12 +429,7 @@ def _split_then_merge(q, k, v, vis, lengths, span):
         empty_n += int(empty.sum())
         masked_n += int((~empty & (l == 0)).sum())
         parts.append((m, l, acc))
-    m, l, acc = (torch.stack(t) for t in zip(*parts))
-    live = l > 0
-    big = m.masked_fill(~live, -1e30).amax(0)
-    e = torch.where(live, torch.exp(m - big), torch.zeros(()))
-    num = torch.where(live[..., None], e[..., None] * acc, torch.zeros(())).sum(0)
-    den = (e * l).sum(0)
+    _, den, num = _merge(parts)
     return (num / den.clamp_min(1e-30)[..., None]).transpose(1, 2), empty_n, masked_n
 
 
@@ -488,3 +507,109 @@ def test_tree_split_rule(b, h, max_len, unit):
         assert splits == 1
     if (b, h, max_len, unit) == (8, 16, 512, 16):  # the serving shape
         assert (splits, span) == (8, 64)
+
+
+def _stage_int8(pool, scale, tables):
+    """The int8 tree body's staging, position by position: each logical
+    position's page from the block table (one lookup per row), its int8
+    row times that page's (page, head) scale, zeros on a sentinel page.
+    Returns [b, L, h, d] fp32."""
+    num_pages, page = pool.shape[:2]
+    pos = torch.arange(tables.shape[1] * page)
+    pages = tables.long()[:, pos // page]  # [b, L]
+    on = (pages >= 0) & (pages < num_pages)
+    safe = pages.clamp(0, num_pages - 1)
+    rows = pool[safe, pos % page].float() * scale[safe][..., None]
+    return torch.where(on[..., None, None], rows, torch.zeros(()))
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_tree_case(w, page):
+    """int8 pools (a different random scale per page, row 0's first page
+    at scale 0), a sentinel hole in row 2, a dead row 3 and a seeded tree
+    per row; the Pallas kernel's output where the reference takes the
+    page size (32 rows), else None."""
+    rng = np.random.default_rng(50 + w + page)
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 16, [3, 64 - w, 40, 20])
+    tbl[2, 0] = 16  # a hole inside row 2's visible range
+    tbl[3, :] = 16  # a dead row
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+    mask = _masks(_parents(rng, 4, w), lens, w, tbl.shape[1] * page)
+    pools = (q, k8, v8, ks, vs, tbl, lens)
+    kern = None
+    if page == 32:
+        kern = np.asarray(
+            jdk.paged_flash_verify_tree_quant(
+                *map(jnp.asarray, pools), jnp.asarray(mask, jnp.float32), interpret=True
+            )
+        )
+    return pools, mask, kern
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("w", [1, 13])
+@pytest.mark.parametrize("page", [16, 32])
+def test_int8_split_then_merge_matches_plain_and_pallas(page, w, splits):
+    """#9 on the split-KV body: the int8 staging (per-row page lookup and
+    scale) is bit-identical to the plain version's dense dequant, and the
+    merge rule over those rows matches #9's plain version (16- and 32-row
+    pages) and the Pallas kernel in interpret mode (32-row pages, the
+    only int8 page the reference takes), with several scales inside one
+    span, a scale-0 page, a sentinel hole and a dead row that gives
+    exactly 0. atol 1e-5: summation order only."""
+    pools, mask, kern = _quant_tree_case(w, page)
+    q, k8, v8, ks, vs, tbl, lens = _t(*pools)
+    mask = _t(mask)[0]
+    kd, on_page = dk.gather_pages(k8, tbl, ks)
+    vd, _ = dk.gather_pages(v8, tbl, vs)
+    kst, vst = _stage_int8(k8, ks, tbl), _stage_int8(v8, vs, tbl)
+    on = on_page[..., None, None]
+    assert torch.equal(kst, torch.where(on, kd, torch.zeros(()))) and torch.equal(vst, torch.where(on, vd, torch.zeros(())))
+    zero = int(tbl[0, 0])
+    assert float(ks[zero].abs().max()) == 0.0 and float(kst[0, :page].abs().max()) == 0.0
+    assert len({float(ks[int(p), 0]) for p in tbl[1]}) > 1  # row 1: several scales inside one span
+    vis = dk._tree_visible(mask, lens, w) & on_page[:, None, :]
+    span = -(-(-(-64 // splits)) // page) * page
+    ours, empty, masked = _split_then_merge(q, kst, vst, vis, lens, span)
+    ref = dk.paged_flash_verify_tree_quant_ref(q, k8, v8, ks, vs, tbl, lens, mask)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
+    if kern is not None:
+        np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
+    assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
+    assert masked > 0 and (empty > 0) == (64 // span > 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _stair_case(w):
+    """fp32 pools at 16-row pages with lengths 0, mid and 64 - w, a hole
+    in row 1 and a dead row 3, and the Pallas kernel's output on them."""
+    rng = np.random.default_rng(60 + w)
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, 16, 16, [0, 40, 64 - w, 9])
+    tbl[1, 0] = 16  # hole
+    tbl[3, :] = 16  # dead row
+    kern = np.asarray(jdk.paged_flash_verify(*map(jnp.asarray, (q, kp, vp, tbl, lens)), interpret=True))
+    return (q, kp, vp, tbl, lens), kern
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("w", [1, 5])
+def test_staircase_split_then_merge_matches_plain_and_pallas(w, splits):
+    """#5 on the split-KV body: the staircase p <= lengths + j in place of
+    a mask, at w = 1 through the one-row tile (each split's partial the
+    merge of 8 interleaved half-warp partials) and at w = 5 through the
+    8 x 16 tile, against #5's plain version and the Pallas kernel in
+    interpret mode, with empty splits (row 0 has length 0), a sentinel
+    hole and a dead row that gives exactly 0. atol 1e-5: summation order
+    only."""
+    (q, kp, vp, tbl, lens), kern = _stair_case(w)
+    q, kp, vp, tbl, lens = _t(q, kp, vp, tbl, lens)
+    kg, on_page = dk.gather_pages(kp, tbl)
+    vg, _ = dk.gather_pages(vp, tbl)
+    vis = dk._staircase(lens, w, 64) & on_page[:, None, :]
+    span = -(-(-(-64 // splits)) // 16) * 16
+    ours, empty, masked = _split_then_merge(q, kg, vg, vis, lens, span, lanes=8 if w == 1 else 1)
+    ref = dk.paged_flash_verify_ref(q, kp, vp, tbl, lens)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
+    np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
+    assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
+    assert masked > 0 and (empty > 0) == (splits > 1)
