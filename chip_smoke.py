@@ -20,12 +20,12 @@ result line) on any failed phase:
                draft tree at w = 13 and #7, #8 also at w = 64 (atol
                1e-5), with times, bounds, a library yardstick where
                PyTorch has one and the card's clocks and power, and for
-               every timed kernel (#5 also at w = 5), its plain version
-               and the library call the profiler's device time and the
-               host time of one call; then #5 and #9 (on the split-KV
-               body of tree_kernel.cu at head_dim <= 256, on
-               decode_kernel.cu's past it) at the edges of their card
-               tests: widths 1-64, head_dim 16, 128, 256 and 320, a
+               every timed kernel (#4, #5 and #6 also at w = 5), its
+               plain version and the library call the profiler's device
+               time and the host time of one call; then #4, #5, #6 and
+               #9 (on the split-KV body of tree_kernel.cu at head_dim <=
+               256, on decode_kernel.cu's past it) at the edges of their
+               card tests: widths 1-64, head_dim 16, 128, 256 and 320, a
                ragged max_len at 2-row pages, lengths 0 and max_len - w,
                holes, scale-0 pages, dead rows exactly 0, repeat calls
                bit-identical, and w = 64 at head_dim 320 refused as
@@ -57,9 +57,10 @@ result line) on any failed phase:
                logit gaps stay that close to the plain run's before any
                divergence; tokens/s, verify steps, acceptance, accepted
                tokens per verify and KV pool bytes, and a profiled
-               window of (a)'s, (b)'s, (c)'s and (d)'s steps with the
-               leg's kernel's device time per launch beside the step's
-               GEMMs;
+               window of (a)'s, (b)'s, (c)'s and (d)'s steps and of the
+               plain slot run's (#4) with the leg's kernel's device time
+               per launch beside the step's GEMMs, (a)'s, (c)'s and the
+               slot run's also at ~250-token contexts;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, 160 and
@@ -154,15 +155,18 @@ NUM_REQUESTS = 32
 SPEC_REQUESTS = 8
 TREE = dict(spec_draft="ngram", spec_k=4, spec_branch=3)  # w = 13
 LINEAR = dict(spec_draft="ngram", spec_k=4)  # w = 5
+# decode steps before the long-context profiled windows open: the
+# contexts then sit near the middle of max_len, as the legs' do on average
+LONG_WINDOW_SKIP = 240
 # the flagship Transformer of examples/transformer.py and its training run
 TRAIN = dict(layers=12, hidden=1024, heads=16, batch=8, seq=512, steps=10)
 LM_TRAIN = dict(layers=2, steps=4)
 
 # kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "flash_verify": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
+    "flash_verify": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
     "paged_flash_verify": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
-    "paged_flash_verify_quant": ("decode_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
+    "paged_flash_verify_quant": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
     "flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
     "paged_flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
     "paged_flash_verify_tree_quant": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
@@ -173,18 +177,26 @@ KERNELS = {
 
 # kernel wrapper -> substrings of the device functions its launches run,
 # as the profiler names them: each kernel's own instantiations, so that
-# no kernel's time counts under another's (#5 and #9 run on the split
-# body of tree_kernel.cu, and on decode_kernel.cu's past head_dim 256)
+# no kernel's time counts under another's (#4-#9 run on the split body of
+# tree_kernel.cu, and on decode_kernel.cu's past head_dim 256)
 KERNEL_SYMBOLS = {
-    "flash_verify": ("decode_attention_kernel<false, false, false>",),
+    "flash_verify": (
+        "single_query_kernel<false,",
+        "tree_attention_kernel<false, false, true,",
+        "decode_attention_kernel<false, false, false>",
+    ),
     "paged_flash_verify": (
-        "single_query_kernel<true, false,",
+        "single_query_kernel<true,",
         "tree_attention_kernel<true, false, true,",
         "decode_attention_kernel<true, false, false>",
     ),
-    "paged_flash_verify_quant": ("decode_attention_kernel<true, true, false>",),
-    "flash_verify_tree": ("tree_attention_kernel<false, false, false,",),
-    "paged_flash_verify_tree": ("tree_attention_kernel<true, false, false,",),
+    "paged_flash_verify_quant": (
+        "single_query_int8_kernel<",
+        "tree_attention_kernel<true, true, true,",
+        "decode_attention_kernel<true, true, false>",
+    ),
+    "flash_verify_tree": ("tree_attention_kernel<false, false, false,", "decode_attention_kernel<false, false, true>"),
+    "paged_flash_verify_tree": ("tree_attention_kernel<true, false, false,", "decode_attention_kernel<true, false, true>"),
     "paged_flash_verify_tree_quant": (
         "tree_attention_kernel<true, true, false,",
         "decode_attention_kernel<true, true, true>",
@@ -440,10 +452,8 @@ def check_kernels():
             require(err <= ATOL_KERNEL, f"{name} w={w}: error {err} > {ATOL_KERNEL}")
             row = rows.setdefault(name, {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            # timings at the decode path's shapes (w = 1), and #5 at w = 5
-            # too (the linear verify on fp32 pools), printed only
-            if w != 1 and name != "paged_flash_verify":
-                continue
+            # timings at the decode path's shapes (w = 1), and at w = 5 too
+            # (the linear verify), printed only
             if name == "flash_verify":
                 kv = (x["k_cache"], x["v_cache"])
             else:
@@ -485,7 +495,8 @@ def check_spec_kernels():
     random draft tree per row, and #7, #8 also at w = 64 (the widest tree
     ServeConfig takes), atol 1e-5. Each is timed at its path's width as
     #4 and #5 are (#6 at w = 1, the int8 decode step; the tree kernels at
-    w = 13; #7 and #8 again at w = 64, printed only), with its bound
+    w = 13; #6 again at w = 5, leg (f)'s linear verify, and #7 and #8 at
+    w = 64, printed only), with its bound
     and its plain version; #7 and #8 also with masked SDPA under the tree
     mask as the library yardstick (for #8 on K/V gathered from the pages
     before the timer starts, so its number leaves out the gather), and
@@ -502,7 +513,9 @@ def check_spec_kernels():
     flush = lambda: flush_buf.zero_()
     tree_names = ("flash_verify_tree", "paged_flash_verify_tree", "paged_flash_verify_tree_quant")
     fp32_tree = tree_names[:2]
-    timed = {("paged_flash_verify_quant", 1), *((n, 13) for n in tree_names), *((n, 64) for n in fp32_tree)}
+    path_w = {"paged_flash_verify_quant": 1, **dict.fromkeys(tree_names, 13)}  # the kernels line's width
+    timed = {("paged_flash_verify_quant", 1), ("paged_flash_verify_quant", 5), *((n, 13) for n in tree_names),
+             *((n, 64) for n in fp32_tree)}
     rows = {}
     cases = ((1, ("paged_flash_verify_quant",)), (5, ("paged_flash_verify_quant",)), (13, tree_names), (64, fp32_tree))
     for w, names in cases:
@@ -547,7 +560,7 @@ def check_spec_kernels():
                 library = f"masked sdpa {t['library_ms']:.4f} ms"
                 if name.startswith("paged"):
                     library += " (on K/V gathered from the pages before the timer starts)"
-            if w != 64:  # the kernels line keeps the path's width
+            if w == path_w[name]:  # the kernels line keeps the path's width
                 row.update(t)
             print(
                 f"[kernels] {name} w={w}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
@@ -562,28 +575,36 @@ def check_spec_kernels():
     return rows
 
 
-# the edges of #5's and #9's card tests (tests/test_torch_cuda.py): head
-# dims short of a tile (16), at the tiles' top (256) and past it (320, on
-# decode_kernel.cu's body), as (head_dim, max_len, page): a ragged max_len
-# at 2-row pages, the serving shape, and the wide head at 16-row pages
+# the edges of #4's, #5's, #6's and #9's card tests
+# (tests/test_torch_cuda.py): head dims short of a tile (16), at the
+# tiles' top (256) and past it (320, on decode_kernel.cu's body), as
+# (head_dim, max_len, page): a ragged max_len at 2-row pages, the serving
+# shape, and the wide head at 16-row pages
 SPLIT_BODY_EDGES = ((16, 250, 2), (128, 512, 16), (256, 250, 2), (320, 128, 16))
-SPLIT_BODY_WIDTHS = {"paged_flash_verify": (1, 5, 13, 64), "paged_flash_verify_tree_quant": (1, 13, 33, 64)}
+SPLIT_BODY_WIDTHS = {
+    "flash_verify": (1, 5, 13, 64),
+    "paged_flash_verify": (1, 5, 13, 64),
+    "paged_flash_verify_quant": (1, 5, 13, 64),
+    "paged_flash_verify_tree_quant": (1, 13, 33, 64),
+}
 
 
 def check_split_body_edges(device="cuda"):
-    """#5 and #9 against their plain versions at the card tests' edges:
-    each width of SPLIT_BODY_WIDTHS at each shape of SPLIT_BODY_EDGES,
-    with lengths 0 and max_len - w, a sentinel hole, a dead row that must
-    give exactly 0 and (for #9) a scale-0 page (kernel_inputs), called
-    twice: one launch counted per call under the kernel's own name, the
-    two outputs bit-identical, the error within ATOL_KERNEL (summation
-    order over up to 320 columns of int8 values up to 127 x 0.05 moves
-    #9 by up to ~2.5e-5; ATOL_SPEC_KERNEL holds at the path's head_dim
-    64, check_spec_kernels). At head_dim 320 the wrappers take
-    decode_kernel.cu's body, by head_dim alone; at w = 64 that body's
-    shared memory holds no 320-wide chunk, and both must raise before any
-    launch, as they did before the split body took them. The kernels
-    line keeps the errors at the path's shapes."""
+    """#4, #5, #6 and #9 against their plain versions at the card tests'
+    edges: each width of SPLIT_BODY_WIDTHS at each shape of
+    SPLIT_BODY_EDGES, with lengths 0 and max_len - w, a sentinel hole, a
+    dead row that must give exactly 0 (on the contiguous cache of #4 the
+    last row at length -w, which sees nothing) and (for #6 and #9) a
+    scale-0 page (kernel_inputs), called twice: one launch counted per
+    call under the kernel's own name, the two outputs bit-identical, the
+    error within ATOL_KERNEL (summation order over up to 320 columns of
+    int8 values up to 127 x 0.05 moves #9 by up to ~2.5e-5;
+    ATOL_SPEC_KERNEL holds at the path's head_dim 64, check_spec_kernels).
+    At head_dim 320 the wrappers take decode_kernel.cu's body, by head_dim
+    alone; at w = 64 that body's shared memory holds no 320-wide chunk,
+    and all four must raise before any launch, as they did before the
+    split body took them. The kernels line keeps the errors at the path's
+    shapes."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
@@ -596,11 +617,15 @@ def check_split_body_edges(device="cuda"):
                 h = 16 if max_len == 512 else 2
                 x = kernel_inputs(device, w, h=h, d=d, max_len=max_len, page=page,
                                   num_pages=8 * (max_len // page))
-                if name.endswith("_quant"):
-                    args = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"],
-                            x["allowed"])
-                else:
-                    args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"])
+                quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
+                dead = x["lengths"].clone()
+                dead[-1] = -w
+                args = {
+                    "flash_verify": (x["q"], x["k_cache"], x["v_cache"], dead),
+                    "paged_flash_verify": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"]),
+                    "paged_flash_verify_quant": quant,
+                    "paged_flash_verify_tree_quant": quant + (x["allowed"],),
+                }[name]
                 fn = getattr(dk, name)
                 case = f"{name} w={w} d={d} max_len={max_len} page={page}"
                 dk.reset_launches()
@@ -639,7 +664,10 @@ def smi_sample() -> str:
 
 def warm_card(seconds=2.0):
     """Keep the card busy with fp32 matrix products for `seconds`, so the
-    timings that follow start at its working clock, not its idle one."""
+    timings that follow start at its working clock, not its idle one;
+    then read one profiler session, since the first kernel whose device
+    time a process reads can come out inflated (#4's in one run: 0.0564
+    ms against 0.0155 read later in another process)."""
     import torch
 
     a = torch.randn(4096, 4096, device="cuda")
@@ -648,6 +676,7 @@ def warm_card(seconds=2.0):
         for _ in range(8):
             a = torch.tanh(a @ a)
         torch.cuda.synchronize()
+    device_ms(lambda: torch.tanh(a), lambda: a.zero_())
 
 
 # -- 3. serve the flagship LM ----------------------------------------------------
@@ -805,13 +834,14 @@ def serve_flagship(device, layers=FLAGSHIP["layers"]):
     return model, summary, launches
 
 
-def profile_decode(model, steps=16, label="decode", kernel=None, **serve_kw):
+def profile_decode(model, steps=16, label="decode", kernel=None, skip=0, **serve_kw):
     """Device time by kernel over a window of `steps` scheduler
     iterations, all slots busy (torch.profiler): decode steps, or verify
-    steps under a spec ServeConfig (`serve_kw`). With `kernel`, a wrapper
-    of KERNEL_SYMBOLS, also that kernel's device time per wrapper call
-    beside the device time of the step's GEMMs.
-    None when the profiler sees no device activity."""
+    steps under a spec ServeConfig (`serve_kw`). The window opens after
+    2-token prompts and `skip` more steps, so its contexts run from
+    skip + 3 tokens on. With `kernel`, a wrapper of KERNEL_SYMBOLS, also
+    that kernel's device time per wrapper call beside the device time of
+    the step's GEMMs. None when the profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -823,10 +853,11 @@ def profile_decode(model, steps=16, label="decode", kernel=None, **serve_kw):
         model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], **serve_kw)
     )
     # a verify step may commit up to w tokens per slot
-    budget = min(FLAGSHIP["max_len"] - 8, 64 * (steps + 4))
+    budget = min(FLAGSHIP["max_len"] - 8, 64 * (steps + 4) + skip)
     for i in range(FLAGSHIP["max_seqs"]):
         sched.submit(Request(rid=i, prompt=[i + 1, i + 2], max_new_tokens=budget))
-    sched.step()  # admission prefill + first decode, outside the window
+    for _ in range(1 + skip):  # admission prefill + first decodes, outside the window
+        sched.step()
     torch.cuda.synchronize()
     calls0 = dict(dk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1048,7 +1079,9 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     plain slot run, and (f) linear spec on int8 pools (#6 at w 5) beside
     a plain int8 run. Greedy spec streams equal their plain leg's, near-
     ties excepted (compare_streams). On the card it also profiles a
-    window of (b)'s, (c)'s and (d)'s steps. Returns the launches of
+    window of (a)'s, (b)'s, (c)'s and (d)'s steps and of the plain slot
+    run's (#4), and of (a)'s, (c)'s and the slot run's again at ~250-token
+    contexts. Returns the launches of
     #6-#9 on their legs: (c), (e), (b) and (d)."""
     from flexflow_tpu_torch.serving import Request
 
@@ -1071,6 +1104,10 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
             ("d: tree spec verify, int8 paged", "paged_flash_verify_tree_quant", tree_int8),
         ):
             profile_decode(model, label=label, kernel=kernel, **kw)
+        # the plain legs' kernels at the cell's own contexts (~250 tokens)
+        for label, kernel, kw in (("a: decode at ~250-token contexts", "paged_flash_verify", {}),
+                                  ("c: decode at ~250-token contexts", "paged_flash_verify_quant", int8)):
+            profile_decode(model, label=label, kernel=kernel, skip=LONG_WINDOW_SKIP, **kw)
     del model
     small = build_lm(device, **dict(FLAGSHIP, layers=small_layers))
     slot, linear_int8 = dict(kv_layout="slot"), dict(LINEAR, kv_dtype="int8")
@@ -1082,6 +1119,10 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     i, i_top, *_ = serve_leg("plain, int8 paged", small, small_layers, "paged_flash_verify_quant", **int8)
     serve_leg("f: linear spec, int8 paged", small, small_layers, "paged_flash_verify_quant",
               plain=(i, i_top), **linear_int8)
+    if small.device.type == "cuda":
+        profile_decode(small, label="slot: decode, 2 layers", kernel="flash_verify", **slot)
+        profile_decode(small, label="slot: decode at ~250-token contexts", kernel="flash_verify",
+                       skip=LONG_WINDOW_SKIP, **slot)
     return {
         "paged_flash_verify_quant": c_launches["paged_flash_verify_quant"],
         "flash_verify_tree": e_launches["flash_verify_tree"],

@@ -1,22 +1,23 @@
 // Flash-decode / verify attention against the serving KV cache, for Hopper
-// (sm_90a). Built by flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a
-// shared library with a plain C interface, loaded through ctypes by
-// flexflow_tpu_torch/ops/cuda/decode_kernel.py.
+// (sm_90a), at head_dim > 256. Built by flexflow_tpu_torch/ops/cuda/_build.py
+// with nvcc into a shared library with a plain C interface, loaded through
+// ctypes by flexflow_tpu_torch/ops/cuda/decode_kernel.py.
 //
-// What it replaces: four Pallas TPU kernels of
-// flexflow_tpu/ops/pallas/decode_kernel.py, one device body templated on
-// three compile-time flags, as the JAX family shares one body between
-// decode (w == 1) and verify (w queries):
+// What it replaces: the six Pallas TPU kernels of
+// flexflow_tpu/ops/pallas/decode_kernel.py past the register tiles of
+// tree_kernel.cu's split-KV body, which serves all six at head_dim <= 256.
+// One device body templated on three compile-time flags, as the JAX family
+// shares one body between decode (w == 1) and verify (w queries):
 //   kPaged kQuant kTree
 //     0      0      0    _decode_kernel :235 (flash_verify)              #4
 //     1      0      0    _paged_kernel :342 (paged_flash_verify)         #5
 //     1      1      0    _paged_kernel_quant :476                        #6
+//     0      0      1    _tree_kernel :626 (flash_verify_tree)           #7
+//     1      0      1    _paged_tree_kernel :732                         #8
 //     1      1      1    _paged_tree_kernel_quant :849                   #9
-// #4 and #6 run here always; #5 and #9 only at head_dim > 256, past the
-// register tiles of tree_kernel.cu's split-KV body, which serves them (and
-// the fp32 tree verifies _tree_kernel :626 (#7) and _paged_tree_kernel
-// :732 (#8)) at head_dim <= 256. The wrapper picks the body by head_dim
-// alone, before any launch.
+// The wrapper picks the body by head_dim alone, before any launch; here
+// any head_dim whose one-page chunk fits the shared memory (w = 64 at
+// head_dim 320 does not, and the wrapper raises before a launch).
 //   * kPaged: the cache is pools [num_pages, page, h, d] walked through the
 //     block table; rows on a sentinel page (table entry outside
 //     [0, num_pages)) are neither read nor counted.
@@ -59,9 +60,10 @@
 // 512-row default (_TUNED = {"block_k": 512}, decode_kernel.py:106): the
 // wrapper takes the largest chunk whose staging buffers fit its budget
 // (ff_decode_smem_bytes below); a paged chunk is a whole number of pages.
-// Split-KV across blocks, cp.async/TMA pipelining, tensor cores and a
-// bit-packed tree mask are left to later work: at 8 sequences x 16 heads
-// this grid is 128 blocks on 132 SMs.
+// It is the simple body, kept for heads no model of either package
+// reaches: at 8 sequences x 16 heads its grid is 128 blocks on 132 SMs,
+// each walking its chunks in series (tree_kernel.cu splits the positions
+// across blocks instead).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -320,8 +322,8 @@ const char* ff_cuda_error_string(int code) {
 // unallocated. tree != 0: allowed [b, w, max_len] uint8 with strides
 // (m_sb, m_sw), nonzero = visible. chunk is a multiple of page_size on the
 // paged layout. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a combination no variant serves (the fp32
-// tree verifies are tree_kernel.cu's).
+// cudaErrorInvalidValue for a combination no variant serves (int8 on the
+// contiguous layout).
 int ff_decode_attention(const void* q, const void* k, const void* v,
                         const void* k_scale, const void* v_scale,
                         const void* tables, const void* lengths,
@@ -343,10 +345,12 @@ int ff_decode_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const int variant = (paged ? 4 : 0) | (quant ? 2 : 0) | (tree ? 1 : 0);
   switch (variant) {
-    case 0: return launch<false, false, false>(p, b, s);
-    case 4: return launch<true, false, false>(p, b, s);
-    case 6: return launch<true, true, false>(p, b, s);
-    case 7: return launch<true, true, true>(p, b, s);
+    case 0: return launch<false, false, false>(p, b, s);  // #4
+    case 1: return launch<false, false, true>(p, b, s);   // #7
+    case 4: return launch<true, false, false>(p, b, s);   // #5
+    case 5: return launch<true, false, true>(p, b, s);    // #8
+    case 6: return launch<true, true, false>(p, b, s);    // #6
+    case 7: return launch<true, true, true>(p, b, s);     // #9
     default: return (int)cudaErrorInvalidValue;  // int8 needs the paged layout
   }
 }

@@ -1,20 +1,21 @@
 // Split-KV verify and decode attention against the serving KV cache, for
-// Hopper (sm_90a): the device body of kernels #5, #7, #8 and #9. Built by
-// flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a shared library
-// with a plain C interface, loaded through ctypes by
+// Hopper (sm_90a): the device body of kernels #4-#9 at head_dim <= 256.
+// Built by flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a shared
+// library with a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/decode_kernel.py.
 //
-// What it replaces: four Pallas TPU kernels of
+// What it replaces: six Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/decode_kernel.py, one body templated on three
 // flags:
 //   kPaged kQuant kStair
 //     0      0      0    _tree_kernel :626 (flash_verify_tree)            #7
 //     1      0      0    _paged_tree_kernel :732 (paged_flash_verify_tree) #8
 //     1      1      0    _paged_tree_kernel_quant :849                    #9
+//     0      0      1    _decode_kernel :235 (flash_verify)               #4
 //     1      0      1    _paged_kernel :342 (paged_flash_verify)          #5
-// (kQuant x kStair would be #6 and kStair alone on the contiguous cache
-// #4; both still run on decode_kernel.cu's body, as do #5 and #9 at
-// head_dim > 256, which the wrapper routes there by head_dim alone.)
+//     1      1      1    _paged_kernel_quant :476                         #6
+// (decode_kernel.cu's body serves all six past head_dim 256, where the
+// wrapper routes them by head_dim alone.)
 // w query rows per sequence against the cache, where row j sees position p
 // iff allowed[b, j, p] != 0 (a uint8 mask over logical positions; the
 // tree verifies) or p <= lengths[b] + j (kStair: the staircase of decode
@@ -38,8 +39,9 @@
 //     `span` consecutive positions (a multiple of 64 and a whole number of
 //     pages, at most 64 splits: decode_kernel.py's _TREE_SPAN_UNIT and
 //     _TREE_MAX_SPLITS, which pick_splits keeps and kSpanUnit and
-//     kMaxSplits here enforce), chosen on the host from b, h and max_len
-//     alone so that the grid fills the SMs several times over; `lengths`
+//     kMaxSplits here enforce; 128 for #6 at w = 1, _QUANT_SPAN_UNIT),
+//     chosen on the host from the shape alone so that the grid fills the
+//     SMs several times over; `lengths`
 //     stays on the device,
 //     and a block whose range starts at or past min(lengths[b] + w,
 //     max_len) exits at once; the split index is the fastest grid index,
@@ -75,9 +77,10 @@
 //     before K/V are stored, so a block waits on device memory twice per
 //     chunk, not four times; shared memory is 26 KB per block at w <= 16,
 //     head_dim 64, so 8 blocks share an SM;
-//   * one query row (single_query_kernel, kStair at w = 1: every decode
-//     step): the 8 x 16 tile would leave 7 of its 8 query rows empty, so
-//     the 128 threads go across key rows and head_dim instead. Half-warp
+//   * one query row of fp32 rows (single_query_kernel, #4 and #5 at
+//     w = 1: every decode step): the 8 x 16 tile would leave 7 of its 8
+//     query rows empty, so the 128 threads go across key rows and
+//     head_dim instead. Half-warp
 //     ty reads positions lo + ty + 8 i, lane tx head_dim columns
 //     4 tx + 64 k, straight from device memory into registers (4 rows per
 //     half-warp in flight at head_dim <= 64, 8 / kCn above: a 32- or
@@ -87,7 +90,25 @@
 //     half-warp keeps its own running (m, l, acc), so the loop has no
 //     barrier and no shared memory; the block merges its 8 states by the
 //     same exact rule as the splits, then writes the output or its
-//     partial.
+//     partial;
+//   * one query row of int8 rows (single_query_int8_kernel, #6 at w = 1):
+//     a 64-column int8 row is 64 bytes, so 4 lanes cover it with one
+//     16-byte load each (4 kCn lanes at wider heads) and the 128 threads
+//     hold 32 rows at once, where the fp32 tile holds 8; row group g reads
+//     positions lo + g + 32 i (2 rows per group in flight: a 64-row pass
+//     at head_dim <= 64), keeps the raw rows (4 registers per 16
+//     columns) until each is used and multiplies by the page's scale
+//     right before (bit-identical to the plain dequant); each score is
+//     four 4-term partials summed pairwise, then 2 shuffles (log2 of the
+//     lanes per row); each group keeps its own running (m, l, acc), the
+//     groups of a warp merge by shuffles and the block's 4 warps through
+//     shared memory, by the same exact rule. Like the fp32 tile it is
+//     bound by its chain of dependent waits (page lookup, rows, partial,
+//     arrival, merge), not by bytes, so its spans are longer (128
+//     positions: 4 splits at max_len 512, 2 passes each); on one H100,
+//     4 rows per group took 0.0102-0.0106 ms at the serving shape and
+//     0.0063 at short contexts against 0.0106 and 0.0047, the char4
+//     columns of the fp32 tile 0.0152 (PERF.md, scripts/decode_split_body.py).
 // Left to later work: the tile stages a chunk and then computes it, and
 // the blocks of an SM do so in step; double-buffered cp.async staging
 // would overlap the two.
@@ -558,43 +579,78 @@ __global__ void __launch_bounds__(kThreads)
   arrive_and_merge(p, ib, ih, live, base, q_s);
 }
 
-// 4 cache elements of a row at element offset `off` + 4 c: fp32, or int8
-// times the page's scale
-template <bool kQuant>
-__device__ __forceinline__ float4 load4(const void* base, int64_t off, int c, float s) {
-  if (kQuant) {
-    const char4 r = __ldg(reinterpret_cast<const char4*>(static_cast<const int8_t*>(base) + off) + c);
-    return make_float4((float)r.x * s, (float)r.y * s, (float)r.z * s, (float)r.w * s);
+// The end of a one-row tile (w = 1): its kN partial states (acc_s[t], the
+// accumulator over head_dim; ml_s[t] = (m, l)), stored and followed by a
+// barrier, merged exactly as the splits are; then the output where this
+// is the only live split, else this split's partial, its arrival and the
+// merge (arrive_and_merge, its scratch in the tile's own shared memory).
+template <int kN, int kC4>
+__device__ void finish_single_row(const Params& p, int ib, int ih, int is, int live,
+                                  const float4 (&acc_s)[kN][kC4], const float2 (&ml_s)[kN]) {
+  __shared__ float2 scratch2[(3 * kMaxSplits + 2) / 2];  // the merge's, w = 1
+  const int tid = threadIdx.x, d4 = p.d / 4;
+  float big = kMask;
+#pragma unroll
+  for (int t = 0; t < kN; ++t)
+    if (ml_s[t].y > 0.f) big = fmaxf(big, ml_s[t].x);
+  float e[kN], den = 0.f;
+#pragma unroll
+  for (int t = 0; t < kN; ++t) {
+    e[t] = ml_s[t].y > 0.f ? expf(ml_s[t].x - big) : 0.f;
+    den += e[t] * ml_s[t].y;
   }
-  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(base) + off) + c);
+  const float inv = live == 1 ? 1.f / fmaxf(den, 1e-30f) : 1.f;
+  // live == 1: the output; else this split's partial (M, L, acc)
+  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits;  // split 0
+  float4* dst = live == 1 ? reinterpret_cast<float4*>(p.out) + ((int64_t)ib * p.h + ih) * d4
+                          : reinterpret_cast<float4*>(p.part_acc) + (base + is) * d4;
+  for (int c = tid; c < d4; c += kThreads) {
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      const float4 a = acc_s[t][c];
+      num.x += e[t] * a.x;
+      num.y += e[t] * a.y;
+      num.z += e[t] * a.z;
+      num.w += e[t] * a.w;
+    }
+    dst[c] = live == 1 ? make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv) : num;
+  }
+  if (live == 1) return;
+  if (tid == 0) {
+    p.part_ml[2 * (base + is)] = big;
+    p.part_ml[2 * (base + is) + 1] = den;
+  }
+  arrive_and_merge(p, ib, ih, live, base, reinterpret_cast<float*>(scratch2));
 }
 
-// One query row under the staircase (w = 1: position p visible iff
-// p <= lengths[b]): see the header. Half-warp ty holds positions
-// k0 + ty + 8 i of each pass, lane tx head_dim columns 4 tx + 64 k.
-template <bool kPaged, bool kQuant, int kCn>
+// One query row of fp32 rows under the staircase (w = 1: position p
+// visible iff p <= lengths[b]; #4 and #5): see the header. Half-warp ty
+// holds positions k0 + ty + 8 i of each pass, lane tx head_dim columns
+// 4 tx + 64 k.
+template <bool kPaged, int kCn>
 __global__ void __launch_bounds__(kThreads)
     single_query_kernel(const Params p) {
   constexpr int kR = kCn == 1 ? 4 : 8 / kCn;  // positions per half-warp per pass
   constexpr int kPass = kTy * kR;    // positions per pass: 32, 32 or 16
   __shared__ float4 acc_s[kTy][16 * kCn];  // each half-warp's accumulator
   __shared__ float2 ml_s[kTy];             // and its (m, l)
-  __shared__ float2 scratch2[(3 * kMaxSplits + 2) / 2];  // the merge's, w = 1
 
   const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
   const int d = p.d, d4 = p.d / 4;
+  const float* kf = static_cast<const float*>(p.k);
+  const float* vf = static_cast<const float*>(p.v);
   const int lo = is * p.span;
   // the length, the first pass's row offsets and q are loaded together
   const int length = p.lengths[ib];
   int64_t ko[kR], vo[kR];
-  float ks[kR], vs[kR];
+  float unused = 0.f;  // the scales row_offsets sets under kQuant only
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     ko[i] = vo[i] = -1;
-    ks[i] = vs[i] = 0.f;
     const int pos = lo + ty + kTy * i;
-    if (pos < p.max_len) row_offsets<kPaged, kQuant>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
+    if (pos < p.max_len) row_offsets<kPaged, false>(p, ib, ih, pos, ko[i], vo[i], unused, unused);
   }
   float4 qv[kCn];
   const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
@@ -621,9 +677,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         ko[i] = vo[i] = -1;
-        ks[i] = vs[i] = 0.f;
         const int pos = k0 + ty + kTy * i;
-        if (pos < hi) row_offsets<kPaged, kQuant>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
+        if (pos < hi) row_offsets<kPaged, false>(p, ib, ih, pos, ko[i], vo[i], unused, unused);
       }
     }
     // every read of the pass in flight at once
@@ -637,8 +692,8 @@ __global__ void __launch_bounds__(kThreads)
         const int c = tx + 16 * k;
         kk[i][k] = vv[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (seen[i] && c < d4) {
-          kk[i][k] = load4<kQuant>(p.k, ko[i], c, ks[i]);
-          vv[i][k] = load4<kQuant>(p.v, vo[i], c, vs[i]);
+          kk[i][k] = __ldg(reinterpret_cast<const float4*>(kf + ko[i]) + c);
+          vv[i][k] = __ldg(reinterpret_cast<const float4*>(vf + vo[i]) + c);
         }
       }
     }
@@ -676,45 +731,153 @@ __global__ void __launch_bounds__(kThreads)
     m = m_new;
   }
 
-  // the block's 8 half-warp states, merged exactly as the splits are
+  // the block's 8 half-warp states
 #pragma unroll
   for (int k = 0; k < kCn; ++k)
     acc_s[ty][tx + 16 * k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
   if (tx == 0) ml_s[ty] = make_float2(m, l);
   __syncthreads();
-  float big = kMask;
+  finish_single_row(p, ib, ih, is, live, acc_s, ml_s);
+}
+
+// 16 int8 values times their page's scale, dotted with 16 fp32 values:
+// four 4-term partials, summed pairwise
+__device__ __forceinline__ float dot16(const float4 (&q)[4], int4 raw, float s) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  float part[4];
 #pragma unroll
-  for (int t = 0; t < kTy; ++t)
-    if (ml_s[t].y > 0.f) big = fmaxf(big, ml_s[t].x);
-  float e[kTy], den = 0.f;
+  for (int u = 0; u < 4; ++u)
+    part[u] = q[u].x * ((float)b[4 * u] * s) + q[u].y * ((float)b[4 * u + 1] * s) +
+              q[u].z * ((float)b[4 * u + 2] * s) + q[u].w * ((float)b[4 * u + 3] * s);
+  return (part[0] + part[1]) + (part[2] + part[3]);
+}
+
+// One query row of int8 rows under the staircase (#6 at w = 1): see the
+// header. Row group g (kL consecutive lanes) holds positions k0 + g + kG i
+// of each pass, lane t of the group int8 columns 16 t .. 16 t + 15 as one
+// 16-byte load.
+template <int kCn>
+__global__ void __launch_bounds__(kThreads)
+    single_query_int8_kernel(const Params p) {
+  constexpr int kL = 4 * kCn;          // lanes per row
+  constexpr int kG = kThreads / kL;    // row groups: 32, 16 or 8
+  constexpr int kR = 2;                // positions per group per pass
+  constexpr int kPass = kG * kR;       // positions per pass
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float4 acc_s[kWarps][16 * kCn];  // each warp's accumulator
+  __shared__ float2 ml_s[kWarps];             // and its (m, l)
+
+  const int is = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z;
+  const int tid = threadIdx.x, t = tid % kL, g = tid / kL, warp = tid / 32;
+  const int d = p.d;
+  const bool cols = 16 * t < d;  // this lane's 16 columns lie inside head_dim
+  const int8_t* k8 = static_cast<const int8_t*>(p.k);
+  const int8_t* v8 = static_cast<const int8_t*>(p.v);
+  const int lo = is * p.span;
+  // the length, the first pass's row offsets and q are loaded together
+  const int length = p.lengths[ib];
+  int64_t ko[kR], vo[kR];
+  float ks[kR], vs[kR];
 #pragma unroll
-  for (int t = 0; t < kTy; ++t) {
-    e[t] = ml_s[t].y > 0.f ? expf(ml_s[t].x - big) : 0.f;
-    den += e[t] * ml_s[t].y;
+  for (int i = 0; i < kR; ++i) {
+    ko[i] = vo[i] = -1;
+    ks[i] = vs[i] = 0.f;
+    const int pos = lo + g + kG * i;
+    if (pos < p.max_len) row_offsets<true, true>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
   }
-  const float inv = live == 1 ? 1.f / fmaxf(den, 1e-30f) : 1.f;
-  // live == 1: the output; else this split's partial (M, L, acc)
-  const int64_t base = (int64_t)(ib * p.h + ih) * p.splits;  // split 0
-  float4* dst = live == 1 ? reinterpret_cast<float4*>(p.out) + ((int64_t)ib * p.h + ih) * d4
-                          : reinterpret_cast<float4*>(p.part_acc) + (base + is) * d4;
-  for (int c = tid; c < d4; c += kThreads) {
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 qv[4];
+  const float4* qb = reinterpret_cast<const float4*>(p.q + ib * p.q_sb + ih * p.q_sh);
 #pragma unroll
-    for (int t = 0; t < kTy; ++t) {
-      const float4 a = acc_s[t][c];
-      num.x += e[t] * a.x;
-      num.y += e[t] * a.y;
-      num.z += e[t] * a.z;
-      num.w += e[t] * a.w;
+  for (int u = 0; u < 4; ++u) qv[u] = cols ? __ldg(qb + 4 * t + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int end = min(length + 1, p.max_len);  // positions [0, end) are visible
+  const int hi = min(lo + p.span, end);
+  if (lo >= hi) {  // nothing to read in this range
+    if (is == 0)  // nor in any (lengths[b] < 0): the output is 0
+      for (int c = tid; c < d; c += kThreads) p.out[((int64_t)ib * p.h + ih) * d + c] = 0.f;
+    return;
+  }
+  const int live = (end + p.span - 1) / p.span;  // splits with positions to read
+
+  float m = kMask, l = 0.f;
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int k0 = lo; k0 < hi; k0 += kPass) {
+    if (k0 != lo) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        ko[i] = vo[i] = -1;
+        ks[i] = vs[i] = 0.f;
+        const int pos = k0 + g + kG * i;
+        if (pos < hi) row_offsets<true, true>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
+      }
     }
-    dst[c] = live == 1 ? make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv) : num;
+    // every read of the pass in flight at once, kept raw (4 registers per
+    // 16 columns) until used
+    bool seen[kR];
+    int4 kr[kR], vr[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      seen[i] = k0 + g + kG * i < hi && ko[i] >= 0;
+      kr[i] = vr[i] = make_int4(0, 0, 0, 0);
+      if (seen[i] && cols) {
+        kr[i] = __ldg(reinterpret_cast<const int4*>(k8 + ko[i]) + t);
+        vr[i] = __ldg(reinterpret_cast<const int4*>(v8 + vo[i]) + t);
+      }
+    }
+    float s[kR];
+    float mx = kMask;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      float dot = dot16(qv, kr[i], ks[i]);
+#pragma unroll
+      for (int o = kL / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      s[i] = seen[i] ? dot * p.scale : kMask;
+      mx = fmaxf(mx, s[i]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] *= corr;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float pr = seen[i] ? expf(s[i] - m_new) : 0.f;
+      sum += pr;
+      const int4 raw = vr[i];
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] += pr * ((float)b[e] * vs[i]);
+    }
+    l = l * corr + sum;
+    m = m_new;
   }
-  if (live == 1) return;
-  if (tid == 0) {
-    p.part_ml[2 * (base + is)] = big;
-    p.part_ml[2 * (base + is) + 1] = den;
+
+  // the warp's kG / kWarps row groups merged by shuffles (lanes t of
+  // every group hold the same columns), exactly as the splits are: a group
+  // that saw nothing has m = kMask and l = acc = 0, so its weight is 0
+  // wherever another group saw something
+  float wm = m;
+#pragma unroll
+  for (int o = kL; o < 32; o <<= 1) wm = fmaxf(wm, __shfl_xor_sync(0xffffffffu, wm, o));
+  const float ew = expf(m - wm);
+  float wl = l * ew;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] *= ew;
+#pragma unroll
+  for (int o = kL; o < 32; o <<= 1) {
+    wl += __shfl_xor_sync(0xffffffffu, wl, o);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
-  arrive_and_merge(p, ib, ih, live, base, reinterpret_cast<float*>(scratch2));
+  if (tid % 32 < kL) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      acc_s[warp][4 * t + u] = make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2], acc[4 * u + 3]);
+    if (t == 0) ml_s[warp] = make_float2(wm, wl);
+  }
+  __syncthreads();
+  finish_single_row(p, ib, ih, is, live, acc_s, ml_s);  // the block's 4 warp states
 }
 
 template <bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
@@ -747,7 +910,10 @@ int launch_cols(const Params& p, int b, cudaStream_t stream) {
 template <bool kPaged, bool kQuant, int kCn>
 int launch_single(const Params& p, int b, cudaStream_t stream) {
   dim3 grid(p.splits, p.h, b);
-  single_query_kernel<kPaged, kQuant, kCn><<<grid, kThreads, 0, stream>>>(p);
+  if constexpr (kQuant)
+    single_query_int8_kernel<kCn><<<grid, kThreads, 0, stream>>>(p);
+  else
+    single_query_kernel<kPaged, kCn><<<grid, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -822,8 +988,10 @@ int ff_tree_attention(const void* q, const void* k, const void* v,
     case 0: return launch_bucket<false, false, false>(p, b, s);  // #7
     case 4: return launch_bucket<true, false, false>(p, b, s);   // #8
     case 6: return launch_bucket<true, true, false>(p, b, s);    // #9
+    case 1: return launch_bucket<false, false, true>(p, b, s);   // #4
     case 5: return launch_bucket<true, false, true>(p, b, s);    // #5
-    default: return (int)cudaErrorInvalidValue;  // #4 and #6 run on decode_kernel.cu
+    case 7: return launch_bucket<true, true, true>(p, b, s);     // #6
+    default: return (int)cudaErrorInvalidValue;  // int8 needs the paged layout
   }
 }
 

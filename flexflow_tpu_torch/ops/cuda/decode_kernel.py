@@ -5,19 +5,22 @@ The device code is CUDA C++ for Hopper, built on first use by
 ops/cuda/_build.py and called through ctypes on PyTorch's current
 stream. Two device bodies, each templated on the layout, the pool type
 and the mask, as the JAX family shares one body between decode and
-verify:
+verify; every wrapper picks between them by head_dim alone, before any
+launch:
 
-  * csrc/tree_kernel.cu, the split-KV body (one launch per call over
-    (split, head, sequence) blocks; the blocks of a sequence's positions
-    merge their partials in the last of them to finish): #7 and #8 (fp32
-    tree verifies), #9 (int8 tree verify) and #5 (the staircase on fp32
-    pools; at w = 1, every decode step, a tile of one query row), all at
-    head_dim <= _TREE_MAX_D (256);
-  * csrc/decode_kernel.cu, one block per (sequence, head): #4 and #6,
-    and #5 and #9 at head_dim > 256, chosen by head_dim alone before any
-    launch (the tree body's register tiles stop at 256; this body takes
-    any head_dim whose one-page chunk fits its shared memory, see
-    pick_chunk). #7 and #8 stop at 256.
+  * csrc/tree_kernel.cu, the split-KV body, at head_dim <= _TREE_MAX_D
+    (256): one launch per call over (split, head, sequence) blocks; the
+    blocks of a sequence's positions merge their partials in the last of
+    them to finish. It serves all six: the staircase on the contiguous
+    cache (#4), on fp32 pools (#5) and on int8 pools (#6), and the tree
+    mask on the same three (#7, #8, #9). At w = 1, every decode step,
+    the staircase runs a tile of one query row: fp32 rows (#4, #5) with
+    half-warps across rows, int8 rows (#6) with one 16-byte load per lane
+    (4 lanes per row at head_dim 64), over splits of _QUANT_SPAN_UNIT
+    positions;
+  * csrc/decode_kernel.cu, one block per (sequence, head), past 256: any
+    head_dim whose one-page chunk fits its shared memory (see
+    pick_chunk), else a ValueError naming shared memory.
 
 The entry points:
 
@@ -93,13 +96,18 @@ _MASK = -1e30  # the reference's finite mask fill
 # the split-KV body (tree_kernel.cu, whose kSpanUnit and kMaxSplits
 # refuse a launch that breaks these): a split's span is a multiple of
 # _TREE_SPAN_UNIT positions (a whole number of its 32- or 64-row chunks
-# and of the one-row tile's 16- or 32-row passes), a call takes at
+# and of the one-row tiles' 16- to 64-row passes), a call takes at
 # most _TREE_MAX_SPLITS, head_dim is at most _TREE_MAX_D, and the host
 # aims for this many blocks per SM
 _TREE_SPAN_UNIT = 64
 _TREE_MAX_SPLITS = 64
 _TREE_MAX_D = 256
 _BLOCKS_PER_SM = 8
+# the span unit of #6 at w = 1 (the int8 one-row tile, whose row reads
+# are a quarter of the fp32 tile's bytes): 128 positions, 2 passes of its
+# 64 rows at head_dim 64; on one H100 it beat 64 and 256 at the serving
+# shape and at short contexts together (PERF.md, scripts/decode_split_body.py)
+_QUANT_SPAN_UNIT = 128
 
 _bound: Optional[ctypes.CDLL] = None
 _tree_bound: Optional[ctypes.CDLL] = None
@@ -146,15 +154,16 @@ def _tree_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def pick_splits(b: int, h: int, max_len: int, unit: int, sms: int):
+def pick_splits(b: int, h: int, max_len: int, unit: int, sms: int, span_unit: int = _TREE_SPAN_UNIT):
     """(splits, span) of the tree body's grid (splits, h, b): each block
-    owns `span` positions, a multiple of _TREE_SPAN_UNIT and of `unit`
-    (the page size on the paged layout), and splits x span covers
-    max_len. From the shape alone, never from `lengths` (that would read
-    a device tensor to the host on every layer): enough splits that the
-    grid holds _BLOCKS_PER_SM blocks per SM, none shorter than a step of
-    span unit and unit, and at most _TREE_MAX_SPLITS."""
-    step = math.lcm(_TREE_SPAN_UNIT, unit)
+    owns `span` positions, a multiple of `span_unit` (a multiple of
+    _TREE_SPAN_UNIT: _QUANT_SPAN_UNIT for #6 at w = 1) and of `unit` (the
+    page size on the paged layout), and splits x span covers max_len.
+    From the shape alone, never from `lengths` (that would read a device
+    tensor to the host on every layer): enough splits that the grid holds
+    _BLOCKS_PER_SM blocks per SM, none shorter than a step of span unit
+    and unit, and at most _TREE_MAX_SPLITS."""
+    step = math.lcm(span_unit, unit)
     most = min(_TREE_MAX_SPLITS, -(-max_len // step))
     want = -(-_BLOCKS_PER_SM * sms // max(1, b * h))
     splits = max(1, min(want, most))
@@ -424,10 +433,12 @@ def _geometry(name, q, k, v, lengths, tables=None, scales=None, allowed=None):
 
 
 def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
-    """#5 (allowed None: the staircase), #7 (tables None), #8 and #9
-    (scales given: int8 pools) on the split-KV body of tree_kernel.cu:
-    check the operands, launch it and count the launch. head_dim at most
-    _TREE_MAX_D; the wrappers send #5 and #9 past it to _launch."""
+    """Every decode kernel on the split-KV body of tree_kernel.cu: the
+    staircase (allowed None) on the contiguous cache (tables None, #4),
+    fp32 pools (#5) and int8 pools (scales given, #6), or the tree mask on
+    the same three (#7, #8, #9): check the operands, launch it and count
+    the launch. head_dim at most _TREE_MAX_D; the wrappers send wider
+    heads to _launch."""
     b, w, h, d = q.shape
     paged, quant, stair = tables is not None, scales is not None, allowed is None
     num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
@@ -437,7 +448,8 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
     if b == 0:
         return out
     lib = _tree_lib()
-    splits, span = pick_splits(b, h, max_len, page_size if paged else 1, _sm_count(q.device.index))
+    span_unit = _QUANT_SPAN_UNIT if quant and stair and w == 1 else _TREE_SPAN_UNIT
+    splits, span = pick_splits(b, h, max_len, page_size if paged else 1, _sm_count(q.device.index), span_unit)
     ks, vs = scales if quant else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
@@ -466,10 +478,10 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
 
 
 def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
-    """#4 and #6, and #5 and #9 at head_dim > _TREE_MAX_D, on
-    decode_kernel.cu's body: check the operands, launch the variant
-    `name` selects and count it. k/v are the contiguous caches (tables
-    None) or the pools."""
+    """Every decode kernel at head_dim > _TREE_MAX_D, on decode_kernel.cu's
+    body: check the operands, launch the variant the operands select
+    (as _launch_tree) and count it. Raises before any launch where one
+    page's chunk does not fit the body's shared memory (pick_chunk)."""
     b, w, h, d = q.shape
     paged, quant, tree = tables is not None, scales is not None, allowed is not None
     num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
@@ -504,14 +516,22 @@ def _no_kernel(name, q):
         raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
+def _body(q):
+    """The device body for q's head_dim, by head_dim alone: the split-KV
+    body up to _TREE_MAX_D, decode_kernel.cu's past it."""
+    return _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
+
+
 def flash_verify(q, k_cache, v_cache, lengths, sm_scale=None):
     """w-query flash attention against the contiguous cache with the
     staircase mask. q: [b, w, h, d]; k_cache/v_cache: [b, max_len, h, d];
-    lengths: [b] int32. Returns [b, w, h, d] float32."""
+    lengths: [b] int32. Returns [b, w, h, d] float32. On the card: the
+    split-KV body of tree_kernel.cu at head_dim <= 256 (at w = 1 its
+    one-row tile), decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return flash_verify_ref(q, k_cache, v_cache, lengths, sm_scale)
     _no_kernel("flash_verify", q)
-    return _launch("flash_verify", q, k_cache, v_cache, lengths, sm_scale)
+    return _body(q)("flash_verify", q, k_cache, v_cache, lengths, sm_scale)
 
 
 def flash_decode(q, k_cache, v_cache, lengths, **kw):
@@ -530,8 +550,7 @@ def paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     if q.device.type == "cpu":
         return paged_flash_verify_ref(q, k_pool, v_pool, block_tables, lengths, sm_scale)
     _no_kernel("paged_flash_verify", q)
-    launch = _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
-    return launch("paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables)
+    return _body(q)("paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables)
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, **kw):
@@ -547,13 +566,15 @@ def paged_flash_verify_quant(
     with fp32 per-(page, head) scale side pools k_scale/v_scale
     [num_pages, h]: each page's rows are dequantized inside the page
     walk. head_dim must be a multiple of 16. Returns [b, w, h, d]
-    float32."""
+    float32. On the card: the split-KV body of tree_kernel.cu at head_dim
+    <= 256 (at w = 1 its int8 one-row tile), decode_kernel.cu's body past
+    it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_quant_ref(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, sm_scale
         )
     _no_kernel("paged_flash_verify_quant", q)
-    return _launch(
+    return _body(q)(
         "paged_flash_verify_quant", q, k_pool, v_pool, lengths, sm_scale,
         tables=block_tables, scales=(k_scale, v_scale),
     )
@@ -571,24 +592,24 @@ def flash_verify_tree(q, k_cache, v_cache, lengths, allowed, sm_scale=None):
     """w-query flash attention against the contiguous cache under a
     token-tree mask: allowed [b, w, max_len] (bool, uint8 or float32;
     > 0 = query row j may see the position). Other shapes as
-    flash_verify; on the card head_dim may be at most 256."""
+    flash_verify, and the same two bodies on the card."""
     if q.device.type == "cpu":
         return flash_verify_tree_ref(q, k_cache, v_cache, lengths, allowed, sm_scale)
     _no_kernel("flash_verify_tree", q)
-    return _launch_tree("flash_verify_tree", q, k_cache, v_cache, lengths, sm_scale, allowed=allowed)
+    return _body(q)("flash_verify_tree", q, k_cache, v_cache, lengths, sm_scale, allowed=allowed)
 
 
 def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale=None):
     """Tree-masked w-query flash attention walking the block table:
     allowed [b, w, pages_per_seq * page_size] over LOGICAL positions.
-    Other shapes as paged_flash_verify; on the card head_dim may be at
-    most 256."""
+    Other shapes as paged_flash_verify, and the same two bodies on the
+    card."""
     if q.device.type == "cpu":
         return paged_flash_verify_tree_ref(
             q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree", q)
-    return _launch_tree(
+    return _body(q)(
         "paged_flash_verify_tree", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables, allowed=allowed
     )
 
@@ -605,8 +626,7 @@ def paged_flash_verify_tree_quant(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree_quant", q)
-    launch = _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
-    return launch(
+    return _body(q)(
         "paged_flash_verify_tree_quant", q, k_pool, v_pool, lengths, sm_scale,
         tables=block_tables, scales=(k_scale, v_scale), allowed=allowed,
     )

@@ -198,19 +198,6 @@ def test_tree_body_takes_ragged_shapes(d, max_len):
     _check_tree_body(_tree_operands(rng, dev, b, w, h, d, max_len, page, lengths, hole_row=2, dead_row=4), 4)
 
 
-def test_tree_body_rejects_wide_heads():
-    """head_dim 260 is past the tree body's tiles (256): a ValueError
-    before any launch."""
-    dev = _card()
-    q = torch.zeros(1, 3, 2, 260, device=dev)
-    k = torch.zeros(1, 64, 2, 260, device=dev)
-    lens = torch.zeros(1, dtype=torch.int32, device=dev)
-    dk.reset_launches()
-    with pytest.raises(ValueError, match="head_dim 260"):
-        dk.flash_verify_tree(q, k, k, lens, torch.ones(1, 3, 64, dtype=torch.bool, device=dev))
-    assert sum(dk.LAUNCHES.values()) == 0
-
-
 def _int8_pools(rng, dev, x, page, scale0_row=0):
     """int8 pools of x's pool shape with one random scale per (page,
     head), the first page of `scale0_row` never written (scale 0)."""
@@ -228,7 +215,7 @@ def _check_split_body(name, args, atol, dead_row):
     """One kernel twice on the same operands: two launches counted under
     `name` and none under any other name, the arrival counters back at
     zero, finite, within `atol` of the plain version, bit-identical across
-    the two calls, and the dead row exactly 0."""
+    the two calls, and the dead row (None: there is none) exactly 0."""
     fn, ref_fn = getattr(dk, name), getattr(dk, name + "_ref")
     dk.reset_launches()
     out, again = fn(*args), fn(*args)
@@ -238,7 +225,7 @@ def _check_split_body(name, args, atol, dead_row):
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out, ref_fn(*args), atol=atol, rtol=0)
     assert torch.equal(out, again)
-    assert float(out[dead_row].abs().max()) == 0.0
+    assert dead_row is None or float(out[dead_row].abs().max()) == 0.0
 
 
 # (max_len, page): the serving shape, and a ragged max_len at 2-row pages
@@ -271,6 +258,38 @@ def test_paged_verify_on_the_split_body_matches_plain_version(w, d, max_len, pag
     _check_split_body("paged_flash_verify", (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"]), ATOL, 7)
 
 
+def _dead_contiguous(x, w):
+    """x's lengths with row 7 at -w: on the contiguous cache (no pages to
+    leave unallocated) the row whose staircase sees no position."""
+    lens = x["lens"].clone()
+    lens[7] = -w
+    return lens
+
+
+@pytest.mark.parametrize("max_len,page", SPLIT_BODY_SHAPES)
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_contiguous_decode_on_the_split_body_matches_plain_version(w, d, max_len, page):
+    """#4 (the staircase on the contiguous cache; at w = 1 the one-row
+    tile) on the split-KV body of tree_kernel.cu at head_dim 16-256, atol
+    1e-4; row 7 sees nothing (length -w) and gives exactly 0."""
+    x = _split_body_operands(w, d, max_len, page, 800 + w + d + page)
+    _check_split_body("flash_verify", (x["q"], x["k"], x["v"], _dead_contiguous(x, w)), ATOL, 7)
+
+
+@pytest.mark.parametrize("max_len,page", SPLIT_BODY_SHAPES)
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_int8_decode_on_the_split_body_matches_plain_version(w, d, max_len, page):
+    """#6 (the staircase on int8 pools; at w = 1 the int8 one-row tile)
+    on the split-KV body of tree_kernel.cu at head_dim 16-256, with a
+    scale-0 page: within 1e-5 of the plain version at head_dim 64 (the
+    serving path's, chip_smoke.py's gate), 1e-4 elsewhere, as #9."""
+    x = _split_body_operands(w, d, max_len, page, 900 + w + d + page)
+    args = (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"])
+    _check_split_body("paged_flash_verify_quant", args, 1e-5 if d == 64 else ATOL, 7)
+
+
 @pytest.mark.parametrize("max_len,page", SPLIT_BODY_SHAPES)
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("w", [1, 13, 33, 64])
@@ -288,32 +307,59 @@ def test_int8_tree_verify_on_the_split_body_matches_plain_version(w, d, max_len,
 
 @pytest.mark.parametrize("w", [1, 5, 13, 33, 64])
 def test_paged_verify_past_256_runs_where_it_ran_before(w):
-    """head_dim 320, past the split body's tiles: #5 (w 1, 5, 13, 33) and
-    #9 (w 1, 13, 33) run on decode_kernel.cu's body, as they did before
-    the split body took them, counted under their own names; at w = 64
-    that body's shared memory does not hold a 320-wide chunk, and both
-    raise before any launch, as they did then."""
+    """head_dim 320, past the split body's tiles: #4 and #6 (w 1, 5, 13,
+    33), #5 (w 1, 5, 13, 33) and #9 (w 1, 13, 33) run on decode_kernel.cu's
+    body, as they did before the split body took them, counted under
+    their own names; at w = 64 that body's shared memory does not hold a
+    320-wide chunk, and all four raise before any launch, as they did
+    then."""
     d, max_len, page = 320, 128, 16
     x = _split_body_operands(w, d, max_len, page, 600 + w)
-    stair = (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"])
-    tree8 = (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
+    calls = {
+        "flash_verify": ((x["q"], x["k"], x["v"], _dead_contiguous(x, w)), ATOL),
+        "paged_flash_verify": ((x["q"], x["kp"], x["vp"], x["tbl"], x["lens"]), ATOL),
+        "paged_flash_verify_quant": ((x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"]), ATOL),
+        "paged_flash_verify_tree_quant": (
+            (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"]), ATOL),
+    }
     if w == 64:
         dk.reset_launches()
-        for name, args in (("paged_flash_verify", stair), ("paged_flash_verify_tree_quant", tree8)):
+        for name, (args, _) in calls.items():
             with pytest.raises(ValueError, match="shared memory"):
                 getattr(dk, name)(*args)
         assert sum(dk.LAUNCHES.values()) == 0
         return
-    _check_split_body("paged_flash_verify", stair, ATOL, 7)
-    if w != 5:
-        _check_split_body("paged_flash_verify_tree_quant", tree8, ATOL, 7)
+    for name, (args, atol) in calls.items():
+        if name != "paged_flash_verify_tree_quant" or w != 5:
+            _check_split_body(name, args, atol, 7)
+
+
+@pytest.mark.parametrize("w", [1, 13, 33, 64])
+def test_tree_verify_past_256_runs_on_the_decode_body(w):
+    """head_dim 320, past the split body's tiles: the fp32 tree verifies
+    #7 and #8 run on decode_kernel.cu's body (its kTree variants) for w
+    up to 33, within 1e-4 of their plain versions, counted under their
+    own names; at w = 64 that body's shared memory does not hold a
+    320-wide chunk, and both raise before any launch, as #5 and #9 do."""
+    x = _split_body_operands(w, 320, 128, 16, 650 + w)
+    contig = (x["q"], x["k"], x["v"], x["lens"], x["mask"])
+    paged = (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
+    if w == 64:
+        dk.reset_launches()
+        for name, args in (("flash_verify_tree", contig), ("paged_flash_verify_tree", paged)):
+            with pytest.raises(ValueError, match="shared memory"):
+                getattr(dk, name)(*args)
+        assert sum(dk.LAUNCHES.values()) == 0
+        return
+    _check_split_body("flash_verify_tree", contig, ATOL, None)
+    _check_split_body("paged_flash_verify_tree", paged, ATOL, 7)
 
 
 @pytest.mark.parametrize("d", [256, 320])
 def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
-    """#5 and #9 go to the split body (_launch_tree) at head_dim <= 256
-    and to decode_kernel.cu's body (_launch) past it, whatever the width,
-    and a call launches exactly one of them."""
+    """Every decode kernel (#4-#9) goes to the split body (_launch_tree)
+    at head_dim <= 256 and to decode_kernel.cu's body (_launch) past it,
+    whatever the width, and a call launches exactly one of them."""
     calls = []
     for fn in ("_launch", "_launch_tree"):
         real = getattr(dk, fn)
@@ -321,17 +367,21 @@ def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
     want = "_launch_tree" if d <= dk._TREE_MAX_D else "_launch"
     for w in (1, 13):
         x = _split_body_operands(w, d, 128, 16, 700 + w + d)
+        dk.flash_verify(x["q"], x["k"], x["v"], x["lens"])
         dk.paged_flash_verify(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"])
+        dk.paged_flash_verify_quant(x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"])
+        dk.flash_verify_tree(x["q"], x["k"], x["v"], x["lens"], x["mask"])
+        dk.paged_flash_verify_tree(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
         dk.paged_flash_verify_tree_quant(x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
     torch.cuda.synchronize()
-    assert calls == [want] * 4
+    assert calls == [want] * 12
 
 
 def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     """w = 65, head_dim 8 on int8 pools, fp32 pools where int8 is
     expected, misshapen scales, a strided mask and int64 tables raise
-    before a launch, on decode_kernel.cu's body (#6) and on the split
-    body (#5, #7, #9)."""
+    before a launch, on the split body that #4-#9 take at head_dim <= 256
+    (#6's cases first, then #7's, then #4's, #5's and #9's)."""
     dev = _card()
     b, h, d, page, num_pages = 2, 2, 64, 16, 8
     lens = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -376,6 +426,10 @@ def test_quant_and_tree_kernels_reject_what_they_do_not_take():
         dk.paged_flash_verify_tree_quant(q, k8, k8, ks, ks, tbl, lens, strided)
     with pytest.raises(ValueError, match="int32"):
         dk.paged_flash_verify(q, kf32, kf32, tbl.long(), lens)
+    with pytest.raises(ValueError, match="w="):
+        dk.flash_verify(torch.zeros(b, 65, h, d, device=dev), k32, k32, lens)
+    with pytest.raises(ValueError, match="int32"):
+        dk.flash_verify(q, k32, k32, lens.long())
     assert sum(dk.LAUNCHES.values()) == 0
 
 

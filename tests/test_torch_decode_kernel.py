@@ -613,3 +613,107 @@ def test_staircase_split_then_merge_matches_plain_and_pallas(w, splits):
     np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
     assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
     assert masked > 0 and (empty > 0) == (splits > 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _contig_stair_case(w):
+    """The contiguous cache with lengths 0, mid and 64 - w (the inputs
+    of test_flash_verify_plain_matches_jax) and the Pallas kernel's
+    output on them."""
+    rng = np.random.default_rng(0)
+    q, k, v, lens = _contig(rng, 3, w, 2, 16, 64, [0, 17, 64 - w])
+    kern = np.asarray(jdk.flash_verify(*map(jnp.asarray, (q, k, v, lens)), interpret=True))
+    return (q, k, v, lens), kern
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("w", [1, 5])
+def test_contiguous_staircase_split_then_merge_matches_plain_and_pallas(w, splits):
+    """#4 on the split-KV body: the staircase on the contiguous cache
+    (no page lookup, spans of any multiple of 64 positions, here cut
+    finer to exercise the merge), at w = 1 through the one-row tile (each
+    split's partial the merge of 8 interleaved half-warp partials) and at
+    w = 5 through the 8 x 16 tile, against #4's plain version and the
+    Pallas kernel in interpret mode, with empty splits (row 0 has length
+    0). atol 1e-5: summation order only."""
+    (q, k, v, lens), kern = _contig_stair_case(w)
+    q, k, v, lens = _t(q, k, v, lens)
+    vis = dk._staircase(lens, w, 64)
+    ours, empty, _ = _split_then_merge(q, k, v, vis, lens, -(-64 // splits), lanes=8 if w == 1 else 1)
+    np.testing.assert_allclose(ours.numpy(), dk.flash_verify_ref(q, k, v, lens).numpy(), atol=ATOL)
+    np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
+    assert bool(torch.isfinite(ours).all()) and (empty > 0) == (splits > 1)
+
+
+# row groups of the int8 one-row tile (#6 at w = 1) at head_dim <= 64: 4
+# lanes read a row's 64 int8 columns as one 16-byte load each, so the 128
+# threads hold 32 rows at once, group g taking positions lo + g + 32 i of
+# a split
+INT8_ROW_GROUPS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_stair_case(w, page):
+    """int8 pools (a random scale per page, row 0's first page at scale
+    0), a sentinel hole in row 2 and a dead row 3, and the Pallas
+    kernel's output where the reference takes the page size (32 rows),
+    else None."""
+    rng = np.random.default_rng(70 + w + page)
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, 16, page, 16, [3, 64 - w, 40, 20])
+    tbl[2, 0] = 16  # a hole inside row 2's visible range
+    tbl[3, :] = 16  # a dead row
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)
+    pools = (q, k8, v8, ks, vs, tbl, lens)
+    kern = None
+    if page == 32:
+        kern = np.asarray(jdk.paged_flash_verify_quant(*map(jnp.asarray, pools), interpret=True))
+    return pools, kern
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("w", [1, 5])
+@pytest.mark.parametrize("page", [16, 32])
+def test_int8_staircase_split_then_merge_matches_plain_and_pallas(page, w, splits):
+    """#6 on the split-KV body: int8 rows staged as #9's (per-row page
+    lookup and scale, bit-identical to the plain version's dense dequant)
+    under the staircase, at w = 1 through the int8 one-row tile (each
+    split's partial the merge of its 32 interleaved row groups) and at
+    w = 5 through the 8 x 16 tile, against #6's plain version (16- and
+    32-row pages) and the Pallas kernel in interpret mode (32-row pages,
+    the only int8 page the reference takes), with several scales inside
+    one span, a scale-0 page, a sentinel hole and a dead row that gives
+    exactly 0. atol 1e-5: summation order only."""
+    pools, kern = _quant_stair_case(w, page)
+    q, k8, v8, ks, vs, tbl, lens = _t(*pools)
+    kst, vst = _stage_int8(k8, ks, tbl), _stage_int8(v8, vs, tbl)
+    _, on_page = dk.gather_pages(k8, tbl, ks)
+    assert float(kst[0, :page].abs().max()) == 0.0  # row 0's first page: scale 0
+    assert len({float(ks[int(p), 0]) for p in tbl[1]}) > 1  # row 1: several scales inside one span
+    vis = dk._staircase(lens, w, 64) & on_page[:, None, :]
+    span = -(-(-(-64 // splits)) // page) * page
+    ours, empty, masked = _split_then_merge(q, kst, vst, vis, lens, span, lanes=INT8_ROW_GROUPS if w == 1 else 1)
+    ref = dk.paged_flash_verify_quant_ref(q, k8, v8, ks, vs, tbl, lens)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
+    if kern is not None:
+        np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
+    assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
+    assert masked > 0 and (empty > 0) == (64 // span > 1)
+
+
+@pytest.mark.parametrize(
+    "b, h, max_len, unit, want",
+    [(8, 16, 512, 16, (4, 128)), (8, 16, 4096, 16, (8, 512)), (1, 1, 64, 16, (1, 128)),
+     (3, 2, 250, 2, (2, 128)), (2, 4, 1000, 24, (3, 384)), (64, 32, 4096, 16, (1, 4096))],
+)
+def test_int8_decode_split_rule(b, h, max_len, unit, want):
+    """pick_splits with #6's span unit at w = 1 (_QUANT_SPAN_UNIT, 128
+    positions: two of the int8 one-row tile's 64-row passes): each split
+    a multiple of that unit and of the page, the splits just covering
+    max_len, the same aim at blocks per SM as the fp32 rule; at the
+    serving shape 4 splits of 128 positions (the fp32 rule: 8 of 64)."""
+    unit_q = dk._QUANT_SPAN_UNIT
+    assert unit_q % dk._TREE_SPAN_UNIT == 0 and unit_q == 128
+    splits, span = dk.pick_splits(b, h, max_len, unit, 132, unit_q)
+    assert span % unit_q == 0 and span % unit == 0 and splits <= 64
+    assert (splits - 1) * span < max_len <= splits * span
+    assert (splits, span) == want
