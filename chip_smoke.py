@@ -61,19 +61,34 @@ result line) on any failed phase:
                plain slot run's (#4) with the leg's kernel's device time
                per launch beside the step's GEMMs, (a)'s, (c)'s and the
                slot run's also at ~250-token contexts;
+  4c. multistep — device-resident multi-step decode: the flagship burst
+               of phase 3 again with decode_multistep=True (streams equal
+               to phase 3's), then 8 long requests eager and as CUDA-graph
+               windows of up to 8 steps on (a) 12 layers, fp32 pools (#5),
+               (b) 12 layers, int8 pools (#6) and (c) 2 layers, the slot
+               layout (#4): every request finishes, each run's kernel
+               launches decode steps x layers times (replays counted),
+               the graph streams equal the eager ones token for token and
+               one graph serves each run; tokens/s, ms per decode step,
+               windows, host syncs per token and a profiled window's
+               device ms against wall ms per step on [multistep] lines;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
-               not, ragged (sq 500, sq != sk, head_dim 24, 128, 160 and
-               256) and at the reference's test shapes
+               not, ragged (sq 500, sq != sk, head_dim 24, 128, 160,
+               256, and past 256 on the wide kernels, which stream the
+               score contraction over head_dim: 264, 320, 512 and 1032)
+               and at the reference's test shapes
                (tests/test_flash_kernel.py, head_dim 32, the uneven 128 x
                384 included), at the reference's scale: O and LSE within
                2e-5, dQ, dK, dV within atol 5e-5 and rtol 5e-4; with
                times (the event timer's and the profiler's device time per
                call), bounds, the library call (SDPA forward beside #1,
                SDPA backward for the #2 + #3 pair, with the device kernel
-               each runs), the port's dense core, each kernel's
-               registers, spills, shared memory and blocks per SM at
-               head_dim 64, 128 and 256, the count of tensor-core (HMMA)
+               each runs), the port's dense core, also timed at [8,
+               512, 4, 256] and, gated there too, at [8, 512, 4, 320] and
+               [8, 256, 2, 512]; each kernel's registers, spills, shared memory
+               and blocks per SM at head_dim 64, 128, 256 and 320, the
+               count of tensor-core (HMMA)
                instructions in each flash library's SASS, and the card's
                clocks and power;
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
@@ -158,6 +173,8 @@ LINEAR = dict(spec_draft="ngram", spec_k=4)  # w = 5
 # decode steps before the long-context profiled windows open: the
 # contexts then sit near the middle of max_len, as the legs' do on average
 LONG_WINDOW_SKIP = 240
+# the deepest fused decode window of the multistep phase
+MULTISTEP_STEPS = 8
 # the flagship Transformer of examples/transformer.py and its training run
 TRAIN = dict(layers=12, hidden=1024, heads=16, batch=8, seq=512, steps=10)
 LM_TRAIN = dict(layers=2, steps=4)
@@ -831,7 +848,7 @@ def serve_flagship(device, layers=FLAGSHIP["layers"]):
         paged_kernel_launches=launches["paged_flash_verify"],
     )
     print("[serve] " + json.dumps(summary))
-    return model, summary, launches
+    return model, summary, launches, {r.rid: list(r.generated) for r in done}
 
 
 def profile_decode(model, steps=16, label="decode", kernel=None, skip=0, **serve_kw):
@@ -1131,6 +1148,151 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     }
 
 
+# -- 4c. multi-step decode as CUDA-graph windows ------------------------------------
+
+
+def profile_multistep(model, label, iters, **serve_kw):
+    """Device time against wall time per decode step over `iters`
+    scheduler iterations with all slots busy: plain decode steps, or fused
+    windows under decode_multistep (the first window, which captures the
+    graph, runs before the profiled ones). Device time is the profiler's
+    kernels and copies; the CUDA events around the iterations give the
+    device timeline's span beside it. None when the profiler sees no
+    device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.serving import Request, ServeConfig, build_scheduler
+
+    sched, _, _ = build_scheduler(
+        model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], **serve_kw)
+    )
+    for i in range(FLAGSHIP["max_seqs"]):
+        sched.submit(Request(rid=i, prompt=[i + 1, i + 2], max_new_tokens=FLAGSHIP["max_len"] - 16))
+    for _ in range(2):  # admission prefill, then a first step or window
+        sched.step()
+    torch.cuda.synchronize()
+    steps0 = sched.stats.decode_steps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            sched.step()
+        end.record()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    steps = sched.stats.decode_steps - steps0
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_us = sum(e.self_device_time_total for e in events)
+    out = dict(
+        label=label,
+        decode_steps=steps,
+        wall_ms_per_step=1e3 * wall_s / steps,
+        device_ms_per_step=device_us / 1e3 / steps if device_us > 0 else None,
+        device_busy_share=device_us / 1e6 / wall_s if device_us > 0 else None,
+        event_span_ms_per_step=start.elapsed_time(end) / steps,
+        device_ops_per_step=sum(e.count for e in events) / steps,
+    )
+    if device_us <= 0:
+        print(f"[multistep] {label}: the profiler recorded no device time: device ms not measured")
+    print("[multistep] profile " + json.dumps(out))
+    return out
+
+
+def multistep_leg(name, model, layers, kernel, **serve_kw):
+    """SPEC_REQUESTS long requests (one per slot, so that every iteration
+    can fuse), eager (one decode step per iteration) and then with
+    decode_multistep=True (windows of up to MULTISTEP_STEPS steps, CUDA
+    graphs), each with a profiled window of busy slots. Gates: every
+    request finishes at full length, `kernel` launches decode steps x
+    layers times in both runs (a graph's replays counted) and no other
+    decode kernel launches, the graph run's streams equal the eager
+    run's token for token, it fused, and one graph served it. Returns
+    {mode: summary}."""
+    reqs = lambda: long_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], SPEC_REQUESTS)
+    out, streams = {}, {}
+    for mode, kw in (("eager", {}), ("graph", dict(decode_multistep=True, max_fused_steps=MULTISTEP_STEPS))):
+        done, stats, launches, _ = serve(model, reqs(), **serve_kw, **kw)
+        bad = [(r.rid, r.status, r.error, len(r.generated)) for r in done
+               if not r.ok or len(r.generated) != r.max_new_tokens]
+        require(len(done) == SPEC_REQUESTS and not bad, f"{name} {mode}: requests not FINISHED at full length: {bad}")
+        require(
+            launches[kernel] == stats.decode_steps * layers,
+            f"{name} {mode}: {kernel} launches {launches[kernel]} != {stats.decode_steps} steps x {layers} layers",
+        )
+        others = {k: n for k, n in launches.items() if k != kernel and n}
+        require(not others, f"{name} {mode}: other decode kernels launched: {others}")
+        streams[mode] = {r.rid: list(r.generated) for r in done}
+        prof = profile_multistep(model, f"{name}, {mode}", 16 if mode == "eager" else 4, **serve_kw, **kw)
+        out[mode] = dict(
+            leg=name,
+            mode=mode,
+            layers=layers,
+            tokens=stats.tokens_generated,
+            elapsed_s=stats.elapsed_s,
+            tokens_per_s=stats.tokens_per_s,
+            decode_steps=stats.decode_steps,
+            step_ms=1e3 * stats.mean_decode_step_s,
+            windows=stats.multistep_windows,
+            fused_steps=stats.multistep_steps,
+            host_syncs_per_token=stats.host_syncs_per_token,
+            graphs=stats.multistep_cache_entries,
+            kernel=kernel,
+            launches=launches[kernel],
+            profiled_device_ms_per_step=prof["device_ms_per_step"],
+            profiled_wall_ms_per_step=prof["wall_ms_per_step"],
+            busy_share=prof["device_busy_share"],
+        )
+        print("[multistep] " + json.dumps(out[mode]))
+    graph = out["graph"]
+    require(streams["graph"] == streams["eager"], f"{name}: graph-window streams differ from the eager streams")
+    require(graph["windows"] > 0 and graph["fused_steps"] > graph["windows"], f"{name}: nothing fused: {graph}")
+    want = 1 if model.device.type == "cuda" else 0  # the CPU runs the core eagerly
+    require(graph["graphs"] == want, f"{name}: {graph['graphs']} captured graphs, want {want}")
+    print(f"[multistep] {name}: graph streams == eager streams for {len(streams['graph'])} requests; "
+          f"{graph['tokens_per_s']:.1f} against {out['eager']['tokens_per_s']:.1f} tokens/s, "
+          f"{graph['step_ms']:.3f} against {out['eager']['step_ms']:.3f} ms per decode step")
+    return out
+
+
+def multistep_burst(model, plain, layers=FLAGSHIP["layers"]):
+    """The flagship burst (NUM_REQUESTS mixed requests on 8 slots) with
+    decode_multistep=True: the queue holds fusing until only the tail is
+    left. Gates: every request FINISHED, the streams equal the plain
+    burst's (`plain`), #5 launches decode steps x layers times."""
+    done, stats, launches, _ = serve(
+        model, mixed_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], NUM_REQUESTS),
+        decode_multistep=True, max_fused_steps=MULTISTEP_STEPS,
+    )
+    bad = [(r.rid, r.status, r.error) for r in done if not r.ok]
+    require(len(done) == NUM_REQUESTS and not bad, f"burst with decode_multistep: requests not FINISHED: {bad}")
+    require({r.rid: list(r.generated) for r in done} == plain, "burst with decode_multistep: streams differ from plain")
+    require(
+        launches["paged_flash_verify"] == stats.decode_steps * layers,
+        f"burst with decode_multistep: #5 launches {launches['paged_flash_verify']} != "
+        f"{stats.decode_steps} x {layers}",
+    )
+    summary = dict(
+        requests=len(done),
+        tokens=stats.tokens_generated,
+        elapsed_s=stats.elapsed_s,
+        tokens_per_s=stats.tokens_per_s,
+        decode_steps=stats.decode_steps,
+        step_ms=1e3 * stats.mean_decode_step_s,
+        windows=stats.multistep_windows,
+        fused_steps=stats.multistep_steps,
+        host_syncs_per_token=stats.host_syncs_per_token,
+        graphs=stats.multistep_cache_entries,
+    )
+    print("[multistep] burst " + json.dumps(summary))
+    return summary
+
+
 # -- 5. flash kernels vs plain versions --------------------------------------------
 
 
@@ -1199,27 +1361,28 @@ def sass_opcodes(source):
     return collections.Counter(ops)
 
 
-def flash_resources(dims=(64, 128, 256)):
+def flash_resources(dims=(64, 128, 256, 320)):
     """Each flash kernel's ptxas report (registers, spills) at the
-    instantiation of each head_dim of `dims`, its shared memory and blocks
-    per SM on this card, and the tensor-core (HMMA) instructions of each
-    flash library's SASS."""
+    instantiation of each head_dim of `dims` (past 256 the wide kernels,
+    one for every head_dim), its shared memory and blocks per SM on this
+    card, and the tensor-core (HMMA) instructions of each flash library's
+    SASS."""
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
-    symbol = {"flash_fwd": "flash_fwd_mma_kernel", "flash_dq": "flash_dq_mma_kernel",
-              "flash_dkv": "flash_dkv_mma_kernel"}
     for d in dims:
         kdt = 4 << (0 if d <= 32 else 1 if d <= 64 else 2 if d <= 128 else 3)  # the source's bucket
-        for name, sym in symbol.items():
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            sym, tag = (f"{name}_wide_kernel", "") if d > 256 else (f"{name}_mma_kernel", f"ILi{kdt}E")
             source = fk.SOURCE if name == "flash_fwd" else fk.BWD_SOURCE
             occ = fk.occupancy(name, d)
             log = _build.build_logs.get(source, "").splitlines()
             info = []
             for i, line in enumerate(log):
-                if "Compiling entry function" in line and sym in line and f"ILi{kdt}E" in line:
+                if "Compiling entry function" in line and sym in line and tag in line:
                     info = [x.strip() for x in log[i + 1 : i + 4] if "registers" in x or "spill" in x]
-            print(f"[resources] {name} at head_dim {d} ({sym}<{kdt}>): " + json.dumps(occ)
+            label = sym if d > 256 else f"{sym}<{kdt}>"
+            print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(occ)
                   + f"; ptxas: {'; '.join(info) or 'not in the build log'}")
     for source in (fk.SOURCE, fk.BWD_SOURCE):
         ops = sass_opcodes(source)
@@ -1245,13 +1408,40 @@ def library_backend(fn) -> str:
     return max(events, key=lambda e: e.self_device_time_total).key[:80]
 
 
+def check_flash_case(x, tag):
+    """#1-#3 on the inputs x against their plain versions at the
+    reference's scale (O and LSE 2e-5; dQ, dK, dV atol 5e-5, rtol 5e-4);
+    returns {kernel: max |kernel - plain|}."""
+    import torch
+
+    errs = {}
+    for name, (kernel, plain) in flash_calls(x).items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        if name == "flash_fwd":
+            ok = err <= ATOL_FLASH_FWD
+        else:
+            ok = all(torch.allclose(a, r, atol=ATOL_FLASH_GRAD, rtol=RTOL_FLASH_GRAD) for a, r in zip(got, want))
+        print(f"[kernels] {name} {tag}: max |kernel - plain| = {err:.3e}")
+        require(finite and ok, f"{name} {tag}: error {err}")
+        errs[name] = err
+    return errs
+
+
 def check_flash_kernels():
     """Kernels #1-#3 against their plain versions at the reference's scale,
     at the flagship training shape, causal and not, ragged shapes (sq !=
-    sk both ways, head_dim 24 to 256) and the reference's test shapes;
+    sk both ways, head_dim 24 to 512) and the reference's test shapes;
     times of the flagship case, which the training path runs, by the
     event timer and by the profiler's device time, beside SDPA's and the
-    port's dense core; the kernels' resources at head_dim 64, 128, 256."""
+    port's dense core, and of head_dim 256, 320 and 512 (past 256 the
+    wide kernels, which stream the score contraction over head_dim); the
+    kernels' resources at head_dim 64, 128, 256 and 320."""
     import torch
     import torch.nn.functional as F
 
@@ -1262,36 +1452,28 @@ def check_flash_kernels():
     rows = {name: {"max_abs_err": 0.0} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True),
              (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False), (2, 300, 129, 2, 256, True),
-             (2, 129, 300, 2, 160, False)]
+             (2, 129, 300, 2, 160, False), (2, 129, 300, 2, 264, True), (2, 300, 129, 2, 320, True),
+             (2, 129, 300, 2, 512, False), (1, 200, 200, 2, 1032, True)]
     # the reference's test shapes (tests/test_flash_kernel.py), causal and not
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
     for cb, sq, sk, ch, cd, causal in cases:
         x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
-        for name, (kernel, plain) in flash_calls(x).items():
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(float((a - r).abs().max()) for a, r in zip(got, want))
-            finite = all(bool(torch.isfinite(a).all()) for a in got)
-            if name == "flash_fwd":
-                ok = err <= ATOL_FLASH_FWD
-            else:
-                ok = all(torch.allclose(a, r, atol=ATOL_FLASH_GRAD, rtol=RTOL_FLASH_GRAD) for a, r in zip(got, want))
-            print(f"[kernels] {name} {(cb, sq, sk, ch, cd)} causal={causal}: max |kernel - plain| = {err:.3e}")
-            require(finite and ok, f"{name} {(cb, sq, sk, ch, cd)} causal={causal}: error {err}")
+        for name, err in check_flash_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
     # the flagship shape, causal and not (its non-causal times go into the
-    # kernels line), and the flagship's width in 4 heads of 256, the
-    # widest head_dim the kernels take (two output-column chunks)
-    for th, td, causal in ((h, d, False), (h, d, True), (TRAIN["hidden"] // 256, 256, False)):
-        x = flash_inputs(device, b, s, s, th, td, causal)
+    # kernels line), the flagship's width in 4 heads of 256, the widest
+    # head_dim staged at full width (two output-column chunks), then 4
+    # heads of 320 and 2 of 512 at half the length on the wide kernels
+    for ts, th, td, causal in ((s, h, d, False), (s, h, d, True), (s, TRAIN["hidden"] // 256, 256, False),
+                               (s, 4, 320, False), (s // 2, 2, 512, False)):
+        x = flash_inputs(device, b, ts, ts, th, td, causal)
         flagship = td == d
-        tag = ("causal" if causal else "non-causal") + ("" if flagship else f" [{b}, {s}, {th}, {td}]")
+        tag = ("causal" if causal else "non-causal") + ("" if flagship else f" [{b}, {ts}, {th}, {td}]")
+        if td > 256:  # the reference's gate at the timed shape itself
+            check_flash_case(x, tag)
         dev, timer = {}, {}
         for name, (kernel, plain) in flash_calls(x).items():
             ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush)
@@ -1595,11 +1777,15 @@ def main() -> int:
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"at the start [{smi_idle}], after a 2 s warm-up, before the decode kernel "
           f"timings [{smi_before}], after them [{smi_sample()}]")
-    model, _, main_launches = serve_flagship("cuda")
+    model, _, main_launches, burst = serve_flagship("cuda")
     profile_decode(model, kernel="paged_flash_verify")
+    multistep_burst(model, burst)
+    multistep_leg("a: fp32 paged", model, FLAGSHIP["layers"], "paged_flash_verify")
+    multistep_leg("b: int8 paged", model, FLAGSHIP["layers"], "paged_flash_verify_quant", kv_dtype="int8")
     del model
     model2, layout_launches = check_layouts("cuda")
     check_decode_logits(model2)
+    multistep_leg("c: slot, 2 layers", model2, 2, "flash_verify", kv_layout="slot")
     del model2
     spec_launches = serve_spec("cuda")
     # the spec legs' recording wrappers close reference cycles around

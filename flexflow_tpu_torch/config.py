@@ -55,3 +55,8 @@ class FFConfig:
     serve_spec_draft: str = ""
     serve_spec_k: int = 4
     serve_spec_branch: int = 1
+    # device-resident multi-step decode: fuse runs of decode iterations
+    # into one window of up to serve_max_fused_steps steps, read by the
+    # host once (CUDA graphs on the card)
+    serve_decode_multistep: bool = False
+    serve_max_fused_steps: int = 8

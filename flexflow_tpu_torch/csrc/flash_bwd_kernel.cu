@@ -77,13 +77,15 @@
 //     loop starts at the diagonal query tile.
 //   * [b, s, h, d] operands are read in place through their strides;
 //     LSE and delta are [b, h, sq] rows.
-// head_dim is a multiple of 8 up to 256: kDT = 4, 8, 16 or 32 column tiles
-// of 8. Past 128 a grid z index picks a chunk of at most 128 output
-// columns: each block contracts S and dP over the whole head_dim and
-// accumulates only its chunk of dQ (or of dK and dV), so a lane holds at
-// most 2 x 16 accumulator tiles, as at 128; the scores are recomputed once
-// per chunk. There the two 64-row fixed tiles and one pair of loop tiles
+// head_dim up to 256: kDT = 4, 8, 16 or 32 column tiles of 8. Past 128 a
+// grid z index picks a chunk of at most 128 output columns: each block
+// contracts S and dP over the whole head_dim and accumulates only its
+// chunk of dQ (or of dK and dV), so a lane holds at most 2 x 16
+// accumulator tiles, as at 128; the scores are recomputed once per chunk. There the two 64-row fixed tiles and one pair of loop tiles
 // take 195 KB of shared memory, so the loop tiles are single-buffered.
+// Past 256 (any multiple of 8) flash_dq_wide_kernel and
+// flash_dkv_wide_kernel take the same chunks and stream the score
+// contractions over head_dim in 128-column pieces (see them below).
 
 #include "flash_common.cuh"
 
@@ -317,29 +319,181 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kerne
   store_rows<kOT>(p.out1 + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
 }
 
+// -- head_dim past kStagedMaxD ---------------------------------------------------------
+// The full-width tiles no longer fit shared memory, so for each loop tile
+// the score contractions (S and dP) stream over head_dim: one
+// kPieceTiles-wide piece of each of the four operands staged at a time,
+// single-buffered, each piece's products added into S and dP with a fresh
+// accumulator per k-step. The block's chunk (grid z, at most 128 columns)
+// of the operand that the output product reads then takes the loop
+// pieces' buffers. Shared memory stays at (2 x 64 + 2 x 32) rows of 132
+// floats whatever head_dim is; the fixed operand is staged again for
+// every loop tile.
+
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params p) {
+  constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // Q piece [64][ld]
+  float* gs = qs + kTile * ld;                   // dO piece [64][ld]
+  float* ks = gs + kTile * ld;                   // K piece, then K chunk [kLoop][ld]
+  float* vs = ks + tile;                         // V piece [kLoop][ld]
+  const int d = p.d, dt = d / 8, pieces = (dt + kPT - 1) / kPT;
+  int c0t, cn;  // this block's dQ columns: n-tiles [c0t, c0t + cn)
+  z_chunk(dt, c0t, cn);
+  const int c0 = 8 * c0t;
+  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const float* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
+  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
+  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
+
+  const int w0 = q0 + 16 * warp, r0 = w0 + g;
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
+    lse[i] = r < p.sq ? p.lse[off] : 0.f;
+    dl[i] = r < p.sq ? p.delta[off] : 0.f;
+  }
+
+  float acc[kPT][4], acc_odd[kPT][4];
+  zero<kPT>(acc);
+  zero<kPT>(acc_odd);
+  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
+  const int n = (k_end + kLoop - 1) / kLoop;
+  const float* qw = qs + 16 * warp * ld;
+  const float* gw = gs + 16 * warp * ld;
+  for (int it = 0; it < n; ++it) {
+    const int k0 = it * kLoop;
+    float s[kNT][4], dp[kNT][4];
+    zero<kNT>(s);
+    zero<kNT>(dp);
+    for (int pc = 0; pc < pieces; ++pc) {
+      const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
+      __syncthreads();  // every warp is done with the buffers
+      load_tile<kTile>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
+      load_tile<kTile>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
+      load_tile<kLoop>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
+      load_tile<kLoop>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the pieces are in
+      product_nt<kPT, kNT, true>(qw, ks, s, gw, vs, dp, pt);  // S += Q K^T, dP += dO V^T
+    }
+    __syncthreads();  // every warp is done with the last K piece
+    load_tile<kLoop>(ks, ld, kb + c0, p.k_ss, k0, p.sk, 8 * cn);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the K chunk is in
+    const bool all = w0 + 16 <= p.sq && k0 + kLoop <= p.sk && (!p.causal || w0 >= k0 + kLoop - 1);
+    if (all)
+      ds_rows<false>(p, r0, k0, lse, dl, s, dp);
+    else
+      ds_rows<true>(p, r0, k0, lse, dl, s, dp);
+    // dQ += dS K, the even and the odd 8-key steps into two accumulators
+    product_pn<kPT, kNT / 2, 2, kPT>(dp, ks, acc, dp + 1, ks + 8 * ld, acc_odd, cn);
+  }
+#pragma unroll
+  for (int j = 0; j < kPT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
+  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Params p) {
+  constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // K piece [64][ld]
+  float* vs = ks + kTile * ld;                   // V piece [64][ld]
+  float* qs = vs + kTile * ld;                   // Q piece, then Q chunk [kLoop][ld]
+  float* gs = qs + tile;                         // dO piece, then dO chunk [kLoop][ld]
+  float* ls = gs + tile;                         // LSE [kLoop]
+  float* dls = ls + kLoop;                       // delta [kLoop]
+  const int d = p.d, dt = d / 8, pieces = (dt + kPT - 1) / kPT;
+  int c0t, cn;  // this block's dK and dV columns: n-tiles [c0t, c0t + cn)
+  z_chunk(dt, c0t, cn);
+  const int c0 = 8 * c0t;
+  const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const float* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
+  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
+  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
+  // causal: query tiles above the diagonal see none of these keys
+  const int q_start = p.causal ? k0 : 0;
+  const int n = p.sq > q_start ? (p.sq - q_start + kLoop - 1) / kLoop : 0;
+
+  const int w0 = k0 + 16 * warp, r0 = w0 + g;  // this lane's keys r0, r0 + 8
+  float dk[kPT][4], dv[kPT][4];
+  zero<kPT>(dk);
+  zero<kPT>(dv);
+  const float* kw = ks + 16 * warp * ld;
+  const float* vw = vs + 16 * warp * ld;
+  for (int it = 0; it < n; ++it) {
+    const int q0 = q_start + it * kLoop;
+    float s[kNT][4], dp[kNT][4];
+    zero<kNT>(s);
+    zero<kNT>(dp);
+    for (int pc = 0; pc < pieces; ++pc) {
+      const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
+      __syncthreads();  // every warp is done with the buffers
+      load_tile<kTile>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
+      load_tile<kTile>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
+      load_tile<kLoop>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
+      load_tile<kLoop>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the pieces are in
+      product_nt<kPT, kNT, true>(kw, qs, s, vw, gs, dp, pt);  // S^T += K Q^T, dP^T += V dO^T
+    }
+    __syncthreads();  // every warp is done with the last Q and dO pieces
+    load_tile<kLoop>(qs, ld, qb + c0, p.q_ss, q0, p.sq, 8 * cn);
+    load_tile<kLoop>(gs, ld, gb + c0, p.g_ss, q0, p.sq, 8 * cn);
+    load_rows(p, ib, ih, q0, ls, dls);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the chunks and the rows are in
+    const bool all = q0 + kLoop <= p.sq && w0 + 16 <= p.sk && (!p.causal || q0 >= w0 + 15);
+    if (all)
+      ds_cols<false>(p, r0, q0, ls, dls, s, dp);
+    else
+      ds_cols<true>(p, r0, q0, ls, dls, s, dp);
+    // dV += P^T dO, dK += dS^T Q
+    product_pn<kPT, kNT, 1, kPT>(s, gs, dv, dp, qs, dk, cn);
+  }
+  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
+  store_rows<kPT>(p.out1 + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
+}
+
 // -- launch ----------------------------------------------------------------------------
 
 enum Kind { kDq = 0, kDkv = 1 };
 
 // 2 staged tiles of 64 rows and 2 x kStages of kLoop rows at the bucket's
-// stride (+ 2 x kStages LSE / delta rows for dK/dV)
+// stride (+ 2 x kStages LSE / delta rows for dK/dV); past kStagedMaxD 2
+// pieces of 64 rows and 2 of kLoop rows (+ one LSE / delta row pair)
 size_t smem_bytes(int kind, int d) {
-  const int kdt = 4 << bucket(d), st = kdt <= 16 ? 2 : 1;
+  const bool wide = bucket(d) == 4;
+  const int kdt = wide ? kPieceTiles : 4 << bucket(d), st = wide || kdt > 16 ? 1 : 2;
   const size_t rows = 2 * kTile + 2 * st * kLoop, ld = 8 * kdt + 4;
   return (rows * ld + (kind == kDq ? 0 : 2 * st * kLoop)) * sizeof(float);
 }
 
 void* kernel_of(int kind, int d) {
-  static void* const table[2][4] = {
+  static void* const table[2][5] = {
       {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>,
-       (void*)flash_dq_mma_kernel<16>, (void*)flash_dq_mma_kernel<32>},
+       (void*)flash_dq_mma_kernel<16>, (void*)flash_dq_mma_kernel<32>,
+       (void*)flash_dq_wide_kernel},
       {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>,
-       (void*)flash_dkv_mma_kernel<16>, (void*)flash_dkv_mma_kernel<32>}};
+       (void*)flash_dkv_mma_kernel<16>, (void*)flash_dkv_mma_kernel<32>,
+       (void*)flash_dkv_wide_kernel}};
   return table[kind][bucket(d)];
 }
 
 int configure(int kind, int d) {
-  static bool configured[2][4] = {};
+  static bool configured[2][5] = {};
   const int bi = bucket(d);
   if (configured[kind][bi]) return 0;
   void* fn = kernel_of(kind, d);

@@ -19,10 +19,17 @@ constexpr int kLoop = 32;     // rows of the loop operand's tile
 constexpr int kWarps = 4;     // 16 rows of the fixed tile each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kNT = kLoop / 8;  // 8-wide n-tiles of one loop tile's scores
-constexpr int kMaxHeadDim = 256;
+// head_dims up to this are staged at full width (buckets 0-3); past it the
+// wide kernels stream the score contraction over head_dim in pieces of
+// kPieceTiles n-tiles (bucket 4), so their shared memory does not grow
+// with head_dim
+constexpr int kStagedMaxD = 256;
 // output columns of one block: head_dims past this are cut into chunks,
 // one per grid z index (out_chunk)
 constexpr int kChunkTiles = 16;
+// n-tiles of one streamed piece of head_dim in the wide kernels, staged at
+// the stride of bucket 2 (ld_of<16>(), 132 floats)
+constexpr int kPieceTiles = 16;
 
 // Row stride of a staged tile for head_dims of the kDT bucket.
 template <int kDT>
@@ -32,10 +39,14 @@ __host__ __device__ constexpr int ld_of() { return 8 * kDT + 4; }
 template <int kDT>
 __host__ __device__ constexpr int out_tiles() { return kDT < kChunkTiles ? kDT : kChunkTiles; }
 
-// head_dim bucket: 8-column tiles kDT = 4, 8, 16 or 32
-inline int bucket(int d) { return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : 3; }
+// head_dim bucket: 8-column tiles kDT = 4, 8, 16 or 32 staged at full
+// width, or 4: the wide kernels, past kStagedMaxD
+inline int bucket(int d) {
+  return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : d <= kStagedMaxD ? 3 : 4;
+}
 
-inline bool takes(int d) { return d > 0 && d <= kMaxHeadDim && d % 8 == 0; }
+// any head_dim that is a multiple of 8, as the reference's supports()
+inline bool takes(int d) { return d > 0 && d % 8 == 0; }
 
 // grid z: output-column chunks of at most kChunkTiles n-tiles
 inline int chunks(int d) { return (d / 8 + kChunkTiles - 1) / kChunkTiles; }
@@ -59,7 +70,14 @@ struct Params {
 };
 
 // This block's output columns: n-tiles [c0t, c0t + cn) of the head_dim's
-// dt, cut evenly over the grid's z; all of them in the buckets up to
+// dt, cut evenly over the grid's z (at most kChunkTiles each).
+__device__ __forceinline__ void z_chunk(int dt, int& c0t, int& cn) {
+  const int ct = (dt + gridDim.z - 1) / gridDim.z;
+  c0t = blockIdx.z * ct;
+  cn = min(ct, dt - c0t);
+}
+
+// z_chunk, or all of the head_dim's n-tiles in the buckets up to
 // kChunkTiles, whose grid has one z index.
 template <int kDT>
 __device__ __forceinline__ void out_chunk(int dt, int& c0t, int& cn) {
@@ -67,9 +85,7 @@ __device__ __forceinline__ void out_chunk(int dt, int& c0t, int& cn) {
     c0t = 0;
     cn = dt;
   } else {
-    const int ct = (dt + gridDim.z - 1) / gridDim.z;
-    c0t = blockIdx.z * ct;
-    cn = min(ct, dt - c0t);
+    z_chunk(dt, c0t, cn);
   }
 }
 

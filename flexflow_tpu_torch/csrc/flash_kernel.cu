@@ -49,6 +49,10 @@
 //     whole head_dim (Q and K staged at full width) and accumulates only
 //     its chunk of O, staging only that chunk of V; the scores are
 //     recomputed once per chunk. Chunk 0 writes LSE.
+//   * head_dim above 256 (any multiple of 8): flash_fwd_wide_kernel, the
+//     same chunks, with the score contraction streamed over head_dim in
+//     128-column pieces of Q and K (single-buffered, so shared memory does
+//     not grow with head_dim) and a fresh accumulator per k-step.
 //   * Causal: the mask is qpos >= kpos from a shared origin (also when
 //     sq != sk); the loop stops at the diagonal key tile, a warp whose
 //     rows see none of a tile skips it, and a warp whose 16 x 32 scores
@@ -275,24 +279,140 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks(kDT)) flash_fwd_mma_k
   }
 }
 
+// -- head_dim past kStagedMaxD ---------------------------------------------------------
+
+// s[j] += Q K_j^T over one piece of head_dim: pt of its kPieceTiles k-steps
+// (Q: the warp's first row, both staged at ld_of<kPieceTiles>()). Each
+// k-step's 3 passes go into a fresh accumulator added to s in fp32
+// (product_nt's kFresh), so the round-toward-zero error does not build up
+// along the head_dim-long chain.
+__device__ __forceinline__ void scores_piece(const float* Q, const float* K, float s[kNT][4], int pt) {
+  constexpr int ld = ld_of<kPieceTiles>();
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  Q += g * ld + t;
+  K += g * ld + t;
+#pragma unroll
+  for (int ks = 0; ks < kPieceTiles; ++ks) {
+    if (ks < pt) {
+      const int c = 8 * ks;
+      const float a[4] = {Q[c], Q[8 * ld + c], Q[c + 4], Q[8 * ld + c + 4]};
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float b[2] = {K[8 * j * ld + c], K[8 * j * ld + c + 4]};
+        float f[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(f, ab, as, b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += f[e];
+      }
+    }
+  }
+}
+
+// #1 at any head_dim past kStagedMaxD. The full-width Q tile and key tile
+// no longer fit shared memory, so for each key tile the score contraction
+// streams over head_dim: one kPieceTiles-wide piece of Q and of K staged at
+// a time, single-buffered, each piece's products added into the scores.
+// The block's chunk of V (grid z, at most 128 columns) then takes the key
+// piece's buffer. Shared memory stays at (64 + 32) rows of 132 floats
+// whatever head_dim is; Q is staged again for every key tile. Every
+// barrier is reached by all warps: a warp whose rows see none of a causal
+// tile skips only its products.
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Params p) {
+  constexpr int kPT = kPieceTiles, ld = ld_of<kPT>();
+  extern __shared__ float4 smem4[];
+  float* qsm = reinterpret_cast<float*>(smem4);  // Q piece [64][ld]
+  float* ksm = qsm + kTile * ld;                  // K piece, then V chunk [kLoop][ld]
+  const int d = p.d, dt = d / 8, pieces = (dt + kPT - 1) / kPT;
+  int c0t, cn;
+  z_chunk(dt, c0t, cn);
+  const int c0 = 8 * c0t;
+  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
+  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh + c0;
+  const int w0 = q0 + 16 * warp, r0 = w0 + g;  // this lane's rows r0, r0 + 8
+  const float* qw = qsm + 16 * warp * ld;
+
+  float o[kPT][4];
+  zero<kPT>(o);
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
+  const int n = (k_end + kLoop - 1) / kLoop;
+  for (int it = 0; it < n; ++it) {
+    const int k0 = it * kLoop;
+    const bool sees = !(p.causal && w0 + 15 < k0);
+    float s[kNT][4];
+    zero<kNT>(s);
+    for (int pc = 0; pc < pieces; ++pc) {
+      const int pt = min(kPT, dt - pc * kPT);
+      __syncthreads();  // every warp is done with the buffers
+      load_tile<kTile>(qsm, ld, qb + 8 * kPT * pc, p.q_ss, q0, p.sq, 8 * pt);
+      load_tile<kLoop>(ksm, ld, kb + 8 * kPT * pc, p.k_ss, k0, p.sk, 8 * pt);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the piece is in
+      if (sees) scores_piece(qw, ksm, s, pt);
+    }
+    __syncthreads();  // every warp is done with the last key piece
+    load_tile<kLoop>(ksm, ld, vb, p.v_ss, k0, p.sk, 8 * cn);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the V chunk is in
+    if (!sees) continue;
+    const bool all = w0 + 16 <= p.sq && k0 + kLoop <= p.sk && (!p.causal || w0 >= k0 + kLoop - 1);
+    if (all)
+      softmax_tile<false, kPT>(p, r0, k0, s, m, l, o);
+    else
+      softmax_tile<true, kPT>(p, r0, k0, s, m, l, o);
+    accumulate_pv<kPT>(s, ksm, o, cn);  // O += P V
+  }
+
+  float lnz[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lnz[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < kPT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] /= lnz[e >> 1];
+  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < p.sq) p.out1[((int64_t)ib * p.h + ih) * p.sq + r] = (m[i] + log2f(lnz[i])) * kLn2;
+    }
+  }
+}
+
 // -- launch ----------------------------------------------------------------------------
 
 // the Q tile, and 2 K tiles and 2 V tiles (this block's columns) of kLoop
-// rows, at the bucket's strides
+// rows, at the bucket's strides; past kStagedMaxD one Q piece and one key
+// piece (which the V chunk reuses)
 size_t smem_bytes(int d) {
+  if (bucket(d) == 4) return (size_t)(kTile + kLoop) * ld_of<kPieceTiles>() * sizeof(float);
   const int kdt = 4 << bucket(d), kot = kdt < kChunkTiles ? kdt : kChunkTiles;
   const size_t ld = 8 * kdt + 4, vld = 8 * kot + 4;
   return ((kTile + 2 * kLoop) * ld + 2 * kLoop * vld) * sizeof(float);
 }
 
 void* kernel_of(int d) {
-  static void* const table[4] = {(void*)flash_fwd_mma_kernel<4>, (void*)flash_fwd_mma_kernel<8>,
-                                 (void*)flash_fwd_mma_kernel<16>, (void*)flash_fwd_mma_kernel<32>};
+  static void* const table[5] = {(void*)flash_fwd_mma_kernel<4>, (void*)flash_fwd_mma_kernel<8>,
+                                 (void*)flash_fwd_mma_kernel<16>, (void*)flash_fwd_mma_kernel<32>,
+                                 (void*)flash_fwd_wide_kernel};
   return table[bucket(d)];
 }
 
 int configure(int d) {
-  static bool configured[4] = {};
+  static bool configured[5] = {};
   const int bi = bucket(d);
   if (configured[bi]) return 0;
   cudaError_t e = cudaFuncSetAttribute(kernel_of(d), cudaFuncAttributeMaxDynamicSharedMemorySize,

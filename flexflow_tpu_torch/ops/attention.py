@@ -235,7 +235,7 @@ def paged_decode_attention(
 # Flash-or-dense rule. use_flash "auto" and True both go through the
 # flash wrapper, False runs the dense core. On a CUDA tensor the wrapper
 # launches the kernels or raises: a shape that flash_kernel.supports()
-# refuses (not fp32, or head_dim not a multiple of 8 up to 256) needs
+# refuses (not fp32, or head_dim not a multiple of 8) needs
 # use_flash=False, and never falls back to the dense core unasked. On a
 # CPU tensor the wrapper takes its plain version, whatever the shape.
 # The reference's thresholds do not carry over: its "auto" took

@@ -47,7 +47,6 @@ from flexflow_tpu_torch.ops.cuda import _build
 SOURCE = "flash_kernel.cu"
 BWD_SOURCE = "flash_bwd_kernel.cu"
 
-MAX_HEAD_DIM = 256
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
@@ -66,16 +65,12 @@ def reset_launches() -> None:
 
 
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take this shape: fp32, head_dim a multiple of 8
-    up to 256, non-empty sequences. Any sequence length works (the ragged
-    tail of a tile is masked)."""
-    return (
-        dtype == torch.float32
-        and d % 8 == 0
-        and 0 < d <= MAX_HEAD_DIM
-        and sq > 0
-        and sk > 0
-    )
+    """Whether the kernels take this shape: fp32, head_dim any positive
+    multiple of 8 (as the reference's supports(); past 256 the score
+    contraction streams over head_dim in 128-column pieces), non-empty
+    sequences. Any sequence length works (the ragged tail of a tile is
+    masked)."""
+    return dtype == torch.float32 and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -217,7 +212,7 @@ def _check(name, q, k, v, extra=()):
     if not supports(sq, sk, d, q.dtype):
         raise ValueError(
             f"{name}: head_dim {d} (sq {sq}, sk {sk}) is not taken: it must be "
-            f"a multiple of 8 up to {MAX_HEAD_DIM}"
+            "a positive multiple of 8"
         )
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"{name}: batch * heads = {b * h} > {_MAX_BATCH_HEADS}")

@@ -3,7 +3,8 @@ build_scheduler and generate() (port of the single-device part of
 flexflow_tpu/serving/api.py). `FFModel.generate` delegates here.
 Speculative decoding (`spec_draft="ngram"`, linear or token-tree by
 `spec_branch`) and int8 paged KV pools (`kv_dtype="int8"`) run through
-the CUDA kernels #4-#9 on the card."""
+the CUDA kernels #4-#9 on the card; `decode_multistep=True` fuses runs
+of decode steps into CUDA-graph windows there."""
 
 from __future__ import annotations
 
@@ -67,6 +68,13 @@ class ServeConfig:
     spec_ngram: int = 2
     token_budget: int = 0
     serve_async: bool = False
+    # device-resident multi-step decode: runs of decode iterations that no
+    # host-visible event interrupts fuse into one window of up to
+    # max_fused_steps steps (on the card, replays of a captured CUDA
+    # graph), read by the host once; token- and logit-identical to
+    # stepping one at a time
+    decode_multistep: bool = False
+    max_fused_steps: int = 8
 
     def __post_init__(self):
         for name, (only, item) in _NOT_PORTED.items():
@@ -114,6 +122,14 @@ class ServeConfig:
                     f"the decode kernels' {MAX_W}"
                 )
         check_mode(self.decode_kernel)
+        if self.max_fused_steps < 1:
+            raise ValueError(f"max_fused_steps must be >= 1, got {self.max_fused_steps}")
+        if self.decode_multistep and self.scheduler == "static":
+            raise ValueError(
+                "decode_multistep requires the continuous scheduler (the "
+                "static baseline is the reference the fused loop is proved "
+                "identical against)"
+            )
 
     @staticmethod
     def from_config(cfg) -> "ServeConfig":
@@ -131,6 +147,8 @@ class ServeConfig:
             spec_k=cfg.serve_spec_k,
             spec_branch=cfg.serve_spec_branch,
             decode_kernel=cfg.serve_decode_kernel,
+            decode_multistep=cfg.serve_decode_multistep,
+            max_fused_steps=cfg.serve_max_fused_steps,
         )
 
 
@@ -163,13 +181,17 @@ def build_scheduler(model, serve: ServeConfig):
             max_len=serve.max_seq_len,
             buckets=serve.prefill_buckets or None,
         )
-    engine = GenerationEngine(model, cache, decode_kernel=serve.decode_kernel)
+    engine = GenerationEngine(
+        model, cache, decode_kernel=serve.decode_kernel, max_fused_steps=serve.max_fused_steps
+    )
     sched = _SCHEDULERS[serve.scheduler](
         engine,
         proposer=build_proposer(serve),
         spec_k=serve.spec_k,
         spec_branch=serve.spec_branch,
         debug_invariants=serve.debug_invariants,
+        decode_multistep=serve.decode_multistep,
+        max_fused_steps=serve.max_fused_steps,
     )
     return sched, engine, cache
 

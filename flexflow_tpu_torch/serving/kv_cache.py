@@ -15,7 +15,15 @@ The reference's arrays are functional: each jitted step returns fresh
 ones and `commit` swaps them in. Here the pools are written in place:
 `commit` scatters a step's new K/V rows into the cache tensors at
 explicit, masked destinations (torch raises on an out-of-bounds index
-where JAX silently drops the write). Under `kv_dtype="int8"` the paged
+where JAX silently drops the write). Each cache also keeps one scratch
+row past its visible tensors (the slot layout's flat row max_seqs *
+max_len, the pools' page num_pages, which is the block tables' sentinel
+and no table maps): the device-resident decode step sends the rows of
+dead and masked slots there, so a fixed-shape step never needs a host
+branch and no dead row aliases a live one. `k_store`/`v_store` (and the
+int8 `k_scale_store`/`v_scale_store`) are the whole tensors, scratch
+included; `k`/`v` (and `k_scale`/`v_scale`) are their visible views,
+which every kernel reads. Under `kv_dtype="int8"` the paged
 pools hold int8 rows with one fp32 scale per (page, head) in the side
 pools `k_scale`/`v_scale` [num_pages, heads]; the engine's
 `_quant_scatter` writes them. `truncate` is speculative decoding's
@@ -140,6 +148,12 @@ def _compaction(new_len: int, src_rows: Sequence[int], max_len: int):
     return np.asarray(srcs, dtype=np.int64), np.asarray(dests, dtype=np.int64)
 
 
+def _stores(guids, rows: int, row_shape, dtype, device):
+    """One zeroed [rows + 1, *row_shape] tensor per layer: the visible
+    rows and the scratch row after them."""
+    return {g: torch.zeros((rows + 1, *row_shape), dtype=dtype, device=device) for g in guids}
+
+
 class KVCache:
     """Slot-contiguous cache tensors + host-side slot bookkeeping."""
 
@@ -150,12 +164,14 @@ class KVCache:
         self.dtype = dtype
         self.device = torch.device(device)
         shape = (spec.max_seqs, spec.max_len, spec.num_heads, spec.head_dim)
-        self.k: Dict[int, torch.Tensor] = {
-            g: torch.zeros(shape, dtype=dtype, device=self.device) for g in spec.layer_guids
-        }
-        self.v: Dict[int, torch.Tensor] = {
-            g: torch.zeros(shape, dtype=dtype, device=self.device) for g in spec.layer_guids
-        }
+        # flat [max_seqs * max_len + 1, heads, head_dim]: slot s's position
+        # p is row s * max_len + p; the last row is the scratch row
+        self.scratch_row = spec.max_seqs * spec.max_len
+        rows = (spec.num_heads, spec.head_dim)
+        self.k_store = _stores(spec.layer_guids, self.scratch_row, rows, dtype, self.device)
+        self.v_store = _stores(spec.layer_guids, self.scratch_row, rows, dtype, self.device)
+        self.k: Dict[int, torch.Tensor] = {g: t[:-1].view(shape) for g, t in self.k_store.items()}
+        self.v: Dict[int, torch.Tensor] = {g: t[:-1].view(shape) for g, t in self.v_store.items()}
         # lengths[i] = tokens currently cached in slot i; _free is a
         # min-heap so alloc pops the lowest free id (deterministic reuse)
         self.lengths = np.zeros(spec.max_seqs, dtype=np.int32)
@@ -263,24 +279,24 @@ class PagedKVCache:
         self.spec = spec
         self.dtype = dtype
         self.device = torch.device(device)
-        shape = (spec.num_pages, spec.page_size, spec.num_heads, spec.head_dim)
-        self.k: Dict[int, torch.Tensor] = {
-            g: torch.zeros(shape, dtype=dtype, device=self.device) for g in spec.layer_guids
-        }
-        self.v: Dict[int, torch.Tensor] = {
-            g: torch.zeros(shape, dtype=dtype, device=self.device) for g in spec.layer_guids
-        }
+        # [num_pages + 1, page_size, heads, head_dim]: page num_pages (the
+        # tables' sentinel) is the scratch page
+        self.scratch_row = spec.num_pages * spec.page_size
+        page = (spec.page_size, spec.num_heads, spec.head_dim)
+        guids = spec.layer_guids
+        self.k_store = _stores(guids, spec.num_pages, page, dtype, self.device)
+        self.v_store = _stores(guids, spec.num_pages, page, dtype, self.device)
+        self.k: Dict[int, torch.Tensor] = {g: t[:-1] for g, t in self.k_store.items()}
+        self.v: Dict[int, torch.Tensor] = {g: t[:-1] for g, t in self.v_store.items()}
         # int8 side pools: fp32 scale per (page, head); 0 marks a page
         # whose first row has not been written (the engine's scatter
         # claims it). Empty under fp32.
-        scales = (spec.num_pages, spec.num_heads)
-        guids = spec.layer_guids if self.quantized else ()
-        self.k_scale: Dict[int, torch.Tensor] = {
-            g: torch.zeros(scales, dtype=torch.float32, device=self.device) for g in guids
-        }
-        self.v_scale: Dict[int, torch.Tensor] = {
-            g: torch.zeros(scales, dtype=torch.float32, device=self.device) for g in guids
-        }
+        qguids = guids if self.quantized else ()
+        heads = (spec.num_heads,)
+        self.k_scale_store = _stores(qguids, spec.num_pages, heads, torch.float32, self.device)
+        self.v_scale_store = _stores(qguids, spec.num_pages, heads, torch.float32, self.device)
+        self.k_scale: Dict[int, torch.Tensor] = {g: t[:-1] for g, t in self.k_scale_store.items()}
+        self.v_scale: Dict[int, torch.Tensor] = {g: t[:-1] for g, t in self.v_scale_store.items()}
         self.lengths = np.zeros(spec.max_seqs, dtype=np.int32)
         self.block_tables = np.full(
             (spec.max_seqs, spec.max_pages_per_seq), spec.num_pages, dtype=np.int32

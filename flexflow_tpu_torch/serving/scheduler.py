@@ -20,9 +20,18 @@ one speculative step instead of a decode: the proposer drafts up to
 spec_branch nodes when spec_branch > 1), one batched verify scores them,
 the acceptance rule keeps the longest agreeing prefix (path) plus one
 token of the target's, and cache.truncate commits it. Greedy
-speculative streams equal plain greedy streams. The async loop, chunked
-prefill, multi-step decode, preemption, swap, tenancy, journal, fault
-injection and telemetry are not ported yet (ROADMAP, Port queue:
+speculative streams equal plain greedy streams.
+
+With `decode_multistep`, an iteration that no host-visible event can
+interrupt runs up to `max_fused_steps` decode steps as one
+device-resident window (engine.decode_multi: on the card, replays of a
+captured CUDA graph) and reads the host once; per-slot caps keep the
+window inside each request's budget, max_len and (paged) its current
+page, EOS retires a slot inside the window, and the commit rolls back
+what a slot did not take. Fused streams equal one-at-a-time streams.
+
+The async loop, chunked prefill, preemption, swap, tenancy, journal,
+fault injection and telemetry are not ported yet (ROADMAP, Port queue:
 serving features).
 """
 
@@ -151,6 +160,13 @@ class SchedulerStats:
     draft_tokens_accepted: int = 0
     draft_faults: int = 0  # proposer faults degraded to plain decode
     verify_s: float = 0.0  # wall time of verify steps, as decode_s
+    # device-resident multi-step decode (decode_multistep=True)
+    multistep_windows: int = 0  # fused windows run
+    multistep_steps: int = 0  # decode steps run inside fused windows
+    multistep_cache_entries: int = 0  # captured CUDA graphs alive (gauge)
+    # steps that read device results on the host, every kind (prefill
+    # batches, decode and verify steps, fused windows)
+    host_syncs: int = 0
 
     @property
     def tokens_per_s(self) -> float:
@@ -163,6 +179,14 @@ class SchedulerStats:
     @property
     def mean_decode_step_s(self) -> float:
         return self.decode_s / self.decode_steps if self.decode_steps else 0.0
+
+    @property
+    def host_syncs_per_token(self) -> float:
+        """Host reads per generated token: about 1 step at a time, toward
+        1/K under fused windows of K steps."""
+        if not self.tokens_generated:
+            return 0.0
+        return self.host_syncs / self.tokens_generated
 
     @property
     def acceptance_rate(self) -> float:
@@ -200,6 +224,8 @@ class _SchedulerBase:
         spec_k: int = 4,
         spec_branch: int = 1,
         debug_invariants: bool = False,
+        decode_multistep: bool = False,
+        max_fused_steps: int = 8,
     ):
         self.engine = engine
         self.cache = engine.cache
@@ -216,6 +242,13 @@ class _SchedulerBase:
             raise ValueError(f"spec_branch must be >= 1, got {spec_branch}")
         self._tree_nodes = self.spec_k * self.spec_branch
         self.debug_invariants = bool(debug_invariants)
+        self.decode_multistep = bool(decode_multistep)
+        self.max_fused_steps = int(max_fused_steps)
+        if self.max_fused_steps < 1:
+            raise ValueError(f"max_fused_steps must be >= 1, got {max_fused_steps}")
+        # this iteration's drafts, made by _fusable_steps' dry run and
+        # consumed by _verify_once, so nothing drafts twice
+        self._cached_proposals = None
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}  # slot -> request
         self.finished: List[Request] = []
@@ -363,6 +396,7 @@ class _SchedulerBase:
             return admitted
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_batches += 1
+        self.stats.host_syncs += 1
         for i, req in enumerate(admitted):
             if not finite[i]:
                 self._fail(req, f"non-finite prefill logits at iteration {self._iter}")
@@ -419,6 +453,7 @@ class _SchedulerBase:
             return
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_steps += 1
+        self.stats.host_syncs += 1
         self.stats.slot_steps += spec.max_seqs
         self.stats.busy_slot_steps += int(active.sum())
         for slot, req in stepped.items():
@@ -428,6 +463,117 @@ class _SchedulerBase:
                 self._fail(req, f"non-finite logits at iteration {self._iter}")
                 continue
             self._emit(req, int(nxt[slot]))
+
+    # -- device-resident multi-step decode (decode_multistep=True) -------------
+
+    def _fusable_steps(self) -> int:
+        """How many decode steps this iteration may fuse into one window:
+        max_fused_steps when no host-visible event can need the host
+        mid-window, else 1. What holds fusing to one step: a non-empty
+        queue (admission next iteration changes the batch), a stateful
+        proposer (its draft cache must advance with every committed
+        token) and an iteration where a stateless proposer drafted (a
+        verify's acceptance is host logic; the dry run's drafts are kept
+        for _verify_once). Deadlines do not hold fusing: one expiring
+        mid-window is reaped after the window. Per-slot EOS, budget and
+        page-boundary caps are the window's own
+        (_decode_multi_step). The reference's other holds guard features
+        not ported yet: optimistic admission (ROADMAP, Port queue:
+        preemption and swap), chunk streaming (Port queue: chunked
+        prefill) and cancels deferred to a reconcile (Port queue: async
+        engine)."""
+        if not self.decode_multistep or self.max_fused_steps <= 1:
+            return 1
+        if self.queue:
+            return 1
+        if self.proposer is not None:
+            if not getattr(self.proposer, "stateless", False):
+                return 1
+            if self._dry_propose():
+                return 1
+        return self.max_fused_steps
+
+    def _dry_propose(self) -> bool:
+        """Draft this iteration ahead of the fuse-or-verify decision and
+        keep the drafts for _verify_once; True when any slot drafted."""
+        if self.spec_branch > 1:
+            trees = self._propose_trees()
+            self._cached_proposals = ("tree", trees)
+            return any(t.nodes > 0 for t in trees.values())
+        proposals = self._propose(self.spec_k)
+        self._cached_proposals = ("linear", proposals)
+        return any(len(d) > 0 for d in proposals.values())
+
+    def _decode_multi_step(self, k: int) -> None:
+        """One fused window of up to k decode steps, dispatched and
+        committed synchronously. Per slot the window stops at the
+        request's remaining budget, the cache horizon and (paged) the
+        slot's next page boundary, so it claims at most one fresh page
+        per slot, as a plain decode step does."""
+        spec = self.cache.spec
+        ps = spec.page_size if getattr(self.cache, "paged", False) else 0
+        limits: Dict[int, int] = {}
+        for slot, req in self.running.items():
+            cur = int(self.cache.lengths[slot])
+            cap = min(k, req.max_new_tokens - len(req.generated), spec.max_len - cur)
+            if ps:
+                cap = min(cap, ps - cur % ps)
+            if cap >= 1:
+                limits[slot] = cap
+        self._secure_pages({slot: 1 for slot in limits})
+        stepped = {s: r for s, r in self.running.items() if s in limits}
+        if not stepped:
+            return
+        tokens = np.zeros(spec.max_seqs, dtype=np.int32)
+        active = np.zeros(spec.max_seqs, dtype=bool)
+        step_limits = np.zeros(spec.max_seqs, dtype=np.int32)
+        eos = np.full(spec.max_seqs, -1, dtype=np.int32)
+        for slot, req in stepped.items():
+            tokens[slot] = req.generated[-1]
+            active[slot] = True
+            step_limits[slot] = limits[slot]
+            if req.eos_token is not None:
+                eos[slot] = int(req.eos_token)
+        lengths = self.cache.lengths.copy()
+        t0 = time.perf_counter()
+        try:
+            toks_ks, _, mask_ks = self.engine.decode_multi(
+                self.params, tokens, active, step_limits, eos_tokens=eos
+            )
+            finite = self.engine.window_finite
+        except Exception as e:  # a failed capture or replay: no eager retry
+            self._fail_all_running(f"multistep decode failed: {e!r}")
+            return
+        kmax = int(step_limits.max())
+        stats = self.stats
+        stats.decode_s += time.perf_counter() - t0
+        stats.multistep_windows += 1
+        stats.multistep_steps += kmax
+        stats.decode_steps += kmax
+        stats.host_syncs += 1
+        stats.slot_steps += spec.max_seqs * kmax
+        stats.busy_slot_steps += int(step_limits.sum())
+        self._commit_multistep(stepped, lengths, step_limits, toks_ks, mask_ks, finite)
+
+    def _commit_multistep(self, stepped, lengths, step_limits, toks_ks, mask_ks, finite) -> None:
+        """Per slot: roll the cache back from the full-limit advance to
+        the steps the window took (an EOS inside the window clears the
+        mask of every later step, so `taken` ends at the EOS), then emit
+        the taken tokens in order. Rollback runs before any emit: _emit
+        may retire the request, which frees the slot."""
+        for slot, req in stepped.items():
+            if self.running.get(slot) is not req:
+                continue
+            taken = int(mask_ks[:, slot].sum())
+            if taken < int(step_limits[slot]):
+                self.cache.truncate(slot, int(lengths[slot]) + taken)
+            for i in range(taken):
+                if not finite[i, slot]:
+                    self._fail(req, f"non-finite logits at iteration {self._iter} (window step {i})")
+                    break
+                self._emit(req, int(toks_ks[i, slot]))
+                if self.running.get(slot) is not req:
+                    break  # retired (EOS or budget): nothing past it
 
     # -- speculative decoding --------------------------------------------------
 
@@ -469,6 +615,7 @@ class _SchedulerBase:
         spec = self.cache.spec
         self.stats.verify_s += time.perf_counter() - t0
         self.stats.verify_steps += 1
+        self.stats.host_syncs += 1
         self.stats.slot_steps += spec.max_seqs
         self.stats.busy_slot_steps += len(plan)
         return logits
@@ -601,20 +748,30 @@ class _SchedulerBase:
                 break  # EOS or budget mid-verify: nothing past it
 
     def _verify_once(self) -> None:
-        """One speculative iteration: draft, one batched verify, and the
-        commit, synchronously."""
+        """One speculative iteration: draft (or take _fusable_steps' dry
+        run's drafts), one batched verify, and the commit,
+        synchronously."""
+        cached, self._cached_proposals = self._cached_proposals, None
         if self.spec_branch > 1:
-            step = self._verify_tree_dispatch_step(self._propose_trees())
+            trees = cached[1] if cached is not None and cached[0] == "tree" else self._propose_trees()
+            step = self._verify_tree_dispatch_step(trees)
             if step is not None:
                 self._commit_verify_tree(step)
         else:
-            step = self._verify_dispatch_step(self._propose(self.spec_k))
+            proposals = cached[1] if cached is not None and cached[0] == "linear" else self._propose(self.spec_k)
+            step = self._verify_dispatch_step(proposals)
             if step is not None:
                 self._commit_verify(step)
 
     def _generate_once(self) -> None:
-        """The iteration's generation step over the running slots."""
-        if self.proposer is not None:
+        """The iteration's generation step over the running slots. The
+        fuse probe runs first, under speculation too: an iteration where
+        no slot drafted runs a fused decode window instead of a verify
+        of one row per slot."""
+        k = self._fusable_steps()
+        if k > 1:
+            self._decode_multi_step(k)
+        elif self.proposer is not None:
             self._verify_once()
         else:
             self._decode_once()
@@ -624,9 +781,11 @@ class _SchedulerBase:
     def _begin_iteration(self) -> None:
         self._iter += 1
         self.stats.iterations += 1
+        self._cached_proposals = None
         self._reap_deadlines()
 
     def _end_iteration(self) -> None:
+        self.stats.multistep_cache_entries = getattr(self.engine, "multistep_cache_entries", 0)
         if self.debug_invariants:
             self.cache.check_invariants()
 

@@ -486,11 +486,13 @@ def test_small_lm_serves_identically_on_both_layouts():
      # the reference's test shapes (tests/test_flash_kernel.py)
      (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32),
      # head_dims past 128: two output-column chunks
-     (2, 200, 77, 3, 136), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256)],
+     (2, 200, 77, 3, 136), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256),
+     # past 256: the wide kernels, 3 or 4 chunks, 3 or 4 streamed pieces
+     (2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512)],
 )
 def test_flash_kernels_match_plain_versions(shape, causal):
     """Kernels #1-#3 at ragged and sq != sk shapes and at the reference's
-    test shapes, head_dim 8 to 256; one launch counted per call."""
+    test shapes, head_dim 8 to 512; one launch counted per call."""
     dev = _card()
     b, sq, sk, h, d = shape
     rng = np.random.default_rng(sq + d)
@@ -520,7 +522,7 @@ def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
     return q, k, v, do, lse, delta, causal
 
 
-MMA_EDGE_DIMS = [8, 16, 24, 40, 64, 96, 128, 136, 160, 256]
+MMA_EDGE_DIMS = [8, 16, 24, 40, 64, 96, 128, 136, 160, 256, 320]
 MMA_EDGE_LENGTHS = [(1, 1), (15, 17), (17, 15), (65, 200), (200, 65), (1, 200), (200, 1), (65, 65)]
 
 
@@ -565,7 +567,7 @@ def test_flash_forward_matches_plain_version_at_mma_edges(sq, sk, causal, d):
     torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 256, 320])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_forward_is_bit_identical_across_calls(causal, d):
     """#1: each output row is written by one block, so two calls on the
@@ -590,16 +592,19 @@ def test_flash_backward_is_bit_identical_across_calls(causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
-    """bf16, head_dim 264 (past the kernels' 256) or 60 (no multiple of 8)
-    and mixed devices raise before any launch."""
+    """bf16 (also past head_dim 256), head_dim 60 or 260 (no multiple of
+    8, on either side of 256) and mixed devices raise before any launch."""
     dev = _card()
     fk.reset_launches()
     q = torch.zeros(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         fk.flash_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
-    wide = torch.zeros(1, 8, 2, 264, device=dev)
-    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
+    wide = torch.zeros(1, 8, 2, 320, device=dev).bfloat16()
+    with pytest.raises(TypeError):
         fk.flash_fwd(wide, wide, wide)
+    odd = torch.zeros(1, 8, 2, 260, device=dev)
+    with pytest.raises(ValueError, match="head_dim 260 .* multiple of 8"):
+        fk.flash_fwd(odd, odd, odd)
     with pytest.raises(ValueError, match="head_dim 60"):
         fk.flash_fwd(q[..., :60], q[..., :60], q[..., :60])
     with pytest.raises(ValueError):
@@ -610,20 +615,21 @@ def test_flash_kernel_rejects_what_it_does_not_take():
 @pytest.mark.parametrize("use_flash", ["auto", True])
 def test_mha_raises_where_the_flash_kernels_do_not_take_the_shape(use_flash):
     """On a CUDA tensor the MHA lowering launches the flash kernels or
-    raises: head_dim 264 never falls back to the dense core unasked."""
+    raises: head_dim 260 (no multiple of 8) never falls back to the
+    dense core unasked."""
     from flexflow_tpu_torch.core.types import OperatorType
     from flexflow_tpu_torch.ops.registry import LowerCtx, lower_op
 
     dev = _card()
-    p = {"embed_dim": 528, "num_heads": 2, "bias": False, "use_flash": use_flash}
-    x = torch.zeros(1, 8, 528, device=dev)
-    ws = [torch.zeros(528, 2, 264, device=dev)] * 3 + [torch.zeros(2, 264, 528, device=dev)]
+    p = {"embed_dim": 520, "num_heads": 2, "bias": False, "use_flash": use_flash}
+    x = torch.zeros(1, 8, 520, device=dev)
+    ws = [torch.zeros(520, 2, 260, device=dev)] * 3 + [torch.zeros(2, 260, 520, device=dev)]
     fk.reset_launches()
-    with pytest.raises(ValueError, match="head_dim 264"):
+    with pytest.raises(ValueError, match="head_dim 260"):
         lower_op(OperatorType.MULTIHEAD_ATTENTION, p)([x] * 3, ws, LowerCtx())
     assert fk.LAUNCHES["flash_fwd"] == 0
     (dense,) = lower_op(OperatorType.MULTIHEAD_ATTENTION, dict(p, use_flash=False))([x] * 3, ws, LowerCtx())
-    assert dense.shape == (1, 8, 528)
+    assert dense.shape == (1, 8, 520)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -689,3 +695,107 @@ def test_small_transformer_trains_through_the_flash_kernels():
     hist = model.fit(data, np.zeros((6, 100, 1), np.float32), verbose=False)
     assert hist[0]["iterations"] == 3 and np.isfinite(hist[0]["loss_sum"])
     assert fk.LAUNCHES == {"flash_fwd": 6, "flash_dq": 6, "flash_dkv": 6}
+
+
+# -- multi-step decode windows as CUDA graphs ------------------------------------------
+
+_WINDOW_LEGS = {
+    "slot": (dict(kv_layout="slot"), "flash_verify"),
+    "paged": (dict(kv_layout="paged"), "paged_flash_verify"),
+    "int8": (dict(kv_layout="paged", kv_dtype="int8"), "paged_flash_verify_quant"),
+}
+
+
+def _small_lm(layers=2):
+    model = FFModel(FFConfig(batch_size=4, seed=0))
+    tok = model.create_tensor([4, 64], dtype=DataType.INT32, name="tokens")
+    build_decoder_lm(model, tok, vocab_size=128, hidden=64, num_heads=4, num_layers=layers, ff_dim=128)
+    model.compile()
+    return model
+
+
+@pytest.mark.parametrize("leg", sorted(_WINDOW_LEGS))
+def test_graph_window_equals_eager_steps(leg):
+    """A decode_multi window on the card (its first step eager, then
+    replays of the captured decode core) equals K eager decode steps,
+    tokens and logits exactly, on the slot layout (#4), fp32 pools (#5)
+    and int8 pools (#6); the leg's kernel launches replays x layers; a
+    second window replays the captured graph, and a third with other
+    limits does too."""
+    from flexflow_tpu_torch.serving import build_scheduler
+
+    _card()
+    layers, K = 2, 4
+    model = _small_lm(layers)
+    kw, kernel = _WINDOW_LEGS[leg]
+    serve = ServeConfig(max_seqs=3, max_seq_len=64, **kw)
+    prompts = [[3, 1, 4, 1, 5], [9, 2]]
+    active = np.array([True, True, False])
+
+    def prefilled():
+        _, eng, cache = build_scheduler(model, serve)
+        slots = [cache.alloc(len(p), 64) for p in prompts]
+        first, _ = eng.prefill(model.params, prompts, slots)
+        cur = np.zeros(3, dtype=np.int32)
+        cur[:2] = first
+        return eng, cache, cur
+
+    eng_seq, cache_seq, cur = prefilled()
+    seq = []
+    for _ in range(3 * K):
+        nxt, logits = eng_seq.decode(model.params, cur, active)
+        seq.append((nxt.copy(), logits.clone()))
+        cur = np.where(active, nxt, cur).astype(np.int32)
+    eng, cache, cur = prefilled()
+    graphs = []
+    done = 0
+    for limits in (np.where(active, K, 0), np.where(active, K, 0), np.array([K, 2, 0])):
+        dk.reset_launches()
+        toks, logits, mask = eng.decode_multi(model.params, cur, active, limits)
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{kernel: K * layers})
+        assert eng.multistep_cache_entries == 1
+        graphs.append(next(iter(eng._graphs.values())).graph)
+        for i in range(K):
+            want_t, want_l = seq[done + i]
+            live = mask[i]
+            np.testing.assert_array_equal(toks[i][live], want_t[live], err_msg=f"step {done + i}")
+            assert torch.equal(logits[i][torch.from_numpy(live).to(logits.device)],
+                               want_l[torch.from_numpy(live).to(want_l.device)]), f"step {done + i}"
+        if limits[1] < K:
+            break
+        done += K
+        cur = np.where(active, toks[-1], cur).astype(np.int32)
+    assert graphs[0] is graphs[1] is graphs[2]
+    np.testing.assert_array_equal(mask.sum(axis=0), [K, 2, 0])
+
+
+@pytest.mark.parametrize("leg", sorted(_WINDOW_LEGS))
+def test_multistep_serving_on_the_card_matches_plain_streams(leg):
+    """The continuous scheduler with decode_multistep=True on the card:
+    the streams equal plain decode's, every decode step launches the
+    leg's kernel once per layer (replays counted), the windows fused, and
+    one graph serves every window."""
+    from flexflow_tpu_torch.serving import Request, build_scheduler
+
+    _card()
+    layers = 2
+    model = _small_lm(layers)
+    kw, kernel = _WINDOW_LEGS[leg]
+    prompts = [[1, 2, 3], [4], [5, 6, 7, 8, 9], [10, 11], [12]]
+    runs = {}
+    for fused in (False, True):
+        sched, eng, _ = build_scheduler(
+            model, ServeConfig(max_seqs=2, max_seq_len=64, decode_multistep=fused, **kw)
+        )
+        dk.reset_launches()
+        done = sched.run([Request(rid=i, prompt=p, max_new_tokens=20) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        assert all(r.ok and len(r.generated) == 20 for r in done)
+        assert dk.LAUNCHES[kernel] == sched.stats.decode_steps * layers
+        runs[fused] = ({r.rid: r.generated for r in done}, sched.stats, eng)
+    (plain, pstats, _), (streams, stats, eng) = runs[False], runs[True]
+    assert streams == plain
+    assert stats.multistep_steps > stats.multistep_windows > 0
+    assert stats.host_syncs < pstats.host_syncs
+    assert stats.multistep_cache_entries == eng.multistep_cache_entries == 1

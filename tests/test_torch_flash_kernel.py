@@ -97,11 +97,13 @@ def test_lse_cotangent_matches_jax():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320])
 def test_wide_heads_match_jax(d, causal):
     """head_dim 160 and 256, which the kernels take in two output-column
-    chunks: forward, LSE and the gradients through the port's custom
-    backward against the Pallas kernels in the interpreter."""
+    chunks, and 320 (three chunks, the score contraction streamed in
+    128-column pieces on the card): forward, LSE and the gradients through
+    the port's custom backward against the Pallas kernels in the
+    interpreter."""
     rng = np.random.RandomState(d + int(causal))
     q, k, v = (rng.randn(1, 128, H, d).astype(np.float32) for _ in range(3))
     jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
@@ -212,11 +214,17 @@ def test_mha_lowering_picks_its_core_by_use_flash_alone(monkeypatch, use_flash, 
 def test_supports():
     assert fk.supports(512, 512, 64, torch.float32)
     assert fk.supports(500, 37, 128, torch.float32)  # ragged lengths are fine
-    # past 128 the kernels cut the output columns into two chunks, up to 256
+    # past 128 the kernels cut the output columns into chunks of at most
+    # 128; past 256 they stream the score contraction over head_dim, so
+    # any multiple of 8 is taken, as by the reference's supports()
     assert fk.supports(512, 512, 160, torch.float32)
     assert fk.supports(512, 512, 256, torch.float32)
-    assert not fk.supports(512, 512, 264, torch.float32)
+    assert fk.supports(512, 512, 264, torch.float32)
+    assert fk.supports(512, 512, 320, torch.float32)
+    assert fk.supports(256, 256, 1032, torch.float32)
     assert not fk.supports(512, 512, 60, torch.float32)
+    assert not fk.supports(512, 512, 260, torch.float32)
+    assert not fk.supports(512, 512, 320, torch.bfloat16)
     assert not fk.supports(512, 512, 64, torch.bfloat16)
     assert not fk.supports(0, 512, 64, torch.float32)
 
