@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 It imports torch, numpy and the port only, and fails (non-zero exit, no
 result line) on any failed phase:
 
-  1. build   — compiles every kernel source of csrc/ with nvcc for
-               sm_90a, all at once, and prints each build's time and
+  1. build   — compiles every kernel source of csrc/ (five) with nvcc
+               for sm_90a, all at once, and prints each build's time and
                ptxas report;
   2. kernels — after a 2 s warm-up that brings the card to its working
                clock, each decode kernel against its plain PyTorch
@@ -91,6 +91,16 @@ result line) on any failed phase:
                count of tensor-core (HMMA)
                instructions in each flash library's SASS, and the card's
                clocks and power;
+  5b. bf16 flash kernels — the bf16 bodies of #1-#3 (mixed precision)
+               and their plain versions, both held against the float64
+               function of the same bf16 inputs (the kernel's error at
+               most twice the plain version's plus one bf16 ulp of the
+               exact output's largest entry; LSE within 2e-5) at the
+               flagship shape, causal and not, ragged (sq 500, sq !=
+               sk), head_dim 24-256 and the reference's test shapes;
+               times at the flagship shape beside bf16 SDPA with its
+               backend, bounds at 989 TFLOP/s, resources at head_dim
+               64, 128 and 256 and the bf16 library's HMMA count;
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
                [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
                batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
@@ -98,6 +108,15 @@ result line) on any failed phase:
                kernel must run 12 times per step and the loss stay
                finite; samples/s, step ms, peak memory and a profiled
                step's device busy share and top device ops;
+  6b. mixed precision — the same flagship compiled with
+               allow_mixed_precision (bench.py's mode) trains through
+               fit() for 10 iterations: each bf16 flash kernel runs 12
+               times per step and no fp32 one; samples/s, step ms, peak
+               memory and a profiled step beside phase 6's; then from
+               the same weights and batch 10 steps of each, the two loss
+               curves held at the last step by the reference's
+               criterion (tests/test_precision.py: |bf16 - fp32| <
+               0.25 |fp32| + 0.05);
   7. training checks — from the same weights and batch, the flash kernels
                and the dense core give each weight's gradient within 1e-3
                of its largest entry, and one step of each agrees (loss
@@ -106,11 +125,13 @@ result line) on any failed phase:
                loss falls over 10 steps on one batch; and the causal
                decoder LM at full width (2 layers, tokens [8, 512],
                sparse CE, SGD lr 0.01) trains through fit() for 4
-               iterations with each flash kernel run 2 times per step;
+               iterations with each flash kernel run 2 times per step,
+               in fp32 and again under mixed precision (the bf16 ones);
 
 then prints the kernels' JSON line (launches: the serving path's for
 #4 and #5, legs (c), (e), (b) and (d) for #6-#9, the flagship training
-run's for #1-#3), the card's name and
+run's for #1-#3, the mixed-precision run's for their bf16 bodies), the
+card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -144,6 +165,7 @@ NEAR_TIE = 1e-4
 NEAR_TIE_INT8 = 1e-2
 ATOL_LOGITS = 1e-3  # cached decode vs full forward through 12 fp32 layers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 # H100 SXM, TF32 tensor cores, dense; fp32-accurate products take 3 passes
 TF32_FLOPS_PER_S = 495e12
@@ -190,7 +212,12 @@ KERNELS = {
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
+    "flash_fwd_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
+    "flash_dq_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
+    "flash_dkv_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
+FLASH_FP32 = ("flash_fwd", "flash_dq", "flash_dkv")
+FLASH_BF16 = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
 
 # kernel wrapper -> substrings of the device functions its launches run,
 # as the profiler names them: each kernel's own instantiations, so that
@@ -221,6 +248,9 @@ KERNEL_SYMBOLS = {
     "flash_fwd": ("flash_fwd_mma_kernel",),
     "flash_dq": ("flash_dq_mma_kernel",),
     "flash_dkv": ("flash_dkv_mma_kernel",),
+    "flash_fwd_bf16": ("flash_fwd_bf16_kernel",),
+    "flash_dq_bf16": ("flash_dq_bf16_kernel",),
+    "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
 }
 
 
@@ -246,7 +276,8 @@ def build_kernels():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib, fk.BWD_SOURCE: fk._bwd_lib}
+    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib, fk.BWD_SOURCE: fk._bwd_lib,
+              fk.BF16_SOURCE: fk._bf16_lib}
     with ThreadPoolExecutor(len(builds)) as pool:
         times = dict(zip(builds, pool.map(timed, builds.values())))
     print(f"[build] {len(times)} sources in {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -410,30 +441,59 @@ def host_ms(fn, iters=50, warmup=5):
     return 1e3 * float(np.median(times))
 
 
-def device_ms(fn, flush, iters=20):
+# On the card a profiler session in some process states does not read
+# its first kernel (measured: 19 of 20 flushes read once large flash
+# cases had run). So each session starts with one flush of its own,
+# whose loss costs nothing; a session whose call kernels do not read a
+# whole multiple of the calls is taken again, up to this many times.
+PROFILE_TRIES = 3
+
+
+def device_ms(fn, flush, iters=20, top=False):
     """Device time of one call from the profiler: the kernels that `iters`
     calls run, each after an L2 flush, less the flush's own kernels (by
-    name). None where the profiler sees no device time."""
+    name, from a session of flushes alone). None where no session read
+    whole calls. With `top`, also the name of the kernel that takes most
+    of that time (the backend a library call ran)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def device_us(run):
+    def session(run):
+        """{kernel: (device us, launches)} read by one profiler session."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush()
             run()
             torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        return {
+            e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        }
 
-    flush_keys = device_us(flush)
+    def flushes():
+        for _ in range(iters):
+            flush()
 
     def calls():
         for _ in range(iters):
             flush()
             fn()
 
-    us = sum(t for k, t in device_us(calls).items() if k not in flush_keys)
-    return us / 1e3 / iters if us > 0 else None
+    mine = {}
+    for _ in range(PROFILE_TRIES):
+        alone = session(flushes)
+        read = {k: v for k, v in session(calls).items() if k not in alone} if alone else {}
+        if read and all(n % iters == 0 for _, n in read.values()):
+            mine = {k: t for k, (t, _) in read.items()}
+            break
+        print("[profile] a profiler session read no or part of the calls; taken again")
+    us = sum(mine.values())
+    ms = us / 1e3 / iters if us > 0 else None
+    if top:
+        return ms, max(mine, key=mine.get)[:80] if mine else "not measured"
+    return ms
 
 
 def check_kernels():
@@ -1296,51 +1356,65 @@ def multistep_burst(model, plain, layers=FLAGSHIP["layers"]):
 # -- 5. flash kernels vs plain versions --------------------------------------------
 
 
-def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED):
-    """Seeded q, k, v, dO and the plain forward's (O, LSE) and delta."""
+def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED, dtype=None):
+    """Seeded q, k, v, dO (float32, or `dtype`) and the plain forward's
+    (O, LSE) and delta (summed in float32)."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     g = torch.Generator().manual_seed(seed + 7 * sq + sk + d + int(causal))
-    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device) for s in (sq, sk, sk))
-    do = torch.randn(b, sq, h, d, generator=g).to(device)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device, dtype) for s in (sq, sk, sk))
+    do = torch.randn(b, sq, h, d, generator=g).to(device, dtype)
     o, lse = fk.flash_fwd_ref(q, k, v, causal)
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, causal=causal)
 
 
 def flash_calls(x):
-    """{kernel: (kernel call, plain call)} on the inputs x."""
+    """{kernel: (kernel call, plain call)} on the inputs x (the LAUNCHES
+    names of the bodies their dtype runs)."""
+    import torch
+
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     fwd = (x["q"], x["k"], x["v"], x["causal"])
     bwd = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["causal"])
+    suffix = "_bf16" if x["q"].dtype == torch.bfloat16 else ""
     return {
-        "flash_fwd": (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
-        "flash_dq": (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
-        "flash_dkv": (lambda: fk.flash_dkv(*bwd), lambda: fk.flash_dkv_ref(*bwd)),
+        "flash_fwd" + suffix: (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
+        "flash_dq" + suffix: (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
+        "flash_dkv" + suffix: (lambda: fk.flash_dkv(*bwd), lambda: fk.flash_dkv_ref(*bwd)),
     }
 
 
 def flash_bound_ms(x, name):
     """Least time on these inputs: every operand read once and every
     output written once at 3.35 TB/s, against the kernel's products over
-    the visible (query, key) pairs (2 forward, 3 for dQ, 4 for dK/dV) at
-    their fp32-accurate rate on this card: 3 TF32 passes of 2 flops per
-    multiply-add at 495 TFLOP/s (3xTF32 on the dense tensor cores, 700 W),
-    an effective 165 TFLOP/s, above the 67 TFLOP/s of fp32 FMAs."""
+    the visible (query, key) pairs (2 forward, 3 for dQ, 4 for dK/dV). The
+    fp32 bodies at their fp32-accurate rate on this card: 3 TF32 passes of
+    2 flops per multiply-add at 495 TFLOP/s (3xTF32 on the dense tensor
+    cores, 700 W), an effective 165 TFLOP/s, above the 67 TFLOP/s of fp32
+    FMAs; the bf16 bodies one pass at the data sheet's 989 TFLOP/s of
+    dense bf16, their q, k, v, dO and outputs 2 bytes an element (LSE
+    and delta 4)."""
+    import torch
+
     b, sq, h, d = x["q"].shape
     sk = x["k"].shape[1]
     pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if x["causal"] else sq * sk)
     qo, kv, rows = b * sq * h * d, b * sk * h * d, b * h * sq
-    nbytes = 4 * {
-        "flash_fwd": 2 * qo + 2 * kv + rows,            # q, k, v in; O, LSE out
-        "flash_dq": 3 * qo + 2 * kv + 2 * rows,         # q, dO, k, v, lse, delta in; dQ out
-        "flash_dkv": 2 * qo + 4 * kv + 2 * rows,        # q, dO, k, v, lse, delta in; dK, dV out
-    }[name]
-    flops = TF32_PASSES * {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * pairs * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+    bf16 = x["q"].dtype == torch.bfloat16
+    base = name[: -len("_bf16")] if name.endswith("_bf16") else name
+    el = 2 if bf16 else 4
+    nbytes = {
+        "flash_fwd": el * (2 * qo + 2 * kv) + 4 * rows,       # q, k, v in; O, LSE out
+        "flash_dq": el * (3 * qo + 2 * kv) + 4 * 2 * rows,    # q, dO, k, v, lse, delta in; dQ out
+        "flash_dkv": el * (2 * qo + 4 * kv) + 4 * 2 * rows,   # q, dO, k, v, lse, delta in; dK, dV out
+    }[base]
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[base] * pairs * d
+    rate = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S / TF32_PASSES
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1393,21 +1467,6 @@ def flash_resources(dims=(64, 128, 256, 320)):
               + json.dumps(ops.most_common(14)))
 
 
-def library_backend(fn) -> str:
-    """Name of the device kernel that takes most of one call of fn."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not events:
-        return "not measured"
-    return max(events, key=lambda e: e.self_device_time_total).key[:80]
-
-
 def check_flash_case(x, tag):
     """#1-#3 on the inputs x against their plain versions at the
     reference's scale (O and LSE 2e-5; dQ, dK, dV atol 5e-5, rtol 5e-4);
@@ -1433,42 +1492,38 @@ def check_flash_case(x, tag):
     return errs
 
 
-def check_flash_kernels():
-    """Kernels #1-#3 against their plain versions at the reference's scale,
-    at the flagship training shape, causal and not, ragged shapes (sq !=
-    sk both ways, head_dim 24 to 512) and the reference's test shapes;
-    times of the flagship case, which the training path runs, by the
-    event timer and by the profiler's device time, beside SDPA's and the
-    port's dense core, and of head_dim 256, 320 and 512 (past 256 the
-    wide kernels, which stream the score contraction over head_dim); the
-    kernels' resources at head_dim 64, 128, 256 and 320."""
+# The timed shapes of phase 5: the flagship shape, causal and not (its
+# non-causal times go into the kernels line), then the flagship's width
+# in 4 heads of 256, the widest head_dim staged at full width (two
+# output-column chunks), then 4 heads of 320 and 2 of 512 at half the
+# length on the wide kernels. The flagship's are timed before any wide
+# kernel or correctness case runs: once those have run, the profiler's
+# sessions on the card read only part of their kernels (measured: 19 of
+# 20 flushes, then device times of half the event timer's).
+FLASH_TIMED = ((TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], False),
+               (TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], True))
+FLASH_TIMED_WIDE = ((TRAIN["seq"], TRAIN["hidden"] // 256, 256, False), (TRAIN["seq"], 4, 320, False),
+                    (TRAIN["seq"] // 2, 2, 512, False))
+
+
+def time_flash_kernels(shapes):
+    """Times of #1-#3 at `shapes` ((seq, heads, head_dim, causal) at the
+    flagship's batch) by the event timer and by the profiler's device
+    time, beside SDPA's and the port's dense core; past head_dim 256 (the
+    wide kernels, which stream the score contraction over head_dim) the
+    reference's gate at the timed shape itself. Returns the kernels-line
+    rows of the flagship's non-causal shape."""
     import torch
     import torch.nn.functional as F
 
     from flexflow_tpu_torch.ops import attention as attn
 
     device = torch.device("cuda")
-    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
-    rows = {name: {"max_abs_err": 0.0} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
-    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True),
-             (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False), (2, 300, 129, 2, 256, True),
-             (2, 129, 300, 2, 160, False), (2, 129, 300, 2, 264, True), (2, 300, 129, 2, 320, True),
-             (2, 129, 300, 2, 512, False), (1, 200, 200, 2, 1032, True)]
-    # the reference's test shapes (tests/test_flash_kernel.py), causal and not
-    cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
-    for cb, sq, sk, ch, cd, causal in cases:
-        x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
-        for name, err in check_flash_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-
+    b, d = TRAIN["batch"], TRAIN["hidden"] // TRAIN["heads"]
+    rows = {name: {} for name in FLASH_FP32}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
-    # the flagship shape, causal and not (its non-causal times go into the
-    # kernels line), the flagship's width in 4 heads of 256, the widest
-    # head_dim staged at full width (two output-column chunks), then 4
-    # heads of 320 and 2 of 512 at half the length on the wide kernels
-    for ts, th, td, causal in ((s, h, d, False), (s, h, d, True), (s, TRAIN["hidden"] // 256, 256, False),
-                               (s, 4, 320, False), (s // 2, 2, 512, False)):
+    for ts, th, td, causal in shapes:
         x = flash_inputs(device, b, ts, ts, th, td, causal)
         flagship = td == d
         tag = ("causal" if causal else "non-causal") + ("" if flagship else f" [{b}, {ts}, {th}, {td}]")
@@ -1489,7 +1544,9 @@ def check_flash_kernels():
         out = sdpa()
         sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
         lib_fwd, lib_bwd = time_ms(sdpa, flush), time_ms(sdpa_bwd, flush)
-        lib_fwd_dev, lib_bwd_dev = device_ms(sdpa, flush), device_ms(sdpa_bwd, flush)
+        (lib_fwd_dev, fwd_backend), (lib_bwd_dev, bwd_backend) = (
+            device_ms(sdpa, flush, top=True), device_ms(sdpa_bwd, flush, top=True)
+        )
         qd, kd, vd = (x[n].detach().clone().requires_grad_(True) for n in ("q", "k", "v"))
 
         def dense():
@@ -1501,27 +1558,191 @@ def check_flash_kernels():
               f"SDPA forward {lib_fwd:.4f} ms, device {lib_fwd_dev} ms")
         pair = None if None in (dev["flash_dq"], dev["flash_dkv"]) else dev["flash_dq"] + dev["flash_dkv"]
         print(f"[kernels] {tag}: library SDPA forward {lib_fwd:.4f} ms, device {lib_fwd_dev} ms "
-              f"({library_backend(sdpa)}), backward (#2 + #3) {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
-              f"({library_backend(sdpa_bwd)}); #2 + #3 device {pair} ms; the port's dense core forward + "
+              f"({fwd_backend}), backward (#2 + #3) {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
+              f"({bwd_backend}); #2 + #3 device {pair} ms; the port's dense core forward + "
               f"backward {dense_ms:.4f} ms")
         if flagship and not causal:
             rows["flash_fwd"]["library_ms"] = lib_fwd
             rows["flash_dq"]["library_ms"] = rows["flash_dkv"]["library_ms"] = lib_bwd
             rows["dense_ms"] = dense_ms
         del out
+    return rows
+
+
+def check_flash_kernels(rows):
+    """Kernels #1-#3 against their plain versions at the reference's scale,
+    at the flagship training shape, causal and not, ragged shapes (sq !=
+    sk both ways, head_dim 24 to 1032) and the reference's test shapes,
+    each kernel's worst error into `rows`; the kernels' resources at
+    head_dim 64, 128, 256 and 320."""
+    import torch
+
+    device = torch.device("cuda")
+    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    for name in FLASH_FP32:
+        rows[name]["max_abs_err"] = 0.0
+    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True),
+             (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False), (2, 300, 129, 2, 256, True),
+             (2, 129, 300, 2, 160, False), (2, 129, 300, 2, 264, True), (2, 300, 129, 2, 320, True),
+             (2, 129, 300, 2, 512, False), (1, 200, 200, 2, 1032, True)]
+    # the reference's test shapes (tests/test_flash_kernel.py), causal and not
+    cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
+    for cb, sq, sk, ch, cd, causal in cases:
+        x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
+        for name, err in check_flash_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     flash_resources()
+    return rows
+
+
+# -- 5b. the bf16 bodies of #1-#3 (mixed precision) ------------------------------------
+
+# The bf16 kernels and their plain versions are both held against the
+# float64 function of the same bf16 inputs: the kernel's max error may be
+# at most twice the plain version's plus one bf16 ulp of the exact output's
+# largest entry (taken of at least BF16_ULP_FLOOR: an output that is 0 in
+# exact arithmetic, dQ and dK where one key is visible, holds f32 noise).
+BF16_ULP_FLOOR = 2.0**-13
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(x, BF16_ULP_FLOOR))) - 7)
+
+
+def check_bf16_case(x, tag):
+    """The bf16 #1-#3 on x against their plain versions by the float64
+    gate; returns {kernel: (max |kernel - exact|, max |plain - exact|)}."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    exact64 = {n: x[n].double() for n in ("q", "k", "v", "do")}
+    args64 = (exact64["q"], exact64["k"], exact64["v"])
+    exact = {
+        "flash_fwd_bf16": fk.flash_fwd_ref(*args64, x["causal"])[:1],
+        "flash_dq_bf16": (fk.flash_dq_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),),
+        "flash_dkv_bf16": fk.flash_dkv_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),
+    }
+    errs = {}
+    for name, (kernel, plain) in flash_calls(x).items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if name == "flash_fwd_bf16":
+            lse_err = float((got[1] - want[1]).abs().max())
+            require(lse_err <= ATOL_FLASH_FWD, f"{name} {tag}: LSE error {lse_err}")
+        k_err = p_err = 0.0
+        for a, p, e in zip(got, want, exact[name]):
+            ke, pe = float((a.double() - e).abs().max()), float((p.double() - e).abs().max())
+            limit = 2 * pe + bf16_ulp(float(e.abs().max()))
+            require(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and ke <= limit,
+                    f"{name} {tag}: kernel error {ke} against float64, limit {limit} (plain {pe})")
+            k_err, p_err = max(k_err, ke), max(p_err, pe)
+        print(f"[kernels] {name} {tag}: max |kernel - float64| = {k_err:.3e}, max |plain - float64| = {p_err:.3e}")
+        errs[name] = (k_err, p_err)
+    return errs
+
+
+def time_flash_bf16_kernels():
+    """The bf16 #1-#3 at the flagship shape, causal and not: times (event
+    timer and profiler), bounds, plain times and PyTorch's bf16 SDPA
+    (forward beside #1, backward beside the #2 + #3 pair) with the
+    backend it ran. Returns the kernels-line rows of the non-causal
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    device = torch.device("cuda")
+    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    rows = {name: {} for name in FLASH_BF16}
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    for causal in (False, True):
+        x = flash_inputs(device, b, s, s, h, d, causal, dtype=torch.bfloat16)
+        tag = "bf16 " + ("causal" if causal else "non-causal")
+        dev = {}
+        for name, (kernel, plain) in flash_calls(x).items():
+            ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush, iters=10, warmup=2)
+            dev[name] = device_ms(kernel, flush)
+            bound, by = flash_bound_ms(x, name)
+            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[name]} ms (bound {bound:.4f} ms, {by}), "
+                  f"plain {plain_ms:.4f} ms")
+            if not causal:
+                rows[name].update(ms=ms, device_ms=dev[name], plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        qt, kt, vt, dot = (x[n].transpose(1, 2).contiguous().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        out = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        lib_fwd, lib_bwd = time_ms(sdpa, flush), time_ms(sdpa_bwd, flush)
+        (lib_fwd_dev, fwd_backend), (lib_bwd_dev, bwd_backend) = (
+            device_ms(sdpa, flush, top=True), device_ms(sdpa_bwd, flush, top=True)
+        )
+        pair = None if None in (dev["flash_dq_bf16"], dev["flash_dkv_bf16"]) else dev["flash_dq_bf16"] + dev["flash_dkv_bf16"]
+        print(f"[kernels] {tag}: library bf16 SDPA forward {lib_fwd:.4f} ms, device {lib_fwd_dev} ms "
+              f"({fwd_backend}), backward {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
+              f"({bwd_backend}); bf16 #1 device {dev['flash_fwd_bf16']} ms, #2 + #3 device {pair} ms")
+        if not causal:
+            rows["flash_fwd_bf16"]["library_ms"] = lib_fwd
+            rows["flash_dq_bf16"]["library_ms"] = rows["flash_dkv_bf16"]["library_ms"] = lib_bwd
+        del out
+    return rows
+
+
+def check_flash_bf16_kernels(rows):
+    """The bf16 #1-#3 against their plain versions by the float64 gate at
+    the flagship shape (causal and not), ragged (sq 500, sq != sk), head_dim
+    24, 64, 128, 160 and 256 and the reference's test shapes, each
+    kernel's worst error into `rows`; resources at head_dim 64, 128 and
+    256 and the HMMA count of the bf16 library's SASS."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import _build
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
+
+    device = torch.device("cuda")
+    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    for name in FLASH_BF16:
+        rows[name]["max_abs_err"] = 0.0
+    cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 500, 380, 4, 64, False),
+             (2, 128, 384, 4, 64, True), (2, 200, 77, 3, 24, False), (2, 384, 129, 4, 128, True),
+             (1, 96, 160, 2, 160, False), (2, 129, 300, 2, 256, True)]
+    cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
+    for cb, sq, sk, ch, cd, causal in cases:
+        x = flash_inputs(device, cb, sq, sk, ch, cd, causal, dtype=torch.bfloat16)
+        for name, (k_err, _) in check_bf16_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], k_err)
+    for dd in (64, 128, 256):
+        kd = 32 << (0 if dd <= 32 else 1 if dd <= 64 else 2 if dd <= 128 else 3)  # the source's bucket
+        log = _build.build_logs.get(fk.BF16_SOURCE, "").splitlines()
+        for name in FLASH_BF16:
+            sym = f"{name}_kernelILi{kd}E"
+            info = []
+            for i, line in enumerate(log):
+                if "Compiling entry function" in line and sym in line:
+                    info = [t.strip() for t in log[i + 1 : i + 4] if "registers" in t or "spill" in t]
+            print(f"[resources] {name} at head_dim {dd} ({name}_kernel<{kd}>): " + json.dumps(fk.occupancy(name, dd))
+                  + f"; ptxas: {'; '.join(info) or 'not in the build log'}")
+    ops = sass_opcodes(fk.BF16_SOURCE)
+    if ops is None:
+        print(f"[resources] {fk.BF16_SOURCE}: cuobjdump not found, SASS not read")
+    else:
+        print(f"[resources] {fk.BF16_SOURCE}: {ops.get('HMMA', 0)} HMMA instructions in its SASS; top opcodes "
+              + json.dumps(ops.most_common(14)))
     return rows
 
 
 # -- 6. train the flagship Transformer -------------------------------------------
 
 
-def build_transformer(device, layers, hidden, heads, batch, seq, use_flash="auto", seed=SEED, **_):
+def build_transformer(device, layers, hidden, heads, batch, seq, use_flash="auto", seed=SEED, mixed=False, **_):
     """examples/transformer.py's build_transformer, reproduced on the port:
-    12 x [MHA -> dense+ReLU -> dense] -> dense(1), SGD lr 0.01, MSE."""
+    12 x [MHA -> dense+ReLU -> dense] -> dense(1), SGD lr 0.01, MSE; with
+    `mixed`, compiled with allow_mixed_precision as bench.py runs it."""
     from flexflow_tpu_torch import ActiMode, FFConfig, FFModel, LossType, SGDOptimizer
 
-    model = FFModel(FFConfig(batch_size=batch, learning_rate=0.01, seed=seed))
+    model = FFModel(FFConfig(batch_size=batch, learning_rate=0.01, seed=seed, allow_mixed_precision=mixed))
     t = model.create_tensor([batch, seq, hidden], name="x")
     for _ in range(layers):
         t = model.multihead_attention(t, t, t, hidden, heads)
@@ -1556,10 +1777,10 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def profile_train_step(model, batch):
-    """Device time by kernel over one train step (torch.profiler), and
-    each flash kernel's device ms and launches in it; None when the
-    profiler sees no device activity."""
+def profile_train_step(model, batch, label=""):
+    """Device time by kernel over one train step (torch.profiler), each
+    flash kernel's device ms and launches in it, and the host ops that
+    take most CPU time; None when the profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1582,33 +1803,44 @@ def profile_train_step(model, batch):
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     flash = {}
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for name in FLASH_FP32 + FLASH_BF16:
         mine = [e for e in events if any(k in e.key for k in KERNEL_SYMBOLS[name])]
         flash[name] = (sum(e.self_device_time_total for e in mine) / 1e3, sum(e.count for e in mine))
+    host = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+        key=lambda e: -e.self_cpu_time_total,
+    )[:8]
     out = dict(
         wall_ms=1e3 * wall_s,
         device_ms=device_us / 1e3,
         device_busy_share=device_us / 1e6 / wall_s,
         flash_ms_and_launches=flash,
-        top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top],
+        top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top],
+        # host ops by their own CPU time (profiler clock, inflated by the
+        # profiler's own per-op cost)
+        top_host=[(e.key[:60], e.self_cpu_time_total / 1e3, e.count) for e in host],
     )
-    print("[profile] train step: " + json.dumps(out))
+    print(f"[profile] {label}train step: " + json.dumps(out))
     return out
 
 
-def train_flagship(device, **geo):
-    """fit() over `steps` batches; each flash kernel must run once per
-    layer per step and the losses stay finite."""
+def train_flagship(device, mixed=False, **geo):
+    """fit() over `steps` batches; each flash kernel of the model's dtype
+    (the fp32 bodies, or the bf16 ones under mixed precision) must run
+    once per layer per step, the other dtype's never, and the losses stay
+    finite."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     geo = dict(TRAIN, **geo)
     t0 = time.perf_counter()
-    model = build_transformer(device, **geo)
+    model = build_transformer(device, mixed=mixed, **geo)
     nparams = sum(w.numel() for ws in model.params.values() for w in ws)
     data = synthetic_batch(geo["batch"] * geo["steps"], geo["seq"], geo["hidden"])
-    print(f"[train] flagship Transformer: {nparams / 1e6:.1f} M params, built in {time.perf_counter() - t0:.2f} s")
+    label = "mixed precision (bf16)" if mixed else ""
+    print(f"[train] flagship Transformer, {label or 'fp32'}: {nparams / 1e6:.1f} M params, built in "
+          f"{time.perf_counter() - t0:.2f} s")
     cuda = torch.device(device).type == "cuda"
     if cuda:
         sync(device)
@@ -1622,8 +1854,12 @@ def train_flagship(device, **geo):
     mean_loss = hist[0]["loss_sum"] / max(1, hist[0]["train_all"])
     require(np.isfinite(mean_loss), f"non-finite training loss {mean_loss}")
     if cuda:
-        for name, n in launches.items():
+        ran, idle = (FLASH_BF16, FLASH_FP32) if mixed else (FLASH_FP32, FLASH_BF16)
+        for name in ran:
+            n = launches[name]
             require(n == geo["layers"] * steps, f"{name} launches {n} != {geo['layers']} layers x {steps} steps")
+        for name in idle:
+            require(launches[name] == 0, f"{name} launched {launches[name]} times in the {label or 'fp32'} run")
     thpt = hist[0]["throughput"]
     summary = dict(
         steps=steps,
@@ -1633,7 +1869,7 @@ def train_flagship(device, **geo):
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
         launches=launches,
     )
-    print("[train] " + json.dumps(summary))
+    print(f"[train] {label + ' ' if label else ''}" + json.dumps(summary))
     return model, data, summary, launches
 
 
@@ -1714,9 +1950,39 @@ def check_loss_falls(model, data, steps=10):
     return losses
 
 
-def train_causal_lm(device, layers=LM_TRAIN["layers"], steps=LM_TRAIN["steps"]):
+def compare_loss_curves(device, steps=TRAIN["steps"], **geo):
+    """The flagship in fp32 and under mixed precision from the same initial
+    weights, `steps` SGD steps each on the same batch: both loss curves,
+    held at the last step by the reference's criterion
+    (tests/test_precision.py): |bf16 - fp32| < 0.25 |fp32| + 0.05."""
+    from flexflow_tpu_torch.runtime.interop import params_from_host
+
+    geo = dict(TRAIN, **geo)
+    batch = synthetic_batch(geo["batch"], geo["seq"], geo["hidden"], seed=SEED + 1)
+    curves = {}
+    fp32 = build_transformer(device, **geo)
+    host = fp32.executor.export_host_params(fp32.params)
+    curves["fp32"] = [one_step(fp32, batch)[0] for _ in range(steps)]
+    del fp32
+    bf16 = build_transformer(device, mixed=True, **geo)
+    params_from_host(bf16, host)
+    del host
+    curves["bf16"] = [one_step(bf16, batch)[0] for _ in range(steps)]
+    del bf16
+    last_fp32, last_bf16 = curves["fp32"][-1], curves["bf16"][-1]
+    limit = 0.25 * abs(last_fp32) + 0.05
+    print(f"[train] {steps}-step loss curves from the same weights and batch: fp32 "
+          f"{json.dumps([round(x, 6) for x in curves['fp32']])}; bf16 {json.dumps([round(x, 6) for x in curves['bf16']])}; "
+          f"last step |bf16 - fp32| = {abs(last_bf16 - last_fp32):.6f} (limit {limit:.6f})")
+    require(all(np.isfinite(curves["bf16"])), f"non-finite bf16 losses {curves['bf16']}")
+    require(abs(last_bf16 - last_fp32) < limit, f"bf16 loss {last_bf16} strays from fp32 {last_fp32}")
+    return curves
+
+
+def train_causal_lm(device, layers=LM_TRAIN["layers"], steps=LM_TRAIN["steps"], mixed=False):
     """The decoder LM at full width trains through fit() with sparse CE;
-    each flash kernel runs once per layer per step (causal)."""
+    each flash kernel of its dtype runs once per layer per step (causal),
+    the other dtype's never."""
     import torch
 
     from flexflow_tpu_torch import DataType, FFConfig, FFModel, LossType, SGDOptimizer
@@ -1724,7 +1990,7 @@ def train_causal_lm(device, layers=LM_TRAIN["layers"], steps=LM_TRAIN["steps"]):
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     b, s, vocab = FLAGSHIP["max_seqs"], FLAGSHIP["max_len"], FLAGSHIP["vocab"]
-    model = FFModel(FFConfig(batch_size=b, seed=SEED))
+    model = FFModel(FFConfig(batch_size=b, seed=SEED, allow_mixed_precision=mixed))
     tok = model.create_tensor([b, s], dtype=DataType.INT32, name="tokens")
     build_decoder_lm(model, tok, vocab_size=vocab, hidden=FLAGSHIP["hidden"], num_heads=FLAGSHIP["heads"],
                      num_layers=layers, ff_dim=4 * FLAGSHIP["hidden"])
@@ -1739,9 +2005,12 @@ def train_causal_lm(device, layers=LM_TRAIN["layers"], steps=LM_TRAIN["steps"]):
     mean_loss = hist[0]["loss_sum"] / max(1, hist[0]["train_all"])
     require(hist[0]["iterations"] == steps and np.isfinite(mean_loss), f"causal LM: {hist}")
     if torch.device(device).type == "cuda":
+        ran = FLASH_BF16 if mixed else FLASH_FP32
         for name, n in launches.items():
-            require(n == layers * steps, f"causal LM: {name} launches {n} != {layers} x {steps}")
-    print(f"[checks] causal decoder LM, {layers} layers: {steps} steps, mean loss {mean_loss:.4f} "
+            want = layers * steps if name in ran else 0
+            require(n == want, f"causal LM: {name} launches {n} != {want}")
+    print(f"[checks] causal decoder LM{' under mixed precision' if mixed else ''}, {layers} layers: {steps} steps, "
+          f"mean loss {mean_loss:.4f} "
           f"(ln {vocab} = {np.log(vocab):.4f}), {hist[0]['throughput']:.2f} samples/s, launches {launches}")
     return launches
 
@@ -1793,24 +2062,48 @@ def main() -> int:
     # phases measure peak memory
     gc.collect()
     # after the serving phases, so the decode profile stays the run's
-    # first profiler session (library_backend opens one), as it was
-    # before the training phases existed
+    # first profiler session, as it was before the training phases
+    # existed
+    # 5 and 5b: every flagship-shape timing first (FLASH_TIMED says why),
+    # then the wide shapes' timings and the correctness cases
     smi_before = smi_sample()
-    flash_rows = check_flash_kernels()
+    flash_rows = time_flash_kernels(FLASH_TIMED)
+    flash_rows.update(time_flash_bf16_kernels())
+    time_flash_kernels(FLASH_TIMED_WIDE)
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"before the flash kernel timings [{smi_before}], after them [{smi_sample()}]")
+    check_flash_kernels(flash_rows)
+    check_flash_bf16_kernels(flash_rows)
     rows.update((k, v) for k, v in flash_rows.items() if k in KERNELS)
-    model3, data, _, train_launches = train_flagship("cuda")
-    profile_train_step(model3, {k: v[: TRAIN["batch"]] for k, v in data.items()})
+    # what the kernel phases left to the garbage collector is freed before
+    # the training phases read peak memory
+    gc.collect()
+    model3, data, fp32_summary, train_launches = train_flagship("cuda")
+    fp32_profile = profile_train_step(model3, {k: v[: TRAIN["batch"]] for k, v in data.items()})
     check_flash_vs_dense(model3, data)
     check_loss_falls(model3, data)
     del model3
+    gc.collect()
+    # 6b: the same flagship under mixed precision (bench.py's mode)
+    model4, data, mixed_summary, mixed_launches = train_flagship("cuda", mixed=True)
+    mixed_profile = profile_train_step(model4, {k: v[: TRAIN["batch"]] for k, v in data.items()}, "mixed precision (bf16) ")
+    del model4
+    gc.collect()
+    keys = ("samples_per_s", "mean_step_ms", "peak_memory_gb")
+    print("[train] fp32 vs mixed precision, same call: "
+          + json.dumps({k: [fp32_summary[k], mixed_summary[k]] for k in keys})
+          + "; device ms and busy share of a profiled step: "
+          + json.dumps({label: None if prof is None else [prof["device_ms"], prof["device_busy_share"]]
+                        for label, prof in (("fp32", fp32_profile), ("bf16", mixed_profile))}))
+    compare_loss_curves("cuda")
     train_causal_lm("cuda")
+    train_causal_lm("cuda", mixed=True)
     launches = {
         "paged_flash_verify": main_launches["paged_flash_verify"],
         "flash_verify": layout_launches["slot"]["flash_verify"],
         **spec_launches,
-        **train_launches,
+        **{name: train_launches[name] for name in FLASH_FP32},
+        **{name: mixed_launches[name] for name in FLASH_BF16},
     }
     for name, n in launches.items():
         require(n > 0, f"{name} was never launched on its path")

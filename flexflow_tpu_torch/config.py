@@ -29,8 +29,11 @@ class FFConfig:
     # stateless optimizer without weight decay (compile() checks)
     sparse_embedding_update: bool = True
     seed: int = 0
-    # bf16 matmul operands with f32 accumulation; not ported (the
-    # kernels are fp32), so True raises at compile()
+    # bf16 matmul operands with f32 accumulation and bf16 activations
+    # between ops (f32 master weights, f32 layer-norm statistics and
+    # loss); ported for training, with bf16 bodies of the flash kernels
+    # #1-#3. Serving such a model raises (ROADMAP, Port queue: serving
+    # under mixed precision)
     allow_mixed_precision: bool = False
     # serving (reference: FlexFlow Serve's RequestManager flags):
     # KV-cache slots, cache length per slot, scheduler kind, EOS token

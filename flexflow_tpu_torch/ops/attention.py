@@ -29,7 +29,7 @@ from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorS
 from flexflow_tpu_torch.core.types import OperatorType
 from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
 from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
-from flexflow_tpu_torch.ops.registry import register_op
+from flexflow_tpu_torch.ops.registry import mm_operands, mm_out_dtype, register_op
 
 # the decode-core modes this slice takes: the kernel on CUDA tensors,
 # its plain version on CPU tensors (the reference's "pallas"/"dense"
@@ -75,37 +75,47 @@ def _infer_mha(input_shapes, params):
 
 def scaled_dot_product_attention(q, k, v, causal=False):
     """q, k, v: [b, s, h, d] — plain attention, fp32 softmax, masked
-    logits filled with -1e30 as in the reference."""
+    logits filled with -1e30 as in the reference. bf16 operands (mixed
+    precision) form the logits in f32 (their products are exact in f32,
+    as the reference's preferred_element_type=f32) and the probabilities
+    are rounded to bf16 before P V, whose output is bf16."""
     d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    if q.dtype == torch.bfloat16:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
     if causal:
         qlen, klen = logits.shape[-2], logits.shape[-1]
         mask = torch.ones((qlen, klen), dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def mha_project_qkv(ins, ws, ctx=None, use_bias=True):
     """Input projections: (xq, xk, xv) [b, s, e] -> (q, k, v) [b, s, h, d].
     Shared by the dense lowering and the serving engine, so the cached
-    K/V rows come from exactly the projections the full forward uses."""
+    K/V rows come from exactly the projections the full forward uses.
+    Under mixed precision the operands are bf16 (mm_operands) and q, k, v
+    and their biases take the compute dtype bf16."""
     out = []
     for i, x in enumerate(ins[:3]):
-        w = ws[i]  # [e, h, d]
-        y = (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+        xm, w = mm_operands(ctx, x, ws[i])  # w: [e, h, d]
+        y = (xm @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
         if use_bias:
-            y = y + ws[4 + i]
+            y = y + ws[4 + i].to(y.dtype)
         out.append(y)
     return tuple(out)
 
 
 def mha_project_out(attn, ws, ctx=None, use_bias=True):
-    """Output projection: attn [b, s, h, d] -> [b, s, e]."""
-    wo = ws[3]  # [h, d, e]
-    y = attn.reshape(*attn.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    """Output projection: attn [b, s, h, d] -> [b, s, e], bf16 under
+    mixed precision."""
+    am, wo = mm_operands(ctx, attn, ws[3])  # wo: [h, d, e]
+    y = am.reshape(*attn.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    y = y.to(mm_out_dtype(ctx, ws[3].dtype))
     if use_bias:
-        y = y + ws[7]
+        y = y + ws[7].to(y.dtype)
     return y
 
 
@@ -235,8 +245,9 @@ def paged_decode_attention(
 # Flash-or-dense rule. use_flash "auto" and True both go through the
 # flash wrapper, False runs the dense core. On a CUDA tensor the wrapper
 # launches the kernels or raises: a shape that flash_kernel.supports()
-# refuses (not fp32, or head_dim not a multiple of 8) needs
-# use_flash=False, and never falls back to the dense core unasked. On a
+# refuses (head_dim not a multiple of 8, or bf16 past head_dim 256)
+# needs use_flash=False, and never falls back to the dense core unasked.
+# Under mixed precision q, k, v arrive bf16 and run the bf16 bodies. On a
 # CPU tensor the wrapper takes its plain version, whatever the shape.
 # The reference's thresholds do not carry over: its "auto" took
 # flash only past a 2 GiB score tensor (_FLASH_SCORE_BYTES) and scanned

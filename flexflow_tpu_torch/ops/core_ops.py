@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorShape
 from flexflow_tpu_torch.core.types import ActiMode, AggrMode, DataType, OperatorType
-from flexflow_tpu_torch.ops.registry import register_op
+from flexflow_tpu_torch.ops.registry import mm_operands, mm_out_dtype, register_op
 
 
 def _split_replica(shape: ParallelTensorShape):
@@ -82,9 +82,14 @@ def _lower_linear(params):
 
     def fn(ins, ws, ctx):
         (x,) = ins
-        y = torch.matmul(x, ws[0])
+        kernel = ws[0]
+        # under mixed precision a bf16 matmul: f32 accumulation, one
+        # rounding of the output to bf16 (the reference's
+        # preferred_element_type=f32 then astype)
+        xm, km = mm_operands(ctx, x, kernel)
+        y = torch.matmul(xm, km).to(mm_out_dtype(ctx, kernel.dtype))
         if use_bias:
-            y = y + ws[1]
+            y = y + ws[1].to(y.dtype)
         return [_apply_activation(y, act)]
 
     return fn
@@ -121,7 +126,10 @@ def _lower_layernorm(params):
                 "(ROADMAP, Port queue: training op breadth)"
             )
         w, b = (ws[0], ws[1]) if elementwise_affine else (None, None)
-        return [F.layer_norm(x, x.shape[-len(axes):], w, b, eps)]
+        # f32 statistics and affine under a bf16 activation flow, rounded
+        # back to the input's dtype (reference core_ops.py:399-413)
+        y = F.layer_norm(x.float(), x.shape[-len(axes):], w, b, eps)
+        return [y.to(x.dtype)]
 
     return fn
 
@@ -182,6 +190,9 @@ def _infer_add(input_shapes, params):
     return (ParallelTensorShape.make(tuple(sizes), a.dtype),), ()
 
 
+# Under mixed precision no cast: bf16 + f32 promotes to f32 in torch as
+# in JAX, so a residual stream that starts f32 (an embedding's output)
+# stays f32 while the matmul outputs added to it are bf16.
 register_op(
     OperatorType.EW_ADD,
     _infer_add,

@@ -4,14 +4,21 @@ flexflow_tpu/ops/pallas/flash_kernel.py, kernels #1-#3 of the family:
 
 The device code is CUDA C++ for Hopper, built on first use by
 ops/cuda/_build.py and called through ctypes on PyTorch's current
-stream: the forward in flexflow_tpu_torch/csrc/flash_kernel.cu, the
-backward in csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32
-products on the tensor cores (helpers shared in csrc/flash_common.cuh):
+stream. float32 operands run the forward in
+flexflow_tpu_torch/csrc/flash_kernel.cu and the backward in
+csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
+tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
+operands (mixed precision) run all three in csrc/flash_bf16_kernel.cu,
+one bf16 mma pass per product with f32 accumulation, the reference's
+bodies at bf16 inputs:
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
   * `flash_dq(q, k, v, do, lse, delta, ...)` -> dQ — kernel #2;
   * `flash_dkv(q, k, v, do, lse, delta, ...)` -> (dK, dV) — kernel #3.
+
+q, k, v and dO share one dtype, float32 or bfloat16; O, dQ, dK and dV
+take it, LSE and delta are float32 either way.
 
 `flash_attention(q, k, v, causal, sm_scale, return_lse)` is the
 counterpart of `flash_attention_tpu`: a `torch.autograd.Function` whose
@@ -28,9 +35,10 @@ raises. `LAUNCHES` counts kernel launches per kernel.
 
 Operand layout: the kernels read [b, s, h, d] through its strides with
 16-byte loads. An operand whose head_dim is not contiguous, whose other
-strides are not multiples of 4 elements or whose data is not 16-byte
-aligned is copied with `.contiguous()` first; autograd's dO can be such
-a tensor (an expanded gradient has stride 0). Outputs are contiguous.
+strides are not multiples of 16 bytes (4 float32 or 8 bfloat16
+elements) or whose data is not 16-byte aligned is copied with
+`.contiguous()` first; autograd's dO can be such a tensor (an expanded
+gradient has stride 0). Outputs are contiguous.
 """
 
 from __future__ import annotations
@@ -46,17 +54,26 @@ from flexflow_tpu_torch.ops.cuda import _build
 
 SOURCE = "flash_kernel.cu"
 BWD_SOURCE = "flash_bwd_kernel.cu"
+BF16_SOURCE = "flash_bf16_kernel.cu"
 
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
-# kernel launches per kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# the bf16 bodies take head_dim up to this (the fp32 ones any multiple of 8)
+BF16_MAX_HEAD_DIM = 256
+
+# kernel launches per kernel since the last reset_launches(): the fp32
+# bodies under the kernels' names, the bf16 bodies under name + "_bf16"
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
+}
 
 _MASK = -1e30  # the reference's finite mask fill
 
 _bound: Optional[ctypes.CDLL] = None
 _bwd_bound: Optional[ctypes.CDLL] = None
+_bf16_bound: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -65,12 +82,17 @@ def reset_launches() -> None:
 
 
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take this shape: fp32, head_dim any positive
-    multiple of 8 (as the reference's supports(); past 256 the score
-    contraction streams over head_dim in 128-column pieces), non-empty
-    sequences. Any sequence length works (the ragged tail of a tile is
-    masked)."""
-    return dtype == torch.float32 and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
+    """Whether the kernels take this shape: float32 with head_dim any
+    positive multiple of 8 (as the reference's supports(); past 256 the
+    score contraction streams over head_dim in 128-column pieces), or
+    bfloat16 with head_dim a multiple of 8 up to BF16_MAX_HEAD_DIM;
+    non-empty sequences. Any sequence length works (the ragged tail of a
+    tile is masked)."""
+    if dtype == torch.bfloat16:
+        widths = d <= BF16_MAX_HEAD_DIM
+    else:
+        widths = dtype == torch.float32
+    return widths and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -107,12 +129,37 @@ def _bwd_lib() -> ctypes.CDLL:
     return _bwd_bound
 
 
+def _bf16_lib() -> ctypes.CDLL:
+    """The built bf16 library (#1, #2, #3) with its C signatures declared."""
+    global _bf16_bound
+    if _bf16_bound is None:
+        lib = _build.load(BF16_SOURCE)
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.ff_flash_bf16_cuda_error_string.argtypes = [I]
+        lib.ff_flash_bf16_cuda_error_string.restype = ctypes.c_char_p
+        lib.ff_flash_bf16_occupancy.argtypes = [I, I, P]
+        lib.ff_flash_bf16_occupancy.restype = I
+        lib.ff_flash_fwd_bf16.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
+        lib.ff_flash_fwd_bf16.restype = I
+        lib.ff_flash_dq_bf16.argtypes = [P] * 7 + [I] * 5 + [L] * 12 + [F, I, P]
+        lib.ff_flash_dq_bf16.restype = I
+        lib.ff_flash_dkv_bf16.argtypes = [P] * 8 + [I] * 5 + [L] * 12 + [F, I, P]
+        lib.ff_flash_dkv_bf16.restype = I
+        _bf16_bound = lib
+    return _bf16_bound
+
+
+_BF16_KINDS = {"flash_fwd_bf16": 0, "flash_dq_bf16": 1, "flash_dkv_bf16": 2}
+
+
 def occupancy(name: str, d: int) -> Dict[str, int]:
-    """What one block of kernel `name` ("flash_fwd", "flash_dq" or
-    "flash_dkv") takes at head_dim d on the current card, and how many
-    blocks fit an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """What one block of kernel `name` (a LAUNCHES key) takes at head_dim
+    d on the current card, and how many blocks fit an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = (ctypes.c_int * 5)()
-    if name == "flash_fwd":
+    if name in _BF16_KINDS:
+        code = _bf16_lib().ff_flash_bf16_occupancy(_BF16_KINDS[name], d, out)
+    elif name == "flash_fwd":
         code = _lib().ff_flash_occupancy(d, out)
     else:
         code = _bwd_lib().ff_flash_bwd_occupancy(0 if name == "flash_dq" else 1, d, out)
@@ -127,20 +174,38 @@ def _scale(d: int, sm_scale: Optional[float]) -> float:
 # -- plain PyTorch versions ----------------------------------------------------
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or itself when it is float32 or float64 (a float64
+    call of a plain version is the exact function, for measuring both
+    versions' errors against)."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
 def _scores(q, k, causal, scale):
-    """Scaled scores [b, h, sq, sk] and the visible mask (None when every
-    pair is visible). Causal: qpos >= kpos from a shared origin."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    """Scaled scores [b, h, sq, sk] in float32 (from bf16 operands, whose
+    products f32 holds exactly; float64 for float64) and the visible mask
+    (None when every pair is visible). Causal: qpos >= kpos from a shared
+    origin."""
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * scale
     if not causal:
         return s, None
     sq, sk = s.shape[-2:]
     return s, torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
 
 
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 intermediate as the second product's operand: rounded to
+    bfloat16 (nearest even, as the reference's astype) and read back in
+    float32 when the operands are bfloat16; else itself."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
 def flash_fwd_ref(q, k, v, causal=False, sm_scale=None):
-    """Plain version of kernel #1: (O [b, sq, h, d], LSE [b, h, sq] fp32)
-    with masked entries weighing exactly 0, O = acc / max(l, 1e-30) and
-    LSE = m + log(max(l, 1e-30))."""
+    """Plain version of kernel #1: (O [b, sq, h, d] in q's dtype, LSE
+    [b, h, sq] float32) with masked entries weighing exactly 0,
+    O = acc / max(l, 1e-30) and LSE = m + log(max(l, 1e-30)). For bf16,
+    P = exp(S - m) is rounded to bf16 before P V (l sums the f32 P), the
+    product accumulates in f32 and O is rounded to bf16 after / l."""
     s, valid = _scores(q, k, causal, _scale(q.shape[-1], sm_scale))
     if valid is not None:
         m = s.masked_fill(~valid, _MASK).amax(dim=-1, keepdim=True)
@@ -149,33 +214,39 @@ def flash_fwd_ref(q, k, v, causal=False, sm_scale=None):
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhqk,bkhd->bqhd", p / l, v)
-    return o, (m + torch.log(l))[..., 0]
+    lse = (m + torch.log(l))[..., 0]
+    if q.dtype != torch.bfloat16:
+        return torch.einsum("bhqk,bkhd->bqhd", p / l, v), lse
+    acc = torch.einsum("bhqk,bkhd->bqhd", _operand(p, q.dtype), v.float())
+    return (acc / l.transpose(1, 2)).to(q.dtype), lse
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
-    """p = exp(s - lse) and ds = p * (dO V^T - delta) * scale, [b, h, sq, sk],
-    both 0 where masked."""
+    """p = exp(s - lse) and ds = p * (dO V^T - delta) * scale, [b, h, sq, sk]
+    float32, both 0 where masked."""
     s, valid = _scores(q, k, causal, scale)
     p = torch.exp(s - lse[..., None])
     if valid is not None:
         p = torch.where(valid, p, torch.zeros((), dtype=p.dtype))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    dp = torch.einsum("bqhd,bkhd->bhqk", _wide(do), _wide(v))
     return p, p * (dp - delta[..., None]) * scale
 
 
 def flash_dq_ref(q, k, v, do, lse, delta, causal=False, sm_scale=None):
-    """Plain version of kernel #2: dQ = dS K."""
+    """Plain version of kernel #2: dQ = dS K (for bf16, dS rounded to bf16
+    before the product and dQ after it)."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, _scale(q.shape[-1], sm_scale))
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _operand(ds, q.dtype), _wide(k))
+    return dq.to(q.dtype)
 
 
 def flash_dkv_ref(q, k, v, do, lse, delta, causal=False, sm_scale=None):
-    """Plain version of kernel #3: (dK = dS^T Q, dV = P^T dO)."""
+    """Plain version of kernel #3: (dK = dS^T Q, dV = P^T dO); for bf16, P
+    and dS rounded to bf16 before the products and dK, dV after them."""
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, _scale(q.shape[-1], sm_scale))
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    return dk, dv
+    dk = torch.einsum("bhqk,bqhd->bkhd", _operand(ds, q.dtype), _wide(q))
+    dv = torch.einsum("bhqk,bqhd->bkhd", _operand(p, q.dtype), _wide(do))
+    return dk.to(q.dtype), dv.to(q.dtype)
 
 
 # -- kernel wrappers -------------------------------------------------------------
@@ -184,17 +255,23 @@ def flash_dkv_ref(q, k, v, do, lse, delta, causal=False, sm_scale=None):
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when the kernels can read it with 16-byte loads through
     its strides, else a contiguous copy."""
+    per16 = 16 // t.element_size()
     if (
         t.stride(-1) == 1
-        and all(s % 4 == 0 for s in t.stride()[:-1])
+        and all(s % per16 == 0 for s in t.stride()[:-1])
         and t.data_ptr() % 16 == 0
     ):
         return t
     return t.contiguous()
 
 
-def _check(name, q, k, v, extra=()):
-    """Raise on what the kernels do not take; returns (b, h, sq, sk, d)."""
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name, q, k, v, extra=(), rows=()):
+    """Raise on what the kernels do not take; returns (b, h, sq, sk, d).
+    q, k, v and the `extra` operands share q's dtype, float32 or
+    bfloat16; the `rows` operands (LSE, delta) are float32."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be [b, s, h, d]")
     b, sq, h, d = q.shape
@@ -204,16 +281,24 @@ def _check(name, q, k, v, extra=()):
             f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
             f"q {tuple(q.shape)}"
         )
-    for tname, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q is {q.dtype}, the kernels take float32 or bfloat16")
+    for tname, t in (("k", k), ("v", v)) + tuple(extra) + tuple(rows):
         if t.device != q.device:
             raise ValueError(f"{name}: {tname} on {t.device}, q on {q.device}")
+    for tname, t in (("k", k), ("v", v)) + tuple(extra):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, q is {q.dtype}")
+    for tname, t in rows:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {tname} is {t.dtype}, the kernels take float32")
     if not supports(sq, sk, d, q.dtype):
-        raise ValueError(
-            f"{name}: head_dim {d} (sq {sq}, sk {sk}) is not taken: it must be "
-            "a positive multiple of 8"
+        widths = (
+            f"a multiple of 8 up to {BF16_MAX_HEAD_DIM} in bfloat16"
+            if q.dtype == torch.bfloat16
+            else "a positive multiple of 8"
         )
+        raise ValueError(f"{name}: head_dim {d} (sq {sq}, sk {sk}) is not taken: it must be {widths}")
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"{name}: batch * heads = {b * h} > {_MAX_BATCH_HEADS}")
     return b, h, sq, sk, d
@@ -228,7 +313,9 @@ def _strides(*ts):
 
 def _raise_on(code: int, name: str) -> None:
     if code:
-        if name == "flash_fwd":
+        if name in _BF16_KINDS:
+            msg = _bf16_lib().ff_flash_bf16_cuda_error_string(code).decode()
+        elif name == "flash_fwd":
             msg = _lib().ff_flash_cuda_error_string(code).decode()
         else:
             msg = _bwd_lib().ff_flash_bwd_cuda_error_string(code).decode()
@@ -240,32 +327,41 @@ def _device_only(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
+def _body(name: str, dtype: torch.dtype):
+    """(LAUNCHES key, C entry point) of kernel `name` for `dtype`."""
+    if dtype == torch.bfloat16:
+        return name + "_bf16", getattr(_bf16_lib(), f"ff_{name}_bf16")
+    lib = _lib() if name == "flash_fwd" else _bwd_lib()
+    return name, getattr(lib, f"ff_{name}_f32")
+
+
 def flash_fwd(q, k, v, causal=False, sm_scale=None):
-    """Kernel #1. q [b, sq, h, d], k/v [b, sk, h, d] float32 -> (O
-    [b, sq, h, d], LSE [b, h, sq] float32)."""
+    """Kernel #1. q [b, sq, h, d], k/v [b, sk, h, d] float32 or bfloat16
+    -> (O [b, sq, h, d] in q's dtype, LSE [b, h, sq] float32)."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal, sm_scale)
     _device_only("flash_fwd", q)
     b, h, sq, sk, d = _check("flash_fwd", q, k, v)
     q, k, v = _readable(q), _readable(k), _readable(v)
-    o = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or h == 0:
         return o, lse
+    key, fn = _body("flash_fwd", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = _lib().ff_flash_fwd_f32(
+        code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, sq, sk, d, *_strides(q, k, v),
             _scale(d, sm_scale), int(causal), stream,
         )
-    _raise_on(code, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _raise_on(code, key)
+    LAUNCHES[key] += 1
     return o, lse
 
 
 def _bwd_operands(name, q, k, v, do, lse, delta):
-    b, h, sq, sk, d = _check(name, q, k, v, (("do", do), ("lse", lse), ("delta", delta)))
+    b, h, sq, sk, d = _check(name, q, k, v, (("do", do),), (("lse", lse), ("delta", delta)))
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} != q {tuple(q.shape)}")
     for tname, t in (("lse", lse), ("delta", delta)):
@@ -276,52 +372,55 @@ def _bwd_operands(name, q, k, v, do, lse, delta):
 
 
 def flash_dq(q, k, v, do, lse, delta, causal=False, sm_scale=None):
-    """Kernel #2: dQ [b, sq, h, d] from (q, k, v, dO, LSE, delta); lse and
-    delta are [b, h, sq] float32."""
+    """Kernel #2: dQ [b, sq, h, d] in q's dtype from (q, k, v, dO, LSE,
+    delta); lse and delta are [b, h, sq] float32."""
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, causal, sm_scale)
     _device_only("flash_dq", q)
     (b, h, sq, sk, d), (q, k, v, do, lse, delta) = _bwd_operands(
         "flash_dq", q, k, v, do, lse, delta
     )
-    dq = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or h == 0:
         return dq
+    key, fn = _body("flash_dq", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = _bwd_lib().ff_flash_dq_f32(
+        code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, sq, sk, d, *_strides(q, k, v, do),
             _scale(d, sm_scale), int(causal), stream,
         )
-    _raise_on(code, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _raise_on(code, key)
+    LAUNCHES[key] += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal=False, sm_scale=None):
-    """Kernel #3: (dK, dV) [b, sk, h, d] from (q, k, v, dO, LSE, delta)."""
+    """Kernel #3: (dK, dV) [b, sk, h, d] in q's dtype from (q, k, v, dO,
+    LSE, delta)."""
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale)
     _device_only("flash_dkv", q)
     (b, h, sq, sk, d), (q, k, v, do, lse, delta) = _bwd_operands(
         "flash_dkv", q, k, v, do, lse, delta
     )
-    dk = torch.empty((b, sk, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if b == 0 or h == 0:
         return dk, dv
+    key, fn = _body("flash_dkv", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = _bwd_lib().ff_flash_dkv_f32(
+        code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, sq, sk, d, *_strides(q, k, v, do),
             _scale(d, sm_scale), int(causal), stream,
         )
-    _raise_on(code, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _raise_on(code, key)
+    LAUNCHES[key] += 1
     return dk, dv
 
 
@@ -346,8 +445,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        # delta_i = rowsum(dO * O) - g_lse, [b, h, sq]
-        delta = (do * o).sum(dim=-1).transpose(1, 2)
+        # delta_i = rowsum(dO * O) - g_lse, [b, h, sq], summed in float32
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
         if dlse is not None:
             delta = delta - dlse
         delta = delta.contiguous()

@@ -22,14 +22,18 @@ from flexflow_tpu_torch.core.types import OperatorType
 @dataclasses.dataclass(frozen=True)
 class LowerCtx:
     """Execution context threaded through lowered ops: whether this is a
-    training forward, and the seed of the node's own random generator
-    (None when the caller passed no seed; the counterpart of the
-    reference's per-node fold_in(rng, guid) key). The reference's mesh
+    training forward, the seed of the node's own random generator (None
+    when the caller passed no seed; the counterpart of the reference's
+    per-node fold_in(rng, guid) key), and whether matmuls take bf16
+    operands (FFConfig.allow_mixed_precision). The reference's mesh
     fields arrive with parallel strategies."""
 
     train: bool = False
     seed: Optional[int] = None
     device: Optional[torch.device] = None
+    # bf16 matmul operands with f32 accumulation and bf16 outputs; set
+    # from FFConfig.allow_mixed_precision
+    bf16_matmul: bool = False
 
     @functools.cached_property
     def rng(self) -> Optional[torch.Generator]:
@@ -40,6 +44,25 @@ class LowerCtx:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
         return gen
+
+
+def mm_operands(ctx, *tensors):
+    """Matmul operands: float32 tensors cast to bf16 when mixed precision
+    is on, every other dtype (and everything when it is off) as it is.
+    The products accumulate in f32; autograd's backward of the cast
+    returns f32 gradients to the f32 master weights."""
+    if ctx is not None and ctx.bf16_matmul:
+        return tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t for t in tensors)
+    return tensors
+
+
+def mm_out_dtype(ctx, default: torch.dtype) -> torch.dtype:
+    """Matmul output dtype: bf16 when mixed precision is on, else
+    `default`. Activations stay bf16 between ops; the loss upcasts the
+    logits to f32 (runtime/loss.py)."""
+    if ctx is not None and ctx.bf16_matmul:
+        return torch.bfloat16
+    return default
 
 
 @dataclasses.dataclass

@@ -57,6 +57,7 @@ class Executor:
         optimizer=None,
         logits_from_logits: bool = True,
         sparse_embedding_update: bool = False,
+        mixed_precision: bool = False,
     ):
         self.graph = graph
         self.logits_ref = logits_ref
@@ -67,6 +68,9 @@ class Executor:
         self.optimizer = optimizer
         self.logits_from_logits = logits_from_logits
         self.sparse_embedding_update = sparse_embedding_update
+        # bf16 matmul operands and activations (every LowerCtx carries
+        # bf16_matmul); parameters and optimizer state stay float32
+        self.mixed_precision = mixed_precision
         self.topo = graph.topo_order()
         self._lowered = {
             g: lower_op(graph.nodes[g].op_type, graph.nodes[g].params)
@@ -134,7 +138,7 @@ class Executor:
         engine swaps the attention core for the KV-cache paths this way
         and everything else runs the normal lowering."""
         values: Dict[Tuple[int, int], torch.Tensor] = {}
-        ctx = LowerCtx(train=train)
+        ctx = LowerCtx(train=train, bf16_matmul=self.mixed_precision)
         for guid in self.topo:
             node = self.graph.nodes[guid]
             if node.op_type == OperatorType.INPUT and not node.inputs:
@@ -145,7 +149,12 @@ class Executor:
             ins = [values[(r.guid, r.out_idx)] for r in node.inputs]
             ws = params.get(guid, [])
             if rng is not None:
-                ctx = LowerCtx(train=train, seed=node_seed(rng, guid), device=self.device)
+                ctx = LowerCtx(
+                    train=train,
+                    seed=node_seed(rng, guid),
+                    device=self.device,
+                    bf16_matmul=self.mixed_precision,
+                )
             hook = op_hooks.get(node.op_type) if op_hooks else None
             outs = hook(node, ins, ws, ctx) if hook is not None else self._lowered[guid](ins, ws, ctx)
             for i, out in enumerate(outs):

@@ -240,8 +240,11 @@ class FFModel:
         optimizer state (reference: FFModel::compile, the arguments in its
         order, plus `device`). `device=None` means the current CUDA device
         (or the one device of `devices`); without a card that raises (pass
-        device='cpu' for the plain PyTorch path). The model is fp32 end to
-        end, so TF32 matmuls are switched off on CUDA. Without an optimizer
+        device='cpu' for the plain PyTorch path). The weights are fp32, so
+        TF32 matmuls are switched off on CUDA. With the config's
+        allow_mixed_precision the matmuls take bf16 operands with f32
+        accumulation (and bf16 outputs), as the reference's; on CUDA
+        cuBLAS is then kept from reducing in bf16. Without an optimizer
         it is SGD with the config's learning rate and weight decay, as in
         the reference; `comp_mode` is taken and unused, as there."""
         if strategy is not None:
@@ -259,15 +262,14 @@ class FFModel:
                 )
             if device is None:
                 device = devices[0]
-        if self.config.allow_mixed_precision:
-            raise NotImplementedError(
-                "allow_mixed_precision: bf16 operands need bf16 kernels, not "
-                "ported yet (ROADMAP, Port queue: bf16 mixed precision)"
-            )
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            if self.config.allow_mixed_precision:
+                # its default lets cuBLAS reduce a bf16 GEMM in bf16; the
+                # reference accumulates in f32
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.optimizer = optimizer or self.optimizer or SGDOptimizer(
             lr=self.config.learning_rate,
             weight_decay=self.config.weight_decay,
@@ -299,6 +301,7 @@ class FFModel:
             optimizer=self.optimizer,
             logits_from_logits=from_logits,
             sparse_embedding_update=self.config.sparse_embedding_update,
+            mixed_precision=self.config.allow_mixed_precision,
         )
         self.params = self.executor.init_params(self.config.seed)
         self.opt_state = self.optimizer.init_state(self.params)

@@ -11,7 +11,9 @@ plain versions, which differ in summation order only. The flash kernels
 #1-#3 at the reference's own scale (tests/test_flash_kernel.py): O and
 LSE atol 2e-5 (the reference's bound taken as absolute, with no relative
 term, so that no entry's bound exceeds the decode kernels' 1e-4), dQ, dK
-and dV atol 5e-5 and rtol 5e-4."""
+and dV atol 5e-5 and rtol 5e-4. Their bf16 bodies (mixed precision)
+against float64 of the same bf16 inputs, beside their plain versions
+(the gate is stated above `_bf16_ulp`)."""
 
 import numpy as np
 import pytest
@@ -38,6 +40,11 @@ def _card():
 
 def _rand(rng, dev, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def _flash_launches(**counts):
+    """fk.LAUNCHES as it must read: `counts`, every other kernel 0."""
+    return dict(dict.fromkeys(fk.LAUNCHES, 0), **counts)
 
 
 @pytest.mark.parametrize("w", [1, 5])
@@ -505,7 +512,7 @@ def test_flash_kernels_match_plain_versions(shape, causal):
     dq = fk.flash_dq(q, k, v, do, rlse, delta, causal)
     dk_, dv = fk.flash_dkv(q, k, v, do, rlse, delta, causal)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fk.LAUNCHES == _flash_launches(flash_fwd=1, flash_dq=1, flash_dkv=1)
     torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
     rdk, rdv = fk.flash_dkv_ref(q, k, v, do, rlse, delta, causal)
@@ -540,7 +547,7 @@ def test_flash_backward_matches_plain_versions_at_mma_edges(sq, sk, causal, d):
     dq = fk.flash_dq(*args)
     dk_, dv = fk.flash_dkv(*args)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    assert fk.LAUNCHES == _flash_launches(flash_dq=1, flash_dkv=1)
     rdk, rdv = fk.flash_dkv_ref(*args)
     torch.testing.assert_close(dq, fk.flash_dq_ref(*args), atol=GRAD_ATOL, rtol=GRAD_RTOL)
     torch.testing.assert_close(dk_, rdk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
@@ -560,7 +567,7 @@ def test_flash_forward_matches_plain_version_at_mma_edges(sq, sk, causal, d):
     fk.reset_launches()
     o, lse = fk.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+    assert fk.LAUNCHES == _flash_launches(flash_fwd=1)
     ro, rlse = fk.flash_fwd_ref(q, k, v, causal)
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
     torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
@@ -592,15 +599,18 @@ def test_flash_backward_is_bit_identical_across_calls(causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
-    """bf16 (also past head_dim 256), head_dim 60 or 260 (no multiple of
-    8, on either side of 256) and mixed devices raise before any launch."""
+    """float16, mixed float32 and bf16 operands, bf16 past head_dim 256,
+    head_dim 60 or 260 (no multiple of 8, on either side of 256) and mixed
+    devices raise before any launch."""
     dev = _card()
     fk.reset_launches()
     q = torch.zeros(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
-        fk.flash_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
-    wide = torch.zeros(1, 8, 2, 320, device=dev).bfloat16()
+        fk.flash_fwd(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):
+        fk.flash_fwd(q.bfloat16(), q, q.bfloat16())
+    wide = torch.zeros(1, 8, 2, 320, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head_dim 320 .* up to 256 in bfloat16"):
         fk.flash_fwd(wide, wide, wide)
     odd = torch.zeros(1, 8, 2, 260, device=dev)
     with pytest.raises(ValueError, match="head_dim 260 .* multiple of 8"):
@@ -659,7 +669,7 @@ def test_mha_with_head_dim_160_trains_through_the_flash_kernels(monkeypatch, cau
 
     fk.reset_launches()
     got = run()
-    assert fk.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fk.LAUNCHES == _flash_launches(flash_fwd=1, flash_dq=1, flash_dkv=1)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         monkeypatch.setattr(fk, name, getattr(fk, name + "_ref"))
     want = run()
@@ -694,7 +704,145 @@ def test_small_transformer_trains_through_the_flash_kernels():
     fk.reset_launches()
     hist = model.fit(data, np.zeros((6, 100, 1), np.float32), verbose=False)
     assert hist[0]["iterations"] == 3 and np.isfinite(hist[0]["loss_sum"])
-    assert fk.LAUNCHES == {"flash_fwd": 6, "flash_dq": 6, "flash_dkv": 6}
+    assert fk.LAUNCHES == _flash_launches(flash_fwd=6, flash_dq=6, flash_dkv=6)
+
+
+# -- the bf16 bodies of #1-#3 (mixed precision) ---------------------------------------
+# Each bf16 kernel is held with its plain version against the float64
+# function of the same bf16 inputs: the kernel's max error may be at most
+# twice the plain version's plus one bf16 ulp of the exact output's largest
+# entry. Both round P (or dS) and the output to bf16, at places that differ
+# (the kernel rounds P under its running max), so their errors are of one
+# size; a wrong mask, scale or fragment layout is off by O(1). The ulp is
+# taken of at least ULP_FLOOR: where only one key is visible, dQ and dK
+# are 0 in exact arithmetic and both versions give the f32 rounding noise
+# of dP - delta (~1e-7, measured on an H100), which no bf16 ulp of the
+# output scales.
+ULP_FLOOR = 2.0**-13
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(x, ULP_FLOOR))) - 7)
+
+
+def _assert_bf16_close(got, plain, exact, what):
+    for i, (a, p, e) in enumerate(zip(got, plain, exact)):
+        assert a.dtype == p.dtype, (what, i, a.dtype)
+        assert bool(torch.isfinite(a).all()), (what, i)
+        kernel_err = float((a.double() - e).abs().max())
+        plain_err = float((p.double() - e).abs().max())
+        limit = 2 * plain_err + _bf16_ulp(float(e.abs().max()))
+        assert kernel_err <= limit, (what, i, kernel_err, plain_err, limit)
+
+
+def _bf16_operands(rng, dev, b, sq, sk, h, d, causal):
+    """bf16 q, k, v, dO, and LSE and delta (float32) of the plain forward."""
+    q, do = (_rand(rng, dev, b, sq, h, d).bfloat16() for _ in range(2))
+    k, v = (_rand(rng, dev, b, sk, h, d).bfloat16() for _ in range(2))
+    o, lse = fk.flash_fwd_ref(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, causal
+
+
+def _check_bf16_kernels(args, fwd=True, bwd=True):
+    q, k, v, do, lse, delta, causal = args
+    exact = [t.double() for t in (q, k, v, do)]
+    fk.reset_launches()
+    if fwd:
+        got = fk.flash_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        plain = fk.flash_fwd_ref(q, k, v, causal)
+        ref = fk.flash_fwd_ref(*exact[:3], causal)
+        _assert_bf16_close(got[:1], plain[:1], ref[:1], "O")
+        assert got[1].dtype == torch.float32
+        torch.testing.assert_close(got[1], plain[1], atol=FWD_TOL, rtol=0)
+    if bwd:
+        got = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+        torch.cuda.synchronize()
+        plain = (fk.flash_dq_ref(*args), *fk.flash_dkv_ref(*args))
+        ref = (fk.flash_dq_ref(*exact, lse, delta, causal), *fk.flash_dkv_ref(*exact, lse, delta, causal))
+        _assert_bf16_close(got, plain, ref, "dQ, dK, dV")
+    assert fk.LAUNCHES == _flash_launches(
+        flash_fwd_bf16=int(fwd), flash_dq_bf16=int(bwd), flash_dkv_bf16=int(bwd)
+    )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 512, 512, 16, 64),  # the flagship's
+     (2, 500, 500, 4, 64), (2, 500, 380, 4, 64), (2, 128, 384, 4, 64),
+     (2, 200, 77, 3, 24), (2, 384, 129, 4, 128), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256),
+     # the reference's test shapes (tests/test_flash_kernel.py)
+     (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32)],
+)
+def test_bf16_flash_kernels_match_plain_versions(shape, causal):
+    """The bf16 #1-#3 at the flagship shape, ragged and sq != sk shapes,
+    head_dim 24 to 256 and the reference's test shapes; one launch of
+    each bf16 body counted per call, none of the fp32 bodies."""
+    dev = _card()
+    b, sq, sk, h, d = shape
+    _check_bf16_kernels(_bf16_operands(np.random.default_rng(sq + sk + d), dev, b, sq, sk, h, d, causal))
+
+
+@pytest.mark.parametrize("d", [8, 24, 64, 136, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", MMA_EDGE_LENGTHS)
+def test_bf16_flash_kernels_match_plain_versions_at_mma_edges(sq, sk, causal, d):
+    """The bf16 bodies where tiles are ragged against mma's 16 rows and the
+    64-row tiles, and head_dims whose last k16 step is half zero-filled
+    (8, 24, 136) or that take two output chunks (136, 256)."""
+    dev = _card()
+    rng = np.random.default_rng(sq * 1000 + sk + d + 11)
+    _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_flash_kernels_are_bit_identical_across_calls(causal):
+    """No atomics in the bf16 bodies either: two calls give the same bits."""
+    dev = _card()
+    args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, 64, causal)
+    q, k, v = args[:3]
+    first = (*fk.flash_fwd(q, k, v, causal), fk.flash_dq(*args), *fk.flash_dkv(*args))
+    second = (*fk.flash_fwd(q, k, v, causal), fk.flash_dq(*args), *fk.flash_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_flash_kernels_read_misaligned_views():
+    """A bf16 view whose strides or start are not 16-byte multiples is
+    copied before the kernels read it, and gives the contiguous result;
+    head_dim 60 (no multiple of 8) raises before any launch."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    base = _rand(rng, dev, 2, 70, 2, 72).bfloat16()
+    q = base[..., 4:68]  # strides of 72 elements, data 8 bytes in
+    k, v = (_rand(rng, dev, 2, 70, 2, 64).bfloat16() for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    fk.reset_launches()
+    for a, b in zip(fk.flash_fwd(q, k, v, True), fk.flash_fwd(q.contiguous(), k, v, True)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head_dim 60"):
+        fk.flash_fwd(q[..., :60], k[..., :60], v[..., :60])
+    assert fk.LAUNCHES == _flash_launches(flash_fwd_bf16=2)
+
+
+def test_mixed_precision_transformer_trains_through_the_bf16_kernels():
+    """A 2-layer encoder compiled with allow_mixed_precision takes 3 train
+    steps through fit(): each bf16 flash kernel runs once per layer per
+    step and no fp32 body runs; the weights stay float32 masters."""
+    dev = _card()
+    model = FFModel(FFConfig(batch_size=2, seed=0, allow_mixed_precision=True))
+    build_transformer_encoder(model, model.create_tensor([2, 100, 64], name="x"), hidden=64, num_heads=4, num_layers=2)
+    model.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [])
+    assert model.device.type == "cuda" == dev.type and model.executor.mixed_precision
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    rng = np.random.RandomState(0)
+    fk.reset_launches()
+    hist = model.fit(rng.randn(6, 100, 64).astype(np.float32), rng.randn(6, 100, 1).astype(np.float32), verbose=False)
+    assert hist[0]["iterations"] == 3 and np.isfinite(hist[0]["loss_sum"])
+    assert fk.LAUNCHES == _flash_launches(flash_fwd_bf16=6, flash_dq_bf16=6, flash_dkv_bf16=6)
+    assert all(w.dtype == torch.float32 for ws in model.params.values() for w in ws)
 
 
 # -- multi-step decode windows as CUDA graphs ------------------------------------------

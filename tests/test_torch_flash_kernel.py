@@ -51,7 +51,7 @@ def test_forward_and_lse_match_jax(causal):
     jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
     fk.reset_launches()
     o, lse = fk.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal, return_lse=True)
-    assert fk.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
     assert o.shape == (B, 256, H, D) and lse.shape == (B, H, 256) and lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=FWD_TOL)
@@ -120,6 +120,126 @@ def test_wide_heads_match_jax(d, causal):
     (o * torch.cos(o)).sum().backward()
     for t, j in zip((tq, tk, tv), jg):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+# -- bf16 (mixed precision) ---------------------------------------------------------
+# The same checks at bf16 q, k, v against flash_attention_tpu at bf16 in
+# the interpreter, whose bodies keep f32 accumulators and LSE and round P
+# and dS to bf16 before the second product. The plain versions round P
+# under the row's final max, the Pallas body under its running max, so
+# with two key blocks a share of O's entries differ by up to 2 bf16 ulps:
+# O within atol 5e-3 and rtol 1e-2, LSE (f32 from exact bf16 products)
+# within 2e-5. The gradients (dO the bf16 cotangent of an f32 loss) were
+# measured on the CPU to differ by at most one bf16 ulp of each gradient's largest
+# entry (dV, s = 256, causal: 0.03125 at entries up to 7.2; most cases a
+# half or a quarter of it), so they are held within that ulp.
+BF16_FWD_ATOL, BF16_FWD_RTOL = 5e-3, 1e-2
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def _bf16(*arrays):
+    return [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+
+
+def _bf16_leaves(*arrays):
+    return [torch.from_numpy(a).bfloat16().requires_grad_(True) for a in arrays]
+
+
+def _f32(x):
+    return np.asarray(x.astype(jnp.float32)) if not isinstance(x, torch.Tensor) else x.detach().float().numpy()
+
+
+def _assert_bf16_grads(ours, ref):
+    for t, j in zip(ours, ref):
+        assert t.grad.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        want = _f32(j)
+        np.testing.assert_allclose(_f32(t.grad), want, atol=_bf16_ulp(np.abs(want).max()), rtol=0)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,causal",
+    [(128, 128, False), (128, 128, True), (256, 256, False), (256, 256, True), (128, 384, True), (256, 128, False)],
+)
+def test_bf16_forward_and_lse_match_jax(sq, sk, causal):
+    """One and two key blocks, sq != sk both ways: O in bf16 and LSE in
+    f32, through the autograd Function, no kernel launched on the CPU."""
+    q, k, v = _inputs(sq, sk, seed=3)
+    jo, jlse = _jax_flash(*_bf16(q, k, v), causal, return_lse=True)
+    fk.reset_launches()
+    o, lse = fk.flash_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=causal, return_lse=True)
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32 and jo.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(o), _f32(jo), atol=BF16_FWD_ATOL, rtol=BF16_FWD_RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,causal", [(128, 128, False), (256, 256, True), (128, 384, True), (256, 128, False)]
+)
+def test_bf16_grads_match_jax(sq, sk, causal):
+    """Gradients of an f32 loss of the bf16 O through the port's custom
+    backward (the bf16 plain #2 and #3) vs jax.grad through the Pallas
+    kernels at bf16; the gradients come back bf16."""
+    q, k, v = _inputs(sq, sk, seed=4)
+
+    def jloss(q, k, v):
+        o = _jax_flash(q, k, v, causal).astype(jnp.float32)
+        return jnp.sum(o * jnp.cos(o))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*_bf16(q, k, v))
+    leaves = _bf16_leaves(q, k, v)
+    o = fk.flash_attention(*leaves, causal=causal).float()
+    (o * torch.cos(o)).sum().backward()
+    _assert_bf16_grads(leaves, jg)
+
+
+def test_bf16_lse_cotangent_matches_jax():
+    """The LSE cotangent shifts the f32 delta at bf16 too."""
+    q, k, v = _inputs(256, seed=5)
+
+    def jloss(q, k, v):
+        o, lse = _jax_flash(q, k, v, True, return_lse=True)
+        return jnp.sum(o.astype(jnp.float32)) + jnp.sum(jnp.sin(lse))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*_bf16(q, k, v))
+    leaves = _bf16_leaves(q, k, v)
+    o, lse = fk.flash_attention(*leaves, causal=True, return_lse=True)
+    (o.float().sum() + torch.sin(lse).sum()).backward()
+    _assert_bf16_grads(leaves, jg)
+
+
+def test_bf16_plain_versions_round_where_the_reference_does():
+    """The bf16 plain versions equal the float32 formulas with P and dS
+    rounded to bf16 before the second product and the outputs after it;
+    delta is summed in f32 from the bf16 dO and O."""
+    rng = np.random.RandomState(6)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 40, 2, 16).astype(np.float32)).bfloat16() for _ in range(4))
+    scale = 0.25
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = (torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v.float()) / l.transpose(1, 2)).bfloat16()
+    got_o, lse = fk.flash_fwd_ref(q, k, v)
+    assert torch.equal(got_o, o)
+    torch.testing.assert_close(lse, (m + torch.log(l))[..., 0], atol=0, rtol=0)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    pn = torch.exp(s - lse[..., None])
+    ds = pn * (torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float()) - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), k.float()).bfloat16()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(), q.float()).bfloat16()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pn.bfloat16().float(), do.float()).bfloat16()
+    assert torch.equal(fk.flash_dq_ref(q, k, v, do, lse, delta), dq)
+    for a, b in zip(fk.flash_dkv_ref(q, k, v, do, lse, delta), (dk, dv)):
+        assert torch.equal(a, b)
+    # a float64 call is the exact function the card gate measures against
+    o64, _ = fk.flash_fwd_ref(q.double(), k.double(), v.double())
+    assert o64.dtype == torch.float64
+    torch.testing.assert_close(o64.float(), o.float(), atol=1e-2, rtol=1e-2)
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):
@@ -224,8 +344,14 @@ def test_supports():
     assert fk.supports(256, 256, 1032, torch.float32)
     assert not fk.supports(512, 512, 60, torch.float32)
     assert not fk.supports(512, 512, 260, torch.float32)
+    # bfloat16 (mixed precision) on its own bodies, head_dim up to 256
+    assert fk.supports(512, 512, 64, torch.bfloat16)
+    assert fk.supports(500, 37, 24, torch.bfloat16)
+    assert fk.supports(512, 512, 256, torch.bfloat16)
+    assert not fk.supports(512, 512, 264, torch.bfloat16)
     assert not fk.supports(512, 512, 320, torch.bfloat16)
-    assert not fk.supports(512, 512, 64, torch.bfloat16)
+    assert not fk.supports(512, 512, 60, torch.bfloat16)
+    assert not fk.supports(512, 512, 64, torch.float16)
     assert not fk.supports(0, 512, 64, torch.float32)
 
 

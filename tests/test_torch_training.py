@@ -227,7 +227,7 @@ def test_flagship_train_steps_match_jax(optimizer, use_flash):
         if i == 0:
             # carry the JAX state over: the port's steps continue from it
             opt_state_from_host(tm, jm.executor.export_host_opt_state(jstate))
-    assert fk.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}  # the CPU runs plain versions
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)  # the CPU runs plain versions
     ours = tm.executor.export_host_opt_state(tm.opt_state)
     ref = jm.executor.export_host_opt_state(jstate)
     assert int(ours["step"]) == int(np.asarray(ref["step"])) == 3
@@ -306,12 +306,113 @@ def test_compile_takes_the_reference_argument_order():
         tm.compile(opt, device="cpu", strategy=object())
     bf16 = FFModel(FFConfig(allow_mixed_precision=True))
     build_transformer_encoder(bf16, bf16.create_tensor([B, S, HID], name="x"), hidden=HID, num_heads=HEADS, num_layers=1)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        bf16.compile(device="cpu")
+    bf16.compile(device="cpu")  # mixed precision compiles, as in the reference
+    assert bf16.executor.mixed_precision and not tm.executor.mixed_precision
+    assert all(w.dtype == torch.float32 for ws in bf16.params.values() for w in ws)
     default = FFModel(FFConfig(batch_size=B, learning_rate=0.3))
     build_transformer_encoder(default, default.create_tensor([B, S, HID], name="x"), hidden=HID, num_heads=HEADS, num_layers=1)
     default.compile(device="cpu")
     assert default.optimizer == SGDOptimizer(lr=0.3, weight_decay=0.0001)
+
+
+# -- the slice under mixed precision (allow_mixed_precision) -------------------------
+# Both packages compiled with allow_mixed_precision: bf16 matmul operands
+# and activations, f32 master weights and loss. Two heads of 16, so that
+# 1/sqrt(head_dim) is a power of two: JAX's use_flash=True runs its
+# blockwise formulation on the CPU, which scales q in f32 and rounds it to
+# bf16 before the product, where the port (and the Pallas body) scales the
+# f32 scores; with a power-of-two scale the two agree. Pairs: the port's
+# dense core (use_flash=False) against JAX's "auto" (its dense core at
+# this size), the port's "auto" (the bf16 plain flash versions on the CPU)
+# against JAX's use_flash=True. The first step's loss is bit-identical;
+# later ones differ where a bf16 rounding falls the other way. Measured
+# on the CPU over 3 steps: SGD (momentum 0.9) losses within 1.5e-4 relative and
+# weights within 2.7e-4 of a 2.5e-3 movement, so BF16_SGD_LOSS_RTOL and
+# BF16_SGD_WEIGHT_ATOL; Adam turns a gradient entry near 0, whose sign a
+# bf16 rounding decides, into a full +-lr step, so after its first step up
+# to 0.8% of a weight's entries differ by more than 1e-3 (at most
+# BF16_ADAM_SHARE may) and its losses stay within 3.3e-3 relative
+# (BF16_ADAM_LOSS_RTOL).
+MP_HEADS = 2
+BF16_SGD_LOSS_RTOL, BF16_SGD_WEIGHT_ATOL = 1e-3, 5e-4
+BF16_ADAM_LOSS_RTOL, BF16_ADAM_SHARE = 1e-2, 0.02
+
+
+def _mixed_flagship_pair(optimizer, port_flash):
+    jopt, topt = {
+        "sgd": (JSGD(lr=0.01, momentum=0.9), SGDOptimizer(lr=0.01, momentum=0.9)),
+        "adam": (JAdam(alpha=0.01), AdamOptimizer(alpha=0.01)),
+    }[optimizer]
+    jm = JFFModel(JFFConfig(batch_size=B, seed=0, allow_mixed_precision=True))
+    jax_build_encoder(jm, jm.create_tensor([B, S, HID], name="x"), hidden=HID, num_heads=MP_HEADS, num_layers=LAYERS)
+    tm = FFModel(FFConfig(batch_size=B, seed=0, allow_mixed_precision=True))
+    build_transformer_encoder(tm, tm.create_tensor([B, S, HID], name="x"), hidden=HID, num_heads=MP_HEADS, num_layers=LAYERS)
+    for model, flash in ((jm, True if port_flash == "auto" else "auto"), (tm, port_flash)):
+        for n in model.graph.nodes.values():
+            if n.op_type.name == "MULTIHEAD_ATTENTION":
+                n.params["use_flash"] = flash
+    jm.compile(optimizer=jopt, loss_type=JLoss.MEAN_SQUARED_ERROR_AVG_REDUCE, metrics=[JMetrics.MEAN_SQUARED_ERROR], devices=jax.devices()[:1])
+    tm.compile(topt, LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [MetricsType.MEAN_SQUARED_ERROR], device="cpu")
+    params_from_host(tm, jm.executor.export_host_params(jm.params))
+    return jm, tm
+
+
+@pytest.mark.parametrize(
+    "optimizer,use_flash", [("sgd", "auto"), ("sgd", False), ("adam", "auto"), ("adam", False)]
+)
+def test_mixed_precision_flagship_train_steps_match_jax(optimizer, use_flash):
+    """3 train steps of the tiny flagship under mixed precision, the port
+    against the JAX executor (tolerances above): losses each step, the
+    MSE metric, and the weights, which stay float32 masters."""
+    jm, tm = _mixed_flagship_pair(optimizer, use_flash)
+    assert tm.executor.mixed_precision and jm.executor.mixed_precision
+    jstep, tstep = jm.executor.train_step(), tm.executor.train_step()
+    jparams, jstate = jm.params, jm.opt_state
+    fk.reset_launches()
+    for i in range(3):
+        batch = _batch(10 + i)
+        jparams, jstate, jloss, jmets = jstep(jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(i))
+        tm.params, tm.opt_state, tloss, mets = tstep(tm.params, tm.opt_state, tm.executor.shard_batch(batch), i)
+        if i == 0:
+            assert float(tloss) == float(jloss)  # the first forward is bit-identical
+            np.testing.assert_allclose(float(mets["mse_sum"]), float(jmets["mse_sum"]), rtol=1e-6)
+        if optimizer == "sgd":
+            np.testing.assert_allclose(float(tloss), float(jloss), rtol=BF16_SGD_LOSS_RTOL)
+            _assert_params_close_to(tm, jparams, BF16_SGD_WEIGHT_ATOL)
+        else:
+            np.testing.assert_allclose(float(tloss), float(jloss), rtol=BF16_ADAM_LOSS_RTOL)
+            if i == 0:
+                for g, ws in tm.params.items():
+                    for a, b in zip(ws, jparams[g]):
+                        share = float((np.abs(a.detach().numpy() - np.asarray(b)) > 1e-3).mean())
+                        assert share <= BF16_ADAM_SHARE, (g, share)
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)  # the CPU runs plain versions
+    assert all(w.dtype == torch.float32 for ws in tm.params.values() for w in ws)
+
+
+def _assert_params_close_to(tm, jparams, atol):
+    for g, ws in tm.params.items():
+        for a, b in zip(ws, jparams[g]):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=atol)
+
+
+def test_mixed_precision_flagship_runs_the_bf16_flash_path():
+    """Under mixed precision the MHA hands the flash path bf16 q, k, v and
+    gets bf16 out of its projection; the logits are bf16 and the loss f32."""
+    _, tm = _mixed_flagship_pair("sgd", "auto")
+    seen = []
+    real = fk.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, **kw)
+
+    fk.flash_attention = spy
+    try:
+        logits = tm.executor.logits(tm.params, _batch(3))
+    finally:
+        fk.flash_attention = real
+    assert seen == [(torch.bfloat16,) * 3] * LAYERS and logits.dtype == torch.bfloat16
 
 
 # -- the causal path: tiny decoder LM --------------------------------------------------
@@ -336,6 +437,36 @@ def test_decoder_lm_takes_one_plain_sgd_step_like_jax():
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=STEP_RTOL)
     assert float(tmets["accuracy_sum"]) == float(jmets["accuracy_sum"])
     _assert_params_close(tm, jparams)
+
+
+def test_mixed_precision_decoder_lm_takes_one_sgd_step_like_jax():
+    """The decoder LM under mixed precision, one plain-SGD step against
+    JAX's: the f32 embedding and residual stream (bf16 matmul outputs
+    promote back to f32 in the adds), f32 layer-norm statistics, the
+    causal bf16 flash path (JAX's use_flash=True; head_dim 16) and sparse
+    CE on the bf16 logits upcast to f32. Measured on the CPU: loss within 1.2e-4
+    relative, weights within 2.1e-4 of a 1.8e-2 step; held at 1e-3 both."""
+    jm = JFFModel(JFFConfig(batch_size=B, seed=0, allow_mixed_precision=True))
+    jax_build_decoder_lm(jm, jm.create_tensor([B, S], dtype=JDataType.INT32, name="tokens"), vocab_size=VOCAB, hidden=HID, num_heads=MP_HEADS, num_layers=2, ff_dim=64)
+    for n in jm.graph.nodes.values():
+        if n.op_type.name == "MULTIHEAD_ATTENTION":
+            n.params["use_flash"] = True
+    jm.compile(optimizer=JSGD(lr=0.1), loss_type=JLoss.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=[JMetrics.ACCURACY], devices=jax.devices()[:1])
+    tm = FFModel(FFConfig(batch_size=B, seed=0, allow_mixed_precision=True))
+    build_decoder_lm(tm, tm.create_tensor([B, S], dtype=DataType.INT32, name="tokens"), vocab_size=VOCAB, hidden=HID, num_heads=MP_HEADS, num_layers=2, ff_dim=64)
+    tm.compile(SGDOptimizer(lr=0.1), LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [MetricsType.ACCURACY], device="cpu")
+    params_from_host(tm, jm.executor.export_host_params(jm.params))
+    rng = np.random.RandomState(40)
+    batch = {"tokens": rng.randint(0, VOCAB, (B, S)).astype(np.int32), "label": rng.randint(0, VOCAB, (B, S)).astype(np.int32)}
+    jparams, _, jloss, jmets = jm.executor.train_step()(jm.params, jm.opt_state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    tm.params, tm.opt_state, tloss, tmets = tm.executor.train_step()(tm.params, tm.opt_state, tm.executor.shard_batch(batch), 0)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-3)
+    assert float(tmets["accuracy_sum"]) == float(jmets["accuracy_sum"])
+    _assert_params_close_to(tm, jparams, 1e-3)
+    values = tm.executor.forward_values(tm.params, tm.executor.shard_batch(batch))
+    adds = [g for g in tm.executor.topo if tm.graph.nodes[g].op_type.name == "EW_ADD"]
+    assert adds and all(values[(g, 0)].dtype == torch.float32 for g in adds)
+    assert tm.executor.logits(tm.params, batch).dtype == torch.bfloat16
 
 
 def test_node_generator_is_made_on_first_read_and_is_seeded_per_node():
