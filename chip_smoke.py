@@ -22,14 +22,19 @@ result line) on any failed phase:
                PyTorch has one and the card's clocks and power, and for
                every timed kernel (#4, #5 and #6 also at w = 5), its
                plain version and the library call the profiler's device
-               time and the host time of one call; then #4, #5, #6 and
-               #9 (on the split-KV body of tree_kernel.cu at head_dim <=
-               256, on decode_kernel.cu's past it) at the edges of their
-               card tests: widths 1-64, head_dim 16, 128, 256 and 320, a
-               ragged max_len at 2-row pages, lengths 0 and max_len - w,
-               holes, scale-0 pages, dead rows exactly 0, repeat calls
-               bit-identical, and w = 64 at head_dim 320 refused as
-               before;
+               time and the host time of one call; the six at bf16 q (a
+               mixed-precision model's projections; #4, #5 and #6 at w = 1
+               and 5, #7-#9 at w = 13 and 64) against their plain versions
+               within one bf16 ulp of the output's largest entry, timed at
+               their path's width beside bf16 SDPA where PyTorch has one
+               and beside their own device time at fp32 q; then all six
+               (on the split-KV body of tree_kernel.cu at head_dim <= 256,
+               on decode_kernel.cu's past it), at fp32 and bf16 q, at the
+               edges of their card tests: widths 1-64, head_dim 16, 24
+               (int8 rows in 8-byte loads), 128, 256 and 320 (w = 64
+               included), a ragged max_len at 2-row pages, lengths 0 and
+               max_len - w, holes, scale-0 pages, dead rows exactly 0,
+               repeat calls bit-identical;
   3. serve   — the flagship decoder LM (12 layers, hidden 1024, 16
                heads, ff 4096, vocab 32000, seeded random weights) serves
                32 requests on 8 slots x 512 tokens under the default
@@ -72,6 +77,24 @@ result line) on any failed phase:
                one graph serves each run; tokens/s, ms per decode step,
                windows, host syncs per token and a profiled window's
                device ms against wall ms per step on [multistep] lines;
+  4d. mixed-precision serving — the flagship LM compiled with
+               allow_mixed_precision from phase 3's seeded weights: (a)
+               phase 3's burst on fp32 paged pools, (b) the 8 long
+               requests plain and with tree spec on fp32 pools (#5, #8)
+               and on int8 pools (#6, #9), (d) (b)'s plain leg as
+               decode_multistep graph windows, and at 2 layers (c) plain
+               and tree spec on the slot layout (#4, #7); every request
+               finishes, each leg's bf16-q kernel launches steps x layers
+               times (replays counted) and no fp32-q one, (d)'s streams
+               equal (b)'s eager plain ones, spec streams equal their
+               plain leg's but at a near-tie within NEAR_TIE_BF16_ULPS
+               (int8: NEAR_TIE_BF16_ULPS_INT8) bf16 ulps of the logit,
+               cached decode logits match the full no-cache mixed forward
+               within CACHE_ULPS_BF16 ulps; each leg's tokens/s, step ms,
+               TTFT, acceptance and KV pool bytes beside its fp32 run of
+               this call ([mixed] lines), and profiled windows of (a) and
+               (d) with the bf16-q kernel, the GEMMs and the casts per
+               step beside the device time of casting the weights alone;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, 160,
@@ -97,10 +120,14 @@ result line) on any failed phase:
                most twice the plain version's plus one bf16 ulp of the
                exact output's largest entry; LSE within 2e-5) at the
                flagship shape, causal and not, ragged (sq 500, sq !=
-               sk), head_dim 24-256 and the reference's test shapes;
-               times at the flagship shape beside bf16 SDPA with its
-               backend, bounds at 989 TFLOP/s, resources at head_dim
-               64, 128 and 256 and the bf16 library's HMMA count;
+               sk), head_dim 24-256, past 256 on the wide kernels for bf16
+               (264, 320, 512) and the reference's test shapes; times at
+               the flagship shape beside bf16 SDPA with its backend, and
+               of the bf16 wide kernels at [8, 512, 4, 320] and [8, 256,
+               2, 512], bounds at 989 TFLOP/s, resources at head_dim 64,
+               128 and 256 and the bf16 library's HMMA count; the bf16
+               wide kernels also on a training path (2 layers of 2 heads
+               of 320 under mixed precision, 3 steps of fit());
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
                [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
                batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
@@ -129,9 +156,10 @@ result line) on any failed phase:
                in fp32 and again under mixed precision (the bf16 ones);
 
 then prints the kernels' JSON line (launches: the serving path's for
-#4 and #5, legs (c), (e), (b) and (d) for #6-#9, the flagship training
-run's for #1-#3, the mixed-precision run's for their bf16 bodies), the
-card's name and
+#4 and #5, legs (c), (e), (b) and (d) for #6-#9, phase 4d's legs for
+their bf16-q paths, the flagship training run's for #1-#3, the
+mixed-precision run's for their bf16 bodies and the head_dim-320 run's
+for the bf16 wide kernels), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -164,6 +192,19 @@ NEAR_TIE = 1e-4
 # legs stay under 1e-5. A wrong kernel moves them by O(0.1).
 NEAR_TIE_INT8 = 1e-2
 ATOL_LOGITS = 1e-3  # cached decode vs full forward through 12 fp32 layers
+# Under allow_mixed_precision (phase 4d) the limits are counted in bf16
+# ulps of the logit they concern (bf16_ulp of the token's largest logit):
+# each layer rounds its activations and GEMM outputs to bf16, so two GEMM
+# shapes (8 decode rows against 8 x w verify rows) that sum in another
+# order give logits a few bf16 ulps apart, where fp32 ones stay within
+# 1e-5; on int8 pools a one-ulp difference in a K/V element moves it
+# across an int8 rounding boundary more often still
+NEAR_TIE_BF16_ULPS = 8
+NEAR_TIE_BF16_ULPS_INT8 = 32
+# cached decode logits against the full no-cache mixed forward: the full
+# forward's dense core rounds P to bf16 (the reference's
+# ops/attention.py:213), where the decode kernels keep it f32
+CACHE_ULPS_BF16 = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
@@ -215,42 +256,61 @@ KERNELS = {
     "flash_fwd_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
+    # bf16 #1-#3 past head_dim 256: the fp32 files' wide kernels for bf16
+    "flash_fwd_wide_bf16": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
+    "flash_dq_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
+    "flash_dkv_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
+DECODE = ("flash_verify", "paged_flash_verify", "paged_flash_verify_quant", "flash_verify_tree",
+          "paged_flash_verify_tree", "paged_flash_verify_tree_quant")
+# the decode kernels at bf16 q (a mixed-precision model), the same sources
+KERNELS.update({name + "_bf16": KERNELS[name] for name in DECODE})
 FLASH_FP32 = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_BF16 = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+FLASH_WIDE_BF16 = ("flash_fwd_wide_bf16", "flash_dq_wide_bf16", "flash_dkv_wide_bf16")
 
 # kernel wrapper -> substrings of the device functions its launches run,
 # as the profiler names them: each kernel's own instantiations, so that
 # no kernel's time counts under another's (#4-#9 run on the split body of
-# tree_kernel.cu, and on decode_kernel.cu's past head_dim 256)
-KERNEL_SYMBOLS = {
+# tree_kernel.cu, and on decode_kernel.cu's past head_dim 256; both are
+# templated first on q's element type, float or __nv_bfloat16)
+_DECODE_SYMBOLS = {
     "flash_verify": (
-        "single_query_kernel<false,",
-        "tree_attention_kernel<false, false, true,",
-        "decode_attention_kernel<false, false, false>",
+        "single_query_kernel<{q}, false,",
+        "tree_attention_kernel<{q}, false, false, true,",
+        "decode_attention_kernel<{q}, false, false, false>",
     ),
     "paged_flash_verify": (
-        "single_query_kernel<true,",
-        "tree_attention_kernel<true, false, true,",
-        "decode_attention_kernel<true, false, false>",
+        "single_query_kernel<{q}, true,",
+        "tree_attention_kernel<{q}, true, false, true,",
+        "decode_attention_kernel<{q}, true, false, false>",
     ),
     "paged_flash_verify_quant": (
-        "single_query_int8_kernel<",
-        "tree_attention_kernel<true, true, true,",
-        "decode_attention_kernel<true, true, false>",
+        "single_query_int8_kernel<{q},",
+        "tree_attention_kernel<{q}, true, true, true,",
+        "decode_attention_kernel<{q}, true, true, false>",
     ),
-    "flash_verify_tree": ("tree_attention_kernel<false, false, false,", "decode_attention_kernel<false, false, true>"),
-    "paged_flash_verify_tree": ("tree_attention_kernel<true, false, false,", "decode_attention_kernel<true, false, true>"),
+    "flash_verify_tree": ("tree_attention_kernel<{q}, false, false, false,",
+                          "decode_attention_kernel<{q}, false, false, true>"),
+    "paged_flash_verify_tree": ("tree_attention_kernel<{q}, true, false, false,",
+                                "decode_attention_kernel<{q}, true, false, true>"),
     "paged_flash_verify_tree_quant": (
-        "tree_attention_kernel<true, true, false,",
-        "decode_attention_kernel<true, true, true>",
+        "tree_attention_kernel<{q}, true, true, false,",
+        "decode_attention_kernel<{q}, true, true, true>",
     ),
+}
+KERNEL_SYMBOLS = {
+    **{name: tuple(x.format(q="float") for x in syms) for name, syms in _DECODE_SYMBOLS.items()},
+    **{name + "_bf16": tuple(x.format(q="__nv_bfloat16") for x in syms) for name, syms in _DECODE_SYMBOLS.items()},
     "flash_fwd": ("flash_fwd_mma_kernel",),
     "flash_dq": ("flash_dq_mma_kernel",),
     "flash_dkv": ("flash_dkv_mma_kernel",),
     "flash_fwd_bf16": ("flash_fwd_bf16_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
+    "flash_fwd_wide_bf16": ("flash_fwd_wide_kernel<__nv_bfloat16>",),
+    "flash_dq_wide_bf16": ("flash_dq_wide_kernel<__nv_bfloat16>",),
+    "flash_dkv_wide_bf16": ("flash_dkv_wide_kernel<__nv_bfloat16>",),
 }
 
 
@@ -377,7 +437,8 @@ def bound_ms(x, name):
     b, w, h, d = x["q"].shape
     quant = name.endswith("_quant")
     nrows = int(rows.sum())
-    nbytes = 4 * (2 * b * w * h * d + b) + (1 if quant else 4) * 2 * nrows * h * d
+    # q in and the output out at q's element size (2 bytes for bf16 q)
+    nbytes = 2 * x["q"].element_size() * b * w * h * d + 4 * b + (1 if quant else 4) * 2 * nrows * h * d
     if name.startswith("paged"):
         nbytes += 4 * x["tables"].numel()
     if quant:
@@ -597,17 +658,10 @@ def check_spec_kernels():
     cases = ((1, ("paged_flash_verify_quant",)), (5, ("paged_flash_verify_quant",)), (13, tree_names), (64, fp32_tree))
     for w, names in cases:
         x = kernel_inputs(device, w)
-        quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
-        args = {
-            "paged_flash_verify_quant": quant,
-            "flash_verify_tree": (x["q"], x["k_cache"], x["v_cache"], x["lengths"], x["allowed"]),
-            "paged_flash_verify_tree": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"], x["allowed"]),
-            "paged_flash_verify_tree_quant": quant + (x["allowed"],),
-        }
         masks = visible_masks(x)
         for name in names:
-            kernel = lambda fn=getattr(dk, name), a=args[name]: fn(*a)
-            plain = lambda fn=getattr(dk, name + "_ref"), a=args[name]: fn(*a)
+            kernel = lambda fn=getattr(dk, name), a=decode_args(x, name): fn(*a)
+            plain = lambda fn=getattr(dk, name + "_ref"), a=decode_args(x, name): fn(*a)
             out = kernel()
             torch.cuda.synchronize()
             ref = plain()
@@ -652,82 +706,164 @@ def check_spec_kernels():
     return rows
 
 
-# the edges of #4's, #5's, #6's and #9's card tests
-# (tests/test_torch_cuda.py): head dims short of a tile (16), at the
-# tiles' top (256) and past it (320, on decode_kernel.cu's body), as
-# (head_dim, max_len, page): a ragged max_len at 2-row pages, the serving
-# shape, and the wide head at 16-row pages
-SPLIT_BODY_EDGES = ((16, 250, 2), (128, 512, 16), (256, 250, 2), (320, 128, 16))
+def decode_args(x, name):
+    """The operands of decode entry point `name` on kernel_inputs x."""
+    quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
+    return {
+        "flash_verify": (x["q"], x["k_cache"], x["v_cache"], x["lengths"]),
+        "paged_flash_verify": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"]),
+        "paged_flash_verify_quant": quant,
+        "flash_verify_tree": (x["q"], x["k_cache"], x["v_cache"], x["lengths"], x["allowed"]),
+        "paged_flash_verify_tree": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"], x["allowed"]),
+        "paged_flash_verify_tree_quant": quant + (x["allowed"],),
+    }[name]
+
+
+# the bf16-q widths of phase 2: the decode step and linear verify (w 1, 5)
+# and the tree verify (w 13) and the widest tree ServeConfig takes (64);
+# the kernels line keeps each one's path width (PATH_W)
+BF16_Q_WIDTHS = {"flash_verify": (1, 5), "paged_flash_verify": (1, 5), "paged_flash_verify_quant": (1, 5),
+                 "flash_verify_tree": (13, 64), "paged_flash_verify_tree": (13, 64),
+                 "paged_flash_verify_tree_quant": (13, 64)}
+PATH_W = {"flash_verify": 1, "paged_flash_verify": 1, "paged_flash_verify_quant": 1,
+          "flash_verify_tree": 13, "paged_flash_verify_tree": 13, "paged_flash_verify_tree_quant": 13}
+
+
+def check_bf16_q_kernels():
+    """#4-#9 at bf16 q (a mixed-precision model's projections) against
+    fp32 and int8 pools at the serving shape of check_kernels, with its
+    holes, dead row and scale-0 page, against their plain versions: the
+    output bf16 and within one bf16 ulp of its largest entry of the plain
+    version (both round the f32 function of the widened q once, and their
+    f32 values differ in summation order only). At each kernel's path
+    width: the event timer, the bound (q and the output at 2 bytes), the
+    plain version, bf16 SDPA for #4, #5 and masked bf16 SDPA for #7, #8
+    (K/V cast to bf16, and gathered from the pages, before the timer),
+    and the profiler's device time beside the same kernel's at fp32 q."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+
+    device = torch.device("cuda")
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    rows = {}
+    for w in (1, 5, 13, 64):
+        x = kernel_inputs(device, w)
+        xb = dict(x, q=x["q"].bfloat16())
+        masks = visible_masks(x)
+        for name, widths in BF16_Q_WIDTHS.items():
+            if w not in widths:
+                continue
+            key = name + "_bf16"
+            kernel = lambda fn=getattr(dk, name), a=decode_args(xb, name): fn(*a)
+            plain = lambda fn=getattr(dk, name + "_ref"), a=decode_args(xb, name): fn(*a)
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            require(out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all()), f"{key} w={w}: {out.dtype}")
+            err = float((out.float() - ref.float()).abs().max())
+            limit = bf16_ulp(float(ref.float().abs().max()))
+            print(f"[kernels] {key} w={w}: max |kernel - plain| = {err:.3e} (one bf16 ulp of the output's "
+                  f"largest entry: {limit:.3e})")
+            require(err <= limit, f"{key} w={w}: error {err} > {limit}")
+            row = rows.setdefault(key, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if w != PATH_W[name]:
+                continue
+            t = dict(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush))
+            t["bound_ms"], t["bound_by"] = bound_ms(xb, name)
+            t["library_ms"], library = None, "none: no PyTorch call dequantizes int8 pages inside attention"
+            if not name.endswith("_quant"):
+                if name.startswith("paged"):
+                    safe = x["tables"].long().clamp(0, x["k_pool"].shape[0] - 1)
+                    kv = tuple(p[safe].reshape(x["q"].shape[0], -1, *p.shape[2:]) for p in (x["k_pool"], x["v_pool"]))
+                else:
+                    kv = (x["k_cache"], x["v_cache"])
+                mask = masks[name][0][:, None]  # [b, 1, w, L]
+                qt, kt, vt = xb["q"].transpose(1, 2), kv[0].bfloat16().transpose(1, 2), kv[1].bfloat16().transpose(1, 2)
+                sdpa = lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                t["library_ms"] = time_ms(sdpa, flush)
+                library = f"bf16 sdpa {t['library_ms']:.4f} ms (K/V cast to bf16 before the timer)"
+            fp32 = lambda fn=getattr(dk, name), a=decode_args(x, name): fn(*a)
+            t["device_ms"], fp32_dev = device_ms(kernel, flush), device_ms(fp32, flush)
+            row.update(t)
+            print(f"[kernels] {key} w={w}: {t['ms']:.4f} ms, device {t['device_ms']} ms beside fp32 q's "
+                  f"device {fp32_dev} ms (bound {t['bound_ms']:.4f} ms, {t['bound_by']}), plain "
+                  f"{t['plain_ms']:.4f} ms, library {library}")
+    return rows
+
+
+# the edges of the decode kernels' card tests (tests/test_torch_cuda.py):
+# head dims short of a tile (16), an int8 row of an odd number of 8-byte
+# words (24: 8-byte loads), at the tiles' top (256) and past it (320, on
+# decode_kernel.cu's body, which stages head_dim in pieces), as (head_dim,
+# max_len, page): a ragged max_len at 2-row pages, the serving shape, and
+# the wide head at 16-row pages
+SPLIT_BODY_EDGES = ((16, 250, 2), (24, 250, 2), (128, 512, 16), (256, 250, 2), (320, 128, 16))
 SPLIT_BODY_WIDTHS = {
     "flash_verify": (1, 5, 13, 64),
     "paged_flash_verify": (1, 5, 13, 64),
     "paged_flash_verify_quant": (1, 5, 13, 64),
+    "flash_verify_tree": (1, 13, 33, 64),
+    "paged_flash_verify_tree": (1, 13, 33, 64),
     "paged_flash_verify_tree_quant": (1, 13, 33, 64),
 }
 
 
 def check_split_body_edges(device="cuda"):
-    """#4, #5, #6 and #9 against their plain versions at the card tests'
-    edges: each width of SPLIT_BODY_WIDTHS at each shape of
-    SPLIT_BODY_EDGES, with lengths 0 and max_len - w, a sentinel hole, a
-    dead row that must give exactly 0 (on the contiguous cache of #4 the
-    last row at length -w, which sees nothing) and (for #6 and #9) a
-    scale-0 page (kernel_inputs), called twice: one launch counted per
-    call under the kernel's own name, the two outputs bit-identical, the
-    error within ATOL_KERNEL (summation order over up to 320 columns of
-    int8 values up to 127 x 0.05 moves #9 by up to ~2.5e-5;
-    ATOL_SPEC_KERNEL holds at the path's head_dim 64, check_spec_kernels).
-    At head_dim 320 the wrappers take decode_kernel.cu's body, by head_dim
-    alone; at w = 64 that body's shared memory holds no 320-wide chunk,
-    and all four must raise before any launch, as they did before the
-    split body took them. The kernels line keeps the errors at the path's
-    shapes."""
+    """All six decode kernels against their plain versions at the card
+    tests' edges, at fp32 and at bf16 q: each width of SPLIT_BODY_WIDTHS
+    at each shape of SPLIT_BODY_EDGES, with lengths 0 and max_len - w, a
+    sentinel hole, a dead row that must give exactly 0 (on the contiguous
+    cache of #4 and #7 the last row at length -w, which sees nothing) and
+    (for #6 and #9) a scale-0 page (kernel_inputs), called twice: one
+    launch counted per call under the kernel's own name (name + "_bf16"
+    at bf16 q), the two outputs bit-identical, the error within
+    ATOL_KERNEL (summation order over up to 320 columns of int8 values up
+    to 127 x 0.05 moves #9 by up to ~2.5e-5; ATOL_SPEC_KERNEL holds at the
+    path's head_dim 64, check_spec_kernels), at bf16 q within one bf16
+    ulp of the output's largest entry beyond it. At head_dim 320 the
+    wrappers take decode_kernel.cu's body, by head_dim alone, w = 64
+    included (its shared memory no longer grows with head_dim; it raised
+    before). The kernels line keeps the errors at the path's shapes."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
 
     device = torch.device(device)
     for name, widths in SPLIT_BODY_WIDTHS.items():
-        worst = 0.0
+        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
         for w in widths:
             for d, max_len, page in SPLIT_BODY_EDGES:
                 h = 16 if max_len == 512 else 2
                 x = kernel_inputs(device, w, h=h, d=d, max_len=max_len, page=page,
                                   num_pages=8 * (max_len // page))
-                quant = (x["q"], x["k8"], x["v8"], x["k_scale"], x["v_scale"], x["tables"], x["lengths"])
-                dead = x["lengths"].clone()
-                dead[-1] = -w
-                args = {
-                    "flash_verify": (x["q"], x["k_cache"], x["v_cache"], dead),
-                    "paged_flash_verify": (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lengths"]),
-                    "paged_flash_verify_quant": quant,
-                    "paged_flash_verify_tree_quant": quant + (x["allowed"],),
-                }[name]
-                fn = getattr(dk, name)
-                case = f"{name} w={w} d={d} max_len={max_len} page={page}"
-                dk.reset_launches()
-                if d > dk._TREE_MAX_D and w == 64:
-                    try:
-                        fn(*args)
-                    except ValueError as e:
-                        require("shared memory" in str(e), f"{case}: {e}")
-                    else:
-                        raise RuntimeError(f"{case}: took a shape decode_kernel.cu's body never took")
-                    require(sum(dk.LAUNCHES.values()) == 0, f"{case}: launched before raising")
-                    print(f"[kernels] {case}: raises before any launch, as before ({dk._TREE_MAX_D} < d)")
-                    continue
-                out, again = fn(*args), fn(*args)
-                torch.cuda.synchronize()
-                require(dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{name: 2}), f"{case}: {dk.LAUNCHES}")
-                ref = getattr(dk, name + "_ref")(*args)
-                err = float((out - ref).abs().max())
-                require(bool(torch.isfinite(out).all()) and err <= ATOL_KERNEL, f"{case}: error {err} > {ATOL_KERNEL}")
-                require(torch.equal(out, again), f"{case}: two calls differ")
-                require(float(out[-1].abs().max()) == 0.0, f"{case}: the dead row is not 0")
-                worst = max(worst, err)
+                if name in ("flash_verify", "flash_verify_tree"):  # the dead row of the contiguous cache
+                    x["lengths"] = x["lengths"].clone()
+                    x["lengths"][-1] = -w
+                for qd in (torch.float32, torch.bfloat16):
+                    args = decode_args(dict(x, q=x["q"].to(qd)), name)
+                    key = name + ("_bf16" if qd == torch.bfloat16 else "")
+                    fn = getattr(dk, name)
+                    case = f"{key} w={w} d={d} max_len={max_len} page={page}"
+                    dk.reset_launches()
+                    out, again = fn(*args), fn(*args)
+                    torch.cuda.synchronize()
+                    require(dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{key: 2}), f"{case}: {dk.LAUNCHES}")
+                    ref = getattr(dk, name + "_ref")(*args)
+                    err = float((out.float() - ref.float()).abs().max())
+                    limit = ATOL_KERNEL + (bf16_ulp(float(ref.float().abs().max())) if qd == torch.bfloat16 else 0.0)
+                    require(out.dtype == qd and bool(torch.isfinite(out).all()) and err <= limit,
+                            f"{case}: error {err} > {limit}")
+                    require(torch.equal(out, again), f"{case}: two calls differ")
+                    require(float(out[-1].float().abs().max()) == 0.0, f"{case}: the dead row is not 0")
+                    worst[qd] = max(worst[qd], err)
         print(f"[kernels] {name} at widths {widths} x (head_dim, max_len, page) {SPLIT_BODY_EDGES}: "
-              f"max |kernel - plain| = {worst:.3e} (atol {ATOL_KERNEL}), repeat calls bit-identical, "
-              f"dead rows 0")
+              f"max |kernel - plain| = {worst[torch.float32]:.3e} at fp32 q (atol {ATOL_KERNEL}), "
+              f"{worst[torch.bfloat16]:.3e} at bf16 q (atol {ATOL_KERNEL} + one bf16 ulp), repeat calls "
+              f"bit-identical, dead rows 0")
 
 
 def smi_sample() -> str:
@@ -759,11 +895,13 @@ def warm_card(seconds=2.0):
 # -- 3. serve the flagship LM ----------------------------------------------------
 
 
-def build_lm(device, layers, hidden, heads, vocab, max_seqs, max_len, seed=SEED):
+def build_lm(device, layers, hidden, heads, vocab, max_seqs, max_len, seed=SEED, mixed=False):
+    """The decoder LM from seeded weights; `mixed` compiles it with
+    allow_mixed_precision (the same float32 weights from the same seed)."""
     from flexflow_tpu_torch import DataType, FFConfig, FFModel
     from flexflow_tpu_torch.models import build_decoder_lm
 
-    model = FFModel(FFConfig(batch_size=max_seqs, seed=seed))
+    model = FFModel(FFConfig(batch_size=max_seqs, seed=seed, allow_mixed_precision=mixed))
     tok = model.create_tensor([max_seqs, max_len], dtype=DataType.INT32, name="tokens")
     build_decoder_lm(
         model, tok, vocab_size=vocab, hidden=hidden, num_heads=heads,
@@ -813,28 +951,28 @@ def serve(model, requests, instrument=None, **serve_kw):
 
 def record_top2(sched, top):
     """Wrap a plain scheduler's prefill and decode so that top[rid][i] is
-    (gap, first, second): the gap between the two largest logits its
-    engine saw when it picked the request's i-th generated token, and
-    those two tokens."""
+    (gap, first, second, value): the gap between the two largest logits
+    its engine saw when it picked the request's i-th generated token,
+    those two tokens and the largest logit (bf16 logits are read as f32)."""
     engine = sched.engine
     prefill, decode = engine.prefill, engine.decode
 
     def top2(logits):
-        vals, ids = logits.topk(2, dim=-1)
-        return (vals[:, 0] - vals[:, 1]).cpu().numpy(), ids.cpu().numpy()
+        vals, ids = logits.float().topk(2, dim=-1)
+        return (vals[:, 0] - vals[:, 1]).cpu().numpy(), ids.cpu().numpy(), vals[:, 0].cpu().numpy()
 
     def prefill_rec(params, prompts, slots):
         nxt, last = prefill(params, prompts, slots)
-        gaps, ids = top2(last)
+        gaps, ids, vals = top2(last)
         for i, s in enumerate(slots):
-            top[sched.running[s].rid] = [(float(gaps[i]), *map(int, ids[i]))]
+            top[sched.running[s].rid] = [(float(gaps[i]), *map(int, ids[i]), float(vals[i]))]
         return nxt, last
 
     def decode_rec(params, tokens, active):
         nxt, logits = decode(params, tokens, active)
-        gaps, ids = top2(logits)
+        gaps, ids, vals = top2(logits)
         for s in np.nonzero(active)[0]:
-            top[sched.running[int(s)].rid].append((float(gaps[s]), *map(int, ids[s])))
+            top[sched.running[int(s)].rid].append((float(gaps[s]), *map(int, ids[s]), float(vals[s])))
         return nxt, logits
 
     engine.prefill, engine.decode = prefill_rec, decode_rec
@@ -862,7 +1000,7 @@ def record_spec_top(sched, top, out):
                 base = len(req.generated)
                 for k, r in enumerate(rows_used(step.logits[slot], plan)):
                     if base + k < len(top[req.rid]):
-                        _, t1, t2 = top[req.rid][base + k]
+                        _, t1, t2, _ = top[req.rid][base + k]
                         row = step.logits[slot, r]
                         out.setdefault(req.rid, {})[base + k] = float(row[t1] - row[t2])
             return commit(step)
@@ -964,22 +1102,35 @@ def profile_decode(model, steps=16, label="decode", kernel=None, skip=0, **serve
         top=[(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count // steps) for e in top],
     )
     if kernel is not None:
-        calls = dk.LAUNCHES[kernel] - calls0[kernel]
-        kern_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in KERNEL_SYMBOLS[kernel]))
-        gemm_us = sum(e.self_device_time_total for e in events if "gemm" in e.key.lower() or "gemv" in e.key.lower())
-        out["kernel"] = dict(
-            name=kernel,
-            calls=calls,
-            device_ms_per_call=kern_us / 1e3 / calls if calls and kern_us else None,
-            device_ms_per_step=kern_us / 1e3 / steps,
-            gemm_ms_per_step=gemm_us / 1e3 / steps,
-        )
-        per_call = "not measured" if out["kernel"]["device_ms_per_call"] is None else \
-            f"{out['kernel']['device_ms_per_call']:.4f} ms"
-        print(f"[profile] {label}: {kernel} {per_call} of device time per call ({calls} calls, "
-              f"{out['kernel']['device_ms_per_step']:.4f} ms per step) beside the step's GEMMs "
-              f"{out['kernel']['gemm_ms_per_step']:.4f} ms per step")
+        out["kernel"] = step_breakdown(label, events, steps, kernel, dk.LAUNCHES[kernel] - calls0[kernel])
     print("[profile] " + json.dumps(out))
+    return out
+
+
+def step_breakdown(label, events, steps, kernel, calls):
+    """The profiled window's device time per step by part: `kernel` (a
+    wrapper of KERNEL_SYMBOLS; also per call, `calls` of them), the GEMMs
+    (cuBLAS, fp32 or bf16), and the dtype casts (copy kernels: under mixed
+    precision the weights mm_operands casts to bf16 every step, and the
+    activations)."""
+    kern_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in KERNEL_SYMBOLS[kernel]))
+    gemm_us = sum(e.self_device_time_total for e in events
+                  if any(g in e.key.lower() for g in ("gemm", "gemv", "nvjet", "cutlass")))
+    casts = [e for e in events if "copy" in e.key.lower() and not e.key.startswith("Memcpy")]
+    out = dict(
+        name=kernel,
+        calls=calls,
+        device_ms_per_call=kern_us / 1e3 / calls if calls and kern_us else None,
+        device_ms_per_step=kern_us / 1e3 / steps,
+        gemm_ms_per_step=gemm_us / 1e3 / steps,
+        cast_ms_per_step=sum(e.self_device_time_total for e in casts) / 1e3 / steps,
+        casts_per_step=sum(e.count for e in casts) / steps,
+    )
+    per_call = "not measured" if out["device_ms_per_call"] is None else f"{out['device_ms_per_call']:.4f} ms"
+    print(f"[profile] {label}: {kernel} {per_call} of device time per call ({calls} calls, "
+          f"{out['device_ms_per_step']:.4f} ms per step) beside the step's GEMMs "
+          f"{out['gemm_ms_per_step']:.4f} ms and casts {out['cast_ms_per_step']:.4f} ms "
+          f"({out['casts_per_step']:.0f} copy kernels) per step")
     return out
 
 
@@ -1011,9 +1162,10 @@ def check_layouts(device, layers=2):
     return model, launches
 
 
-def check_decode_logits(model, n_new=12):
+def check_decode_logits(model, n_new=12, ulps=None):
     """Cached decode logits of 2 requests vs a full no-cache forward of
-    prompt + generated tokens."""
+    prompt + generated tokens: within ATOL_LOGITS, or under mixed
+    precision within `ulps` bf16 ulps of the logits' largest magnitude."""
     import torch
 
     from flexflow_tpu_torch.serving import ServeConfig, build_scheduler
@@ -1035,13 +1187,18 @@ def check_decode_logits(model, n_new=12):
         for i, s in enumerate(slots):
             seqs[i].append(int(nxt[s]))
             step_logits[i].append(logits[s])
-    err = 0.0
+    err = big = 0.0
     for i, p in enumerate(prompts):
-        full = model.forward({"tokens": np.asarray([seqs[i][:-1]], dtype=np.int32)})[0]
-        got = torch.stack(step_logits[i])
+        full = model.forward({"tokens": np.asarray([seqs[i][:-1]], dtype=np.int32)})[0].float()
+        got = torch.stack(step_logits[i]).float()
         err = max(err, float((got - full[len(p) - 1:]).abs().max()))
-    print(f"[checks] decode logits vs full forward: max |diff| = {err:.3e} (atol {ATOL_LOGITS})")
-    require(err <= ATOL_LOGITS, f"decode logits differ from the full forward by {err}")
+        big = max(big, float(full.abs().max()))
+    limit = ATOL_LOGITS if ulps is None else ulps * bf16_ulp(big)
+    what = f"atol {ATOL_LOGITS}" if ulps is None else \
+        f"{ulps} bf16 ulps of the largest |logit| {big:.3f}: {limit:.3e}; {err / bf16_ulp(big):.2f} ulps"
+    print(f"[checks] decode logits vs full forward{' (mixed precision)' if ulps else ''}: max |diff| = "
+          f"{err:.3e} ({what})")
+    require(err <= limit, f"decode logits differ from the full forward by {err} > {limit}")
     return err
 
 
@@ -1070,39 +1227,47 @@ def compare_streams(name, done, plain, top, spec_top, near_tie):
     """Each stream of `done` equals its plain leg's (`plain`), or first
     differs where the plain run's top two logits lay within `near_tie`;
     the spec run's gaps between those two tokens stay within `near_tie`
-    of the plain run's over the tokens before any divergence. Returns
-    (near-ties as (request, token index, gap), the largest |spec gap -
-    plain gap| over those tokens)."""
-    ties, noise = [], 0.0
+    of the plain run's over the tokens before any divergence. `near_tie`
+    is a number, or a function of the token's largest logit (the bf16
+    limits, in ulps of it). Returns (near-ties as (request, token index,
+    gap), the largest |spec gap - plain gap| over those tokens, and that
+    largest as a share of its token's limit)."""
+    limit = near_tie if callable(near_tie) else (lambda value: near_tie)
+    ties, noise, share = [], 0.0, 0.0
     for r in done:
         want, got = plain[r.rid], list(r.generated)
         i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
         for j, g in spec_top.get(r.rid, {}).items():
             if j < i:
-                noise = max(noise, abs(g - top[r.rid][j][0]))
+                diff = abs(g - top[r.rid][j][0])
+                noise = max(noise, diff)
+                share = max(share, diff / limit(top[r.rid][j][3]))
         if got == want:
             continue
-        gap = top[r.rid][i][0] if i < len(top[r.rid]) else float("inf")
+        gap, value = top[r.rid][i][0::3] if i < len(top[r.rid]) else (float("inf"), 0.0)
         require(
-            gap <= near_tie,
+            gap <= limit(value),
             f"{name}: request {r.rid} first differs from its plain stream at token {i}, "
-            f"where the plain run's top two logits are {gap:.3e} apart (> {near_tie})",
+            f"where the plain run's top two logits are {gap:.3e} apart (> {limit(value):.3e})",
         )
         print(f"[spec] {name}: request {r.rid} first differs from its plain stream at token {i}, a near-tie: "
-              f"the plain run's top two logits are {gap:.3e} apart (<= {near_tie}), which the two runs' "
-              f"GEMM shapes may order either way")
+              f"the plain run's top two logits are {gap:.3e} apart (<= {limit(value):.3e}), which the two "
+              f"runs' GEMM shapes may order either way")
         ties.append((r.rid, i, gap))
-    require(noise <= near_tie, f"{name}: spec and plain logit gaps differ by {noise:.3e} (> {near_tie})")
-    return ties, noise
+    require(share <= 1.0, f"{name}: spec and plain logit gaps differ by up to {share:.2f} of the near-tie limit")
+    return ties, noise, share
 
 
-def serve_leg(name, model, layers, kernel, plain=None, **serve_kw):
+def serve_leg(name, model, layers, kernel, plain=None, near_tie=None, **serve_kw):
     """One serving leg of SPEC_REQUESTS long requests: every request
     finishes at full length, `kernel` launches steps x layers times and
     no other decode kernel launches. A plain leg (plain=None) records its
     top two logits per token; a spec leg's streams are held against
-    `plain`, (streams, top) of its plain leg. Returns (streams, top,
-    summary, launches)."""
+    `plain`, (streams, top) of its plain leg, up to `near_tie` (by
+    default NEAR_TIE, NEAR_TIE_INT8 on int8 pools). Returns (streams,
+    top, summary, launches)."""
+    from flexflow_tpu_torch.serving import latency_percentiles
+
     reqs = long_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], SPEC_REQUESTS)
     if plain is None:
         top = {}
@@ -1123,9 +1288,11 @@ def serve_leg(name, model, layers, kernel, plain=None, **serve_kw):
     )
     others = {k: n for k, n in launches.items() if k != kernel and n}
     require(not others, f"{name}: other decode kernels launched: {others}")
-    near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
-    ties, noise = compare_streams(name, done, plain[0], top, spec_top, near_tie) if spec else ([], None)
+    if near_tie is None:
+        near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
+    ties, noise, share = compare_streams(name, done, plain[0], top, spec_top, near_tie) if spec else ([], None, None)
     step_s = stats.verify_s if spec else stats.decode_s
+    ttft = latency_percentiles(done, (50, 95), metric="ttft")
     summary = dict(
         leg=name,
         layers=layers,
@@ -1135,6 +1302,8 @@ def serve_leg(name, model, layers, kernel, plain=None, **serve_kw):
         decode_steps=stats.decode_steps,
         verify_steps=stats.verify_steps,
         mean_step_ms=1e3 * step_s / steps,
+        ttft_p50_ms=1e3 * ttft[50],
+        ttft_p95_ms=1e3 * ttft[95],
         acceptance_rate=stats.acceptance_rate,
         accepted_per_verify=stats.draft_tokens_accepted / stats.verify_steps if spec else None,
         tree_nodes_per_verify=stats.tree_nodes_proposed / stats.verify_steps if spec else None,
@@ -1143,6 +1312,7 @@ def serve_leg(name, model, layers, kernel, plain=None, **serve_kw):
         launches=launches[kernel],
         near_ties=len(ties),
         max_gap_noise=noise,
+        gap_noise_share_of_limit=share,
     )
     print("[spec] " + json.dumps(summary))
     return {r.rid: list(r.generated) for r in done}, top, summary, launches
@@ -1159,7 +1329,7 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     window of (a)'s, (b)'s, (c)'s and (d)'s steps and of the plain slot
     run's (#4), and of (a)'s, (c)'s and the slot run's again at ~250-token
     contexts. Returns the launches of
-    #6-#9 on their legs: (c), (e), (b) and (d)."""
+    #6-#9 on their legs: (c), (e), (b) and (d), and {leg: summary}."""
     from flexflow_tpu_torch.serving import Request
 
     warm = lambda: [Request(rid=i, prompt=[1 + i, 2 + i], max_new_tokens=8) for i in range(4)]
@@ -1167,12 +1337,14 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     int8, tree_int8 = dict(kv_dtype="int8"), dict(TREE, kv_dtype="int8")
     for kw in ({}, TREE, int8, tree_int8):  # warm-up, not measured
         serve(model, warm(), **kw)
-    a, a_top, *_ = serve_leg("a: plain, fp32 paged", model, layers, "paged_flash_verify")
-    *_, b_launches = serve_leg("b: tree spec, fp32 paged", model, layers, "paged_flash_verify_tree",
-                               plain=(a, a_top), **TREE)
-    c, c_top, _, c_launches = serve_leg("c: plain, int8 paged", model, layers, "paged_flash_verify_quant", **int8)
-    *_, d_launches = serve_leg("d: tree spec, int8 paged", model, layers, "paged_flash_verify_tree_quant",
-                               plain=(c, c_top), **tree_int8)
+    summaries = {}
+    a, a_top, summaries["a"], _ = serve_leg("a: plain, fp32 paged", model, layers, "paged_flash_verify")
+    *_, summaries["b"], b_launches = serve_leg("b: tree spec, fp32 paged", model, layers, "paged_flash_verify_tree",
+                                               plain=(a, a_top), **TREE)
+    c, c_top, summaries["c"], c_launches = serve_leg("c: plain, int8 paged", model, layers,
+                                                     "paged_flash_verify_quant", **int8)
+    *_, summaries["d"], d_launches = serve_leg("d: tree spec, int8 paged", model, layers,
+                                               "paged_flash_verify_tree_quant", plain=(c, c_top), **tree_int8)
     if model.device.type == "cuda":
         for label, kernel, kw in (
             ("a: decode, fp32 paged", "paged_flash_verify", {}),
@@ -1190,9 +1362,9 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
     slot, linear_int8 = dict(kv_layout="slot"), dict(LINEAR, kv_dtype="int8")
     for kw in (slot, dict(TREE, **slot), int8, linear_int8):
         serve(small, warm(), **kw)
-    s, s_top, *_ = serve_leg("plain, slot", small, small_layers, "flash_verify", **slot)
-    *_, e_launches = serve_leg("e: tree spec, slot", small, small_layers, "flash_verify_tree",
-                               plain=(s, s_top), **TREE, **slot)
+    s, s_top, summaries["slot"], _ = serve_leg("plain, slot", small, small_layers, "flash_verify", **slot)
+    *_, summaries["e"], e_launches = serve_leg("e: tree spec, slot", small, small_layers, "flash_verify_tree",
+                                               plain=(s, s_top), **TREE, **slot)
     i, i_top, *_ = serve_leg("plain, int8 paged", small, small_layers, "paged_flash_verify_quant", **int8)
     serve_leg("f: linear spec, int8 paged", small, small_layers, "paged_flash_verify_quant",
               plain=(i, i_top), **linear_int8)
@@ -1205,24 +1377,26 @@ def serve_spec(device, layers=FLAGSHIP["layers"], small_layers=2):
         "flash_verify_tree": e_launches["flash_verify_tree"],
         "paged_flash_verify_tree": b_launches["paged_flash_verify_tree"],
         "paged_flash_verify_tree_quant": d_launches["paged_flash_verify_tree_quant"],
-    }
+    }, summaries
 
 
 # -- 4c. multi-step decode as CUDA-graph windows ------------------------------------
 
 
-def profile_multistep(model, label, iters, **serve_kw):
+def profile_multistep(model, label, iters, kernel=None, **serve_kw):
     """Device time against wall time per decode step over `iters`
     scheduler iterations with all slots busy: plain decode steps, or fused
     windows under decode_multistep (the first window, which captures the
     graph, runs before the profiled ones). Device time is the profiler's
     kernels and copies; the CUDA events around the iterations give the
     device timeline's span beside it. None when the profiler sees no
-    device activity."""
+    device activity. With `kernel`, also the window's breakdown
+    (step_breakdown)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
     from flexflow_tpu_torch.serving import Request, ServeConfig, build_scheduler
 
     sched, _, _ = build_scheduler(
@@ -1234,6 +1408,7 @@ def profile_multistep(model, label, iters, **serve_kw):
         sched.step()
     torch.cuda.synchronize()
     steps0 = sched.stats.decode_steps
+    calls0 = dict(dk.LAUNCHES)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1260,6 +1435,8 @@ def profile_multistep(model, label, iters, **serve_kw):
     )
     if device_us <= 0:
         print(f"[multistep] {label}: the profiler recorded no device time: device ms not measured")
+    elif kernel is not None:
+        out["kernel"] = step_breakdown(label, events, steps, kernel, dk.LAUNCHES[kernel] - calls0[kernel])
     print("[multistep] profile " + json.dumps(out))
     return out
 
@@ -1353,6 +1530,127 @@ def multistep_burst(model, plain, layers=FLAGSHIP["layers"]):
     return summary
 
 
+# -- 4d. mixed-precision serving ------------------------------------------------------
+
+
+def weight_cast_ms(model):
+    """Device time of casting, once, every weight that mm_operands casts
+    to bf16 in a mixed-precision step (those of LINEAR and
+    MULTIHEAD_ATTENTION nodes; EMBEDDING gathers its f32 rows): what a
+    bf16 weight cache would save per step. (ms, bytes read and written)."""
+    import torch
+
+    weights = [w for node in model.graph.nodes.values()
+               if node.op_type.name in ("LINEAR", "MULTIHEAD_ATTENTION")
+               for w in model.params.get(node.guid, []) if w.dim() >= 2 and w.dtype == torch.float32]
+    cast = lambda: [w.to(torch.bfloat16) for w in weights]
+    ms = time_ms(cast, lambda: None, iters=20, warmup=3)
+    return ms, sum(6 * w.numel() for w in weights)
+
+
+def bf16_near_tie(ulps):
+    return lambda value: ulps * bf16_ulp(abs(value))
+
+
+def serve_mixed(device, fp32, layers=FLAGSHIP["layers"], small_layers=2):
+    """Phase 4d: the flagship LM compiled with allow_mixed_precision from
+    phase 3's seeded weights serves (a) phase 3's burst on fp32 paged pools
+    (#5 at bf16 q), (b) the long requests plain and with tree speculation
+    on fp32 pools (#5, #8) and on int8 pools (#6, #9), (d) the plain fp32
+    leg again as decode_multistep graph windows, whose streams must equal
+    (b)'s eager plain streams token for token, and at `small_layers` layers
+    (c) plain and tree spec on the slot layout (#4, #7) and its cached
+    decode logits against the full no-cache mixed forward. Every request
+    finishes, each leg's bf16-q kernel launches steps x layers times
+    (replays counted) and no other decode kernel launches, fp32-q ones
+    included; spec streams equal their plain leg's up to the bf16 near-tie
+    limits (NEAR_TIE_BF16_ULPS). Each leg is printed beside the same leg's
+    fp32 run of this call (`fp32`: {leg: summary}); (a) and (d) have a
+    profiled window broken down into the bf16-q kernel, the GEMMs and the
+    casts, beside the device time of casting the weights alone. Returns
+    the launches of the six bf16-q entry points on their legs."""
+    from flexflow_tpu_torch.serving import Request, RequestStatus, latency_percentiles
+
+    cuda = device == "cuda"
+    warm = lambda: [Request(rid=i, prompt=[1 + i, 2 + i], max_new_tokens=8) for i in range(4)]
+    model = build_lm(device, mixed=True, **dict(FLAGSHIP, layers=layers))
+    int8, tree_int8 = dict(kv_dtype="int8"), dict(TREE, kv_dtype="int8")
+    for kw in ({}, TREE, int8, tree_int8):  # warm-up, not measured
+        serve(model, warm(), **kw)
+    launches, mixed = {}, {}
+
+    # (a) phase 3's burst on the default paged fp32 pools
+    done, stats, runs, cache = serve(model, mixed_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], NUM_REQUESTS))
+    bad = [(r.rid, r.status, r.error) for r in done if r.status != RequestStatus.FINISHED]
+    require(len(done) == NUM_REQUESTS and not bad, f"4d (a): requests not FINISHED: {bad}")
+    want = {k: 0 for k in runs}
+    want["paged_flash_verify_bf16"] = stats.decode_steps * layers
+    require(runs == want, f"4d (a): launches {runs}, want {want}")
+    launches["paged_flash_verify_bf16"] = runs["paged_flash_verify_bf16"]
+    ttft = latency_percentiles(done, (50, 95), metric="ttft")
+    mixed["burst"] = dict(tokens_per_s=stats.tokens_per_s, mean_step_ms=1e3 * stats.mean_decode_step_s,
+                          ttft_p50_ms=1e3 * ttft[50], ttft_p95_ms=1e3 * ttft[95], decode_steps=stats.decode_steps,
+                          kv_pool_bytes=pool_bytes(cache), launches=launches["paged_flash_verify_bf16"])
+    # (b) the long requests, plain and tree spec, fp32 and int8 pools
+    tie, tie8 = bf16_near_tie(NEAR_TIE_BF16_ULPS), bf16_near_tie(NEAR_TIE_BF16_ULPS_INT8)
+    a, a_top, mixed["a"], _ = serve_leg("4d b: mixed plain, fp32 paged", model, layers, "paged_flash_verify_bf16",
+                                        near_tie=tie)
+    *_, mixed["b"], runs = serve_leg("4d b: mixed tree spec, fp32 paged", model, layers,
+                                     "paged_flash_verify_tree_bf16", plain=(a, a_top), near_tie=tie, **TREE)
+    launches["paged_flash_verify_tree_bf16"] = runs["paged_flash_verify_tree_bf16"]
+    c, c_top, mixed["c"], runs = serve_leg("4d b: mixed plain, int8 paged", model, layers,
+                                           "paged_flash_verify_quant_bf16", near_tie=tie8, **int8)
+    launches["paged_flash_verify_quant_bf16"] = runs["paged_flash_verify_quant_bf16"]
+    *_, mixed["d"], runs = serve_leg("4d b: mixed tree spec, int8 paged", model, layers,
+                                     "paged_flash_verify_tree_quant_bf16", plain=(c, c_top), near_tie=tie8,
+                                     **tree_int8)
+    launches["paged_flash_verify_tree_quant_bf16"] = runs["paged_flash_verify_tree_quant_bf16"]
+    # (d) graph windows on fp32 pools: (b)'s plain streams, token for token
+    kw = dict(decode_multistep=True, max_fused_steps=MULTISTEP_STEPS)
+    done, stats, runs, _ = serve(model, long_requests(FLAGSHIP["vocab"], FLAGSHIP["max_len"], SPEC_REQUESTS), **kw)
+    require(all(r.ok and len(r.generated) == r.max_new_tokens for r in done), "4d (d): unfinished requests")
+    require({r.rid: list(r.generated) for r in done} == a, "4d (d): graph-window streams differ from (b)'s eager ones")
+    want = {k: 0 for k in runs}
+    want["paged_flash_verify_bf16"] = stats.decode_steps * layers
+    require(runs == want, f"4d (d): launches {runs}, want {want}")
+    require(stats.multistep_cache_entries == (1 if cuda else 0) and stats.multistep_steps > stats.multistep_windows,
+            f"4d (d): {stats}")
+    mixed["graph"] = dict(tokens_per_s=stats.tokens_per_s, mean_step_ms=1e3 * stats.mean_decode_step_s,
+                          decode_steps=stats.decode_steps, windows=stats.multistep_windows,
+                          host_syncs_per_token=stats.host_syncs_per_token)
+    print(f"[mixed] 4d (d): graph streams == (b)'s eager plain streams for {len(done)} requests")
+    if cuda:
+        profile_decode(model, label="4d (a): mixed decode, fp32 paged", kernel="paged_flash_verify_bf16")
+        prof = profile_multistep(model, "4d (d): mixed graph windows, fp32 paged", 4,
+                                 kernel="paged_flash_verify_bf16", **kw)
+        mixed["graph"].update(device_ms_per_step=prof["device_ms_per_step"], busy_share=prof["device_busy_share"])
+        ms, nbytes = weight_cast_ms(model)
+        print(f"[mixed] the weights mm_operands casts to bf16 every step, cast alone: {ms:.4f} ms of device time "
+              f"per step ({nbytes / 1e9:.3f} GB read and written; {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del model
+    # (c) 2 layers on the slot layout
+    small = build_lm(device, mixed=True, **dict(FLAGSHIP, layers=small_layers))
+    slot = dict(kv_layout="slot")
+    for kw in (slot, dict(TREE, **slot)):
+        serve(small, warm(), **kw)
+    s, s_top, mixed["slot"], runs = serve_leg("4d c: mixed plain, slot", small, small_layers, "flash_verify_bf16",
+                                              near_tie=tie, **slot)
+    launches["flash_verify_bf16"] = runs["flash_verify_bf16"]
+    *_, mixed["e"], runs = serve_leg("4d c: mixed tree spec, slot", small, small_layers, "flash_verify_tree_bf16",
+                                     plain=(s, s_top), near_tie=tie, **TREE, **slot)
+    launches["flash_verify_tree_bf16"] = runs["flash_verify_tree_bf16"]
+    check_decode_logits(small, ulps=CACHE_ULPS_BF16)
+    del small
+    keys = ("tokens_per_s", "mean_step_ms", "ttft_p50_ms", "ttft_p95_ms", "acceptance_rate", "kv_pool_bytes")
+    for leg, theirs in fp32.items():
+        ours = mixed.get(leg)
+        if ours is not None:
+            print(f"[mixed] leg {leg}: fp32 against mixed precision, same call: "
+                  + json.dumps({k: [theirs.get(k), ours.get(k)] for k in keys if k in theirs or k in ours}))
+    return launches
+
+
 # -- 5. flash kernels vs plain versions --------------------------------------------
 
 
@@ -1371,16 +1669,23 @@ def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED, dtype=None):
     return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, causal=causal)
 
 
+def flash_base(name):
+    """The kernel (flash_fwd, flash_dq, flash_dkv) a LAUNCHES name counts."""
+    return name.replace("_wide", "").replace("_bf16", "")
+
+
 def flash_calls(x):
     """{kernel: (kernel call, plain call)} on the inputs x (the LAUNCHES
-    names of the bodies their dtype runs)."""
+    names of the bodies their dtype and head_dim run)."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     fwd = (x["q"], x["k"], x["v"], x["causal"])
     bwd = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["causal"])
-    suffix = "_bf16" if x["q"].dtype == torch.bfloat16 else ""
+    suffix = ""
+    if x["q"].dtype == torch.bfloat16:
+        suffix = "_wide_bf16" if x["q"].shape[-1] > 256 else "_bf16"
     return {
         "flash_fwd" + suffix: (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
         "flash_dq" + suffix: (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
@@ -1405,7 +1710,7 @@ def flash_bound_ms(x, name):
     pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if x["causal"] else sq * sk)
     qo, kv, rows = b * sq * h * d, b * sk * h * d, b * h * sq
     bf16 = x["q"].dtype == torch.bfloat16
-    base = name[: -len("_bf16")] if name.endswith("_bf16") else name
+    base = flash_base(name)
     el = 2 if bf16 else 4
     nbytes = {
         "flash_fwd": el * (2 * qo + 2 * kv) + 4 * rows,       # q, k, v in; O, LSE out
@@ -1619,9 +1924,9 @@ def check_bf16_case(x, tag):
     exact64 = {n: x[n].double() for n in ("q", "k", "v", "do")}
     args64 = (exact64["q"], exact64["k"], exact64["v"])
     exact = {
-        "flash_fwd_bf16": fk.flash_fwd_ref(*args64, x["causal"])[:1],
-        "flash_dq_bf16": (fk.flash_dq_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),),
-        "flash_dkv_bf16": fk.flash_dkv_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),
+        "flash_fwd": fk.flash_fwd_ref(*args64, x["causal"])[:1],
+        "flash_dq": (fk.flash_dq_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),),
+        "flash_dkv": fk.flash_dkv_ref(*args64, exact64["do"], x["lse"], x["delta"], x["causal"]),
     }
     errs = {}
     for name, (kernel, plain) in flash_calls(x).items():
@@ -1630,11 +1935,11 @@ def check_bf16_case(x, tag):
         want = plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        if name == "flash_fwd_bf16":
+        if flash_base(name) == "flash_fwd":
             lse_err = float((got[1] - want[1]).abs().max())
             require(lse_err <= ATOL_FLASH_FWD, f"{name} {tag}: LSE error {lse_err}")
         k_err = p_err = 0.0
-        for a, p, e in zip(got, want, exact[name]):
+        for a, p, e in zip(got, want, exact[flash_base(name)]):
             ke, pe = float((a.double() - e).abs().max()), float((p.double() - e).abs().max())
             limit = 2 * pe + bf16_ulp(float(e.abs().max()))
             require(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and ke <= limit,
@@ -1645,32 +1950,36 @@ def check_bf16_case(x, tag):
     return errs
 
 
-def time_flash_bf16_kernels():
-    """The bf16 #1-#3 at the flagship shape, causal and not: times (event
-    timer and profiler), bounds, plain times and PyTorch's bf16 SDPA
-    (forward beside #1, backward beside the #2 + #3 pair) with the
-    backend it ran. Returns the kernels-line rows of the non-causal
-    shape."""
+def time_flash_bf16_kernels(shapes):
+    """The bf16 #1-#3 at `shapes` ((seq, heads, head_dim, causal) at the
+    flagship's batch): times (event timer and profiler), bounds, plain
+    times and PyTorch's bf16 SDPA (forward beside #1, backward beside the
+    #2 + #3 pair) with the backend it ran. Past head_dim 256 the calls are
+    the bf16 wide kernels, timed after wide cases, where the profiler may
+    read part of a call (None then: scripts/flash_bf16_device_time.py
+    --shape reads them in a fresh process). Returns the kernels-line rows
+    of each kernel's first non-causal shape."""
     import torch
     import torch.nn.functional as F
 
     device = torch.device("cuda")
-    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
-    rows = {name: {} for name in FLASH_BF16}
+    b = TRAIN["batch"]
+    rows = {}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
-    for causal in (False, True):
-        x = flash_inputs(device, b, s, s, h, d, causal, dtype=torch.bfloat16)
-        tag = "bf16 " + ("causal" if causal else "non-causal")
-        dev = {}
+    for ts, th, td, causal in shapes:
+        x = flash_inputs(device, b, ts, ts, th, td, causal, dtype=torch.bfloat16)
+        tag = f"bf16 {'causal' if causal else 'non-causal'} [{b}, {ts}, {th}, {td}]"
+        dev, first = {}, {}
         for name, (kernel, plain) in flash_calls(x).items():
             ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush, iters=10, warmup=2)
-            dev[name] = device_ms(kernel, flush)
+            dev[flash_base(name)] = device_ms(kernel, flush)
             bound, by = flash_bound_ms(x, name)
-            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[name]} ms (bound {bound:.4f} ms, {by}), "
-                  f"plain {plain_ms:.4f} ms")
-            if not causal:
-                rows[name].update(ms=ms, device_ms=dev[name], plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[flash_base(name)]} ms (bound {bound:.4f} ms, "
+                  f"{by}), plain {plain_ms:.4f} ms")
+            first[name] = not causal and name not in rows
+            if first[name]:
+                rows[name] = dict(ms=ms, device_ms=dev[flash_base(name)], plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         qt, kt, vt, dot = (x[n].transpose(1, 2).contiguous().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         out = sdpa()
@@ -1679,13 +1988,13 @@ def time_flash_bf16_kernels():
         (lib_fwd_dev, fwd_backend), (lib_bwd_dev, bwd_backend) = (
             device_ms(sdpa, flush, top=True), device_ms(sdpa_bwd, flush, top=True)
         )
-        pair = None if None in (dev["flash_dq_bf16"], dev["flash_dkv_bf16"]) else dev["flash_dq_bf16"] + dev["flash_dkv_bf16"]
+        pair = None if None in (dev["flash_dq"], dev["flash_dkv"]) else dev["flash_dq"] + dev["flash_dkv"]
         print(f"[kernels] {tag}: library bf16 SDPA forward {lib_fwd:.4f} ms, device {lib_fwd_dev} ms "
               f"({fwd_backend}), backward {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
-              f"({bwd_backend}); bf16 #1 device {dev['flash_fwd_bf16']} ms, #2 + #3 device {pair} ms")
-        if not causal:
-            rows["flash_fwd_bf16"]["library_ms"] = lib_fwd
-            rows["flash_dq_bf16"]["library_ms"] = rows["flash_dkv_bf16"]["library_ms"] = lib_bwd
+              f"({bwd_backend}); bf16 #1 device {dev['flash_fwd']} ms, #2 + #3 device {pair} ms")
+        for name, take in first.items():
+            if take:
+                rows[name]["library_ms"] = lib_fwd if flash_base(name) == "flash_fwd" else lib_bwd
         del out
     return rows
 
@@ -1703,11 +2012,15 @@ def check_flash_bf16_kernels(rows):
 
     device = torch.device("cuda")
     b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
-    for name in FLASH_BF16:
-        rows[name]["max_abs_err"] = 0.0
+    for name in FLASH_BF16 + FLASH_WIDE_BF16:
+        rows.setdefault(name, {})["max_abs_err"] = 0.0
     cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 500, 380, 4, 64, False),
              (2, 128, 384, 4, 64, True), (2, 200, 77, 3, 24, False), (2, 384, 129, 4, 128, True),
              (1, 96, 160, 2, 160, False), (2, 129, 300, 2, 256, True)]
+    # past head_dim 256: the wide kernels for bf16 (3 or 4 output chunks
+    # and streamed pieces, ragged, sq != sk both ways)
+    cases += [(2, 129, 300, 2, 264, True), (2, 129, 300, 2, 264, False), (2, 300, 129, 2, 320, True),
+              (2, 300, 129, 2, 320, False), (1, 200, 77, 2, 512, False), (1, 200, 77, 2, 512, True)]
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
     for cb, sq, sk, ch, cd, causal in cases:
         x = flash_inputs(device, cb, sq, sk, ch, cd, causal, dtype=torch.bfloat16)
@@ -1839,7 +2152,9 @@ def train_flagship(device, mixed=False, **geo):
     nparams = sum(w.numel() for ws in model.params.values() for w in ws)
     data = synthetic_batch(geo["batch"] * geo["steps"], geo["seq"], geo["hidden"])
     label = "mixed precision (bf16)" if mixed else ""
-    print(f"[train] flagship Transformer, {label or 'fp32'}: {nparams / 1e6:.1f} M params, built in "
+    shape = "flagship Transformer" if geo == TRAIN else \
+        f"Transformer ({geo['layers']} layers, {geo['heads']} heads of {geo['hidden'] // geo['heads']})"
+    print(f"[train] {shape}, {label or 'fp32'}: {nparams / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.2f} s")
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -1854,11 +2169,14 @@ def train_flagship(device, mixed=False, **geo):
     mean_loss = hist[0]["loss_sum"] / max(1, hist[0]["train_all"])
     require(np.isfinite(mean_loss), f"non-finite training loss {mean_loss}")
     if cuda:
-        ran, idle = (FLASH_BF16, FLASH_FP32) if mixed else (FLASH_FP32, FLASH_BF16)
+        # the bodies of the model's dtype and head_dim run, no other
+        ran = FLASH_FP32
+        if mixed:
+            ran = FLASH_WIDE_BF16 if geo["hidden"] // geo["heads"] > 256 else FLASH_BF16
         for name in ran:
             n = launches[name]
             require(n == geo["layers"] * steps, f"{name} launches {n} != {geo['layers']} layers x {steps} steps")
-        for name in idle:
+        for name in set(launches) - set(ran):
             require(launches[name] == 0, f"{name} launched {launches[name]} times in the {label or 'fp32'} run")
     thpt = hist[0]["throughput"]
     summary = dict(
@@ -2042,24 +2360,31 @@ def main() -> int:
     smi_before = smi_sample()
     rows = check_kernels()
     rows.update(check_spec_kernels())
+    rows.update(check_bf16_q_kernels())
     check_split_body_edges()
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"at the start [{smi_idle}], after a 2 s warm-up, before the decode kernel "
           f"timings [{smi_before}], after them [{smi_sample()}]")
-    model, _, main_launches, burst = serve_flagship("cuda")
+    model, flagship, main_launches, burst = serve_flagship("cuda")
     profile_decode(model, kernel="paged_flash_verify")
     multistep_burst(model, burst)
-    multistep_leg("a: fp32 paged", model, FLAGSHIP["layers"], "paged_flash_verify")
+    graph_a = multistep_leg("a: fp32 paged", model, FLAGSHIP["layers"], "paged_flash_verify")["graph"]
     multistep_leg("b: int8 paged", model, FLAGSHIP["layers"], "paged_flash_verify_quant", kv_dtype="int8")
     del model
     model2, layout_launches = check_layouts("cuda")
     check_decode_logits(model2)
     multistep_leg("c: slot, 2 layers", model2, 2, "flash_verify", kv_layout="slot")
     del model2
-    spec_launches = serve_spec("cuda")
+    spec_launches, fp32_legs = serve_spec("cuda")
     # the spec legs' recording wrappers close reference cycles around
     # their schedulers, engines and pools: free them before the training
     # phases measure peak memory
+    gc.collect()
+    # 4d: the flagship under mixed precision, each leg beside its fp32 run
+    fp32_legs["burst"] = dict(tokens_per_s=flagship["tokens_per_s"], mean_step_ms=flagship["mean_decode_step_ms"],
+                              ttft_p50_ms=flagship["ttft_p50_ms"], ttft_p95_ms=flagship["ttft_p95_ms"])
+    fp32_legs["graph"] = dict(tokens_per_s=graph_a["tokens_per_s"], mean_step_ms=graph_a["step_ms"])
+    mixed_serving_launches = serve_mixed("cuda", fp32_legs)
     gc.collect()
     # after the serving phases, so the decode profile stays the run's
     # first profiler session, as it was before the training phases
@@ -2068,8 +2393,9 @@ def main() -> int:
     # then the wide shapes' timings and the correctness cases
     smi_before = smi_sample()
     flash_rows = time_flash_kernels(FLASH_TIMED)
-    flash_rows.update(time_flash_bf16_kernels())
+    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED))
     time_flash_kernels(FLASH_TIMED_WIDE)
+    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE[1:]))  # past 256: the bf16 wide kernels
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"before the flash kernel timings [{smi_before}], after them [{smi_sample()}]")
     check_flash_kernels(flash_rows)
@@ -2089,6 +2415,13 @@ def main() -> int:
     mixed_profile = profile_train_step(model4, {k: v[: TRAIN["batch"]] for k, v in data.items()}, "mixed precision (bf16) ")
     del model4
     gc.collect()
+    # bf16 #1-#3 past head_dim 256 on a training path: 2 layers of 2 heads
+    # of 320 under mixed precision (the bf16 wide kernels, 2 launches each
+    # per step)
+    model5, _, _, wide_launches = train_flagship("cuda", mixed=True, layers=2, hidden=640, heads=2, batch=2,
+                                                 seq=256, steps=3)
+    del model5
+    gc.collect()
     keys = ("samples_per_s", "mean_step_ms", "peak_memory_gb")
     print("[train] fp32 vs mixed precision, same call: "
           + json.dumps({k: [fp32_summary[k], mixed_summary[k]] for k in keys})
@@ -2102,6 +2435,8 @@ def main() -> int:
         "paged_flash_verify": main_launches["paged_flash_verify"],
         "flash_verify": layout_launches["slot"]["flash_verify"],
         **spec_launches,
+        **mixed_serving_launches,
+        **{name: wide_launches[name] for name in FLASH_WIDE_BF16},
         **{name: train_launches[name] for name in FLASH_FP32},
         **{name: mixed_launches[name] for name in FLASH_BF16},
     }

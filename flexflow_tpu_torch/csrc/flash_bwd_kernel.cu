@@ -329,9 +329,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kerne
 // pieces' buffers. Shared memory stays at (2 x 64 + 2 x 32) rows of 132
 // floats whatever head_dim is; the fixed operand is staged again for
 // every loop tile.
+// T = __nv_bfloat16 (mixed precision): the pieces are widened to fp32 as
+// they are staged, every product takes one TF32 pass (exact on bf16
+// values), P and dS are rounded to bf16 before the products that read them
+// (the reference's casts, flash_kernel.py:260, :297, :306), and dQ, dK and
+// dV are rounded to bf16 as they are stored; LSE and delta stay fp32.
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params p) {
   constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
+  constexpr bool kOne = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // Q piece [64][ld]
   float* gs = qs + kTile * ld;                   // dO piece [64][ld]
@@ -343,10 +350,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params
   const int c0 = 8 * c0t;
   const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-  const float* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
-  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
+  const T* qb = reinterpret_cast<const T*>(p.q) + ib * p.q_sb + ih * p.q_sh;
+  const T* gb = reinterpret_cast<const T*>(p.dout) + ib * p.g_sb + ih * p.g_sh;
+  const T* kb = reinterpret_cast<const T*>(p.k) + ib * p.k_sb + ih * p.k_sh;
+  const T* vb = reinterpret_cast<const T*>(p.v) + ib * p.v_sb + ih * p.v_sh;
 
   const int w0 = q0 + 16 * warp, r0 = w0 + g;
   float lse[2], dl[2];
@@ -373,17 +380,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params
     for (int pc = 0; pc < pieces; ++pc) {
       const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
       __syncthreads();  // every warp is done with the buffers
-      load_tile<kTile>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
-      load_tile<kTile>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
-      load_tile<kLoop>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
-      load_tile<kLoop>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
+      stage_tile<kTile>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
+      stage_tile<kTile>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
+      stage_tile<kLoop>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
+      stage_tile<kLoop>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();  // the pieces are in
-      product_nt<kPT, kNT, true>(qw, ks, s, gw, vs, dp, pt);  // S += Q K^T, dP += dO V^T
+      product_nt<kPT, kNT, true, kOne>(qw, ks, s, gw, vs, dp, pt);  // S += Q K^T, dP += dO V^T
     }
     __syncthreads();  // every warp is done with the last K piece
-    load_tile<kLoop>(ks, ld, kb + c0, p.k_ss, k0, p.sk, 8 * cn);
+    stage_tile<kLoop>(ks, ld, kb + c0, p.k_ss, k0, p.sk, 8 * cn);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();  // the K chunk is in
@@ -392,18 +399,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params
       ds_rows<false>(p, r0, k0, lse, dl, s, dp);
     else
       ds_rows<true>(p, r0, k0, lse, dl, s, dp);
+    round_operands<T, kNT>(dp);
     // dQ += dS K, the even and the odd 8-key steps into two accumulators
-    product_pn<kPT, kNT / 2, 2, kPT>(dp, ks, acc, dp + 1, ks + 8 * ld, acc_odd, cn);
+    product_pn<kPT, kNT / 2, 2, kPT, kOne>(dp, ks, acc, dp + 1, ks + 8 * ld, acc_odd, cn);
   }
 #pragma unroll
   for (int j = 0; j < kPT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
-  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
+  store_rows<kPT>(reinterpret_cast<T*>(p.out0) + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Params p) {
   constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
+  constexpr bool kOne = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // K piece [64][ld]
   float* vs = ks + kTile * ld;                   // V piece [64][ld]
@@ -417,10 +427,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Param
   const int c0 = 8 * c0t;
   const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-  const float* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
-  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
+  const T* qb = reinterpret_cast<const T*>(p.q) + ib * p.q_sb + ih * p.q_sh;
+  const T* gb = reinterpret_cast<const T*>(p.dout) + ib * p.g_sb + ih * p.g_sh;
+  const T* kb = reinterpret_cast<const T*>(p.k) + ib * p.k_sb + ih * p.k_sh;
+  const T* vb = reinterpret_cast<const T*>(p.v) + ib * p.v_sb + ih * p.v_sh;
   // causal: query tiles above the diagonal see none of these keys
   const int q_start = p.causal ? k0 : 0;
   const int n = p.sq > q_start ? (p.sq - q_start + kLoop - 1) / kLoop : 0;
@@ -439,18 +449,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Param
     for (int pc = 0; pc < pieces; ++pc) {
       const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
       __syncthreads();  // every warp is done with the buffers
-      load_tile<kTile>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
-      load_tile<kTile>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
-      load_tile<kLoop>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
-      load_tile<kLoop>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
+      stage_tile<kTile>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
+      stage_tile<kTile>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
+      stage_tile<kLoop>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
+      stage_tile<kLoop>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();  // the pieces are in
-      product_nt<kPT, kNT, true>(kw, qs, s, vw, gs, dp, pt);  // S^T += K Q^T, dP^T += V dO^T
+      product_nt<kPT, kNT, true, kOne>(kw, qs, s, vw, gs, dp, pt);  // S^T += K Q^T, dP^T += V dO^T
     }
     __syncthreads();  // every warp is done with the last Q and dO pieces
-    load_tile<kLoop>(qs, ld, qb + c0, p.q_ss, q0, p.sq, 8 * cn);
-    load_tile<kLoop>(gs, ld, gb + c0, p.g_ss, q0, p.sq, 8 * cn);
+    stage_tile<kLoop>(qs, ld, qb + c0, p.q_ss, q0, p.sq, 8 * cn);
+    stage_tile<kLoop>(gs, ld, gb + c0, p.g_ss, q0, p.sq, 8 * cn);
     load_rows(p, ib, ih, q0, ls, dls);
     cp_async_commit();
     cp_async_wait_all();
@@ -460,11 +470,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Param
       ds_cols<false>(p, r0, q0, ls, dls, s, dp);
     else
       ds_cols<true>(p, r0, q0, ls, dls, s, dp);
+    round_operands<T, kNT>(s);
+    round_operands<T, kNT>(dp);
     // dV += P^T dO, dK += dS^T Q
-    product_pn<kPT, kNT, 1, kPT>(s, gs, dv, dp, qs, dk, cn);
+    product_pn<kPT, kNT, 1, kPT, kOne>(s, gs, dv, dp, qs, dk, cn);
   }
-  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
-  store_rows<kPT>(p.out1 + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
+  store_rows<kPT>(reinterpret_cast<T*>(p.out0) + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
+  store_rows<kPT>(reinterpret_cast<T*>(p.out1) + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
 }
 
 // -- launch ----------------------------------------------------------------------------
@@ -485,10 +497,10 @@ void* kernel_of(int kind, int d) {
   static void* const table[2][5] = {
       {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>,
        (void*)flash_dq_mma_kernel<16>, (void*)flash_dq_mma_kernel<32>,
-       (void*)flash_dq_wide_kernel},
+       (void*)flash_dq_wide_kernel<float>},
       {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>,
        (void*)flash_dkv_mma_kernel<16>, (void*)flash_dkv_mma_kernel<32>,
-       (void*)flash_dkv_wide_kernel}};
+       (void*)flash_dkv_wide_kernel<float>}};
   return table[kind][bucket(d)];
 }
 
@@ -515,6 +527,28 @@ int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   void* args[] = {(void*)&p};
   cudaError_t e = cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args,
                                    smem_bytes(kind, p.d), stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 wide kernels (head_dim past kStagedMaxD only; csrc/
+// flash_bf16_kernel.cu's bodies take bf16 up to it).
+int launch_wide_bf16(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
+  if (!takes(p.d) || bucket(p.d) != 4) return (int)cudaErrorInvalidValue;
+  static bool configured[2] = {};
+  void* fn = kind == kDq ? (void*)flash_dq_wide_kernel<__nv_bfloat16> : (void*)flash_dkv_wide_kernel<__nv_bfloat16>;
+  if (!configured[kind]) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(kind, p.d));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured[kind] = true;
+  }
+  dim3 grid((rows + kTile - 1) / kTile, b * p.h, chunks(p.d));
+  void* args[] = {(void*)&p};
+  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem_bytes(kind, p.d), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -572,6 +606,41 @@ int ff_flash_dkv_f32(const void* q, const void* k, const void* v,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            g_sb, g_ss, g_sh, scale, causal};
   return launch(kDkv, p, b, sk, (cudaStream_t)stream);
+}
+
+// As ff_flash_dq_f32 for bf16 q, k, v, dO (rows 16-byte aligned) and dQ
+// at head_dim past 256 (any multiple of 8); lse and delta fp32.
+int ff_flash_dq_wide_bf16(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq, int b, int h, int sq, int sk, int d,
+                          long long q_sb, long long q_ss, long long q_sh,
+                          long long k_sb, long long k_ss, long long k_sh,
+                          long long v_sb, long long v_ss, long long v_sh,
+                          long long g_sb, long long g_ss, long long g_sh,
+                          float scale, int causal, void* stream) {
+  Params p{(const float*)q, (const float*)k, (const float*)v,
+           (const float*)dout, (const float*)lse, (const float*)delta,
+           (float*)dq, nullptr, h, sq, sk, d,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+           g_sb, g_ss, g_sh, scale, causal};
+  return launch_wide_bf16(kDq, p, b, sq, (cudaStream_t)stream);
+}
+
+// As ff_flash_dq_wide_bf16, writing dk and dv (bf16) contiguous [b, sk, h, d].
+int ff_flash_dkv_wide_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta,
+                           void* dk, void* dv, int b, int h, int sq, int sk, int d,
+                           long long q_sb, long long q_ss, long long q_sh,
+                           long long k_sb, long long k_ss, long long k_sh,
+                           long long v_sb, long long v_ss, long long v_sh,
+                           long long g_sb, long long g_ss, long long g_sh,
+                           float scale, int causal, void* stream) {
+  Params p{(const float*)q, (const float*)k, (const float*)v,
+           (const float*)dout, (const float*)lse, (const float*)delta,
+           (float*)dk, (float*)dv, h, sq, sk, d,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+           g_sb, g_ss, g_sh, scale, causal};
+  return launch_wide_bf16(kDkv, p, b, sk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,9 +6,17 @@
 // rows and the output stores. The reasoning behind the 3xTF32 products is
 // in flash_bwd_kernel.cu's header. ops/cuda/_build.py hashes this file into
 // the name of every library whose source includes it.
+//
+// The wide kernels (head_dim past kStagedMaxD) also take bf16 operands
+// (mixed precision; their element type T = __nv_bfloat16): each bf16 row is
+// widened to fp32 as it is staged (stage_tile), the products take one TF32
+// pass (a bf16 value, 8 significant bits, is a TF32 value, so its split has
+// no small part and the pass is exact; kOne below), and the outputs are
+// rounded to bf16 as they are stored (store_rows).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,14 +117,19 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 }
 
 // c += a b in 3xTF32, the small terms first; a is already split (it is
-// reused across a k-step's n-tiles), b is split here.
+// reused across a k-step's n-tiles), b is split here. kOne: a and b are
+// TF32 values (widened bf16: big is the value, small is 0), and the one
+// big pass is the exact product.
+template <bool kOne = false>
 __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
                                      const uint32_t as[4], const float b[2]) {
   uint32_t bb[2], bs[2];
   split(b[0], bb[0], bs[0]);
   split(b[1], bb[1], bs[1]);
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
+  if constexpr (!kOne) {
+    mma_tf32(c, as, bb);
+    mma_tf32(c, ab, bs);
+  }
   mma_tf32(c, ab, bb);
 }
 
@@ -137,7 +150,7 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
 // its length; at head_dim 256 (96 mma's) dP = dO V^T drifts past the
 // reference's 5e-5 where dP - delta cancels. A fresh accumulator truncates
 // only the k-step's own 8-term partial, and the adds round to nearest.
-template <int kDT, int kNT, bool kFresh = false>
+template <int kDT, int kNT, bool kFresh = false, bool kOne = false>
 __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
                                            float acc0[kNT][4], const float* A1,
                                            const float* B1, float acc1[kNT][4],
@@ -167,16 +180,16 @@ __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
         const float b1[2] = {B1[8 * j * ld + c], B1[8 * j * ld + c + 4]};
         if constexpr (kFresh) {
           float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3(f0, ab0, as0, b0);
-          mma3(f1, ab1, as1, b1);
+          mma3<kOne>(f0, ab0, as0, b0);
+          mma3<kOne>(f1, ab1, as1, b1);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             acc0[j][e] += f0[e];
             acc1[j][e] += f1[e];
           }
         } else {
-          mma3(acc0[j], ab0, as0, b0);
-          mma3(acc1[j], ab1, as1, b1);
+          mma3<kOne>(acc0[j], ab0, as0, b0);
+          mma3<kOne>(acc1[j], ab1, as1, b1);
         }
       }
     }
@@ -192,7 +205,7 @@ __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
 // visited inside each k-step in the order 0, 2, 4, 6, 1, 3, 5, 7, so that
 // P's fragment is the A operand as it stands. Reads:
 // B[8 kS kk + 2t (+1)][8j + g].
-template <int kDT, int kKT, int kS, int kOT = kDT>
+template <int kDT, int kKT, int kS, int kOT = kDT, bool kOne = false>
 __device__ __forceinline__ void product_pn(const float P0[][4], const float* B0,
                                            float acc0[kOT][4], const float P1[][4],
                                            const float* B1, float acc1[kOT][4],
@@ -217,8 +230,8 @@ __device__ __forceinline__ void product_pn(const float P0[][4], const float* B0,
       if (j < dt) {
         const float b0[2] = {B0[row + 8 * j], B0[row + ld + 8 * j]};
         const float b1[2] = {B1[row + 8 * j], B1[row + ld + 8 * j]};
-        mma3(acc0[j], ab0, as0, b0);
-        mma3(acc1[j], ab1, as1, b1);
+        mma3<kOne>(acc0[j], ab0, as0, b0);
+        mma3<kOne>(acc1[j], ab1, as1, b1);
       }
     }
   }
@@ -268,6 +281,58 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* base,
   }
 }
 
+// load_tile for bf16 rows: 8 elements (16 bytes) per thread and step, read
+// into registers and widened to fp32 in dst (cp.async copies bytes, it
+// cannot widen them). Synchronous: the barrier after it publishes the tile.
+template <int kRows>
+__device__ __forceinline__ void load_tile_bf16(float* dst, int ld, const __nv_bfloat16* base,
+                                               int64_t s_stride, int row0, int rows, int d) {
+  const int d8 = d / 8;
+  for (int i = threadIdx.x; i < kRows * d8; i += kThreads) {
+    const int r = i / d8, c8 = i - r * d8;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows) raw = __ldg(reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * s_stride) + c8);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float4* out = reinterpret_cast<float4*>(dst + r * ld + 8 * c8);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u]));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u + 1]));
+      out[u] = make_float4(a.x, a.y, b.x, b.y);
+    }
+  }
+}
+
+// A tile of T rows into fp32 shared memory: cp.async for float (waited on
+// by the caller's cp_async_wait_all), load_tile_bf16 for bf16.
+template <int kRows, typename T>
+__device__ __forceinline__ void stage_tile(float* dst, int ld, const T* base, int64_t s_stride,
+                                           int row0, int rows, int d) {
+  if constexpr (sizeof(T) == 4)
+    load_tile<kRows>(dst, ld, base, s_stride, row0, rows, d);
+  else
+    load_tile_bf16<kRows>(dst, ld, base, s_stride, row0, rows, d);
+}
+
+// A fragment's value as the next product's operand: itself for fp32
+// operands, rounded to bf16 (nearest even, the reference's astype) and
+// read back in fp32 for bf16 operands.
+template <typename T>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (sizeof(T) == 4)
+    return x;
+  else
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T, int kN>
+__device__ __forceinline__ void round_operands(float f[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[j][e] = operand<T>(f[j][e]);
+}
+
 __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
   return qi < p.sq && kj < p.sk && (!p.causal || qi >= kj);
 }
@@ -275,8 +340,9 @@ __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
 // Rows r0 (acc[j][0..1]) and r0 + 8 (acc[j][2..3]) of a contiguous
 // [b, s, h, d] output (out already at the block's first column), the
 // first dt of kDT n-tiles; rows at or past s are skipped.
-template <int kDT>
-__device__ __forceinline__ void store_rows(float* out, int ib, int ih, int h,
+// A bf16 output (T = __nv_bfloat16) is rounded to nearest even.
+template <int kDT, typename T = float>
+__device__ __forceinline__ void store_rows(T* out, int ib, int ih, int h,
                                            int s, int r0, int d, int dt,
                                            const float acc[kDT][4]) {
   const int t = threadIdx.x & 3;
@@ -284,11 +350,16 @@ __device__ __forceinline__ void store_rows(float* out, int ib, int ih, int h,
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + 8 * half;
     if (row >= s) continue;
-    float* o = out + (((int64_t)ib * s + row) * h + ih) * d + 2 * t;
+    T* o = out + (((int64_t)ib * s + row) * h + ih) * d + 2 * t;
 #pragma unroll
     for (int j = 0; j < kDT; ++j)
-      if (j < dt)
-        *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      if (j < dt) {
+        if constexpr (sizeof(T) == 4)
+          *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+              __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+      }
   }
 }
 

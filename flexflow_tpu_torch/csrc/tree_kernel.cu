@@ -5,8 +5,9 @@
 // flexflow_tpu_torch/ops/cuda/decode_kernel.py.
 //
 // What it replaces: six Pallas TPU kernels of
-// flexflow_tpu/ops/pallas/decode_kernel.py, one body templated on three
-// flags:
+// flexflow_tpu/ops/pallas/decode_kernel.py, one body templated on q's
+// element type TQ (float, or __nv_bfloat16 under a mixed-precision model)
+// and three flags:
 //   kPaged kQuant kStair
 //     0      0      0    _tree_kernel :626 (flash_verify_tree)            #7
 //     1      0      0    _paged_tree_kernel :732 (paged_flash_verify_tree) #8
@@ -26,8 +27,20 @@
 // loads and multiplied by its page's scale on the way into the fp32 tile,
 // as the reference dequantizes (attention._dequant_pages), so the staged
 // values are bit-identical to the dense dequant; a page with scale 0
-// reads as zeros. A masked entry contributes p = 0, and a row that sees
-// nothing yields acc / max(l, 1e-30) = 0.
+// reads as zeros; a row whose int8 elements are not 16-byte aligned
+// (head_dim 24, 40, ...: an odd number of 8-byte words) is read in 8-byte
+// loads instead, so any head_dim that is a multiple of 8 is taken. A masked
+// entry contributes p = 0, and a row that sees nothing yields
+// acc / max(l, 1e-30) = 0.
+// bf16 q (TQ = __nv_bfloat16): the pools stay fp32 or int8, as the
+// reference's cache does under allow_mixed_precision. Only two places
+// change: q is widened to fp32 as it is loaded (exact), and the output is
+// rounded to nearest even as it is written (the single-block finish, the
+// one-row finish and the split merge), the reference's
+// .astype(o_ref.dtype) (decode_kernel.py:229). The scores, P (the V pool's
+// dtype, :218, fp32 here), the running (m, l), the accumulators and the
+// partials stay fp32, so a bf16-q call computes the fp32-q function of the
+// widened q and rounds it once.
 //
 // What bounds it: the bytes of the visible K/V rows. At the serving shape
 // (8 sequences x 16 heads x 64, w = 13, max_len 512) the two products are
@@ -69,7 +82,8 @@
 //     accumulator, so each staged V element is loaded once per thread and
 //     used for all of its rows; the row max and sum reduce across the 16 threads that
 //     share a row;
-//   * Q, K, V and the mask are staged with 16-byte (mask: 4-byte) loads;
+//   * Q, K, V and the mask are staged with 16-byte (mask: 4-byte; bf16 q
+//     and int8 rows not 16-byte aligned: 8-byte) loads;
 //     rows are padded to head_dim + 4 floats against bank conflicts; each
 //     row's cache offset (and page scale) is resolved once per chunk (one
 //     page lookup per row, not per element); the length, the first chunk's
@@ -128,7 +142,7 @@ constexpr float kMask = -1e30f;
 constexpr int kMaxSplits = 64;         // the merge weights fit the K/V tiles
 
 struct Params {
-  const float* q;
+  const void* q;            // float or __nv_bfloat16 (TQ)
   const void* k;            // float, or int8_t under kQuant
   const void* v;
   const float* k_scale;     // quant only: [num_pages, h] contiguous
@@ -136,7 +150,7 @@ struct Params {
   const int* lengths;
   const int* tables;        // paged only: [b, pages_per_seq] page ids
   const uint8_t* allowed;   // tree only: [b, w, max_len], last dim contiguous
-  float* out;               // [b, w, h, d] contiguous
+  void* out;                // [b, w, h, d] contiguous, q's element type
   float* part_acc;          // splits > 1: [b, h, splits, w, d]
   float* part_ml;           // splits > 1: [b, h, splits, w, 2] (m, l)
   unsigned int* counters;   // splits > 1: [b * h] arrivals, zero at rest
@@ -147,6 +161,7 @@ struct Params {
   int page_size;  // paged only
   int num_pages;  // paged only: entries outside [0, num_pages) are sentinels
   int mask_vec4;  // the mask rows may be read as 4-byte words
+  int vec16;      // quant: the int8 rows are 16-byte aligned (else 8-byte loads)
   int64_t tbl_sb;
   int64_t q_sb, q_sw, q_sh;
   // contiguous: (batch, position, head) strides; paged: (page, row, head);
@@ -220,6 +235,7 @@ __device__ __forceinline__ void row_offsets(const Params& p, int ib, int ih, int
 // 0), then the accumulators. scratch holds 3 * kMaxSplits * w + w floats,
 // 8-byte aligned; partial rows base + s * w + j of splits 0..live-1 are
 // contiguous.
+template <typename TQ>
 __device__ void arrive_and_merge(const Params& p, int ib, int ih, int live, int64_t base,
                                  float* scratch) {
   const int tid = threadIdx.x, w = p.w, d4 = p.d / 4;
@@ -257,7 +273,7 @@ __device__ void arrive_and_merge(const Params& p, int ib, int ih, int live, int6
   // the first is used
   constexpr int kBatch = 8;
   const float4* acc4 = reinterpret_cast<const float4*>(p.part_acc) + base * d4;
-  float4* out4 = reinterpret_cast<float4*>(p.out);
+  TQ* out = static_cast<TQ*>(p.out);
   for (int i = tid; i < w * d4; i += kThreads) {
     const int j = i / d4, c = i - j * d4;
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -277,12 +293,12 @@ __device__ void arrive_and_merge(const Params& p, int ib, int ih, int live, int6
       }
     }
     const float l = den[j];
-    out4[(((int64_t)ib * w + j) * p.h + ih) * d4 + c] =
-        make_float4(num.x / l, num.y / l, num.z / l, num.w / l);
+    store4<TQ>(out + ((((int64_t)ib * w + j) * p.h + ih) * d4 + c) * 4,
+               make_float4(num.x / l, num.y / l, num.z / l, num.w / l));
   }
 }
 
-template <bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
+template <typename TQ, bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
 __global__ void __launch_bounds__(kThreads)
     tree_attention_kernel(const Params p) {
   using Acc = typename Accum<kQuant && kRm == 2>::T;
@@ -320,12 +336,12 @@ __global__ void __launch_bounds__(kThreads)
     row_offsets<kPaged, kQuant>(p, ib, ih, lo + tid, ko, vo, ksc, vsc);
   constexpr int kQn = kWb * kC4 / kThreads;  // Q float4s per thread
   float4 qv[kQn];
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const TQ* qb = static_cast<const TQ*>(p.q) + ib * p.q_sb + ih * p.q_sh;
 #pragma unroll
   for (int u = 0; u < kQn; ++u) {
     const int i = tid + u * kThreads, j = i / kC4, c = i % kC4;
     qv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < w && c < d4) qv[u] = *reinterpret_cast<const float4*>(qb + j * p.q_sw + 4 * c);
+    if (j < w && c < d4) qv[u] = load4<TQ>(qb + j * p.q_sw + 4 * c);
   }
   // positions [0, end) are visible to at least one query row
   const int end = min(length + w, p.max_len);
@@ -333,7 +349,7 @@ __global__ void __launch_bounds__(kThreads)
   if (lo >= hi) {  // nothing to read in this range
     if (is == 0)  // nor in any (lengths[b] + w <= 0): the output is 0
       for (int i = tid; i < w * d; i += kThreads)
-        p.out[(((int64_t)ib * w + i / d) * p.h + ih) * d + i % d] = 0.f;
+        static_cast<TQ*>(p.out)[(((int64_t)ib * w + i / d) * p.h + ih) * d + i % d] = from_f32<TQ>(0.f);
     return;
   }
   const int live = (end + p.span - 1) / p.span;  // splits with positions to read
@@ -354,7 +370,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int sc = tid % kC4, sr = tid / kC4;     // this thread's fp32 staging column, first row
-  const int sc8 = tid % kC16, sr8 = tid / kC16;  // the same for int8 rows
+  const int sc8 = tid % kC16, sr8 = tid / kC16;  // the same for 16-byte int8 loads
+  constexpr int kC8 = 8 * kCn;         // 8-byte int8 columns of a staged row
+  constexpr int kRs8h = kThreads / kC8;  // int8 rows staged per pass in 8-byte loads
+  const int sc8h = tid % kC8, sr8h = tid / kC8;
   const uint8_t* mb = p.allowed + ib * p.m_sb;
   for (int k0 = lo; k0 < hi; k0 += kChunk) {
     const int rows = min(kChunk, hi - k0);
@@ -397,7 +416,7 @@ __global__ void __launch_bounds__(kThreads)
         mw[u] = word;
       }
     }
-    if (kQuant) {
+    if (kQuant && p.vec16) {
       const int8_t* k8 = static_cast<const int8_t*>(p.k);
       const int8_t* v8 = static_cast<const int8_t*>(p.v);
 #pragma unroll
@@ -411,6 +430,21 @@ __global__ void __launch_bounds__(kThreads)
         }
         store_dequant(k_s + r * kDs + 16 * sc8, kr, ks_s[r]);
         store_dequant(v_s + r * kDs + 16 * sc8, vr, vs_s[r]);
+      }
+    } else if (kQuant) {  // rows 8-byte aligned only (head_dim 24, 40, ...)
+      const int8_t* k8 = static_cast<const int8_t*>(p.k);
+      const int8_t* v8 = static_cast<const int8_t*>(p.v);
+#pragma unroll
+      for (int u = 0; u < kChunk / kRs8h; ++u) {
+        const int r = sr8h + u * kRs8h;
+        const int64_t ko = koff_s[r], vo = voff_s[r];
+        int2 kr = make_int2(0, 0), vr = kr;
+        if (ko >= 0 && 8 * sc8h < d) {
+          kr = __ldg(reinterpret_cast<const int2*>(k8 + ko) + sc8h);
+          vr = __ldg(reinterpret_cast<const int2*>(v8 + vo) + sc8h);
+        }
+        store_dequant8(k_s + r * kDs + 8 * sc8h, kr, ks_s[r]);
+        store_dequant8(v_s + r * kDs + 8 * sc8h, vr, vs_s[r]);
       }
     } else {
       const float* kf = static_cast<const float*>(p.k);
@@ -540,14 +574,13 @@ __global__ void __launch_bounds__(kThreads)
       const int row = ty + i * kTy;
       if (row >= w) continue;
       const Acc l = max(l_r[i], (Acc)1e-30f);
-      float* o = p.out + (((int64_t)ib * w + row) * p.h + ih) * d;
+      TQ* o = static_cast<TQ*>(p.out) + (((int64_t)ib * w + row) * p.h + ih) * d;
 #pragma unroll
       for (int k = 0; k < kCn; ++k) {
         const int c = 4 * tx + 64 * k;
         if (c < d)
-          *reinterpret_cast<float4*>(o + c) =
-              make_float4(acc[i][4 * k] / l, acc[i][4 * k + 1] / l,
-                          acc[i][4 * k + 2] / l, acc[i][4 * k + 3] / l);
+          store4<TQ>(o + c, make_float4(acc[i][4 * k] / l, acc[i][4 * k + 1] / l,
+                                        acc[i][4 * k + 2] / l, acc[i][4 * k + 3] / l));
       }
     }
     return;
@@ -576,7 +609,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   static_assert(3 * kMaxSplits * kWb + kWb <= kWb * kDs + 2 * kChunk * kDs + kWb * kPs,
                 "the merge's scratch does not fit the tiles");
-  arrive_and_merge(p, ib, ih, live, base, q_s);
+  arrive_and_merge<TQ>(p, ib, ih, live, base, q_s);
 }
 
 // The end of a one-row tile (w = 1): its kN partial states (acc_s[t], the
@@ -584,7 +617,7 @@ __global__ void __launch_bounds__(kThreads)
 // barrier, merged exactly as the splits are; then the output where this
 // is the only live split, else this split's partial, its arrival and the
 // merge (arrive_and_merge, its scratch in the tile's own shared memory).
-template <int kN, int kC4>
+template <typename TQ, int kN, int kC4>
 __device__ void finish_single_row(const Params& p, int ib, int ih, int is, int live,
                                   const float4 (&acc_s)[kN][kC4], const float2 (&ml_s)[kN]) {
   __shared__ float2 scratch2[(3 * kMaxSplits + 2) / 2];  // the merge's, w = 1
@@ -602,8 +635,8 @@ __device__ void finish_single_row(const Params& p, int ib, int ih, int is, int l
   const float inv = live == 1 ? 1.f / fmaxf(den, 1e-30f) : 1.f;
   // live == 1: the output; else this split's partial (M, L, acc)
   const int64_t base = (int64_t)(ib * p.h + ih) * p.splits;  // split 0
-  float4* dst = live == 1 ? reinterpret_cast<float4*>(p.out) + ((int64_t)ib * p.h + ih) * d4
-                          : reinterpret_cast<float4*>(p.part_acc) + (base + is) * d4;
+  TQ* out = static_cast<TQ*>(p.out) + ((int64_t)ib * p.h + ih) * p.d;
+  float4* part = reinterpret_cast<float4*>(p.part_acc) + (base + is) * d4;
   for (int c = tid; c < d4; c += kThreads) {
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -614,21 +647,24 @@ __device__ void finish_single_row(const Params& p, int ib, int ih, int is, int l
       num.z += e[t] * a.z;
       num.w += e[t] * a.w;
     }
-    dst[c] = live == 1 ? make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv) : num;
+    if (live == 1)
+      store4<TQ>(out + 4 * c, make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
+    else
+      part[c] = num;
   }
   if (live == 1) return;
   if (tid == 0) {
     p.part_ml[2 * (base + is)] = big;
     p.part_ml[2 * (base + is) + 1] = den;
   }
-  arrive_and_merge(p, ib, ih, live, base, reinterpret_cast<float*>(scratch2));
+  arrive_and_merge<TQ>(p, ib, ih, live, base, reinterpret_cast<float*>(scratch2));
 }
 
 // One query row of fp32 rows under the staircase (w = 1: position p
 // visible iff p <= lengths[b]; #4 and #5): see the header. Half-warp ty
 // holds positions k0 + ty + 8 i of each pass, lane tx head_dim columns
 // 4 tx + 64 k.
-template <bool kPaged, int kCn>
+template <typename TQ, bool kPaged, int kCn>
 __global__ void __launch_bounds__(kThreads)
     single_query_kernel(const Params p) {
   constexpr int kR = kCn == 1 ? 4 : 8 / kCn;  // positions per half-warp per pass
@@ -653,17 +689,18 @@ __global__ void __launch_bounds__(kThreads)
     if (pos < p.max_len) row_offsets<kPaged, false>(p, ib, ih, pos, ko[i], vo[i], unused, unused);
   }
   float4 qv[kCn];
-  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const TQ* qb = static_cast<const TQ*>(p.q) + ib * p.q_sb + ih * p.q_sh;
 #pragma unroll
   for (int k = 0; k < kCn; ++k) {
     const int c = tx + 16 * k;
-    qv[k] = c < d4 ? __ldg(reinterpret_cast<const float4*>(qb) + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    qv[k] = c < d4 ? load4<TQ>(qb + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int end = min(length + 1, p.max_len);  // positions [0, end) are visible
   const int hi = min(lo + p.span, end);
   if (lo >= hi) {  // nothing to read in this range
     if (is == 0)  // nor in any (lengths[b] < 0): the output is 0
-      for (int c = tid; c < d; c += kThreads) p.out[((int64_t)ib * p.h + ih) * d + c] = 0.f;
+      for (int c = tid; c < d; c += kThreads)
+        static_cast<TQ*>(p.out)[((int64_t)ib * p.h + ih) * d + c] = from_f32<TQ>(0.f);
     return;
   }
   const int live = (end + p.span - 1) / p.span;  // splits with positions to read
@@ -737,7 +774,7 @@ __global__ void __launch_bounds__(kThreads)
     acc_s[ty][tx + 16 * k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
   if (tx == 0) ml_s[ty] = make_float2(m, l);
   __syncthreads();
-  finish_single_row(p, ib, ih, is, live, acc_s, ml_s);
+  finish_single_row<TQ>(p, ib, ih, is, live, acc_s, ml_s);
 }
 
 // 16 int8 values times their page's scale, dotted with 16 fp32 values:
@@ -756,7 +793,7 @@ __device__ __forceinline__ float dot16(const float4 (&q)[4], int4 raw, float s) 
 // header. Row group g (kL consecutive lanes) holds positions k0 + g + kG i
 // of each pass, lane t of the group int8 columns 16 t .. 16 t + 15 as one
 // 16-byte load.
-template <int kCn>
+template <typename TQ, int kCn>
 __global__ void __launch_bounds__(kThreads)
     single_query_int8_kernel(const Params p) {
   constexpr int kL = 4 * kCn;          // lanes per row
@@ -785,15 +822,18 @@ __global__ void __launch_bounds__(kThreads)
     const int pos = lo + g + kG * i;
     if (pos < p.max_len) row_offsets<true, true>(p, ib, ih, pos, ko[i], vo[i], ks[i], vs[i]);
   }
+  const bool hi8 = 16 * t + 8 < d;  // and its upper 8 columns too (head_dim 24, 40, ...)
   float4 qv[4];
-  const float4* qb = reinterpret_cast<const float4*>(p.q + ib * p.q_sb + ih * p.q_sh);
+  const TQ* qb = static_cast<const TQ*>(p.q) + ib * p.q_sb + ih * p.q_sh;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) qv[u] = cols ? __ldg(qb + 4 * t + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int u = 0; u < 4; ++u)
+    qv[u] = 16 * t + 4 * u < d ? load4<TQ>(qb + 16 * t + 4 * u) : make_float4(0.f, 0.f, 0.f, 0.f);
   const int end = min(length + 1, p.max_len);  // positions [0, end) are visible
   const int hi = min(lo + p.span, end);
   if (lo >= hi) {  // nothing to read in this range
     if (is == 0)  // nor in any (lengths[b] < 0): the output is 0
-      for (int c = tid; c < d; c += kThreads) p.out[((int64_t)ib * p.h + ih) * d + c] = 0.f;
+      for (int c = tid; c < d; c += kThreads)
+        static_cast<TQ*>(p.out)[((int64_t)ib * p.h + ih) * d + c] = from_f32<TQ>(0.f);
     return;
   }
   const int live = (end + p.span - 1) / p.span;  // splits with positions to read
@@ -821,8 +861,17 @@ __global__ void __launch_bounds__(kThreads)
       seen[i] = k0 + g + kG * i < hi && ko[i] >= 0;
       kr[i] = vr[i] = make_int4(0, 0, 0, 0);
       if (seen[i] && cols) {
-        kr[i] = __ldg(reinterpret_cast<const int4*>(k8 + ko[i]) + t);
-        vr[i] = __ldg(reinterpret_cast<const int4*>(v8 + vo[i]) + t);
+        if (p.vec16) {
+          kr[i] = __ldg(reinterpret_cast<const int4*>(k8 + ko[i]) + t);
+          vr[i] = __ldg(reinterpret_cast<const int4*>(v8 + vo[i]) + t);
+        } else {  // two 8-byte loads, the second inside head_dim only
+          const int2 klo = __ldg(reinterpret_cast<const int2*>(k8 + ko[i]) + 2 * t);
+          const int2 vlo = __ldg(reinterpret_cast<const int2*>(v8 + vo[i]) + 2 * t);
+          const int2 khi = hi8 ? __ldg(reinterpret_cast<const int2*>(k8 + ko[i]) + 2 * t + 1) : make_int2(0, 0);
+          const int2 vhi = hi8 ? __ldg(reinterpret_cast<const int2*>(v8 + vo[i]) + 2 * t + 1) : make_int2(0, 0);
+          kr[i] = make_int4(klo.x, klo.y, khi.x, khi.y);
+          vr[i] = make_int4(vlo.x, vlo.y, vhi.x, vhi.y);
+        }
       }
     }
     float s[kR];
@@ -877,58 +926,71 @@ __global__ void __launch_bounds__(kThreads)
     if (t == 0) ml_s[warp] = make_float2(wm, wl);
   }
   __syncthreads();
-  finish_single_row(p, ib, ih, is, live, acc_s, ml_s);  // the block's 4 warp states
+  finish_single_row<TQ>(p, ib, ih, is, live, acc_s, ml_s);  // the block's 4 warp states
 }
 
-template <bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
+template <typename TQ, bool kPaged, bool kQuant, bool kStair, int kRm, int kCn>
 int launch_tile(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(kRm, kCn);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn>,
+        tree_attention_kernel<TQ, kPaged, kQuant, kStair, kRm, kCn>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)  // all of the SM's L1/shared split to shared: more blocks
-      e = cudaFuncSetAttribute(tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn>,
+      e = cudaFuncSetAttribute(tree_attention_kernel<TQ, kPaged, kQuant, kStair, kRm, kCn>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(p.splits, p.h, b);
-  tree_attention_kernel<kPaged, kQuant, kStair, kRm, kCn><<<grid, kThreads, smem, stream>>>(p);
+  tree_attention_kernel<TQ, kPaged, kQuant, kStair, kRm, kCn><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged, bool kQuant, bool kStair, int kRm>
+template <typename TQ, bool kPaged, bool kQuant, bool kStair, int kRm>
 int launch_cols(const Params& p, int b, cudaStream_t stream) {
-  if (p.d <= 64) return launch_tile<kPaged, kQuant, kStair, kRm, 1>(p, b, stream);
-  if (p.d <= 128) return launch_tile<kPaged, kQuant, kStair, kRm, 2>(p, b, stream);
-  return launch_tile<kPaged, kQuant, kStair, kRm, 4>(p, b, stream);
+  if (p.d <= 64) return launch_tile<TQ, kPaged, kQuant, kStair, kRm, 1>(p, b, stream);
+  if (p.d <= 128) return launch_tile<TQ, kPaged, kQuant, kStair, kRm, 2>(p, b, stream);
+  return launch_tile<TQ, kPaged, kQuant, kStair, kRm, 4>(p, b, stream);
 }
 
-template <bool kPaged, bool kQuant, int kCn>
+template <typename TQ, bool kPaged, bool kQuant, int kCn>
 int launch_single(const Params& p, int b, cudaStream_t stream) {
   dim3 grid(p.splits, p.h, b);
   if constexpr (kQuant)
-    single_query_int8_kernel<kCn><<<grid, kThreads, 0, stream>>>(p);
+    single_query_int8_kernel<TQ, kCn><<<grid, kThreads, 0, stream>>>(p);
   else
-    single_query_kernel<kPaged, kCn><<<grid, kThreads, 0, stream>>>(p);
+    single_query_kernel<TQ, kPaged, kCn><<<grid, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged, bool kQuant, bool kStair>
+template <typename TQ, bool kPaged, bool kQuant, bool kStair>
 int launch_bucket(const Params& p, int b, cudaStream_t stream) {
   if constexpr (kStair) {
     if (p.w == 1) {
-      if (p.d <= 64) return launch_single<kPaged, kQuant, 1>(p, b, stream);
-      if (p.d <= 128) return launch_single<kPaged, kQuant, 2>(p, b, stream);
-      return launch_single<kPaged, kQuant, 4>(p, b, stream);
+      if (p.d <= 64) return launch_single<TQ, kPaged, kQuant, 1>(p, b, stream);
+      if (p.d <= 128) return launch_single<TQ, kPaged, kQuant, 2>(p, b, stream);
+      return launch_single<TQ, kPaged, kQuant, 4>(p, b, stream);
     }
   }
-  if (p.w <= 2 * kTy) return launch_cols<kPaged, kQuant, kStair, 2>(p, b, stream);
-  if (p.w <= 4 * kTy) return launch_cols<kPaged, kQuant, kStair, 4>(p, b, stream);
-  return launch_cols<kPaged, kQuant, kStair, 8>(p, b, stream);
+  if (p.w <= 2 * kTy) return launch_cols<TQ, kPaged, kQuant, kStair, 2>(p, b, stream);
+  if (p.w <= 4 * kTy) return launch_cols<TQ, kPaged, kQuant, kStair, 4>(p, b, stream);
+  return launch_cols<TQ, kPaged, kQuant, kStair, 8>(p, b, stream);
+}
+
+template <typename TQ>
+int launch_variant(int variant, const Params& p, int b, cudaStream_t s) {
+  switch (variant) {
+    case 0: return launch_bucket<TQ, false, false, false>(p, b, s);  // #7
+    case 4: return launch_bucket<TQ, true, false, false>(p, b, s);   // #8
+    case 6: return launch_bucket<TQ, true, true, false>(p, b, s);    // #9
+    case 1: return launch_bucket<TQ, false, false, true>(p, b, s);   // #4
+    case 5: return launch_bucket<TQ, true, false, true>(p, b, s);    // #5
+    case 7: return launch_bucket<TQ, true, true, true>(p, b, s);     // #6
+    default: return (int)cudaErrorInvalidValue;  // int8 needs the paged layout
+  }
 }
 
 }  // namespace
@@ -939,14 +1001,17 @@ const char* ff_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Verify or decode attention on the split-KV body. q [b, w, h, d] fp32
-// (head_dim contiguous); out [b, w, h, d] contiguous; lengths [b] int32.
+// Verify or decode attention on the split-KV body. q [b, w, h, d] fp32, or
+// bf16 with q_bf16 != 0 (head_dim contiguous, rows 4-element aligned); out
+// [b, w, h, d] contiguous in q's type; lengths [b] int32.
 // Contiguous layout (paged == 0): k/v [b, max_len, h, d], strides (batch,
 // position, head). Paged: k/v [num_pages, page_size, h, d], strides (page,
 // row, head) in elements, tables [b, max_len / page_size] int32 with
 // entries outside [0, num_pages) unallocated. quant != 0 (paged only):
 // k/v int8 with k_scale/v_scale [num_pages, h] contiguous fp32, head_dim a
-// multiple of 16; else fp32. stair != 0: the staircase p <= lengths[b] + j
+// multiple of 8, rows read in 16-byte loads where vec16 != 0 (head_dim a
+// multiple of 16 and the rows 16-byte aligned), else in 8-byte loads (rows
+// 8-byte aligned); else fp32. stair != 0: the staircase p <= lengths[b] + j
 // and allowed unused; else allowed [b, w, max_len] uint8 with strides
 // (m_sb, m_sw), nonzero = visible. head_dim is a multiple of 4 up to 256.
 // splits x span cover max_len, span a multiple of kSpanUnit (and of
@@ -961,15 +1026,15 @@ int ff_tree_attention(const void* q, const void* k, const void* v,
                       const void* k_scale, const void* v_scale,
                       const void* tables, const void* lengths,
                       const void* allowed, void* out, void* part_acc,
-                      void* part_ml, void* counters, int paged, int quant,
-                      int stair, int b, int w, int h, int d, int max_len,
+                      void* part_ml, void* counters, int q_bf16, int paged, int quant,
+                      int vec16, int stair, int b, int w, int h, int d, int max_len,
                       int span, int splits, int page_size, int num_pages,
                       long long tbl_sb, long long q_sb, long long q_sw, long long q_sh,
                       long long k_s0, long long k_s1, long long k_sh,
                       long long v_s0, long long v_s1, long long v_sh,
                       long long m_sb, long long m_sw,
                       float scale, void* stream) {
-  if (w < 1 || w > 8 * kTy || d < 4 || d > 256 || d % 4 || (quant && d % 16) ||
+  if (w < 1 || w > 8 * kTy || d < 4 || d > 256 || d % 4 || (quant && (d % 8 || (vec16 && d % 16))) ||
       splits < 1 || splits > kMaxSplits || span < 1 || span % kSpanUnit ||
       (long long)span * splits < max_len || (!stair && allowed == nullptr) ||
       (quant && (k_scale == nullptr || v_scale == nullptr)) ||
@@ -977,22 +1042,15 @@ int ff_tree_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   // the mask rows may be read as 4-byte words where they are so aligned
   const int mask_vec4 = (uintptr_t)allowed % 4 == 0 && m_sb % 4 == 0 && m_sw % 4 == 0;
-  Params p{(const float*)q, k, v, (const float*)k_scale, (const float*)v_scale,
+  Params p{q, k, v, (const float*)k_scale, (const float*)v_scale,
            (const int*)lengths, (const int*)tables, (const uint8_t*)allowed,
-           (float*)out, (float*)part_acc, (float*)part_ml, (unsigned int*)counters,
+           out, (float*)part_acc, (float*)part_ml, (unsigned int*)counters,
            w, h, d, max_len, span, splits, paged ? page_size : 1, num_pages,
-           mask_vec4, tbl_sb, q_sb, q_sw, q_sh, k_s0, k_s1, k_sh,
+           mask_vec4, vec16, tbl_sb, q_sb, q_sw, q_sh, k_s0, k_s1, k_sh,
            v_s0, v_s1, v_sh, m_sb, m_sw, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  switch ((paged ? 4 : 0) | (quant ? 2 : 0) | (stair ? 1 : 0)) {
-    case 0: return launch_bucket<false, false, false>(p, b, s);  // #7
-    case 4: return launch_bucket<true, false, false>(p, b, s);   // #8
-    case 6: return launch_bucket<true, true, false>(p, b, s);    // #9
-    case 1: return launch_bucket<false, false, true>(p, b, s);   // #4
-    case 5: return launch_bucket<true, false, true>(p, b, s);    // #5
-    case 7: return launch_bucket<true, true, true>(p, b, s);     // #6
-    default: return (int)cudaErrorInvalidValue;  // int8 needs the paged layout
-  }
+  const int variant = (paged ? 4 : 0) | (quant ? 2 : 0) | (stair ? 1 : 0);
+  return q_bf16 ? launch_variant<__nv_bfloat16>(variant, p, b, s) : launch_variant<float>(variant, p, b, s);
 }
 
 }  // extern "C"

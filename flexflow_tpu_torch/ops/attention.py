@@ -120,10 +120,12 @@ def mha_project_out(attn, ws, ctx=None, use_bias=True):
 
 
 def decode_attention(q, k_cache, v_cache, lengths, kernel="auto"):
-    """One-query attention against the contiguous cache. q: [b, 1, h, d];
-    k_cache/v_cache: [b, max_len, h, d]; lengths: [b] int32, the position
-    the current token was written at — positions > lengths[i] are
-    masked. The kernel seam: flash_decode (kernel #4)."""
+    """One-query attention against the contiguous cache. q: [b, 1, h, d]
+    float32, or bfloat16 from a mixed-precision model's projections;
+    k_cache/v_cache: [b, max_len, h, d] float32; lengths: [b] int32, the
+    position the current token was written at — positions > lengths[i]
+    are masked. Returns [b, 1, h, d] in q's dtype. The kernel seam:
+    flash_decode (kernel #4)."""
     check_mode(kernel)
     return dk.flash_decode(q, k_cache, v_cache, lengths)
 
@@ -188,7 +190,9 @@ def verify_attention(
     lengths[i]..lengths[i] + w - 1; lengths: [b] int32, the position of
     the first of them. Query j sees positions <= lengths[i] + j (kernel
     #4), or, with tree_parents [b, w] or a precomputed `allowed`
-    [b, w, max_len], the token-tree ancestor mask (kernel #7)."""
+    [b, w, max_len], the token-tree ancestor mask (kernel #7). q is
+    float32 or bfloat16 (mixed precision), the cache float32; returns
+    [b, w, h, d] in q's dtype."""
     check_mode(kernel)
     allowed = _verify_mask(tree_parents, allowed, lengths, q.shape[1], k_cache.shape[1])
     if allowed is not None:
@@ -204,7 +208,8 @@ def paged_verify_attention(
     function over pools walked through the block table (kernel #5), over
     int8 pools with k_scale/v_scale [num_pages, heads] fp32 (#6), and
     under the token-tree mask over logical positions (#8, and #9 on int8
-    pools)."""
+    pools). q float32 or bfloat16 against fp32 or int8 pools; the output
+    takes q's dtype."""
     check_mode(kernel)
     klen = block_tables.shape[1] * k_pool.shape[1]
     allowed = _verify_mask(tree_parents, allowed, lengths, q.shape[1], klen)
@@ -228,8 +233,10 @@ def paged_decode_attention(
     """One-query attention against the block-paged cache. q: [b, 1, h, d];
     k_pool/v_pool: [num_pages, page_size, h, d]; block_tables:
     [b, pages_per_seq] int32 (sentinel num_pages for unallocated
-    entries); lengths: [b] int32. The kernel seam: paged_flash_decode
-    (kernel #5), or paged_flash_decode_quant (#6) on int8 pools with
+    entries); lengths: [b] int32. q float32 or bfloat16 (mixed
+    precision), the output in q's dtype. The kernel seam:
+    paged_flash_decode (kernel #5), or paged_flash_decode_quant (#6) on
+    int8 pools with
     k_scale/v_scale [num_pages, heads]. Rows whose visible pages are all
     sentinels return 0, where the reference's dense path softmaxes stale
     rows; both happen only for dead slots, whose outputs the scheduler
@@ -245,9 +252,10 @@ def paged_decode_attention(
 # Flash-or-dense rule. use_flash "auto" and True both go through the
 # flash wrapper, False runs the dense core. On a CUDA tensor the wrapper
 # launches the kernels or raises: a shape that flash_kernel.supports()
-# refuses (head_dim not a multiple of 8, or bf16 past head_dim 256)
-# needs use_flash=False, and never falls back to the dense core unasked.
-# Under mixed precision q, k, v arrive bf16 and run the bf16 bodies. On a
+# refuses (head_dim not a multiple of 8) needs use_flash=False, and never
+# falls back to the dense core unasked. Under mixed precision q, k, v
+# arrive bf16 and run the bf16 bodies (past head_dim 256 the bf16 wide
+# kernels). On a
 # CPU tensor the wrapper takes its plain version, whatever the shape.
 # The reference's thresholds do not carry over: its "auto" took
 # flash only past a 2 GiB score tensor (_FLASH_SCORE_BYTES) and scanned

@@ -16,11 +16,21 @@ launch:
     mask on the same three (#7, #8, #9). At w = 1, every decode step,
     the staircase runs a tile of one query row: fp32 rows (#4, #5) with
     half-warps across rows, int8 rows (#6) with one 16-byte load per lane
-    (4 lanes per row at head_dim 64), over splits of _QUANT_SPAN_UNIT
-    positions;
-  * csrc/decode_kernel.cu, one block per (sequence, head), past 256: any
-    head_dim whose one-page chunk fits its shared memory (see
-    pick_chunk), else a ValueError naming shared memory.
+    (4 lanes per row at head_dim 64; two 8-byte loads where the rows are
+    not 16-byte aligned, head_dim 24 or 40), over splits of
+    _QUANT_SPAN_UNIT positions;
+  * csrc/decode_kernel.cu past 256: one block per (64-column piece of the
+    output, head, sequence), the scores contracted over head_dim in
+    64-column pieces, so its shared memory does not grow with head_dim
+    and every w up to MAX_W fits at every head_dim (pick_chunk).
+
+q is float32, or bfloat16 from a mixed-precision model's projections;
+the pools stay float32 or int8 either way, as the reference's cache
+does. A bf16 q is widened to f32 as the kernel loads it, the scores, P
+and the accumulators stay f32 (the reference's dots take
+preferred_element_type f32 and cast P to the V pool's dtype), and the
+output takes q's dtype, rounded once as it is written (the reference's
+`.astype(o_ref.dtype)`). A bf16-q launch counts under name + "_bf16".
 
 The entry points:
 
@@ -45,10 +55,12 @@ The entry points:
     staircase. On the paged layout the mask is over logical positions.
 
 Every variant reads only positions < lengths[b] + w (the chunk gate).
-Two TPU limits do not carry over: the int8 kernels take any page size
-that holds whole 16-byte loads (the reference needed 32-row int8 pages,
-`_INT8_SUBLANES`), and the tree kernels take w up to MAX_W (the
-reference fell back to dense attention past `_MAX_TREE_W` = 32).
+The kernels take every shape the reference's supports() takes (any w up
+to MAX_W at any head_dim that is a multiple of 8; fp32 also at multiples
+of 4), and two TPU limits do not carry over: the int8 kernels take any
+page size (the reference needed 32-row int8 pages, `_INT8_SUBLANES`),
+and the tree kernels take w up to MAX_W (the reference fell back to
+dense attention past `_MAX_TREE_W` = 32).
 
 Beside each kernel sits its plain PyTorch version (`*_ref`) computing
 the same function. A wrapper picks by the device of its input alone: a
@@ -75,20 +87,28 @@ TREE_SOURCE = "tree_kernel.cu"
 # tree variants take the same, where the reference stopped at 32
 MAX_W = 64
 
-# kernel launches per entry point since the last reset_launches()
+ENTRY_POINTS = (
+    "flash_verify",
+    "paged_flash_verify",
+    "paged_flash_verify_quant",
+    "flash_verify_tree",
+    "paged_flash_verify_tree",
+    "paged_flash_verify_tree_quant",
+)
+
+# kernel launches per entry point since the last reset_launches(): fp32 q
+# under the entry point's name, bf16 q (a mixed-precision model) under
+# name + "_bf16"
 LAUNCHES: Dict[str, int] = {
-    "flash_verify": 0,
-    "paged_flash_verify": 0,
-    "paged_flash_verify_quant": 0,
-    "flash_verify_tree": 0,
-    "paged_flash_verify_tree": 0,
-    "paged_flash_verify_tree_quant": 0,
+    **dict.fromkeys(ENTRY_POINTS, 0),
+    **dict.fromkeys((n + "_bf16" for n in ENTRY_POINTS), 0),
 }
 
-# chunk rows staged per loop iteration are capped here and by the
-# shared-memory budget below; one block runs per SM at the serving grid
-# (b * h blocks), so a block may take most of the SM's shared memory
-_MAX_CHUNK = 256
+# decode_kernel.cu's body (head_dim past _TREE_MAX_D): key rows staged per
+# loop iteration, a multiple of _CHUNK_STEP up to _MAX_CHUNK whose buffers
+# fit the shared-memory budget; none of them grows with head_dim
+_MAX_CHUNK = 128
+_CHUNK_STEP = 32
 _SMEM_BUDGET = 160 * 1024
 
 _MASK = -1e30  # the reference's finite mask fill
@@ -127,13 +147,13 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = _build.load(SOURCE)
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ff_decode_smem_bytes.argtypes = [I, I, I, I]
+        lib.ff_decode_smem_bytes.argtypes = [I, I, I]
         lib.ff_decode_smem_bytes.restype = L
         lib.ff_decode_smem_limit.argtypes = []
         lib.ff_decode_smem_limit.restype = L
         lib.ff_cuda_error_string.argtypes = [I]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_decode_attention.argtypes = [P] * 9 + [I] * 11 + [L] * 12 + [F, P]
+        lib.ff_decode_attention.argtypes = [P] * 9 + [I] * 12 + [L] * 12 + [F, P]
         lib.ff_decode_attention.restype = I
         _bound = lib
     return _bound
@@ -147,7 +167,7 @@ def _tree_lib() -> ctypes.CDLL:
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.ff_cuda_error_string.argtypes = [I]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_tree_attention.argtypes = [P] * 12 + [I] * 12 + [L] * 12 + [F, P]
+        lib.ff_tree_attention.argtypes = [P] * 12 + [I] * 14 + [L] * 12 + [F, P]
         lib.ff_tree_attention.restype = I
         _tree_bound = lib
     return _tree_bound
@@ -188,25 +208,17 @@ def _arrival_counters(device, stream: int, n: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def pick_chunk(w: int, d: int, unit: int, tree: bool = False) -> int:
-    """Rows staged per loop iteration: the largest multiple of `unit`
-    (the page size on the paged layout) up to _MAX_CHUNK whose staging
-    buffers (and, for a tree, mask rows) fit the shared-memory budget."""
+def pick_chunk(w: int, tree: bool = False) -> int:
+    """decode_kernel.cu's key rows per loop iteration: the largest
+    multiple of _CHUNK_STEP up to _MAX_CHUNK whose buffers (and, for a
+    tree, mask rows) fit the shared-memory budget. Its rows resolve their
+    pages one by one, so a chunk need not hold whole pages, and no buffer
+    grows with head_dim: every w up to MAX_W fits at every head_dim."""
     lib = _lib()
     budget = min(_SMEM_BUDGET, lib.ff_decode_smem_limit())
-    best = 0
-    chunk = unit
-    while chunk <= max(unit, _MAX_CHUNK):
-        if lib.ff_decode_smem_bytes(w, d, chunk, int(tree)) > budget:
-            break
-        best = chunk
-        chunk += unit
-    if not best:
-        raise ValueError(
-            f"decode kernel: w={w}, head_dim={d}, unit {unit} rows does not "
-            f"fit {budget} bytes of shared memory"
-        )
-    return best
+    fits = [c for c in range(_CHUNK_STEP, _MAX_CHUNK + 1, _CHUNK_STEP)
+            if lib.ff_decode_smem_bytes(w, c, int(tree)) <= budget]
+    return fits[-1]
 
 
 # -- plain PyTorch versions ----------------------------------------------------
@@ -215,13 +227,18 @@ def pick_chunk(w: int, d: int, unit: int, tree: bool = False) -> int:
 def _masked_attention(q, k, v, allowed, sm_scale):
     """q [b, w, h, d]; k/v [b, L, h, d]; allowed [b, w, L] bool. The
     kernels' function: masked entries weigh exactly 0 and a row with no
-    allowed key returns 0 (acc / max(l, 1e-30))."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+    allowed key returns 0 (acc / max(l, 1e-30)). As the reference's
+    kernels cast: a bf16 q is widened to f32 (exact), the scores and P
+    are f32 (P takes the V pool's dtype, fp32 or dequantized int8), and
+    the output takes q's dtype, rounded once. A float64 q computes the
+    exact function (for measuring errors against)."""
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)) * sm_scale
     mask = allowed[:, None, :, :]
     m = s.masked_fill(~mask, _MASK).amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros((), dtype=s.dtype))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bhqk,bkhd->bqhd", p / l, v)
+    return torch.einsum("bhqk,bkhd->bqhd", p / l, v.to(wide)).to(q.dtype)
 
 
 def _staircase(lengths, w, klen):
@@ -322,39 +339,50 @@ def paged_flash_verify_tree_quant_ref(
 # -- kernel wrappers -------------------------------------------------------------
 
 
+Q_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_operands(q, caches, lengths, tables=None, quant=False):
-    """Raise on anything the kernel does not take: it reads the cache
-    through 16-byte loads with head_dim contiguous (4 fp32 or 16 int8
-    elements each), fp32 queries, int32 lengths/tables."""
+    """Raise on anything the kernel does not take: q float32 or bfloat16
+    read 4 elements at a time (16 or 8 bytes), fp32 caches in 16-byte
+    loads, int8 pools in 8-byte loads at least (16-byte where
+    _int8_vec16), all with head_dim contiguous and rows aligned to their
+    loads; int32 lengths/tables."""
     dev = q.device
     b, w, h, d = q.shape
     if not 1 <= w <= MAX_W:
         raise ValueError(f"decode kernel: w={w} outside [1, {MAX_W}]")
     if d % 4:
         raise ValueError(f"decode kernel: head_dim {d} is not a multiple of 4")
-    if quant and d % 16:
+    if quant and d % 8:
         raise ValueError(
-            f"decode kernel: head_dim {d} is not a multiple of 16, which int8 rows need"
+            f"decode kernel: head_dim {d} is not a multiple of 8, which int8 rows need"
         )
+    if q.dtype not in Q_DTYPES:
+        raise TypeError(f"decode kernel: q is {q.dtype}, needs float32 or bfloat16")
     for name, t in (("q", q),) + caches:
-        want = torch.int8 if quant and name != "q" else torch.float32
-        vec = 16 if want == torch.int8 else 4
+        if name == "q":
+            vec = 4  # elements per load, whatever q's dtype
+        else:
+            want = torch.int8 if quant else torch.float32
+            vec = 8 if quant else 4
+            if t.dtype != want:
+                raise TypeError(f"decode kernel: {name} is {t.dtype}, needs {want}")
         if t.device != dev:
             raise ValueError(f"decode kernel: {name} on {t.device}, q on {dev}")
-        if t.dtype != want:
-            raise TypeError(f"decode kernel: {name} is {t.dtype}, needs {want}")
         if t.dim() != 4 or t.shape[2:] != (h, d):
             raise ValueError(
                 f"decode kernel: {name} shape {tuple(t.shape)} does not end "
                 f"in (heads, head_dim) = ({h}, {d})"
             )
+        nbytes = vec * t.element_size()
         if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(
                 f"decode kernel: {name} strides {t.stride()} are not "
-                "16-byte aligned with head_dim contiguous"
+                f"{nbytes}-byte aligned with head_dim contiguous"
             )
-        if t.data_ptr() % 16:
-            raise ValueError(f"decode kernel: {name} is not 16-byte aligned")
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"decode kernel: {name} is not {nbytes}-byte aligned")
     ints = (("lengths", lengths),) + ((("block_tables", tables),) if tables is not None else ())
     for name, t in ints:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
@@ -364,6 +392,14 @@ def _check_operands(q, caches, lengths, tables=None, quant=False):
             )
     if lengths.shape != (b,):
         raise ValueError(f"decode kernel: lengths shape {tuple(lengths.shape)} != ({b},)")
+
+
+def _int8_vec16(k, v) -> bool:
+    """Whether the int8 pools' rows take 16-byte loads: head_dim a
+    multiple of 16 and every row 16-byte aligned (else 8-byte loads,
+    head_dim 24 or 40 for one)."""
+    return all(t.shape[-1] % 16 == 0 and t.data_ptr() % 16 == 0
+               and all(s % 16 == 0 for s in t.stride()[:-1]) for t in (k, v))
 
 
 def _check_scales(k_scale, v_scale, num_pages, h, dev):
@@ -444,7 +480,7 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
     num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
     if d > _TREE_MAX_D:
         raise ValueError(f"{name}: head_dim {d} > {_TREE_MAX_D}, which the tree kernel's tiles do not take")
-    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, w, h, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
     lib = _tree_lib()
@@ -464,7 +500,8 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
         code = lib.ff_tree_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), ptr(tables),
             lengths.data_ptr(), ptr(allowed), out.data_ptr(), part_acc, part_ml, counters,
-            int(paged), int(quant), int(stair), b, w, h, d, max_len, span, splits, page_size, num_pages,
+            int(q.dtype == torch.bfloat16), int(paged), int(quant), int(quant and _int8_vec16(k, v)),
+            int(stair), b, w, h, d, max_len, span, splits, page_size, num_pages,
             tables.stride(0) if paged else 0,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -473,23 +510,28 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
             _scale_of(q, sm_scale), stream,
         )
     _raise_on(code, name, lib)
-    LAUNCHES[name] += 1
+    LAUNCHES[_key(name, q)] += 1
     return out
+
+
+def _key(name, q):
+    """The LAUNCHES key of a launch: bf16 q counts under name + "_bf16"."""
+    return name + "_bf16" if q.dtype == torch.bfloat16 else name
 
 
 def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
     """Every decode kernel at head_dim > _TREE_MAX_D, on decode_kernel.cu's
     body: check the operands, launch the variant the operands select
-    (as _launch_tree) and count it. Raises before any launch where one
-    page's chunk does not fit the body's shared memory (pick_chunk)."""
+    (as _launch_tree) and count it. Every w up to MAX_W at every head_dim
+    fits its shared memory (pick_chunk)."""
     b, w, h, d = q.shape
     paged, quant, tree = tables is not None, scales is not None, allowed is not None
     num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
-    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, w, h, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
     lib = _lib()
-    chunk = pick_chunk(w, d, page_size, tree)
+    chunk = pick_chunk(w, tree)
     ks, vs = scales if quant else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
@@ -497,7 +539,7 @@ def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=
         code = lib.ff_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
             ptr(tables), lengths.data_ptr(), ptr(allowed), out.data_ptr(),
-            int(paged), int(quant), int(tree),
+            int(q.dtype == torch.bfloat16), int(paged), int(quant), int(tree),
             b, w, h, d, max_len, chunk, page_size, num_pages,
             tables.stride(0) if paged else 0,
             q.stride(0), q.stride(1), q.stride(2),
@@ -507,7 +549,7 @@ def _launch(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=
             _scale_of(q, sm_scale), stream,
         )
     _raise_on(code, name, lib)
-    LAUNCHES[name] += 1
+    LAUNCHES[_key(name, q)] += 1
     return out
 
 
@@ -525,7 +567,8 @@ def _body(q):
 def flash_verify(q, k_cache, v_cache, lengths, sm_scale=None):
     """w-query flash attention against the contiguous cache with the
     staircase mask. q: [b, w, h, d]; k_cache/v_cache: [b, max_len, h, d];
-    lengths: [b] int32. Returns [b, w, h, d] float32. On the card: the
+    lengths: [b] int32. Returns [b, w, h, d] in q's dtype (float32 or
+    bfloat16). On the card: the
     split-KV body of tree_kernel.cu at head_dim <= 256 (at w = 1 its
     one-row tile), decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
@@ -544,7 +587,7 @@ def paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     [b, w, h, d]; k_pool/v_pool: [num_pages, page_size, h, d];
     block_tables: [b, pages_per_seq] int32 (entries outside
     [0, num_pages) are unallocated); lengths: [b] int32. Returns
-    [b, w, h, d] float32. On the card: the split-KV body of
+    [b, w, h, d] in q's dtype. On the card: the split-KV body of
     tree_kernel.cu at head_dim <= 256 (at w = 1 its one-row tile),
     decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
@@ -565,8 +608,8 @@ def paged_flash_verify_quant(
     """paged_flash_verify over int8 pools [num_pages, page_size, h, d]
     with fp32 per-(page, head) scale side pools k_scale/v_scale
     [num_pages, h]: each page's rows are dequantized inside the page
-    walk. head_dim must be a multiple of 16. Returns [b, w, h, d]
-    float32. On the card: the split-KV body of tree_kernel.cu at head_dim
+    walk. head_dim must be a multiple of 8. Returns [b, w, h, d] in q's
+    dtype. On the card: the split-KV body of tree_kernel.cu at head_dim
     <= 256 (at w = 1 its int8 one-row tile), decode_kernel.cu's body past
     it, by head_dim alone."""
     if q.device.type == "cpu":
@@ -619,7 +662,7 @@ def paged_flash_verify_tree_quant(
 ):
     """paged_flash_verify_tree over int8 pools with fp32 per-(page,
     head) scales — #6's dequant and #8's tree mask; head_dim a multiple
-    of 16. On the card: the split-KV body of tree_kernel.cu at head_dim
+    of 8. On the card: the split-KV body of tree_kernel.cu at head_dim
     <= 256, decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_tree_quant_ref(

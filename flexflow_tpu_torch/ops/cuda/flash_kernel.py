@@ -10,7 +10,10 @@ csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
 tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
 operands (mixed precision) run all three in csrc/flash_bf16_kernel.cu,
 one bf16 mma pass per product with f32 accumulation, the reference's
-bodies at bf16 inputs:
+bodies at bf16 inputs, up to head_dim 256, and past it the fp32 files'
+wide kernels instantiated for bf16 (rows widened to fp32 as they are
+staged, one exact TF32 pass per product, P and dS rounded to bf16 where
+the reference casts them):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
@@ -59,17 +62,21 @@ BF16_SOURCE = "flash_bf16_kernel.cu"
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
-# the bf16 bodies take head_dim up to this (the fp32 ones any multiple of 8)
-BF16_MAX_HEAD_DIM = 256
+# head_dims up to this are staged at full width (flash_common.cuh's
+# kStagedMaxD); bf16 past it runs the wide kernels
+_STAGED_MAX_D = 256
 
 # kernel launches per kernel since the last reset_launches(): the fp32
 # bodies under the kernels' names, the bf16 bodies under name + "_bf16"
+# and the bf16 wide kernels (head_dim past 256) under name + "_wide_bf16"
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
+    "flash_fwd_wide_bf16": 0, "flash_dq_wide_bf16": 0, "flash_dkv_wide_bf16": 0,
 }
 
 _MASK = -1e30  # the reference's finite mask fill
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _bound: Optional[ctypes.CDLL] = None
 _bwd_bound: Optional[ctypes.CDLL] = None
@@ -82,17 +89,12 @@ def reset_launches() -> None:
 
 
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take this shape: float32 with head_dim any
-    positive multiple of 8 (as the reference's supports(); past 256 the
-    score contraction streams over head_dim in 128-column pieces), or
-    bfloat16 with head_dim a multiple of 8 up to BF16_MAX_HEAD_DIM;
-    non-empty sequences. Any sequence length works (the ragged tail of a
-    tile is masked)."""
-    if dtype == torch.bfloat16:
-        widths = d <= BF16_MAX_HEAD_DIM
-    else:
-        widths = dtype == torch.float32
-    return widths and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
+    """Whether the kernels take this shape: float32 or bfloat16 with
+    head_dim any positive multiple of 8, as the reference's supports()
+    (past 256 the score contraction streams over head_dim in 128-column
+    pieces); non-empty sequences. Any sequence length works (the ragged
+    tail of a tile is masked)."""
+    return dtype in _DTYPES and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -105,8 +107,9 @@ def _lib() -> ctypes.CDLL:
         lib.ff_flash_cuda_error_string.restype = ctypes.c_char_p
         lib.ff_flash_occupancy.argtypes = [I, P]
         lib.ff_flash_occupancy.restype = I
-        lib.ff_flash_fwd_f32.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
-        lib.ff_flash_fwd_f32.restype = I
+        for fn in (lib.ff_flash_fwd_f32, lib.ff_flash_fwd_wide_bf16):
+            fn.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
+            fn.restype = I
         _bound = lib
     return _bound
 
@@ -121,10 +124,12 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.ff_flash_bwd_cuda_error_string.restype = ctypes.c_char_p
         lib.ff_flash_bwd_occupancy.argtypes = [I, I, P]
         lib.ff_flash_bwd_occupancy.restype = I
-        lib.ff_flash_dq_f32.argtypes = [P] * 7 + [I] * 5 + [L] * 12 + [F, I, P]
-        lib.ff_flash_dq_f32.restype = I
-        lib.ff_flash_dkv_f32.argtypes = [P] * 8 + [I] * 5 + [L] * 12 + [F, I, P]
-        lib.ff_flash_dkv_f32.restype = I
+        for fn in (lib.ff_flash_dq_f32, lib.ff_flash_dq_wide_bf16):
+            fn.argtypes = [P] * 7 + [I] * 5 + [L] * 12 + [F, I, P]
+            fn.restype = I
+        for fn in (lib.ff_flash_dkv_f32, lib.ff_flash_dkv_wide_bf16):
+            fn.argtypes = [P] * 8 + [I] * 5 + [L] * 12 + [F, I, P]
+            fn.restype = I
         _bwd_bound = lib
     return _bwd_bound
 
@@ -265,9 +270,6 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
 def _check(name, q, k, v, extra=(), rows=()):
     """Raise on what the kernels do not take; returns (b, h, sq, sk, d).
     q, k, v and the `extra` operands share q's dtype, float32 or
@@ -293,12 +295,7 @@ def _check(name, q, k, v, extra=(), rows=()):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {tname} is {t.dtype}, the kernels take float32")
     if not supports(sq, sk, d, q.dtype):
-        widths = (
-            f"a multiple of 8 up to {BF16_MAX_HEAD_DIM} in bfloat16"
-            if q.dtype == torch.bfloat16
-            else "a positive multiple of 8"
-        )
-        raise ValueError(f"{name}: head_dim {d} (sq {sq}, sk {sk}) is not taken: it must be {widths}")
+        raise ValueError(f"{name}: head_dim {d} (sq {sq}, sk {sk}) is not taken: it must be a positive multiple of 8")
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"{name}: batch * heads = {b * h} > {_MAX_BATCH_HEADS}")
     return b, h, sq, sk, d
@@ -315,7 +312,7 @@ def _raise_on(code: int, name: str) -> None:
     if code:
         if name in _BF16_KINDS:
             msg = _bf16_lib().ff_flash_bf16_cuda_error_string(code).decode()
-        elif name == "flash_fwd":
+        elif name.startswith("flash_fwd"):
             msg = _lib().ff_flash_cuda_error_string(code).decode()
         else:
             msg = _bwd_lib().ff_flash_bwd_cuda_error_string(code).decode()
@@ -327,11 +324,15 @@ def _device_only(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def _body(name: str, dtype: torch.dtype):
-    """(LAUNCHES key, C entry point) of kernel `name` for `dtype`."""
+def _body(name: str, dtype: torch.dtype, d: int):
+    """(LAUNCHES key, C entry point) of kernel `name` for `dtype` at
+    head_dim d: bf16 up to 256 on flash_bf16_kernel.cu's bodies, past it
+    on the fp32 files' wide kernels instantiated for bf16."""
+    lib = _lib() if name == "flash_fwd" else _bwd_lib()
+    if dtype == torch.bfloat16 and d > _STAGED_MAX_D:
+        return name + "_wide_bf16", getattr(lib, f"ff_{name}_wide_bf16")
     if dtype == torch.bfloat16:
         return name + "_bf16", getattr(_bf16_lib(), f"ff_{name}_bf16")
-    lib = _lib() if name == "flash_fwd" else _bwd_lib()
     return name, getattr(lib, f"ff_{name}_f32")
 
 
@@ -347,7 +348,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or h == 0:
         return o, lse
-    key, fn = _body("flash_fwd", q.dtype)
+    key, fn = _body("flash_fwd", q.dtype, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
@@ -383,7 +384,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, sm_scale=None):
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or h == 0:
         return dq
-    key, fn = _body("flash_dq", q.dtype)
+    key, fn = _body("flash_dq", q.dtype, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
@@ -410,7 +411,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, sm_scale=None):
     dv = torch.empty_like(dk)
     if b == 0 or h == 0:
         return dk, dv
-    key, fn = _body("flash_dkv", q.dtype)
+    key, fn = _body("flash_dkv", q.dtype, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(

@@ -162,6 +162,8 @@ class Executor:
         return values
 
     def logits(self, params, batch, op_hooks=None) -> torch.Tensor:
+        """The graph's logits (bf16 under mixed precision, as every
+        lowering and hook gets the executor's bf16_matmul)."""
         values = self.forward_values(params, batch, op_hooks=op_hooks)
         return values[(self.logits_ref.guid, self.logits_ref.out_idx)]
 

@@ -163,14 +163,8 @@ def build_proposer(serve: ServeConfig):
 def build_scheduler(model, serve: ServeConfig):
     """(scheduler, engine, cache) wired to a compiled model — the pieces
     generate() uses, exposed for callers that drive iterations
-    themselves. A model compiled with allow_mixed_precision is refused:
-    its bf16 q would meet the f32 or int8 pools of kernels #4-#9."""
-    if model.config.allow_mixed_precision:
-        raise NotImplementedError(
-            "serving a model compiled with allow_mixed_precision is not "
-            "ported yet (ROADMAP, Port queue: serving under mixed precision); "
-            "compile it without the flag to serve"
-        )
+    themselves. A model compiled with allow_mixed_precision serves with
+    bf16 activations and logits over the same fp32 or int8 pools."""
     if serve.kv_layout == "paged":
         cache = PagedKVCache.from_model(
             model,

@@ -37,6 +37,14 @@ mha_project_out) and swaps only the attention core:
     do not move: the scheduler accepts a prefix and commits it with
     cache.truncate.
 
+Under allow_mixed_precision the projections hand the hooks bf16 q, k
+and v, and the logits come out bf16: the K/V rows go into the fp32 pools
+cast to the pool's dtype (int8 pools quantize their f32 values), the
+decode kernels take bf16 q against the fp32 or int8 pools and return
+bf16 (ops/cuda/decode_kernel.py), greedy argmax takes the first maximal
+bf16 logit, as jnp.argmax does, and verify logits reach the host as
+float32.
+
 Both cache layouts are served by the same hooks: the paged steps route
 rows through the slot's block table and claim a sequence's pages before
 the step. int8 paged pools are written by `_quant_scatter` (prefill and
@@ -316,8 +324,10 @@ class GenerationEngine:
                 kf, vf = self._rows(k), self._rows(v)
                 trip = self._write(g, kf[real_t], vf[real_t], dest_t, round_trip=True)
                 if trip is not None:
-                    # attend over the int8 round trip, as later steps will
-                    kf[real_t], vf[real_t] = trip
+                    # attend over the int8 round trip, as later steps
+                    # will, in the projections' dtype (bf16 under mixed
+                    # precision, as the reference's k_deq.astype(k.dtype))
+                    kf[real_t], vf[real_t] = trip[0].to(kf.dtype), trip[1].to(vf.dtype)
                     k, v = kf.view(k.shape), vf.view(v.shape)
             else:
                 cache.commit(g, slots_t[:, None], pos_t[None, :], k, v)
@@ -619,7 +629,10 @@ class GenerationEngine:
                 )
             return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
 
-        return self._forward_logits(params, tok_t, hook).cpu().numpy()
+        # numpy has no bfloat16: a mixed-precision model's bf16 logits
+        # reach the host as float32, exactly (the reference's
+        # np.asarray(...).astype(np.float32))
+        return self._forward_logits(params, tok_t, hook).float().cpu().numpy()
 
     def verify(self, params, tokens: np.ndarray, draft_lens: np.ndarray) -> np.ndarray:
         """One speculative verify step (SpecInfer's scoring call),

@@ -14,15 +14,17 @@ of the same function on the same fp32 values (int8 rows dequantized in
 fp32, as all three stage them), beside each body's error against the
 plain version, which chip_smoke.py gates.
 
-    python3 scripts/decode_split_body.py [--root DIR] [--quant-spans N ...]
+    python3 scripts/decode_split_body.py [--root DIR] [--quant-spans N ...] [--head-dim D]
 
 --root DIR measures the flexflow_tpu_torch package under DIR (an unpacked
 earlier commit or a variant, say) instead of this checkout's; the inputs
 and the timers are this checkout's chip_smoke.py either way.
 --quant-spans also times #6's w = 1 cases with each given span unit (a
 multiple of 64 positions: the split rule's step, decode_kernel.py's
-_QUANT_SPAN_UNIT) in place of the package's own. Needs a CUDA device;
-prints one JSON line."""
+_QUANT_SPAN_UNIT) in place of the package's own. --head-dim D takes every
+case at head_dim D (default 64); past 256 the wrapper ("split") routes
+to decode_kernel.cu's body too. Needs a CUDA device; prints one JSON
+line."""
 
 import argparse
 import importlib.util
@@ -71,6 +73,7 @@ def main() -> int:
     ap.add_argument("--root", default=REPO, help="directory holding the flexflow_tpu_torch package to measure")
     ap.add_argument("--quant-spans", type=int, nargs="*", default=[],
                     help="also time #6 at w = 1 with each of these span units")
+    ap.add_argument("--head-dim", type=int, default=64, help="head_dim of every case")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -89,9 +92,9 @@ def main() -> int:
     flush = lambda: flush_buf.zero_()
     own_span = getattr(dk, "_QUANT_SPAN_UNIT", None)
     out = {"package": os.path.dirname(dk.__file__), "device": torch.cuda.get_device_name(0),
-           "quant_span_unit": own_span}
+           "quant_span_unit": own_span, "head_dim": args.head_dim}
     for name, w, cut in CASES:
-        x = smoke.kernel_inputs(dev, w)
+        x = smoke.kernel_inputs(dev, w, d=args.head_dim)
         if cut is not None:
             x["lengths"] = x["lengths"].clamp(max=cut)
         ops, kw, k, v, vis = operands(dk, name, x, w)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the bf16 flash kernels #1-#3 and of PyTorch's bf16 SDPA
-at the flagship training shape [8, 512, 16, 64], causal and not, in a
-process that runs nothing else first.
+at the flagship training shape [8, 512, 16, 64], causal and not (or at
+the shapes given), in a process that runs nothing else first.
 
 chip_smoke.py times the same calls, but late in a long process, where the
 profiler's sessions on the card read only part of their kernels now and
@@ -11,10 +11,11 @@ flush, less the flush's own) `--repeats` times, beside the event timer's
 median (chip_smoke.time_ms, which counts a wrapper's host time where it
 outlasts the flush). Run from the root of a checkout on a CUDA machine:
 
-    python3 scripts/flash_bf16_device_time.py
+    python3 scripts/flash_bf16_device_time.py [--shape B S H D ...]
 
-It prints one JSON line per (call, causal) and the card's name and power
-limit.
+--shape times [B, S, H, D] instead (repeatable): past head_dim 256 the
+calls are the bf16 wide kernels (flash_*_wide_bf16). It prints one JSON
+line per (call, shape, causal) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,15 +39,22 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--shape", type=int, nargs=4, action="append", metavar=("B", "S", "H", "D"),
+                        help="a [b, s, h, d] to time (default: the flagship's)")
+    parser.add_argument("--causal", choices=("both", "no"), default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("flash_bf16_device_time: no CUDA device is available", file=sys.stderr)
         return 2
     fk._bf16_lib()
-    b, s, h, d = cs.TRAIN["batch"], cs.TRAIN["seq"], cs.TRAIN["heads"], cs.TRAIN["hidden"] // cs.TRAIN["heads"]
+    fk._lib()
+    fk._bwd_lib()
+    flagship = (cs.TRAIN["batch"], cs.TRAIN["seq"], cs.TRAIN["heads"], cs.TRAIN["hidden"] // cs.TRAIN["heads"])
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    for causal in (False, True):
+    cases = [(tuple(shape), causal) for shape in (args.shape or [flagship])
+             for causal in ((False, True) if args.causal == "both" else (False,))]
+    for (b, s, h, d), causal in cases:
         x = cs.flash_inputs("cuda", b, s, s, h, d, causal, dtype=torch.bfloat16)
         calls = {name: kernel for name, (kernel, _) in cs.flash_calls(x).items()}
         qt, kt, vt, dot = (x[n].transpose(1, 2).contiguous().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))

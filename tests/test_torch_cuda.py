@@ -314,12 +314,12 @@ def test_int8_tree_verify_on_the_split_body_matches_plain_version(w, d, max_len,
 
 @pytest.mark.parametrize("w", [1, 5, 13, 33, 64])
 def test_paged_verify_past_256_runs_where_it_ran_before(w):
-    """head_dim 320, past the split body's tiles: #4 and #6 (w 1, 5, 13,
-    33), #5 (w 1, 5, 13, 33) and #9 (w 1, 13, 33) run on decode_kernel.cu's
-    body, as they did before the split body took them, counted under
-    their own names; at w = 64 that body's shared memory does not hold a
-    320-wide chunk, and all four raise before any launch, as they did
-    then."""
+    """head_dim 320, past the split body's tiles: #4, #5 and #6 (w 1, 5,
+    13, 33, 64) and #9 (w 1, 13, 33, 64) run on decode_kernel.cu's body,
+    counted under their own names, within 1e-4 of their plain versions.
+    w = 64 included: that body stages head_dim in 64-column pieces, so
+    its shared memory no longer grows with head_dim (it refused w = 64
+    at 320 before)."""
     d, max_len, page = 320, 128, 16
     x = _split_body_operands(w, d, max_len, page, 600 + w)
     calls = {
@@ -329,13 +329,6 @@ def test_paged_verify_past_256_runs_where_it_ran_before(w):
         "paged_flash_verify_tree_quant": (
             (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"]), ATOL),
     }
-    if w == 64:
-        dk.reset_launches()
-        for name, (args, _) in calls.items():
-            with pytest.raises(ValueError, match="shared memory"):
-                getattr(dk, name)(*args)
-        assert sum(dk.LAUNCHES.values()) == 0
-        return
     for name, (args, atol) in calls.items():
         if name != "paged_flash_verify_tree_quant" or w != 5:
             _check_split_body(name, args, atol, 7)
@@ -345,19 +338,11 @@ def test_paged_verify_past_256_runs_where_it_ran_before(w):
 def test_tree_verify_past_256_runs_on_the_decode_body(w):
     """head_dim 320, past the split body's tiles: the fp32 tree verifies
     #7 and #8 run on decode_kernel.cu's body (its kTree variants) for w
-    up to 33, within 1e-4 of their plain versions, counted under their
-    own names; at w = 64 that body's shared memory does not hold a
-    320-wide chunk, and both raise before any launch, as #5 and #9 do."""
+    up to 64, within 1e-4 of their plain versions, counted under their
+    own names (w = 64 raised before the body staged head_dim in pieces)."""
     x = _split_body_operands(w, 320, 128, 16, 650 + w)
     contig = (x["q"], x["k"], x["v"], x["lens"], x["mask"])
     paged = (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
-    if w == 64:
-        dk.reset_launches()
-        for name, args in (("flash_verify_tree", contig), ("paged_flash_verify_tree", paged)):
-            with pytest.raises(ValueError, match="shared memory"):
-                getattr(dk, name)(*args)
-        assert sum(dk.LAUNCHES.values()) == 0
-        return
     _check_split_body("flash_verify_tree", contig, ATOL, None)
     _check_split_body("paged_flash_verify_tree", paged, ATOL, 7)
 
@@ -385,10 +370,11 @@ def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
 
 
 def test_quant_and_tree_kernels_reject_what_they_do_not_take():
-    """w = 65, head_dim 8 on int8 pools, fp32 pools where int8 is
-    expected, misshapen scales, a strided mask and int64 tables raise
-    before a launch, on the split body that #4-#9 take at head_dim <= 256
-    (#6's cases first, then #7's, then #4's, #5's and #9's)."""
+    """w = 65, head_dim 4 on int8 pools (no multiple of 8; head_dim 8 is
+    taken in 8-byte loads and runs), fp32 pools where int8 is expected,
+    misshapen scales, a strided mask and int64 tables raise before a
+    launch, on the split body that #4-#9 take at head_dim <= 256 (#6's
+    cases first, then #7's, then #4's, #5's and #9's)."""
     dev = _card()
     b, h, d, page, num_pages = 2, 2, 64, 16, 8
     lens = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -403,9 +389,13 @@ def test_quant_and_tree_kernels_reject_what_they_do_not_take():
         wide = torch.zeros(b, 65, h, d, device=dev)
         dk.flash_verify_tree(wide, k32, k32, lens, torch.ones(b, 65, 2 * page, dtype=torch.bool, device=dev))
     q = torch.zeros(b, 1, h, d, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        k8n = torch.zeros(num_pages, page, h, 8, dtype=torch.int8, device=dev)
-        dk.paged_flash_verify_quant(q[..., :8], k8n, k8n, ks, ks, tbl, lens)
+    k8n = torch.zeros(num_pages, page, h, 8, dtype=torch.int8, device=dev)
+    out = dk.paged_flash_verify_quant(q[..., :8].contiguous(), k8n, k8n, ks, ks, tbl, lens)
+    assert out.shape == (b, 1, h, 8) and dk.LAUNCHES["paged_flash_verify_quant"] == 1
+    dk.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k8q = torch.zeros(num_pages, page, h, 4, dtype=torch.int8, device=dev)
+        dk.paged_flash_verify_quant(q[..., :4].contiguous(), k8q, k8q, ks, ks, tbl, lens)
     with pytest.raises(TypeError):
         kf = torch.zeros(num_pages, page, h, d, device=dev)
         dk.paged_flash_verify_quant(q, kf, kf, ks, ks, tbl, lens)
@@ -422,9 +412,9 @@ def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="w="):
         wide_mask = torch.ones(b, 65, 2 * page, dtype=torch.bool, device=dev)
         dk.paged_flash_verify_tree_quant(torch.zeros(b, 65, h, d, device=dev), k8, k8, ks, ks, tbl, lens, wide_mask)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        mask8 = torch.ones(b, 1, 2 * page, dtype=torch.bool, device=dev)
-        dk.paged_flash_verify_tree_quant(q[..., :8], k8n, k8n, ks, ks, tbl, lens, mask8)
+    mask8 = torch.ones(b, 1, 2 * page, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dk.paged_flash_verify_tree_quant(q[..., :4].contiguous(), k8q, k8q, ks, ks, tbl, lens, mask8)
     with pytest.raises(TypeError):
         dk.paged_flash_verify_tree_quant(q, kf32, kf32, ks, ks, tbl, lens, allowed)
     with pytest.raises(ValueError, match="k_scale"):
@@ -438,6 +428,130 @@ def test_quant_and_tree_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="int32"):
         dk.flash_verify(q, k32, k32, lens.long())
     assert sum(dk.LAUNCHES.values()) == 0
+
+
+# -- bf16 q (mixed precision) and int8 rows in 8-byte loads ---------------------------
+# A bf16-q kernel and its plain version both compute the fp32 function of
+# the widened q and round it to bf16 once, so they agree within one bf16
+# ulp of each entry beyond the fp32 kernels' own ATOL (summation order).
+
+
+def _assert_bf16_q_close(out, ref, what):
+    assert out.dtype == ref.dtype == torch.bfloat16, (what, out.dtype, ref.dtype)
+    assert bool(torch.isfinite(out).all()), what
+    a, p = out.double(), ref.double()
+    big = torch.maximum(a.abs(), p.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((a - p).abs() <= ulp + ATOL).all()), (what, float((a - p).abs().max()))
+
+
+def _decode_calls(x):
+    """The six entry points' operands on _split_body_operands x: row 7 is
+    dead in each (its pages all sentinels; on the contiguous cache its
+    length -w, whose chunk gate lets no position through)."""
+    dead = _dead_contiguous(x, x["q"].shape[1])
+    return {
+        "flash_verify": (x["q"], x["k"], x["v"], dead),
+        "paged_flash_verify": (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"]),
+        "paged_flash_verify_quant": (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"]),
+        "flash_verify_tree": (x["q"], x["k"], x["v"], dead, x["mask"]),
+        "paged_flash_verify_tree": (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"]),
+        "paged_flash_verify_tree_quant": (x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"]),
+    }
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256, 320])
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_bf16_q_decode_kernels_match_plain_versions(w, d):
+    """All six decode kernels at bf16 q against fp32 and int8 pools (the
+    split-KV body up to head_dim 256, decode_kernel.cu's past it), with
+    the split-body edges of _split_body_operands (lengths 0 and max_len -
+    w, split boundaries, a hole, a dead row, a scale-0 page): bf16 out,
+    within one bf16 ulp of the plain version, bit-identical across two
+    calls, the dead row 0, two launches counted under name + "_bf16" and
+    none under the fp32-q name."""
+    x = _split_body_operands(w, d, 512 if d <= 256 else 128, 16, 1000 + w + d)
+    x = dict(x, q=x["q"].bfloat16())
+    for name, args in _decode_calls(x).items():
+        fn, ref_fn = getattr(dk, name), getattr(dk, name + "_ref")
+        dk.reset_launches()
+        out, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{name + "_bf16": 2}), name
+        assert all(int(c.abs().sum()) == 0 for c in dk._counters.values())
+        _assert_bf16_q_close(out, ref_fn(*args), f"{name} w={w} d={d}")
+        assert torch.equal(out, again), name
+        assert float(out[7].float().abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 320])
+@pytest.mark.parametrize("w", [1, 5, 13, 64])
+def test_int8_rows_in_8_byte_loads_match_plain_versions(w, d):
+    """#6 and #9 where the int8 rows are 8-byte but not 16-byte aligned:
+    head_dim 8, 24 and 40 (an odd number of 8-byte words; the reference
+    takes any multiple of 8), and head_dim 16 and 320 read through a view
+    whose rows lie 24 (336) bytes apart; within 1e-4 of the plain
+    versions, fp32 and bf16 q."""
+    x = _split_body_operands(w, d, 250, 2, 1100 + w + d)
+    if d in (16, 320):  # the same values in pools whose rows are 8 bytes longer
+        for name in ("k8", "v8"):
+            t = x[name]
+            wide = torch.zeros(*t.shape[:-1], d + 8, dtype=torch.int8, device=t.device)
+            wide[..., :d] = t
+            x[name] = wide[..., :d]
+    assert not dk._int8_vec16(x["k8"], x["v8"])
+    for q in (x["q"], x["q"].bfloat16()):
+        y = dict(x, q=q)
+        calls = _decode_calls(y)
+        for name in ("paged_flash_verify_quant", "paged_flash_verify_tree_quant"):
+            out = getattr(dk, name)(*calls[name])
+            ref = getattr(dk, name + "_ref")(*calls[name])
+            if q.dtype == torch.bfloat16:
+                _assert_bf16_q_close(out, ref, f"{name} w={w} d={d}")
+            else:
+                torch.testing.assert_close(out, ref, atol=ATOL, rtol=0, msg=f"{name} w={w} d={d}")
+            assert float(out[7].float().abs().max()) == 0.0
+
+
+def test_mixed_precision_lm_serves_through_the_bf16_q_kernels():
+    """A 2-layer LM compiled with allow_mixed_precision serves on the card
+    through every layout, pool and mode: each leg's bf16-q kernel
+    launches steps x layers times and no fp32-q decode kernel launches,
+    every stream finishes at full length, and graph windows give the
+    eager streams token for token."""
+    from flexflow_tpu_torch.serving import Request, build_scheduler
+
+    _card()
+    layers = 2
+    model = FFModel(FFConfig(batch_size=4, seed=0, allow_mixed_precision=True))
+    tok = model.create_tensor([4, 64], dtype=DataType.INT32, name="tokens")
+    build_decoder_lm(model, tok, vocab_size=128, hidden=64, num_heads=4, num_layers=layers, ff_dim=128)
+    model.compile()
+    tree = dict(spec_draft="ngram", spec_k=3, spec_branch=2)
+    legs = {
+        "flash_verify": dict(kv_layout="slot"),
+        "paged_flash_verify": {},
+        "paged_flash_verify_quant": dict(kv_dtype="int8"),
+        "flash_verify_tree": dict(kv_layout="slot", **tree),
+        "paged_flash_verify_tree": dict(tree),
+        "paged_flash_verify_tree_quant": dict(kv_dtype="int8", **tree),
+    }
+    prompts = [[1, 2, 3], [4], [5, 6, 7, 8, 9], [10, 11], [12]]
+    streams = {}
+    for kernel, kw in legs.items():
+        for fused in (False, True) if "spec_draft" not in kw else (False,):
+            sched, _, _ = build_scheduler(
+                model, ServeConfig(max_seqs=2, max_seq_len=64, decode_multistep=fused, **kw)
+            )
+            dk.reset_launches()
+            done = sched.run([Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            assert all(r.ok and len(r.generated) == 16 for r in done), kernel
+            steps = sched.stats.verify_steps if "spec_draft" in kw else sched.stats.decode_steps
+            assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{kernel + "_bf16": steps * layers}), kernel
+            streams[kernel, fused] = {r.rid: r.generated for r in done}
+    for kernel in ("flash_verify", "paged_flash_verify", "paged_flash_verify_quant"):
+        assert streams[kernel, True] == streams[kernel, False], kernel
 
 
 def test_kernel_rejects_what_it_does_not_take():
@@ -599,9 +713,10 @@ def test_flash_backward_is_bit_identical_across_calls(causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
-    """float16, mixed float32 and bf16 operands, bf16 past head_dim 256,
-    head_dim 60 or 260 (no multiple of 8, on either side of 256) and mixed
-    devices raise before any launch."""
+    """float16, mixed float32 and bf16 operands, head_dim 60 or 260 (no
+    multiple of 8, on either side of 256, in either dtype) and mixed
+    devices raise before any launch (bf16 past head_dim 256 runs the bf16
+    wide kernels: test_bf16_flash_kernels_past_256_match_plain_versions)."""
     dev = _card()
     fk.reset_launches()
     q = torch.zeros(1, 8, 2, 64, device=dev)
@@ -609,12 +724,11 @@ def test_flash_kernel_rejects_what_it_does_not_take():
         fk.flash_fwd(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):
         fk.flash_fwd(q.bfloat16(), q, q.bfloat16())
-    wide = torch.zeros(1, 8, 2, 320, device=dev).bfloat16()
-    with pytest.raises(ValueError, match="head_dim 320 .* up to 256 in bfloat16"):
-        fk.flash_fwd(wide, wide, wide)
     odd = torch.zeros(1, 8, 2, 260, device=dev)
     with pytest.raises(ValueError, match="head_dim 260 .* multiple of 8"):
         fk.flash_fwd(odd, odd, odd)
+    with pytest.raises(ValueError, match="head_dim 260 .* multiple of 8"):
+        fk.flash_fwd(odd.bfloat16(), odd.bfloat16(), odd.bfloat16())
     with pytest.raises(ValueError, match="head_dim 60"):
         fk.flash_fwd(q[..., :60], q[..., :60], q[..., :60])
     with pytest.raises(ValueError):
@@ -746,6 +860,7 @@ def _bf16_operands(rng, dev, b, sq, sk, h, d, causal):
 
 def _check_bf16_kernels(args, fwd=True, bwd=True):
     q, k, v, do, lse, delta, causal = args
+    body = "_wide_bf16" if q.shape[-1] > 256 else "_bf16"  # the bodies past 256
     exact = [t.double() for t in (q, k, v, do)]
     fk.reset_launches()
     if fwd:
@@ -763,7 +878,7 @@ def _check_bf16_kernels(args, fwd=True, bwd=True):
         ref = (fk.flash_dq_ref(*exact, lse, delta, causal), *fk.flash_dkv_ref(*exact, lse, delta, causal))
         _assert_bf16_close(got, plain, ref, "dQ, dK, dV")
     assert fk.LAUNCHES == _flash_launches(
-        flash_fwd_bf16=int(fwd), flash_dq_bf16=int(bwd), flash_dkv_bf16=int(bwd)
+        **{"flash_fwd" + body: int(fwd), "flash_dq" + body: int(bwd), "flash_dkv" + body: int(bwd)}
     )
 
 
@@ -795,6 +910,19 @@ def test_bf16_flash_kernels_match_plain_versions_at_mma_edges(sq, sk, causal, d)
     dev = _card()
     rng = np.random.default_rng(sq * 1000 + sk + d + 11)
     _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512)])
+def test_bf16_flash_kernels_past_256_match_plain_versions(shape, causal):
+    """bf16 #1-#3 past head_dim 256, on the wide kernels instantiated for
+    bf16 (3 or 4 output chunks, 3 or 4 streamed pieces, ragged and
+    sq != sk), held with their plain versions against float64 by the bf16
+    gate; one launch of each counted under name + "_wide_bf16", none of
+    any other body."""
+    dev = _card()
+    b, sq, sk, h, d = shape
+    _check_bf16_kernels(_bf16_operands(np.random.default_rng(sq + sk + d + 3), dev, b, sq, sk, h, d, causal))
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -7,7 +7,9 @@ checks. The CUDA kernels themselves are held against these plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerance: atol 1e-5 for fp32 attention at these sizes; the two sides
-differ only in summation order."""
+differ only in summation order. At bf16 q (a mixed-precision model's
+projections) both sides round that f32 result to bf16 once: one bf16 ulp
+of each entry (BF16_NOISE below it)."""
 
 import functools
 import math
@@ -144,8 +146,11 @@ def test_kernel_operand_checks():
     q, k, v, lens = _t(*_contig(rng, 2, 1, 2, 16, 32, [3, 9]))
     caches = (("k", k), ("v", v))
     dk._check_operands(q, caches, lens)  # accepted
+    dk._check_operands(q.bfloat16(), caches, lens)  # bf16 q (mixed precision) too
     with pytest.raises(TypeError):
         dk._check_operands(q.double(), caches, lens)
+    with pytest.raises(TypeError):
+        dk._check_operands(q, (("k", k.bfloat16()), ("v", v.bfloat16())), lens)  # the pools stay fp32
     with pytest.raises(ValueError, match="w="):
         dk._check_operands(torch.zeros(2, dk.MAX_W + 1, 2, 16), caches, lens)
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -350,12 +355,20 @@ def test_quant_and_tree_operand_checks():
     q, kp, vp, tbl, lens = _t(*_paged(rng, 2, 3, 2, 16, 16, 8, [3, 9]))
     k8, v8 = kp.to(torch.int8), vp.to(torch.int8)
     dk._check_operands(q, (("k", k8), ("v", v8)), lens, tbl, quant=True)  # accepted
+    assert dk._int8_vec16(k8, v8)  # 16-byte loads
     with pytest.raises(TypeError):
         dk._check_operands(q, (("k", kp), ("v", vp)), lens, tbl, quant=True)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        dk._check_operands(q[..., :8], (("k", k8[..., :8]), ("v", v8[..., :8])), lens, tbl, quant=True)
+    # head_dim 8 (and 24, 40: any multiple of 8) and rows 24 bytes apart
+    # are taken in 8-byte loads
+    dk._check_operands(q[..., :8], (("k", k8[..., :8]), ("v", v8[..., :8])), lens, tbl, quant=True)
+    assert not dk._int8_vec16(k8[..., :8], v8[..., :8])
+    odd = torch.zeros(8, 16, 2, 24, dtype=torch.int8)[..., :16]  # rows 24 bytes apart
+    dk._check_operands(q, (("k", odd), ("v", v8)), lens, tbl, quant=True)
+    assert not dk._int8_vec16(odd, v8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dk._check_operands(q[..., :4], (("k", k8[..., :4]), ("v", v8[..., :4])), lens, tbl, quant=True)
     with pytest.raises(ValueError, match="strides"):
-        odd = torch.zeros(8, 16, 2, 24, dtype=torch.int8)[..., :16]  # rows 24 bytes apart
+        odd = torch.zeros(8, 16, 2, 20, dtype=torch.int8)[..., :16]  # rows 20 bytes apart
         dk._check_operands(q, (("k", odd), ("v", v8)), lens, tbl, quant=True)
     scales = torch.zeros(8, 2)
     dk._check_scales(scales, scales, 8, 2, q.device)  # accepted
@@ -370,6 +383,96 @@ def test_quant_and_tree_operand_checks():
         dk._mask_operand(mask[:, :2], 2, 3, 64, q.device)
     with pytest.raises(TypeError):
         dk._mask_operand(mask.long(), 2, 3, 64, q.device)
+
+
+# -- bf16 q (a mixed-precision model) against the fp32 and int8 pools ---------------------
+
+# bf16 outputs of the two packages come from f32 results that differ in
+# summation order only and are rounded to bf16 once, so they agree within
+# one bf16 ulp of each entry; an entry near 0 (where the f32 results'
+# own rounding noise exceeds its ulp) within BF16_NOISE
+BF16_NOISE = 1e-5
+
+
+def _assert_bf16_close(ours, kern):
+    assert ours.dtype == torch.bfloat16, ours.dtype
+    assert kern.dtype == jnp.bfloat16, kern.dtype
+    a = ours.float().numpy().astype(np.float64)
+    b = np.asarray(kern.astype(jnp.float32)).astype(np.float64)
+    big = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0**-126)
+    ulp = 2.0 ** (np.floor(np.log2(big)) - 7)
+    np.testing.assert_array_less(np.abs(a - b), ulp + BF16_NOISE)
+
+
+def _bf16(q):
+    """The same bf16 q on both sides (numpy f32 rounded to nearest even)."""
+    return torch.from_numpy(q).bfloat16(), jnp.asarray(q).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("d", [8, 16, 24])
+@pytest.mark.parametrize("w", [1, 5, 13])
+def test_bf16_q_plain_versions_match_pallas_interpreter(w, d):
+    """#4-#9 at bf16 q (fp32 caches and pools; int8 pools at 32-row pages,
+    the reference's int8 kernels' only size, so int8 at head_dim 24 too)
+    against the Pallas kernels in interpret mode on the same bf16 q: the
+    output is bf16 on both sides and within one bf16 ulp; each plain
+    version is the fp32-q function of the widened q, rounded once."""
+    rng = np.random.default_rng(60 + w + d)
+    q, k, v, lens = _contig(rng, 3, w, 2, d, 64, [0, 17, 64 - w])
+    tq, jq = _bf16(q)
+    kv = list(map(jnp.asarray, (k, v, lens)))
+    ours = dk.flash_verify(tq, *_t(k, v, lens))
+    _assert_bf16_close(ours, jdk.flash_verify(jq, *kv, interpret=True))
+    assert torch.equal(ours, dk.flash_verify(tq.float(), *_t(k, v, lens)).bfloat16())
+    mask = _masks(_parents(rng, 3, w), lens, w, 64)
+    _assert_bf16_close(
+        dk.flash_verify_tree(tq, *_t(k, v, lens, mask)),
+        jdk.flash_verify_tree(jq, *kv, jnp.asarray(mask, jnp.float32), interpret=True),
+    )
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, d, 8, 32, [2, 8, 64 - w, 9])
+    tbl[3, :] = 32  # a dead row
+    tq, jq = _bf16(q)
+    pools = list(map(jnp.asarray, (kp, vp, tbl, lens)))
+    ours = dk.paged_flash_verify(tq, *_t(kp, vp, tbl, lens))
+    _assert_bf16_close(ours, jdk.paged_flash_verify(jq, *pools, interpret=True))
+    assert float(ours[3].float().abs().max()) == 0.0
+    mask = _masks(_parents(rng, 4, w), lens, w, 64)
+    _assert_bf16_close(
+        dk.paged_flash_verify_tree(tq, *_t(kp, vp, tbl, lens, mask)),
+        jdk.paged_flash_verify_tree(jq, *pools, jnp.asarray(mask, jnp.float32), interpret=True),
+    )
+    q, kp, vp, tbl, lens = _paged(rng, 4, w, 2, d, 32, 12, [3, 64 - w, 9, 20])
+    tbl[1, 0] = 12  # a hole
+    k8, v8, ks, vs = _quant(rng, kp, vp, tbl)  # with a scale-0 page
+    tq, jq = _bf16(q)
+    pools = list(map(jnp.asarray, (k8, v8, ks, vs, tbl, lens)))
+    ours = dk.paged_flash_verify_quant(tq, *_t(k8, v8, ks, vs, tbl, lens))
+    _assert_bf16_close(ours, jdk.paged_flash_verify_quant(jq, *pools, interpret=True))
+    assert torch.equal(ours, dk.paged_flash_verify_quant(tq.float(), *_t(k8, v8, ks, vs, tbl, lens)).bfloat16())
+    mask = _masks(_parents(rng, 4, w), lens, w, tbl.shape[1] * 32)
+    _assert_bf16_close(
+        dk.paged_flash_verify_tree_quant(tq, *_t(k8, v8, ks, vs, tbl, lens, mask)),
+        jdk.paged_flash_verify_tree_quant(jq, *pools, jnp.asarray(mask, jnp.float32), interpret=True),
+    )
+
+
+def test_bf16_q_decode_seams_match_jax():
+    """The decode and verify seams of ops/attention.py pass a bf16 q
+    through to #4/#5 (w = 1) and return bf16, as the reference's decode
+    paths do on bf16 q against fp32 caches."""
+    rng = np.random.default_rng(70)
+    q, k, v, lens = _contig(rng, 3, 1, 2, 16, 64, [0, 17, 63])
+    tq, jq = _bf16(q)
+    _assert_bf16_close(
+        tattn.decode_attention(tq, *_t(k, v, lens)),
+        jdk.flash_decode(jq, *map(jnp.asarray, (k, v, lens)), interpret=True),
+    )
+    q, kp, vp, tbl, lens = _paged(rng, 3, 1, 2, 16, 8, 32, [0, 8, 40])
+    tq, jq = _bf16(q)
+    _assert_bf16_close(
+        tattn.paged_decode_attention(tq, *_t(kp, vp, tbl, lens)),
+        jdk.paged_flash_decode(jq, *map(jnp.asarray, (kp, vp, tbl, lens)), interpret=True),
+    )
 
 
 # -- the fp32 tree body's split-then-merge rule (csrc/tree_kernel.cu) -----------------

@@ -197,6 +197,34 @@ def test_bf16_grads_match_jax(sq, sk, causal):
     _assert_bf16_grads(leaves, jg)
 
 
+@pytest.mark.parametrize("d", [264, 320])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_wide_heads_match_jax(d, causal):
+    """bf16 past head_dim 256 (the wide kernels for bf16 on the card):
+    the plain versions' O, LSE and gradients against the Pallas kernels
+    at bf16 in the interpreter, by the bf16 tolerances above; no kernel
+    launched on the CPU."""
+    rng = np.random.RandomState(d + int(causal))
+    q, k, v = (rng.randn(1, 128, H, d).astype(np.float32) for _ in range(3))
+    jo, jlse = _jax_flash(*_bf16(q, k, v), causal, return_lse=True)
+
+    def jloss(q, k, v):
+        o = _jax_flash(q, k, v, causal).astype(jnp.float32)
+        return jnp.sum(o * jnp.cos(o))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*_bf16(q, k, v))
+    fk.reset_launches()
+    leaves = _bf16_leaves(q, k, v)
+    o, lse = fk.flash_attention(*leaves, causal=causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(_f32(o), _f32(jo), atol=BF16_FWD_ATOL, rtol=BF16_FWD_RTOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=0)
+    of = o.float()
+    (of * torch.cos(of)).sum().backward()
+    _assert_bf16_grads(leaves, jg)
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
+
+
 def test_bf16_lse_cotangent_matches_jax():
     """The LSE cotangent shifts the f32 delta at bf16 too."""
     q, k, v = _inputs(256, seed=5)
@@ -344,12 +372,15 @@ def test_supports():
     assert fk.supports(256, 256, 1032, torch.float32)
     assert not fk.supports(512, 512, 60, torch.float32)
     assert not fk.supports(512, 512, 260, torch.float32)
-    # bfloat16 (mixed precision) on its own bodies, head_dim up to 256
+    # bfloat16 (mixed precision) on its own bodies up to head_dim 256 and
+    # past it on the wide kernels for bf16: any multiple of 8, as fp32
     assert fk.supports(512, 512, 64, torch.bfloat16)
     assert fk.supports(500, 37, 24, torch.bfloat16)
     assert fk.supports(512, 512, 256, torch.bfloat16)
-    assert not fk.supports(512, 512, 264, torch.bfloat16)
-    assert not fk.supports(512, 512, 320, torch.bfloat16)
+    assert fk.supports(512, 512, 264, torch.bfloat16)
+    assert fk.supports(512, 512, 320, torch.bfloat16)
+    assert fk.supports(256, 256, 512, torch.bfloat16)
+    assert not fk.supports(512, 512, 260, torch.bfloat16)
     assert not fk.supports(512, 512, 60, torch.bfloat16)
     assert not fk.supports(512, 512, 64, torch.float16)
     assert not fk.supports(0, 512, 64, torch.float32)

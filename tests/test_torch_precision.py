@@ -3,8 +3,9 @@ against the JAX package's, on the CPU, from seeded numpy inputs:
 mm_operands and mm_out_dtype, the lowerings it touches (LINEAR,
 LAYERNORM, EW_ADD, the MHA projections and dense core), the losses under
 bf16 logits, the executor's flag, the reference's own criterion (a mixed
-run trains close to the fp32 run, tests/test_precision.py) and the
-refusal to serve such a model.
+run trains close to the fp32 run, tests/test_precision.py) and
+generate() of such a model against the JAX package's
+(tests/test_torch_mixed_serving.py holds the whole serving stack).
 
 Tolerances: LINEAR and LAYERNORM are bit-identical (torch's CPU bf16
 matmul rounds its f32 sum once, as JAX's preferred_element_type=f32 then
@@ -248,24 +249,36 @@ def test_executor_threads_the_flag_into_every_lowering():
 
 
 def test_serving_a_mixed_precision_model_raises():
-    """generate() and build_scheduler() refuse a model compiled with
-    allow_mixed_precision (bf16 q against the fp32 or int8 pools of
-    kernels #4-#9 is not ported); the same model compiled without the
-    flag serves."""
+    """Serving a model compiled with allow_mixed_precision no longer
+    raises: generate() and build_scheduler() serve it with bf16 q against
+    the fp32 pools of kernels #4-#9, and its generate() equals the JAX
+    package's generate() of the same model (weights carried by guid)."""
+    import jax
+
+    from flexflow_tpu import DataType as JDataType
+    from flexflow_tpu import FFConfig as JFFConfig
+    from flexflow_tpu import FFModel as JFFModel
+    from flexflow_tpu import SGDOptimizer as JSGD
+    from flexflow_tpu.models import build_decoder_lm as jax_build_decoder_lm
+    from flexflow_tpu.serving import ServeConfig as JServeConfig
+    from flexflow_tpu_torch.runtime.interop import params_from_host
     from flexflow_tpu_torch.serving import ServeConfig
     from flexflow_tpu_torch.serving.api import build_scheduler
 
-    def lm(mixed):
-        model = FFModel(FFConfig(batch_size=2, seed=0, allow_mixed_precision=mixed))
-        build_decoder_lm(model, model.create_tensor([2, 16], name="tokens", dtype=DataType.INT32), vocab_size=32,
-                         hidden=16, num_heads=2, num_layers=1, ff_dim=32)
-        model.compile(SGDOptimizer(lr=0.1), LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [], device="cpu")
-        return model
-
-    serve = ServeConfig(max_seqs=2, max_seq_len=32)
-    mixed = lm(True)
-    with pytest.raises(NotImplementedError, match="serving under mixed precision"):
-        mixed.generate([[1, 2, 3]], max_new_tokens=2, serve_config=serve)
-    with pytest.raises(NotImplementedError, match="serving under mixed precision"):
-        build_scheduler(mixed, serve)
-    assert len(lm(False).generate([[1, 2, 3]], max_new_tokens=2, serve_config=serve)[0]) == 2
+    geo = dict(vocab_size=32, hidden=16, num_heads=2, num_layers=1, ff_dim=32)
+    jm = JFFModel(JFFConfig(batch_size=2, seed=0, allow_mixed_precision=True))
+    jax_build_decoder_lm(jm, jm.create_tensor([2, 16], name="tokens", dtype=JDataType.INT32), **geo)
+    jm.compile(optimizer=JSGD(lr=0.1), loss_type=JLossType.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=[],
+               devices=jax.devices()[:1])
+    mixed = FFModel(FFConfig(batch_size=2, seed=0, allow_mixed_precision=True))
+    build_decoder_lm(mixed, mixed.create_tensor([2, 16], name="tokens", dtype=DataType.INT32), **geo)
+    mixed.compile(SGDOptimizer(lr=0.1), LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [], device="cpu")
+    host = jm.executor.export_host_params(jm.params)
+    params_from_host(mixed, {g: [np.asarray(w) for w in ws] for g, ws in host.items()})
+    serve = dict(max_seqs=2, max_seq_len=32)
+    prompts = [[1, 2, 3], [4, 5], [6]]
+    ours = mixed.generate(prompts, max_new_tokens=6, serve_config=ServeConfig(**serve))
+    assert ours == jm.generate(prompts, max_new_tokens=6, serve_config=JServeConfig(**serve))
+    assert all(len(s) == 6 for s in ours)
+    _, engine, _ = build_scheduler(mixed, ServeConfig(**serve))
+    assert engine.executor.mixed_precision
