@@ -120,14 +120,18 @@ result line) on any failed phase:
                most twice the plain version's plus one bf16 ulp of the
                exact output's largest entry; LSE within 2e-5) at the
                flagship shape, causal and not, ragged (sq 500, sq !=
-               sk), head_dim 24-256, past 256 on the wide kernels for bf16
-               (264, 320, 512) and the reference's test shapes; times at
-               the flagship shape beside bf16 SDPA with its backend, and
-               of the bf16 wide kernels at [8, 512, 4, 320] and [8, 256,
-               2, 512], bounds at 989 TFLOP/s, resources at head_dim 64,
-               128 and 256 and the bf16 library's HMMA count; the bf16
-               wide kernels also on a training path (2 layers of 2 heads
-               of 320 under mixed precision, 3 steps of fit());
+               sk), head_dim 24-256, past 256 on the wide bodies for bf16
+               (264, 320, 512, 1032; #1's bf16 mma.sync body with its Q
+               tile resident, and at 2056 with Q streamed beside K; #2 and
+               #3 on the backward file's wide kernels for bf16) and the
+               reference's test shapes; times at the flagship shape beside
+               bf16 SDPA with its backend, and of the bf16 wide kernels at
+               [8, 512, 4, 320] (#1 causal too) and [8, 256, 2, 512],
+               bounds at 989 TFLOP/s, resources at head_dim 64, 128 and
+               256, of #1's wide body at 320, 512 and 1032, and the bf16
+               library's HMMA count; the bf16 wide kernels also on a
+               training path (2 layers of 2 heads of 320 under mixed
+               precision, 3 steps of fit());
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
                [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
                batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
@@ -256,8 +260,9 @@ KERNELS = {
     "flash_fwd_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
-    # bf16 #1-#3 past head_dim 256: the fp32 files' wide kernels for bf16
-    "flash_fwd_wide_bf16": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
+    # bf16 #1-#3 past head_dim 256: #1 on the bf16 file's wide body, #2
+    # and #3 on the backward file's wide kernels for bf16
+    "flash_fwd_wide_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
 }
@@ -308,7 +313,7 @@ KERNEL_SYMBOLS = {
     "flash_fwd_bf16": ("flash_fwd_bf16_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
-    "flash_fwd_wide_bf16": ("flash_fwd_wide_kernel<__nv_bfloat16>",),
+    "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_kernel",),
     "flash_dq_wide_bf16": ("flash_dq_wide_kernel<__nv_bfloat16>",),
     "flash_dkv_wide_bf16": ("flash_dkv_wide_kernel<__nv_bfloat16>",),
 }
@@ -2002,9 +2007,10 @@ def time_flash_bf16_kernels(shapes):
 def check_flash_bf16_kernels(rows):
     """The bf16 #1-#3 against their plain versions by the float64 gate at
     the flagship shape (causal and not), ragged (sq 500, sq != sk), head_dim
-    24, 64, 128, 160 and 256 and the reference's test shapes, each
-    kernel's worst error into `rows`; resources at head_dim 64, 128 and
-    256 and the HMMA count of the bf16 library's SASS."""
+    24, 64, 128, 160 and 256, past 256 (264-2056) and the reference's test
+    shapes, each kernel's worst error into `rows`; resources at head_dim
+    64, 128 and 256 (#1's wide body at 320, 512 and 1032) and the HMMA
+    count of the bf16 library's SASS."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import _build
@@ -2021,22 +2027,30 @@ def check_flash_bf16_kernels(rows):
     # and streamed pieces, ragged, sq != sk both ways)
     cases += [(2, 129, 300, 2, 264, True), (2, 129, 300, 2, 264, False), (2, 300, 129, 2, 320, True),
               (2, 300, 129, 2, 320, False), (1, 200, 77, 2, 512, False), (1, 200, 77, 2, 512, True)]
+    # bf16 #1's Q tile streamed beside K past its resident width (752)
+    cases += [(1, 130, 70, 1, dd, c) for dd in (1032, 2056) for c in (False, True)]
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
     for cb, sq, sk, ch, cd, causal in cases:
         x = flash_inputs(device, cb, sq, sk, ch, cd, causal, dtype=torch.bfloat16)
         for name, (k_err, _) in check_bf16_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], k_err)
+    log = _build.build_logs.get(fk.BF16_SOURCE, "").splitlines()
+
+    def ptxas(sym):
+        info = []
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line and sym in line:
+                info = [t.strip() for t in log[i + 1 : i + 4] if "registers" in t or "spill" in t]
+        return "; ".join(info) or "not in the build log"
+
     for dd in (64, 128, 256):
         kd = 32 << (0 if dd <= 32 else 1 if dd <= 64 else 2 if dd <= 128 else 3)  # the source's bucket
-        log = _build.build_logs.get(fk.BF16_SOURCE, "").splitlines()
         for name in FLASH_BF16:
-            sym = f"{name}_kernelILi{kd}E"
-            info = []
-            for i, line in enumerate(log):
-                if "Compiling entry function" in line and sym in line:
-                    info = [t.strip() for t in log[i + 1 : i + 4] if "registers" in t or "spill" in t]
             print(f"[resources] {name} at head_dim {dd} ({name}_kernel<{kd}>): " + json.dumps(fk.occupancy(name, dd))
-                  + f"; ptxas: {'; '.join(info) or 'not in the build log'}")
+                  + f"; ptxas: {ptxas(f'{name}_kernelILi{kd}E')}")
+    for dd in (320, 512, 1032):  # one instantiation: shared memory grows with the resident Q tile
+        print(f"[resources] flash_fwd_wide_bf16 at head_dim {dd} (flash_fwd_wide_bf16_kernel): "
+              + json.dumps(fk.occupancy("flash_fwd_wide_bf16", dd)) + f"; ptxas: {ptxas('flash_fwd_wide_bf16_kernel')}")
     ops = sass_opcodes(fk.BF16_SOURCE)
     if ops is None:
         print(f"[resources] {fk.BF16_SOURCE}: cuobjdump not found, SASS not read")
@@ -2395,7 +2409,8 @@ def main() -> int:
     flash_rows = time_flash_kernels(FLASH_TIMED)
     flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED))
     time_flash_kernels(FLASH_TIMED_WIDE)
-    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE[1:]))  # past 256: the bf16 wide kernels
+    # past 256: the bf16 wide kernels, and #1's wide body causal too
+    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE[1:] + ((TRAIN["seq"], 4, 320, True),)))
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"before the flash kernel timings [{smi_before}], after them [{smi_sample()}]")
     check_flash_kernels(flash_rows)

@@ -3,14 +3,17 @@
 // flexflow_tpu_torch/ops/cuda/_build.py with nvcc into a shared library with
 // a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/flash_kernel.py. The fp32 bodies are
-// csrc/flash_kernel.cu (#1) and csrc/flash_bwd_kernel.cu (#2, #3); this file
-// shares their block shape and cp.async staging (csrc/flash_common.cuh).
+// csrc/flash_kernel.cu (#1) and csrc/flash_bwd_kernel.cu (#2, #3; its wide
+// kernels also take #2 and #3 at bf16 past head_dim 256); this file shares
+// their block shape and cp.async staging (csrc/flash_common.cuh).
 //
 // What it replaces: the Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/flash_kernel.py at bf16 inputs, which keep f32
 // scratch accumulators and an f32 LSE and cast the second product's
 // operand to the input dtype:
-//   * flash_fwd_bf16_kernel replaces _fwd_kernel (:129, pallas_call :198):
+//   * flash_fwd_bf16_kernel (head_dim up to 256) and
+//     flash_fwd_wide_bf16_kernel (past it, any multiple of 8) replace
+//     _fwd_kernel (:129, pallas_call :198):
 //     S = scale Q K^T in f32, the online softmax in f32, P rounded to bf16
 //     (:158) for O += P V in f32; O = acc / max(l, 1e-30) rounded to bf16,
 //     LSE = m + log(max(l, 1e-30)) in f32;
@@ -41,7 +44,8 @@
 //     columns 2t, 2t + 1 of both tiles, which are the A fragment's k
 //     columns 2t, 2t + 1 and 2t + 8, 2t + 9): no shared-memory round trip.
 //   * Operands whose contraction runs over head_dim (Q, K in S = Q K^T; dO,
-//     V in dP) are read from shared memory as 32-bit pairs of bf16. Those
+//     V in dP) are read from shared memory as 32-bit pairs of bf16 (with
+//     ldmatrix.x4 in the wide forward). Those
 //     whose contraction runs over the tile's rows (V in P V, K in dS K, dO
 //     and Q in #3) are B operands in transpose and are read with
 //     ldmatrix.x4.trans, two n8 tiles a load.
@@ -55,14 +59,53 @@
 //   * head_dim past 128: a grid z index picks a chunk of the output
 //     columns (at most 128 for #1 and #2, 64 for #3, whose two
 //     accumulators would not fit the registers at 128), and the score
-//     products are recomputed once per chunk. head_dim past 256 is
-//     refused (takes(); the wrapper raises first); the fp32 bodies
-//     stream it.
+//     products are recomputed once per chunk. #2 and #3 past head_dim 256
+//     are refused here (takes(); the wrapper sends them to
+//     flash_bwd_kernel.cu's wide kernels).
 //   * fp32 accumulators chain through a tile's mma's: the tensor cores'
 //     round-toward-zero of an mma's sum (flash_common.cuh, product_nt) is
 //     far below a bf16 output's ulp, but for the backward's dP where
 //     dP - delta cancels: from head_dim 128 its score products take a
 //     fresh accumulator per k-step (scores()).
+//
+// #1 past head_dim 256 (flash_fwd_wide_bf16_kernel; it replaced the fp32
+// file's wide kernel instantiated for bf16, which widened every staged
+// value to f32 for one TF32 pass). Its bound at [8, 512, 4, 320]: 10.7
+// GFLOP (0.0109 ms at 989 TFLOP/s) against 41.9 MB (0.0125 ms at 3.35
+// TB/s), so bytes; with the scores recomputed per output chunk (3 at 320)
+// the products are 21.5 GFLOP. What the design does about each cause of
+// the replaced body's 39x over that bound:
+//   * widened operands and TF32 products: operands stay bf16 from device
+//     memory to the tensor cores (cp.async copies, one m16n8k16 bf16 pass,
+//     half the instructions of m16n8k8 TF32 at twice the rate), and the
+//     score operands are read with ldmatrix.x4, a whole A fragment or two
+//     n-tiles' B fragments a load;
+//   * Q staged again for every key tile and piece: the block's 128 query
+//     rows (8 warps of 16) stay resident at full head_dim (stride
+//     width16(d) + 8) and feed every key tile's A fragments, up to
+//     kWideResidentD, the widest head_dim whose Q tile fits beside the ring
+//     below in 232,448 bytes (752 with 2 slots of 128 columns); past it the
+//     Q pieces ride in the ring beside their K pieces (slots of 64 + 128
+//     rows), so any multiple of 8 runs here. 8 warps, not 4, so that each
+//     staged K and V byte feeds 128 queries: measured on an H100 at [8,
+//     512, 4, 320], the loads alone (no products) took 0.115 ms of the 4-warp
+//     body's 0.202;
+//   * no overlap: the block's loads are one stream of items (each key
+//     tile's head_dim pieces of K, then its pieces of the block's V chunk)
+//     through a ring of kWideStages slots filled by cp.async, kWideStages -
+//     1 items ahead: each item's copy is issued before the product of the
+//     item before it starts, and one barrier an item frees the oldest slot
+//     (3 or 4 slots measured within 2% of 2 at 320 and slower at 512, where
+//     they cost the second block of an SM); the products of a full K piece
+//     and of the V chunk, staged at the full piece width with zeros past
+//     the chunk, run with no test per k-step or n-tile (dropping the tests
+//     took 26% off the 4-warp body at [8, 256, 2, 512]);
+//   * scores recomputed per output chunk: kept (grid z chunks of at most
+//     128 output columns, 64 f32 registers of O a thread; ceil(d / 128)
+//     score passes a key tile), the price of keeping O in registers.
+// Causal handling is flash_fwd_bf16_kernel's. Each piece's k16 steps chain
+// into a fresh accumulator added to the scores in f32, so at most 8 mma
+// sums a chain are truncated, whatever head_dim is.
 
 #include <cuda_bf16.h>
 
@@ -72,6 +115,7 @@ namespace {
 
 using flash::cp_async;
 using flash::cp_async_commit;
+using flash::cp_async_wait;
 using flash::cp_async_wait_all;
 using flash::kThreads;
 using flash::kTile;
@@ -81,7 +125,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kRows = 64;         // rows of a loop tile (keys in #1, #2; queries in #3)
 constexpr int kSN = kRows / 8;    // 8-wide n-tiles of a warp's 16 x kRows scores
-constexpr int kMaxD = 256;        // widest head_dim taken
+constexpr int kStagedD = 256;     // widest head_dim staged at full width (buckets 0-3)
 constexpr int kFwdOT = 16;        // output n-tiles of one block of #1 and #2
 constexpr int kDkvOT = 8;         // output n-tiles of one block of #3
 constexpr float kMask = -1e30f;
@@ -108,10 +152,11 @@ struct Params {
   int causal;
 };
 
-bool takes(int d) { return d > 0 && d % 8 == 0 && d <= kMaxD; }
+// #1 at any positive multiple of 8; #2 and #3 up to kStagedD
+bool takes(int kind, int d) { return d > 0 && d % 8 == 0 && (kind == kFwd || d <= kStagedD); }
 
-// head_dim bucket kD = 32, 64, 128 or 256
-int bucket(int d) { return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : 3; }
+// head_dim bucket kD = 32, 64, 128 or 256, or 4: #1 past kStagedD
+int bucket(int d) { return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : d <= kStagedD ? 3 : 4; }
 
 template <int kD>
 __host__ __device__ constexpr int ld_of() { return kD + 8; }
@@ -173,6 +218,16 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 __device__ __forceinline__ void ldsm_t4(uint32_t r[4], const bf16* p) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Four 8 x 8 bf16 matrices: lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, of each matrix, (row g, columns 2t, 2t + 1)
+// in r[i].
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
@@ -242,32 +297,50 @@ __device__ __forceinline__ void scores(const bf16* A, const bf16* B, float s[kSN
   }
 }
 
+// The warp's 16 x kRows f32 fragments P as the k16 A fragments of the
+// next product: rounded to bf16 and packed in pairs (a[kk] covers columns
+// 16 kk .. 16 kk + 15).
+__device__ __forceinline__ void pack_p(const float P[kSN][4], uint32_t a[kSN / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kSN / 2; ++kk) {
+    a[kk][0] = pack(P[2 * kk][0], P[2 * kk][1]);
+    a[kk][1] = pack(P[2 * kk][2], P[2 * kk][3]);
+    a[kk][2] = pack(P[2 * kk + 1][0], P[2 * kk + 1][1]);
+    a[kk][3] = pack(P[2 * kk + 1][2], P[2 * kk + 1][3]);
+  }
+}
+
 // acc[j] += P B[:, 8j : 8j + 8] over the tile's kRows rows of B for the
-// first cn of kOT n-tiles: P is the warp's 16 x kRows f32 fragments,
-// rounded to bf16 here; B row-major at stride ld (already at the block's
-// first output column), read in transpose with ldmatrix, two n-tiles a
-// load (kOT is even; a pair past cn reads staged padding whose columns go
-// unused).
-template <int kOT>
-__device__ __forceinline__ void product_pb(const float P[kSN][4], const bf16* B, int ld,
+// first cn of kOT n-tiles (kAll: all kOT, B staged that wide): P packed by
+// pack_p; B row-major at stride ld (already at the first output column),
+// read in transpose with ldmatrix, two n-tiles a load (kOT is even; a pair
+// past cn reads staged padding whose columns go unused).
+template <int kOT, bool kAll = false>
+__device__ __forceinline__ void product_pv(const uint32_t a[kSN / 2][4], const bf16* B, int ld,
                                            float acc[kOT][4], int cn) {
   const int lane = threadIdx.x & 31;
   const bf16* bl = B + (lane & 15) * ld + 8 * (lane >> 4);
 #pragma unroll
   for (int kk = 0; kk < kSN / 2; ++kk) {
-    const uint32_t a[4] = {pack(P[2 * kk][0], P[2 * kk][1]), pack(P[2 * kk][2], P[2 * kk][3]),
-                           pack(P[2 * kk + 1][0], P[2 * kk + 1][1]),
-                           pack(P[2 * kk + 1][2], P[2 * kk + 1][3])};
 #pragma unroll
     for (int jp = 0; jp < kOT / 2; ++jp) {
-      if (2 * jp < cn) {
+      if (kAll || 2 * jp < cn) {
         uint32_t b[4];
         ldsm_t4(b, bl + 16 * kk * ld + 16 * jp);
-        mma(acc[2 * jp], a, b[0], b[1]);
-        if (2 * jp + 1 < cn) mma(acc[2 * jp + 1], a, b[2], b[3]);
+        mma(acc[2 * jp], a[kk], b[0], b[1]);
+        if (kAll || 2 * jp + 1 < cn) mma(acc[2 * jp + 1], a[kk], b[2], b[3]);
       }
     }
   }
+}
+
+// product_pv of the warp's f32 fragments P, rounded to bf16 here.
+template <int kOT>
+__device__ __forceinline__ void product_pb(const float P[kSN][4], const bf16* B, int ld,
+                                           float acc[kOT][4], int cn) {
+  uint32_t a[kSN / 2][4];
+  pack_p(P, a);
+  product_pv<kOT>(a, B, ld, acc, cn);
 }
 
 // -- staging ----------------------------------------------------------------------------
@@ -275,12 +348,12 @@ __device__ __forceinline__ void product_pb(const float P[kSN][4], const bf16* B,
 // Rows [row0, row0 + kN) of one head of a [b, s, h, d] bf16 tensor (base
 // already at the batch, head and first column) into dst [kN][ld]: `width`
 // columns in 16-byte pieces, of which those at or past `cols` and the rows
-// at or past `rows` are zero-filled.
-template <int kN>
+// at or past `rows` are zero-filled; by the block's kNThreads threads.
+template <int kN, int kNThreads = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base, int64_t s_stride,
                                           int row0, int rows, int cols, int width) {
   const int n8 = width / 8;
-  for (int i = threadIdx.x; i < kN * n8; i += kThreads) {
+  for (int i = threadIdx.x; i < kN * n8; i += kNThreads) {
     const int r = i / n8, c8 = i - r * n8;
     const bool in = row0 + r < rows && 8 * c8 < cols;
     cp_async(dst + r * ld + 8 * c8, base + (in ? (int64_t)(row0 + r) * s_stride + 8 * c8 : 0), 16, in);
@@ -422,6 +495,164 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks(kD)) flash_fwd_bf16_k
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] /= lnz[e >> 1];
   store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < p.sq) p.lse_out[((int64_t)ib * p.h + ih) * p.sq + r] = (m[i] + log2f(lnz[i])) * kLn2;
+    }
+  }
+}
+
+// -- #1 past head_dim 256 ------------------------------------------------------------------
+
+constexpr int kWidePT = kFwdOT;  // n-tiles of one streamed piece of head_dim (and of the V chunk)
+constexpr int kWideLd = 8 * kWidePT + 8;  // stride of a ring slot
+constexpr int kWideStages = 2;   // ring slots
+constexpr int kWideWarps = 8;    // 16 query rows each
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideQ = 16 * kWideWarps;  // query rows of a block
+constexpr int kSmemMax = 232448;  // dynamic shared memory one block may take
+
+// Widest head_dim (a multiple of 16) whose resident Q tile [kWideQ][d + 8]
+// fits beside the ring of kWideStages slots of kRows x kWideLd bf16.
+constexpr int kWideResidentD = ((kSmemMax / 2 - kWideStages * kRows * kWideLd) / kWideQ - 8) / 16 * 16;
+static_assert(kWideResidentD == 752, "the source's header states this width");
+
+// s[j] += A B_j^T over one piece of head_dim, its kw columns (a multiple
+// of 16, at most 8 kWidePT; kFull: all of them, with no test per k-step):
+// the warp's 16 rows of A at stride lda and the kSN 8-row n-tiles of B at
+// stride kWideLd, both read with ldmatrix.x4 (A's whole fragment; B's two
+// n-tiles a load). The piece's k-steps chain into a fresh accumulator
+// added to s in f32 (the header says why).
+template <bool kFull>
+__device__ __forceinline__ void scores_piece(const bf16* A, int lda, const bf16* B, float s[kSN][4],
+                                             int kw) {
+  constexpr int ldb = kWideLd;
+  const int lane = threadIdx.x & 31;
+  const bf16* al = A + (lane & 15) * lda + 8 * (lane >> 4);
+  const bf16* bl = B + ((lane & 7) + 8 * (lane >> 4)) * ldb + 8 * ((lane >> 3) & 1);
+  float f[kSN][4];
+  zero<kSN>(f);
+#pragma unroll
+  for (int ks = 0; ks < kWidePT / 2; ++ks) {
+    if (kFull || 16 * ks < kw) {
+      uint32_t a[4];
+      ldsm4(a, al + 16 * ks);
+#pragma unroll
+      for (int jp = 0; jp < kSN / 2; ++jp) {
+        uint32_t b[4];
+        ldsm4(b, bl + 16 * jp * ldb + 16 * ks);
+        mma(f[2 * jp], a, b[0], b[1]);
+        mma(f[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += f[j][e];
+}
+
+// #1 at any head_dim past kStagedD (the header's design). Grid: (query
+// tiles of kWideQ rows, b h, output chunks). The block's loads are one
+// stream of items, per key tile kp pieces of K over head_dim (with their Q
+// pieces when Q is streamed), then its V chunk (staged at the full piece
+// width, zero past the chunk, so that P V runs with no test per n-tile),
+// staged into ring slot j % kWideStages. Every barrier is reached by all
+// warps: a warp whose rows see none of a causal tile skips only its
+// products.
+__global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_wide_bf16_kernel(const Params p) {
+  constexpr int kP = 8 * kWidePT, ld = kWideLd, kQ = kWideQ, kStages = kWideStages;
+  extern __shared__ float4 smem4[];
+  const int d = p.d, dt = d / 8, dw = width16(d), qld = dw + 8;
+  const bool resident = dw <= kWideResidentD;
+  const int slot = (resident ? kRows : kRows + kQ) * ld;  // a K piece (and its Q piece) or a V piece
+  bf16* ring = reinterpret_cast<bf16*>(smem4);           // [kStages][slot]
+  bf16* qs = ring + kStages * slot;                       // resident Q [kQ][qld]
+  int c0t, cn;
+  z_chunk(dt, c0t, cn);
+  const int c0 = 8 * c0t;
+  const int q0 = blockIdx.x * kQ, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const bf16* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const bf16* kb = p.k + ib * p.k_sb + ih * p.k_sh;
+  const bf16* vb = p.v + ib * p.v_sb + ih * p.v_sh + c0;
+  const int kp = (dw + kP - 1) / kP, per = kp + 1;
+  const int k_end = p.causal ? min(p.sk, q0 + kQ) : p.sk;
+  const int n = (k_end + kRows - 1) / kRows, items = n * per;
+
+  // item j into its slot, then a commit (an empty group past the last
+  // item keeps one group per item for cp_async_wait)
+  auto stage = [&](int item) {
+    if (item < items) {
+      const int it = item / per, r = item - it * per;
+      bf16* dst = ring + (item % kStages) * slot;
+      if (r < kp) {
+        const int col = r * kP, w = min(kP, dw - col);
+        load_tile<kRows, kWideThreads>(dst, ld, kb + col, p.k_ss, it * kRows, p.sk, d - col, w);
+        if (!resident)
+          load_tile<kQ, kWideThreads>(dst + kRows * ld, ld, qb + col, p.q_ss, q0, p.sq, d - col, w);
+      } else {
+        load_tile<kRows, kWideThreads>(dst, ld, vb, p.v_ss, it * kRows, p.sk, 8 * cn, kP);
+      }
+    }
+    cp_async_commit();
+  };
+  if (resident) load_tile<kQ, kWideThreads>(qs, qld, qb, p.q_ss, q0, p.sq, d, dw);  // in item 0's group
+  for (int j = 0; j < kStages - 1; ++j) stage(j);
+
+  const int w0 = q0 + 16 * warp, r0 = w0 + g;  // this lane's rows r0, r0 + 8
+  float o[kFwdOT][4];
+  zero<kFwdOT>(o);
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+  int j = 0;  // the item in hand
+  for (int it = 0; it < n; ++it) {
+    const int k0 = it * kRows;
+    const bool sees = !(p.causal && w0 + 15 < k0);
+    float s[kSN][4];
+    zero<kSN>(s);
+    for (int pc = 0; pc < kp; ++pc, ++j) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // item j is in; every warp is done with item j - 1, whose slot j + kStages - 1 takes
+      stage(j + kStages - 1);
+      const bf16* kt = ring + (j % kStages) * slot;
+      const bf16* qa = resident ? qs + 16 * warp * qld + pc * kP : kt + (kRows + 16 * warp) * ld;
+      const int kw = min(kP, dw - pc * kP), lda = resident ? qld : ld;
+      if (sees && kw == kP)
+        scores_piece<true>(qa, lda, kt, s, kw);
+      else if (sees)
+        scores_piece<false>(qa, lda, kt, s, kw);
+    }
+    uint32_t pa[kSN / 2][4];
+    if (sees) {
+      const bool all = w0 + 16 <= p.sq && k0 + kRows <= p.sk && (!p.causal || w0 >= k0 + kRows - 1);
+      if (all)
+        softmax_tile<false, kFwdOT>(p, r0, k0, s, m, l, o);
+      else
+        softmax_tile<true, kFwdOT>(p, r0, k0, s, m, l, o);
+      pack_p(s, pa);  // bf16(P) for O += P V; l summed the f32 P
+    }
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // as above
+    stage(j + kStages - 1);
+    if (sees) product_pv<kFwdOT, true>(pa, ring + (j % kStages) * slot, ld, o, cn);  // O += bf16(P) V
+    ++j;
+  }
+  cp_async_wait_all();  // nothing in flight when the block exits
+
+  float lnz[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lnz[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int jj = 0; jj < kFwdOT; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[jj][e] /= lnz[e >> 1];
+  store_rows<kFwdOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
   if (blockIdx.z == 0 && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -636,7 +867,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_bf16_kernel(const Param
 
 // -- launch ----------------------------------------------------------------------------------
 
+// bytes of dynamic shared memory of kernel `kind` at head_dim d; past
+// kStagedD the ring, and the resident Q tile up to kWideResidentD
 size_t smem_bytes(int kind, int d) {
+  if (bucket(d) == 4) {
+    const int dw = (d + 15) & ~15;
+    return (dw <= kWideResidentD ? kWideStages * kRows * kWideLd + kWideQ * (dw + 8)
+                                 : kWideStages * (kRows + kWideQ) * kWideLd) *
+           sizeof(bf16);
+  }
   const int kd = 32 << bucket(d);
   const size_t ld = kd + 8, st = kd <= 128 ? 2 : 1;
   if (kind == kFwd) {
@@ -648,23 +887,26 @@ size_t smem_bytes(int kind, int d) {
 }
 
 void* kernel_of(int kind, int d) {
-  static void* const table[3][4] = {
+  static void* const table[3][5] = {
       {(void*)flash_fwd_bf16_kernel<32>, (void*)flash_fwd_bf16_kernel<64>,
-       (void*)flash_fwd_bf16_kernel<128>, (void*)flash_fwd_bf16_kernel<256>},
+       (void*)flash_fwd_bf16_kernel<128>, (void*)flash_fwd_bf16_kernel<256>,
+       (void*)flash_fwd_wide_bf16_kernel},
       {(void*)flash_dq_bf16_kernel<32>, (void*)flash_dq_bf16_kernel<64>,
-       (void*)flash_dq_bf16_kernel<128>, (void*)flash_dq_bf16_kernel<256>},
+       (void*)flash_dq_bf16_kernel<128>, (void*)flash_dq_bf16_kernel<256>, nullptr},
       {(void*)flash_dkv_bf16_kernel<32>, (void*)flash_dkv_bf16_kernel<64>,
-       (void*)flash_dkv_bf16_kernel<128>, (void*)flash_dkv_bf16_kernel<256>}};
+       (void*)flash_dkv_bf16_kernel<128>, (void*)flash_dkv_bf16_kernel<256>, nullptr}};
   return table[kind][bucket(d)];
 }
 
+// Sets each kernel's shared-memory cap once: its size, or past kStagedD
+// the largest of any head_dim (the resident Q tile at kWideResidentD).
 int configure(int kind, int d) {
-  static bool configured[3][4] = {};
+  static bool configured[3][5] = {};
   const int bi = bucket(d);
   if (configured[kind][bi]) return 0;
   void* fn = kernel_of(kind, d);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(kind, d));
+                                       (int)smem_bytes(kind, bi == 4 ? kWideResidentD : d));
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -673,13 +915,17 @@ int configure(int kind, int d) {
   return 0;
 }
 
+// threads of a block of kernel `kind` at head_dim d (16 query or key rows a warp)
+int threads_of(int kind, int d) { return bucket(d) == 4 ? kWideThreads : kThreads; }
+
 int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
-  if (!takes(p.d)) return (int)cudaErrorInvalidValue;
+  if (!takes(kind, p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
-  dim3 grid((rows + kTile - 1) / kTile, b * p.h, chunks(p.d, kind == kDkv ? kDkvOT : kFwdOT));
+  const int threads = threads_of(kind, p.d), tile = 16 * (threads / 32);
+  dim3 grid((rows + tile - 1) / tile, b * p.h, chunks(p.d, kind == kDkv ? kDkvOT : kFwdOT));
   void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args,
+  cudaError_t e = cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(threads), args,
                                    smem_bytes(kind, p.d), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -697,14 +943,14 @@ const char* ff_flash_bf16_cuda_error_string(int code) {
 // takes and how many fit an SM: out = {registers per thread, local (spill)
 // bytes per thread, dynamic shared bytes, threads, blocks per SM}.
 int ff_flash_bf16_occupancy(int kind, int d, int* out) {
-  if (kind < kFwd || kind > kDkv || !takes(d)) return (int)cudaErrorInvalidValue;
+  if (kind < kFwd || kind > kDkv || !takes(kind, d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, d);
   if (err) return err;
-  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out);
+  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out, threads_of(kind, d));
 }
 
-// q [b, sq, h, d], k/v [b, sk, h, d] bf16 with head_dim contiguous and
-// 16-byte aligned rows (strides in elements); o contiguous [b, sq, h, d]
+// q [b, sq, h, d], k/v [b, sk, h, d] bf16 with head_dim (any multiple of
+// 8) contiguous and 16-byte aligned rows (strides in elements); o contiguous [b, sq, h, d]
 // bf16; lse contiguous [b, h, sq] f32. Returns cudaGetLastError() after
 // the launch.
 int ff_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int b,
@@ -718,8 +964,9 @@ int ff_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void
   return launch(kFwd, p, b, sq, (cudaStream_t)stream);
 }
 
-// As ff_flash_fwd_bf16 with dO [b, sq, h, d] bf16 (strides g_*), lse and
-// delta contiguous [b, h, sq] f32; dq contiguous [b, sq, h, d] bf16.
+// As ff_flash_fwd_bf16 (head_dim up to 256) with dO [b, sq, h, d] bf16
+// (strides g_*), lse and delta contiguous [b, h, sq] f32; dq contiguous
+// [b, sq, h, d] bf16.
 int ff_flash_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int b, int h, int sq, int sk,
                      int d, long long q_sb, long long q_ss, long long q_sh, long long k_sb,

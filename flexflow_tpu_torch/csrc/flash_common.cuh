@@ -7,8 +7,8 @@
 // in flash_bwd_kernel.cu's header. ops/cuda/_build.py hashes this file into
 // the name of every library whose source includes it.
 //
-// The wide kernels (head_dim past kStagedMaxD) also take bf16 operands
-// (mixed precision; their element type T = __nv_bfloat16): each bf16 row is
+// The backward's wide kernels (head_dim past kStagedMaxD) also take bf16
+// operands (mixed precision; their element type T = __nv_bfloat16): each bf16 row is
 // widened to fp32 as it is staged (stage_tile), the products take one TF32
 // pass (a bf16 value, 8 significant bits, is a TF32 value, so its split has
 // no small part and the pass is exact; kOne below), and the outputs are
@@ -265,6 +265,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// Wait until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
 // Rows [row0, row0 + kRows) of one head of a [b, s, h, d] tensor (base
 // already at the batch, head and first column) into dst [kRows][ld], d
 // columns; rows at or past `rows` are zero. Neighbouring threads copy
@@ -366,17 +372,17 @@ __device__ __forceinline__ void store_rows(T* out, int ib, int ih, int h,
 // What one block of `kernel` takes and how many fit an SM: out =
 // {registers per thread, local (spill) bytes per thread, dynamic shared
 // bytes, threads, blocks per SM}.
-inline int occupancy(const void* kernel, size_t smem, int* out) {
+inline int occupancy(const void* kernel, size_t smem, int* out, int threads = kThreads) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)smem;
-  out[3] = kThreads;
+  out[3] = threads;
   out[4] = blocks;
   return 0;
 }

@@ -171,7 +171,7 @@ __device__ __forceinline__ void softmax_tile(const Params& p, int r0, int k0,
 // an mma's sum toward zero, so O's accumulator, which lives through the
 // whole loop, would otherwise drift toward zero by up to an ulp of itself
 // per mma (3 kLoop / 4 of them a tile).
-template <int kOT, bool kOne = false>
+template <int kOT>
 __device__ __forceinline__ void accumulate_pv(const float P[kNT][4], const float* V,
                                               float o[kOT][4], int cn) {
   constexpr int ld = ld_of<kOT>();
@@ -195,8 +195,8 @@ __device__ __forceinline__ void accumulate_pv(const float P[kNT][4], const float
         const float b0[2] = {v0[8 * j], v0[ld + 8 * j]};
         const float b1[2] = {v1[8 * j], v1[ld + 8 * j]};
         float f[4] = {0.f, 0.f, 0.f, 0.f};
-        mma3<kOne>(f, ab0, as0, b0);
-        mma3<kOne>(f, ab1, as1, b1);
+        mma3(f, ab0, as0, b0);
+        mma3(f, ab1, as1, b1);
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] += f[e];
       }
@@ -285,8 +285,7 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks(kDT)) flash_fwd_mma_k
 // (Q: the warp's first row, both staged at ld_of<kPieceTiles>()). Each
 // k-step's 3 passes go into a fresh accumulator added to s in fp32
 // (product_nt's kFresh), so the round-toward-zero error does not build up
-// along the head_dim-long chain. kOne: one pass (bf16 operands).
-template <bool kOne>
+// along the head_dim-long chain.
 __device__ __forceinline__ void scores_piece(const float* Q, const float* K, float s[kNT][4], int pt) {
   constexpr int ld = ld_of<kPieceTiles>();
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
@@ -304,7 +303,7 @@ __device__ __forceinline__ void scores_piece(const float* Q, const float* K, flo
       for (int j = 0; j < kNT; ++j) {
         const float b[2] = {K[8 * j * ld + c], K[8 * j * ld + c + 4]};
         float f[4] = {0.f, 0.f, 0.f, 0.f};
-        mma3<kOne>(f, ab, as, b);
+        mma3(f, ab, as, b);
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] += f[e];
       }
@@ -320,16 +319,10 @@ __device__ __forceinline__ void scores_piece(const float* Q, const float* K, flo
 // piece's buffer. Shared memory stays at (64 + 32) rows of 132 floats
 // whatever head_dim is; Q is staged again for every key tile. Every
 // barrier is reached by all warps: a warp whose rows see none of a causal
-// tile skips only its products.
-// T = __nv_bfloat16 (mixed precision): the pieces are widened to fp32 as
-// they are staged, every product takes one TF32 pass (exact on bf16
-// values), P is rounded to bf16 before O += P V while l sums the fp32 P
-// (the reference's cast, flash_kernel.py:158), and O is rounded to bf16 as
-// it is stored; LSE stays fp32.
-template <typename T>
+// tile skips only its products. (bf16 past kStagedMaxD runs
+// csrc/flash_bf16_kernel.cu's flash_fwd_wide_bf16_kernel.)
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Params p) {
   constexpr int kPT = kPieceTiles, ld = ld_of<kPT>();
-  constexpr bool kOne = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* qsm = reinterpret_cast<float*>(smem4);  // Q piece [64][ld]
   float* ksm = qsm + kTile * ld;                  // K piece, then V chunk [kLoop][ld]
@@ -339,9 +332,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Param
   const int c0 = 8 * c0t;
   const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const T* qb = reinterpret_cast<const T*>(p.q) + ib * p.q_sb + ih * p.q_sh;
-  const T* kb = reinterpret_cast<const T*>(p.k) + ib * p.k_sb + ih * p.k_sh;
-  const T* vb = reinterpret_cast<const T*>(p.v) + ib * p.v_sb + ih * p.v_sh + c0;
+  const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
+  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
+  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh + c0;
   const int w0 = q0 + 16 * warp, r0 = w0 + g;  // this lane's rows r0, r0 + 8
   const float* qw = qsm + 16 * warp * ld;
 
@@ -358,15 +351,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Param
     for (int pc = 0; pc < pieces; ++pc) {
       const int pt = min(kPT, dt - pc * kPT);
       __syncthreads();  // every warp is done with the buffers
-      stage_tile<kTile>(qsm, ld, qb + 8 * kPT * pc, p.q_ss, q0, p.sq, 8 * pt);
-      stage_tile<kLoop>(ksm, ld, kb + 8 * kPT * pc, p.k_ss, k0, p.sk, 8 * pt);
+      load_tile<kTile>(qsm, ld, qb + 8 * kPT * pc, p.q_ss, q0, p.sq, 8 * pt);
+      load_tile<kLoop>(ksm, ld, kb + 8 * kPT * pc, p.k_ss, k0, p.sk, 8 * pt);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();  // the piece is in
-      if (sees) scores_piece<kOne>(qw, ksm, s, pt);
+      if (sees) scores_piece(qw, ksm, s, pt);
     }
     __syncthreads();  // every warp is done with the last key piece
-    stage_tile<kLoop>(ksm, ld, vb, p.v_ss, k0, p.sk, 8 * cn);
+    load_tile<kLoop>(ksm, ld, vb, p.v_ss, k0, p.sk, 8 * cn);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();  // the V chunk is in
@@ -376,8 +369,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Param
       softmax_tile<false, kPT>(p, r0, k0, s, m, l, o);
     else
       softmax_tile<true, kPT>(p, r0, k0, s, m, l, o);
-    round_operands<T, kNT>(s);
-    accumulate_pv<kPT, kOne>(s, ksm, o, cn);  // O += P V
+    accumulate_pv<kPT>(s, ksm, o, cn);  // O += P V
   }
 
   float lnz[2];
@@ -391,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_wide_kernel(const Param
   for (int j = 0; j < kPT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] /= lnz[e >> 1];
-  store_rows<kPT>(reinterpret_cast<T*>(p.out0) + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
+  store_rows<kPT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
   if (blockIdx.z == 0 && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -416,7 +408,7 @@ size_t smem_bytes(int d) {
 void* kernel_of(int d) {
   static void* const table[5] = {(void*)flash_fwd_mma_kernel<4>, (void*)flash_fwd_mma_kernel<8>,
                                  (void*)flash_fwd_mma_kernel<16>, (void*)flash_fwd_mma_kernel<32>,
-                                 (void*)flash_fwd_wide_kernel<float>};
+                                 (void*)flash_fwd_wide_kernel};
   return table[bucket(d)];
 }
 
@@ -441,26 +433,6 @@ int launch(const Params& p, int b, cudaStream_t stream) {
   dim3 grid((p.sq + kTile - 1) / kTile, b * p.h, chunks(p.d));
   void* args[] = {(void*)&p};
   cudaError_t e = cudaLaunchKernel(kernel_of(p.d), grid, dim3(kThreads), args, smem_bytes(p.d), stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// The bf16 wide kernel (head_dim past kStagedMaxD only; csrc/
-// flash_bf16_kernel.cu's bodies take bf16 up to it).
-int launch_wide_bf16(const Params& p, int b, cudaStream_t stream) {
-  if (!takes(p.d) || bucket(p.d) != 4) return (int)cudaErrorInvalidValue;
-  static bool configured = false;
-  void* fn = (void*)flash_fwd_wide_kernel<__nv_bfloat16>;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(p.d));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid((p.sq + kTile - 1) / kTile, b * p.h, chunks(p.d));
-  void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem_bytes(p.d), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -496,20 +468,6 @@ int ff_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
            (float*)o, (float*)lse, h, sq, sk, d,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0, scale, causal};
   return launch(p, b, (cudaStream_t)stream);
-}
-
-// As ff_flash_fwd_f32 for bf16 q/k/v (rows 16-byte aligned) and O at
-// head_dim past 256 (any multiple of 8); LSE fp32.
-int ff_flash_fwd_wide_bf16(const void* q, const void* k, const void* v, void* o,
-                           void* lse, int b, int h, int sq, int sk, int d,
-                           long long q_sb, long long q_ss, long long q_sh,
-                           long long k_sb, long long k_ss, long long k_sh,
-                           long long v_sb, long long v_ss, long long v_sh,
-                           float scale, int causal, void* stream) {
-  Params p{(const float*)q, (const float*)k, (const float*)v, nullptr, nullptr, nullptr,
-           (float*)o, (float*)lse, h, sq, sk, d,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0, scale, causal};
-  return launch_wide_bf16(p, b, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -8,12 +8,14 @@ stream. float32 operands run the forward in
 flexflow_tpu_torch/csrc/flash_kernel.cu and the backward in
 csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
 tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
-operands (mixed precision) run all three in csrc/flash_bf16_kernel.cu,
-one bf16 mma pass per product with f32 accumulation, the reference's
-bodies at bf16 inputs, up to head_dim 256, and past it the fp32 files'
-wide kernels instantiated for bf16 (rows widened to fp32 as they are
-staged, one exact TF32 pass per product, P and dS rounded to bf16 where
-the reference casts them):
+operands (mixed precision) run in csrc/flash_bf16_kernel.cu, one bf16
+mma pass per product with f32 accumulation, the reference's bodies at
+bf16 inputs: all three up to head_dim 256, and #1 past it (a resident
+Q tile, K and V streamed over head_dim through a ring of cp.async
+slots). #2 and #3 past 256 run csrc/flash_bwd_kernel.cu's wide kernels
+instantiated for bf16 (rows widened to fp32 as they are staged, one
+exact TF32 pass per product, dS rounded to bf16 where the reference
+casts it):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
@@ -68,7 +70,7 @@ _STAGED_MAX_D = 256
 
 # kernel launches per kernel since the last reset_launches(): the fp32
 # bodies under the kernels' names, the bf16 bodies under name + "_bf16"
-# and the bf16 wide kernels (head_dim past 256) under name + "_wide_bf16"
+# and the bf16 bodies past head_dim 256 under name + "_wide_bf16"
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
@@ -91,9 +93,10 @@ def reset_launches() -> None:
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this shape: float32 or bfloat16 with
     head_dim any positive multiple of 8, as the reference's supports()
-    (past 256 the score contraction streams over head_dim in 128-column
-    pieces); non-empty sequences. Any sequence length works (the ragged
-    tail of a tile is masked)."""
+    (past 256 the score contraction streams K over head_dim in
+    128-column pieces; bf16 #1 keeps its Q tile resident up to head_dim
+    752 and streams it beside K past that); non-empty sequences. Any
+    sequence length works (the ragged tail of a tile is masked)."""
     return dtype in _DTYPES and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
@@ -107,9 +110,8 @@ def _lib() -> ctypes.CDLL:
         lib.ff_flash_cuda_error_string.restype = ctypes.c_char_p
         lib.ff_flash_occupancy.argtypes = [I, P]
         lib.ff_flash_occupancy.restype = I
-        for fn in (lib.ff_flash_fwd_f32, lib.ff_flash_fwd_wide_bf16):
-            fn.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
-            fn.restype = I
+        lib.ff_flash_fwd_f32.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
+        lib.ff_flash_fwd_f32.restype = I
         _bound = lib
     return _bound
 
@@ -154,7 +156,9 @@ def _bf16_lib() -> ctypes.CDLL:
     return _bf16_bound
 
 
-_BF16_KINDS = {"flash_fwd_bf16": 0, "flash_dq_bf16": 1, "flash_dkv_bf16": 2}
+# LAUNCHES names of the bf16 library's kernels -> its kind (0 forward, 1
+# dQ, 2 dK/dV)
+_BF16_KINDS = {"flash_fwd_bf16": 0, "flash_dq_bf16": 1, "flash_dkv_bf16": 2, "flash_fwd_wide_bf16": 0}
 
 
 def occupancy(name: str, d: int) -> Dict[str, int]:
@@ -167,7 +171,7 @@ def occupancy(name: str, d: int) -> Dict[str, int]:
     elif name == "flash_fwd":
         code = _lib().ff_flash_occupancy(d, out)
     else:
-        code = _bwd_lib().ff_flash_bwd_occupancy(0 if name == "flash_dq" else 1, d, out)
+        code = _bwd_lib().ff_flash_bwd_occupancy(0 if name.startswith("flash_dq") else 1, d, out)
     _raise_on(code, name)
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
 
@@ -326,13 +330,14 @@ def _device_only(name: str, t: torch.Tensor) -> None:
 
 def _body(name: str, dtype: torch.dtype, d: int):
     """(LAUNCHES key, C entry point) of kernel `name` for `dtype` at
-    head_dim d: bf16 up to 256 on flash_bf16_kernel.cu's bodies, past it
-    on the fp32 files' wide kernels instantiated for bf16."""
-    lib = _lib() if name == "flash_fwd" else _bwd_lib()
-    if dtype == torch.bfloat16 and d > _STAGED_MAX_D:
-        return name + "_wide_bf16", getattr(lib, f"ff_{name}_wide_bf16")
+    head_dim d: bf16 on flash_bf16_kernel.cu's bodies, but #2 and #3 past
+    256 on flash_bwd_kernel.cu's wide kernels instantiated for bf16."""
     if dtype == torch.bfloat16:
-        return name + "_bf16", getattr(_bf16_lib(), f"ff_{name}_bf16")
+        key = name + ("_wide_bf16" if d > _STAGED_MAX_D else "_bf16")
+        if name == "flash_fwd" or d <= _STAGED_MAX_D:
+            return key, getattr(_bf16_lib(), f"ff_{name}_bf16")
+        return key, getattr(_bwd_lib(), f"ff_{name}_wide_bf16")
+    lib = _lib() if name == "flash_fwd" else _bwd_lib()
     return name, getattr(lib, f"ff_{name}_f32")
 
 

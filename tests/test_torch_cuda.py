@@ -913,23 +913,41 @@ def test_bf16_flash_kernels_match_plain_versions_at_mma_edges(sq, sk, causal, d)
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512)])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512),
+     # #1's Q tile streamed beside K (past head_dim 752)
+     (1, 130, 70, 1, 1032), (1, 130, 70, 1, 2056)],
+)
 def test_bf16_flash_kernels_past_256_match_plain_versions(shape, causal):
-    """bf16 #1-#3 past head_dim 256, on the wide kernels instantiated for
-    bf16 (3 or 4 output chunks, 3 or 4 streamed pieces, ragged and
-    sq != sk), held with their plain versions against float64 by the bf16
-    gate; one launch of each counted under name + "_wide_bf16", none of
-    any other body."""
+    """bf16 #1-#3 past head_dim 256 (#1 on the bf16 file's wide body, #2
+    and #3 on the backward file's wide kernels instantiated for bf16; 3
+    to 17 output chunks, ragged and sq != sk), held with their plain
+    versions against float64 by the bf16 gate; one launch of each counted
+    under name + "_wide_bf16", none of any other body."""
     dev = _card()
     b, sq, sk, h, d = shape
     _check_bf16_kernels(_bf16_operands(np.random.default_rng(sq + sk + d + 3), dev, b, sq, sk, h, d, causal))
 
 
+@pytest.mark.parametrize("d", [320, 1032])
+def test_bf16_wide_forward_fits_the_card(d):
+    """bf16 #1's wide body at head_dim 320 (its Q tile resident) and 1032
+    (Q streamed): no spilled registers, and at least one block fits an
+    SM."""
+    _card()
+    occ = fk.occupancy("flash_fwd_wide_bf16", d)
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+@pytest.mark.parametrize("d", [64, 320, 2056])
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_flash_kernels_are_bit_identical_across_calls(causal):
-    """No atomics in the bf16 bodies either: two calls give the same bits."""
+def test_bf16_flash_kernels_are_bit_identical_across_calls(causal, d):
+    """No atomics in the bf16 bodies either: two calls give the same bits
+    (past head_dim 256 on the wide bodies, #1's Q tile resident at 320
+    and streamed at 2056)."""
     dev = _card()
-    args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, 64, causal)
+    args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, d, causal)
     q, k, v = args[:3]
     first = (*fk.flash_fwd(q, k, v, causal), fk.flash_dq(*args), *fk.flash_dkv(*args))
     second = (*fk.flash_fwd(q, k, v, causal), fk.flash_dq(*args), *fk.flash_dkv(*args))
@@ -937,22 +955,24 @@ def test_bf16_flash_kernels_are_bit_identical_across_calls(causal):
         assert torch.equal(a, b)
 
 
-def test_bf16_flash_kernels_read_misaligned_views():
+@pytest.mark.parametrize("d", [64, 320])
+def test_bf16_flash_kernels_read_misaligned_views(d):
     """A bf16 view whose strides or start are not 16-byte multiples is
-    copied before the kernels read it, and gives the contiguous result;
-    head_dim 60 (no multiple of 8) raises before any launch."""
+    copied before the kernels read it (at 320 #1's wide body), and gives
+    the contiguous result; head_dim 60 (no multiple of 8) raises before
+    any launch."""
     dev = _card()
     rng = np.random.default_rng(31)
-    base = _rand(rng, dev, 2, 70, 2, 72).bfloat16()
-    q = base[..., 4:68]  # strides of 72 elements, data 8 bytes in
-    k, v = (_rand(rng, dev, 2, 70, 2, 64).bfloat16() for _ in range(2))
+    base = _rand(rng, dev, 2, 70, 2, d + 8).bfloat16()
+    q = base[..., 4 : d + 4]  # strides of d + 8 elements, data 8 bytes in
+    k, v = (_rand(rng, dev, 2, 70, 2, d).bfloat16() for _ in range(2))
     assert q.data_ptr() % 16 != 0
     fk.reset_launches()
     for a, b in zip(fk.flash_fwd(q, k, v, True), fk.flash_fwd(q.contiguous(), k, v, True)):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="head_dim 60"):
         fk.flash_fwd(q[..., :60], k[..., :60], v[..., :60])
-    assert fk.LAUNCHES == _flash_launches(flash_fwd_bf16=2)
+    assert fk.LAUNCHES == _flash_launches(**{"flash_fwd_wide_bf16" if d > 256 else "flash_fwd_bf16": 2})
 
 
 def test_mixed_precision_transformer_trains_through_the_bf16_kernels():

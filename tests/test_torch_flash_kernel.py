@@ -197,10 +197,10 @@ def test_bf16_grads_match_jax(sq, sk, causal):
     _assert_bf16_grads(leaves, jg)
 
 
-@pytest.mark.parametrize("d", [264, 320])
+@pytest.mark.parametrize("d", [264, 320, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_wide_heads_match_jax(d, causal):
-    """bf16 past head_dim 256 (the wide kernels for bf16 on the card):
+    """bf16 past head_dim 256 (the bf16 wide bodies on the card):
     the plain versions' O, LSE and gradients against the Pallas kernels
     at bf16 in the interpreter, by the bf16 tolerances above; no kernel
     launched on the CPU."""
@@ -223,6 +223,36 @@ def test_bf16_wide_heads_match_jax(d, causal):
     (of * torch.cos(of)).sum().backward()
     _assert_bf16_grads(leaves, jg)
     assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
+
+
+class _Lib:
+    """A stand-in for a loaded kernel library: any attribute is its name."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __getattr__(self, attr):
+        return f"{self.name}.{attr}"
+
+
+@pytest.mark.parametrize("d", [64, 256, 264, 320, 1032])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_bf16_bodies_resolve_to_their_libraries(monkeypatch, name, d):
+    """bf16 #1 at any head_dim is an entry point of flash_bf16_kernel.cu
+    (past 256 counted as flash_fwd_wide_bf16); #2 and #3 past 256 are
+    flash_bwd_kernel.cu's wide kernels for bf16; float32 stays on the
+    fp32 files. No library is built: the loaders are stand-ins."""
+    for loader in ("_lib", "_bwd_lib", "_bf16_lib"):
+        monkeypatch.setattr(fk, loader, lambda loader=loader: _Lib(loader))
+    wide = d > 256
+    key, fn = fk._body(name, torch.bfloat16, d)
+    assert key == name + ("_wide_bf16" if wide else "_bf16") and key in fk.LAUNCHES
+    if name == "flash_fwd" or not wide:
+        assert fn == f"_bf16_lib.ff_{name}_bf16"
+    else:
+        assert fn == f"_bwd_lib.ff_{name}_wide_bf16"
+    fp32_lib = "_lib" if name == "flash_fwd" else "_bwd_lib"
+    assert fk._body(name, torch.float32, d) == (name, f"{fp32_lib}.ff_{name}_f32")
 
 
 def test_bf16_lse_cotangent_matches_jax():
