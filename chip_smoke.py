@@ -98,8 +98,9 @@ result line) on any failed phase:
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, 160,
-               256, and past 256 on the wide kernels, which stream the
-               score contraction over head_dim: 264, 320, 512 and 1032)
+               256, and past 256 on the wide kernels, which compute the
+               scores once per tile pair and stream the loop operand over
+               head_dim: 264, 320, 512 and 1032)
                and at the reference's test shapes
                (tests/test_flash_kernel.py, head_dim 32, the uneven 128 x
                384 included), at the reference's scale: O and LSE within
@@ -109,11 +110,15 @@ result line) on any failed phase:
                SDPA backward for the #2 + #3 pair, with the device kernel
                each runs), the port's dense core, also timed at [8,
                512, 4, 256] and, gated there too, at [8, 512, 4, 320] and
-               [8, 256, 2, 512]; each kernel's registers, spills, shared memory
-               and blocks per SM at head_dim 64, 128, 256 and 320, the
-               count of tensor-core (HMMA)
-               instructions in each flash library's SASS, and the card's
-               clocks and power;
+               [8, 256, 2, 512] (the wide kernels' rows of the kernels
+               line, counted under name + "_wide"); each kernel's
+               registers, spills, shared memory and blocks per SM at
+               head_dim 64, 128, 256, 264, 320, 512 and 1032 (past 256
+               also the backward's wide kernels for bf16), the count of
+               tensor-core (HMMA) instructions in each flash library's
+               SASS, and the card's clocks and power; the fp32 wide
+               kernels also on a training path (2 layers of 2 heads of
+               320, 3 steps of fit());
   5b. bf16 flash kernels — the bf16 bodies of #1-#3 (mixed precision)
                and their plain versions, both held against the float64
                function of the same bf16 inputs (the kernel's error at
@@ -162,8 +167,8 @@ result line) on any failed phase:
 then prints the kernels' JSON line (launches: the serving path's for
 #4 and #5, legs (c), (e), (b) and (d) for #6-#9, phase 4d's legs for
 their bf16-q paths, the flagship training run's for #1-#3, the
-mixed-precision run's for their bf16 bodies and the head_dim-320 run's
-for the bf16 wide kernels), the card's name and
+mixed-precision run's for their bf16 bodies and the head_dim-320 runs'
+for the fp32 and the bf16 wide kernels), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -257,6 +262,10 @@ KERNELS = {
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
+    # fp32 #1-#3 past head_dim 256: the wide kernels of the same files
+    "flash_fwd_wide": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
+    "flash_dq_wide": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
+    "flash_dkv_wide": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
     "flash_fwd_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
@@ -271,6 +280,7 @@ DECODE = ("flash_verify", "paged_flash_verify", "paged_flash_verify_quant", "fla
 # the decode kernels at bf16 q (a mixed-precision model), the same sources
 KERNELS.update({name + "_bf16": KERNELS[name] for name in DECODE})
 FLASH_FP32 = ("flash_fwd", "flash_dq", "flash_dkv")
+FLASH_WIDE_FP32 = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
 FLASH_BF16 = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
 FLASH_WIDE_BF16 = ("flash_fwd_wide_bf16", "flash_dq_wide_bf16", "flash_dkv_wide_bf16")
 
@@ -310,6 +320,9 @@ KERNEL_SYMBOLS = {
     "flash_fwd": ("flash_fwd_mma_kernel",),
     "flash_dq": ("flash_dq_mma_kernel",),
     "flash_dkv": ("flash_dkv_mma_kernel",),
+    "flash_fwd_wide": ("flash_fwd_wide_kernel",),
+    "flash_dq_wide": ("flash_dq_wide_kernel<float>",),
+    "flash_dkv_wide": ("flash_dkv_wide_kernel<float>",),
     "flash_fwd_bf16": ("flash_fwd_bf16_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
@@ -1688,9 +1701,9 @@ def flash_calls(x):
 
     fwd = (x["q"], x["k"], x["v"], x["causal"])
     bwd = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["causal"])
-    suffix = ""
+    suffix = "_wide" if x["q"].shape[-1] > 256 else ""
     if x["q"].dtype == torch.bfloat16:
-        suffix = "_wide_bf16" if x["q"].shape[-1] > 256 else "_bf16"
+        suffix += "_bf16"
     return {
         "flash_fwd" + suffix: (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
         "flash_dq" + suffix: (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
@@ -1745,29 +1758,39 @@ def sass_opcodes(source):
     return collections.Counter(ops)
 
 
-def flash_resources(dims=(64, 128, 256, 320)):
+def flash_resources(dims=(64, 128, 256, 264, 320, 512, 1032)):
     """Each flash kernel's ptxas report (registers, spills) at the
-    instantiation of each head_dim of `dims` (past 256 the wide kernels,
-    one for every head_dim), its shared memory and blocks per SM on this
-    card, and the tensor-core (HMMA) instructions of each flash library's
-    SASS."""
+    instantiation of each head_dim of `dims` (the wide kernels, one for
+    every head_dim: #1's past 256, #2 and #3's past 128, past 256 also
+    for bf16), its shared memory and blocks per SM on this card, and the
+    tensor-core (HMMA) instructions of each flash library's SASS."""
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
+    def ptxas(source, sym, tag):
+        log = _build.build_logs.get(source, "").splitlines()
+        info = []
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line and sym in line and tag in line:
+                info = [x.strip() for x in log[i + 1 : i + 4] if "registers" in x or "spill" in x]
+        return "; ".join(info) or "not in the build log"
+
     for d in dims:
         kdt = 4 << (0 if d <= 32 else 1 if d <= 64 else 2 if d <= 128 else 3)  # the source's bucket
-        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-            sym, tag = (f"{name}_wide_kernel", "") if d > 256 else (f"{name}_mma_kernel", f"ILi{kdt}E")
-            source = fk.SOURCE if name == "flash_fwd" else fk.BWD_SOURCE
-            occ = fk.occupancy(name, d)
-            log = _build.build_logs.get(source, "").splitlines()
-            info = []
-            for i, line in enumerate(log):
-                if "Compiling entry function" in line and sym in line and tag in line:
-                    info = [x.strip() for x in log[i + 1 : i + 4] if "registers" in x or "spill" in x]
-            label = sym if d > 256 else f"{sym}<{kdt}>"
-            print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(occ)
-                  + f"; ptxas: {'; '.join(info) or 'not in the build log'}")
+        names = FLASH_WIDE_FP32 + ("flash_dq_wide_bf16", "flash_dkv_wide_bf16") if d > 256 else FLASH_FP32
+        for name in names:
+            base = flash_base(name)
+            source = fk.SOURCE if base == "flash_fwd" else fk.BWD_SOURCE
+            if d <= (256 if base == "flash_fwd" else 128):
+                sym, tag, label = f"{base}_mma_kernel", f"ILi{kdt}E", f"{base}_mma_kernel<{kdt}>"
+            elif base == "flash_fwd":
+                sym, tag, label = f"{base}_wide_kernel", "", f"{base}_wide_kernel"
+            else:  # #2 and #3 past 128
+                bf16 = name.endswith("_bf16")  # the mangled template argument tells the two apart
+                sym, tag = f"{base}_wide_kernel", "I13__nv_bfloat16E" if bf16 else "IfE"
+                label = f"{sym}<{'__nv_bfloat16' if bf16 else 'float'}>"
+            print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(fk.occupancy(name, d))
+                  + f"; ptxas: {ptxas(source, sym, tag)}")
     for source in (fk.SOURCE, fk.BWD_SOURCE):
         ops = sass_opcodes(source)
         if ops is None:
@@ -1792,7 +1815,7 @@ def check_flash_case(x, tag):
         want = want if isinstance(want, tuple) else (want,)
         err = max(float((a - r).abs().max()) for a, r in zip(got, want))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        if name == "flash_fwd":
+        if flash_base(name) == "flash_fwd":
             ok = err <= ATOL_FLASH_FWD
         else:
             ok = all(torch.allclose(a, r, atol=ATOL_FLASH_GRAD, rtol=RTOL_FLASH_GRAD) for a, r in zip(got, want))
@@ -1822,7 +1845,8 @@ def time_flash_kernels(shapes):
     time, beside SDPA's and the port's dense core; past head_dim 256 (the
     wide kernels, which stream the score contraction over head_dim) the
     reference's gate at the timed shape itself. Returns the kernels-line
-    rows of the flagship's non-causal shape."""
+    rows of each kernel's first non-causal shape (the fp32 wide kernels'
+    past 256)."""
     import torch
     import torch.nn.functional as F
 
@@ -1830,7 +1854,7 @@ def time_flash_kernels(shapes):
 
     device = torch.device("cuda")
     b, d = TRAIN["batch"], TRAIN["hidden"] // TRAIN["heads"]
-    rows = {name: {} for name in FLASH_FP32}
+    rows = {}
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
     for ts, th, td, causal in shapes:
@@ -1839,15 +1863,17 @@ def time_flash_kernels(shapes):
         tag = ("causal" if causal else "non-causal") + ("" if flagship else f" [{b}, {ts}, {th}, {td}]")
         if td > 256:  # the reference's gate at the timed shape itself
             check_flash_case(x, tag)
-        dev, timer = {}, {}
+        dev, timer, first = {}, {}, []
         for name, (kernel, plain) in flash_calls(x).items():
             ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush)
-            dev[name], timer[name] = device_ms(kernel, flush), ms
+            base = flash_base(name)
+            dev[base], timer[base] = device_ms(kernel, flush), ms
             bound, by = flash_bound_ms(x, name)
-            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[name]} ms (bound {bound:.4f} ms, {by}), "
+            print(f"[kernels] {name} {tag}: {ms:.4f} ms, device {dev[base]} ms (bound {bound:.4f} ms, {by}), "
                   f"plain {plain_ms:.4f} ms")
-            if flagship and not causal:
-                rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            if not causal and name not in rows:
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                first.append(name)
         # yardsticks, timed only: PyTorch's SDPA and the port's dense core
         qt, kt, vt, dot = (x[n].transpose(1, 2).contiguous().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -1871,9 +1897,9 @@ def time_flash_kernels(shapes):
               f"({fwd_backend}), backward (#2 + #3) {lib_bwd:.4f} ms, device {lib_bwd_dev} ms "
               f"({bwd_backend}); #2 + #3 device {pair} ms; the port's dense core forward + "
               f"backward {dense_ms:.4f} ms")
+        for name in first:
+            rows[name]["library_ms"] = lib_fwd if flash_base(name) == "flash_fwd" else lib_bwd
         if flagship and not causal:
-            rows["flash_fwd"]["library_ms"] = lib_fwd
-            rows["flash_dq"]["library_ms"] = rows["flash_dkv"]["library_ms"] = lib_bwd
             rows["dense_ms"] = dense_ms
         del out
     return rows
@@ -1883,14 +1909,14 @@ def check_flash_kernels(rows):
     """Kernels #1-#3 against their plain versions at the reference's scale,
     at the flagship training shape, causal and not, ragged shapes (sq !=
     sk both ways, head_dim 24 to 1032) and the reference's test shapes,
-    each kernel's worst error into `rows`; the kernels' resources at
-    head_dim 64, 128, 256 and 320."""
+    each kernel's worst error into `rows` (past 256 the wide kernels'
+    rows); the kernels' resources at head_dim 64-1032."""
     import torch
 
     device = torch.device("cuda")
     b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
-    for name in FLASH_FP32:
-        rows[name]["max_abs_err"] = 0.0
+    for name in FLASH_FP32 + FLASH_WIDE_FP32:
+        rows.setdefault(name, {})["max_abs_err"] = 0.0
     cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 128, 384, 4, 64, True),
              (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False), (2, 300, 129, 2, 256, True),
              (2, 129, 300, 2, 160, False), (2, 129, 300, 2, 264, True), (2, 300, 129, 2, 320, True),
@@ -2153,9 +2179,9 @@ def profile_train_step(model, batch, label=""):
 
 def train_flagship(device, mixed=False, **geo):
     """fit() over `steps` batches; each flash kernel of the model's dtype
-    (the fp32 bodies, or the bf16 ones under mixed precision) must run
-    once per layer per step, the other dtype's never, and the losses stay
-    finite."""
+    and head_dim (the fp32 bodies, or the bf16 ones under mixed precision;
+    past head_dim 256 the wide ones) must run once per layer per step, no
+    other body ever, and the losses stay finite."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
@@ -2184,9 +2210,11 @@ def train_flagship(device, mixed=False, **geo):
     require(np.isfinite(mean_loss), f"non-finite training loss {mean_loss}")
     if cuda:
         # the bodies of the model's dtype and head_dim run, no other
-        ran = FLASH_FP32
+        wide = geo["hidden"] // geo["heads"] > 256
         if mixed:
-            ran = FLASH_WIDE_BF16 if geo["hidden"] // geo["heads"] > 256 else FLASH_BF16
+            ran = FLASH_WIDE_BF16 if wide else FLASH_BF16
+        else:
+            ran = FLASH_WIDE_FP32 if wide else FLASH_FP32
         for name in ran:
             n = launches[name]
             require(n == geo["layers"] * steps, f"{name} launches {n} != {geo['layers']} layers x {steps} steps")
@@ -2408,7 +2436,9 @@ def main() -> int:
     smi_before = smi_sample()
     flash_rows = time_flash_kernels(FLASH_TIMED)
     flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED))
-    time_flash_kernels(FLASH_TIMED_WIDE)
+    # the fp32 wide kernels' rows: their first non-causal shape, [8, 512, 4, 320]
+    wide_rows = time_flash_kernels(FLASH_TIMED_WIDE)
+    flash_rows.update((k, v) for k, v in wide_rows.items() if k in FLASH_WIDE_FP32)
     # past 256: the bf16 wide kernels, and #1's wide body causal too
     flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE[1:] + ((TRAIN["seq"], 4, 320, True),)))
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
@@ -2430,11 +2460,14 @@ def main() -> int:
     mixed_profile = profile_train_step(model4, {k: v[: TRAIN["batch"]] for k, v in data.items()}, "mixed precision (bf16) ")
     del model4
     gc.collect()
-    # bf16 #1-#3 past head_dim 256 on a training path: 2 layers of 2 heads
-    # of 320 under mixed precision (the bf16 wide kernels, 2 launches each
-    # per step)
-    model5, _, _, wide_launches = train_flagship("cuda", mixed=True, layers=2, hidden=640, heads=2, batch=2,
-                                                 seq=256, steps=3)
+    # #1-#3 past head_dim 256 on a training path: 2 layers of 2 heads of
+    # 320, in fp32 (the wide kernels) and under mixed precision (the bf16
+    # wide kernels), 2 launches each per step
+    wide_geo = dict(layers=2, hidden=640, heads=2, batch=2, seq=256, steps=3)
+    model5, _, _, wide_fp32_launches = train_flagship("cuda", **wide_geo)
+    del model5
+    gc.collect()
+    model5, _, _, wide_launches = train_flagship("cuda", mixed=True, **wide_geo)
     del model5
     gc.collect()
     keys = ("samples_per_s", "mean_step_ms", "peak_memory_gb")
@@ -2452,6 +2485,7 @@ def main() -> int:
         **spec_launches,
         **mixed_serving_launches,
         **{name: wide_launches[name] for name in FLASH_WIDE_BF16},
+        **{name: wide_fp32_launches[name] for name in FLASH_WIDE_FP32},
         **{name: train_launches[name] for name in FLASH_FP32},
         **{name: mixed_launches[name] for name in FLASH_BF16},
     }

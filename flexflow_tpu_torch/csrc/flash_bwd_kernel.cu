@@ -77,34 +77,21 @@
 //     loop starts at the diagonal query tile.
 //   * [b, s, h, d] operands are read in place through their strides;
 //     LSE and delta are [b, h, sq] rows.
-// head_dim up to 256: kDT = 4, 8, 16 or 32 column tiles of 8. Past 128 a
-// grid z index picks a chunk of at most 128 output columns: each block
-// contracts S and dP over the whole head_dim and accumulates only its
-// chunk of dQ (or of dK and dV), so a lane holds at most 2 x 16
-// accumulator tiles, as at 128; the scores are recomputed once per chunk. There the two 64-row fixed tiles and one pair of loop tiles
-// take 195 KB of shared memory, so the loop tiles are single-buffered.
-// Past 256 (any multiple of 8) flash_dq_wide_kernel and
-// flash_dkv_wide_kernel take the same chunks and stream the score
-// contractions over head_dim in 128-column pieces (see them below).
+// These mma kernels take head_dim up to kMmaMaxD = 128: kDT = 4, 8 or 16
+// column tiles of 8. Past it (any multiple of 8) flash_dq_wide_kernel and
+// flash_dkv_wide_kernel compute the scores once per tile pair, over 8
+// warps that hold all of a block's output columns, with the loop operand
+// streamed in 128-column pieces (see them below). On an H100 (700 W) at
+// [8, 512, 4, 256] the pair took 0.95 ms of device time there, where the
+// mma kernels' 32-tile instantiation that took 136-256 before (its output
+// cut into 128-column chunks, the scores recomputed once per chunk) took
+// 1.80.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
-
-// Loop tiles in flight: 2 (double-buffered) up to head_dim 128; 1 past it,
-// where the fixed tiles (2 x 64 rows) and one loop tile pair at the
-// stride of head_dim 256 already take 195 KB.
-template <int kDT>
-__host__ __device__ constexpr int stages() { return kDT <= 16 ? 2 : 1; }
-
-// Score products with a fresh accumulator per k-step (product_nt) past
-// head_dim 128, where a chain of 3 dt mma's into one accumulator drifts
-// past the reference's scale; up to 128 (at most 48 mma's a chain) one
-// accumulator a product stays within it and saves the adds.
-template <int kDT>
-__host__ __device__ constexpr bool fresh() { return kDT > 16; }
 
 // LSE and delta of queries [q0, q0 + kLoop) into ls, dls (0 past sq).
 __device__ __forceinline__ void load_rows(const Params& p, int ib, int ih, int q0,
@@ -122,7 +109,7 @@ __device__ __forceinline__ void load_rows(const Params& p, int ib, int ih, int q
 // -- dQ ------------------------------------------------------------------------------
 
 // At most 170 registers where head_dim <= 64, so that 3 blocks share an SM;
-// from head_dim 128 shared memory holds one block anyway.
+// at head_dim 128 shared memory holds one block anyway.
 __host__ __device__ constexpr int min_blocks(int kDT) { return kDT <= 8 ? 3 : 1; }
 
 // dS of the warp's 16 x kLoop scores in place of dP: p = exp(s scale - lse),
@@ -147,16 +134,12 @@ __device__ __forceinline__ void ds_rows(const Params& p, int r0, int k0,
 template <int kDT>
 __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dq_mma_kernel(const Params p) {
   constexpr int ld = ld_of<kDT>(), tile = kLoop * ld;
-  constexpr int kOT = out_tiles<kDT>(), kStages = stages<kDT>();
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // Q [64][ld]
   float* gs = qs + kTile * ld;                   // dO [64][ld]
-  float* ks = gs + kTile * ld;                   // K [kStages][kLoop][ld]
-  float* vs = ks + kStages * tile;               // V [kStages][kLoop][ld]
+  float* ks = gs + kTile * ld;                   // K [2][kLoop][ld]
+  float* vs = ks + 2 * tile;                     // V [2][kLoop][ld]
   const int d = p.d, dt = d / 8;
-  int c0t, cn;  // this block's dQ columns: n-tiles [c0t, c0t + cn)
-  out_chunk<kDT>(dt, c0t, cn);
-  const int c0 = 8 * c0t;
   const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
@@ -178,9 +161,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dq_mma_kernel
     dl[i] = r < p.sq ? p.delta[off] : 0.f;
   }
 
-  float acc[kOT][4], acc_odd[kOT][4];
-  zero<kOT>(acc);
-  zero<kOT>(acc_odd);
+  float acc[kDT][4], acc_odd[kDT][4];
+  zero<kDT>(acc);
+  zero<kDT>(acc_odd);
   const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
   const int n = (k_end + kLoop - 1) / kLoop;
   const float* qw = qs + 16 * warp * ld;
@@ -188,18 +171,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dq_mma_kernel
   for (int it = 0; it < n; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (kStages == 2 && it + 1 < n) {
+    if (it + 1 < n) {
       const int nb = (it + 1) & 1;
       load_tile<kLoop>(ks + nb * tile, ld, kb, p.k_ss, (it + 1) * kLoop, p.sk, d);
       load_tile<kLoop>(vs + nb * tile, ld, vb, p.v_ss, (it + 1) * kLoop, p.sk, d);
       cp_async_commit();
     }
-    const float* kt = ks + (kStages == 2 ? (it & 1) * tile : 0);
-    const float* vt = vs + (kStages == 2 ? (it & 1) * tile : 0);
+    const float* kt = ks + (it & 1) * tile;
+    const float* vt = vs + (it & 1) * tile;
     float s[kNT][4], dp[kNT][4];
     zero<kNT>(s);
     zero<kNT>(dp);
-    product_nt<kDT, kNT, fresh<kDT>()>(qw, kt, s, gw, vt, dp, dt);  // S = Q K^T, dP = dO V^T
+    product_nt<kDT, kNT>(qw, kt, s, gw, vt, dp, dt);  // S = Q K^T, dP = dO V^T
     const int k0 = it * kLoop;
     const bool all = w0 + 16 <= p.sq && k0 + kLoop <= p.sk && (!p.causal || w0 >= k0 + kLoop - 1);
     if (all)
@@ -207,19 +190,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dq_mma_kernel
     else
       ds_rows<true>(p, r0, k0, lse, dl, s, dp);
     // dQ += dS K, the even and the odd 8-key steps into two accumulators
-    product_pn<kDT, kNT / 2, 2, kOT>(dp, kt + c0, acc, dp + 1, kt + 8 * ld + c0, acc_odd, cn);
-    if (kStages == 1 && it + 1 < n) {
-      __syncthreads();  // every warp is done with tile it
-      load_tile<kLoop>(ks, ld, kb, p.k_ss, (it + 1) * kLoop, p.sk, d);
-      load_tile<kLoop>(vs, ld, vb, p.v_ss, (it + 1) * kLoop, p.sk, d);
-      cp_async_commit();
-    }
+    product_pn<kDT, kNT / 2, 2>(dp, kt, acc, dp + 1, kt + 8 * ld, acc_odd, dt);
   }
 #pragma unroll
-  for (int j = 0; j < kOT; ++j)
+  for (int j = 0; j < kDT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
-  store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
+  store_rows<kDT>(p.out0, ib, ih, p.h, p.sq, r0, d, dt, acc);
 }
 
 // -- dK, dV ---------------------------------------------------------------------------
@@ -247,18 +224,14 @@ __device__ __forceinline__ void ds_cols(const Params& p, int r0, int q0,
 template <int kDT>
 __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kernel(const Params p) {
   constexpr int ld = ld_of<kDT>(), tile = kLoop * ld;
-  constexpr int kOT = out_tiles<kDT>(), kStages = stages<kDT>();
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // K [64][ld]
   float* vs = ks + kTile * ld;                   // V [64][ld]
-  float* qs = vs + kTile * ld;                   // Q [kStages][kLoop][ld]
-  float* gs = qs + kStages * tile;               // dO [kStages][kLoop][ld]
-  float* ls = gs + kStages * tile;               // LSE [kStages][kLoop]
-  float* dls = ls + kStages * kLoop;             // delta [kStages][kLoop]
+  float* qs = vs + kTile * ld;                   // Q [2][kLoop][ld]
+  float* gs = qs + 2 * tile;                     // dO [2][kLoop][ld]
+  float* ls = gs + 2 * tile;                     // LSE [2][kLoop]
+  float* dls = ls + 2 * kLoop;                   // delta [2][kLoop]
   const int d = p.d, dt = d / 8;
-  int c0t, cn;  // this block's dK and dV columns: n-tiles [c0t, c0t + cn)
-  out_chunk<kDT>(dt, c0t, cn);
-  const int c0 = 8 * c0t;
   const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const float* qb = p.q + ib * p.q_sb + ih * p.q_sh;
@@ -276,281 +249,510 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kerne
   cp_async_commit();
 
   const int w0 = k0 + 16 * warp, r0 = w0 + g;  // this lane's keys r0, r0 + 8
-  float dk[kOT][4], dv[kOT][4];
-  zero<kOT>(dk);
-  zero<kOT>(dv);
+  float dk[kDT][4], dv[kDT][4];
+  zero<kDT>(dk);
+  zero<kDT>(dv);
   const float* kw = ks + 16 * warp * ld;
   const float* vw = vs + 16 * warp * ld;
   for (int it = 0; it < n; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (kStages == 2 && it + 1 < n) {
+    if (it + 1 < n) {
       const int nb = (it + 1) & 1, q1 = q_start + (it + 1) * kLoop;
       load_tile<kLoop>(qs + nb * tile, ld, qb, p.q_ss, q1, p.sq, d);
       load_tile<kLoop>(gs + nb * tile, ld, gb, p.g_ss, q1, p.sq, d);
       load_rows(p, ib, ih, q1, ls + nb * kLoop, dls + nb * kLoop);
       cp_async_commit();
     }
-    const int q0 = q_start + it * kLoop, cb = kStages == 2 ? it & 1 : 0;
+    const int q0 = q_start + it * kLoop, cb = it & 1;
     const float* qt = qs + cb * tile;
     const float* gt = gs + cb * tile;
     float s[kNT][4], dp[kNT][4];
     zero<kNT>(s);
     zero<kNT>(dp);
-    product_nt<kDT, kNT, fresh<kDT>()>(kw, qt, s, vw, gt, dp, dt);  // S^T = K Q^T, dP^T = V dO^T
+    product_nt<kDT, kNT>(kw, qt, s, vw, gt, dp, dt);  // S^T = K Q^T, dP^T = V dO^T
     const bool all = q0 + kLoop <= p.sq && w0 + 16 <= p.sk && (!p.causal || q0 >= w0 + 15);
     if (all)
       ds_cols<false>(p, r0, q0, ls + cb * kLoop, dls + cb * kLoop, s, dp);
     else
       ds_cols<true>(p, r0, q0, ls + cb * kLoop, dls + cb * kLoop, s, dp);
     // dV += P^T dO, dK += dS^T Q
-    product_pn<kDT, kNT, 1, kOT>(s, gt + c0, dv, dp, qt + c0, dk, cn);
-    if (kStages == 1 && it + 1 < n) {
-      __syncthreads();  // every warp is done with tile it
-      const int q1 = q_start + (it + 1) * kLoop;
-      load_tile<kLoop>(qs, ld, qb, p.q_ss, q1, p.sq, d);
-      load_tile<kLoop>(gs, ld, gb, p.g_ss, q1, p.sq, d);
-      load_rows(p, ib, ih, q1, ls, dls);
-      cp_async_commit();
-    }
+    product_pn<kDT, kNT, 1>(s, gt, dv, dp, qt, dk, dt);
   }
   cp_async_wait_all();  // nothing in flight when the block exits
-  store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
-  store_rows<kOT>(p.out1 + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
+  store_rows<kDT>(p.out0, ib, ih, p.h, p.sk, r0, d, dt, dk);
+  store_rows<kDT>(p.out1, ib, ih, p.h, p.sk, r0, d, dt, dv);
 }
 
 // -- head_dim past kStagedMaxD ---------------------------------------------------------
-// The full-width tiles no longer fit shared memory, so for each loop tile
-// the score contractions (S and dP) stream over head_dim: one
-// kPieceTiles-wide piece of each of the four operands staged at a time,
-// single-buffered, each piece's products added into S and dP with a fresh
-// accumulator per k-step. The block's chunk (grid z, at most 128 columns)
-// of the operand that the output product reads then takes the loop
-// pieces' buffers. Shared memory stays at (2 x 64 + 2 x 32) rows of 132
-// floats whatever head_dim is; the fixed operand is staged again for
-// every loop tile.
+// flash_dq_wide_kernel and flash_dkv_wide_kernel run one body (wide_body),
+// which names its operands by role. The fixed tile X (dQ: Q and dO; dK/dV:
+// K and V) is kWideRows rows of one block; the loop tiles Y (dQ: K and V;
+// dK/dV: Q and dO) are kWideRows rows each. For each loop tile:
+//   scores  S = X0 Y0^T and dP = X1 Y1^T over the whole head_dim, once;
+//   P, dS   P = exp(S scale - LSE) and dS = P (dP - delta) scale, masked;
+//   outputs dQ += dS Y0, or dK += dS^T Y0 and dV += P^T Y1 (there the
+//           scores are S^T and dP^T, so the same code reads them
+//           transposed).
+// At [8, 512, 4, 320] the pair does 7 products of depth 320 over 8.4 M
+// (query, key) pairs, 113 GFLOP of TF32 mma's in 3xTF32, against 84 MB of
+// operands: operations bound it, and the design keeps the work at those 7
+// products with the copies beside them:
+//   * the scores once per tile pair: a block of 8 warps holds its whole
+//     output (at most kWideOT n-tiles a warp, kWideChunkTiles a block:
+//     past 512 columns grid z cuts chunks, each computing the scores
+//     again, as the forward's chunks do at every width: 15 products a
+//     pair at 320 where the output is cut into 128-column chunks). The
+//     score products are split over the warps by product (S or dP),
+//     16-row m-tile and half of each piece's k-steps; each warp writes its
+//     fragments to shared memory as they stand, and one pass of all
+//     threads sums the halves and writes dS (and P) there as split 3xTF32
+//     A fragments (big, small), which the warps of the output products
+//     read with 16-byte loads and split no more. The output n-tiles go to
+//     the warps round-robin (warp w owns n-tiles 8u + w), each over both
+//     16-row m-tiles, so a B fragment of Y is split once for two mma's.
+//     32 fixed rows keep dK and dV within 128 registers a thread at 512
+//     columns, and give 128 blocks at [8, 256, 2, 512] (64-row tiles
+//     would leave half of the 132 SMs idle);
+//   * the fixed tile staged once: it stays resident up to
+//     kWideResidentD; past it its pieces ride in the ring beside the loop
+//     pieces;
+//   * copies beside the products: the loop tiles' pieces are one stream
+//     of items through a ring of 2 slots filled by cp.async one item ahead
+//     (per loop tile, its head_dim pieces of Y0 and Y1 for the scores,
+//     then the pieces of the block's output columns of Y0, and of Y1 for
+//     dK/dV: the loop operand is read twice, the fixed one once); one
+//     barrier an item and one for the score partials. Full pieces run with
+//     no test per k-step. The copies cost issue slots more than bandwidth:
+//     with load_tile's index arithmetic per 16-byte copy, the body took
+//     38% less time at [8, 512, 4, 320] with its piece copies removed, and
+//     stage_piece, which has none, took 19% off it (H100, 700 W).
+// A warp's score products take a fresh accumulator per piece (at most 8
+// k-steps, 24 mma's a chain, half the 48 that buckets 0-2 chain per
+// product), added in fp32; the output products chain over the loop tiles
+// into one accumulator, as #3's always did.
 // T = __nv_bfloat16 (mixed precision): the pieces are widened to fp32 as
 // they are staged, every product takes one TF32 pass (exact on bf16
 // values), P and dS are rounded to bf16 before the products that read them
 // (the reference's casts, flash_kernel.py:260, :297, :306), and dQ, dK and
 // dV are rounded to bf16 as they are stored; LSE and delta stay fp32.
 
+constexpr int kWideRows = 32;  // rows of the fixed tile and of a loop tile
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWP = 8 * kPieceTiles;        // columns of a streamed piece
+constexpr int kWld = ld_of<kPieceTiles>();  // row stride of a staged piece
+constexpr int kWideOT = 8;                  // output n-tiles of a warp
+constexpr int kWideChunkTiles = kWideWarps * kWideOT;  // output n-tiles of a block
+constexpr int kFrag = 32 * 4;               // floats of one warp's m16n8 fragment
+constexpr int kSmemMax = 232448;            // dynamic shared memory one block may take
+// widest head_dim whose fixed tile stays resident (asserted below)
+constexpr int kWideResidentD = 512;
+
+// Floats of a ring slot: pieces of Y0 and Y1, and of X0 and X1 when the
+// fixed tile is streamed.
+__host__ __device__ constexpr int wide_slot(bool resident) { return (resident ? 2 : 4) * kWideRows * kWld; }
+
+// Shared floats of the wide body: the ring (2 slots), the score partials
+// (S and dP, 2 k-halves, 2 m-tiles x 4 n-tiles of fragments), the A
+// fragments (dS, and P for dK/dV; big and small, 8 fragments each) and the
+// resident fixed tile (X0, X1 [kWideRows][d + 4]).
+__host__ __device__ constexpr int wide_floats(bool dkv, int d, bool resident) {
+  return 2 * wide_slot(resident) + 32 * kFrag + (dkv ? 4 : 2) * 8 * kFrag +
+         (resident ? 2 * kWideRows * (d + 4) : 0);
+}
+
+static_assert(wide_floats(true, kWideResidentD, true) * 4 <= kSmemMax &&
+                  wide_floats(true, kWideResidentD + 8, true) * 4 > kSmemMax,
+              "kWideResidentD is the widest fixed tile that dK/dV holds resident");
+
+// s[j] += X Y_j^T over `cnt` k-steps (all kPieceTiles / 2 when kFull) of a
+// piece, into a fresh accumulator: X the warp's 16 rows at stride ld, Y 32
+// rows at the piece stride, both at the first column of the warp's k-steps.
+template <bool kFull, bool kOne>
+__device__ __forceinline__ void score_piece(const float* X, int ld, const float* Y, float s[4][4], int cnt) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  X += g * ld + t;
+  Y += g * kWld + t;
+  float f[4][4];
+  zero<4>(f);
+#pragma unroll
+  for (int k = 0; k < kPieceTiles / 2; ++k) {
+    if (kFull || k < cnt) {
+      const int c = 8 * k;
+      const float a[4] = {X[c], X[8 * ld + c], X[c + 4], X[8 * ld + c + 4]};
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float b[2] = {Y[8 * j * kWld + c], Y[8 * j * kWld + c + 4]};
+        mma3<kOne>(f[j], ab, as, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += f[j][e];
+}
+
+// Columns [0, w) (w a multiple of 8, at most kWP) of rows [row0, row0 +
+// kWideRows) of one head of a [b, s, h, d] tensor (base at the batch, head
+// and first column) into a ring piece [kWideRows][kWld]; rows at or past
+// `rows` are zero. Each thread copies one 16-byte column piece of every
+// kStep-th row, so a copy costs no index arithmetic (load_tile divides by
+// the row width for each): fp32 by cp.async, bf16 read and widened to
+// fp32 (synchronous: the barrier after it publishes the piece).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) flash_dq_wide_kernel(const Params p) {
-  constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
+__device__ __forceinline__ void stage_piece(float* dst, const T* base, int64_t stride, int row0, int rows,
+                                            int w) {
+  constexpr int kE = 16 / sizeof(T);  // elements of one 16-byte copy
+  constexpr int kPerRow = kWP / kE, kStep = kWideThreads / kPerRow;
+  const int c = threadIdx.x % kPerRow, r0 = threadIdx.x / kPerRow;
+  if (kE * c >= w) return;
+  base += kE * c;
+  dst += kE * c;
+#pragma unroll
+  for (int i = 0; i < kWideRows / kStep; ++i) {
+    const int r = r0 + kStep * i;
+    const bool in = row0 + r < rows;
+    const T* src = base + (int64_t)(in ? row0 + r : 0) * stride;
+    if constexpr (sizeof(T) == 4) {
+      cp_async(dst + r * kWld, src, 16, in);
+    } else {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (in) raw = __ldg(reinterpret_cast<const uint4*>(src));
+      widen_bf16x8(dst + r * kWld, raw);
+    }
+  }
+}
+
+// An accumulator fragment's values v (rows g, g + 8 at columns 2t, 2t + 1)
+// as the split A fragment of the next product, whose k index runs over
+// those columns in the order product_pn reads them: {v0, v2, v1, v3}.
+template <bool kOne>
+__device__ __forceinline__ void put_a(float* big, float* small, const float v[4]) {
+  uint32_t b[4], s[4];
+  split(v[0], b[0], s[0]);
+  split(v[2], b[1], s[1]);
+  split(v[1], b[2], s[2]);
+  split(v[3], b[3], s[3]);
+  *reinterpret_cast<uint4*>(big) = make_uint4(b[0], b[1], b[2], b[3]);
+  if constexpr (!kOne) *reinterpret_cast<uint4*>(small) = make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+template <bool kOne>
+__device__ __forceinline__ void get_a(const float* big, const float* small, uint32_t ab[4], uint32_t as[4]) {
+  const uint4 b = *reinterpret_cast<const uint4*>(big);
+  ab[0] = b.x, ab[1] = b.y, ab[2] = b.z, ab[3] = b.w;
+  if constexpr (!kOne) {
+    const uint4 s = *reinterpret_cast<const uint4*>(small);
+    as[0] = s.x, as[1] = s.y, as[2] = s.z, as[3] = s.w;
+  } else {
+    as[0] = as[1] = as[2] = as[3] = 0u;
+  }
+}
+
+// The wide body of dQ (kDkv false) or dK/dV (the header above). Grid:
+// (fixed tiles of kWideRows rows, b h, output chunks of at most
+// kWideChunkTiles n-tiles). Every barrier is reached by all threads.
+template <typename T, bool kDkv>
+__device__ __forceinline__ void wide_body(const Params& p) {
+  constexpr int kR = kWideRows, kOps = kDkv ? 2 : 1;
   constexpr bool kOne = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // Q piece [64][ld]
-  float* gs = qs + kTile * ld;                   // dO piece [64][ld]
-  float* ks = gs + kTile * ld;                   // K piece, then K chunk [kLoop][ld]
-  float* vs = ks + tile;                         // V piece [kLoop][ld]
-  const int d = p.d, dt = d / 8, pieces = (dt + kPT - 1) / kPT;
-  int c0t, cn;  // this block's dQ columns: n-tiles [c0t, c0t + cn)
+  const int d = p.d, dt = d / 8, xld = d + 4;
+  const bool resident = d <= kWideResidentD;
+  const int slot = wide_slot(resident);
+  float* ring = reinterpret_cast<float*>(smem4);  // [2][slot]
+  float* part = ring + 2 * slot;                   // [S, dP][k-half][m-tile][n-tile] fragments
+  float* frag = part + 32 * kFrag;                 // [dS, P][big, small][m-tile][k-step] fragments
+  float* xs = frag + kOps * 16 * kFrag;            // resident X0, X1 [kR][xld]
+  int c0t, cn;  // this block's output columns: n-tiles [c0t, c0t + cn)
   z_chunk(dt, c0t, cn);
   const int c0 = 8 * c0t;
-  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int f0 = blockIdx.x * kR, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const T* qb = reinterpret_cast<const T*>(p.q) + ib * p.q_sb + ih * p.q_sh;
   const T* gb = reinterpret_cast<const T*>(p.dout) + ib * p.g_sb + ih * p.g_sh;
   const T* kb = reinterpret_cast<const T*>(p.k) + ib * p.k_sb + ih * p.k_sh;
   const T* vb = reinterpret_cast<const T*>(p.v) + ib * p.v_sb + ih * p.v_sh;
-
-  const int w0 = q0 + 16 * warp, r0 = w0 + g;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
-    lse[i] = r < p.sq ? p.lse[off] : 0.f;
-    dl[i] = r < p.sq ? p.delta[off] : 0.f;
+  const T* x0b = kDkv ? kb : qb;
+  const T* x1b = kDkv ? vb : gb;
+  const T* y0b = kDkv ? qb : kb;
+  const T* y1b = kDkv ? gb : vb;
+  const int64_t x0s = kDkv ? p.k_ss : p.q_ss, x1s = kDkv ? p.v_ss : p.g_ss;
+  const int64_t y0s = kDkv ? p.q_ss : p.k_ss, y1s = kDkv ? p.g_ss : p.v_ss;
+  const int xrows = kDkv ? p.sk : p.sq, yrows = kDkv ? p.sq : p.sk;
+  // loop tiles [l_start, l_start + n kR): dQ's stop at the causal
+  // diagonal, dK/dV's start there
+  int l_start = 0, n;
+  if constexpr (kDkv) {
+    l_start = p.causal ? f0 : 0;
+    n = p.sq > l_start ? (p.sq - l_start + kR - 1) / kR : 0;
+  } else {
+    n = ((p.causal ? min(p.sk, f0 + kR) : p.sk) + kR - 1) / kR;
   }
+  const int kp = (dt + kPieceTiles - 1) / kPieceTiles;  // score pieces a loop tile
+  const int op = (cn + kPieceTiles - 1) / kPieceTiles;  // output pieces a loop tile
+  const int per = kp + op, items = n * per;
 
-  float acc[kPT][4], acc_odd[kPT][4];
-  zero<kPT>(acc);
-  zero<kPT>(acc_odd);
-  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
-  const int n = (k_end + kLoop - 1) / kLoop;
-  const float* qw = qs + 16 * warp * ld;
-  const float* gw = gs + 16 * warp * ld;
-  for (int it = 0; it < n; ++it) {
-    const int k0 = it * kLoop;
-    float s[kNT][4], dp[kNT][4];
-    zero<kNT>(s);
-    zero<kNT>(dp);
-    for (int pc = 0; pc < pieces; ++pc) {
-      const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
-      __syncthreads();  // every warp is done with the buffers
-      stage_tile<kTile>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
-      stage_tile<kTile>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
-      stage_tile<kLoop>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
-      stage_tile<kLoop>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();  // the pieces are in
-      product_nt<kPT, kNT, true, kOne>(qw, ks, s, gw, vs, dp, pt);  // S += Q K^T, dP += dO V^T
+  // item j into ring slot j % 2, then a commit (an empty group past the
+  // last item keeps one group per item)
+  auto stage = [&](int item) {
+    if (item < items) {
+      const int it = item / per, r = item - it * per, row0 = l_start + it * kR;
+      float* dst = ring + (item & 1) * slot;
+      if (r < kp) {
+        const int col = r * kWP, w = min(kWP, d - col);
+        stage_piece(dst, y0b + col, y0s, row0, yrows, w);
+        stage_piece(dst + kR * kWld, y1b + col, y1s, row0, yrows, w);
+        if (!resident) {
+          stage_piece(dst + 2 * kR * kWld, x0b + col, x0s, f0, xrows, w);
+          stage_piece(dst + 3 * kR * kWld, x1b + col, x1s, f0, xrows, w);
+        }
+      } else {
+        const int col = c0 + (r - kp) * kWP, w = min(kWP, c0 + 8 * cn - col);
+        stage_piece(dst, y0b + col, y0s, row0, yrows, w);
+        if (kDkv) stage_piece(dst + kR * kWld, y1b + col, y1s, row0, yrows, w);
+      }
     }
-    __syncthreads();  // every warp is done with the last K piece
-    stage_tile<kLoop>(ks, ld, kb + c0, p.k_ss, k0, p.sk, 8 * cn);
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();  // the K chunk is in
-    const bool all = w0 + 16 <= p.sq && k0 + kLoop <= p.sk && (!p.causal || w0 >= k0 + kLoop - 1);
-    if (all)
-      ds_rows<false>(p, r0, k0, lse, dl, s, dp);
-    else
-      ds_rows<true>(p, r0, k0, lse, dl, s, dp);
-    round_operands<T, kNT>(dp);
-    // dQ += dS K, the even and the odd 8-key steps into two accumulators
-    product_pn<kPT, kNT / 2, 2, kPT, kOne>(dp, ks, acc, dp + 1, ks + 8 * ld, acc_odd, cn);
+  };
+  if (resident) {  // in item 0's group
+    stage_tile<kR, kWideThreads>(xs, xld, x0b, x0s, f0, xrows, d);
+    stage_tile<kR, kWideThreads>(xs + kR * xld, xld, x1b, x1s, f0, xrows, d);
   }
+  stage(0);
+
+  // score role: product (0 S, 1 dP), m-tile and k-half of each piece
+  const int prod = warp >> 2, smt = (warp >> 1) & 1, kh = warp & 1;
+  // pass role: the scores' fragment (m-tile pmt, n-tile pj)
+  const int pmt = warp >> 2, pj = warp & 3;
+  float lse[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // dQ: of the pass rows, read once
+  if constexpr (!kDkv) {
 #pragma unroll
-  for (int j = 0; j < kPT; ++j)
+    for (int i = 0; i < 2; ++i) {
+      const int r = f0 + 16 * pmt + g + 8 * i;
+      const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
+      lse[i] = r < p.sq ? p.lse[off] : 0.f;
+      dl[i] = r < p.sq ? p.delta[off] : 0.f;
+    }
+  }
+
+  float acc0[2][kWideOT][4];                // dQ, or dK
+  float acc1[2][kDkv ? kWideOT : 1][4];     // dV
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
-  store_rows<kPT>(reinterpret_cast<T*>(p.out0) + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
+  for (int m = 0; m < 2; ++m) {
+    zero<kWideOT>(acc0[m]);
+    if constexpr (kDkv) zero<kWideOT>(acc1[m]);
+  }
+  int j = 0;  // the item in hand
+  for (int it = 0; it < n; ++it) {
+    const int l0 = l_start + it * kR;
+    float lt[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // dK/dV: of the pass columns' queries
+    if constexpr (kDkv) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = l0 + 8 * pj + 2 * t + e;
+        const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + qi;
+        lt[e] = qi < p.sq ? p.lse[off] : 0.f;
+        dlt[e] = qi < p.sq ? p.delta[off] : 0.f;
+      }
+    }
+    float s[4][4];
+    zero<4>(s);
+    for (int pc = 0; pc < kp; ++pc, ++j) {
+      cp_async_wait_all();
+      __syncthreads();  // item j is in; every warp is done with item j - 1, whose slot j + 1 takes
+      stage(j + 1);
+      const float* sl = ring + (j & 1) * slot;
+      const int ld = resident ? xld : kWld;
+      const float* X = (resident ? xs + prod * kR * xld + pc * kWP : sl + (2 + prod) * kR * kWld) + 16 * smt * ld;
+      const float* Y = sl + prod * kR * kWld;
+      const int ks = min(kPieceTiles, dt - pc * kPieceTiles), half = (ks + 1) / 2;
+      const int k0 = kh ? half : 0, k1 = kh ? ks : half;
+      if (ks == kPieceTiles)
+        score_piece<true, kOne>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
+      else
+        score_piece<false, kOne>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
+    }
+    {
+      float4* pw = reinterpret_cast<float4*>(part) + ((prod * 2 + kh) * 2 + smt) * 4 * 32 + lane;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) pw[32 * jj] = make_float4(s[jj][0], s[jj][1], s[jj][2], s[jj][3]);
+    }
+    __syncthreads();  // the partials are in
+    {
+      // this thread's 4 scores: S and dP summed over the k-halves
+      constexpr int kRole = 2 * 4 * 32;  // float4s of one (product, k-half)
+      const float4* pr = reinterpret_cast<const float4*>(part) + (pmt * 4 + pj) * 32 + lane;
+      const float4 s0 = pr[0], s1 = pr[kRole], d0 = pr[2 * kRole], d1 = pr[3 * kRole];
+      const float sv[4] = {s0.x + s1.x, s0.y + s1.y, s0.z + s1.z, s0.w + s1.w};
+      const float dv[4] = {d0.x + d1.x, d0.y + d1.y, d0.z + d1.z, d0.w + d1.w};
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int fr = f0 + 16 * pmt + g + 8 * (e >> 1), lr = l0 + 8 * pj + 2 * t + (e & 1);
+        const bool ok = kDkv ? visible(p, lr, fr) : visible(p, fr, lr);
+        const float ls = kDkv ? lt[e & 1] : lse[e >> 1], de = kDkv ? dlt[e & 1] : dl[e >> 1];
+        const float pe = ok ? expf(sv[e] * p.scale - ls) : 0.f;
+        pv[e] = operand<T>(pe);
+        dsv[e] = operand<T>(pe * (dv[e] - de) * p.scale);
+      }
+      float* fa = frag + (pmt * 4 + pj) * kFrag + 4 * lane;
+      put_a<kOne>(fa, fa + 8 * kFrag, dsv);
+      if constexpr (kDkv) put_a<kOne>(fa + 16 * kFrag, fa + 24 * kFrag, pv);
+    }
+#pragma unroll
+    for (int pc = 0; pc < kWideOT / 2; ++pc) {
+      if (pc < op) {
+        cp_async_wait_all();
+        __syncthreads();  // item j (and at pc 0 the A fragments) is in; every warp is done with item j - 1
+        stage(j + 1);
+        const float* sl = ring + (j & 1) * slot;
+#pragma unroll
+        for (int kk = 0; kk < kR / 8; ++kk) {
+          uint32_t ab[kOps][2][4], as[kOps][2][4];
+#pragma unroll
+          for (int o = 0; o < kOps; ++o)
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const float* fa = frag + (o * 16 + m * 4 + kk) * kFrag + 4 * lane;
+              get_a<kOne>(fa, fa + 8 * kFrag, ab[o][m], as[o][m]);
+            }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (16 * pc + 8 * i + warp < cn) {
+              // B: rows 8 kk + 2t (+1) of the piece, columns of the warp's n-tile
+              const float* yb = sl + (8 * kk + 2 * t) * kWld + 8 * (8 * i + warp) + g;
+              uint32_t bb[2], bs[2];
+              split(yb[0], bb[0], bs[0]);
+              split(yb[kWld], bb[1], bs[1]);
+#pragma unroll
+              for (int m = 0; m < 2; ++m) mma3_split<kOne>(acc0[m][2 * pc + i], ab[0][m], as[0][m], bb, bs);
+              if constexpr (kDkv) {
+                split(yb[kR * kWld], bb[0], bs[0]);
+                split(yb[kR * kWld + kWld], bb[1], bs[1]);
+#pragma unroll
+                for (int m = 0; m < 2; ++m) mma3_split<kOne>(acc1[m][2 * pc + i], ab[1][m], as[1][m], bb, bs);
+              }
+            }
+          }
+        }
+        ++j;
+      }
+    }
+  }
+  cp_async_wait_all();  // nothing in flight when the block exits
+  const int mine = (cn - warp + 7) / 8;  // this warp's n-tiles 8u + warp below cn
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int r0 = f0 + 16 * m + g;
+    store_rows<kWideOT, T, 8>(reinterpret_cast<T*>(p.out0) + c0 + 8 * warp, ib, ih, p.h, xrows, r0, d, mine, acc0[m]);
+    if constexpr (kDkv)
+      store_rows<kWideOT, T, 8>(reinterpret_cast<T*>(p.out1) + c0 + 8 * warp, ib, ih, p.h, xrows, r0, d, mine,
+                                acc1[m]);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wide_kernel(const Params p) {
-  constexpr int kPT = kPieceTiles, ld = ld_of<kPT>(), tile = kLoop * ld;
-  constexpr bool kOne = sizeof(T) == 2;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // K piece [64][ld]
-  float* vs = ks + kTile * ld;                   // V piece [64][ld]
-  float* qs = vs + kTile * ld;                   // Q piece, then Q chunk [kLoop][ld]
-  float* gs = qs + tile;                         // dO piece, then dO chunk [kLoop][ld]
-  float* ls = gs + tile;                         // LSE [kLoop]
-  float* dls = ls + kLoop;                       // delta [kLoop]
-  const int d = p.d, dt = d / 8, pieces = (dt + kPT - 1) / kPT;
-  int c0t, cn;  // this block's dK and dV columns: n-tiles [c0t, c0t + cn)
-  z_chunk(dt, c0t, cn);
-  const int c0 = 8 * c0t;
-  const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const T* qb = reinterpret_cast<const T*>(p.q) + ib * p.q_sb + ih * p.q_sh;
-  const T* gb = reinterpret_cast<const T*>(p.dout) + ib * p.g_sb + ih * p.g_sh;
-  const T* kb = reinterpret_cast<const T*>(p.k) + ib * p.k_sb + ih * p.k_sh;
-  const T* vb = reinterpret_cast<const T*>(p.v) + ib * p.v_sb + ih * p.v_sh;
-  // causal: query tiles above the diagonal see none of these keys
-  const int q_start = p.causal ? k0 : 0;
-  const int n = p.sq > q_start ? (p.sq - q_start + kLoop - 1) / kLoop : 0;
+__global__ void __launch_bounds__(kWideThreads, 1) flash_dq_wide_kernel(const Params p) {
+  wide_body<T, false>(p);
+}
 
-  const int w0 = k0 + 16 * warp, r0 = w0 + g;  // this lane's keys r0, r0 + 8
-  float dk[kPT][4], dv[kPT][4];
-  zero<kPT>(dk);
-  zero<kPT>(dv);
-  const float* kw = ks + 16 * warp * ld;
-  const float* vw = vs + 16 * warp * ld;
-  for (int it = 0; it < n; ++it) {
-    const int q0 = q_start + it * kLoop;
-    float s[kNT][4], dp[kNT][4];
-    zero<kNT>(s);
-    zero<kNT>(dp);
-    for (int pc = 0; pc < pieces; ++pc) {
-      const int pt = min(kPT, dt - pc * kPT), col = 8 * kPT * pc;
-      __syncthreads();  // every warp is done with the buffers
-      stage_tile<kTile>(ks, ld, kb + col, p.k_ss, k0, p.sk, 8 * pt);
-      stage_tile<kTile>(vs, ld, vb + col, p.v_ss, k0, p.sk, 8 * pt);
-      stage_tile<kLoop>(qs, ld, qb + col, p.q_ss, q0, p.sq, 8 * pt);
-      stage_tile<kLoop>(gs, ld, gb + col, p.g_ss, q0, p.sq, 8 * pt);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();  // the pieces are in
-      product_nt<kPT, kNT, true, kOne>(kw, qs, s, vw, gs, dp, pt);  // S^T += K Q^T, dP^T += V dO^T
-    }
-    __syncthreads();  // every warp is done with the last Q and dO pieces
-    stage_tile<kLoop>(qs, ld, qb + c0, p.q_ss, q0, p.sq, 8 * cn);
-    stage_tile<kLoop>(gs, ld, gb + c0, p.g_ss, q0, p.sq, 8 * cn);
-    load_rows(p, ib, ih, q0, ls, dls);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();  // the chunks and the rows are in
-    const bool all = q0 + kLoop <= p.sq && w0 + 16 <= p.sk && (!p.causal || q0 >= w0 + 15);
-    if (all)
-      ds_cols<false>(p, r0, q0, ls, dls, s, dp);
-    else
-      ds_cols<true>(p, r0, q0, ls, dls, s, dp);
-    round_operands<T, kNT>(s);
-    round_operands<T, kNT>(dp);
-    // dV += P^T dO, dK += dS^T Q
-    product_pn<kPT, kNT, 1, kPT, kOne>(s, gs, dv, dp, qs, dk, cn);
-  }
-  store_rows<kPT>(reinterpret_cast<T*>(p.out0) + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
-  store_rows<kPT>(reinterpret_cast<T*>(p.out1) + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1) flash_dkv_wide_kernel(const Params p) {
+  wide_body<T, true>(p);
 }
 
 // -- launch ----------------------------------------------------------------------------
 
 enum Kind { kDq = 0, kDkv = 1 };
 
-// 2 staged tiles of 64 rows and 2 x kStages of kLoop rows at the bucket's
-// stride (+ 2 x kStages LSE / delta rows for dK/dV); past kStagedMaxD 2
-// pieces of 64 rows and 2 of kLoop rows (+ one LSE / delta row pair)
+// head_dims up to this run the mma kernels (kDT = 4, 8 or 16, staged at
+// full width); past it the wide kernels
+constexpr int kMmaMaxD = 128;
+
+bool wide(int d) { return d > kMmaMaxD; }
+
+// Rows of a block's fixed tile, threads of a block and grid z of the body
+// that takes head_dim d.
+int tile_rows(int d) { return wide(d) ? kWideRows : kTile; }
+int threads_of(int d) { return wide(d) ? kWideThreads : kThreads; }
+int grid_z(int d) { return wide(d) ? (d / 8 + kWideChunkTiles - 1) / kWideChunkTiles : 1; }
+
+// The mma kernels: 2 staged tiles of 64 rows and 2 x 2 of kLoop rows at
+// the bucket's stride (+ 2 x 2 LSE / delta rows for dK/dV); the wide
+// kernels: wide_floats.
 size_t smem_bytes(int kind, int d) {
-  const bool wide = bucket(d) == 4;
-  const int kdt = wide ? kPieceTiles : 4 << bucket(d), st = wide || kdt > 16 ? 1 : 2;
-  const size_t rows = 2 * kTile + 2 * st * kLoop, ld = 8 * kdt + 4;
-  return (rows * ld + (kind == kDq ? 0 : 2 * st * kLoop)) * sizeof(float);
+  if (wide(d)) return wide_floats(kind == kDkv, d, d <= kWideResidentD) * sizeof(float);
+  const size_t ld = 8 * (4 << bucket(d)) + 4;
+  return ((2 * kTile + 4 * kLoop) * ld + (kind == kDq ? 0 : 4 * kLoop)) * sizeof(float);
 }
 
 void* kernel_of(int kind, int d) {
-  static void* const table[2][5] = {
-      {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>,
-       (void*)flash_dq_mma_kernel<16>, (void*)flash_dq_mma_kernel<32>,
+  static void* const table[2][4] = {
+      {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>, (void*)flash_dq_mma_kernel<16>,
        (void*)flash_dq_wide_kernel<float>},
-      {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>,
-       (void*)flash_dkv_mma_kernel<16>, (void*)flash_dkv_mma_kernel<32>,
+      {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>, (void*)flash_dkv_mma_kernel<16>,
        (void*)flash_dkv_wide_kernel<float>}};
-  return table[kind][bucket(d)];
+  return table[kind][wide(d) ? 3 : bucket(d)];
+}
+
+// The wide kernels instantiated for bf16 (head_dim past kStagedMaxD only;
+// csrc/flash_bf16_kernel.cu's bodies take bf16 up to it).
+void* wide_bf16_of(int kind) {
+  return kind == kDq ? (void*)flash_dq_wide_kernel<__nv_bfloat16> : (void*)flash_dkv_wide_kernel<__nv_bfloat16>;
+}
+
+// fn's dynamic shared memory limit: what kernel `kind` takes at d, for
+// the wide kernels the most of any head_dim (the resident tile at
+// kWideResidentD).
+int set_smem(void* fn, int kind, int d) {
+  const int bytes = (int)smem_bytes(kind, wide(d) ? kWideResidentD : d);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  return (int)e;
 }
 
 int configure(int kind, int d) {
-  static bool configured[2][5] = {};
-  const int bi = bucket(d);
+  static bool configured[2][4] = {};
+  const int bi = wide(d) ? 3 : bucket(d);
   if (configured[kind][bi]) return 0;
-  void* fn = kernel_of(kind, d);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(kind, d));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
+  const int e = set_smem(kernel_of(kind, d), kind, d);
+  if (e) return e;
   configured[kind][bi] = true;
   return 0;
+}
+
+int launch_fn(void* fn, int kind, const Params& p, int b, int rows, cudaStream_t stream) {
+  const int tr = tile_rows(p.d);
+  dim3 grid((rows + tr - 1) / tr, b * p.h, grid_z(p.d));
+  void* args[] = {(void*)&p};
+  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(threads_of(p.d)), args, smem_bytes(kind, p.d), stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
-  dim3 grid((rows + kTile - 1) / kTile, b * p.h, chunks(p.d));
-  void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args,
-                                   smem_bytes(kind, p.d), stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_fn(kernel_of(kind, p.d), kind, p, b, rows, stream);
 }
 
-// The bf16 wide kernels (head_dim past kStagedMaxD only; csrc/
-// flash_bf16_kernel.cu's bodies take bf16 up to it).
 int launch_wide_bf16(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
-  if (!takes(p.d) || bucket(p.d) != 4) return (int)cudaErrorInvalidValue;
+  if (!takes(p.d) || p.d <= kStagedMaxD) return (int)cudaErrorInvalidValue;
   static bool configured[2] = {};
-  void* fn = kind == kDq ? (void*)flash_dq_wide_kernel<__nv_bfloat16> : (void*)flash_dkv_wide_kernel<__nv_bfloat16>;
   if (!configured[kind]) {
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(kind, p.d));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
+    const int e = set_smem(wide_bf16_of(kind), kind, p.d);
+    if (e) return e;
     configured[kind] = true;
   }
-  dim3 grid((rows + kTile - 1) / kTile, b * p.h, chunks(p.d));
-  void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem_bytes(kind, p.d), stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_fn(wide_bf16_of(kind), kind, p, b, rows, stream);
 }
 
 }  // namespace
@@ -561,14 +763,17 @@ const char* ff_flash_bwd_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// What one block of kernel `kind` (0 dQ, 1 dK/dV) at head_dim d takes and
-// how many fit an SM: out = {registers per thread, local (spill) bytes per
-// thread, dynamic shared bytes, threads, blocks per SM}.
+// What one block of kernel `kind` (0 dQ, 1 dK/dV; 2 and 3 the same past
+// head_dim 256 for bf16) at head_dim d takes and how many fit an SM: out =
+// {registers per thread, local (spill) bytes per thread, dynamic shared
+// bytes, threads, blocks per SM}.
 int ff_flash_bwd_occupancy(int kind, int d, int* out) {
-  if ((kind != kDq && kind != kDkv) || !takes(d)) return (int)cudaErrorInvalidValue;
-  const int err = configure(kind, d);
+  if (kind < 0 || kind > 3 || !takes(d) || (kind > 1 && d <= kStagedMaxD)) return (int)cudaErrorInvalidValue;
+  const int k = kind & 1;
+  void* fn = kind > 1 ? wide_bf16_of(k) : kernel_of(k, d);
+  const int err = kind > 1 ? set_smem(fn, k, d) : configure(k, d);
   if (err) return err;
-  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out);
+  return flash::occupancy(fn, smem_bytes(k, d), out, threads_of(d));
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d], dO [b, sq, h, d] fp32 with head_dim

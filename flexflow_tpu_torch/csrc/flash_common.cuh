@@ -29,11 +29,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kNT = kLoop / 8;  // 8-wide n-tiles of one loop tile's scores
 // head_dims up to this are staged at full width (buckets 0-3); past it the
 // wide kernels stream the score contraction over head_dim in pieces of
-// kPieceTiles n-tiles (bucket 4), so their shared memory does not grow
-// with head_dim
+// kPieceTiles n-tiles (bucket 4): the forward's streams both operands, the
+// backward's only the loop operand while its fixed tile fits resident
 constexpr int kStagedMaxD = 256;
-// output columns of one block: head_dims past this are cut into chunks,
-// one per grid z index (out_chunk)
+// output columns of one block of buckets 0-3 and of the wide forward:
+// head_dims past this are cut into chunks, one per grid z index (out_chunk)
 constexpr int kChunkTiles = 16;
 // n-tiles of one streamed piece of head_dim in the wide kernels, staged at
 // the stride of bucket 2 (ld_of<16>(), 132 floats)
@@ -116,21 +116,28 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32, the small terms first; a is already split (it is
-// reused across a k-step's n-tiles), b is split here. kOne: a and b are
+// c += a b in 3xTF32, the small terms first; a and b already split (a is
+// reused across a k-step's n-tiles, b across m-tiles). kOne: a and b are
 // TF32 values (widened bf16: big is the value, small is 0), and the one
 // big pass is the exact product.
+template <bool kOne = false>
+__device__ __forceinline__ void mma3_split(float c[4], const uint32_t ab[4], const uint32_t as[4],
+                                           const uint32_t bb[2], const uint32_t bs[2]) {
+  if constexpr (!kOne) {
+    mma_tf32(c, as, bb);
+    mma_tf32(c, ab, bs);
+  }
+  mma_tf32(c, ab, bb);
+}
+
+// mma3_split with b split here (b feeds one accumulator).
 template <bool kOne = false>
 __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
                                      const uint32_t as[4], const float b[2]) {
   uint32_t bb[2], bs[2];
   split(b[0], bb[0], bs[0]);
   split(b[1], bb[1], bs[1]);
-  if constexpr (!kOne) {
-    mma_tf32(c, as, bb);
-    mma_tf32(c, ab, bs);
-  }
-  mma_tf32(c, ab, bb);
+  mma3_split<kOne>(c, ab, as, bb, bs);
 }
 
 // -- products of one warp -------------------------------------------------------
@@ -143,14 +150,15 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
 // the contraction runs over head_dim. Reads: A[g][c], B[8j + g][c] with
 // c = 8 ks + t (+4).
 //
-// kFresh: each k-step's 3 passes go into a fresh accumulator, added to
-// acc with an fp32 add. The tensor cores round an mma's fp32 sum toward
-// zero, an error of up to an ulp of the accumulator that has one sign
-// along a chain, so a chain of 3 dt mma's into one accumulator drifts with
-// its length; at head_dim 256 (96 mma's) dP = dO V^T drifts past the
-// reference's 5e-5 where dP - delta cancels. A fresh accumulator truncates
-// only the k-step's own 8-term partial, and the adds round to nearest.
-template <int kDT, int kNT, bool kFresh = false, bool kOne = false>
+// One accumulator a product: the tensor cores round an mma's fp32 sum
+// toward zero, an error of up to an ulp of the accumulator that has one
+// sign along a chain, so a chain of 3 dt mma's into one accumulator
+// drifts with its length. Up to head_dim 128 (48 mma's) it stays within
+// the reference's scale; longer contractions (the wide kernels'
+// score_piece, the forward's accumulate_pv) chain at most a few k-steps
+// into a fresh accumulator added with an fp32 add, which rounds to
+// nearest.
+template <int kDT, int kNT>
 __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
                                            float acc0[kNT][4], const float* A1,
                                            const float* B1, float acc1[kNT][4],
@@ -178,19 +186,8 @@ __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
       for (int j = 0; j < kNT; ++j) {
         const float b0[2] = {B0[8 * j * ld + c], B0[8 * j * ld + c + 4]};
         const float b1[2] = {B1[8 * j * ld + c], B1[8 * j * ld + c + 4]};
-        if constexpr (kFresh) {
-          float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3<kOne>(f0, ab0, as0, b0);
-          mma3<kOne>(f1, ab1, as1, b1);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc0[j][e] += f0[e];
-            acc1[j][e] += f1[e];
-          }
-        } else {
-          mma3<kOne>(acc0[j], ab0, as0, b0);
-          mma3<kOne>(acc1[j], ab1, as1, b1);
-        }
+        mma3(acc0[j], ab0, as0, b0);
+        mma3(acc1[j], ab1, as1, b1);
       }
     }
   }
@@ -205,7 +202,7 @@ __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
 // visited inside each k-step in the order 0, 2, 4, 6, 1, 3, 5, 7, so that
 // P's fragment is the A operand as it stands. Reads:
 // B[8 kS kk + 2t (+1)][8j + g].
-template <int kDT, int kKT, int kS, int kOT = kDT, bool kOne = false>
+template <int kDT, int kKT, int kS, int kOT = kDT>
 __device__ __forceinline__ void product_pn(const float P0[][4], const float* B0,
                                            float acc0[kOT][4], const float P1[][4],
                                            const float* B1, float acc1[kOT][4],
@@ -230,8 +227,8 @@ __device__ __forceinline__ void product_pn(const float P0[][4], const float* B0,
       if (j < dt) {
         const float b0[2] = {B0[row + 8 * j], B0[row + ld + 8 * j]};
         const float b1[2] = {B1[row + 8 * j], B1[row + ld + 8 * j]};
-        mma3<kOne>(acc0[j], ab0, as0, b0);
-        mma3<kOne>(acc1[j], ab1, as1, b1);
+        mma3(acc0[j], ab0, as0, b0);
+        mma3(acc1[j], ab1, as1, b1);
       }
     }
   }
@@ -274,50 +271,55 @@ __device__ __forceinline__ void cp_async_wait() {
 // Rows [row0, row0 + kRows) of one head of a [b, s, h, d] tensor (base
 // already at the batch, head and first column) into dst [kRows][ld], d
 // columns; rows at or past `rows` are zero. Neighbouring threads copy
-// neighbouring 16-byte pieces of a row.
-template <int kRows>
+// neighbouring 16-byte pieces of a row; kN threads in the block.
+template <int kRows, int kN = kThreads>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* base,
                                           int64_t s_stride, int row0, int rows,
                                           int d) {
   const int d4 = d / 4;
-  for (int i = threadIdx.x; i < kRows * d4; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * d4; i += kN) {
     const int r = i / d4, c4 = i - r * d4;
     const bool in = row0 + r < rows;
     cp_async(dst + r * ld + 4 * c4, base + (int64_t)(in ? row0 + r : 0) * s_stride + 4 * c4, 16, in);
   }
 }
 
+// 8 bf16 values (16 bytes, raw) widened to fp32 into dst[0, 8).
+__device__ __forceinline__ void widen_bf16x8(float* dst, uint4 raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  float4* out = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u]));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u + 1]));
+    out[u] = make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
 // load_tile for bf16 rows: 8 elements (16 bytes) per thread and step, read
 // into registers and widened to fp32 in dst (cp.async copies bytes, it
 // cannot widen them). Synchronous: the barrier after it publishes the tile.
-template <int kRows>
+template <int kRows, int kN = kThreads>
 __device__ __forceinline__ void load_tile_bf16(float* dst, int ld, const __nv_bfloat16* base,
                                                int64_t s_stride, int row0, int rows, int d) {
   const int d8 = d / 8;
-  for (int i = threadIdx.x; i < kRows * d8; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * d8; i += kN) {
     const int r = i / d8, c8 = i - r * d8;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < rows) raw = __ldg(reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * s_stride) + c8);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float4* out = reinterpret_cast<float4*>(dst + r * ld + 8 * c8);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u]));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * u + 1]));
-      out[u] = make_float4(a.x, a.y, b.x, b.y);
-    }
+    widen_bf16x8(dst + r * ld + 8 * c8, raw);
   }
 }
 
 // A tile of T rows into fp32 shared memory: cp.async for float (waited on
 // by the caller's cp_async_wait_all), load_tile_bf16 for bf16.
-template <int kRows, typename T>
+template <int kRows, int kN = kThreads, typename T>
 __device__ __forceinline__ void stage_tile(float* dst, int ld, const T* base, int64_t s_stride,
                                            int row0, int rows, int d) {
   if constexpr (sizeof(T) == 4)
-    load_tile<kRows>(dst, ld, base, s_stride, row0, rows, d);
+    load_tile<kRows, kN>(dst, ld, base, s_stride, row0, rows, d);
   else
-    load_tile_bf16<kRows>(dst, ld, base, s_stride, row0, rows, d);
+    load_tile_bf16<kRows, kN>(dst, ld, base, s_stride, row0, rows, d);
 }
 
 // A fragment's value as the next product's operand: itself for fp32
@@ -344,10 +346,10 @@ __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
 }
 
 // Rows r0 (acc[j][0..1]) and r0 + 8 (acc[j][2..3]) of a contiguous
-// [b, s, h, d] output (out already at the block's first column), the
-// first dt of kDT n-tiles; rows at or past s are skipped.
-// A bf16 output (T = __nv_bfloat16) is rounded to nearest even.
-template <int kDT, typename T = float>
+// [b, s, h, d] output (out already at the lane's first n-tile), the
+// first dt of kDT n-tiles, kStep n-tiles apart; rows at or past s are
+// skipped. A bf16 output (T = __nv_bfloat16) is rounded to nearest even.
+template <int kDT, typename T = float, int kStep = 1>
 __device__ __forceinline__ void store_rows(T* out, int ib, int ih, int h,
                                            int s, int r0, int d, int dt,
                                            const float acc[kDT][4]) {
@@ -361,9 +363,9 @@ __device__ __forceinline__ void store_rows(T* out, int ib, int ih, int h,
     for (int j = 0; j < kDT; ++j)
       if (j < dt) {
         if constexpr (sizeof(T) == 4)
-          *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+          *reinterpret_cast<float2*>(o + 8 * kStep * j) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
         else
-          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * kStep * j) =
               __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
       }
   }

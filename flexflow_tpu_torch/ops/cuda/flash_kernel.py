@@ -12,10 +12,12 @@ operands (mixed precision) run in csrc/flash_bf16_kernel.cu, one bf16
 mma pass per product with f32 accumulation, the reference's bodies at
 bf16 inputs: all three up to head_dim 256, and #1 past it (a resident
 Q tile, K and V streamed over head_dim through a ring of cp.async
-slots). #2 and #3 past 256 run csrc/flash_bwd_kernel.cu's wide kernels
-instantiated for bf16 (rows widened to fp32 as they are staged, one
-exact TF32 pass per product, dS rounded to bf16 where the reference
-casts it):
+slots). #2 and #3 run csrc/flash_bwd_kernel.cu's wide kernels past
+head_dim 128 in fp32 and past 256 in bf16: they compute the scores once
+per tile pair over a resident fixed tile and stream the loop operand
+through a ring of cp.async slots; bf16 runs them instantiated for bf16
+(rows widened to fp32 as they are staged, one exact TF32 pass per
+product, P and dS rounded to bf16 where the reference casts them):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;
@@ -64,15 +66,18 @@ BF16_SOURCE = "flash_bf16_kernel.cu"
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
-# head_dims up to this are staged at full width (flash_common.cuh's
-# kStagedMaxD); bf16 past it runs the wide kernels
+# head_dims up to this #1 stages at full width (flash_common.cuh's
+# kStagedMaxD); past it all three kernels run wide kernels (fp32 #2 and
+# #3 from 136 on)
 _STAGED_MAX_D = 256
 
 # kernel launches per kernel since the last reset_launches(): the fp32
-# bodies under the kernels' names, the bf16 bodies under name + "_bf16"
-# and the bf16 bodies past head_dim 256 under name + "_wide_bf16"
+# bodies under the kernels' names (past head_dim 256, where all three run
+# wide kernels, under name + "_wide"), the bf16 bodies under name +
+# "_bf16" and the bf16 bodies past head_dim 256 under name + "_wide_bf16"
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
     "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
     "flash_fwd_wide_bf16": 0, "flash_dq_wide_bf16": 0, "flash_dkv_wide_bf16": 0,
 }
@@ -93,10 +98,11 @@ def reset_launches() -> None:
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this shape: float32 or bfloat16 with
     head_dim any positive multiple of 8, as the reference's supports()
-    (past 256 the score contraction streams K over head_dim in
-    128-column pieces; bf16 #1 keeps its Q tile resident up to head_dim
-    752 and streams it beside K past that); non-empty sequences. Any
-    sequence length works (the ragged tail of a tile is masked)."""
+    (past 256 the score contraction streams the loop operand over
+    head_dim in 128-column pieces; the fixed tile stays resident up to
+    head_dim 512 in #2 and #3 and 752 in bf16 #1, and is streamed beside
+    it past that); non-empty sequences. Any sequence length works (the
+    ragged tail of a tile is masked)."""
     return dtype in _DTYPES and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
@@ -168,10 +174,12 @@ def occupancy(name: str, d: int) -> Dict[str, int]:
     out = (ctypes.c_int * 5)()
     if name in _BF16_KINDS:
         code = _bf16_lib().ff_flash_bf16_occupancy(_BF16_KINDS[name], d, out)
-    elif name == "flash_fwd":
+    elif name.startswith("flash_fwd"):
         code = _lib().ff_flash_occupancy(d, out)
     else:
-        code = _bwd_lib().ff_flash_bwd_occupancy(0 if name.startswith("flash_dq") else 1, d, out)
+        # kinds 0 dQ, 1 dK/dV; 2, 3 the same for bf16 past head_dim 256
+        kind = (0 if name.startswith("flash_dq") else 1) + (2 if name.endswith("_bf16") else 0)
+        code = _bwd_lib().ff_flash_bwd_occupancy(kind, d, out)
     _raise_on(code, name)
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
 
@@ -331,14 +339,16 @@ def _device_only(name: str, t: torch.Tensor) -> None:
 def _body(name: str, dtype: torch.dtype, d: int):
     """(LAUNCHES key, C entry point) of kernel `name` for `dtype` at
     head_dim d: bf16 on flash_bf16_kernel.cu's bodies, but #2 and #3 past
-    256 on flash_bwd_kernel.cu's wide kernels instantiated for bf16."""
+    256 on flash_bwd_kernel.cu's wide kernels instantiated for bf16; fp32
+    past 256 counted under name + "_wide"."""
+    wide = d > _STAGED_MAX_D
     if dtype == torch.bfloat16:
-        key = name + ("_wide_bf16" if d > _STAGED_MAX_D else "_bf16")
-        if name == "flash_fwd" or d <= _STAGED_MAX_D:
+        key = name + ("_wide_bf16" if wide else "_bf16")
+        if name == "flash_fwd" or not wide:
             return key, getattr(_bf16_lib(), f"ff_{name}_bf16")
         return key, getattr(_bwd_lib(), f"ff_{name}_wide_bf16")
     lib = _lib() if name == "flash_fwd" else _bwd_lib()
-    return name, getattr(lib, f"ff_{name}_f32")
+    return name + ("_wide" if wide else ""), getattr(lib, f"ff_{name}_f32")
 
 
 def flash_fwd(q, k, v, causal=False, sm_scale=None):

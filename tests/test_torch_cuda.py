@@ -606,14 +606,18 @@ def test_small_lm_serves_identically_on_both_layouts():
     [(2, 256, 256, 4, 64), (2, 200, 77, 3, 128), (1, 96, 160, 2, 8),
      # the reference's test shapes (tests/test_flash_kernel.py)
      (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32),
-     # head_dims past 128: two output-column chunks
+     # head_dims past 128: #1 in two output-column chunks, #2 and #3 on
+     # the wide kernels
      (2, 200, 77, 3, 136), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256),
-     # past 256: the wide kernels, 3 or 4 chunks, 3 or 4 streamed pieces
-     (2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512)],
+     # past 256: the wide kernels (#2 and #3: all output columns in one
+     # block up to 512, 3 chunks at 1032, the fixed tile streamed there),
+     # 3 to 9 streamed pieces
+     (2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512), (1, 200, 200, 2, 1032)],
 )
 def test_flash_kernels_match_plain_versions(shape, causal):
     """Kernels #1-#3 at ragged and sq != sk shapes and at the reference's
-    test shapes, head_dim 8 to 512; one launch counted per call."""
+    test shapes, head_dim 8 to 1032; one launch counted per call (past
+    256 under name + "_wide")."""
     dev = _card()
     b, sq, sk, h, d = shape
     rng = np.random.default_rng(sq + d)
@@ -626,13 +630,18 @@ def test_flash_kernels_match_plain_versions(shape, causal):
     dq = fk.flash_dq(q, k, v, do, rlse, delta, causal)
     dk_, dv = fk.flash_dkv(q, k, v, do, rlse, delta, causal)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == _flash_launches(flash_fwd=1, flash_dq=1, flash_dkv=1)
+    assert fk.LAUNCHES == _flash_launches(**{name + _wide(d): 1 for name in ("flash_fwd", "flash_dq", "flash_dkv")})
     torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
     rdk, rdv = fk.flash_dkv_ref(q, k, v, do, rlse, delta, causal)
     torch.testing.assert_close(dq, fk.flash_dq_ref(q, k, v, do, rlse, delta, causal), atol=GRAD_ATOL, rtol=GRAD_RTOL)
     torch.testing.assert_close(dk_, rdk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
     torch.testing.assert_close(dv, rdv, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def _wide(d):
+    """The LAUNCHES suffix of the fp32 bodies at head_dim d."""
+    return "_wide" if d > 256 else ""
 
 
 def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
@@ -652,16 +661,17 @@ MMA_EDGE_LENGTHS = [(1, 1), (15, 17), (17, 15), (65, 200), (200, 65), (1, 200), 
 @pytest.mark.parametrize("sq,sk", MMA_EDGE_LENGTHS)
 def test_flash_backward_matches_plain_versions_at_mma_edges(sq, sk, causal, d):
     """#2 and #3 where the tiles are ragged against mma's 16 rows and 8
-    columns as well as the 64-row tiles: sq, sk in {1, 15, 17, 65, 200},
-    sk < sq and sk > sq, every head_dim bucket (past 128: uneven and even
-    output-column chunks)."""
+    columns as well as the 64-row and 32-row tiles: sq, sk in {1, 15, 17,
+    65, 200}, sk < sq and sk > sq, every head_dim bucket of the mma
+    kernels and, past 128, the wide kernels (136 with a ragged last
+    piece)."""
     dev = _card()
     args = _flash_backward_operands(np.random.default_rng(sq * 1000 + sk + d), dev, 2, sq, sk, 3, d, causal)
     fk.reset_launches()
     dq = fk.flash_dq(*args)
     dk_, dv = fk.flash_dkv(*args)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == _flash_launches(flash_dq=1, flash_dkv=1)
+    assert fk.LAUNCHES == _flash_launches(**{"flash_dq" + _wide(d): 1, "flash_dkv" + _wide(d): 1})
     rdk, rdv = fk.flash_dkv_ref(*args)
     torch.testing.assert_close(dq, fk.flash_dq_ref(*args), atol=GRAD_ATOL, rtol=GRAD_RTOL)
     torch.testing.assert_close(dk_, rdk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
@@ -681,7 +691,7 @@ def test_flash_forward_matches_plain_version_at_mma_edges(sq, sk, causal, d):
     fk.reset_launches()
     o, lse = fk.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == _flash_launches(flash_fwd=1)
+    assert fk.LAUNCHES == _flash_launches(**{"flash_fwd" + _wide(d): 1})
     ro, rlse = fk.flash_fwd_ref(q, k, v, causal)
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
     torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
@@ -701,15 +711,29 @@ def test_flash_forward_is_bit_identical_across_calls(causal, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [64, 320, 1032])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_backward_is_bit_identical_across_calls(causal):
-    """No atomics: two calls on the same inputs give the same bits."""
+def test_flash_backward_is_bit_identical_across_calls(causal, d):
+    """No atomics: two calls on the same inputs give the same bits (past
+    head_dim 256 on the wide kernels, their fixed tile resident at 320
+    and streamed at 1032)."""
     dev = _card()
-    args = _flash_backward_operands(np.random.default_rng(9), dev, 2, 300, 260, 4, 64, causal)
+    args = _flash_backward_operands(np.random.default_rng(9), dev, 2, 300, 260, 4, d, causal)
     first = (fk.flash_dq(*args), *fk.flash_dkv(*args))
     second = (fk.flash_dq(*args), *fk.flash_dkv(*args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [320, 512, 1032])
+def test_flash_wide_backward_fits_the_card(d):
+    """#2 and #3 past head_dim 256 at 320 and 512 (the fixed tile
+    resident, 512 the widest it is) and 1032 (streamed): no spilled
+    registers, and at least one block fits an SM."""
+    _card()
+    for name in ("flash_dq_wide", "flash_dkv_wide"):
+        occ = fk.occupancy(name, d)
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, (name, occ)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

@@ -97,13 +97,14 @@ def test_lse_cotangent_matches_jax():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("d", [160, 256, 320, 512])
 def test_wide_heads_match_jax(d, causal):
-    """head_dim 160 and 256, which the kernels take in two output-column
-    chunks, and 320 (three chunks, the score contraction streamed in
-    128-column pieces on the card): forward, LSE and the gradients through
-    the port's custom backward against the Pallas kernels in the
-    interpreter."""
+    """head_dim 160 and 256 (on the card #1 in two output-column chunks,
+    #2 and #3 on the wide kernels), 320 and 512 (all three on the wide
+    kernels: the score contraction streamed in 128-column pieces, #2 and
+    #3 with all of a block's output columns, 512 their widest resident
+    fixed tile): forward, LSE and the gradients through the port's custom
+    backward against the Pallas kernels in the interpreter."""
     rng = np.random.RandomState(d + int(causal))
     q, k, v = (rng.randn(1, 128, H, d).astype(np.float32) for _ in range(3))
     jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
@@ -252,7 +253,8 @@ def test_bf16_bodies_resolve_to_their_libraries(monkeypatch, name, d):
     else:
         assert fn == f"_bwd_lib.ff_{name}_wide_bf16"
     fp32_lib = "_lib" if name == "flash_fwd" else "_bwd_lib"
-    assert fk._body(name, torch.float32, d) == (name, f"{fp32_lib}.ff_{name}_f32")
+    fp32_key = name + ("_wide" if wide else "")
+    assert fk._body(name, torch.float32, d) == (fp32_key, f"{fp32_lib}.ff_{name}_f32") and fp32_key in fk.LAUNCHES
 
 
 def test_bf16_lse_cotangent_matches_jax():
@@ -496,3 +498,62 @@ def test_fresh_accumulators_stop_the_drift_of_truncating_mma_chains():
     rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
     assert rel(fresh) < 1e-6
     assert rel(chain) > 5 * rel(fresh)
+
+
+def _mma_chains(a, b, groups):
+    """a b in the model of mma.sync's 3xTF32 passes above: each group of
+    8-deep k-steps is one chain into a fresh accumulator whose fp32 sums
+    round toward zero, and the groups' results are added in fp32."""
+    (a_big, a_small), (b_big, b_small) = _tf32_split(a), _tf32_split(b)
+    total = torch.zeros(a.shape[0], b.shape[1])
+    for steps in groups:
+        acc = torch.zeros_like(total)
+        for k in steps:
+            ks = slice(8 * k, 8 * k + 8)
+            for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+                acc = _round_toward_zero(acc.double() + x[:, ks].double() @ y[ks].double())
+        total = total + acc
+    return total
+
+
+def test_piece_accumulators_keep_the_wide_score_products_accurate():
+    """The wide backward kernels (past head_dim 256) split each
+    128-column piece's k-steps between two warps, each a fresh chain of
+    at most 8 k-steps (24 mma's) added in fp32 to its partial, and add
+    the two partials: at head_dim 1032 that stays at 6.7e-7 of the
+    largest entry (one chain a k-step: 3.7e-7), where one chain of 387
+    mma's drifts to 8.6e-6."""
+    rng = np.random.RandomState(13)
+    d = 1032
+    dt = d // 8
+    a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((64, d), (d, 64)))
+    exact = a.double() @ b.double()
+    halves = ([], [])
+    for p in range(0, dt, 16):
+        steps = list(range(p, min(p + 16, dt)))
+        cut = (len(steps) + 1) // 2
+        halves[0].append(steps[:cut])
+        halves[1].append(steps[cut:])
+    pieces = _mma_chains(a, b, halves[0]) + _mma_chains(a, b, halves[1])
+    chain = _mma_chains(a, b, [list(range(dt))])
+    rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
+    assert rel(pieces) < 1e-6
+    assert rel(chain) > 5 * rel(pieces)
+
+
+def test_one_output_chain_over_512_keys_stays_far_inside_the_gradient_gate():
+    """The wide kernels' dQ = dS K runs one chain over the keys (no longer
+    split into even and odd 8-key steps), as dK and dV always did: over
+    512 keys (192 mma's) it drifts to 4.7e-6 of the largest entry, twice
+    the even/odd split's and two orders below the gate's rtol of 5e-4."""
+    rng = np.random.RandomState(13)
+    keys = 512
+    ds = torch.from_numpy((0.01 * rng.randn(64, keys)).astype(np.float32))
+    k = torch.from_numpy(rng.randn(keys, 64).astype(np.float32))
+    exact = ds.double() @ k.double()
+    steps = list(range(keys // 8))
+    one = _mma_chains(ds, k, [steps])
+    even_odd = _mma_chains(ds, k, [steps[0::2]]) + _mma_chains(ds, k, [steps[1::2]])
+    rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
+    assert rel(one) < 1e-5
+    assert rel(one) < 3 * rel(even_odd)
