@@ -129,14 +129,16 @@ result line) on any failed phase:
                (264, 320, 512, 1032; #1's bf16 mma.sync body with its Q
                tile resident, and at 2056 with Q streamed beside K; #2 and
                #3 on the backward file's wide kernels for bf16) and the
-               reference's test shapes; times at the flagship shape beside
-               bf16 SDPA with its backend, and of the bf16 wide kernels at
-               [8, 512, 4, 320] (#1 causal too) and [8, 256, 2, 512],
-               bounds at 989 TFLOP/s, resources at head_dim 64, 128 and
-               256, of #1's wide body at 320, 512 and 1032, and the bf16
-               library's HMMA count; the bf16 wide kernels also on a
-               training path (2 layers of 2 heads of 320 under mixed
-               precision, 3 steps of fit());
+               reference's test shapes; times at the flagship shape and
+               at [8, 512, 8, 128] and [8, 512, 4, 256] beside bf16 SDPA
+               with its backend, and of the bf16 wide kernels at [8, 512,
+               4, 320] (#1 causal too) and [8, 256, 2, 512], bounds at 989
+               TFLOP/s, resources at head_dim 64, 128 and 256 (#1 up to
+               256 is the wgmma body, which ptxas must not serialize), of
+               #1's wide body at 320, 512 and 1032, and the bf16 library's
+               HMMA and HGMMA (wgmma) counts, HGMMA required; the bf16
+               wide kernels also on a training path (2 layers of 2
+               heads of 320 under mixed precision, 3 steps of fit());
   6. train   — the flagship Transformer (examples/transformer.py: 12 x
                [MHA(1024, 16 heads) -> dense+ReLU -> dense] -> dense(1),
                batch 8, seq 512, fp32, SGD lr 0.01, MSE) trains through
@@ -323,7 +325,7 @@ KERNEL_SYMBOLS = {
     "flash_fwd_wide": ("flash_fwd_wide_kernel",),
     "flash_dq_wide": ("flash_dq_wide_kernel<float>",),
     "flash_dkv_wide": ("flash_dkv_wide_kernel<float>",),
-    "flash_fwd_bf16": ("flash_fwd_bf16_kernel",),
+    "flash_fwd_bf16": ("flash_fwd_bf16_wgmma_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
     "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_kernel",),
@@ -1837,6 +1839,11 @@ FLASH_TIMED = ((TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"],
                (TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], True))
 FLASH_TIMED_WIDE = ((TRAIN["seq"], TRAIN["hidden"] // 256, 256, False), (TRAIN["seq"], 4, 320, False),
                     (TRAIN["seq"] // 2, 2, 512, False))
+# the bf16 bodies also at the flagship's width in heads of 128 and 256
+# (bf16 #1's wgmma body at its other head_dim buckets), timed with the
+# flagship's before any wide kernel runs
+FLASH_TIMED_BF16 = ((TRAIN["seq"], TRAIN["hidden"] // 128, 128, False),
+                    (TRAIN["seq"], TRAIN["hidden"] // 256, 256, False))
 
 
 def time_flash_kernels(shapes):
@@ -2033,10 +2040,11 @@ def time_flash_bf16_kernels(shapes):
 def check_flash_bf16_kernels(rows):
     """The bf16 #1-#3 against their plain versions by the float64 gate at
     the flagship shape (causal and not), ragged (sq 500, sq != sk), head_dim
-    24, 64, 128, 160 and 256, past 256 (264-2056) and the reference's test
-    shapes, each kernel's worst error into `rows`; resources at head_dim
-    64, 128 and 256 (#1's wide body at 320, 512 and 1032) and the HMMA
-    count of the bf16 library's SASS."""
+    24-256 (#1's wgmma body at its tile edges too), past 256 (264-2056) and
+    the reference's test shapes, each kernel's worst error into `rows`;
+    resources at head_dim 64, 128 and 256 (#1's wide body at 320, 512 and
+    1032), no ptxas advisory that it serialized #1's wgmma's, and the HMMA
+    and HGMMA counts of the bf16 library's SASS (HGMMA required)."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import _build
@@ -2049,6 +2057,10 @@ def check_flash_bf16_kernels(rows):
     cases = [(b, s, s, h, d, False), (b, s, s, h, d, True), (2, 500, 500, 4, 64, True), (2, 500, 380, 4, 64, False),
              (2, 128, 384, 4, 64, True), (2, 200, 77, 3, 24, False), (2, 384, 129, 4, 128, True),
              (1, 96, 160, 2, 160, False), (2, 129, 300, 2, 256, True)]
+    # #1's wgmma body: ragged against its 128-row query and key tiles,
+    # head_dims whose last 64-column TMA box is part zero-filled
+    cases += [(2, 127, 129, 3, 40, True), (2, 255, 257, 3, 136, False), (2, 1, 300, 3, 200, True),
+              (2, 300, 1, 3, 256, False)]
     # past head_dim 256: the wide kernels for bf16 (3 or 4 output chunks
     # and streamed pieces, ragged, sq != sk both ways)
     cases += [(2, 129, 300, 2, 264, True), (2, 129, 300, 2, 264, False), (2, 300, 129, 2, 320, True),
@@ -2070,19 +2082,23 @@ def check_flash_bf16_kernels(rows):
         return "; ".join(info) or "not in the build log"
 
     for dd in (64, 128, 256):
-        kd = 32 << (0 if dd <= 32 else 1 if dd <= 64 else 2 if dd <= 128 else 3)  # the source's bucket
+        kd = 32 << (0 if dd <= 32 else 1 if dd <= 64 else 2 if dd <= 128 else 3)  # the backward's bucket
         for name in FLASH_BF16:
-            print(f"[resources] {name} at head_dim {dd} ({name}_kernel<{kd}>): " + json.dumps(fk.occupancy(name, dd))
-                  + f"; ptxas: {ptxas(f'{name}_kernelILi{kd}E')}")
+            # #1's wgmma body is instantiated at 64, 128, 192 and 256
+            fn = (f"flash_fwd_bf16_wgmma_kernel<{dd}>" if name == "flash_fwd_bf16" else f"{name}_kernel<{kd}>")
+            sym = fn.replace("<", "ILi").replace(">", "E")
+            print(f"[resources] {name} at head_dim {dd} ({fn}): " + json.dumps(fk.occupancy(name, dd))
+                  + f"; ptxas: {ptxas(sym)}")
+    serialized = [line.strip() for line in log if "wgmma.mma_async instructions are serialized" in line]
+    require(not serialized, f"ptxas serialized bf16 #1's wgmma's: {serialized}")
     for dd in (320, 512, 1032):  # one instantiation: shared memory grows with the resident Q tile
         print(f"[resources] flash_fwd_wide_bf16 at head_dim {dd} (flash_fwd_wide_bf16_kernel): "
               + json.dumps(fk.occupancy("flash_fwd_wide_bf16", dd)) + f"; ptxas: {ptxas('flash_fwd_wide_bf16_kernel')}")
     ops = sass_opcodes(fk.BF16_SOURCE)
-    if ops is None:
-        print(f"[resources] {fk.BF16_SOURCE}: cuobjdump not found, SASS not read")
-    else:
-        print(f"[resources] {fk.BF16_SOURCE}: {ops.get('HMMA', 0)} HMMA instructions in its SASS; top opcodes "
-              + json.dumps(ops.most_common(14)))
+    require(ops is not None, f"{fk.BF16_SOURCE}: cuobjdump not found, SASS not read")
+    print(f"[resources] {fk.BF16_SOURCE}: {ops.get('HMMA', 0)} HMMA and {ops.get('HGMMA', 0)} HGMMA (wgmma) "
+          "instructions in its SASS; top opcodes " + json.dumps(ops.most_common(14)))
+    require(ops.get("HGMMA", 0) > 0, f"{fk.BF16_SOURCE}: no HGMMA instruction in its SASS")
     return rows
 
 
@@ -2435,7 +2451,7 @@ def main() -> int:
     # then the wide shapes' timings and the correctness cases
     smi_before = smi_sample()
     flash_rows = time_flash_kernels(FLASH_TIMED)
-    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED))
+    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED + FLASH_TIMED_BF16))
     # the fp32 wide kernels' rows: their first non-causal shape, [8, 512, 4, 320]
     wide_rows = time_flash_kernels(FLASH_TIMED_WIDE)
     flash_rows.update((k, v) for k, v in wide_rows.items() if k in FLASH_WIDE_FP32)

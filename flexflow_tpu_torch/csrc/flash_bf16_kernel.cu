@@ -4,19 +4,22 @@
 // a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/flash_kernel.py. The fp32 bodies are
 // csrc/flash_kernel.cu (#1) and csrc/flash_bwd_kernel.cu (#2, #3; its wide
-// kernels also take #2 and #3 at bf16 past head_dim 256); this file shares
-// their block shape and cp.async staging (csrc/flash_common.cuh).
+// kernels also take #2 and #3 at bf16 past head_dim 256). #1 up to head_dim
+// 256 is built from csrc/hopper.cuh (TMA, mbarriers, wgmma); #2, #3 and #1
+// past 256 share the fp32 bodies' cp.async staging (csrc/flash_common.cuh).
 //
 // What it replaces: the Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/flash_kernel.py at bf16 inputs, which keep f32
 // scratch accumulators and an f32 LSE and cast the second product's
 // operand to the input dtype:
-//   * flash_fwd_bf16_kernel (head_dim up to 256) and
+//   * flash_fwd_bf16_wgmma_kernel (head_dim up to 256) and
 //     flash_fwd_wide_bf16_kernel (past it, any multiple of 8) replace
 //     _fwd_kernel (:129, pallas_call :198):
 //     S = scale Q K^T in f32, the online softmax in f32, P rounded to bf16
-//     (:158) for O += P V in f32; O = acc / max(l, 1e-30) rounded to bf16,
-//     LSE = m + log(max(l, 1e-30)) in f32;
+//     (:158) for O += P V in f32 while l sums the f32 P; O = acc / max(l,
+//     1e-30) rounded to bf16 (the wgmma body multiplies by the f32
+//     reciprocal, within an f32 ulp of the quotient), LSE = m + log(max(l,
+//     1e-30)) in f32;
 //   * flash_dq_bf16_kernel replaces _dq_kernel (:230, pallas_call :384):
 //     P = exp(S - LSE), dP = dO V^T in f32, dS = P (dP - delta) scale
 //     rounded to bf16 (:260), dQ = dS K in f32, rounded to bf16;
@@ -26,18 +29,67 @@
 // Rounding is round-to-nearest-even (cvt.rn), as astype does; masked
 // entries weigh exactly 0; causal is qpos >= kpos from a shared origin.
 //
-// What bounds it: operations. At the flagship shape (b 8, s 512, h 16,
-// d 64) #1 does 8.59 GFLOP against 33.8 MB (254 flops a byte), #2 12.9
-// GFLOP against 42.5 MB and #3 17.2 GFLOP against 50.9 MB; at 989 TFLOP/s of
-// dense bf16 and 3.35 TB/s that is 0.0087-0.0174 ms of products against
-// 0.0101-0.0152 ms of bytes. The design is the simple one first:
+// #1 up to head_dim 256 (flash_fwd_bf16_wgmma_kernel<kD>, kD = 64, 128,
+// 192 or 256, the head_dim rounded up). What bounds it on this card, at
+// the flagship shape (b 8, s 512, h 16, d 64): 33.8 MB in and out, 0.0101
+// ms at 3.35 TB/s; 8.59 GFLOP of products, 0.0087 ms at 989 TFLOP/s of
+// dense bf16; 33.5 M exponentials, about 0.009 ms at the SFU's 16 a clock
+// per SM. The three floors are alike, so the exponentials have to run
+// while the tensor cores do. The body it replaced (mma.sync m16n8k16, 4
+// warps, 64-row tiles) took 7x the bound; what this design does about
+// each of its causes:
+//   * tensor cores at the mma.sync rate, every operand fragment a
+//     shared-memory load by the warp (Q's again for every key tile): both
+//     products are wgmma m64nNk16 issued by a warpgroup of 4 warps. S = Q
+//     K^T reads Q and K from shared memory through descriptors (both
+//     K-major, SS); O += P V takes P from registers, the f32 scores
+//     rounded to bf16 and packed into the A-fragment layout where they
+//     stand (RS), and V from shared memory MN-major (transpose bit), N =
+//     kD. No operand passes through a thread's loads.
+//   * no overlap of the softmax with the products: within a warpgroup,
+//     key tile j's S is issued with tile j - 1's P V before tile j's
+//     softmax (wgmma.wait_group 1 waits for S alone), so the exponentials
+//     run under P V; across the block's two consumer warpgroups, each
+//     issues its products in its turn on a pair of named barriers
+//     (ping-pong), so that one's softmax runs under the other's products
+//     (measured on an H100 at [8, 512, 16, 64]: 7% slower without it).
+//   * each staged K/V byte fed 64 queries, copied by the compute threads
+//     behind a barrier per tile: a producer warpgroup (one thread; its
+//     registers handed to the consumers with setmaxnreg, 24 against 240)
+//     issues TMA loads of the block's Q tile, then K and V tiles of kN
+//     keys into a ring of kStages stages, each with a full and an empty
+//     mbarrier for K and for V; two consumer warpgroups of 64 query rows
+//     share every tile, so each staged byte feeds 128 queries. The tensor
+//     maps are 4-D over [d, s, h, b] with the operands' own strides, in
+//     boxes of 64 columns, 128-byte swizzled (hopper.cuh's layout), and
+//     are encoded per call on the host. Rows past s and columns past d
+//     arrive as zeros, so no k-step and no column needs a test.
+//   * 1024 blocks at 4 an SM, 1.94 waves: the grid is persistent, one
+//     block an SM walking the (b h) x 128-row query tiles, the last query
+//     tiles (the longest when causal) first; the producer loads the next
+//     tile's Q as soon as the consumers' last score product of the
+//     current one is done, so the load runs under their last P V and
+//     epilogue (measured: one block a tile is 15% slower).
+// Tiles crossing the ragged edge or the causal diagonal of a
+// warpgroup's rows test one key limit a row per entry; every other tile
+// runs with no test, and causal key tiles above the diagonal are never
+// loaded. kN is 128 up to head_dim 128 and 64 past it, so that O (kD / 2
+// f32 a thread), S (kN / 2), P (kN / 4) and both in flight fit 240
+// registers with no spill, and Q, two stages of K and V fit 227 KB (at
+// 256: 64 KB + 2 x 64 KB). The epilogue stores O rows in 16-byte pieces
+// after a transpose across each lane quad, and LSE in f32. No atomics, no
+// split over keys: two calls give the same bits. Measured variants (an
+// H100, [8, 512, 16, 64], scripts/flash_fwd_bf16_variants.py): 3 stages,
+// kN 64 and three consumer warpgroups (192-row tiles) were no faster.
+//
+// #2 and #3 up to head_dim 256, on mma.sync:
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one pass per
 //     product: a bf16 x bf16 product is exact in f32, so no split.
 //   * A block of 4 warps owns a 64-row tile of its fixed operand (queries
-//     for #1 and #2, keys for #3), 16 rows a warp, and loops over 64-row
-//     tiles of the other operand, double-buffered with cp.async up to
-//     head_dim 128 (single-buffered past it, where the tiles take 135 KB).
-//     The loop takes the place of the TPU's sequential grid axis.
+//     for #2, keys for #3), 16 rows a warp, and loops over 64-row tiles of
+//     the other operand, double-buffered with cp.async up to head_dim 128
+//     (single-buffered past it, where the tiles take 135 KB). The loop
+//     takes the place of the TPU's sequential grid axis.
 //   * Scores live in m16n8 f32 accumulator fragments. Two adjacent n8
 //     tiles of them, rounded to bf16 and packed in pairs, are the k16 A
 //     fragment of the next product as they stand (lane (g, t) holds
@@ -45,9 +97,9 @@
 //     columns 2t, 2t + 1 and 2t + 8, 2t + 9): no shared-memory round trip.
 //   * Operands whose contraction runs over head_dim (Q, K in S = Q K^T; dO,
 //     V in dP) are read from shared memory as 32-bit pairs of bf16 (with
-//     ldmatrix.x4 in the wide forward). Those
-//     whose contraction runs over the tile's rows (V in P V, K in dS K, dO
-//     and Q in #3) are B operands in transpose and are read with
+//     ldmatrix.x4 in the wide forward). Those whose contraction runs over
+//     the tile's rows (K in dS K, dO and Q in #3, V in the wide forward's
+//     P V) are B operands in transpose and are read with
 //     ldmatrix.x4.trans, two n8 tiles a load.
 //   * #3 computes S^T = K Q^T and dP^T = V dO^T, so an accumulator row is
 //     one of the warp's own keys and P^T, dS^T are A fragments directly.
@@ -57,11 +109,11 @@
 //     head_dim to the next multiple of 16 are zero-filled, so the last
 //     k16 step of a head_dim like 24 or 136 adds nothing.
 //   * head_dim past 128: a grid z index picks a chunk of the output
-//     columns (at most 128 for #1 and #2, 64 for #3, whose two
-//     accumulators would not fit the registers at 128), and the score
-//     products are recomputed once per chunk. #2 and #3 past head_dim 256
-//     are refused here (takes(); the wrapper sends them to
-//     flash_bwd_kernel.cu's wide kernels).
+//     columns (at most 128 for #2, 64 for #3, whose two accumulators
+//     would not fit the registers at 128), and the score products are
+//     recomputed once per chunk. #2 and #3 past head_dim 256 are refused
+//     here (takes(); the wrapper sends them to flash_bwd_kernel.cu's wide
+//     kernels).
 //   * fp32 accumulators chain through a tile's mma's: the tensor cores'
 //     round-toward-zero of an mma's sum (flash_common.cuh, product_nt) is
 //     far below a bf16 output's ulp, but for the backward's dP where
@@ -103,13 +155,16 @@
 //   * scores recomputed per output chunk: kept (grid z chunks of at most
 //     128 output columns, 64 f32 registers of O a thread; ceil(d / 128)
 //     score passes a key tile), the price of keeping O in registers.
-// Causal handling is flash_fwd_bf16_kernel's. Each piece's k16 steps chain
-// into a fresh accumulator added to the scores in f32, so at most 8 mma
-// sums a chain are truncated, whatever head_dim is.
+// Causal: key tiles past the block's last row are never staged, and a
+// warp whose rows see none of a key tile skips its products. Each
+// piece's k16 steps chain into a fresh accumulator added to the scores
+// in f32, so at most 8 mma sums a chain are truncated, whatever head_dim
+// is.
 
 #include <cuda_bf16.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -240,9 +295,9 @@ __device__ __forceinline__ void zero(float acc[kN][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// s[j] += A B_j^T over head_dim for the warp's 16 rows of A and kSN 8-row
-// n-tiles of B, both row-major at stride ld with head_dim contiguous; s2[j]
-// += A2 B2_j^T alongside (the backward's dP), when kTwo. Reads A[g][c],
+// s[j] += A B_j^T and s2[j] += A2 B2_j^T over head_dim (the backward's S
+// and dP) for the warp's 16 rows of A, A2 and kSN 8-row n-tiles of B, B2,
+// all row-major at stride ld with head_dim contiguous. Reads A[g][c],
 // B[8j + g][c] with c = 16 ks + 2t (+8), k-steps below d.
 //
 // kFresh: each k-step's mma goes into a fresh accumulator that is added to
@@ -250,9 +305,10 @@ __device__ __forceinline__ void zero(float acc[kN][4]) {
 // chain of k-steps into one accumulator drifts with its length; where dQ
 // or dK is 0 in exact arithmetic (one visible key) that drift of dP is
 // all that is left of dP - delta, and at head_dim 136-256 it measured
-// 4.7e-6 on an H100 against the plain version's 1.0e-6. A fresh accumulator truncates
-// only one k-step's 16-term partial, and the adds round to nearest.
-template <int kD, bool kTwo, bool kFresh>
+// 4.7e-6 on an H100 against the plain version's 1.0e-6. A fresh
+// accumulator truncates only one k-step's 16-term partial, and the adds
+// round to nearest.
+template <int kD, bool kFresh>
 __device__ __forceinline__ void scores(const bf16* A, const bf16* B, float s[kSN][4],
                                        const bf16* A2, const bf16* B2, float s2[kSN][4], int d) {
   constexpr int ld = ld_of<kD>();
@@ -263,34 +319,23 @@ __device__ __forceinline__ void scores(const bf16* A, const bf16* B, float s[kSN
     if (16 * ks < d) {
       const int c = off + 16 * ks;
       const uint32_t a[4] = {ld32(A + c), ld32(A + c + 8 * ld), ld32(A + c + 8), ld32(A + c + 8 * ld + 8)};
-      uint32_t a2[4];
-      if constexpr (kTwo) {
-        a2[0] = ld32(A2 + c);
-        a2[1] = ld32(A2 + c + 8 * ld);
-        a2[2] = ld32(A2 + c + 8);
-        a2[3] = ld32(A2 + c + 8 * ld + 8);
-      }
+      const uint32_t a2[4] = {ld32(A2 + c), ld32(A2 + c + 8 * ld), ld32(A2 + c + 8), ld32(A2 + c + 8 * ld + 8)};
 #pragma unroll
       for (int j = 0; j < kSN; ++j) {
         const bf16* b = B + 8 * j * ld + c;
+        const bf16* b2 = B2 + 8 * j * ld + c;
         if constexpr (kFresh) {
           float f[4] = {0.f, 0.f, 0.f, 0.f};
           mma(f, a, ld32(b), ld32(b + 8));
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] += f[e];
+          float f2[4] = {0.f, 0.f, 0.f, 0.f};
+          mma(f2, a2, ld32(b2), ld32(b2 + 8));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s2[j][e] += f2[e];
         } else {
           mma(s[j], a, ld32(b), ld32(b + 8));
-        }
-        if constexpr (kTwo) {
-          const bf16* b2 = B2 + 8 * j * ld + c;
-          if constexpr (kFresh) {
-            float f2[4] = {0.f, 0.f, 0.f, 0.f};
-            mma(f2, a2, ld32(b2), ld32(b2 + 8));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s2[j][e] += f2[e];
-          } else {
-            mma(s2[j], a2, ld32(b2), ld32(b2 + 8));
-          }
+          mma(s2[j], a2, ld32(b2), ld32(b2 + 8));
         }
       }
     }
@@ -385,7 +430,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int ib, int ih, int h, int
   }
 }
 
-// -- #1 forward ---------------------------------------------------------------------------
+// -- #1 past head_dim 256: the softmax on mma.sync fragments -------------------------------
 
 // The online softmax over one tile's scores of rows r0, r0 + 8 (keys
 // k0 + 8j + 2t (+1)) in base 2: s becomes P = 2^(s scale log2(e) - m_new),
@@ -429,79 +474,387 @@ __device__ __forceinline__ void softmax_tile(const Params& p, int r0, int k0, fl
     for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
 }
 
-__host__ __device__ constexpr int fwd_min_blocks(int kD) { return kD <= 64 ? 4 : kD <= 128 ? 2 : 1; }
+// -- #1 up to head_dim 256: wgmma over TMA-fed tiles --------------------------------------
 
+// Shape of the forward's block at head_dim bucket kD (64, 128, 192 or
+// 256; the header says why each number).
 template <int kD>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks(kD)) flash_fwd_bf16_kernel(const Params p) {
-  constexpr int kOT = out_tiles<kD, kFwdOT>();
-  constexpr int ld = ld_of<kD>(), vld = 8 * kOT + 8;
-  constexpr int ktile = kRows * ld, vtile = kRows * vld;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // Q [64][ld]
-  bf16* ks = qs + kTile * ld;                  // K [2][kRows][ld]
-  bf16* vs = ks + 2 * ktile;                   // V [2][kRows][vld], this block's columns
-  const int d = p.d, dt = d / 8, dw = width16(d);
-  int c0t, cn;
-  out_chunk<kD, kFwdOT>(dt, c0t, cn);
-  const int c0 = 8 * c0t, vw = 16 * ((cn + 1) / 2);
-  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const bf16* vb = p.v + ib * p.v_sb + ih * p.v_sh + c0;
-  load_tile<kTile>(qs, ld, p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0, p.sq, d, dw);
-  load_tile<kRows>(ks, ld, kb, p.k_ss, 0, p.sk, d, dw);
-  load_tile<kRows>(vs, vld, vb, p.v_ss, 0, p.sk, 8 * cn, vw);
-  cp_async_commit();
+struct Fwd {
+  static constexpr int kWG = 2;                        // consumer warpgroups, 64 query rows each
+  static constexpr int kM = 64 * kWG;                  // query rows of a block
+  static constexpr int kN = kD <= 128 ? 128 : 64;      // key rows of a loop tile
+  static constexpr int kStages = 2;                    // K and V tiles in flight
+  static constexpr int kBoxes = kD / 64;               // 64-column TMA boxes across head_dim
+  static constexpr int kThreads = 128 * (kWG + 1);     // a producer warpgroup and the consumers
+  // registers a thread after setmaxnreg: 128 x 24 + 256 x 240 fit the
+  // 384 x 168 the launch allocates
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static_assert(kWG == 2, "the register split is for two consumer warpgroups");
+  static constexpr uint32_t kQBytes = kM * kD * 2, kKVBytes = kN * kD * 2;
+  static constexpr int kBars = 2 + 4 * kStages;        // full and empty for Q, and for K and V per stage
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
 
-  const int w0 = q0 + 16 * warp, r0 = w0 + g;  // this lane's rows r0, r0 + 8
-  const bf16* qw = qs + 16 * warp * ld;
-  float o[kOT][4];
-  zero<kOT>(o);
-  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
-  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
-  const int n = (k_end + kRows - 1) / kRows;
-  for (int it = 0; it < n; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (it + 1 < n) {
-      const int nb = (it + 1) & 1;
-      load_tile<kRows>(ks + nb * ktile, ld, kb, p.k_ss, (it + 1) * kRows, p.sk, d, dw);
-      load_tile<kRows>(vs + nb * vtile, vld, vb, p.v_ss, (it + 1) * kRows, p.sk, 8 * cn, vw);
-      cp_async_commit();
+// head_dim bucket of the forward up to kStagedD
+__host__ __device__ constexpr int fwd_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256; }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax over one tile's scores s (wgmma accumulator layout)
+// of rows r0, r0 + 8 and keys k0 + 8j + 2t (+1), in base 2 with the scale
+// folded in (c = scale log2(e)): s becomes P = 2^(c s - c m_new), exactly
+// 0 where masked (kMasked); the running max m (unscaled) and the lane's
+// partial row sums l of the f32 P are updated, and corr is what O is to
+// be multiplied by.
+template <bool kMasked, int kN>
+__device__ __forceinline__ void softmax_rows(const Params& p, float c, int r0, int k0, float (&s)[kN / 2],
+                                             float m[2], float l[2], float corr[2]) {
+  const int t = threadIdx.x & 3;
+  // a masked tile's visible keys of row i: 8 j + (e & 1) < lim[i] (keys
+  // below sk and, causal, at or before the row; rows past sq are never
+  // stored, so they need no test)
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lim[i] = (p.causal ? min(p.sk, r0 + 8 * i + 1) : p.sk) - k0 - 2 * t;
+  // four partial maxima and sums a row: short dependency chains
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mx[i][q] = kMask, sum[i][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      if (!kMasked || 8 * j + (e & 1) < lim[i]) mx[i][j & 3] = fmaxf(mx[i][j & 3], s[4 * j + e]);
     }
-    const int k0 = it * kRows;
-    if (p.causal && w0 + 15 < k0) continue;  // the warp's rows see none of these keys
-    float s[kSN][4];
-    zero<kSN>(s);
-    scores<kD, false, false>(qw, ks + (it & 1) * ktile, s, nullptr, nullptr, nullptr, d);
-    const bool all = w0 + 16 <= p.sq && k0 + kRows <= p.sk && (!p.causal || w0 >= k0 + kRows - 1);
-    if (all)
-      softmax_tile<false, kOT>(p, r0, k0, s, m, l, o);
-    else
-      softmax_tile<true, kOT>(p, r0, k0, s, m, l, o);
-    product_pb<kOT>(s, vs + (it & 1) * vtile, vld, o, cn);  // O += bf16(P) V
-  }
-  cp_async_wait_all();  // nothing in flight when the block exits
-
-  float lnz[2];
+  float mc[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    lnz[i] = fmaxf(l[i], 1e-30f);
+    float x = fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[i], x);
+    corr[i] = ex2((m[i] - m_new) * c);
+    m[i] = m_new;
+    mc[i] = m_new * c;
   }
 #pragma unroll
-  for (int j = 0; j < kOT; ++j)
+  for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] /= lnz[e >> 1];
-  store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
-  if (blockIdx.z == 0 && t == 0) {
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const bool ok = !kMasked || 8 * j + (e & 1) < lim[i];
+      s[4 * j + e] = ok ? ex2(fmaf(s[4 * j + e], c, -mc[i])) : 0.f;
+      sum[i][j & 3] += s[4 * j + e];
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + 8 * i;
-      if (r < p.sq) p.lse_out[((int64_t)ib * p.h + ih) * p.sq + r] = (m[i] + log2f(lnz[i])) * kLn2;
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
+}
+
+// Row `row` of O (this lane's accumulators o[4 j + 2 half], o[4 j + 2 half
+// + 1], columns 8 j + 2 t, + 1) times inv, rounded to bf16, stored by the
+// lane's quad in 16-byte pieces: a transpose across the quad (lane t
+// takes, of each 32-column group, columns 8 t .. 8 t + 7) turns 4-byte
+// stores 16 bytes apart into whole 16-byte ones. out: the row's first
+// column; columns at or past d, and rows a lane does not `keep`, are not
+// stored (every lane of the warp takes part in the shuffles).
+template <int kD>
+__device__ __forceinline__ void store_row(bf16* out, const float (&o)[kD / 2], int half, float inv, int d,
+                                          bool keep) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int G = 0; G < kD / 32; ++G) {
+    uint32_t a[4], w[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * G + jj;
+      a[jj] = pack(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    }
+    // w[k] = lane k's a[t]: in round m, lane t sends its a[t ^ m] to lane
+    // t ^ m and takes lane t ^ m's a[t] in return
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = t ^ m;
+      const uint32_t mine = k == 0 ? a[0] : k == 1 ? a[1] : k == 2 ? a[2] : a[3];
+      const uint32_t got = m == 0 ? mine : __shfl_xor_sync(0xffffffffu, mine, m);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q == k) w[q] = got;
+    }
+    if (keep && 32 * G + 8 * t < d)
+      *reinterpret_cast<uint4*>(out + 32 * G + 8 * t) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// S = Q K^T of the warpgroup's 64 query rows (qw) and the kN keys of one
+// K stage (kt), both K-major in boxes of 64 columns (kM and kN rows).
+template <int kD>
+__device__ __forceinline__ void issue_scores(float (&s)[Fwd<kD>::kN / 2], const bf16* qw, const bf16* kt) {
+  using F = Fwd<kD>;
+  hopper::fence_regs(s);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int b = 0; b < F::kBoxes; ++b)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaSS<F::kN, 0, 0>::run(s, hopper::desc_kmajor(qw + b * F::kM * 64 + 16 * kk),
+                                        hopper::desc_kmajor(kt + b * F::kN * 64 + 16 * kk), b + kk > 0);
+  hopper::wgmma_commit();
+  hopper::fence_regs(s);
+}
+
+// O += P V over the kN keys of one V stage (vt, MN-major: head_dim is the
+// product's N), P the bf16 A fragments pa.
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&o)[kD / 2], uint32_t (&pa)[Fwd<kD>::kN / 16][4],
+                                         const bf16* vt) {
+  using F = Fwd<kD>;
+  hopper::fence_regs(o);
+  hopper::fence_regs(pa);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < F::kN / 16; ++kk)
+    hopper::WgmmaRS<kD, 1>::run(o, pa[kk], hopper::desc_mnmajor(vt + 16 * 64 * kk, F::kN * 128), 1);
+  hopper::wgmma_commit();
+  hopper::fence_regs(o);
+}
+
+// s (f32 P in the accumulator layout) as the bf16 A fragments of P V
+template <int kN>
+__device__ __forceinline__ void to_fragments(const float (&s)[kN / 2], uint32_t (&pa)[kN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[kk][e] = pack(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// Query tile t of the forward's (b h) x (query tiles of kM rows), the
+// last query tiles (the longest when causal) first: batch ib, head ih,
+// first row q0, and n, the key tiles of kN rows it reads.
+struct FwdTile {
+  int ib, ih, q0, n;
+};
+
+template <int kD>
+__device__ __forceinline__ FwdTile fwd_tile(const Params& p, int t, int bh, int mt) {
+  using F = Fwd<kD>;
+  FwdTile r;
+  r.ib = (t % bh) / p.h;
+  r.ih = t % p.h;
+  r.q0 = (mt - 1 - t / bh) * F::kM;
+  const int k_end = p.causal ? min(p.sk, r.q0 + F::kM) : p.sk;
+  r.n = (k_end + F::kN - 1) / F::kN;
+  return r;
+}
+
+// #1 at head_dim up to 256 (the header's design). Block b takes query
+// tiles b, b + gridDim.x, ... (fwd_tile) of the bh x mt. Warpgroup 0 is
+// the producer: one thread loads each tile's Q once, then the K and V
+// tiles of kN keys into a ring of kStages stages, each with its full and
+// empty mbarriers; the next query tile's Q as soon as the consumers'
+// last score product of this one is done. Warpgroups 1 .. kWG each own
+// 64 query rows: S = Q K^T and O += P V on wgmma, the softmax in between
+// on the accumulators, the next key tile's S issued before this one's
+// softmax.
+template <int kD>
+__global__ void __launch_bounds__(Fwd<kD>::kThreads, 1)
+    flash_fwd_bf16_wgmma_kernel(const Params p, int bh, int mt, const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+  using F = Fwd<kD>;
+  constexpr int kN = F::kN, kS = F::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [kBoxes][kM][64]
+  bf16* ks = qs + F::kM * kD;                 // [kS][kBoxes][kN][64]
+  bf16* vs = ks + kS * kN * kD;               // [kS][kBoxes][kN][64]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + kS * kN * kD);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + kS;
+  uint64_t* empty_k = full_v + kS;
+  uint64_t* empty_v = empty_k + kS;
+  const int tiles = bh * mt;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(empty_q, F::kWG);
+    for (int i = 0; i < kS; ++i) {
+      hopper::mbar_init(&full_k[i], 1);
+      hopper::mbar_init(&full_v[i], 1);
+      hopper::mbar_init(&empty_k[i], F::kWG);
+      hopper::mbar_init(&empty_v[i], F::kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform by the shuffle: the descriptors and tile
+  // addresses derived from it then live in uniform registers
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {  // the producer warpgroup; one thread issues every load
+    hopper::regs_dec<F::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      int kt = 0, qi = 0;  // key tiles and query tiles loaded so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+        const FwdTile ft = fwd_tile<kD>(p, t, bh, mt);
+        if (qi > 0) hopper::mbar_wait(empty_q, (qi - 1) & 1);
+        hopper::mbar_expect_tx(full_q, F::kQBytes);
+#pragma unroll
+        for (int b = 0; b < F::kBoxes; ++b)
+          hopper::tma_load_4d(qs + b * F::kM * 64, &tq, full_q, 64 * b, ft.q0, ft.ih, ft.ib);
+#pragma unroll 1
+        for (int j = 0; j < ft.n; ++j, ++kt) {
+          const int st = kt % kS;
+          const uint32_t ph = (kt / kS) & 1;
+          hopper::mbar_wait(&empty_k[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_k[st], F::kKVBytes);
+#pragma unroll
+          for (int b = 0; b < F::kBoxes; ++b)
+            hopper::tma_load_4d(ks + (st * F::kBoxes + b) * kN * 64, &tk, &full_k[st], 64 * b, j * kN, ft.ih, ft.ib);
+          hopper::mbar_wait(&empty_v[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_v[st], F::kKVBytes);
+#pragma unroll
+          for (int b = 0; b < F::kBoxes; ++b)
+            hopper::tma_load_4d(vs + (st * F::kBoxes + b) * kN * 64, &tv, &full_v[st], 64 * b, j * kN, ft.ih, ft.ib);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup
+    hopper::regs_inc<F::kConsumerRegs>();
+    const int wg = wgi - 1, tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    const bf16* qw = qs + 64 * 64 * wg;
+    const float c = p.scale * kLog2e;
+    // ping-pong: a warpgroup issues its products in its turn (named
+    // barrier 1 + wg, 256 threads: its own sync and the previous
+    // warpgroup's arrive), then passes the turn on, so that one
+    // warpgroup's softmax runs under the next one's products
+    const auto turn_wait = [&] { hopper::bar_sync(1 + wg, 256); };
+    const auto turn_pass = [&] { hopper::bar_arrive(1 + (wg + 1) % F::kWG, 256); };
+    if (wg == 0) hopper::bar_arrive(1, 256);  // the first turn is warpgroup 0's
+
+    int kt = 0, qi = 0;  // key tiles and query tiles consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+      const FwdTile ft = fwd_tile<kD>(p, t, bh, mt);
+      const int n = ft.n;
+      const int w0 = ft.q0 + 64 * wg, r0 = w0 + 16 * (tid >> 5) + g;  // this lane's rows r0, r0 + 8
+      // tiles crossing the ragged edge or (causal) the diagonal of this
+      // warpgroup's rows are masked; every other tile runs with no test
+      const auto masked = [&](int k0) { return k0 + kN > p.sk || (p.causal && k0 + kN - 1 > w0); };
+      float o[kD / 2];
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+      float s[kN / 2];
+      uint32_t pa[kN / 16][4];
+      float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, corr[2];
+
+      hopper::mbar_wait(full_q, qi & 1);
+      hopper::mbar_wait(&full_k[kt % kS], (kt / kS) & 1);
+      turn_wait();
+      issue_scores<kD>(s, qw, ks + (kt % kS) * kN * kD);
+      turn_pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if (tid == 0) {
+        hopper::mbar_arrive(&empty_k[kt % kS]);
+        if (n == 1) hopper::mbar_arrive(empty_q);  // the last score product of this Q is done
+      }
+      if (masked(0))
+        softmax_rows<true, kN>(p, c, r0, 0, s, m, l, corr);
+      else
+        softmax_rows<false, kN>(p, c, r0, 0, s, m, l, corr);
+      to_fragments<kN>(s, pa);
+#pragma unroll 1
+      for (int j = 1; j < n; ++j) {
+        const int st = (kt + j) % kS, pst = (kt + j - 1) % kS;
+        hopper::mbar_wait(&full_k[st], ((kt + j) / kS) & 1);
+        turn_wait();
+        issue_scores<kD>(s, qw, ks + st * kN * kD);  // S of key tile j ...
+        hopper::mbar_wait(&full_v[pst], ((kt + j - 1) / kS) & 1);
+        issue_pv<kD>(o, pa, vs + pst * kN * kD);  // ... under O += P V of key tile j - 1
+        turn_pass();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        if (tid == 0) {
+          hopper::mbar_arrive(&empty_k[st]);
+          if (j == n - 1) hopper::mbar_arrive(empty_q);
+        }
+        const int k0 = j * kN;
+        if (masked(k0))
+          softmax_rows<true, kN>(p, c, r0, k0, s, m, l, corr);
+        else
+          softmax_rows<false, kN>(p, c, r0, k0, s, m, l, corr);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        if (tid == 0) hopper::mbar_arrive(&empty_v[pst]);
+#pragma unroll
+        for (int i = 0; i < kD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        to_fragments<kN>(s, pa);  // bf16(P) for O += P V; l summed the f32 P
+      }
+      const int lst = (kt + n - 1) % kS;
+      hopper::mbar_wait(&full_v[lst], ((kt + n - 1) / kS) & 1);
+      turn_wait();
+      issue_pv<kD>(o, pa, vs + lst * kN * kD);
+      turn_pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (tid == 0) hopper::mbar_arrive(&empty_v[lst]);
+      kt += n;
+
+      float lnz[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        lnz[i] = fmaxf(l[i], 1e-30f);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        store_row<kD>(p.out0 + (((int64_t)ft.ib * p.sq + row) * p.h + ft.ih) * p.d, o, half, 1.f / lnz[half], p.d,
+                      row < p.sq);
+        if (t4 == 0 && row < p.sq)
+          p.lse_out[((int64_t)ft.ib * p.h + ft.ih) * p.sq + row] = (m[half] * c + log2f(lnz[half])) * kLn2;
+      }
     }
   }
+}
+
+// SMs of the current device: the persistent grid's size
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 1;
+  }
+  return count;
+}
+
+template <int kD>
+int launch_fwd(const Params& p, int b, cudaStream_t stream) {
+  using F = Fwd<kD>;
+  CUtensorMap maps[3];
+  const bf16* ptr[3] = {p.q, p.k, p.v};
+  const int64_t st[3][3] = {{p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh}, {p.v_sb, p.v_ss, p.v_sh}};
+  for (int i = 0; i < 3; ++i) {
+    const int e = hopper::encode_bshd(&maps[i], ptr[i], b, i == 0 ? p.sq : p.sk, p.h, p.d, st[i][0], st[i][1],
+                                      st[i][2], i == 0 ? F::kM : F::kN);
+    if (e) return e;
+  }
+  const int bh = b * p.h, mt = (p.sq + F::kM - 1) / F::kM;
+  const int grid = min(bh * mt, sm_count());  // persistent: one block an SM
+  flash_fwd_bf16_wgmma_kernel<kD><<<grid, F::kThreads, F::kSmem, stream>>>(p, bh, mt, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
 }
 
 // -- #1 past head_dim 256 ------------------------------------------------------------------
@@ -738,7 +1091,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_bf16_kernel(const Params
       float s[kSN][4], dp[kSN][4];
       zero<kSN>(s);
       zero<kSN>(dp);
-      scores<kD, true, fresh<kD>()>(qw, kt, s, gw, vt, dp, d);  // S = Q K^T, dP = dO V^T
+      scores<kD, fresh<kD>()>(qw, kt, s, gw, vt, dp, d);  // S = Q K^T, dP = dO V^T
       const bool all = w0 + 16 <= p.sq && k0 + kRows <= p.sk && (!p.causal || w0 >= k0 + kRows - 1);
       if (all)
         ds_rows<false>(p, r0, k0, lse, dl, s, dp);
@@ -843,7 +1196,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_bf16_kernel(const Param
     float s[kSN][4], dp[kSN][4];
     zero<kSN>(s);
     zero<kSN>(dp);
-    scores<kD, true, fresh<kD>()>(kw, qt, s, vw, gt, dp, d);  // S^T = K Q^T, dP^T = V dO^T
+    scores<kD, fresh<kD>()>(kw, qt, s, vw, gt, dp, d);  // S^T = K Q^T, dP^T = V dO^T
     const bool all = q0 + kRows <= p.sq && w0 + 16 <= p.sk && (!p.causal || q0 >= w0 + 15);
     if (all)
       ds_cols<false>(p, r0, q0, ls + cb * kRows, dls + cb * kRows, s, dp);
@@ -867,6 +1220,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_bf16_kernel(const Param
 
 // -- launch ----------------------------------------------------------------------------------
 
+// the forward's body up to kStagedD (one per bucket fwd_dim) and its shared bytes
+void* fwd_kernel_of(int d) {
+  switch (fwd_dim(d)) {
+    case 64: return (void*)flash_fwd_bf16_wgmma_kernel<64>;
+    case 128: return (void*)flash_fwd_bf16_wgmma_kernel<128>;
+    case 192: return (void*)flash_fwd_bf16_wgmma_kernel<192>;
+    default: return (void*)flash_fwd_bf16_wgmma_kernel<256>;
+  }
+}
+
+size_t fwd_smem(int d) {
+  switch (fwd_dim(d)) {
+    case 64: return Fwd<64>::kSmem;
+    case 128: return Fwd<128>::kSmem;
+    case 192: return Fwd<192>::kSmem;
+    default: return Fwd<256>::kSmem;
+  }
+}
+
 // bytes of dynamic shared memory of kernel `kind` at head_dim d; past
 // kStagedD the ring, and the resident Q tile up to kWideResidentD
 size_t smem_bytes(int kind, int d) {
@@ -876,33 +1248,34 @@ size_t smem_bytes(int kind, int d) {
                                  : kWideStages * (kRows + kWideQ) * kWideLd) *
            sizeof(bf16);
   }
+  if (kind == kFwd) return fwd_smem(d);
   const int kd = 32 << bucket(d);
   const size_t ld = kd + 8, st = kd <= 128 ? 2 : 1;
-  if (kind == kFwd) {
-    const int kot = kd / 8 < kFwdOT ? kd / 8 : kFwdOT;
-    return ((kTile + 2 * kRows) * ld + 2 * kRows * (8 * kot + 8)) * sizeof(bf16);
-  }
   if (kind == kDq) return (2 * kTile + 2 * st * kRows) * ld * sizeof(bf16);
   return (2 * kTile + 2 * st * kRows) * ld * sizeof(bf16) + 2 * st * kRows * sizeof(float);
 }
 
 void* kernel_of(int kind, int d) {
-  static void* const table[3][5] = {
-      {(void*)flash_fwd_bf16_kernel<32>, (void*)flash_fwd_bf16_kernel<64>,
-       (void*)flash_fwd_bf16_kernel<128>, (void*)flash_fwd_bf16_kernel<256>,
-       (void*)flash_fwd_wide_bf16_kernel},
+  if (kind == kFwd) return bucket(d) == 4 ? (void*)flash_fwd_wide_bf16_kernel : fwd_kernel_of(d);
+  static void* const table[2][4] = {
       {(void*)flash_dq_bf16_kernel<32>, (void*)flash_dq_bf16_kernel<64>,
-       (void*)flash_dq_bf16_kernel<128>, (void*)flash_dq_bf16_kernel<256>, nullptr},
+       (void*)flash_dq_bf16_kernel<128>, (void*)flash_dq_bf16_kernel<256>},
       {(void*)flash_dkv_bf16_kernel<32>, (void*)flash_dkv_bf16_kernel<64>,
-       (void*)flash_dkv_bf16_kernel<128>, (void*)flash_dkv_bf16_kernel<256>, nullptr}};
-  return table[kind][bucket(d)];
+       (void*)flash_dkv_bf16_kernel<128>, (void*)flash_dkv_bf16_kernel<256>}};
+  return table[kind - 1][bucket(d)];
+}
+
+// the bucket a kernel is instantiated for: the forward's fwd_dim up to
+// kStagedD, the backward's bucket(); 4 past kStagedD
+int bucket_of(int kind, int d) {
+  return bucket(d) == 4 || kind != kFwd ? bucket(d) : fwd_dim(d) / 64 - 1;
 }
 
 // Sets each kernel's shared-memory cap once: its size, or past kStagedD
 // the largest of any head_dim (the resident Q tile at kWideResidentD).
 int configure(int kind, int d) {
   static bool configured[3][5] = {};
-  const int bi = bucket(d);
+  const int bi = bucket_of(kind, d);
   if (configured[kind][bi]) return 0;
   void* fn = kernel_of(kind, d);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -915,13 +1288,25 @@ int configure(int kind, int d) {
   return 0;
 }
 
-// threads of a block of kernel `kind` at head_dim d (16 query or key rows a warp)
-int threads_of(int kind, int d) { return bucket(d) == 4 ? kWideThreads : kThreads; }
+// threads of a block of kernel `kind` at head_dim d: the forward's
+// warpgroups up to kStagedD, else 16 query or key rows a warp
+int threads_of(int kind, int d) {
+  if (bucket(d) == 4) return kWideThreads;
+  return kind == kFwd ? Fwd<64>::kThreads : kThreads;
+}
 
 int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(kind, p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
+  if (kind == kFwd && bucket(p.d) != 4) {
+    switch (fwd_dim(p.d)) {
+      case 64: return launch_fwd<64>(p, b, stream);
+      case 128: return launch_fwd<128>(p, b, stream);
+      case 192: return launch_fwd<192>(p, b, stream);
+      default: return launch_fwd<256>(p, b, stream);
+    }
+  }
   const int threads = threads_of(kind, p.d), tile = 16 * (threads / 32);
   dim3 grid((rows + tile - 1) / tile, b * p.h, chunks(p.d, kind == kDkv ? kDkvOT : kFwdOT));
   void* args[] = {(void*)&p};

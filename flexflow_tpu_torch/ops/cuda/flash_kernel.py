@@ -9,11 +9,13 @@ flexflow_tpu_torch/csrc/flash_kernel.cu and the backward in
 csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
 tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
 operands (mixed precision) run in csrc/flash_bf16_kernel.cu, one bf16
-mma pass per product with f32 accumulation, the reference's bodies at
-bf16 inputs: all three up to head_dim 256, and #1 past it (a resident
-Q tile, K and V streamed over head_dim through a ring of cp.async
-slots). #2 and #3 run csrc/flash_bwd_kernel.cu's wide kernels past
-head_dim 128 in fp32 and past 256 in bf16: they compute the scores once
+pass per product with f32 accumulation, the reference's bodies at bf16
+inputs: #1 up to head_dim 256 on wgmma over tiles that TMA loads
+(csrc/hopper.cuh; the wrapper's call encodes the tensor maps), #2 and
+#3 up to 256 on mma.sync, and #1 past it (a resident Q tile, K and V
+streamed over head_dim through a ring of cp.async slots). #2 and #3 run
+csrc/flash_bwd_kernel.cu's wide kernels past head_dim 128 in fp32 and
+past 256 in bf16: they compute the scores once
 per tile pair over a resident fixed tile and stream the loop operand
 through a ring of cp.async slots; bf16 runs them instantiated for bf16
 (rows widened to fp32 as they are staged, one exact TF32 pass per
@@ -41,9 +43,11 @@ same custom backward as the card; a CUDA tensor launches the kernel or
 raises. `LAUNCHES` counts kernel launches per kernel.
 
 Operand layout: the kernels read [b, s, h, d] through its strides with
-16-byte loads. An operand whose head_dim is not contiguous, whose other
+16-byte loads (and bf16 #1 with TMA, whose tensor maps take the same
+strides). An operand whose head_dim is not contiguous, whose other
 strides are not multiples of 16 bytes (4 float32 or 8 bfloat16
-elements) or whose data is not 16-byte aligned is copied with
+elements), that repeats itself along a dimension (stride 0 over more
+than one element) or whose data is not 16-byte aligned is copied with
 `.contiguous()` first; autograd's dO can be such a tensor (an expanded
 gradient has stride 0). Outputs are contiguous.
 """
@@ -270,12 +274,12 @@ def flash_dkv_ref(q, k, v, do, lse, delta, causal=False, sm_scale=None):
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself when the kernels can read it with 16-byte loads through
-    its strides, else a contiguous copy."""
+    """`t` itself when the kernels can read it with 16-byte loads (or a
+    TMA tensor map) through its strides, else a contiguous copy."""
     per16 = 16 // t.element_size()
     if (
         t.stride(-1) == 1
-        and all(s % per16 == 0 for s in t.stride()[:-1])
+        and all(s % per16 == 0 and (s > 0 or n == 1) for s, n in zip(t.stride()[:-1], t.shape[:-1]))
         and t.data_ptr() % 16 == 0
     ):
         return t

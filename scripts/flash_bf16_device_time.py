@@ -10,7 +10,9 @@ then (its device_ms then reports None). Here each call is read by the
 profiler (chip_smoke.device_ms: the kernels of 20 calls, each after an L2
 flush, less the flush's own) `--repeats` times, beside the event timer's
 median (chip_smoke.time_ms, which counts a wrapper's host time where it
-outlasts the flush). Run from the root of a checkout on a CUDA machine:
+outlasts the flush) and the host time of one call while the card is held
+busy (chip_smoke.host_ms: the wrapper's checks, allocations, tensor-map
+encoding and launch). Run from the root of a checkout on a CUDA machine:
 
     python3 scripts/flash_bf16_device_time.py [--shape B S H D ...]
         [--causal both|no|yes] [--dtype bfloat16|float32]
@@ -81,6 +83,7 @@ def main() -> int:
             print(json.dumps({
                 "call": name, "causal": causal, "shape": [b, s, h, d], "ms": ms,
                 "device_ms": [r[0] for r in reads], "top_kernel": reads[-1][1],
+                "host_ms": cs.host_ms(fn, iters=200),
             }), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

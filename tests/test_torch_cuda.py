@@ -936,6 +936,33 @@ def test_bf16_flash_kernels_match_plain_versions_at_mma_edges(sq, sk, causal, d)
     _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal))
 
 
+# bf16 #1's wgmma body: lengths around its 128-row query tile and its key
+# tile (128 rows up to head_dim 128, 64 past it), one query or one key;
+# head_dims whose last 64-column TMA box is part zero-filled, in each of
+# its instantiations (64, 192, 256)
+BF16_FWD_TILE_LENGTHS = [(127, 129), (129, 127), (128, 256), (255, 257), (1, 300), (300, 1)]
+
+
+@pytest.mark.parametrize("d", [24, 40, 136, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", BF16_FWD_TILE_LENGTHS)
+def test_bf16_forward_matches_plain_version_at_tile_edges(sq, sk, causal, d):
+    """bf16 #1 at its tiles' ragged edges, by the float64 gate; one launch
+    counted under flash_fwd_bf16."""
+    dev = _card()
+    rng = np.random.default_rng(sq * 1000 + sk + d + 17)
+    _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal), bwd=False)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_forward_fits_the_card(d):
+    """bf16 #1's wgmma body: no spilled registers (its consumers hold O, S
+    and P in the 240 registers setmaxnreg gives them), one block an SM."""
+    _card()
+    occ = fk.occupancy("flash_fwd_bf16", d)
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
     "shape",
@@ -964,12 +991,12 @@ def test_bf16_wide_forward_fits_the_card(d):
     assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
-@pytest.mark.parametrize("d", [64, 320, 2056])
+@pytest.mark.parametrize("d", [64, 128, 256, 320, 2056])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_flash_kernels_are_bit_identical_across_calls(causal, d):
     """No atomics in the bf16 bodies either: two calls give the same bits
-    (past head_dim 256 on the wide bodies, #1's Q tile resident at 320
-    and streamed at 2056)."""
+    (#1's wgmma body at 64, 128 and 256; past head_dim 256 on the wide
+    bodies, #1's Q tile resident at 320 and streamed at 2056)."""
     dev = _card()
     args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, d, causal)
     q, k, v = args[:3]
@@ -997,6 +1024,22 @@ def test_bf16_flash_kernels_read_misaligned_views(d):
     with pytest.raises(ValueError, match="head_dim 60"):
         fk.flash_fwd(q[..., :60], k[..., :60], v[..., :60])
     assert fk.LAUNCHES == _flash_launches(**{"flash_fwd_wide_bf16" if d > 256 else "flash_fwd_bf16": 2})
+
+
+def test_bf16_forward_reads_broadcast_views():
+    """K and V broadcast over the batch (stride 0 over two batches) give
+    bf16 #1 the result of their contiguous copies: the wrapper copies
+    a view that repeats itself along a dimension before a tensor map is
+    made of it."""
+    dev = _card()
+    rng = np.random.default_rng(37)
+    q = _rand(rng, dev, 2, 130, 2, 64).bfloat16()
+    k, v = (_rand(rng, dev, 1, 150, 2, 64).bfloat16().expand(2, 150, 2, 64) for _ in range(2))
+    assert k.stride(0) == 0
+    fk.reset_launches()
+    for a, b in zip(fk.flash_fwd(q, k, v, True), fk.flash_fwd(q, k.contiguous(), v.contiguous(), True)):
+        assert torch.equal(a, b)
+    assert fk.LAUNCHES == _flash_launches(flash_fwd_bf16=2)
 
 
 def test_mixed_precision_transformer_trains_through_the_bf16_kernels():

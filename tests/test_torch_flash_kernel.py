@@ -178,6 +178,26 @@ def test_bf16_forward_and_lse_match_jax(sq, sk, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("d", [24, 136, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_matches_jax_at_any_head_dim(d, causal):
+    """The bf16 forward at head_dims the card's wgmma body pads (24 and 136
+    to 64-column boxes) or fills (256), at two key blocks: O in bf16 and
+    LSE in f32 against the Pallas kernel at bf16, by the bf16 tolerances
+    above; the plain version here is what the card's gate holds the
+    kernel against."""
+    rng = np.random.RandomState(d + 7 * int(causal))
+    q = rng.randn(1, 128, H, d).astype(np.float32)
+    k, v = (rng.randn(1, 256, H, d).astype(np.float32) for _ in range(2))
+    jo, jlse = _jax_flash(*_bf16(q, k, v), causal, return_lse=True)
+    fk.reset_launches()
+    o, lse = fk.flash_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=causal, return_lse=True)
+    assert fk.LAUNCHES == dict.fromkeys(fk.LAUNCHES, 0)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32 and o.shape == (1, 128, H, d)
+    np.testing.assert_allclose(_f32(o), _f32(jo), atol=BF16_FWD_ATOL, rtol=BF16_FWD_RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=0)
+
+
 @pytest.mark.parametrize(
     "sq,sk,causal", [(128, 128, False), (256, 256, True), (128, 384, True), (256, 128, False)]
 )
