@@ -133,8 +133,9 @@ result line) on any failed phase:
                at [8, 512, 8, 128] and [8, 512, 4, 256] beside bf16 SDPA
                with its backend, and of the bf16 wide kernels at [8, 512,
                4, 320] (#1 causal too) and [8, 256, 2, 512], bounds at 989
-               TFLOP/s, resources at head_dim 64, 128 and 256 (#1 up to
-               256 is the wgmma body, which ptxas must not serialize), of
+               TFLOP/s, resources at head_dim 64, 128 and 256 (#1-#3 up
+               to 256 are the wgmma bodies, which ptxas must not
+               serialize; #2 and #3 also where one key is visible), of
                #1's wide body at 320, 512 and 1032, and the bf16 library's
                HMMA and HGMMA (wgmma) counts, HGMMA required; the bf16
                wide kernels also on a training path (2 layers of 2
@@ -326,8 +327,8 @@ KERNEL_SYMBOLS = {
     "flash_dq_wide": ("flash_dq_wide_kernel<float>",),
     "flash_dkv_wide": ("flash_dkv_wide_kernel<float>",),
     "flash_fwd_bf16": ("flash_fwd_bf16_wgmma_kernel",),
-    "flash_dq_bf16": ("flash_dq_bf16_kernel",),
-    "flash_dkv_bf16": ("flash_dkv_bf16_kernel",),
+    "flash_dq_bf16": ("flash_dq_bf16_wgmma_kernel",),
+    "flash_dkv_bf16": ("flash_dkv_bf16_wgmma_kernel",),
     "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_kernel",),
     "flash_dq_wide_bf16": ("flash_dq_wide_kernel<__nv_bfloat16>",),
     "flash_dkv_wide_bf16": ("flash_dkv_wide_kernel<__nv_bfloat16>",),
@@ -2040,11 +2041,12 @@ def time_flash_bf16_kernels(shapes):
 def check_flash_bf16_kernels(rows):
     """The bf16 #1-#3 against their plain versions by the float64 gate at
     the flagship shape (causal and not), ragged (sq 500, sq != sk), head_dim
-    24-256 (#1's wgmma body at its tile edges too), past 256 (264-2056) and
-    the reference's test shapes, each kernel's worst error into `rows`;
-    resources at head_dim 64, 128 and 256 (#1's wide body at 320, 512 and
-    1032), no ptxas advisory that it serialized #1's wgmma's, and the HMMA
-    and HGMMA counts of the bf16 library's SASS (HGMMA required)."""
+    24-256 (the wgmma bodies of #1-#3 at their tile edges too, one visible
+    key included), past 256 (264-2056) and the reference's test shapes,
+    each kernel's worst error into `rows`; resources at head_dim 64, 128
+    and 256 (#1's wide body at 320, 512 and 1032), no ptxas advisory that
+    it serialized the wgmma's of any body, and the HMMA and HGMMA counts of
+    the bf16 library's SASS (HGMMA required)."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import _build
@@ -2061,6 +2063,12 @@ def check_flash_bf16_kernels(rows):
     # head_dims whose last 64-column TMA box is part zero-filled
     cases += [(2, 127, 129, 3, 40, True), (2, 255, 257, 3, 136, False), (2, 1, 300, 3, 200, True),
               (2, 300, 1, 3, 256, False)]
+    # #2 and #3's wgmma bodies: ragged against their 128-row fixed tiles
+    # and 64- or 128-row loop tiles, sq != sk both ways; one visible key
+    # (dQ and dK 0 in exact arithmetic) at each head_dim bucket
+    cases += [(2, 129, 127, 3, 24, True), (2, 257, 255, 2, 200, True), (2, 130, 300, 2, 128, False),
+              (2, 300, 130, 2, 64, True)]
+    cases += [(2, 300, 1, 3, dd, c) for dd in (64, 128, 192) for c in (False, True)]
     # past head_dim 256: the wide kernels for bf16 (3 or 4 output chunks
     # and streamed pieces, ragged, sq != sk both ways)
     cases += [(2, 129, 300, 2, 264, True), (2, 129, 300, 2, 264, False), (2, 300, 129, 2, 320, True),
@@ -2082,15 +2090,14 @@ def check_flash_bf16_kernels(rows):
         return "; ".join(info) or "not in the build log"
 
     for dd in (64, 128, 256):
-        kd = 32 << (0 if dd <= 32 else 1 if dd <= 64 else 2 if dd <= 128 else 3)  # the backward's bucket
         for name in FLASH_BF16:
-            # #1's wgmma body is instantiated at 64, 128, 192 and 256
-            fn = (f"flash_fwd_bf16_wgmma_kernel<{dd}>" if name == "flash_fwd_bf16" else f"{name}_kernel<{kd}>")
+            # the wgmma bodies are instantiated at 64, 128, 192 and 256
+            fn = f"{name}_wgmma_kernel<{dd}>"
             sym = fn.replace("<", "ILi").replace(">", "E")
             print(f"[resources] {name} at head_dim {dd} ({fn}): " + json.dumps(fk.occupancy(name, dd))
                   + f"; ptxas: {ptxas(sym)}")
     serialized = [line.strip() for line in log if "wgmma.mma_async instructions are serialized" in line]
-    require(not serialized, f"ptxas serialized bf16 #1's wgmma's: {serialized}")
+    require(not serialized, f"ptxas serialized the bf16 bodies' wgmma's: {serialized}")
     for dd in (320, 512, 1032):  # one instantiation: shared memory grows with the resident Q tile
         print(f"[resources] flash_fwd_wide_bf16 at head_dim {dd} (flash_fwd_wide_bf16_kernel): "
               + json.dumps(fk.occupancy("flash_fwd_wide_bf16", dd)) + f"; ptxas: {ptxas('flash_fwd_wide_bf16_kernel')}")

@@ -4,9 +4,10 @@
 // a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/flash_kernel.py. The fp32 bodies are
 // csrc/flash_kernel.cu (#1) and csrc/flash_bwd_kernel.cu (#2, #3; its wide
-// kernels also take #2 and #3 at bf16 past head_dim 256). #1 up to head_dim
-// 256 is built from csrc/hopper.cuh (TMA, mbarriers, wgmma); #2, #3 and #1
-// past 256 share the fp32 bodies' cp.async staging (csrc/flash_common.cuh).
+// kernels also take #2 and #3 at bf16 past head_dim 256). #1, #2 and #3 up
+// to head_dim 256 are built from csrc/hopper.cuh (TMA, mbarriers, wgmma);
+// #1 past 256 shares the fp32 bodies' cp.async staging
+// (csrc/flash_common.cuh).
 //
 // What it replaces: the Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/flash_kernel.py at bf16 inputs, which keep f32
@@ -20,10 +21,10 @@
 //     1e-30) rounded to bf16 (the wgmma body multiplies by the f32
 //     reciprocal, within an f32 ulp of the quotient), LSE = m + log(max(l,
 //     1e-30)) in f32;
-//   * flash_dq_bf16_kernel replaces _dq_kernel (:230, pallas_call :384):
-//     P = exp(S - LSE), dP = dO V^T in f32, dS = P (dP - delta) scale
-//     rounded to bf16 (:260), dQ = dS K in f32, rounded to bf16;
-//   * flash_dkv_bf16_kernel replaces _dkv_kernel (:269, pallas_call :419):
+//   * flash_dq_bf16_wgmma_kernel replaces _dq_kernel (:230, pallas_call
+//     :384): P = exp(S - LSE), dP = dO V^T in f32, dS = P (dP - delta)
+//     scale rounded to bf16 (:260), dQ = dS K in f32, rounded to bf16;
+//   * flash_dkv_bf16_wgmma_kernel replaces _dkv_kernel (:269, pallas_call :419):
 //     dV = bf16(P)^T dO (:297) and dK = bf16(dS)^T Q (:306) in f32, each
 //     rounded to bf16.
 // Rounding is round-to-nearest-even (cvt.rn), as astype does; masked
@@ -82,43 +83,66 @@
 // H100, [8, 512, 16, 64], scripts/flash_fwd_bf16_variants.py): 3 stages,
 // kN 64 and three consumer warpgroups (192-row tiles) were no faster.
 //
-// #2 and #3 up to head_dim 256, on mma.sync:
-//   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one pass per
-//     product: a bf16 x bf16 product is exact in f32, so no split.
-//   * A block of 4 warps owns a 64-row tile of its fixed operand (queries
-//     for #2, keys for #3), 16 rows a warp, and loops over 64-row tiles of
-//     the other operand, double-buffered with cp.async up to head_dim 128
-//     (single-buffered past it, where the tiles take 135 KB). The loop
-//     takes the place of the TPU's sequential grid axis.
-//   * Scores live in m16n8 f32 accumulator fragments. Two adjacent n8
-//     tiles of them, rounded to bf16 and packed in pairs, are the k16 A
-//     fragment of the next product as they stand (lane (g, t) holds
-//     columns 2t, 2t + 1 of both tiles, which are the A fragment's k
-//     columns 2t, 2t + 1 and 2t + 8, 2t + 9): no shared-memory round trip.
-//   * Operands whose contraction runs over head_dim (Q, K in S = Q K^T; dO,
-//     V in dP) are read from shared memory as 32-bit pairs of bf16 (with
-//     ldmatrix.x4 in the wide forward). Those whose contraction runs over
-//     the tile's rows (K in dS K, dO and Q in #3, V in the wide forward's
-//     P V) are B operands in transpose and are read with
-//     ldmatrix.x4.trans, two n8 tiles a load.
-//   * #3 computes S^T = K Q^T and dP^T = V dO^T, so an accumulator row is
-//     one of the warp's own keys and P^T, dS^T are A fragments directly.
-//   * Tiles are staged row-major at a stride of kD + 8 bf16 (kD the
-//     head_dim bucket 32, 64, 128 or 256): the 32-bit fragment reads and
-//     ldmatrix's 16-byte rows are then free of bank conflicts. Columns from
-//     head_dim to the next multiple of 16 are zero-filled, so the last
-//     k16 step of a head_dim like 24 or 136 adds nothing.
-//   * head_dim past 128: a grid z index picks a chunk of the output
-//     columns (at most 128 for #2, 64 for #3, whose two accumulators
-//     would not fit the registers at 128), and the score products are
-//     recomputed once per chunk. #2 and #3 past head_dim 256 are refused
-//     here (takes(); the wrapper sends them to flash_bwd_kernel.cu's wide
-//     kernels).
-//   * fp32 accumulators chain through a tile's mma's: the tensor cores'
-//     round-toward-zero of an mma's sum (flash_common.cuh, product_nt) is
-//     far below a bf16 output's ulp, but for the backward's dP where
-//     dP - delta cancels: from head_dim 128 its score products take a
-//     fresh accumulator per k-step (scores()).
+// #2 and #3 up to head_dim 256 (flash_dq_bf16_wgmma_kernel<kD> and
+// flash_dkv_bf16_wgmma_kernel<kD>, #1's buckets). What bounds them on this
+// card at the flagship shape: 7 products of 4.29 GFLOP (S and dP in both
+// kernels, dQ = dS K, dK = dS^T Q, dV = P^T dO), 30.1 GFLOP, 0.0304 ms at
+// 989 TFLOP/s; a kernel that folded dQ into #3 (FA2/FA3's layout) would
+// do 5, but only with f32 atomics whose order changes the bits from call
+// to call, which this port does not take (two calls give the same bits).
+// No [b, h, s, s] tensor is written. The bodies they replaced (mma.sync
+// m16n8k16, 4 warps over a 64-row fixed tile, cp.async behind a barrier a
+// tile) took 0.2395 ms together, 2.6x cuDNN's backward; what this design
+// does about each cause (measured on an H100 at [8, 512, 16, 64],
+// scripts/flash_bwd_bf16_variants.py):
+//   * mma.sync's rate, every B fragment a thread's own load: every product
+//     is wgmma m64nNk16 issued by a warpgroup. #2, per consumer warpgroup
+//     of 64 query rows: S = Q K^T and dP = dO V^T read Q, dO and the K and
+//     V stage through descriptors (SS, K-major); dS is rounded to bf16 and
+//     packed into A fragments where it stands, and dQ += dS K reads K
+//     MN-major (RS, N = kD), as #1's P V reads V. #3, per warpgroup of 64
+//     keys: S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in registers,
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q (RS, dO and Q MN-major).
+//     A TMA box reads both ways (hopper.cuh), so one staged copy of each
+//     operand serves both of its products.
+//   * each staged byte feeding 64 rows: a producer warpgroup (one thread,
+//     24 registers) loads the fixed tile once a work tile (Q and dO for
+//     #2, K and V for #3, 128 rows) and the loop tiles into a ring of
+//     kStages stages with full and empty mbarriers (#2: K and V apart, V
+//     freed once dP is done; #3: Q, dO and the tile's LSE and delta
+//     together, the two read flat); two consumer warpgroups (240 registers
+//     each) share every loop tile, so each staged byte feeds 128 rows.
+//   * a synchronous loop: the ring keeps TMA loads in flight under the
+//     products (3 stages up to head_dim 128: with 2, #2 took 14-18% longer
+//     at head_dim 64 and 31% at 128, #3 1-8%; 4 were within 4% either
+//     way); the consumer warpgroups issue their products in turns on named
+//     barriers (ping-pong: #2 5% slower without it, #3 within 2%); #2
+//     issues key tile j's S and dP with tile j - 1's dS K and computes dS
+//     under that product (7-9% faster), where #3 issues each tile's
+//     products apart (issuing them together measured 7% slower there).
+//   * exponentials in base 2 with the scale folded in (ex2.approx of c s -
+//     L, c = scale log2(e), L = LSE log2(e)), as #1's; without them the
+//     kernels took 6-7% less time.
+//   * the replaced bodies' 1024 blocks at 2 an SM: the grid is persistent,
+//     one block an SM walking the 512 work tiles (one block a tile: 14-16%
+//     slower), longest first when causal (#2 the last query tiles, #3 the
+//     first key tiles); causal loop tiles past the diagonal are never
+//     loaded, and #3's key tiles no query sees store zeros without a load.
+//     Tiles crossing sq, sk or (causal) the diagonal of a warpgroup's rows
+//     test one limit per entry; all others none.
+//   * registers: #2 holds dQ (kD / 2 f32 a thread), S and dP (kN / 2 each)
+//     and the dS fragments; kN, the keys of a loop tile, is 128 at
+//     head_dim 64 (64 measured 10-12% slower) and 64 past it. #3 holds dK and
+//     dV (kC / 2 each), S^T and dP^T at kM = 64 queries a tile and two
+//     fragment sets; kC, a work tile's output columns, is kD up to 128,
+//     and past it the grid also walks output chunks (64 columns at 192,
+//     128 at 256), the scores recomputed per chunk. 0 spill bytes in every
+//     bucket. At 256 the resident tile (Q and dO, or K and V) takes 128 KB,
+//     so one stage there.
+//   * dP's accuracy: from head_dim 128 dP is one fresh chain per 64-column
+//     box, added in f32 (issue_score_pair says why and what was measured).
+// #2 and #3 past head_dim 256 are refused here (takes(); the wrapper sends
+// them to flash_bwd_kernel.cu's wide kernels).
 //
 // #1 past head_dim 256 (flash_fwd_wide_bf16_kernel; it replaced the fp32
 // file's wide kernel instantiated for bf16, which widened every staged
@@ -172,17 +196,14 @@ using flash::cp_async;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
 using flash::cp_async_wait_all;
-using flash::kThreads;
-using flash::kTile;
 using flash::z_chunk;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kRows = 64;         // rows of a loop tile (keys in #1, #2; queries in #3)
+constexpr int kRows = 64;         // key rows of a loop tile of #1 past kStagedD
 constexpr int kSN = kRows / 8;    // 8-wide n-tiles of a warp's 16 x kRows scores
-constexpr int kStagedD = 256;     // widest head_dim staged at full width (buckets 0-3)
-constexpr int kFwdOT = 16;        // output n-tiles of one block of #1 and #2
-constexpr int kDkvOT = 8;         // output n-tiles of one block of #3
+constexpr int kStagedD = 256;     // widest head_dim of the wgmma bodies
+constexpr int kFwdOT = 16;        // output n-tiles of one block of #1 past kStagedD
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
@@ -210,38 +231,8 @@ struct Params {
 // #1 at any positive multiple of 8; #2 and #3 up to kStagedD
 bool takes(int kind, int d) { return d > 0 && d % 8 == 0 && (kind == kFwd || d <= kStagedD); }
 
-// head_dim bucket kD = 32, 64, 128 or 256, or 4: #1 past kStagedD
-int bucket(int d) { return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : d <= kStagedD ? 3 : 4; }
-
-template <int kD>
-__host__ __device__ constexpr int ld_of() { return kD + 8; }
-
-// output n-tiles of one block: all of the bucket's, at most kMax
-template <int kD, int kMax>
-__host__ __device__ constexpr int out_tiles() { return kD / 8 < kMax ? kD / 8 : kMax; }
-
-// loop tiles in flight: 2 up to head_dim 128, 1 past it
-template <int kD>
-__host__ __device__ constexpr int stages() { return kD <= 128 ? 2 : 1; }
-
-// the backward's score products take a fresh accumulator per k-step from
-// head_dim bucket 128 (8 or more k-steps; see scores())
-template <int kD>
-__host__ __device__ constexpr bool fresh() { return kD >= 128; }
-
 // grid z: output-column chunks of at most max_tiles n-tiles
 int chunks(int d, int max_tiles) { return (d / 8 + max_tiles - 1) / max_tiles; }
-
-// This block's output columns: n-tiles [c0t, c0t + cn) of the head_dim's dt.
-template <int kD, int kMax>
-__device__ __forceinline__ void out_chunk(int dt, int& c0t, int& cn) {
-  if constexpr (kD / 8 <= kMax) {
-    c0t = 0;
-    cn = dt;
-  } else {
-    z_chunk(dt, c0t, cn);
-  }
-}
 
 // -- fragments ------------------------------------------------------------------------
 // Lane l is (g, t) = (l / 4, l % 4). An m16n8 accumulator c[4] holds rows g
@@ -255,10 +246,6 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // (lo, hi) rounded to nearest even, packed with lo in the lower half
@@ -293,53 +280,6 @@ __device__ __forceinline__ void zero(float acc[kN][4]) {
   for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// s[j] += A B_j^T and s2[j] += A2 B2_j^T over head_dim (the backward's S
-// and dP) for the warp's 16 rows of A, A2 and kSN 8-row n-tiles of B, B2,
-// all row-major at stride ld with head_dim contiguous. Reads A[g][c],
-// B[8j + g][c] with c = 16 ks + 2t (+8), k-steps below d.
-//
-// kFresh: each k-step's mma goes into a fresh accumulator that is added to
-// s in f32. The tensor cores round an mma's f32 sum toward zero, so a
-// chain of k-steps into one accumulator drifts with its length; where dQ
-// or dK is 0 in exact arithmetic (one visible key) that drift of dP is
-// all that is left of dP - delta, and at head_dim 136-256 it measured
-// 4.7e-6 on an H100 against the plain version's 1.0e-6. A fresh
-// accumulator truncates only one k-step's 16-term partial, and the adds
-// round to nearest.
-template <int kD, bool kFresh>
-__device__ __forceinline__ void scores(const bf16* A, const bf16* B, float s[kSN][4],
-                                       const bf16* A2, const bf16* B2, float s2[kSN][4], int d) {
-  constexpr int ld = ld_of<kD>();
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int off = g * ld + 2 * t;
-#pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    if (16 * ks < d) {
-      const int c = off + 16 * ks;
-      const uint32_t a[4] = {ld32(A + c), ld32(A + c + 8 * ld), ld32(A + c + 8), ld32(A + c + 8 * ld + 8)};
-      const uint32_t a2[4] = {ld32(A2 + c), ld32(A2 + c + 8 * ld), ld32(A2 + c + 8), ld32(A2 + c + 8 * ld + 8)};
-#pragma unroll
-      for (int j = 0; j < kSN; ++j) {
-        const bf16* b = B + 8 * j * ld + c;
-        const bf16* b2 = B2 + 8 * j * ld + c;
-        if constexpr (kFresh) {
-          float f[4] = {0.f, 0.f, 0.f, 0.f};
-          mma(f, a, ld32(b), ld32(b + 8));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += f[e];
-          float f2[4] = {0.f, 0.f, 0.f, 0.f};
-          mma(f2, a2, ld32(b2), ld32(b2 + 8));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s2[j][e] += f2[e];
-        } else {
-          mma(s[j], a, ld32(b), ld32(b + 8));
-          mma(s2[j], a2, ld32(b2), ld32(b2 + 8));
-        }
-      }
-    }
-  }
 }
 
 // The warp's 16 x kRows f32 fragments P as the k16 A fragments of the
@@ -379,22 +319,13 @@ __device__ __forceinline__ void product_pv(const uint32_t a[kSN / 2][4], const b
   }
 }
 
-// product_pv of the warp's f32 fragments P, rounded to bf16 here.
-template <int kOT>
-__device__ __forceinline__ void product_pb(const float P[kSN][4], const bf16* B, int ld,
-                                           float acc[kOT][4], int cn) {
-  uint32_t a[kSN / 2][4];
-  pack_p(P, a);
-  product_pv<kOT>(a, B, ld, acc, cn);
-}
-
 // -- staging ----------------------------------------------------------------------------
 
 // Rows [row0, row0 + kN) of one head of a [b, s, h, d] bf16 tensor (base
 // already at the batch, head and first column) into dst [kN][ld]: `width`
 // columns in 16-byte pieces, of which those at or past `cols` and the rows
 // at or past `rows` are zero-filled; by the block's kNThreads threads.
-template <int kN, int kNThreads = kThreads>
+template <int kN, int kNThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base, int64_t s_stride,
                                           int row0, int rows, int cols, int width) {
   const int n8 = width / 8;
@@ -406,7 +337,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base, i
 }
 
 // head_dim rounded up to the mma's k16
-__device__ __forceinline__ int width16(int d) { return (d + 15) & ~15; }
+__host__ __device__ __forceinline__ int width16(int d) { return (d + 15) & ~15; }
 
 __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
   return qi < p.sq && kj < p.sk && (!p.causal || qi >= kj);
@@ -634,16 +565,16 @@ __device__ __forceinline__ void to_fragments(const float (&s)[kN / 2], uint32_t 
     for (int e = 0; e < 4; ++e) pa[kk][e] = pack(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// Query tile t of the forward's (b h) x (query tiles of kM rows), the
-// last query tiles (the longest when causal) first: batch ib, head ih,
-// first row q0, and n, the key tiles of kN rows it reads.
+// Query tile t of the (b h) x (query tiles of F::kM rows) of #1 or #2
+// (F: Fwd or Dq), the last query tiles (the longest when causal) first:
+// batch ib, head ih, first row q0, and n, the key tiles of F::kN rows it
+// reads.
 struct FwdTile {
   int ib, ih, q0, n;
 };
 
-template <int kD>
-__device__ __forceinline__ FwdTile fwd_tile(const Params& p, int t, int bh, int mt) {
-  using F = Fwd<kD>;
+template <class F>
+__device__ __forceinline__ FwdTile query_tile(const Params& p, int t, int bh, int mt) {
   FwdTile r;
   r.ib = (t % bh) / p.h;
   r.ih = t % p.h;
@@ -654,7 +585,7 @@ __device__ __forceinline__ FwdTile fwd_tile(const Params& p, int t, int bh, int 
 }
 
 // #1 at head_dim up to 256 (the header's design). Block b takes query
-// tiles b, b + gridDim.x, ... (fwd_tile) of the bh x mt. Warpgroup 0 is
+// tiles b, b + gridDim.x, ... (query_tile) of the bh x mt. Warpgroup 0 is
 // the producer: one thread loads each tile's Q once, then the K and V
 // tiles of kN keys into a ring of kStages stages, each with its full and
 // empty mbarriers; the next query tile's Q as soon as the consumers'
@@ -704,7 +635,7 @@ __global__ void __launch_bounds__(Fwd<kD>::kThreads, 1)
       hopper::prefetch_map(&tv);
       int kt = 0, qi = 0;  // key tiles and query tiles loaded so far
       for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
-        const FwdTile ft = fwd_tile<kD>(p, t, bh, mt);
+        const FwdTile ft = query_tile<F>(p, t, bh, mt);
         if (qi > 0) hopper::mbar_wait(empty_q, (qi - 1) & 1);
         hopper::mbar_expect_tx(full_q, F::kQBytes);
 #pragma unroll
@@ -743,7 +674,7 @@ __global__ void __launch_bounds__(Fwd<kD>::kThreads, 1)
 
     int kt = 0, qi = 0;  // key tiles and query tiles consumed so far
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
-      const FwdTile ft = fwd_tile<kD>(p, t, bh, mt);
+      const FwdTile ft = query_tile<F>(p, t, bh, mt);
       const int n = ft.n;
       const int w0 = ft.q0 + 64 * wg, r0 = w0 + 16 * (tid >> 5) + g;  // this lane's rows r0, r0 + 8
       // tiles crossing the ragged edge or (causal) the diagonal of this
@@ -838,23 +769,6 @@ int sm_count() {
       count = 1;
   }
   return count;
-}
-
-template <int kD>
-int launch_fwd(const Params& p, int b, cudaStream_t stream) {
-  using F = Fwd<kD>;
-  CUtensorMap maps[3];
-  const bf16* ptr[3] = {p.q, p.k, p.v};
-  const int64_t st[3][3] = {{p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh}, {p.v_sb, p.v_ss, p.v_sh}};
-  for (int i = 0; i < 3; ++i) {
-    const int e = hopper::encode_bshd(&maps[i], ptr[i], b, i == 0 ? p.sq : p.sk, p.h, p.d, st[i][0], st[i][1],
-                                      st[i][2], i == 0 ? F::kM : F::kN);
-    if (e) return e;
-  }
-  const int bh = b * p.h, mt = (p.sq + F::kM - 1) / F::kM;
-  const int grid = min(bh * mt, sm_count());  // persistent: one block an SM
-  flash_fwd_bf16_wgmma_kernel<kD><<<grid, F::kThreads, F::kSmem, stream>>>(p, bh, mt, maps[0], maps[1], maps[2]);
-  return (int)cudaGetLastError();
 }
 
 // -- #1 past head_dim 256 ------------------------------------------------------------------
@@ -1015,267 +929,581 @@ __global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_wide_bf16_kernel(co
   }
 }
 
-// -- #2 dQ ----------------------------------------------------------------------------------
+// -- #2 and #3 up to head_dim 256: wgmma over TMA-fed tiles --------------------------------
 
-// dS of the warp's 16 x kRows scores in place of dP: P = exp(s scale -
-// lse), dS = P (dP - delta) scale in f32, 0 where masked (kMasked), for
-// rows r0, r0 + 8 and keys k0 + 8j + 2t (+1).
-template <bool kMasked>
-__device__ __forceinline__ void ds_rows(const Params& p, int r0, int k0, const float lse[2],
-                                        const float dl[2], const float s[kSN][4], float dp[kSN][4]) {
-  const int t = threadIdx.x & 3;
+// Shape of #2's block at head_dim bucket kD (the header says why each
+// number): two consumer warpgroups of 64 query rows share every K and V
+// tile; Q and dO stay resident for the block's query tile.
+template <int kD>
+struct Dq {
+  static constexpr int kWG = 2;                        // consumer warpgroups, 64 query rows each
+  static constexpr int kM = 64 * kWG;                  // query rows of a block
+  static constexpr int kN = kD <= 64 ? 128 : 64;       // key rows of a loop tile
+  static constexpr int kStages = kD <= 128 ? 3 : kD <= 192 ? 2 : 1;  // K and V tiles in flight
+  static constexpr bool kOverlap = kStages > 1;        // S and dP of tile j under dS K of tile j - 1
+  static constexpr int kBoxes = kD / 64;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr uint32_t kQBytes = kM * kD * 2, kKVBytes = kN * kD * 2;
+  static constexpr int kBars = 2 + 4 * kStages;        // full and empty for Q + dO, and for K and V per stage
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
+
+// Shape of #3's block: two consumer warpgroups of 64 keys share every Q,
+// dO, LSE and delta tile; K and V stay resident for the block's key tile.
+// kC output columns of dK and dV a work tile (all of kD up to 128; past
+// it grid chunks, the scores recomputed per chunk).
+template <int kD>
+struct Dkv {
+  static constexpr int kWG = 2;                        // consumer warpgroups, 64 keys each
+  static constexpr int kN = 64 * kWG;                  // keys of a block
+  static constexpr int kM = 64;                        // query rows of a loop tile
+  static constexpr int kC = kD <= 128 ? kD : kD == 192 ? 64 : 128;
+  static constexpr int kChunks = kD / kC;
+  static constexpr int kStages = kD <= 128 ? 3 : kD <= 192 ? 2 : 1;  // Q, dO, LSE and delta tiles in flight
+  static constexpr int kBoxes = kD / 64;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  // LSE and delta boxes start on 16 bytes (a box whose first element is
+  // not 16-byte aligned faults), so each takes kM + 4 values from the
+  // multiple of 4 at or below the tile's first row, into slots of kRowSlot
+  static constexpr int kRowBox = kM + 4, kRowSlot = kM + 32;
+  static constexpr uint32_t kKVBytes = kN * kD * 2, kQBytes = kM * kD * 2, kRowBytes = kRowBox * 4;
+  static constexpr int kBars = 2 + 2 * kStages;        // full and empty for K + V, and for each Q stage
+  static constexpr size_t kSmem =
+      1024 + 2 * kKVBytes + kStages * (2 * kQBytes + 2 * kRowSlot * 4) + 8 * kBars;
+};
+
+// s = A B^T and s2 = A2 B2^T over kD head_dim columns: the warpgroup's 64
+// rows of A, A2 (boxes of kARows rows, already at the warpgroup's first
+// row) against the kBRows rows of B, B2, all K-major. s2 (dP) is kD / 64
+// chains, one a 64-column box, each into a fresh accumulator and added in
+// f32 (s the temporary, each box past the first waited for); s is issued
+// last, the commit group the caller waits for. The tensor cores truncate
+// the sum of every k16 step of a
+// chain; where one key is visible dP - delta is nothing but that error:
+// measured on an H100 (sk = 1), one chain of 8 steps (head_dim 128) left
+// dK at 3.0x the plain version's error and one of 13-16 (200-256) dQ
+// and dK at 3.5-5.2x, over the float64 gate, where a 4-step chain
+// (head_dim 64) stays at 1.2-2.0x.
+template <int kD, int kARows, int kBRows>
+__device__ __forceinline__ void issue_score_pair(float (&s)[kBRows / 2], float (&s2)[kBRows / 2], const bf16* a,
+                                                 const bf16* b, const bf16* a2, const bf16* b2) {
 #pragma unroll
-  for (int j = 0; j < kSN; ++j)
+  for (int x = 0; x < kD / 64; ++x) {
+    float(&acc)[kBRows / 2] = x == 0 ? s2 : s;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaSS<kBRows, 0, 0>::run(acc, hopper::desc_kmajor(a2 + x * kARows * 64 + 16 * kk),
+                                         hopper::desc_kmajor(b2 + x * kBRows * 64 + 16 * kk), kk > 0);
+    hopper::wgmma_commit();
+    if (x > 0) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(s2);
+#pragma unroll
+      for (int i = 0; i < kBRows / 2; ++i) s2[i] += s[i];
+    }
+  }
+  hopper::fence_regs(s);
+  hopper::fence_regs(s2);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < kD / 64; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaSS<kBRows, 0, 0>::run(s, hopper::desc_kmajor(a + x * kARows * 64 + 16 * kk),
+                                         hopper::desc_kmajor(b + x * kBRows * 64 + 16 * kk), x + kk > 0);
+  hopper::wgmma_commit();
+  hopper::fence_regs(s);
+}
+
+// acc += A B over the kK rows of one tile (A the bf16 fragments a, kK / 16
+// k16 steps), B MN-major in boxes of kK rows x 64 columns, b at the box of
+// the first output column; N = kNOut. Issued inside the caller's fences.
+template <int kNOut, int kK>
+__device__ __forceinline__ void issue_rs(float (&acc)[kNOut / 2], uint32_t (&a)[kK / 16][4], const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk)
+    hopper::WgmmaRS<kNOut, 1>::run(acc, a[kk], hopper::desc_mnmajor(b + 16 * 64 * kk, kK * 128), 1);
+}
+
+// dS of the warpgroup's scores in place of dP (the accumulator layout:
+// rows r0, r0 + 8, keys k0 + 8j + 2t (+1)): P = 2^(c s - L), c = scale
+// log2(e) and L the row's LSE log2(e); dS = P (dP - delta) scale in f32,
+// 0 where masked (kMasked: key 8j + (e & 1) of row i is visible below
+// lim[i], which counts from k0 + 2t).
+template <bool kMasked, int kN>
+__device__ __forceinline__ void ds_rows(float c, float scale, const int lim[2], const float L[2], const float dl[2],
+                                        const float (&s)[kN / 2], float (&dp)[kN / 2]) {
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
-      const bool ok = !kMasked || visible(p, r0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1));
-      const float pr = ok ? expf(s[j][e] * p.scale - lse[i]) : 0.f;
-      dp[j][e] = pr * (dp[j][e] - dl[i]) * p.scale;
+      const bool ok = !kMasked || 8 * j + (e & 1) < lim[i];
+      const float pr = ok ? ex2(fmaf(s[4 * j + e], c, -L[i])) : 0.f;
+      dp[4 * j + e] = pr * (dp[4 * j + e] - dl[i]) * scale;
     }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kThreads, 2) flash_dq_bf16_kernel(const Params p) {
-  constexpr int kOT = out_tiles<kD, kFwdOT>(), kStages = stages<kD>();
-  constexpr int ld = ld_of<kD>(), tile = kRows * ld;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // Q [64][ld]
-  bf16* gs = qs + kTile * ld;                  // dO [64][ld]
-  bf16* ks = gs + kTile * ld;                  // K [kStages][kRows][ld]
-  bf16* vs = ks + kStages * tile;              // V [kStages][kRows][ld]
-  const int d = p.d, dt = d / 8, dw = width16(d);
-  int c0t, cn;  // this block's dQ columns: n-tiles [c0t, c0t + cn)
-  out_chunk<kD, kFwdOT>(dt, c0t, cn);
-  const int c0 = 8 * c0t;
-  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const bf16* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const bf16* vb = p.v + ib * p.v_sb + ih * p.v_sh;
-  load_tile<kTile>(qs, ld, p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0, p.sq, d, dw);
-  load_tile<kTile>(gs, ld, p.dout + ib * p.g_sb + ih * p.g_sh, p.g_ss, q0, p.sq, d, dw);
-  load_tile<kRows>(ks, ld, kb, p.k_ss, 0, p.sk, d, dw);
-  load_tile<kRows>(vs, ld, vb, p.v_ss, 0, p.sk, d, dw);
-  cp_async_commit();
-
-  // this lane's query rows and their LSE and delta, read once
-  const int w0 = q0 + 16 * warp, r0 = w0 + g;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
-    lse[i] = r < p.sq ? p.lse[off] : 0.f;
-    dl[i] = r < p.sq ? p.delta[off] : 0.f;
-  }
-
-  float acc[kOT][4];
-  zero<kOT>(acc);
-  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
-  const int n = (k_end + kRows - 1) / kRows;
-  const bf16* qw = qs + 16 * warp * ld;
-  const bf16* gw = gs + 16 * warp * ld;
-  for (int it = 0; it < n; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (kStages == 2 && it + 1 < n) {
-      const int nb = (it + 1) & 1;
-      load_tile<kRows>(ks + nb * tile, ld, kb, p.k_ss, (it + 1) * kRows, p.sk, d, dw);
-      load_tile<kRows>(vs + nb * tile, ld, vb, p.v_ss, (it + 1) * kRows, p.sk, d, dw);
-      cp_async_commit();
-    }
-    const int k0 = it * kRows;
-    if (!(p.causal && w0 + 15 < k0)) {
-      const bf16* kt = ks + (kStages == 2 ? (it & 1) * tile : 0);
-      const bf16* vt = vs + (kStages == 2 ? (it & 1) * tile : 0);
-      float s[kSN][4], dp[kSN][4];
-      zero<kSN>(s);
-      zero<kSN>(dp);
-      scores<kD, fresh<kD>()>(qw, kt, s, gw, vt, dp, d);  // S = Q K^T, dP = dO V^T
-      const bool all = w0 + 16 <= p.sq && k0 + kRows <= p.sk && (!p.causal || w0 >= k0 + kRows - 1);
-      if (all)
-        ds_rows<false>(p, r0, k0, lse, dl, s, dp);
-      else
-        ds_rows<true>(p, r0, k0, lse, dl, s, dp);
-      product_pb<kOT>(dp, kt + c0, ld, acc, cn);  // dQ += bf16(dS) K
-    }
-    if (kStages == 1 && it + 1 < n) {
-      __syncthreads();  // every warp is done with tile it
-      load_tile<kRows>(ks, ld, kb, p.k_ss, (it + 1) * kRows, p.sk, d, dw);
-      load_tile<kRows>(vs, ld, vb, p.v_ss, (it + 1) * kRows, p.sk, d, dw);
-      cp_async_commit();
-    }
-  }
-  cp_async_wait_all();  // nothing in flight when the block exits
-  store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, acc);
-}
-
-// -- #3 dK, dV ------------------------------------------------------------------------------
-
-// LSE and delta of queries [q0, q0 + kRows) into ls, dls (0 past sq).
-__device__ __forceinline__ void load_cols(const Params& p, int ib, int ih, int q0, float* ls,
-                                          float* dls) {
-  const int r = threadIdx.x % kRows;
-  const bool in = q0 + r < p.sq;
-  const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + (in ? q0 + r : 0);
-  if (threadIdx.x < kRows)
-    cp_async(ls + r, p.lse + off, 4, in);
-  else if (threadIdx.x < 2 * kRows)
-    cp_async(dls + r, p.delta + off, 4, in);
-}
-
-// P^T and dS^T of the warp's 16 keys x kRows queries in place of S^T and
-// dP^T, for keys r0, r0 + 8 and the tile's query columns 8j + 2t (+1),
-// whose LSE and delta are lt, dlt.
-template <bool kMasked>
-__device__ __forceinline__ void ds_cols(const Params& p, int r0, int q0, const float* lt,
-                                        const float* dlt, float s[kSN][4], float dp[kSN][4]) {
+// P^T and dS^T of the warpgroup's keys (rows r0, r0 + 8) x the tile's kM
+// queries (columns 8j + 2t (+1)) in place of S^T and dP^T; lt and dlt the
+// tile's LSE and delta in shared memory. kMasked: column 8j + (e & 1) is
+// visible below hi and at or past lo[i] (both counted from q0 + 2t).
+template <bool kMasked, int kM>
+__device__ __forceinline__ void ds_cols(float c, float scale, int hi, const int lo[2], const float* lt,
+                                        const float* dlt, float (&s)[kM / 2], float (&dp)[kM / 2]) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int j = 0; j < kSN; ++j)
+  for (int j = 0; j < kM / 8; ++j) {
+    const float* l2 = lt + 8 * j + 2 * t;
+    const float* d2 = dlt + 8 * j + 2 * t;
+    const float L[2] = {l2[0] * kLog2e, l2[1] * kLog2e}, dl[2] = {d2[0], d2[1]};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * t + (e & 1);
-      const bool ok = !kMasked || visible(p, q0 + col, r0 + 8 * (e >> 1));
-      const float pr = ok ? expf(s[j][e] * p.scale - lt[col]) : 0.f;
-      s[j][e] = pr;                                    // P^T
-      dp[j][e] = pr * (dp[j][e] - dlt[col]) * p.scale;  // dS^T
+      const int col = 8 * j + (e & 1);
+      const bool ok = !kMasked || (col < hi && col >= lo[e >> 1]);
+      const float pr = ok ? ex2(fmaf(s[4 * j + e], c, -L[e & 1])) : 0.f;
+      s[4 * j + e] = pr;
+      dp[4 * j + e] = pr * (dp[4 * j + e] - dl[e & 1]) * scale;
     }
+  }
 }
 
+// #2 at head_dim up to 256 (the header's design). Block b takes query
+// tiles b, b + gridDim.x, ... (query_tile: the last, the longest when
+// causal, first). Warpgroup 0 is the producer: one thread loads each
+// tile's Q and dO once, then K and V tiles of kN keys into a ring of
+// kStages stages with full and empty mbarriers (V is freed when dP is
+// done, K when dS K is). Warpgroups 1 .. kWG each own 64 query rows: S = Q
+// K^T and dP = dO V^T (SS), dS in registers, dQ += bf16(dS) K (RS, K
+// MN-major); the next key tile's S and dP are issued with this one's dS K.
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 2) flash_dkv_bf16_kernel(const Params p) {
-  constexpr int kOT = out_tiles<kD, kDkvOT>(), kStages = stages<kD>();
-  constexpr int ld = ld_of<kD>(), tile = kRows * ld;
-  extern __shared__ float4 smem4[];
-  float* ls = reinterpret_cast<float*>(smem4);  // LSE [kStages][kRows]
-  float* dls = ls + kStages * kRows;             // delta [kStages][kRows]
-  bf16* ks = reinterpret_cast<bf16*>(dls + kStages * kRows);  // K [64][ld]
-  bf16* vs = ks + kTile * ld;                    // V [64][ld]
-  bf16* qs = vs + kTile * ld;                    // Q [kStages][kRows][ld]
-  bf16* gs = qs + kStages * tile;                // dO [kStages][kRows][ld]
-  const int d = p.d, dt = d / 8, dw = width16(d);
-  int c0t, cn;  // this block's dK and dV columns: n-tiles [c0t, c0t + cn)
-  out_chunk<kD, kDkvOT>(dt, c0t, cn);
-  const int c0 = 8 * c0t;
-  const int k0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const bf16* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-  const bf16* gb = p.dout + ib * p.g_sb + ih * p.g_sh;
-  // causal: query tiles above the diagonal see none of these keys
-  const int q_start = p.causal ? k0 : 0;
-  const int n = p.sq > q_start ? (p.sq - q_start + kRows - 1) / kRows : 0;
-  load_tile<kTile>(ks, ld, p.k + ib * p.k_sb + ih * p.k_sh, p.k_ss, k0, p.sk, d, dw);
-  load_tile<kTile>(vs, ld, p.v + ib * p.v_sb + ih * p.v_sh, p.v_ss, k0, p.sk, d, dw);
-  if (n > 0) {
-    load_tile<kRows>(qs, ld, qb, p.q_ss, q_start, p.sq, d, dw);
-    load_tile<kRows>(gs, ld, gb, p.g_ss, q_start, p.sq, d, dw);
-    load_cols(p, ib, ih, q_start, ls, dls);
+__global__ void __launch_bounds__(Dq<kD>::kThreads, 1)
+    flash_dq_bf16_wgmma_kernel(const Params p, int bh, int mt, const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg) {
+  using F = Dq<kD>;
+  constexpr int kN = F::kN, kS = F::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);  // Q [kBoxes][kM][64]
+  bf16* gs = qs + F::kM * kD;                 // dO [kBoxes][kM][64]
+  bf16* ks = gs + F::kM * kD;                 // K [kS][kBoxes][kN][64]
+  bf16* vs = ks + kS * kN * kD;               // V [kS][kBoxes][kN][64]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + kS * kN * kD);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + kS;
+  uint64_t* empty_k = full_v + kS;
+  uint64_t* empty_v = empty_k + kS;
+  const int tiles = bh * mt;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(empty_q, F::kWG);
+    for (int i = 0; i < kS; ++i) {
+      hopper::mbar_init(&full_k[i], 1);
+      hopper::mbar_init(&full_v[i], 1);
+      hopper::mbar_init(&empty_k[i], F::kWG);
+      hopper::mbar_init(&empty_v[i], F::kWG);
+    }
+    hopper::fence_barrier_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int w0 = k0 + 16 * warp, r0 = w0 + g;  // this lane's keys r0, r0 + 8
-  float dk[kOT][4], dv[kOT][4];
-  zero<kOT>(dk);
-  zero<kOT>(dv);
-  const bf16* kw = ks + 16 * warp * ld;
-  const bf16* vw = vs + 16 * warp * ld;
-  for (int it = 0; it < n; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (kStages == 2 && it + 1 < n) {
-      const int nb = (it + 1) & 1, q1 = q_start + (it + 1) * kRows;
-      load_tile<kRows>(qs + nb * tile, ld, qb, p.q_ss, q1, p.sq, d, dw);
-      load_tile<kRows>(gs + nb * tile, ld, gb, p.g_ss, q1, p.sq, d, dw);
-      load_cols(p, ib, ih, q1, ls + nb * kRows, dls + nb * kRows);
-      cp_async_commit();
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {  // the producer warpgroup; one thread issues every load
+    hopper::regs_dec<F::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      hopper::prefetch_map(&tg);
+      int kt = 0, qi = 0;  // key tiles and query tiles loaded so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+        const FwdTile ft = query_tile<F>(p, t, bh, mt);
+        if (qi > 0) hopper::mbar_wait(empty_q, (qi - 1) & 1);
+        hopper::mbar_expect_tx(full_q, 2 * F::kQBytes);
+#pragma unroll
+        for (int b = 0; b < F::kBoxes; ++b) {
+          hopper::tma_load_4d(qs + b * F::kM * 64, &tq, full_q, 64 * b, ft.q0, ft.ih, ft.ib);
+          hopper::tma_load_4d(gs + b * F::kM * 64, &tg, full_q, 64 * b, ft.q0, ft.ih, ft.ib);
+        }
+#pragma unroll 1
+        for (int j = 0; j < ft.n; ++j, ++kt) {
+          const int st = kt % kS;
+          const uint32_t ph = (kt / kS) & 1;
+          hopper::mbar_wait(&empty_k[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_k[st], F::kKVBytes);
+#pragma unroll
+          for (int b = 0; b < F::kBoxes; ++b)
+            hopper::tma_load_4d(ks + (st * F::kBoxes + b) * kN * 64, &tk, &full_k[st], 64 * b, j * kN, ft.ih, ft.ib);
+          hopper::mbar_wait(&empty_v[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_v[st], F::kKVBytes);
+#pragma unroll
+          for (int b = 0; b < F::kBoxes; ++b)
+            hopper::tma_load_4d(vs + (st * F::kBoxes + b) * kN * 64, &tv, &full_v[st], 64 * b, j * kN, ft.ih, ft.ib);
+        }
+      }
     }
-    const int q0 = q_start + it * kRows, cb = kStages == 2 ? it & 1 : 0;
-    const bf16* qt = qs + cb * tile;
-    const bf16* gt = gs + cb * tile;
-    float s[kSN][4], dp[kSN][4];
-    zero<kSN>(s);
-    zero<kSN>(dp);
-    scores<kD, fresh<kD>()>(kw, qt, s, vw, gt, dp, d);  // S^T = K Q^T, dP^T = V dO^T
-    const bool all = q0 + kRows <= p.sq && w0 + 16 <= p.sk && (!p.causal || q0 >= w0 + 15);
-    if (all)
-      ds_cols<false>(p, r0, q0, ls + cb * kRows, dls + cb * kRows, s, dp);
-    else
-      ds_cols<true>(p, r0, q0, ls + cb * kRows, dls + cb * kRows, s, dp);
-    product_pb<kOT>(s, gt + c0, ld, dv, cn);   // dV += bf16(P)^T dO
-    product_pb<kOT>(dp, qt + c0, ld, dk, cn);  // dK += bf16(dS)^T Q
-    if (kStages == 1 && it + 1 < n) {
-      __syncthreads();  // every warp is done with tile it
-      const int q1 = q_start + (it + 1) * kRows;
-      load_tile<kRows>(qs, ld, qb, p.q_ss, q1, p.sq, d, dw);
-      load_tile<kRows>(gs, ld, gb, p.g_ss, q1, p.sq, d, dw);
-      load_cols(p, ib, ih, q1, ls, dls);
-      cp_async_commit();
+  } else {  // a consumer warpgroup
+    hopper::regs_inc<F::kConsumerRegs>();
+    const int wg = wgi - 1, tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    const bf16* qw = qs + 64 * 64 * wg;
+    const bf16* gw = gs + 64 * 64 * wg;
+    const float c = p.scale * kLog2e;
+    // ping-pong, as the forward's
+    const auto turn_wait = [&] { hopper::bar_sync(1 + wg, 256); };
+    const auto turn_pass = [&] { hopper::bar_arrive(1 + (wg + 1) % F::kWG, 256); };
+    if (wg == 0) hopper::bar_arrive(1, 256);
+
+    int kt = 0, qi = 0;  // key tiles and query tiles consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+      const FwdTile ft = query_tile<F>(p, t, bh, mt);
+      const int n = ft.n;
+      const int w0 = ft.q0 + 64 * wg, r0 = w0 + 16 * (tid >> 5) + g;  // this lane's rows r0, r0 + 8
+      float L[2], dl[2];  // the rows' LSE log2(e) and delta (0 past sq: those rows are never stored)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        const int64_t off = ((int64_t)ft.ib * p.h + ft.ih) * p.sq + r;
+        L[i] = r < p.sq ? p.lse[off] * kLog2e : 0.f;
+        dl[i] = r < p.sq ? p.delta[off] : 0.f;
+      }
+      const auto masked = [&](int k0) { return k0 + kN > p.sk || (p.causal && k0 + kN - 1 > w0); };
+      const auto ds = [&](int k0, const float(&s)[kN / 2], float(&dp)[kN / 2]) {
+        int lim[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) lim[i] = (p.causal ? min(p.sk, r0 + 8 * i + 1) : p.sk) - k0 - 2 * t4;
+        if (masked(k0))
+          ds_rows<true, kN>(c, p.scale, lim, L, dl, s, dp);
+        else
+          ds_rows<false, kN>(c, p.scale, lim, L, dl, s, dp);
+      };
+      float dq[kD / 2];
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
+      float s[kN / 2], dp[kN / 2];
+      uint32_t da[kN / 16][4];
+      const auto issue_dq = [&](int st) {  // dQ += bf16(dS) K of stage st
+        hopper::fence_regs(dq);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+        issue_rs<kD, kN>(dq, da, ks + st * kN * kD);
+        hopper::wgmma_commit();
+        hopper::fence_regs(dq);
+      };
+
+      // S and dP of key tile j, then dS in registers (V is free once dP is done)
+      const auto scores = [&](int j, bool overlap) {
+        const int st = (kt + j) % kS;
+        const uint32_t ph = ((kt + j) / kS) & 1;
+        hopper::mbar_wait(&full_k[st], ph);
+        hopper::mbar_wait(&full_v[st], ph);
+        turn_wait();
+        issue_score_pair<kD, F::kM, kN>(s, dp, qw, ks + st * kN * kD, gw, vs + st * kN * kD);
+        if (overlap) issue_dq((kt + j - 1) % kS);  // ... under dQ += dS K of key tile j - 1
+        turn_pass();
+      };
+      const auto release_sdp = [&](int j) {
+        if (tid == 0) {
+          hopper::mbar_arrive(&empty_v[(kt + j) % kS]);
+          if (j == n - 1) hopper::mbar_arrive(empty_q);  // the last product of this Q and dO is done
+        }
+      };
+      const auto finish_dq = [&](int j) {  // dQ += dS K of key tile j, alone
+        turn_wait();
+        issue_dq((kt + j) % kS);
+        turn_pass();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq);
+        if (tid == 0) hopper::mbar_arrive(&empty_k[(kt + j) % kS]);
+      };
+
+      hopper::mbar_wait(full_q, qi & 1);
+      if constexpr (F::kOverlap) {
+        scores(0, false);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        release_sdp(0);
+        ds(0, s, dp);
+        to_fragments<kN>(dp, da);  // bf16(dS)
+#pragma unroll 1
+        for (int j = 1; j < n; ++j) {
+          scores(j, true);
+          hopper::wgmma_wait<1>();
+          hopper::fence_regs(s);
+          hopper::fence_regs(dp);
+          release_sdp(j);
+          ds(j * kN, s, dp);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dq);
+          if (tid == 0) hopper::mbar_arrive(&empty_k[(kt + j - 1) % kS]);
+          to_fragments<kN>(dp, da);
+        }
+        finish_dq(n - 1);
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) {
+          scores(j, false);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+          hopper::fence_regs(dp);
+          release_sdp(j);
+          ds(j * kN, s, dp);
+          to_fragments<kN>(dp, da);
+          finish_dq(j);
+        }
+      }
+      kt += n;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        store_row<kD>(p.out0 + (((int64_t)ft.ib * p.sq + row) * p.h + ft.ih) * p.d, dq, half, 1.f, p.d,
+                      row < p.sq);
+      }
     }
   }
-  cp_async_wait_all();  // nothing in flight when the block exits
-  store_rows<kOT>(p.out0 + c0, ib, ih, p.h, p.sk, r0, d, cn, dk);
-  store_rows<kOT>(p.out1 + c0, ib, ih, p.h, p.sk, r0, d, cn, dv);
+}
+
+// Key tile t of #3's chunks x (b h) x (key tiles of kN rows), the first
+// key tiles (the longest when causal) first: batch ib, head ih, first key
+// k0, output chunk ch, the first query q0 any of its keys sees and n, the
+// query tiles of kM rows from there (0 when causal and sq <= k0).
+struct KeyTile {
+  int ib, ih, k0, ch, q0, n;
+};
+
+template <int kD>
+__device__ __forceinline__ KeyTile key_tile(const Params& p, int t, int bh) {
+  using F = Dkv<kD>;
+  KeyTile r;
+  r.ch = t % F::kChunks;
+  const int rest = t / F::kChunks;
+  r.ib = (rest % bh) / p.h;
+  r.ih = rest % p.h;
+  r.k0 = rest / bh * F::kN;
+  r.q0 = p.causal ? r.k0 : 0;  // causal: queries above the block's first key see none of it
+  r.n = p.sq > r.q0 ? (p.sq - r.q0 + F::kM - 1) / F::kM : 0;
+  return r;
+}
+
+// #3 at head_dim up to 256 (the header's design). Block b takes key tiles
+// b, b + gridDim.x, ... (key_tile). Warpgroup 0 is the producer: one
+// thread loads each tile's K and V once, then Q, dO, LSE and delta tiles
+// of kM queries into a ring of kStages stages. Warpgroups 1 .. kWG each
+// own 64 keys: S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in
+// registers, dV += bf16(P^T) dO and dK += bf16(dS^T) Q (RS, dO and Q
+// MN-major), the chunk's kC output columns of each.
+template <int kD>
+__global__ void __launch_bounds__(Dkv<kD>::kThreads, 1)
+    flash_dkv_bf16_wgmma_kernel(const Params p, int bh, int tiles, const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tl,
+                                const __grid_constant__ CUtensorMap tdl) {
+  using F = Dkv<kD>;
+  constexpr int kM = F::kM, kS = F::kStages, kC = F::kC;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ks = reinterpret_cast<bf16*>(base);  // K [kBoxes][kN][64]
+  bf16* vs = ks + F::kN * kD;                 // V [kBoxes][kN][64]
+  bf16* qs = vs + F::kN * kD;                 // Q [kS][kBoxes][kM][64]
+  bf16* gs = qs + kS * kM * kD;               // dO [kS][kBoxes][kM][64]
+  float* ls = reinterpret_cast<float*>(gs + kS * kM * kD);  // LSE [kS][kRowSlot]
+  float* dls = ls + kS * F::kRowSlot;                       // delta [kS][kRowSlot]
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(dls + kS * F::kRowSlot);
+  uint64_t* empty_kv = full_kv + 1;
+  uint64_t* full_q = empty_kv + 1;
+  uint64_t* empty_q = full_q + kS;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_kv, 1);
+    hopper::mbar_init(empty_kv, F::kWG);
+    for (int i = 0; i < kS; ++i) {
+      hopper::mbar_init(&full_q[i], 1);
+      hopper::mbar_init(&empty_q[i], F::kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {  // the producer warpgroup; one thread issues every load
+    hopper::regs_dec<F::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      hopper::prefetch_map(&tg);
+      hopper::prefetch_map(&tl);
+      hopper::prefetch_map(&tdl);
+      int qt = 0, kvi = 0;  // query tiles and K/V tiles loaded so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const KeyTile kt = key_tile<kD>(p, t, bh);
+        if (kt.n == 0) continue;  // no query sees these keys: nothing to load
+        if (kvi > 0) hopper::mbar_wait(empty_kv, (kvi - 1) & 1);
+        ++kvi;
+        hopper::mbar_expect_tx(full_kv, 2 * F::kKVBytes);
+#pragma unroll
+        for (int b = 0; b < F::kBoxes; ++b) {
+          hopper::tma_load_4d(ks + b * F::kN * 64, &tk, full_kv, 64 * b, kt.k0, kt.ih, kt.ib);
+          hopper::tma_load_4d(vs + b * F::kN * 64, &tv, full_kv, 64 * b, kt.k0, kt.ih, kt.ib);
+        }
+        const int row0 = (kt.ib * p.h + kt.ih) * p.sq + kt.q0;  // the tile's first LSE and delta
+#pragma unroll 1
+        for (int j = 0; j < kt.n; ++j, ++qt) {
+          const int st = qt % kS;
+          hopper::mbar_wait(&empty_q[st], ((qt / kS) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full_q[st], 2 * F::kQBytes + 2 * F::kRowBytes);
+#pragma unroll
+          for (int b = 0; b < F::kBoxes; ++b) {
+            hopper::tma_load_4d(qs + (st * F::kBoxes + b) * kM * 64, &tq, &full_q[st], 64 * b, kt.q0 + j * kM, kt.ih,
+                                kt.ib);
+            hopper::tma_load_4d(gs + (st * F::kBoxes + b) * kM * 64, &tg, &full_q[st], 64 * b, kt.q0 + j * kM, kt.ih,
+                                kt.ib);
+          }
+          const int r = (row0 + j * kM) & ~3;  // the box's 16-byte-aligned start
+          hopper::tma_load_1d(ls + st * F::kRowSlot, &tl, &full_q[st], r);
+          hopper::tma_load_1d(dls + st * F::kRowSlot, &tdl, &full_q[st], r);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup
+    hopper::regs_inc<F::kConsumerRegs>();
+    const int wg = wgi - 1, tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    const bf16* kw = ks + 64 * 64 * wg;
+    const bf16* vw = vs + 64 * 64 * wg;
+    const float c = p.scale * kLog2e;
+    const auto turn_wait = [&] { hopper::bar_sync(1 + wg, 256); };
+    const auto turn_pass = [&] { hopper::bar_arrive(1 + (wg + 1) % F::kWG, 256); };
+    if (wg == 0) hopper::bar_arrive(1, 256);
+
+    int qt = 0, kvi = 0;  // query tiles and K/V tiles consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const KeyTile kt = key_tile<kD>(p, t, bh);
+      const int n = kt.n, c0 = kt.ch * kC;
+      const int w0 = kt.k0 + 64 * wg, r0 = w0 + 16 * (tid >> 5) + g;  // this lane's keys r0, r0 + 8
+      float dk[kC / 2], dv[kC / 2];
+#pragma unroll
+      for (int i = 0; i < kC / 2; ++i) dk[i] = dv[i] = 0.f;
+      // query tiles crossing sq or (causal) the diagonal of this
+      // warpgroup's keys are masked; every other tile runs with no test
+      const int o = ((kt.ib * p.h + kt.ih) * p.sq + kt.q0) & 3;  // the first row's place in its LSE box
+      const auto ds = [&](int j, int st, float(&s)[kM / 2], float(&dp)[kM / 2]) {
+        const int q0 = kt.q0 + j * kM;
+        const int hi = p.sq - q0 - 2 * t4;
+        const int lo[2] = {p.causal ? r0 - q0 - 2 * t4 : -kM, p.causal ? r0 + 8 - q0 - 2 * t4 : -kM};
+        const float* lt = ls + st * F::kRowSlot + o;
+        const float* dlt = dls + st * F::kRowSlot + o;
+        if (q0 + kM > p.sq || (p.causal && q0 < w0 + 63))
+          ds_cols<true, kM>(c, p.scale, hi, lo, lt, dlt, s, dp);
+        else
+          ds_cols<false, kM>(c, p.scale, hi, lo, lt, dlt, s, dp);
+      };
+      float s[kM / 2], dp[kM / 2];
+      uint32_t pa[kM / 16][4], da[kM / 16][4];
+      const auto issue_dkv = [&](int st) {  // dV += bf16(P^T) dO and dK += bf16(dS^T) Q of stage st
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+        const int col = (c0 / 64) * kM * 64;  // the chunk's first box
+        issue_rs<kC, kM>(dv, pa, gs + st * kM * kD + col);
+        issue_rs<kC, kM>(dk, da, qs + st * kM * kD + col);
+        hopper::wgmma_commit();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+      };
+      if (n > 0) {
+        hopper::mbar_wait(full_kv, kvi & 1);
+        ++kvi;
+      }
+#pragma unroll 1
+      for (int j = 0; j < n; ++j) {
+        const int st = (qt + j) % kS;
+        hopper::mbar_wait(&full_q[st], ((qt + j) / kS) & 1);
+        turn_wait();
+        issue_score_pair<kD, F::kN, kM>(s, dp, kw, qs + st * kM * kD, vw, gs + st * kM * kD);
+        turn_pass();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        if (tid == 0 && j == n - 1) hopper::mbar_arrive(empty_kv);  // the last product of this K and V is done
+        ds(j, st, s, dp);
+        to_fragments<kM>(s, pa);   // bf16(P^T)
+        to_fragments<kM>(dp, da);  // bf16(dS^T)
+        turn_wait();
+        issue_dkv(st);
+        turn_pass();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        if (tid == 0) hopper::mbar_arrive(&empty_q[st]);
+      }
+      qt += n;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        const int64_t off = (((int64_t)kt.ib * p.sk + row) * p.h + kt.ih) * p.d + c0;
+        store_row<kC>(p.out0 + off, dk, half, 1.f, p.d - c0, row < p.sk);
+        store_row<kC>(p.out1 + off, dv, half, 1.f, p.d - c0, row < p.sk);
+      }
+    }
+  }
 }
 
 // -- launch ----------------------------------------------------------------------------------
 
-// the forward's body up to kStagedD (one per bucket fwd_dim) and its shared bytes
-void* fwd_kernel_of(int d) {
-  switch (fwd_dim(d)) {
-    case 64: return (void*)flash_fwd_bf16_wgmma_kernel<64>;
-    case 128: return (void*)flash_fwd_bf16_wgmma_kernel<128>;
-    case 192: return (void*)flash_fwd_bf16_wgmma_kernel<192>;
-    default: return (void*)flash_fwd_bf16_wgmma_kernel<256>;
-  }
+// The body of kernel `kind` at head_dim d: the wgmma bodies at the bucket
+// fwd_dim(d) up to kStagedD, the forward's wide body past it.
+void* kernel_of(int kind, int d) {
+  if (d > kStagedD) return (void*)flash_fwd_wide_bf16_kernel;
+  static void* const table[3][4] = {
+      {(void*)flash_fwd_bf16_wgmma_kernel<64>, (void*)flash_fwd_bf16_wgmma_kernel<128>,
+       (void*)flash_fwd_bf16_wgmma_kernel<192>, (void*)flash_fwd_bf16_wgmma_kernel<256>},
+      {(void*)flash_dq_bf16_wgmma_kernel<64>, (void*)flash_dq_bf16_wgmma_kernel<128>,
+       (void*)flash_dq_bf16_wgmma_kernel<192>, (void*)flash_dq_bf16_wgmma_kernel<256>},
+      {(void*)flash_dkv_bf16_wgmma_kernel<64>, (void*)flash_dkv_bf16_wgmma_kernel<128>,
+       (void*)flash_dkv_bf16_wgmma_kernel<192>, (void*)flash_dkv_bf16_wgmma_kernel<256>}};
+  return table[kind][fwd_dim(d) / 64 - 1];
 }
 
-size_t fwd_smem(int d) {
+template <template <int> class F>
+size_t smem_of(int d) {
   switch (fwd_dim(d)) {
-    case 64: return Fwd<64>::kSmem;
-    case 128: return Fwd<128>::kSmem;
-    case 192: return Fwd<192>::kSmem;
-    default: return Fwd<256>::kSmem;
+    case 64: return F<64>::kSmem;
+    case 128: return F<128>::kSmem;
+    case 192: return F<192>::kSmem;
+    default: return F<256>::kSmem;
   }
 }
 
 // bytes of dynamic shared memory of kernel `kind` at head_dim d; past
 // kStagedD the ring, and the resident Q tile up to kWideResidentD
 size_t smem_bytes(int kind, int d) {
-  if (bucket(d) == 4) {
-    const int dw = (d + 15) & ~15;
+  if (d > kStagedD) {
+    const int dw = width16(d);
     return (dw <= kWideResidentD ? kWideStages * kRows * kWideLd + kWideQ * (dw + 8)
                                  : kWideStages * (kRows + kWideQ) * kWideLd) *
            sizeof(bf16);
   }
-  if (kind == kFwd) return fwd_smem(d);
-  const int kd = 32 << bucket(d);
-  const size_t ld = kd + 8, st = kd <= 128 ? 2 : 1;
-  if (kind == kDq) return (2 * kTile + 2 * st * kRows) * ld * sizeof(bf16);
-  return (2 * kTile + 2 * st * kRows) * ld * sizeof(bf16) + 2 * st * kRows * sizeof(float);
+  return kind == kFwd ? smem_of<Fwd>(d) : kind == kDq ? smem_of<Dq>(d) : smem_of<Dkv>(d);
 }
 
-void* kernel_of(int kind, int d) {
-  if (kind == kFwd) return bucket(d) == 4 ? (void*)flash_fwd_wide_bf16_kernel : fwd_kernel_of(d);
-  static void* const table[2][4] = {
-      {(void*)flash_dq_bf16_kernel<32>, (void*)flash_dq_bf16_kernel<64>,
-       (void*)flash_dq_bf16_kernel<128>, (void*)flash_dq_bf16_kernel<256>},
-      {(void*)flash_dkv_bf16_kernel<32>, (void*)flash_dkv_bf16_kernel<64>,
-       (void*)flash_dkv_bf16_kernel<128>, (void*)flash_dkv_bf16_kernel<256>}};
-  return table[kind - 1][bucket(d)];
-}
-
-// the bucket a kernel is instantiated for: the forward's fwd_dim up to
-// kStagedD, the backward's bucket(); 4 past kStagedD
-int bucket_of(int kind, int d) {
-  return bucket(d) == 4 || kind != kFwd ? bucket(d) : fwd_dim(d) / 64 - 1;
-}
+// the instantiation a head_dim runs: 0-3 the bucket fwd_dim, 4 past kStagedD
+int bucket_of(int d) { return d > kStagedD ? 4 : fwd_dim(d) / 64 - 1; }
 
 // Sets each kernel's shared-memory cap once: its size, or past kStagedD
 // the largest of any head_dim (the resident Q tile at kWideResidentD).
 int configure(int kind, int d) {
   static bool configured[3][5] = {};
-  const int bi = bucket_of(kind, d);
+  const int bi = bucket_of(d);
   if (configured[kind][bi]) return 0;
   void* fn = kernel_of(kind, d);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1288,29 +1516,90 @@ int configure(int kind, int d) {
   return 0;
 }
 
-// threads of a block of kernel `kind` at head_dim d: the forward's
-// warpgroups up to kStagedD, else 16 query or key rows a warp
-int threads_of(int kind, int d) {
-  if (bucket(d) == 4) return kWideThreads;
-  return kind == kFwd ? Fwd<64>::kThreads : kThreads;
+// threads of a block of kernel `kind` at head_dim d: a producer and two
+// consumer warpgroups up to kStagedD, the wide forward's warps past it
+int threads_of(int d) { return d > kStagedD ? kWideThreads : Fwd<64>::kThreads; }
+
+// Tensor maps of q, k, v and (count 4) dO: boxes of q_rows rows of q and
+// dO, kv_rows rows of k and v.
+int encode_operands(const Params& p, int b, int q_rows, int kv_rows, int count, CUtensorMap* maps) {
+  const bf16* ptr[4] = {p.q, p.k, p.v, p.dout};
+  const int64_t st[4][3] = {
+      {p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh}, {p.v_sb, p.v_ss, p.v_sh}, {p.g_sb, p.g_ss, p.g_sh}};
+  for (int i = 0; i < count; ++i) {
+    const bool rows_q = i == 0 || i == 3;
+    const int e = hopper::encode_bshd(&maps[i], ptr[i], b, rows_q ? p.sq : p.sk, p.h, p.d, st[i][0], st[i][1],
+                                      st[i][2], rows_q ? q_rows : kv_rows);
+    if (e) return e;
+  }
+  return 0;
+}
+
+template <int kD>
+int launch_fwd(const Params& p, int b, cudaStream_t stream) {
+  using F = Fwd<kD>;
+  CUtensorMap maps[3];
+  const int e = encode_operands(p, b, F::kM, F::kN, 3, maps);
+  if (e) return e;
+  const int bh = b * p.h, mt = (p.sq + F::kM - 1) / F::kM;
+  const int grid = min(bh * mt, sm_count());  // persistent: one block an SM
+  flash_fwd_bf16_wgmma_kernel<kD><<<grid, F::kThreads, F::kSmem, stream>>>(p, bh, mt, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_dq(const Params& p, int b, cudaStream_t stream) {
+  using F = Dq<kD>;
+  CUtensorMap maps[4];
+  const int e = encode_operands(p, b, F::kM, F::kN, 4, maps);
+  if (e) return e;
+  const int bh = b * p.h, mt = (p.sq + F::kM - 1) / F::kM;
+  const int grid = min(bh * mt, sm_count());
+  flash_dq_bf16_wgmma_kernel<kD><<<grid, F::kThreads, F::kSmem, stream>>>(p, bh, mt, maps[0], maps[1], maps[2],
+                                                                         maps[3]);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_dkv(const Params& p, int b, cudaStream_t stream) {
+  using F = Dkv<kD>;
+  CUtensorMap maps[6];
+  int e = encode_operands(p, b, F::kM, F::kN, 4, maps);
+  const int64_t rows = (int64_t)b * p.h * p.sq;  // LSE and delta, read flat
+  if (!e) e = hopper::encode_flat_f32(&maps[4], p.lse, rows, F::kRowBox);
+  if (!e) e = hopper::encode_flat_f32(&maps[5], p.delta, rows, F::kRowBox);
+  if (e) return e;
+  const int bh = b * p.h, tiles = bh * ((p.sk + F::kN - 1) / F::kN) * F::kChunks;
+  const int grid = min(tiles, sm_count());
+  flash_dkv_bf16_wgmma_kernel<kD><<<grid, F::kThreads, F::kSmem, stream>>>(p, bh, tiles, maps[0], maps[1],
+                                                                          maps[2], maps[3], maps[4], maps[5]);
+  return (int)cudaGetLastError();
 }
 
 int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(kind, p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
-  if (kind == kFwd && bucket(p.d) != 4) {
-    switch (fwd_dim(p.d)) {
-      case 64: return launch_fwd<64>(p, b, stream);
-      case 128: return launch_fwd<128>(p, b, stream);
-      case 192: return launch_fwd<192>(p, b, stream);
-      default: return launch_fwd<256>(p, b, stream);
+  if (p.d <= kStagedD) {
+    switch (4 * kind + fwd_dim(p.d) / 64 - 1) {
+      case 0: return launch_fwd<64>(p, b, stream);
+      case 1: return launch_fwd<128>(p, b, stream);
+      case 2: return launch_fwd<192>(p, b, stream);
+      case 3: return launch_fwd<256>(p, b, stream);
+      case 4: return launch_dq<64>(p, b, stream);
+      case 5: return launch_dq<128>(p, b, stream);
+      case 6: return launch_dq<192>(p, b, stream);
+      case 7: return launch_dq<256>(p, b, stream);
+      case 8: return launch_dkv<64>(p, b, stream);
+      case 9: return launch_dkv<128>(p, b, stream);
+      case 10: return launch_dkv<192>(p, b, stream);
+      default: return launch_dkv<256>(p, b, stream);
     }
   }
-  const int threads = threads_of(kind, p.d), tile = 16 * (threads / 32);
-  dim3 grid((rows + tile - 1) / tile, b * p.h, chunks(p.d, kind == kDkv ? kDkvOT : kFwdOT));
+  // #1 past kStagedD: query tiles of kWideQ rows x (b h) x output chunks
+  dim3 grid((rows + kWideQ - 1) / kWideQ, b * p.h, chunks(p.d, kFwdOT));
   void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(threads), args,
+  cudaError_t e = cudaLaunchKernel((void*)flash_fwd_wide_bf16_kernel, grid, dim3(kWideThreads), args,
                                    smem_bytes(kind, p.d), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1331,7 +1620,7 @@ int ff_flash_bf16_occupancy(int kind, int d, int* out) {
   if (kind < kFwd || kind > kDkv || !takes(kind, d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, d);
   if (err) return err;
-  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out, threads_of(kind, d));
+  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out, threads_of(d));
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d] bf16 with head_dim (any multiple of

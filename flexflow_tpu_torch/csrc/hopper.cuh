@@ -76,6 +76,24 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h, 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A map over n contiguous f32 values (a [b, h, s] row statistic read
+// flat: its rows need not be 16-byte multiples, which a map's strides
+// must be), in boxes of `box` values; values past n read as 0. base is
+// 16-byte aligned; n below 2^31 (TMA coordinates are signed 32-bit).
+inline int encode_flat_f32(CUtensorMap* map, const void* base, int64_t n, int box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (n <= 0 || n > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {16};  // rank 1: no stride is read
+  const cuuint32_t boxd[1] = {(cuuint32_t)box};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides, boxd,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // -- device: shared memory, mbarriers, TMA ------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -145,6 +163,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a flat map (encode_flat_f32) from element c0, a multiple
+// of 4 (16 bytes: measured on an H100, a box starting between raises an
+// illegal instruction), into dst (128-byte aligned), completing its bytes
+// on `bar`.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 

@@ -10,10 +10,10 @@ csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
 tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
 operands (mixed precision) run in csrc/flash_bf16_kernel.cu, one bf16
 pass per product with f32 accumulation, the reference's bodies at bf16
-inputs: #1 up to head_dim 256 on wgmma over tiles that TMA loads
-(csrc/hopper.cuh; the wrapper's call encodes the tensor maps), #2 and
-#3 up to 256 on mma.sync, and #1 past it (a resident Q tile, K and V
-streamed over head_dim through a ring of cp.async slots). #2 and #3 run
+inputs: #1, #2 and #3 up to head_dim 256 on wgmma over tiles that TMA
+loads (csrc/hopper.cuh; the C entry point encodes the tensor maps per
+call), and #1 past it (a resident Q tile, K and V streamed over head_dim
+through a ring of cp.async slots). #2 and #3 run
 csrc/flash_bwd_kernel.cu's wide kernels past head_dim 128 in fp32 and
 past 256 in bf16: they compute the scores once
 per tile pair over a resident fixed tile and stream the loop operand

@@ -913,24 +913,35 @@ def _check_bf16_kernels(args, fwd=True, bwd=True):
      (2, 500, 500, 4, 64), (2, 500, 380, 4, 64), (2, 128, 384, 4, 64),
      (2, 200, 77, 3, 24), (2, 384, 129, 4, 128), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256),
      # the reference's test shapes (tests/test_flash_kernel.py)
-     (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32)],
+     (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32),
+     # #2 and #3's wgmma bodies: ragged against their 128-row fixed tiles,
+     # 128- and 64-row loop tiles, sq != sk both ways, head_dims whose
+     # last 64-column TMA box is part zero-filled
+     (2, 127, 129, 3, 40), (2, 129, 127, 3, 136), (2, 255, 257, 2, 200), (2, 257, 255, 2, 256),
+     (2, 130, 300, 2, 24), (2, 300, 130, 2, 128), (8, 512, 512, 8, 128), (8, 512, 512, 4, 256)],
 )
 def test_bf16_flash_kernels_match_plain_versions(shape, causal):
     """The bf16 #1-#3 at the flagship shape, ragged and sq != sk shapes,
-    head_dim 24 to 256 and the reference's test shapes; one launch of
-    each bf16 body counted per call, none of the fp32 bodies."""
+    head_dim 24 to 256 (#2 and #3 also at their tiles' edges, and at the
+    flagship's width in heads of 128 and 256) and the reference's test
+    shapes; one launch of each bf16 body counted per call, none of the
+    fp32 bodies."""
     dev = _card()
     b, sq, sk, h, d = shape
     _check_bf16_kernels(_bf16_operands(np.random.default_rng(sq + sk + d), dev, b, sq, sk, h, d, causal))
 
 
-@pytest.mark.parametrize("d", [8, 24, 64, 136, 256])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 136, 200, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk", MMA_EDGE_LENGTHS)
 def test_bf16_flash_kernels_match_plain_versions_at_mma_edges(sq, sk, causal, d):
-    """The bf16 bodies where tiles are ragged against mma's 16 rows and the
-    64-row tiles, and head_dims whose last k16 step is half zero-filled
-    (8, 24, 136) or that take two output chunks (136, 256)."""
+    """The bf16 bodies where tiles are ragged against the products' 16
+    rows and the 64-row tiles, and head_dims whose last 64-column TMA box
+    is part zero-filled (8-40 in the 64 bucket, 136 in 192, 200 in 256)
+    or full (64, 256); at one visible key (sk = 1) dQ and dK are 0 in
+    exact arithmetic and what is left is dP - delta's rounding, which
+    #2 and #3 keep at the plain version's level from 128 on with one
+    fresh chain a 64-column box."""
     dev = _card()
     rng = np.random.default_rng(sq * 1000 + sk + d + 11)
     _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal))
@@ -952,6 +963,37 @@ def test_bf16_forward_matches_plain_version_at_tile_edges(sq, sk, causal, d):
     dev = _card()
     rng = np.random.default_rng(sq * 1000 + sk + d + 17)
     _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal), bwd=False)
+
+
+# bf16 #2 and #3's wgmma bodies: lengths around their 128-row fixed tile
+# and their loop tiles (128 or 64 keys for #2, 64 queries for #3), one
+# query or one key, causal with sq != sk both ways
+BF16_BWD_TILE_LENGTHS = [(127, 129), (129, 127), (255, 257), (257, 255), (130, 300), (300, 130), (1, 300), (300, 1)]
+
+
+@pytest.mark.parametrize("d", [24, 40, 128, 136, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", BF16_BWD_TILE_LENGTHS)
+def test_bf16_backward_matches_plain_versions_at_tile_edges(sq, sk, causal, d):
+    """bf16 #2 and #3 at their tiles' ragged edges and head_dims whose
+    last TMA box is part zero-filled (or, at 128, two full boxes whose dP
+    chains are added), by the float64 gate; one launch each counted
+    under flash_dq_bf16 and flash_dkv_bf16."""
+    dev = _card()
+    rng = np.random.default_rng(sq * 1000 + sk + d + 23)
+    _check_bf16_kernels(_bf16_operands(rng, dev, 2, sq, sk, 3, d, causal), fwd=False)
+
+
+@pytest.mark.parametrize("name", ["flash_dq_bf16", "flash_dkv_bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_backward_fits_the_card(d, name):
+    """bf16 #2 and #3's wgmma bodies: no spilled registers (their
+    consumers hold the output accumulators, S and dP and the bf16
+    fragments in the 240 registers setmaxnreg gives them), one block an
+    SM."""
+    _card()
+    occ = fk.occupancy(name, d)
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -991,12 +1033,13 @@ def test_bf16_wide_forward_fits_the_card(d):
     assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
-@pytest.mark.parametrize("d", [64, 128, 256, 320, 2056])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 2056])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_flash_kernels_are_bit_identical_across_calls(causal, d):
     """No atomics in the bf16 bodies either: two calls give the same bits
-    (#1's wgmma body at 64, 128 and 256; past head_dim 256 on the wide
-    bodies, #1's Q tile resident at 320 and streamed at 2056)."""
+    (the wgmma bodies of #1-#3 at 64, 128, 192 and 256, ragged against
+    every tile; past head_dim 256 on the wide bodies, #1's Q tile
+    resident at 320 and streamed at 2056)."""
     dev = _card()
     args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, d, causal)
     q, k, v = args[:3]
@@ -1040,6 +1083,28 @@ def test_bf16_forward_reads_broadcast_views():
     for a, b in zip(fk.flash_fwd(q, k, v, True), fk.flash_fwd(q, k.contiguous(), v.contiguous(), True)):
         assert torch.equal(a, b)
     assert fk.LAUNCHES == _flash_launches(flash_fwd_bf16=2)
+
+
+def test_bf16_backward_reads_broadcast_views():
+    """K, V and dO broadcast over the batch (stride 0 over two batches)
+    give bf16 #2 and #3 the result of their contiguous copies: the
+    wrapper copies a view that repeats itself along a dimension before a
+    tensor map is made of it."""
+    dev = _card()
+    rng = np.random.default_rng(41)
+    q = _rand(rng, dev, 2, 130, 2, 64).bfloat16()
+    k, v = (_rand(rng, dev, 1, 150, 2, 64).bfloat16().expand(2, 150, 2, 64) for _ in range(2))
+    do = _rand(rng, dev, 1, 130, 2, 64).bfloat16().expand(2, 130, 2, 64)
+    assert k.stride(0) == 0 and do.stride(0) == 0
+    o, lse = fk.flash_fwd_ref(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    fk.reset_launches()
+    views = (q, k, v, do, lse, delta, True)
+    copies = (q, k.contiguous(), v.contiguous(), do.contiguous(), lse, delta, True)
+    assert torch.equal(fk.flash_dq(*views), fk.flash_dq(*copies))
+    for a, b in zip(fk.flash_dkv(*views), fk.flash_dkv(*copies)):
+        assert torch.equal(a, b)
+    assert fk.LAUNCHES == _flash_launches(flash_dq_bf16=2, flash_dkv_bf16=2)
 
 
 def test_mixed_precision_transformer_trains_through_the_bf16_kernels():

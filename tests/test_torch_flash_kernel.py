@@ -256,11 +256,12 @@ class _Lib:
         return f"{self.name}.{attr}"
 
 
-@pytest.mark.parametrize("d", [64, 256, 264, 320, 1032])
+@pytest.mark.parametrize("d", [24, 64, 128, 136, 192, 200, 256, 264, 320, 1032])
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_bf16_bodies_resolve_to_their_libraries(monkeypatch, name, d):
-    """bf16 #1 at any head_dim is an entry point of flash_bf16_kernel.cu
-    (past 256 counted as flash_fwd_wide_bf16); #2 and #3 past 256 are
+    """bf16 #1-#3 at any head_dim up to 256 (each of the wgmma bodies'
+    buckets 64, 128, 192 and 256) are entry points of flash_bf16_kernel.cu,
+    and #1 past 256 too (counted as flash_fwd_wide_bf16); #2 and #3 past 256 are
     flash_bwd_kernel.cu's wide kernels for bf16; float32 stays on the
     fp32 files. No library is built: the loaders are stand-ins."""
     for loader in ("_lib", "_bwd_lib", "_bf16_lib"):
@@ -320,6 +321,75 @@ def test_bf16_plain_versions_round_where_the_reference_does():
     o64, _ = fk.flash_fwd_ref(q.double(), k.double(), v.double())
     assert o64.dtype == torch.float64
     torch.testing.assert_close(o64.float(), o.float(), atol=1e-2, rtol=1e-2)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _bf16_rne(x):
+    """float32 values rounded to the nearest bf16 (ties to even), as float32."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+def _wgmma_backward_model(q, k, v, do, lse, delta, causal, scale):
+    """float32 numpy model of the rounding points of bf16 #2 and #3's wgmma
+    bodies (csrc/flash_bf16_kernel.cu) on bf16 values q, k, v, dO [b, s,
+    h, d] (as float32) and LSE, delta [b, h, sq]: S the exact products
+    summed in f32; dP the same, from head_dim 128 on per 64-column box,
+    the boxes' f32 sums added in f32; P = 2^(c S - L) with the scale
+    folded in (c = scale log2(e) and L = LSE log2(e), each rounded to f32,
+    and c S - L one fused multiply-add), 0 where masked; dS = P (dP -
+    delta) scale in f32; P and dS rounded to bf16 before dQ = dS K, dK =
+    dS^T Q and dV = P^T dO, each summed in f32 and rounded to bf16 once."""
+    f32, f64 = np.float32, np.float64
+    c = f32(f32(scale) * f32(_LOG2E))
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(f64), k.astype(f64)).astype(f32)
+    dp = np.zeros_like(s)
+    for x in range(0, q.shape[-1], 64):
+        box = slice(x, x + 64)
+        dp = dp + np.einsum("bqhd,bkhd->bhqk", do[..., box].astype(f64), v[..., box].astype(f64)).astype(f32)
+    L = (lse.astype(f32) * f32(_LOG2E)).astype(f32)
+    p = np.exp2((s.astype(f64) * f64(c) - L[..., None].astype(f64)).astype(f32)).astype(f32)
+    if causal:
+        p = np.where(np.tril(np.ones(s.shape[-2:], dtype=bool)), p, f32(0))
+    ds = ((p * (dp - delta[..., None].astype(f32))).astype(f32) * f32(scale)).astype(f32)
+    ds16, p16 = _bf16_rne(ds).astype(f64), _bf16_rne(p).astype(f64)
+    dq = np.einsum("bhqk,bkhd->bqhd", ds16, k.astype(f64)).astype(f32)
+    dk = np.einsum("bhqk,bqhd->bkhd", ds16, q.astype(f64)).astype(f32)
+    dv = np.einsum("bhqk,bqhd->bkhd", p16, do.astype(f64)).astype(f32)
+    return _bf16_rne(dq), _bf16_rne(dk), _bf16_rne(dv)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_backward_rounding_model_matches_jax(causal, d):
+    """The card's bf16 #2 and #3 round where _wgmma_backward_model says;
+    that model, on the inputs and the LSE the JAX package's bf16 forward
+    gives, matches the gradients of _dq_kernel and _dkv_kernel (the
+    Pallas interpreter at bf16, two 65-row blocks each way) within the
+    bf16 gradient gate above: one bf16 ulp of each gradient's largest
+    entry. 2 heads of 64 (one box) and of 128 (dP's two box sums added),
+    sq = sk = 130."""
+    rng = np.random.RandomState(21 + int(causal) + d)
+    q, k, v, do = (rng.randn(1, 130, 2, d).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jdo = _bf16(q, k, v, do)
+    flash = lambda q, k, v: _jax_flash_blocks(q, k, v, causal, 65)
+    jo, pullback = jax.vjp(flash, jq, jk, jv)
+    jg = pullback(jdo)
+    _, jlse = _jax_flash_blocks(jq, jk, jv, causal, 65, return_lse=True)
+    delta = np.einsum("bqhd,bqhd->bhq", _f32(jdo), _f32(jo))
+    model = _wgmma_backward_model(*(_f32(a) for a in (jq, jk, jv, jdo)), np.asarray(jlse), delta, causal,
+                                  1.0 / math.sqrt(d))
+    for got, want in zip(model, jg):
+        want = _f32(want)
+        np.testing.assert_allclose(got, want, atol=_bf16_ulp(np.abs(want).max()), rtol=0)
+
+
+def _jax_flash_blocks(q, k, v, causal, block, return_lse=False):
+    return flash_attention_tpu(q, k, v, causal=causal, block_q=block, block_k=block, return_lse=return_lse,
+                               interpret=True)
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):
