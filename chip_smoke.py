@@ -97,10 +97,12 @@ result line) on any failed phase:
                step beside the device time of casting the weights alone;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
-               not, ragged (sq 500, sq != sk, head_dim 24, 128, 160,
-               256, and past 256 on the wide kernels, which compute the
-               scores once per tile pair and stream the loop operand over
-               head_dim: 264, 320, 512 and 1032)
+               not, ragged (sq 500, sq != sk, head_dim 24, 128, and
+               past 128 on the wide bodies, which compute the scores once
+               per tile pair and stream the loop operand over head_dim:
+               160, 256, 264, 320, 512 and 1032; #1's also at its edges:
+               136, 248, one visible key, sq 32 and 33, the widest
+               resident Q at 1216 and streamed at 1224)
                and at the reference's test shapes
                (tests/test_flash_kernel.py, head_dim 32, the uneven 128 x
                384 included), at the reference's scale: O and LSE within
@@ -108,12 +110,12 @@ result line) on any failed phase:
                times (the event timer's and the profiler's device time per
                call), bounds, the library call (SDPA forward beside #1,
                SDPA backward for the #2 + #3 pair, with the device kernel
-               each runs), the port's dense core, also timed at [8,
-               512, 4, 256] and, gated there too, at [8, 512, 4, 320] and
-               [8, 256, 2, 512] (the wide kernels' rows of the kernels
-               line, counted under name + "_wide"); each kernel's
+               each runs), the port's dense core, also timed, gated there
+               too, on the wide bodies at [8, 512, 4, 320] (the rows of
+               the kernels line, counted under name + "_wide"; causal
+               too), [8, 512, 4, 256] and [8, 256, 2, 512]; each kernel's
                registers, spills, shared memory and blocks per SM at
-               head_dim 64, 128, 256, 264, 320, 512 and 1032 (past 256
+               head_dim 64, 128, 136, 256, 264, 320, 512 and 1032 (past 256
                also the backward's wide kernels for bf16), the count of
                tensor-core (HMMA) instructions in each flash library's
                SASS, and the card's clocks and power; the fp32 wide
@@ -265,7 +267,8 @@ KERNELS = {
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
-    # fp32 #1-#3 past head_dim 256: the wide kernels of the same files
+    # fp32 #1-#3 past head_dim 128: the wide bodies of the same files (#1:
+    # one body, the scores once per tile pair, Q resident, a TMA ring)
     "flash_fwd_wide": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_wide": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_wide": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
@@ -1704,9 +1707,11 @@ def flash_calls(x):
 
     fwd = (x["q"], x["k"], x["v"], x["causal"])
     bwd = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"], x["causal"])
-    suffix = "_wide" if x["q"].shape[-1] > 256 else ""
+    d = x["q"].shape[-1]
     if x["q"].dtype == torch.bfloat16:
-        suffix += "_bf16"
+        suffix = "_wide_bf16" if d > 256 else "_bf16"
+    else:
+        suffix = "_wide" if d > 128 else ""
     return {
         "flash_fwd" + suffix: (lambda: fk.flash_fwd(*fwd), lambda: fk.flash_fwd_ref(*fwd)),
         "flash_dq" + suffix: (lambda: fk.flash_dq(*bwd), lambda: fk.flash_dq_ref(*bwd)),
@@ -1761,12 +1766,13 @@ def sass_opcodes(source):
     return collections.Counter(ops)
 
 
-def flash_resources(dims=(64, 128, 256, 264, 320, 512, 1032)):
+def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
     """Each flash kernel's ptxas report (registers, spills) at the
-    instantiation of each head_dim of `dims` (the wide kernels, one for
-    every head_dim: #1's past 256, #2 and #3's past 128, past 256 also
-    for bf16), its shared memory and blocks per SM on this card, and the
-    tensor-core (HMMA) instructions of each flash library's SASS."""
+    instantiation of each head_dim of `dims` (past 128 the wide bodies:
+    #1's with Q resident up to 1216 and streamed past it, #2 and #3's one
+    for every head_dim, past 256 also for bf16), its shared memory and
+    blocks per SM on this card, and the tensor-core (HMMA) instructions
+    of each flash library's SASS."""
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
@@ -1780,14 +1786,18 @@ def flash_resources(dims=(64, 128, 256, 264, 320, 512, 1032)):
 
     for d in dims:
         kdt = 4 << (0 if d <= 32 else 1 if d <= 64 else 2 if d <= 128 else 3)  # the source's bucket
-        names = FLASH_WIDE_FP32 + ("flash_dq_wide_bf16", "flash_dkv_wide_bf16") if d > 256 else FLASH_FP32
+        names = FLASH_WIDE_FP32 if d > 128 else FLASH_FP32
+        if d > 256:
+            names += ("flash_dq_wide_bf16", "flash_dkv_wide_bf16")
         for name in names:
             base = flash_base(name)
             source = fk.SOURCE if base == "flash_fwd" else fk.BWD_SOURCE
-            if d <= (256 if base == "flash_fwd" else 128):
+            if d <= 128:
                 sym, tag, label = f"{base}_mma_kernel", f"ILi{kdt}E", f"{base}_mma_kernel<{kdt}>"
-            elif base == "flash_fwd":
-                sym, tag, label = f"{base}_wide_kernel", "", f"{base}_wide_kernel"
+            elif base == "flash_fwd":  # the template argument: Q resident (up to 1216) or streamed
+                resident = d <= 1216
+                sym, tag = f"{base}_wide_kernel", "ILb1E" if resident else "ILb0E"
+                label = f"{sym}<{'true' if resident else 'false'}>"
             else:  # #2 and #3 past 128
                 bf16 = name.endswith("_bf16")  # the mangled template argument tells the two apart
                 sym, tag = f"{base}_wide_kernel", "I13__nv_bfloat16E" if bf16 else "IfE"
@@ -1829,17 +1839,20 @@ def check_flash_case(x, tag):
 
 
 # The timed shapes of phase 5: the flagship shape, causal and not (its
-# non-causal times go into the kernels line), then the flagship's width
-# in 4 heads of 256, the widest head_dim staged at full width (two
-# output-column chunks), then 4 heads of 320 and 2 of 512 at half the
-# length on the wide kernels. The flagship's are timed before any wide
-# kernel or correctness case runs: once those have run, the profiler's
-# sessions on the card read only part of their kernels (measured: 19 of
-# 20 flushes, then device times of half the event timer's).
+# non-causal times go into the kernels line), then the wide bodies (past
+# head_dim 128): 4 heads of 320 (the fp32 wide kernels' rows of the
+# kernels line), the flagship's width in 4 heads of 256, 2 heads of 512
+# at half the length, and 4 heads of 320 causal. The flagship's are timed
+# before any wide kernel or correctness case runs: once those have run,
+# the profiler's sessions on the card read only part of their kernels
+# (measured: 19 of 20 flushes, then device times of half the event
+# timer's).
 FLASH_TIMED = ((TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], False),
                (TRAIN["seq"], TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], True))
-FLASH_TIMED_WIDE = ((TRAIN["seq"], TRAIN["hidden"] // 256, 256, False), (TRAIN["seq"], 4, 320, False),
-                    (TRAIN["seq"] // 2, 2, 512, False))
+FLASH_TIMED_WIDE = ((TRAIN["seq"], 4, 320, False), (TRAIN["seq"], TRAIN["hidden"] // 256, 256, False),
+                    (TRAIN["seq"] // 2, 2, 512, False), (TRAIN["seq"], 4, 320, True))
+# the bf16 wide bodies (past head_dim 256) at those shapes
+FLASH_TIMED_WIDE_BF16 = tuple(x for x in FLASH_TIMED_WIDE if x[2] > 256)
 # the bf16 bodies also at the flagship's width in heads of 128 and 256
 # (bf16 #1's wgmma body at its other head_dim buckets), timed with the
 # flagship's before any wide kernel runs
@@ -1850,11 +1863,10 @@ FLASH_TIMED_BF16 = ((TRAIN["seq"], TRAIN["hidden"] // 128, 128, False),
 def time_flash_kernels(shapes):
     """Times of #1-#3 at `shapes` ((seq, heads, head_dim, causal) at the
     flagship's batch) by the event timer and by the profiler's device
-    time, beside SDPA's and the port's dense core; past head_dim 256 (the
-    wide kernels, which stream the score contraction over head_dim) the
+    time, beside SDPA's and the port's dense core; past head_dim 128 (the
+    wide bodies, which stream the score contraction over head_dim) the
     reference's gate at the timed shape itself. Returns the kernels-line
-    rows of each kernel's first non-causal shape (the fp32 wide kernels'
-    past 256)."""
+    rows of each kernel's first non-causal shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1869,7 +1881,7 @@ def time_flash_kernels(shapes):
         x = flash_inputs(device, b, ts, ts, th, td, causal)
         flagship = td == d
         tag = ("causal" if causal else "non-causal") + ("" if flagship else f" [{b}, {ts}, {th}, {td}]")
-        if td > 256:  # the reference's gate at the timed shape itself
+        if td > 128:  # the reference's gate at the timed shape itself
             check_flash_case(x, tag)
         dev, timer, first = {}, {}, []
         for name, (kernel, plain) in flash_calls(x).items():
@@ -1917,8 +1929,11 @@ def check_flash_kernels(rows):
     """Kernels #1-#3 against their plain versions at the reference's scale,
     at the flagship training shape, causal and not, ragged shapes (sq !=
     sk both ways, head_dim 24 to 1032) and the reference's test shapes,
-    each kernel's worst error into `rows` (past 256 the wide kernels'
-    rows); the kernels' resources at head_dim 64-1032."""
+    each kernel's worst error into `rows` (past 128 the wide bodies'
+    rows), #1's wide body also at its edges (a ragged last piece at 136,
+    248, one visible key, one query tile and one row past it, the widest
+    resident Q at 1216 and the first streamed one at 1224); the kernels'
+    resources at head_dim 64-1224."""
     import torch
 
     device = torch.device("cuda")
@@ -1929,6 +1944,10 @@ def check_flash_kernels(rows):
              (2, 384, 129, 4, 128, True), (2, 65, 200, 4, 24, False), (2, 300, 129, 2, 256, True),
              (2, 129, 300, 2, 160, False), (2, 129, 300, 2, 264, True), (2, 300, 129, 2, 320, True),
              (2, 129, 300, 2, 512, False), (1, 200, 200, 2, 1032, True)]
+    # #1's wide body at its edges, causal and not
+    cases += [(cb, sq, sk, 2, cd, c) for cb, sq, sk, cd in
+              ((2, 200, 77, 136), (2, 77, 200, 248), (2, 300, 1, 256), (2, 32, 40, 264), (2, 33, 40, 264),
+               (1, 70, 90, 1216), (1, 70, 90, 1224), (1, 77, 200, 1032)) for c in (False, True)]
     # the reference's test shapes (tests/test_flash_kernel.py), causal and not
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
     for cb, sq, sk, ch, cd, causal in cases:
@@ -2203,8 +2222,8 @@ def profile_train_step(model, batch, label=""):
 def train_flagship(device, mixed=False, **geo):
     """fit() over `steps` batches; each flash kernel of the model's dtype
     and head_dim (the fp32 bodies, or the bf16 ones under mixed precision;
-    past head_dim 256 the wide ones) must run once per layer per step, no
-    other body ever, and the losses stay finite."""
+    the wide ones past head_dim 128 in fp32 and 256 in bf16) must run once
+    per layer per step, no other body ever, and the losses stay finite."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
@@ -2233,7 +2252,7 @@ def train_flagship(device, mixed=False, **geo):
     require(np.isfinite(mean_loss), f"non-finite training loss {mean_loss}")
     if cuda:
         # the bodies of the model's dtype and head_dim run, no other
-        wide = geo["hidden"] // geo["heads"] > 256
+        wide = geo["hidden"] // geo["heads"] > (256 if mixed else 128)
         if mixed:
             ran = FLASH_WIDE_BF16 if wide else FLASH_BF16
         else:
@@ -2462,8 +2481,8 @@ def main() -> int:
     # the fp32 wide kernels' rows: their first non-causal shape, [8, 512, 4, 320]
     wide_rows = time_flash_kernels(FLASH_TIMED_WIDE)
     flash_rows.update((k, v) for k, v in wide_rows.items() if k in FLASH_WIDE_FP32)
-    # past 256: the bf16 wide kernels, and #1's wide body causal too
-    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE[1:] + ((TRAIN["seq"], 4, 320, True),)))
+    # past 256: the bf16 wide kernels, #1's wide body causal too
+    flash_rows.update(time_flash_bf16_kernels(FLASH_TIMED_WIDE_BF16))
     print(f"[kernels] nvidia-smi clocks.sm, clocks.max.sm, power.draw, temperature: "
           f"before the flash kernel timings [{smi_before}], after them [{smi_sample()}]")
     check_flash_kernels(flash_rows)

@@ -344,7 +344,6 @@ constexpr int kWP = 8 * kPieceTiles;        // columns of a streamed piece
 constexpr int kWld = ld_of<kPieceTiles>();  // row stride of a staged piece
 constexpr int kWideOT = 8;                  // output n-tiles of a warp
 constexpr int kWideChunkTiles = kWideWarps * kWideOT;  // output n-tiles of a block
-constexpr int kFrag = 32 * 4;               // floats of one warp's m16n8 fragment
 constexpr int kSmemMax = 232448;            // dynamic shared memory one block may take
 // widest head_dim whose fixed tile stays resident (asserted below)
 constexpr int kWideResidentD = 512;
@@ -425,32 +424,6 @@ __device__ __forceinline__ void stage_piece(float* dst, const T* base, int64_t s
       if (in) raw = __ldg(reinterpret_cast<const uint4*>(src));
       widen_bf16x8(dst + r * kWld, raw);
     }
-  }
-}
-
-// An accumulator fragment's values v (rows g, g + 8 at columns 2t, 2t + 1)
-// as the split A fragment of the next product, whose k index runs over
-// those columns in the order product_pn reads them: {v0, v2, v1, v3}.
-template <bool kOne>
-__device__ __forceinline__ void put_a(float* big, float* small, const float v[4]) {
-  uint32_t b[4], s[4];
-  split(v[0], b[0], s[0]);
-  split(v[2], b[1], s[1]);
-  split(v[1], b[2], s[2]);
-  split(v[3], b[3], s[3]);
-  *reinterpret_cast<uint4*>(big) = make_uint4(b[0], b[1], b[2], b[3]);
-  if constexpr (!kOne) *reinterpret_cast<uint4*>(small) = make_uint4(s[0], s[1], s[2], s[3]);
-}
-
-template <bool kOne>
-__device__ __forceinline__ void get_a(const float* big, const float* small, uint32_t ab[4], uint32_t as[4]) {
-  const uint4 b = *reinterpret_cast<const uint4*>(big);
-  ab[0] = b.x, ab[1] = b.y, ab[2] = b.z, ab[3] = b.w;
-  if constexpr (!kOne) {
-    const uint4 s = *reinterpret_cast<const uint4*>(small);
-    as[0] = s.x, as[1] = s.y, as[2] = s.z, as[3] = s.w;
-  } else {
-    as[0] = as[1] = as[2] = as[3] = 0u;
   }
 }
 

@@ -27,37 +27,25 @@ constexpr int kLoop = 32;     // rows of the loop operand's tile
 constexpr int kWarps = 4;     // 16 rows of the fixed tile each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kNT = kLoop / 8;  // 8-wide n-tiles of one loop tile's scores
-// head_dims up to this are staged at full width (buckets 0-3); past it the
-// wide kernels stream the score contraction over head_dim in pieces of
-// kPieceTiles n-tiles (bucket 4): the forward's streams both operands, the
-// backward's only the loop operand while its fixed tile fits resident
+// head_dims up to this take bf16 #1-#3's wgmma bodies (flash_bf16_kernel.cu);
+// past it bf16 runs the wide kernels
 constexpr int kStagedMaxD = 256;
-// output columns of one block of buckets 0-3 and of the wide forward:
-// head_dims past this are cut into chunks, one per grid z index (out_chunk)
-constexpr int kChunkTiles = 16;
-// n-tiles of one streamed piece of head_dim in the wide kernels, staged at
-// the stride of bucket 2 (ld_of<16>(), 132 floats)
+// n-tiles of one streamed piece of head_dim in the backward's wide
+// kernels, staged at the stride of bucket 2 (ld_of<16>(), 132 floats)
 constexpr int kPieceTiles = 16;
+constexpr int kFrag = 32 * 4;  // floats of one warp's m16n8 fragment
 
 // Row stride of a staged tile for head_dims of the kDT bucket.
 template <int kDT>
 __host__ __device__ constexpr int ld_of() { return 8 * kDT + 4; }
 
-// n-tiles of output columns one block holds in the kDT bucket
-template <int kDT>
-__host__ __device__ constexpr int out_tiles() { return kDT < kChunkTiles ? kDT : kChunkTiles; }
-
-// head_dim bucket: 8-column tiles kDT = 4, 8, 16 or 32 staged at full
-// width, or 4: the wide kernels, past kStagedMaxD
-inline int bucket(int d) {
-  return d <= 32 ? 0 : d <= 64 ? 1 : d <= 128 ? 2 : d <= kStagedMaxD ? 3 : 4;
-}
+// head_dim bucket of the mma kernels up to 128: 8-column tiles kDT = 4,
+// 8 or 16 staged at full width (0-2); past 128 both directions run their
+// wide kernels, which the callers test first
+inline int bucket(int d) { return d <= 32 ? 0 : d <= 64 ? 1 : 2; }
 
 // any head_dim that is a multiple of 8, as the reference's supports()
 inline bool takes(int d) { return d > 0 && d % 8 == 0; }
-
-// grid z: output-column chunks of at most kChunkTiles n-tiles
-inline int chunks(int d) { return (d / 8 + kChunkTiles - 1) / kChunkTiles; }
 
 struct Params {
   const float* q;
@@ -78,23 +66,11 @@ struct Params {
 };
 
 // This block's output columns: n-tiles [c0t, c0t + cn) of the head_dim's
-// dt, cut evenly over the grid's z (at most kChunkTiles each).
+// dt, cut evenly over the grid's z.
 __device__ __forceinline__ void z_chunk(int dt, int& c0t, int& cn) {
   const int ct = (dt + gridDim.z - 1) / gridDim.z;
   c0t = blockIdx.z * ct;
   cn = min(ct, dt - c0t);
-}
-
-// z_chunk, or all of the head_dim's n-tiles in the buckets up to
-// kChunkTiles, whose grid has one z index.
-template <int kDT>
-__device__ __forceinline__ void out_chunk(int dt, int& c0t, int& cn) {
-  if constexpr (kDT <= kChunkTiles) {
-    c0t = 0;
-    cn = dt;
-  } else {
-    z_chunk(dt, c0t, cn);
-  }
 }
 
 // -- 3xTF32 on the tensor cores ---------------------------------------------------
@@ -138,6 +114,34 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
   split(b[0], bb[0], bs[0]);
   split(b[1], bb[1], bs[1]);
   mma3_split<kOne>(c, ab, as, bb, bs);
+}
+
+// An accumulator fragment's values v (rows g, g + 8 at columns 2t, 2t + 1)
+// as the split A fragment of the next product, whose k index runs over
+// those columns in the order product_pn reads them: {v0, v2, v1, v3}.
+// The wide kernels hand P and dS from the warps that compute them to the
+// warps of the output products through shared memory in this form.
+template <bool kOne>
+__device__ __forceinline__ void put_a(float* big, float* small, const float v[4]) {
+  uint32_t b[4], s[4];
+  split(v[0], b[0], s[0]);
+  split(v[2], b[1], s[1]);
+  split(v[1], b[2], s[2]);
+  split(v[3], b[3], s[3]);
+  *reinterpret_cast<uint4*>(big) = make_uint4(b[0], b[1], b[2], b[3]);
+  if constexpr (!kOne) *reinterpret_cast<uint4*>(small) = make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+template <bool kOne>
+__device__ __forceinline__ void get_a(const float* big, const float* small, uint32_t ab[4], uint32_t as[4]) {
+  const uint4 b = *reinterpret_cast<const uint4*>(big);
+  ab[0] = b.x, ab[1] = b.y, ab[2] = b.z, ab[3] = b.w;
+  if constexpr (!kOne) {
+    const uint4 s = *reinterpret_cast<const uint4*>(small);
+    as[0] = s.x, as[1] = s.y, as[2] = s.z, as[3] = s.w;
+  } else {
+    as[0] = as[1] = as[2] = as[3] = 0u;
+  }
 }
 
 // -- products of one warp -------------------------------------------------------

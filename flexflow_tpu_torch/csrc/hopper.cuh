@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: TMA tensor
 // maps and loads, mbarriers, wgmma descriptors and the m64nNk16 bf16
 // products, warpgroup register reallocation. Raw PTX in asm volatile, as
-// the rest of csrc/. csrc/flash_bf16_kernel.cu's forward (#1 up to
-// head_dim 256) is built from them.
+// the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16 #1-#3 up to
+// head_dim 256) and csrc/flash_kernel.cu's wide body (fp32 #1 past
+// head_dim 128, its ring of fp32 boxes: 32 columns, 128 bytes a row, in
+// the same swizzle) are built from them.
 //
 // Operand layout. A tile of a bf16 [b, s, h, d] tensor is loaded by TMA
 // in boxes of 64 head_dim columns (128 bytes) x rows, 128-byte swizzled:
@@ -55,25 +57,39 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A map over one [b, s, h, d] bf16 tensor as the 4-D [d, s, h, b] (head_dim
-// contiguous; strides in elements, 16-byte multiples), read in boxes of 64
-// columns x `rows` rows of one head, 128-byte swizzled; elements past the
-// tensor read as 0. Returns 0 or a cudaError_t.
-inline int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h, int d, int64_t sb,
-                       int64_t ss, int64_t sh, int rows) {
+// A map over one [b, s, h, d] tensor of `elem`-byte elements as the 4-D
+// [d, s, h, b] (head_dim contiguous; strides in elements, 16-byte
+// multiples), read in boxes of 128 bytes of columns x `rows` rows of one
+// head, 128-byte swizzled; elements past the tensor read as 0. Returns 0
+// or a cudaError_t.
+inline int encode_bshd_as(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int b, int s,
+                          int h, int d, int64_t sb, int64_t ss, int64_t sh, int rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
   const int64_t st[3] = {ss, sh, sb};
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i)  // a dimension of size 1 is never stepped: any legal stride
-    strides[i] = dims[i + 1] == 1 && st[i] == 0 ? 16 : (cuuint64_t)st[i] * 2;
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    strides[i] = dims[i + 1] == 1 && st[i] == 0 ? 16 : (cuuint64_t)st[i] * elem;
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16 [b, s, h, d] in boxes of 64 columns x `rows` rows (the wgmma bodies)
+inline int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h, int d, int64_t sb,
+                       int64_t ss, int64_t sh, int rows) {
+  return encode_bshd_as(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, b, s, h, d, sb, ss, sh, rows);
+}
+
+// fp32 [b, s, h, d] in boxes of 32 columns x `rows` rows (fp32 #1 past
+// head_dim 128, csrc/flash_kernel.cu)
+inline int encode_bshd_f32(CUtensorMap* map, const void* base, int b, int s, int h, int d, int64_t sb,
+                           int64_t ss, int64_t sh, int rows) {
+  return encode_bshd_as(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, b, s, h, d, sb, ss, sh, rows);
 }
 
 // A map over n contiguous f32 values (a [b, h, s] row statistic read

@@ -13,9 +13,11 @@ pass per product with f32 accumulation, the reference's bodies at bf16
 inputs: #1, #2 and #3 up to head_dim 256 on wgmma over tiles that TMA
 loads (csrc/hopper.cuh; the C entry point encodes the tensor maps per
 call), and #1 past it (a resident Q tile, K and V streamed over head_dim
-through a ring of cp.async slots). #2 and #3 run
-csrc/flash_bwd_kernel.cu's wide kernels past head_dim 128 in fp32 and
-past 256 in bf16: they compute the scores once
+through a ring of cp.async slots). fp32 #1 past head_dim 128 runs
+flash_kernel.cu's wide body: the scores once per tile pair over a
+resident Q tile, K and V streamed through a TMA ring. #2 and
+#3 run csrc/flash_bwd_kernel.cu's wide kernels past head_dim 128 in fp32
+and past 256 in bf16: they compute the scores once
 per tile pair over a resident fixed tile and stream the loop operand
 through a ring of cp.async slots; bf16 runs them instantiated for bf16
 (rows widened to fp32 as they are staged, one exact TF32 pass per
@@ -70,15 +72,16 @@ BF16_SOURCE = "flash_bf16_kernel.cu"
 # grid y is batch * heads
 _MAX_BATCH_HEADS = 65535
 
-# head_dims up to this #1 stages at full width (flash_common.cuh's
-# kStagedMaxD); past it all three kernels run wide kernels (fp32 #2 and
-# #3 from 136 on)
+# head_dims past these run each kernel's wide body: fp32 #1-#3 past 128
+# (flash_kernel.cu's flash_fwd_wide_kernel, flash_bwd_kernel.cu's wide
+# kernels), bf16 past 256 (past flash_bf16_kernel.cu's wgmma bodies)
+_MMA_MAX_D = 128
 _STAGED_MAX_D = 256
 
 # kernel launches per kernel since the last reset_launches(): the fp32
-# bodies under the kernels' names (past head_dim 256, where all three run
-# wide kernels, under name + "_wide"), the bf16 bodies under name +
-# "_bf16" and the bf16 bodies past head_dim 256 under name + "_wide_bf16"
+# bodies under the kernels' names (their wide bodies, past head_dim 128,
+# under name + "_wide"), the bf16 bodies under name + "_bf16" and the bf16
+# bodies past head_dim 256 under name + "_wide_bf16"
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
@@ -102,10 +105,10 @@ def reset_launches() -> None:
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this shape: float32 or bfloat16 with
     head_dim any positive multiple of 8, as the reference's supports()
-    (past 256 the score contraction streams the loop operand over
-    head_dim in 128-column pieces; the fixed tile stays resident up to
-    head_dim 512 in #2 and #3 and 752 in bf16 #1, and is streamed beside
-    it past that); non-empty sequences. Any sequence length works (the
+    (past 128 in fp32 and 256 in bf16 the score contraction streams the
+    loop operand over head_dim in 128-column pieces; the fixed tile stays
+    resident up to head_dim 512 in #2 and #3, 1216 in fp32 #1 and 752 in
+    bf16 #1, and is streamed beside it past that); non-empty sequences. Any sequence length works (the
     ragged tail of a tile is masked)."""
     return dtype in _DTYPES and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
@@ -343,16 +346,18 @@ def _device_only(name: str, t: torch.Tensor) -> None:
 def _body(name: str, dtype: torch.dtype, d: int):
     """(LAUNCHES key, C entry point) of kernel `name` for `dtype` at
     head_dim d: bf16 on flash_bf16_kernel.cu's bodies, but #2 and #3 past
-    256 on flash_bwd_kernel.cu's wide kernels instantiated for bf16; fp32
-    past 256 counted under name + "_wide"."""
-    wide = d > _STAGED_MAX_D
+    256 on flash_bwd_kernel.cu's wide kernels instantiated for bf16,
+    counted under name + "_wide_bf16" past 256; fp32 on flash_kernel.cu
+    (#1) and flash_bwd_kernel.cu (#2, #3), whose wide bodies past 128 are
+    counted under name + "_wide"."""
     if dtype == torch.bfloat16:
+        wide = d > _STAGED_MAX_D
         key = name + ("_wide_bf16" if wide else "_bf16")
         if name == "flash_fwd" or not wide:
             return key, getattr(_bf16_lib(), f"ff_{name}_bf16")
         return key, getattr(_bwd_lib(), f"ff_{name}_wide_bf16")
     lib = _lib() if name == "flash_fwd" else _bwd_lib()
-    return name + ("_wide" if wide else ""), getattr(lib, f"ff_{name}_f32")
+    return name + ("_wide" if d > _MMA_MAX_D else ""), getattr(lib, f"ff_{name}_f32")
 
 
 def flash_fwd(q, k, v, causal=False, sm_scale=None):

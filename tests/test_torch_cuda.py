@@ -606,18 +606,16 @@ def test_small_lm_serves_identically_on_both_layouts():
     [(2, 256, 256, 4, 64), (2, 200, 77, 3, 128), (1, 96, 160, 2, 8),
      # the reference's test shapes (tests/test_flash_kernel.py)
      (2, 256, 256, 2, 32), (2, 128, 128, 2, 32), (1, 128, 384, 2, 32),
-     # head_dims past 128: #1 in two output-column chunks, #2 and #3 on
-     # the wide kernels
+     # head_dims past 128: the wide bodies (all output columns in one
+     # block up to 512, 3 chunks at 1032, #1's Q and #2/#3's fixed tile
+     # streamed there), 2 to 9 streamed pieces
      (2, 200, 77, 3, 136), (1, 96, 160, 2, 160), (2, 129, 300, 2, 256),
-     # past 256: the wide kernels (#2 and #3: all output columns in one
-     # block up to 512, 3 chunks at 1032, the fixed tile streamed there),
-     # 3 to 9 streamed pieces
      (2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512), (1, 200, 200, 2, 1032)],
 )
 def test_flash_kernels_match_plain_versions(shape, causal):
     """Kernels #1-#3 at ragged and sq != sk shapes and at the reference's
-    test shapes, head_dim 8 to 1032; one launch counted per call (past
-    256 under name + "_wide")."""
+    test shapes, head_dim 8 to 1032; one launch counted per call (the
+    wide bodies, past 128, under name + "_wide")."""
     dev = _card()
     b, sq, sk, h, d = shape
     rng = np.random.default_rng(sq + d)
@@ -640,8 +638,47 @@ def test_flash_kernels_match_plain_versions(shape, causal):
 
 
 def _wide(d):
-    """The LAUNCHES suffix of the fp32 bodies at head_dim d."""
-    return "_wide" if d > 256 else ""
+    """The LAUNCHES suffix of the fp32 bodies at head_dim d: the wide
+    bodies of #1-#3 past 128."""
+    return "_wide" if d > 128 else ""
+
+
+WIDE_FWD_DIMS = [136, 248, 256, 264, 512, 1032, 1216, 1224]
+WIDE_FWD_LENGTHS = [(200, 77), (77, 200), (300, 1), (32, 40), (33, 40)]
+
+
+@pytest.mark.parametrize("d", WIDE_FWD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", WIDE_FWD_LENGTHS)
+def test_flash_wide_forward_matches_plain_version_at_its_edges(sq, sk, causal, d):
+    """#1's wide body at its edges: head_dim 136 (a ragged last piece),
+    248 and 256 (the last full piece), 264, 512 (one block's widest
+    output), 1032 (3 output chunks over grid z), 1216 and 1224 (the
+    widest resident Q and the first streamed one); sq != sk with a ragged
+    last tile both ways, one visible key (sk 1), one query tile (sq 32)
+    and one row past it (sq 33). O and LSE of every row finite and within
+    2e-5, one launch under flash_fwd_wide."""
+    dev = _card()
+    rng = np.random.default_rng(sq * 1000 + sk + d + 11)
+    q = _rand(rng, dev, 2, sq, 2, d)
+    k, v = _rand(rng, dev, 2, sk, 2, d), _rand(rng, dev, 2, sk, 2, d)
+    fk.reset_launches()
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == _flash_launches(flash_fwd_wide=1)
+    ro, rlse = fk.flash_fwd_ref(q, k, v, causal)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(o, ro, atol=FWD_TOL, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [136, 256, 320, 512, 1032, 1216, 1224])
+def test_flash_wide_forward_fits_the_card(d):
+    """#1's wide body with Q resident (136-1216) and streamed (1224):
+    no spilled registers, and a block fits an SM."""
+    _card()
+    occ = fk.occupancy("flash_fwd_wide", d)
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
 def _flash_backward_operands(rng, dev, b, sq, sk, h, d, causal):
@@ -698,11 +735,12 @@ def test_flash_forward_matches_plain_version_at_mma_edges(sq, sk, causal, d):
     torch.testing.assert_close(lse, rlse, atol=FWD_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("d", [64, 256, 320])
+@pytest.mark.parametrize("d", [64, 256, 320, 1032])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_forward_is_bit_identical_across_calls(causal, d):
-    """#1: each output row is written by one block, so two calls on the
-    same inputs give the same bits."""
+    """#1: each output row is written by one block, in a fixed order of
+    sums, so two calls on the same inputs give the same bits (past 128
+    on the wide body: Q resident at 256 and 320, streamed at 1032)."""
     dev = _card()
     rng = np.random.default_rng(19)
     q, k, v = (_rand(rng, dev, 2, s, 4, d) for s in (300, 260, 260))
@@ -783,9 +821,9 @@ def test_mha_raises_where_the_flash_kernels_do_not_take_the_shape(use_flash):
 @pytest.mark.parametrize("causal", [False, True])
 def test_mha_with_head_dim_160_trains_through_the_flash_kernels(monkeypatch, causal):
     """An MHA with head_dim 160 on a CUDA tensor launches #1-#3 once each
-    for a forward and backward; its output and gradients match the same
-    lowering on the same card with the kernels' plain versions in their
-    place."""
+    (their wide bodies) for a forward and backward; its output and
+    gradients match the same lowering on the same card with the kernels'
+    plain versions in their place."""
     from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
     from flexflow_tpu_torch.core.types import DataType, OperatorType
     from flexflow_tpu_torch.ops.registry import LowerCtx, infer_shapes, lower_op
@@ -807,7 +845,7 @@ def test_mha_with_head_dim_160_trains_through_the_flash_kernels(monkeypatch, cau
 
     fk.reset_launches()
     got = run()
-    assert fk.LAUNCHES == _flash_launches(flash_fwd=1, flash_dq=1, flash_dkv=1)
+    assert fk.LAUNCHES == _flash_launches(flash_fwd_wide=1, flash_dq_wide=1, flash_dkv_wide=1)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         monkeypatch.setattr(fk, name, getattr(fk, name + "_ref"))
     want = run()

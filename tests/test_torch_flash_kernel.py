@@ -263,7 +263,8 @@ def test_bf16_bodies_resolve_to_their_libraries(monkeypatch, name, d):
     buckets 64, 128, 192 and 256) are entry points of flash_bf16_kernel.cu,
     and #1 past 256 too (counted as flash_fwd_wide_bf16); #2 and #3 past 256 are
     flash_bwd_kernel.cu's wide kernels for bf16; float32 stays on the
-    fp32 files. No library is built: the loaders are stand-ins."""
+    fp32 files, counted under name + "_wide" past head_dim 128. No
+    library is built: the loaders are stand-ins."""
     for loader in ("_lib", "_bwd_lib", "_bf16_lib"):
         monkeypatch.setattr(fk, loader, lambda loader=loader: _Lib(loader))
     wide = d > 256
@@ -274,7 +275,7 @@ def test_bf16_bodies_resolve_to_their_libraries(monkeypatch, name, d):
     else:
         assert fn == f"_bwd_lib.ff_{name}_wide_bf16"
     fp32_lib = "_lib" if name == "flash_fwd" else "_bwd_lib"
-    fp32_key = name + ("_wide" if wide else "")
+    fp32_key = name + ("_wide" if d > 128 else "")  # fp32: the wide bodies past 128
     assert fk._body(name, torch.float32, d) == (fp32_key, f"{fp32_lib}.ff_{name}_f32") and fp32_key in fk.LAUNCHES
 
 
@@ -484,9 +485,8 @@ def test_mha_lowering_picks_its_core_by_use_flash_alone(monkeypatch, use_flash, 
 def test_supports():
     assert fk.supports(512, 512, 64, torch.float32)
     assert fk.supports(500, 37, 128, torch.float32)  # ragged lengths are fine
-    # past 128 the kernels cut the output columns into chunks of at most
-    # 128; past 256 they stream the score contraction over head_dim, so
-    # any multiple of 8 is taken, as by the reference's supports()
+    # past 128 the wide bodies stream the score contraction over head_dim,
+    # so any multiple of 8 is taken, as by the reference's supports()
     assert fk.supports(512, 512, 160, torch.float32)
     assert fk.supports(512, 512, 256, torch.float32)
     assert fk.supports(512, 512, 264, torch.float32)
@@ -629,6 +629,99 @@ def test_piece_accumulators_keep_the_wide_score_products_accurate():
     rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
     assert rel(pieces) < 1e-6
     assert rel(chain) > 5 * rel(pieces)
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 248, 256, 264, 320, 512, 1032, 1216, 1224])
+def test_fp32_forward_resolves_to_its_wide_body_past_128(monkeypatch, d):
+    """fp32 #1 runs flash_kernel.cu at every head_dim, counted as
+    flash_fwd up to 128 (the mma bodies) and flash_fwd_wide past it (the
+    one wide body, Q resident up to 1216 and streamed past it: the C
+    entry point picks between the two). No library is built: the loaders
+    are stand-ins."""
+    for loader in ("_lib", "_bwd_lib", "_bf16_lib"):
+        monkeypatch.setattr(fk, loader, lambda loader=loader: _Lib(loader))
+    key, fn = fk._body("flash_fwd", torch.float32, d)
+    assert key == ("flash_fwd_wide" if d > 128 else "flash_fwd") and key in fk.LAUNCHES
+    assert fn == "_lib.ff_flash_fwd_f32"
+
+
+_WIDE_ROWS = 32  # flash_kernel.cu's kWRows: query rows of a block, keys of a tile
+_WIDE_WARPS = 8  # its consumer warps
+_PIECE_STEPS = 16  # 8-column k-steps of a ring piece (128 columns)
+
+
+def _wide_forward_model(q, k, v, causal, scale):
+    """fp32 #1's wide body (flash_kernel.cu flash_fwd_wide_kernel) on one
+    head, q [sq, d], k and v [sk, d] float32, in the model of mma.sync's
+    3xTF32 passes above: per 32-row query tile and 32-key tile, warp w
+    takes k-steps [w ks / 8, (w + 1) ks / 8) of each 128-column piece of
+    ks k-steps as one chain into a fresh accumulator, added in fp32 to its
+    partial scores; the partials are summed in warp order, the online
+    softmax runs in base 2 on the f32 sums, and O = O corr + P V with each
+    16 keys' part a fresh chain added in fp32. Returns (O, LSE)."""
+    sq, d = q.shape
+    sk = k.shape[0]
+    dt = d // 8
+    log2e = 1.4426950408889634
+    o_all, lse_all = torch.zeros(sq, d), torch.zeros(sq)
+    for q0 in range(0, sq, _WIDE_ROWS):
+        qt = torch.zeros(_WIDE_ROWS, d)
+        rows = min(_WIDE_ROWS, sq - q0)
+        qt[:rows] = q[q0 : q0 + rows]
+        m = torch.full((_WIDE_ROWS,), -1e30)
+        l = torch.zeros(_WIDE_ROWS)
+        o = torch.zeros(_WIDE_ROWS, d)
+        k_end = min(sk, q0 + _WIDE_ROWS) if causal else sk
+        for k0 in range(0, k_end, _WIDE_ROWS):
+            kt, vt = torch.zeros(_WIDE_ROWS, d), torch.zeros(_WIDE_ROWS, d)
+            keys = min(_WIDE_ROWS, sk - k0)
+            kt[:keys], vt[:keys] = k[k0 : k0 + keys], v[k0 : k0 + keys]
+            s = torch.zeros(_WIDE_ROWS, _WIDE_ROWS)
+            for w in range(_WIDE_WARPS):
+                groups = []
+                for p0 in range(0, dt, _PIECE_STEPS):
+                    ks = min(_PIECE_STEPS, dt - p0)
+                    groups.append([p0 + i for i in range(w * ks // _WIDE_WARPS, (w + 1) * ks // _WIDE_WARPS)])
+                s = s + _mma_chains(qt, kt.T.contiguous(), groups)
+            s = s * torch.tensor(scale * log2e, dtype=torch.float32)
+            qi = torch.arange(q0, q0 + _WIDE_ROWS)[:, None]
+            kj = torch.arange(k0, k0 + _WIDE_ROWS)[None, :]
+            ok = (qi < sq) & (kj < sk) & ((qi >= kj) if causal else True)
+            mx = torch.where(ok, s, torch.tensor(-1e30)).amax(dim=1)
+            m_new = torch.maximum(m, mx)
+            corr = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(s - m_new[:, None]), torch.zeros(()))
+            m, l = m_new, l * corr + p.sum(dim=1)
+            o = o * corr[:, None]
+            for half in (0, 1):
+                o = o + _mma_chains(p, vt, [[2 * half, 2 * half + 1]])
+        lnz = l.clamp_min(1e-30)
+        o_all[q0 : q0 + rows] = (o / lnz[:, None])[:rows]
+        lse_all[q0 : q0 + rows] = ((m + torch.log2(lnz)) * 0.6931471805599453)[:rows]
+    return o_all, lse_all
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [320, 1032])
+def test_wide_forward_accumulation_order_matches_float64_and_jax(d, causal):
+    """fp32 #1's wide body (past head_dim 128) in its order of
+    accumulation: the score product split over 8 warps' pieces of at most
+    2 k-steps, each a fresh truncating chain, the partials added in fp32,
+    and P V in fresh 16-key chains. Its O and LSE stay within the
+    reference's 2e-5 of the float64 function and of the JAX reference's
+    _fwd_kernel in the Pallas interpreter, at head_dim 320 (Q resident in
+    the kernel) and 1032 (Q streamed, the output in 3 column chunks)."""
+    rng = np.random.RandomState(21)
+    sq, sk = 128, 256
+    q, k, v = (rng.randn(1, s, 1, d).astype(np.float32) for s in (sq, sk, sk))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = _wide_forward_model(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v)), causal, scale)
+    exact_o, exact_lse = fk.flash_fwd_ref(*(torch.from_numpy(x).double() for x in (q, k, v)), causal)
+    np.testing.assert_allclose(o.numpy(), exact_o[0, :, 0].numpy(), atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), exact_lse[0, 0].numpy(), atol=FWD_TOL, rtol=0)
+    jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo)[0, :, 0], atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[0, 0], atol=FWD_TOL, rtol=0)
 
 
 def test_one_output_chain_over_512_keys_stays_far_inside_the_gradient_gate():
