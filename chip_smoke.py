@@ -275,8 +275,10 @@ KERNELS = {
     "flash_fwd_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
-    # bf16 #1-#3 past head_dim 256: #1 on the bf16 file's wide body, #2
-    # and #3 on the backward file's wide kernels for bf16
+    # bf16 #1-#3 past head_dim 256: #1 on the bf16 file's wide wgmma body
+    # (the scores once per tile pair in output chunks of up to 256
+    # columns, a TMA ring of 64-column boxes), #2 and #3 on the backward
+    # file's wide kernels for bf16
     "flash_fwd_wide_bf16": ("flash_bf16_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv_wide_bf16": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
@@ -332,7 +334,7 @@ KERNEL_SYMBOLS = {
     "flash_fwd_bf16": ("flash_fwd_bf16_wgmma_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_wgmma_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_wgmma_kernel",),
-    "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_kernel",),
+    "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_wgmma_kernel",),
     "flash_dq_wide_bf16": ("flash_dq_wide_kernel<__nv_bfloat16>",),
     "flash_dkv_wide_bf16": ("flash_dkv_wide_kernel<__nv_bfloat16>",),
 }
@@ -1770,7 +1772,8 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
     """Each flash kernel's ptxas report (registers, spills) at the
     instantiation of each head_dim of `dims` (past 128 the wide bodies:
     #1's with Q resident up to 1216 and streamed past it, #2 and #3's one
-    for every head_dim, past 256 also for bf16), its shared memory and
+    for every head_dim, past 256 also for bf16; bf16 #1's wide body past
+    256 by the card's own count of registers and spills), its shared memory and
     blocks per SM on this card, and the tensor-core (HMMA) instructions
     of each flash library's SASS."""
     from flexflow_tpu_torch.ops.cuda import _build
@@ -1788,9 +1791,13 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
         kdt = 4 << (0 if d <= 32 else 1 if d <= 64 else 2 if d <= 128 else 3)  # the source's bucket
         names = FLASH_WIDE_FP32 if d > 128 else FLASH_FP32
         if d > 256:
-            names += ("flash_dq_wide_bf16", "flash_dkv_wide_bf16")
+            names += ("flash_fwd_wide_bf16", "flash_dq_wide_bf16", "flash_dkv_wide_bf16")
         for name in names:
             base = flash_base(name)
+            if name == "flash_fwd_wide_bf16":  # registers and spills as the card reports them
+                print(f"[resources] {name} at head_dim {d} (flash_fwd_wide_bf16_wgmma_kernel): "
+                      + json.dumps(fk.occupancy(name, d)))
+                continue
             source = fk.SOURCE if base == "flash_fwd" else fk.BWD_SOURCE
             if d <= 128:
                 sym, tag, label = f"{base}_mma_kernel", f"ILi{kdt}E", f"{base}_mma_kernel<{kdt}>"
@@ -1972,9 +1979,10 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(max(x, BF16_ULP_FLOOR))) - 7)
 
 
-def check_bf16_case(x, tag):
-    """The bf16 #1-#3 on x against their plain versions by the float64
-    gate; returns {kernel: (max |kernel - exact|, max |plain - exact|)}."""
+def check_bf16_case(x, tag, fwd_only=False):
+    """The bf16 #1-#3 (#1 alone with fwd_only) on x against their plain
+    versions by the float64 gate; returns {kernel: (max |kernel - exact|,
+    max |plain - exact|)}."""
     import torch
 
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
@@ -1988,14 +1996,18 @@ def check_bf16_case(x, tag):
     }
     errs = {}
     for name, (kernel, plain) in flash_calls(x).items():
+        if fwd_only and flash_base(name) != "flash_fwd":
+            continue
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        lse = ""
         if flash_base(name) == "flash_fwd":
             lse_err = float((got[1] - want[1]).abs().max())
             require(lse_err <= ATOL_FLASH_FWD, f"{name} {tag}: LSE error {lse_err}")
+            lse = f", LSE max |kernel - plain| = {lse_err:.3e}"
         k_err = p_err = 0.0
         for a, p, e in zip(got, want, exact[flash_base(name)]):
             ke, pe = float((a.double() - e).abs().max()), float((p.double() - e).abs().max())
@@ -2003,7 +2015,8 @@ def check_bf16_case(x, tag):
             require(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and ke <= limit,
                     f"{name} {tag}: kernel error {ke} against float64, limit {limit} (plain {pe})")
             k_err, p_err = max(k_err, ke), max(p_err, pe)
-        print(f"[kernels] {name} {tag}: max |kernel - float64| = {k_err:.3e}, max |plain - float64| = {p_err:.3e}")
+        print(f"[kernels] {name} {tag}: max |kernel - float64| = {k_err:.3e}, max |plain - float64| = {p_err:.3e}"
+              + lse)
         errs[name] = (k_err, p_err)
     return errs
 
@@ -2015,10 +2028,14 @@ def time_flash_bf16_kernels(shapes):
     #2 + #3 pair) with the backend it ran. Past head_dim 256 the calls are
     the bf16 wide kernels, timed after wide cases, where the profiler may
     read part of a call (None then: scripts/flash_bf16_device_time.py
-    --shape reads them in a fresh process). Returns the kernels-line rows
-    of each kernel's first non-causal shape."""
+    --shape reads them in a fresh process), and each is held against
+    float64 at the timed shape after its timings (check_bf16_case).
+    Returns the kernels-line rows of each kernel's first non-causal
+    shape."""
     import torch
     import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
     device = torch.device("cuda")
     b = TRAIN["batch"]
@@ -2028,6 +2045,8 @@ def time_flash_bf16_kernels(shapes):
     for ts, th, td, causal in shapes:
         x = flash_inputs(device, b, ts, ts, th, td, causal, dtype=torch.bfloat16)
         tag = f"bf16 {'causal' if causal else 'non-causal'} [{b}, {ts}, {th}, {td}]"
+        if td > 256:  # the instantiation of #1's wide body this grid runs
+            tag += f" (#1 on flash_fwd_wide_bf16_wgmma_kernel<{fk.wide_boxes(b, th, ts, td)}>)"
         dev, first = {}, {}
         for name, (kernel, plain) in flash_calls(x).items():
             ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush, iters=10, warmup=2)
@@ -2054,6 +2073,8 @@ def time_flash_bf16_kernels(shapes):
             if take:
                 rows[name]["library_ms"] = lib_fwd if flash_base(name) == "flash_fwd" else lib_bwd
         del out
+        if td > 256:  # the float64 gate at the timed shape itself, after its timings
+            check_bf16_case(x, tag)
     return rows
 
 
@@ -2062,8 +2083,9 @@ def check_flash_bf16_kernels(rows):
     the flagship shape (causal and not), ragged (sq 500, sq != sk), head_dim
     24-256 (the wgmma bodies of #1-#3 at their tile edges too, one visible
     key included), past 256 (264-2056) and the reference's test shapes,
-    each kernel's worst error into `rows`; resources at head_dim 64, 128
-    and 256 (#1's wide body at 320, 512 and 1032), no ptxas advisory that
+    each kernel's worst error into `rows` (#1's wide body also alone at its
+    edges); resources at head_dim 64, 128 and 256 (#1's wide body at 264,
+    320, 512 and 1032, with no spilled register), no ptxas advisory that
     it serialized the wgmma's of any body, and the HMMA and HGMMA counts of
     the bf16 library's SASS (HGMMA required)."""
     import torch
@@ -2088,17 +2110,39 @@ def check_flash_bf16_kernels(rows):
     cases += [(2, 129, 127, 3, 24, True), (2, 257, 255, 2, 200, True), (2, 130, 300, 2, 128, False),
               (2, 300, 130, 2, 64, True)]
     cases += [(2, 300, 1, 3, dd, c) for dd in (64, 128, 192) for c in (False, True)]
-    # past head_dim 256: the wide kernels for bf16 (3 or 4 output chunks
-    # and streamed pieces, ragged, sq != sk both ways)
+    # past head_dim 256: the wide kernels for bf16 (#1 in output chunks of
+    # 2 boxes at these grids of one wave; #2 and #3 in streamed pieces;
+    # ragged, sq != sk both ways)
     cases += [(2, 129, 300, 2, 264, True), (2, 129, 300, 2, 264, False), (2, 300, 129, 2, 320, True),
               (2, 300, 129, 2, 320, False), (1, 200, 77, 2, 512, False), (1, 200, 77, 2, 512, True)]
-    # bf16 #1's Q tile streamed beside K past its resident width (752)
+    # bf16 #1's Q tile streamed beside K past its resident width (640)
     cases += [(1, 130, 70, 1, dd, c) for dd in (1032, 2056) for c in (False, True)]
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
-    for cb, sq, sk, ch, cd, causal in cases:
-        x = flash_inputs(device, cb, sq, sk, ch, cd, causal, dtype=torch.bfloat16)
-        for name, (k_err, _) in check_bf16_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], k_err)
+    # bf16 #1's wide wgmma body alone at its edges: output chunks of 2
+    # boxes at these grids of one wave (the last chunk's last box past d
+    # at 264, 320, 520 and 648), 11 chunks of 3 at 2056, Q resident at 640
+    # and streamed from 648 (1032, 2056); at 320 and 512 one visible key
+    # (sq 300, sk 1: LSE is the score chains' sum alone) and query lengths
+    # around a warpgroup's 64 rows and the 128-row tile
+    fwd_cases = [(2, 129, 300, 2, dd, c) for dd in (264, 320, 328, 384, 512, 520, 640, 648, 1032, 2056)
+                 for c in (False, True)]
+    fwd_cases += [(1, sq, sk, 2, dd, c) for dd in (320, 512) for sq, sk in ((300, 1), (64, 64), (65, 70), (128, 128),
+                                                                           (129, 129)) for c in (False, True)]
+    # grids of many waves, where wide_boxes takes chunks of 3 boxes (264,
+    # 320, 328: chunk 1's last box past d or part zero-filled) or of 4
+    # (512; 392, chunk 1's last box past d; 1032, Q streamed), ragged and
+    # sq != sk at 328 and 392; (b, sq, sk, h, d) -> the boxes a chunk takes
+    many_waves = {(8, 512, 512, 4, 264): 3, (8, 512, 512, 4, 320): 3, (8, 500, 380, 4, 328): 3,
+                  (8, 512, 512, 4, 512): 4, (8, 500, 380, 4, 392): 4, (4, 512, 512, 8, 1032): 4}
+    for (cb, sq, sk, ch, cd), boxes in many_waves.items():
+        got = fk.wide_boxes(cb, ch, sq, cd)
+        require(got == boxes, f"flash_fwd_wide_bf16 at {(cb, sq, sk, ch, cd)} takes {got} boxes a chunk, not {boxes}")
+    fwd_cases += [(*shape, c) for shape in many_waves for c in (False, True)]
+    for only, group in ((False, cases), (True, fwd_cases)):
+        for cb, sq, sk, ch, cd, causal in group:
+            x = flash_inputs(device, cb, sq, sk, ch, cd, causal, dtype=torch.bfloat16)
+            for name, (k_err, _) in check_bf16_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}", only).items():
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], k_err)
     log = _build.build_logs.get(fk.BF16_SOURCE, "").splitlines()
 
     def ptxas(sym):
@@ -2117,9 +2161,14 @@ def check_flash_bf16_kernels(rows):
                   + f"; ptxas: {ptxas(sym)}")
     serialized = [line.strip() for line in log if "wgmma.mma_async instructions are serialized" in line]
     require(not serialized, f"ptxas serialized the bf16 bodies' wgmma's: {serialized}")
-    for dd in (320, 512, 1032):  # one instantiation: shared memory grows with the resident Q tile
-        print(f"[resources] flash_fwd_wide_bf16 at head_dim {dd} (flash_fwd_wide_bf16_kernel): "
-              + json.dumps(fk.occupancy("flash_fwd_wide_bf16", dd)) + f"; ptxas: {ptxas('flash_fwd_wide_bf16_kernel')}")
+    for kb in (2, 3, 4):  # the wide body's instantiations: 64-column boxes of O a work tile
+        fn = f"flash_fwd_wide_bf16_wgmma_kernel<{kb}>"
+        print(f"[resources] {fn}: ptxas: {ptxas(fn.replace('<', 'ILi').replace('>', 'E'))}")
+        for dd in (264, 320, 512, 1032):  # shared memory grows with Q up to 640
+            occ = fk.occupancy("flash_fwd_wide_bf16", dd, kb)
+            print(f"[resources] flash_fwd_wide_bf16 at head_dim {dd} ({fn}): " + json.dumps(occ))
+            require(occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1,
+                    f"flash_fwd_wide_bf16 at head_dim {dd} ({fn}) spills or does not fit: {occ}")
     ops = sass_opcodes(fk.BF16_SOURCE)
     require(ops is not None, f"{fk.BF16_SOURCE}: cuobjdump not found, SASS not read")
     print(f"[resources] {fk.BF16_SOURCE}: {ops.get('HMMA', 0)} HMMA and {ops.get('HGMMA', 0)} HGMMA (wgmma) "

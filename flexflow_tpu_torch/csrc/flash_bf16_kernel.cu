@@ -4,21 +4,20 @@
 // a plain C interface, loaded through ctypes by
 // flexflow_tpu_torch/ops/cuda/flash_kernel.py. The fp32 bodies are
 // csrc/flash_kernel.cu (#1) and csrc/flash_bwd_kernel.cu (#2, #3; its wide
-// kernels also take #2 and #3 at bf16 past head_dim 256). #1, #2 and #3 up
-// to head_dim 256 are built from csrc/hopper.cuh (TMA, mbarriers, wgmma);
-// #1 past 256 shares the fp32 bodies' cp.async staging
-// (csrc/flash_common.cuh).
+// kernels also take #2 and #3 at bf16 past head_dim 256). Every body here
+// (#1 at any head_dim, #2 and #3 up to 256) is built from csrc/hopper.cuh
+// (TMA, mbarriers, wgmma); csrc/flash_common.cuh gives the occupancy query.
 //
 // What it replaces: the Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/flash_kernel.py at bf16 inputs, which keep f32
 // scratch accumulators and an f32 LSE and cast the second product's
 // operand to the input dtype:
 //   * flash_fwd_bf16_wgmma_kernel (head_dim up to 256) and
-//     flash_fwd_wide_bf16_kernel (past it, any multiple of 8) replace
+//     flash_fwd_wide_bf16_wgmma_kernel (past it, any multiple of 8) replace
 //     _fwd_kernel (:129, pallas_call :198):
 //     S = scale Q K^T in f32, the online softmax in f32, P rounded to bf16
 //     (:158) for O += P V in f32 while l sums the f32 P; O = acc / max(l,
-//     1e-30) rounded to bf16 (the wgmma body multiplies by the f32
+//     1e-30) rounded to bf16 (both bodies multiply by the f32
 //     reciprocal, within an f32 ulp of the quotient), LSE = m + log(max(l,
 //     1e-30)) in f32;
 //   * flash_dq_bf16_wgmma_kernel replaces _dq_kernel (:230, pallas_call
@@ -144,46 +143,53 @@
 // #2 and #3 past head_dim 256 are refused here (takes(); the wrapper sends
 // them to flash_bwd_kernel.cu's wide kernels).
 //
-// #1 past head_dim 256 (flash_fwd_wide_bf16_kernel; it replaced the fp32
-// file's wide kernel instantiated for bf16, which widened every staged
-// value to f32 for one TF32 pass). Its bound at [8, 512, 4, 320]: 10.7
-// GFLOP (0.0109 ms at 989 TFLOP/s) against 41.9 MB (0.0125 ms at 3.35
-// TB/s), so bytes; with the scores recomputed per output chunk (3 at 320)
-// the products are 21.5 GFLOP. What the design does about each cause of
-// the replaced body's 39x over that bound:
-//   * widened operands and TF32 products: operands stay bf16 from device
-//     memory to the tensor cores (cp.async copies, one m16n8k16 bf16 pass,
-//     half the instructions of m16n8k8 TF32 at twice the rate), and the
-//     score operands are read with ldmatrix.x4, a whole A fragment or two
-//     n-tiles' B fragments a load;
-//   * Q staged again for every key tile and piece: the block's 128 query
-//     rows (8 warps of 16) stay resident at full head_dim (stride
-//     width16(d) + 8) and feed every key tile's A fragments, up to
-//     kWideResidentD, the widest head_dim whose Q tile fits beside the ring
-//     below in 232,448 bytes (752 with 2 slots of 128 columns); past it the
-//     Q pieces ride in the ring beside their K pieces (slots of 64 + 128
-//     rows), so any multiple of 8 runs here. 8 warps, not 4, so that each
-//     staged K and V byte feeds 128 queries: measured on an H100 at [8,
-//     512, 4, 320], the loads alone (no products) took 0.115 ms of the 4-warp
-//     body's 0.202;
-//   * no overlap: the block's loads are one stream of items (each key
-//     tile's head_dim pieces of K, then its pieces of the block's V chunk)
-//     through a ring of kWideStages slots filled by cp.async, kWideStages -
-//     1 items ahead: each item's copy is issued before the product of the
-//     item before it starts, and one barrier an item frees the oldest slot
-//     (3 or 4 slots measured within 2% of 2 at 320 and slower at 512, where
-//     they cost the second block of an SM); the products of a full K piece
-//     and of the V chunk, staged at the full piece width with zeros past
-//     the chunk, run with no test per k-step or n-tile (dropping the tests
-//     took 26% off the 4-warp body at [8, 256, 2, 512]);
-//   * scores recomputed per output chunk: kept (grid z chunks of at most
-//     128 output columns, 64 f32 registers of O a thread; ceil(d / 128)
-//     score passes a key tile), the price of keeping O in registers.
-// Causal: key tiles past the block's last row are never staged, and a
-// warp whose rows see none of a key tile skips its products. Each
-// piece's k16 steps chain into a fresh accumulator added to the scores
-// in f32, so at most 8 mma sums a chain are truncated, whatever head_dim
-// is.
+// #1 past head_dim 256 (flash_fwd_wide_bf16_wgmma_kernel<kB>). Its bound
+// at [8, 512, 4, 320]: 10.7 GFLOP (0.0109 ms at 989 TFLOP/s) against 41.9
+// MB (0.0125 ms at 3.35 TB/s), so bytes. The body it replaced (one-pass
+// bf16 mma.sync, 8 warps of 16 rows, a cp.async ring) took 0.1677 ms
+// there, 2.0x bf16 SDPA's forward; what this design does about each of
+// its causes (measured on an H100 at [8, 512, 4, 320] and [8, 256, 2,
+// 512], scripts/flash_fwd_wide_bf16_variants.py):
+//   * the scores computed again for every 128-column chunk of O (3 score
+//     products per P V at 320): a work tile holds O for kB 64-column
+//     boxes, kB up to kMaxBoxes = 4 (256 columns, 128 f32 a thread), so
+//     the scores run once per chunk of up to 256 columns (at 320 two
+//     chunks of 3 boxes). 5 boxes (320 columns, 160 f32 of O) do not fit
+//     setmaxnreg's 240 registers beside S, a later chain and P: 344-684
+//     bytes of spills with the wgmma's serialized by ptxas (C7511),
+//     slower than two chunks (chunks_320);
+//   * mma.sync at 16 rows a warp, every operand a warp's own ldmatrix:
+//     both products are wgmma m64nNk16 by a warpgroup of 64 rows, S = Q
+//     K^T SS over K-major boxes, O += P V RS with V MN-major, N = 64 a
+//     box, P packed where it stands (to_fragments);
+//   * the compute threads copying, a block barrier per item: a producer
+//     warpgroup (one thread, 24 registers) feeds a ring of 64-column
+//     boxes by TMA, a full and an empty mbarrier a slot: per key tile nb
+//     K boxes, then the chunk's kB V boxes. The 128-row Q tile stays
+//     resident up to kWideResidentD (640) beside at least kMinSlots
+//     slots; past it each Q box rides in the slot of its K box, so any
+//     multiple of 8 runs here. The ring takes what shared memory leaves,
+//     up to kMaxSlots (18 slots at 320, 12 at 512);
+//   * a one-shot grid: persistent, one block an SM walking (query tiles,
+//     the last first) x (b h) x chunks; wide_boxes picks kB from the
+//     waves it gives (at [8, 256, 2, 512] 4 chunks of 2 boxes, 128 work
+//     tiles, in place of 2 of 4 on 64 of the 132 SMs).
+// Two consumer warpgroups of 64 query rows share every box. Per key tile
+// a warpgroup issues P V of tile j - 1 and S's first chain (into s), waits
+// for P V (P's registers and V's boxes free), then issues S's later
+// chains (into u, each added to s in f32 once done); the softmax runs
+// under the other warpgroup's products. Turns on named barriers, as the
+// body up to 256 takes them (ping_pong), were slower: a turn has to span
+// the waits for the boxes and for P V. Accuracy: the tensor cores
+// truncate the sum of each k16 step of a chain (issue_score_pair's
+// note), so S runs in fresh chains of kChain boxes (16 k16 steps, the
+// longest chain of the body up to 256) added in f32; in a CPU model
+// (tests/test_torch_flash_kernel.py) one chain over 1032 columns left
+// LSE 5.1e-6 off at one visible key, fresh chains 9.7e-7. Causal: key
+// tiles past a work tile's last row are never loaded; tiles crossing sk
+// or the diagonal of a warpgroup's rows test one limit a row per entry.
+// Rows past s and columns past d arrive as zeros (whole V boxes past d
+// too). No atomics: two calls give the same bits.
 
 #include <cuda_bf16.h>
 
@@ -192,18 +198,9 @@
 
 namespace {
 
-using flash::cp_async;
-using flash::cp_async_commit;
-using flash::cp_async_wait;
-using flash::cp_async_wait_all;
-using flash::z_chunk;
-
 typedef __nv_bfloat16 bf16;
 
-constexpr int kRows = 64;         // key rows of a loop tile of #1 past kStagedD
-constexpr int kSN = kRows / 8;    // 8-wide n-tiles of a warp's 16 x kRows scores
 constexpr int kStagedD = 256;     // widest head_dim of the wgmma bodies
-constexpr int kFwdOT = 16;        // output n-tiles of one block of #1 past kStagedD
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
@@ -231,178 +228,10 @@ struct Params {
 // #1 at any positive multiple of 8; #2 and #3 up to kStagedD
 bool takes(int kind, int d) { return d > 0 && d % 8 == 0 && (kind == kFwd || d <= kStagedD); }
 
-// grid z: output-column chunks of at most max_tiles n-tiles
-int chunks(int d, int max_tiles) { return (d / 8 + max_tiles - 1) / max_tiles; }
-
-// -- fragments ------------------------------------------------------------------------
-// Lane l is (g, t) = (l / 4, l % 4). An m16n8 accumulator c[4] holds rows g
-// (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2t and 2t + 1. The k16 A
-// fragment a[4] holds (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..); the B fragment b0 holds (k 2t..2t+1, column g), b1
-// (k 2t + 8.., g); the lower k in the lower half of each register.
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // (lo, hi) rounded to nearest even, packed with lo in the lower half
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8 x 8 bf16 matrices in transpose: lane l gives the address of row
-// l % 8 of matrix l / 8 and receives, of each matrix, (rows 2t, 2t + 1,
-// column g) in r[i].
-__device__ __forceinline__ void ldsm_t4(uint32_t r[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// Four 8 x 8 bf16 matrices: lane l gives the address of row l % 8 of
-// matrix l / 8 and receives, of each matrix, (row g, columns 2t, 2t + 1)
-// in r[i].
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-template <int kN>
-__device__ __forceinline__ void zero(float acc[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// The warp's 16 x kRows f32 fragments P as the k16 A fragments of the
-// next product: rounded to bf16 and packed in pairs (a[kk] covers columns
-// 16 kk .. 16 kk + 15).
-__device__ __forceinline__ void pack_p(const float P[kSN][4], uint32_t a[kSN / 2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kSN / 2; ++kk) {
-    a[kk][0] = pack(P[2 * kk][0], P[2 * kk][1]);
-    a[kk][1] = pack(P[2 * kk][2], P[2 * kk][3]);
-    a[kk][2] = pack(P[2 * kk + 1][0], P[2 * kk + 1][1]);
-    a[kk][3] = pack(P[2 * kk + 1][2], P[2 * kk + 1][3]);
-  }
-}
-
-// acc[j] += P B[:, 8j : 8j + 8] over the tile's kRows rows of B for the
-// first cn of kOT n-tiles (kAll: all kOT, B staged that wide): P packed by
-// pack_p; B row-major at stride ld (already at the first output column),
-// read in transpose with ldmatrix, two n-tiles a load (kOT is even; a pair
-// past cn reads staged padding whose columns go unused).
-template <int kOT, bool kAll = false>
-__device__ __forceinline__ void product_pv(const uint32_t a[kSN / 2][4], const bf16* B, int ld,
-                                           float acc[kOT][4], int cn) {
-  const int lane = threadIdx.x & 31;
-  const bf16* bl = B + (lane & 15) * ld + 8 * (lane >> 4);
-#pragma unroll
-  for (int kk = 0; kk < kSN / 2; ++kk) {
-#pragma unroll
-    for (int jp = 0; jp < kOT / 2; ++jp) {
-      if (kAll || 2 * jp < cn) {
-        uint32_t b[4];
-        ldsm_t4(b, bl + 16 * kk * ld + 16 * jp);
-        mma(acc[2 * jp], a[kk], b[0], b[1]);
-        if (kAll || 2 * jp + 1 < cn) mma(acc[2 * jp + 1], a[kk], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// -- staging ----------------------------------------------------------------------------
-
-// Rows [row0, row0 + kN) of one head of a [b, s, h, d] bf16 tensor (base
-// already at the batch, head and first column) into dst [kN][ld]: `width`
-// columns in 16-byte pieces, of which those at or past `cols` and the rows
-// at or past `rows` are zero-filled; by the block's kNThreads threads.
-template <int kN, int kNThreads>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base, int64_t s_stride,
-                                          int row0, int rows, int cols, int width) {
-  const int n8 = width / 8;
-  for (int i = threadIdx.x; i < kN * n8; i += kNThreads) {
-    const int r = i / n8, c8 = i - r * n8;
-    const bool in = row0 + r < rows && 8 * c8 < cols;
-    cp_async(dst + r * ld + 8 * c8, base + (in ? (int64_t)(row0 + r) * s_stride + 8 * c8 : 0), 16, in);
-  }
-}
-
-// head_dim rounded up to the mma's k16
-__host__ __device__ __forceinline__ int width16(int d) { return (d + 15) & ~15; }
-
-__device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
-  return qi < p.sq && kj < p.sk && (!p.causal || qi >= kj);
-}
-
-// Rows r0 and r0 + 8 of a contiguous [b, s, h, d] bf16 output (out already
-// at the block's first column), the first cn of kOT n-tiles, rounded to
-// nearest even; rows at or past s are skipped.
-template <int kOT>
-__device__ __forceinline__ void store_rows(bf16* out, int ib, int ih, int h, int s, int r0, int d,
-                                           int cn, const float acc[kOT][4]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + 8 * half;
-    if (row >= s) continue;
-    bf16* o = out + (((int64_t)ib * s + row) * h + ih) * d + 2 * t;
-#pragma unroll
-    for (int j = 0; j < kOT; ++j)
-      if (j < cn) *reinterpret_cast<uint32_t*>(o + 8 * j) = pack(acc[j][2 * half], acc[j][2 * half + 1]);
-  }
-}
-
-// -- #1 past head_dim 256: the softmax on mma.sync fragments -------------------------------
-
-// The online softmax over one tile's scores of rows r0, r0 + 8 (keys
-// k0 + 8j + 2t (+1)) in base 2: s becomes P = 2^(s scale log2(e) - m_new),
-// exactly 0 where masked (kMasked); the running max m (base 2), the lane's
-// partial row sums l of the f32 P and O are rescaled to the new max.
-template <bool kMasked, int kOT>
-__device__ __forceinline__ void softmax_tile(const Params& p, int r0, int k0, float s[kSN][4],
-                                             float m[2], float l[2], float o[kOT][4]) {
-  const int t = threadIdx.x & 3;
-  float mx[2] = {kMask, kMask};
-#pragma unroll
-  for (int j = 0; j < kSN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e >> 1;
-      s[j][e] *= p.scale * kLog2e;
-      if (!kMasked || visible(p, r0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1))) mx[i] = fmaxf(mx[i], s[j][e]);
-    }
-  float corr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i]);
-    corr[i] = exp2f(m[i] - m_new);
-    m[i] = m_new;
-    l[i] *= corr[i];
-  }
-#pragma unroll
-  for (int j = 0; j < kSN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e >> 1;
-      const bool ok = !kMasked || visible(p, r0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1));
-      s[j][e] = ok ? exp2f(s[j][e] - m[i]) : 0.f;
-      l[i] += s[j][e];
-    }
-#pragma unroll
-  for (int j = 0; j < kOT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
 }
 
 // -- #1 up to head_dim 256: wgmma over TMA-fed tiles --------------------------------------
@@ -771,160 +600,327 @@ int sm_count() {
   return count;
 }
 
-// -- #1 past head_dim 256 ------------------------------------------------------------------
+// -- #1 past head_dim 256: wgmma over a TMA ring of 64-column boxes ------------------------
 
-constexpr int kWidePT = kFwdOT;  // n-tiles of one streamed piece of head_dim (and of the V chunk)
-constexpr int kWideLd = 8 * kWidePT + 8;  // stride of a ring slot
-constexpr int kWideStages = 2;   // ring slots
-constexpr int kWideWarps = 8;    // 16 query rows each
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWideQ = 16 * kWideWarps;  // query rows of a block
+// Shape of the wide forward's block (the header says why each number).
+struct Wide {
+  static constexpr int kWG = 2;                     // consumer warpgroups, 64 query rows each
+  static constexpr int kM = 64 * kWG;               // query rows of a block
+  static constexpr int kN = 64;                     // key rows of a loop tile
+  static constexpr int kMaxBoxes = 4;               // 64-column boxes of an output chunk: O's 256 columns at most
+  static constexpr int kChain = 4;                  // boxes of one fresh score chain: 16 k16 steps
+  static constexpr int kThreads = 128 * (kWG + 1);  // a producer warpgroup and the consumers
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kBox = kN * 128, kQBox = kM * 128;  // bytes of a K or V box, of a Q box
+  static constexpr int kMaxSlots = 32;              // ring slots at most
+  static constexpr int kFixed = 1024 + 8 * (2 + 2 * kMaxSlots);  // alignment and mbarriers
+  // boxes a consumer warpgroup holds at once: V(j - 1)'s and the first
+  // chain of K(j), then two chains of K(j)
+  static constexpr int kMinSlots = kMaxBoxes + kChain > 2 * kChain ? kMaxBoxes + kChain : 2 * kChain;
+};
+static_assert(Wide::kThreads == Fwd<64>::kThreads, "one block shape for every forward body");
+
 constexpr int kSmemMax = 232448;  // dynamic shared memory one block may take
 
-// Widest head_dim (a multiple of 16) whose resident Q tile [kWideQ][d + 8]
-// fits beside the ring of kWideStages slots of kRows x kWideLd bf16.
-constexpr int kWideResidentD = ((kSmemMax / 2 - kWideStages * kRows * kWideLd) / kWideQ - 8) / 16 * 16;
-static_assert(kWideResidentD == 752, "the source's header states this width");
+// bytes of a ring slot: a K box and, with Q streamed, its Q box (a V box
+// takes the K box's place)
+__host__ __device__ constexpr int wide_slot(bool resident) { return Wide::kBox + (resident ? 0 : Wide::kQBox); }
 
-// s[j] += A B_j^T over one piece of head_dim, its kw columns (a multiple
-// of 16, at most 8 kWidePT; kFull: all of them, with no test per k-step):
-// the warp's 16 rows of A at stride lda and the kSN 8-row n-tiles of B at
-// stride kWideLd, both read with ldmatrix.x4 (A's whole fragment; B's two
-// n-tiles a load). The piece's k-steps chain into a fresh accumulator
-// added to s in f32 (the header says why).
-template <bool kFull>
-__device__ __forceinline__ void scores_piece(const bf16* A, int lda, const bf16* B, float s[kSN][4],
-                                             int kw) {
-  constexpr int ldb = kWideLd;
-  const int lane = threadIdx.x & 31;
-  const bf16* al = A + (lane & 15) * lda + 8 * (lane >> 4);
-  const bf16* bl = B + ((lane & 7) + 8 * (lane >> 4)) * ldb + 8 * ((lane >> 3) & 1);
-  float f[kSN][4];
-  zero<kSN>(f);
-#pragma unroll
-  for (int ks = 0; ks < kWidePT / 2; ++ks) {
-    if (kFull || 16 * ks < kw) {
-      uint32_t a[4];
-      ldsm4(a, al + 16 * ks);
-#pragma unroll
-      for (int jp = 0; jp < kSN / 2; ++jp) {
-        uint32_t b[4];
-        ldsm4(b, bl + 16 * jp * ldb + 16 * ks);
-        mma(f[2 * jp], a, b[0], b[1]);
-        mma(f[2 * jp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kSN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] += f[j][e];
+// ring slots at nb boxes of head_dim: what shared memory leaves beside the
+// resident Q tile (resident) or all of it, at most kMaxSlots
+__host__ __device__ constexpr int wide_slots(int nb, bool resident) {
+  return (kSmemMax - Wide::kFixed - (resident ? nb * Wide::kQBox : 0)) / wide_slot(resident) < Wide::kMaxSlots
+             ? (kSmemMax - Wide::kFixed - (resident ? nb * Wide::kQBox : 0)) / wide_slot(resident)
+             : Wide::kMaxSlots;
 }
 
-// #1 at any head_dim past kStagedD (the header's design). Grid: (query
-// tiles of kWideQ rows, b h, output chunks). The block's loads are one
-// stream of items, per key tile kp pieces of K over head_dim (with their Q
-// pieces when Q is streamed), then its V chunk (staged at the full piece
-// width, zero past the chunk, so that P V runs with no test per n-tile),
-// staged into ring slot j % kWideStages. Every barrier is reached by all
-// warps: a warp whose rows see none of a causal tile skips only its
-// products.
-__global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_wide_bf16_kernel(const Params p) {
-  constexpr int kP = 8 * kWidePT, ld = kWideLd, kQ = kWideQ, kStages = kWideStages;
-  extern __shared__ float4 smem4[];
-  const int d = p.d, dt = d / 8, dw = width16(d), qld = dw + 8;
-  const bool resident = dw <= kWideResidentD;
-  const int slot = (resident ? kRows : kRows + kQ) * ld;  // a K piece (and its Q piece) or a V piece
-  bf16* ring = reinterpret_cast<bf16*>(smem4);           // [kStages][slot]
-  bf16* qs = ring + kStages * slot;                       // resident Q [kQ][qld]
-  int c0t, cn;
-  z_chunk(dt, c0t, cn);
-  const int c0 = 8 * c0t;
-  const int q0 = blockIdx.x * kQ, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* qb = p.q + ib * p.q_sb + ih * p.q_sh;
-  const bf16* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const bf16* vb = p.v + ib * p.v_sb + ih * p.v_sh + c0;
-  const int kp = (dw + kP - 1) / kP, per = kp + 1;
-  const int k_end = p.causal ? min(p.sk, q0 + kQ) : p.sk;
-  const int n = (k_end + kRows - 1) / kRows, items = n * per;
+// Q stays resident while the ring beside it holds kMinSlots
+__host__ __device__ constexpr bool wide_resident(int nb) { return wide_slots(nb, true) >= Wide::kMinSlots; }
 
-  // item j into its slot, then a commit (an empty group past the last
-  // item keeps one group per item for cp_async_wait)
-  auto stage = [&](int item) {
-    if (item < items) {
-      const int it = item / per, r = item - it * per;
-      bf16* dst = ring + (item % kStages) * slot;
-      if (r < kp) {
-        const int col = r * kP, w = min(kP, dw - col);
-        load_tile<kRows, kWideThreads>(dst, ld, kb + col, p.k_ss, it * kRows, p.sk, d - col, w);
-        if (!resident)
-          load_tile<kQ, kWideThreads>(dst + kRows * ld, ld, qb + col, p.q_ss, q0, p.sq, d - col, w);
-      } else {
-        load_tile<kRows, kWideThreads>(dst, ld, vb, p.v_ss, it * kRows, p.sk, 8 * cn, kP);
+constexpr int kWideResidentD = 640;  // the widest head_dim whose Q tile stays resident
+static_assert(wide_resident(kWideResidentD / 64) && !wide_resident(kWideResidentD / 64 + 1),
+              "kWideResidentD is the widest head_dim whose Q tile leaves kMinSlots ring slots");
+static_assert(wide_slots(0, false) >= Wide::kMinSlots, "the streamed ring holds kMinSlots slots");
+
+// dynamic shared bytes of the wide forward at nb boxes of head_dim
+size_t wide_bytes(int nb) {
+  const bool r = wide_resident(nb);
+  return Wide::kFixed + (size_t)(r ? nb * Wide::kQBox : 0) + (size_t)wide_slots(nb, r) * wide_slot(r);
+}
+
+// The wide forward's grid: (b h) x mt query tiles x nch output chunks
+// over nb boxes of head_dim, and its ring of `slots` slots beside Q
+// (resident) or holding it.
+struct WideGrid {
+  int bh, mt, nb, nch, slots, resident;
+};
+
+// a ring slot and the parity of its fill
+struct Slot {
+  int i, phase;
+};
+
+// the slot k boxes after s in a ring of n
+__device__ __forceinline__ Slot slot_at(Slot s, int k, int n) {
+  const int x = s.i + k, w = x / n;
+  return {x - w * n, s.phase ^ (w & 1)};
+}
+
+// Work tile t, the last query tiles (the longest when causal) first and
+// within one the (b h) x output chunks: batch ib, head ih, first row q0,
+// chunk ch, and n, the key tiles it reads.
+struct WideTile {
+  int ib, ih, q0, ch, n;
+};
+
+__device__ __forceinline__ WideTile wide_tile(const Params& p, const WideGrid& w, int t) {
+  WideTile r;
+  const int per = w.bh * w.nch, rest = t % per;
+  r.q0 = (w.mt - 1 - t / per) * Wide::kM;
+  r.ch = rest % w.nch;
+  r.ib = rest / w.nch / p.h;
+  r.ih = rest / w.nch % p.h;
+  const int k_end = p.causal ? min(p.sk, r.q0 + Wide::kM) : p.sk;
+  r.n = (k_end + Wide::kN - 1) / Wide::kN;
+  return r;
+}
+
+// acc = Q K^T over kCnt boxes of head_dim, one fresh chain: the
+// warpgroup's 64 rows of the Q box at shared address qb[x] against the
+// kN keys of the K box at kb[x], both K-major.
+template <int kCnt>
+__device__ __forceinline__ void issue_chain(float (&acc)[Wide::kN / 2], const uint32_t (&qb)[Wide::kChain],
+                                            const uint32_t (&kb)[Wide::kChain]) {
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < kCnt; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaSS<Wide::kN, 0, 0>::run(acc, hopper::desc_kmajor(qb[x] + 32 * kk),
+                                           hopper::desc_kmajor(kb[x] + 32 * kk), x + kk > 0);
+  hopper::wgmma_commit();
+  hopper::fence_regs(acc);
+}
+
+// O += P V over the kN keys of one key tile's kB V boxes (at shared
+// addresses vb[b]: output columns 64 b .. 64 b + 63 of the chunk,
+// MN-major), P the bf16 A fragments pa.
+template <int kB>
+__device__ __forceinline__ void issue_pv_boxes(float (&o)[kB][32], uint32_t (&pa)[Wide::kN / 16][4],
+                                               const uint32_t (&vb)[kB]) {
+#pragma unroll
+  for (int b = 0; b < kB; ++b) hopper::fence_regs(o[b]);
+  hopper::fence_regs(pa);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Wide::kN / 16; ++kk)
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+      hopper::WgmmaRS<64, 1>::run(o[b], pa[kk], hopper::desc_mnmajor(vb[b] + 2048 * kk, Wide::kBox), 1);
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int b = 0; b < kB; ++b) hopper::fence_regs(o[b]);
+}
+
+// #1 at any head_dim past kStagedD (the header's design), kB 64-column
+// boxes of O a work tile. Block b takes work tiles b, b + gridDim.x, ...
+// (wide_tile). Warpgroup 0 is the producer: one thread loads each work
+// tile's Q once (resident) and then, per key tile, its nb K boxes (with
+// their Q boxes when Q is streamed) and its kB V boxes of the chunk, one
+// box a ring slot, each slot with a full and an empty mbarrier.
+// Warpgroups 1 .. kWG each own 64 query rows and issue, per key tile j,
+// O += P V of tile j - 1 and then S of tile j in fresh chains of kChain
+// boxes (chain 0 into s under P V, each later one into u, added to s in
+// f32); the softmax of one warpgroup runs under the other's products.
+template <int kB>
+__global__ void __launch_bounds__(Wide::kThreads, 1)
+    flash_fwd_wide_bf16_wgmma_kernel(const Params p, const WideGrid w, const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+  using W = Wide;
+  constexpr int kN = W::kN, kC = W::kChain;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const int nb = w.nb, ns = w.slots, per = nb + kB;  // boxes of a key tile: nb of K, then kB of V
+  const bool resident = w.resident;
+  const int slot_bytes = wide_slot(resident);
+  bf16* qs = reinterpret_cast<bf16*>(base);                                // resident Q [nb][kM][64]
+  unsigned char* ring = base + (resident ? nb * W::kQBox : 0);             // [ns] slots
+  const uint32_t qs_a = hopper::smem_u32(qs), ring_a = hopper::smem_u32(ring);  // their shared addresses
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(ring + ns * slot_bytes);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full = empty_q + 1;  // [ns]
+  uint64_t* empty = full + ns;   // [ns]
+  const int tiles = w.nch * w.bh * w.mt;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(empty_q, W::kWG);
+    for (int i = 0; i < ns; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], W::kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {  // the producer warpgroup; one thread issues every load
+    hopper::regs_dec<W::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      Slot at{0, 0};
+      int qi = 0;  // work tiles loaded so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+        const WideTile wt = wide_tile(p, w, t);
+        if (resident) {
+          if (qi > 0) hopper::mbar_wait(empty_q, (qi - 1) & 1);
+          hopper::mbar_expect_tx(full_q, nb * W::kQBox);
+          for (int b = 0; b < nb; ++b)
+            hopper::tma_load_4d(qs + b * W::kM * 64, &tq, full_q, 64 * b, wt.q0, wt.ih, wt.ib);
+        }
+#pragma unroll 1
+        for (int j = 0; j < wt.n; ++j)
+#pragma unroll 1
+          for (int x = 0; x < per; ++x, at = slot_at(at, 1, ns)) {
+            hopper::mbar_wait(&empty[at.i], at.phase ^ 1);
+            unsigned char* dst = ring + at.i * slot_bytes;
+            if (x < nb) {  // a K box, and with Q streamed the Q box beside it
+              hopper::mbar_expect_tx(&full[at.i], slot_bytes);
+              hopper::tma_load_4d(dst, &tk, &full[at.i], 64 * x, j * kN, wt.ih, wt.ib);
+              if (!resident) hopper::tma_load_4d(dst + W::kBox, &tq, &full[at.i], 64 * x, wt.q0, wt.ih, wt.ib);
+            } else {  // a V box of the chunk (past d: zeros)
+              hopper::mbar_expect_tx(&full[at.i], W::kBox);
+              hopper::tma_load_4d(dst, &tv, &full[at.i], 64 * (wt.ch * kB + x - nb), j * kN, wt.ih, wt.ib);
+            }
+          }
       }
     }
-    cp_async_commit();
-  };
-  if (resident) load_tile<kQ, kWideThreads>(qs, qld, qb, p.q_ss, q0, p.sq, d, dw);  // in item 0's group
-  for (int j = 0; j < kStages - 1; ++j) stage(j);
+  } else {  // a consumer warpgroup
+    hopper::regs_inc<W::kConsumerRegs>();
+    const int wg = wgi - 1, tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    const float c = p.scale * kLog2e;
+    const int chains = (nb + kC - 1) / kC;  // at least 2: nb > kC past kStagedD
+    // this warpgroup is done with boxes [x0, x1) of the key tile at slot s
+    const auto release = [&](Slot s, int x0, int x1) {
+      if (tid == 0)
+        for (int x = x0; x < x1; ++x) hopper::mbar_arrive(&empty[slot_at(s, x, ns).i]);
+    };
 
-  const int w0 = q0 + 16 * warp, r0 = w0 + g;  // this lane's rows r0, r0 + 8
-  float o[kFwdOT][4];
-  zero<kFwdOT>(o);
-  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
-  int j = 0;  // the item in hand
-  for (int it = 0; it < n; ++it) {
-    const int k0 = it * kRows;
-    const bool sees = !(p.causal && w0 + 15 < k0);
-    float s[kSN][4];
-    zero<kSN>(s);
-    for (int pc = 0; pc < kp; ++pc, ++j) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // item j is in; every warp is done with item j - 1, whose slot j + kStages - 1 takes
-      stage(j + kStages - 1);
-      const bf16* kt = ring + (j % kStages) * slot;
-      const bf16* qa = resident ? qs + 16 * warp * qld + pc * kP : kt + (kRows + 16 * warp) * ld;
-      const int kw = min(kP, dw - pc * kP), lda = resident ? qld : ld;
-      if (sees && kw == kP)
-        scores_piece<true>(qa, lda, kt, s, kw);
-      else if (sees)
-        scores_piece<false>(qa, lda, kt, s, kw);
-    }
-    uint32_t pa[kSN / 2][4];
-    if (sees) {
-      const bool all = w0 + 16 <= p.sq && k0 + kRows <= p.sk && (!p.causal || w0 >= k0 + kRows - 1);
-      if (all)
-        softmax_tile<false, kFwdOT>(p, r0, k0, s, m, l, o);
-      else
-        softmax_tile<true, kFwdOT>(p, r0, k0, s, m, l, o);
-      pack_p(s, pa);  // bf16(P) for O += P V; l summed the f32 P
-    }
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // as above
-    stage(j + kStages - 1);
-    if (sees) product_pv<kFwdOT, true>(pa, ring + (j % kStages) * slot, ld, o, cn);  // O += bf16(P) V
-    ++j;
-  }
-  cp_async_wait_all();  // nothing in flight when the block exits
+    Slot at{0, 0};  // the first box of the key tile in hand
+    int qi = 0;     // work tiles consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++qi) {
+      const WideTile wt = wide_tile(p, w, t);
+      const int n = wt.n;
+      const int w0 = wt.q0 + 64 * wg, r0 = w0 + 16 * (tid >> 5) + g;  // this lane's rows r0, r0 + 8
+      const auto masked = [&](int k0) { return k0 + kN > p.sk || (p.causal && k0 + kN - 1 > w0); };
+      float o[kB][32];
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[b][i] = 0.f;
+      float s[kN / 2], u[kN / 2];  // S: its first chain, and a later chain in flight
+      uint32_t pa[kN / 16][4];
+      float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, corr[2];
+      // S chain ci of the key tile at slot k into acc, once its K boxes
+      // (and Q's, streamed) are in
+      const auto chain = [&](float(&acc)[kN / 2], Slot k, int ci) {
+        const int x0 = kC * ci, cnt = min(kC, nb - x0);
+        uint32_t kb[kC], qb[kC];
+#pragma unroll
+        for (int x = 0; x < kC; ++x) {
+          const Slot b = slot_at(k, x0 + x, ns);
+          kb[x] = ring_a + b.i * slot_bytes;
+          qb[x] = (resident ? qs_a + (x0 + x) * W::kQBox : kb[x] + W::kBox) + 8192 * wg;
+          if (x < cnt) hopper::mbar_wait(&full[b.i], b.phase);
+        }
+        switch (cnt) {
+          case 1: issue_chain<1>(acc, qb, kb); break;
+          case 2: issue_chain<2>(acc, qb, kb); break;
+          case 3: issue_chain<3>(acc, qb, kb); break;
+          default: issue_chain<4>(acc, qb, kb); break;
+        }
+      };
+      const auto add_u = [&] {
+        hopper::fence_regs(s);
+        hopper::fence_regs(u);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) s[i] += u[i];
+      };
 
-  float lnz[2];
+      if (resident) hopper::mbar_wait(full_q, qi & 1);
+      Slot v_at = at;  // the first V box of key tile j - 1
+#pragma unroll 1
+      for (int j = 0; j <= n; ++j) {
+        int freed = 0;  // K boxes of tile j this warpgroup is done with
+        if (j > 0) {  // O += P V of key tile j - 1
+          uint32_t vb[kB];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    lnz[i] = fmaxf(l[i], 1e-30f);
-  }
+          for (int b = 0; b < kB; ++b) {
+            const Slot x = slot_at(v_at, b, ns);
+            vb[b] = ring_a + x.i * slot_bytes;
+            hopper::mbar_wait(&full[x.i], x.phase);
+          }
+          issue_pv_boxes<kB>(o, pa, vb);
+        }
+        if (j < n) {  // S of key tile j: chain 0 into s under P V, each later chain into u
+          chain(s, at, 0);
+#pragma unroll 1
+          for (int ci = 1; ci < chains; ++ci) {
+            if (ci == 1) {
+              hopper::wgmma_wait<1>();  // P V is done: its V boxes and P's registers are free
+              if (j > 0) release(v_at, 0, kB);
+            } else {
+              hopper::wgmma_wait<0>();  // the chain before is done
+              add_u();
+              release(at, freed, kC * ci);
+              freed = kC * ci;
+            }
+            chain(u, at, ci);
+          }
+        }
+        hopper::wgmma_wait<0>();
 #pragma unroll
-  for (int jj = 0; jj < kFwdOT; ++jj)
+        for (int b = 0; b < kB; ++b) hopper::fence_regs(o[b]);
+        if (j == n) {
+          release(v_at, 0, kB);
+          continue;
+        }
+        add_u();
+        release(at, freed, nb);
+        if (resident && j == n - 1 && tid == 0) hopper::mbar_arrive(empty_q);  // the last product of this Q
+        if (masked(j * kN))
+          softmax_rows<true, kN>(p, c, r0, j * kN, s, m, l, corr);
+        else
+          softmax_rows<false, kN>(p, c, r0, j * kN, s, m, l, corr);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[jj][e] /= lnz[e >> 1];
-  store_rows<kFwdOT>(p.out0 + c0, ib, ih, p.h, p.sq, r0, d, cn, o);
-  if (blockIdx.z == 0 && t == 0) {
+        for (int b = 0; b < kB; ++b)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + 8 * i;
-      if (r < p.sq) p.lse_out[((int64_t)ib * p.h + ih) * p.sq + r] = (m[i] + log2f(lnz[i])) * kLn2;
+          for (int i = 0; i < 32; ++i) o[b][i] *= corr[(i >> 1) & 1];
+        to_fragments<kN>(s, pa);  // bf16(P) for O += P V; l summed the f32 P
+        v_at = slot_at(at, nb, ns);
+        at = slot_at(at, per, ns);
+      }
+
+      float lnz[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        lnz[i] = fmaxf(l[i], 1e-30f);
+      }
+      const int c0 = wt.ch * kB * 64;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        store_row<kB * 64>(p.out0 + (((int64_t)wt.ib * p.sq + row) * p.h + wt.ih) * p.d + c0,
+                           reinterpret_cast<const float(&)[kB * 32]>(o), half, 1.f / lnz[half], p.d - c0,
+                           row < p.sq);
+        if (wt.ch == 0 && t4 == 0 && row < p.sq)
+          p.lse_out[((int64_t)wt.ib * p.h + wt.ih) * p.sq + row] = (m[half] * c + log2f(lnz[half])) * kLn2;
+      }
     }
   }
 }
@@ -1460,10 +1456,9 @@ __global__ void __launch_bounds__(Dkv<kD>::kThreads, 1)
 
 // -- launch ----------------------------------------------------------------------------------
 
-// The body of kernel `kind` at head_dim d: the wgmma bodies at the bucket
-// fwd_dim(d) up to kStagedD, the forward's wide body past it.
+// The body of kernel `kind` at head_dim d up to kStagedD: the wgmma
+// bodies at the bucket fwd_dim(d).
 void* kernel_of(int kind, int d) {
-  if (d > kStagedD) return (void*)flash_fwd_wide_bf16_kernel;
   static void* const table[3][4] = {
       {(void*)flash_fwd_bf16_wgmma_kernel<64>, (void*)flash_fwd_bf16_wgmma_kernel<128>,
        (void*)flash_fwd_bf16_wgmma_kernel<192>, (void*)flash_fwd_bf16_wgmma_kernel<256>},
@@ -1472,6 +1467,30 @@ void* kernel_of(int kind, int d) {
       {(void*)flash_dkv_bf16_wgmma_kernel<64>, (void*)flash_dkv_bf16_wgmma_kernel<128>,
        (void*)flash_dkv_bf16_wgmma_kernel<192>, (void*)flash_dkv_bf16_wgmma_kernel<256>}};
   return table[kind][fwd_dim(d) / 64 - 1];
+}
+
+// the wide forward's instantiation at kB boxes an output chunk
+void* wide_kernel(int kb) {
+  static void* const table[3] = {
+      (void*)flash_fwd_wide_bf16_wgmma_kernel<2>, (void*)flash_fwd_wide_bf16_wgmma_kernel<3>,
+      (void*)flash_fwd_wide_bf16_wgmma_kernel<4>};
+  return table[kb - 2];
+}
+
+// Boxes kB of an output chunk of the wide forward at head_dim d (nb
+// boxes), on a grid of `tiles` query tiles ((b h) x 128-row tiles) over
+// `sms` SMs, one block an SM: the kB of 2 .. Wide::kMaxBoxes with the
+// least work on the busiest SM, waves x (nb + kB) box products (every
+// chunk computes the scores again), the widest on a tie.
+int wide_boxes(int tiles, int d, int sms) {
+  const int nb = (d + 63) / 64;
+  int best = Wide::kMaxBoxes;
+  long long cost = -1;
+  for (int kb = Wide::kMaxBoxes; kb >= 2; --kb) {
+    const long long waves = ((long long)tiles * ((nb + kb - 1) / kb) + sms - 1) / sms;
+    if (cost < 0 || waves * (nb + kb) < cost) best = kb, cost = waves * (nb + kb);
+  }
+  return best;
 }
 
 template <template <int> class F>
@@ -1484,41 +1503,32 @@ size_t smem_of(int d) {
   }
 }
 
-// bytes of dynamic shared memory of kernel `kind` at head_dim d; past
-// kStagedD the ring, and the resident Q tile up to kWideResidentD
+// bytes of dynamic shared memory of kernel `kind` at head_dim d up to kStagedD
 size_t smem_bytes(int kind, int d) {
-  if (d > kStagedD) {
-    const int dw = width16(d);
-    return (dw <= kWideResidentD ? kWideStages * kRows * kWideLd + kWideQ * (dw + 8)
-                                 : kWideStages * (kRows + kWideQ) * kWideLd) *
-           sizeof(bf16);
-  }
   return kind == kFwd ? smem_of<Fwd>(d) : kind == kDq ? smem_of<Dq>(d) : smem_of<Dkv>(d);
 }
 
-// the instantiation a head_dim runs: 0-3 the bucket fwd_dim, 4 past kStagedD
-int bucket_of(int d) { return d > kStagedD ? 4 : fwd_dim(d) / 64 - 1; }
-
-// Sets each kernel's shared-memory cap once: its size, or past kStagedD
-// the largest of any head_dim (the resident Q tile at kWideResidentD).
-int configure(int kind, int d) {
-  static bool configured[3][5] = {};
-  const int bi = bucket_of(d);
-  if (configured[kind][bi]) return 0;
-  void* fn = kernel_of(kind, d);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(kind, bi == 4 ? kWideResidentD : d));
+// Sets a kernel's shared-memory cap once: `bytes`. slot: 0-3 the
+// bucket of fwd_dim up to kStagedD, 2 + kB the wide forward's kB.
+int configure(int kind, int slot, void* fn, int bytes) {
+  static bool configured[3][8] = {};
+  if (configured[kind][slot]) return 0;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  configured[kind][bi] = true;
+  configured[kind][slot] = true;
   return 0;
 }
 
-// threads of a block of kernel `kind` at head_dim d: a producer and two
-// consumer warpgroups up to kStagedD, the wide forward's warps past it
-int threads_of(int d) { return d > kStagedD ? kWideThreads : Fwd<64>::kThreads; }
+// configure() for kernel `kind` at head_dim d up to kStagedD
+int configure_staged(int kind, int d) {
+  return configure(kind, fwd_dim(d) / 64 - 1, kernel_of(kind, d), (int)smem_bytes(kind, d));
+}
+
+// configure() for the wide forward at kB boxes a chunk: all a block may
+// take (the resident Q tile and the ring share it)
+int configure_wide(int kb) { return configure(kFwd, 2 + kb, wide_kernel(kb), kSmemMax); }
 
 // Tensor maps of q, k, v and (count 4) dO: boxes of q_rows rows of q and
 // dO, kv_rows rows of k and v.
@@ -1576,33 +1586,54 @@ int launch_dkv(const Params& p, int b, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
-  if (!takes(kind, p.d)) return (int)cudaErrorInvalidValue;
-  const int err = configure(kind, p.d);
-  if (err) return err;
-  if (p.d <= kStagedD) {
-    switch (4 * kind + fwd_dim(p.d) / 64 - 1) {
-      case 0: return launch_fwd<64>(p, b, stream);
-      case 1: return launch_fwd<128>(p, b, stream);
-      case 2: return launch_fwd<192>(p, b, stream);
-      case 3: return launch_fwd<256>(p, b, stream);
-      case 4: return launch_dq<64>(p, b, stream);
-      case 5: return launch_dq<128>(p, b, stream);
-      case 6: return launch_dq<192>(p, b, stream);
-      case 7: return launch_dq<256>(p, b, stream);
-      case 8: return launch_dkv<64>(p, b, stream);
-      case 9: return launch_dkv<128>(p, b, stream);
-      case 10: return launch_dkv<192>(p, b, stream);
-      default: return launch_dkv<256>(p, b, stream);
-    }
-  }
-  // #1 past kStagedD: query tiles of kWideQ rows x (b h) x output chunks
-  dim3 grid((rows + kWideQ - 1) / kWideQ, b * p.h, chunks(p.d, kFwdOT));
-  void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel((void*)flash_fwd_wide_bf16_kernel, grid, dim3(kWideThreads), args,
-                                   smem_bytes(kind, p.d), stream);
-  if (e != cudaSuccess) return (int)e;
+template <int kB>
+int launch_wide_at(const Params& p, const WideGrid& w, const CUtensorMap* maps, cudaStream_t stream) {
+  const int grid = min(w.nch * w.bh * w.mt, sm_count());  // persistent: one block an SM
+  flash_fwd_wide_bf16_wgmma_kernel<kB><<<grid, Wide::kThreads, wide_bytes(w.nb), stream>>>(p, w, maps[0], maps[1],
+                                                                                          maps[2]);
   return (int)cudaGetLastError();
+}
+
+// #1 past kStagedD: the grid of work tiles and the ring (the header's design)
+int launch_wide(const Params& p, int b, cudaStream_t stream) {
+  WideGrid w;
+  w.bh = b * p.h;
+  w.mt = (p.sq + Wide::kM - 1) / Wide::kM;
+  w.nb = (p.d + 63) / 64;
+  const int kb = wide_boxes(w.bh * w.mt, p.d, sm_count());
+  w.nch = (w.nb + kb - 1) / kb;
+  w.resident = wide_resident(w.nb);
+  w.slots = wide_slots(w.nb, w.resident);
+  int e = configure_wide(kb);
+  CUtensorMap maps[3];
+  if (!e) e = encode_operands(p, b, Wide::kM, Wide::kN, 3, maps);
+  if (e) return e;
+  switch (kb) {
+    case 2: return launch_wide_at<2>(p, w, maps, stream);
+    case 3: return launch_wide_at<3>(p, w, maps, stream);
+    default: return launch_wide_at<4>(p, w, maps, stream);
+  }
+}
+
+int launch(int kind, const Params& p, int b, cudaStream_t stream) {
+  if (!takes(kind, p.d)) return (int)cudaErrorInvalidValue;
+  if (p.d > kStagedD) return launch_wide(p, b, stream);
+  const int err = configure_staged(kind, p.d);
+  if (err) return err;
+  switch (4 * kind + fwd_dim(p.d) / 64 - 1) {
+    case 0: return launch_fwd<64>(p, b, stream);
+    case 1: return launch_fwd<128>(p, b, stream);
+    case 2: return launch_fwd<192>(p, b, stream);
+    case 3: return launch_fwd<256>(p, b, stream);
+    case 4: return launch_dq<64>(p, b, stream);
+    case 5: return launch_dq<128>(p, b, stream);
+    case 6: return launch_dq<192>(p, b, stream);
+    case 7: return launch_dq<256>(p, b, stream);
+    case 8: return launch_dkv<64>(p, b, stream);
+    case 9: return launch_dkv<128>(p, b, stream);
+    case 10: return launch_dkv<192>(p, b, stream);
+    default: return launch_dkv<256>(p, b, stream);
+  }
 }
 
 }  // namespace
@@ -1615,12 +1646,29 @@ const char* ff_flash_bf16_cuda_error_string(int code) {
 
 // What one block of kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at head_dim d
 // takes and how many fit an SM: out = {registers per thread, local (spill)
-// bytes per thread, dynamic shared bytes, threads, blocks per SM}.
-int ff_flash_bf16_occupancy(int kind, int d, int* out) {
+// bytes per thread, dynamic shared bytes, threads, blocks per SM}. Past
+// kStagedD the forward's instantiation at `boxes` (2 .. Wide::kMaxBoxes)
+// boxes an output chunk, or at 0 the one a grid of many waves runs.
+int ff_flash_bf16_occupancy(int kind, int d, int boxes, int* out) {
   if (kind < kFwd || kind > kDkv || !takes(kind, d)) return (int)cudaErrorInvalidValue;
-  const int err = configure(kind, d);
+  if (d > kStagedD) {
+    if (boxes != 0 && (boxes < 2 || boxes > Wide::kMaxBoxes)) return (int)cudaErrorInvalidValue;
+    const int kb = boxes ? boxes : wide_boxes(1 << 20, d, sm_count());
+    const int err = configure_wide(kb);
+    if (err) return err;
+    return flash::occupancy(wide_kernel(kb), wide_bytes((d + 63) / 64), out, Wide::kThreads);
+  }
+  const int err = configure_staged(kind, d);
   if (err) return err;
-  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out, threads_of(d));
+  return flash::occupancy(kernel_of(kind, d), smem_bytes(kind, d), out, Fwd<64>::kThreads);
+}
+
+// The boxes an output chunk of the wide forward (head_dim d past kStagedD)
+// takes for q [b, sq, h, d] on the current card: the instantiation
+// ff_flash_fwd_bf16 launches there.
+int ff_flash_bf16_wide_boxes(int b, int h, int sq, int d) {
+  if (!takes(kFwd, d) || d <= kStagedD || b <= 0 || h <= 0 || sq <= 0) return 0;
+  return wide_boxes(b * h * ((sq + Wide::kM - 1) / Wide::kM), d, sm_count());
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d] bf16 with head_dim (any multiple of
@@ -1635,7 +1683,7 @@ int ff_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void
   Params p{(const bf16*)q, (const bf16*)k, (const bf16*)v, nullptr, nullptr, nullptr,
            (bf16*)o, nullptr, (float*)lse, h, sq, sk, d,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0, scale, causal};
-  return launch(kFwd, p, b, sq, (cudaStream_t)stream);
+  return launch(kFwd, p, b, (cudaStream_t)stream);
 }
 
 // As ff_flash_fwd_bf16 (head_dim up to 256) with dO [b, sq, h, d] bf16
@@ -1650,7 +1698,7 @@ int ff_flash_dq_bf16(const void* q, const void* k, const void* v, const void* do
   Params p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
            (const float*)lse, (const float*)delta, (bf16*)dq, nullptr, nullptr, h, sq, sk, d,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh, scale, causal};
-  return launch(kDq, p, b, sq, (cudaStream_t)stream);
+  return launch(kDq, p, b, (cudaStream_t)stream);
 }
 
 // As ff_flash_dq_bf16, writing dk and dv contiguous [b, sk, h, d] bf16.
@@ -1663,7 +1711,7 @@ int ff_flash_dkv_bf16(const void* q, const void* k, const void* v, const void* d
   Params p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
            (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, nullptr, h, sq, sk, d,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh, scale, causal};
-  return launch(kDkv, p, b, sk, (cudaStream_t)stream);
+  return launch(kDkv, p, b, (cudaStream_t)stream);
 }
 
 }  // extern "C"

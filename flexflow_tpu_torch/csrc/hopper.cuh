@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: TMA tensor
 // maps and loads, mbarriers, wgmma descriptors and the m64nNk16 bf16
 // products, warpgroup register reallocation. Raw PTX in asm volatile, as
-// the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16 #1-#3 up to
-// head_dim 256) and csrc/flash_kernel.cu's wide body (fp32 #1 past
-// head_dim 128, its ring of fp32 boxes: 32 columns, 128 bytes a row, in
-// the same swizzle) are built from them.
+// the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16 #1 at any
+// head_dim, #2 and #3 up to 256) and csrc/flash_kernel.cu's wide body
+// (fp32 #1 past head_dim 128, its ring of fp32 boxes: 32 columns, 128
+// bytes a row, in the same swizzle) are built from them.
 //
 // Operand layout. A tile of a bf16 [b, s, h, d] tensor is loaded by TMA
 // in boxes of 64 head_dim columns (128 bytes) x rows, 128-byte swizzled:
@@ -210,18 +210,22 @@ __device__ __forceinline__ void regs_inc() {
 
 // -- device: wgmma -----------------------------------------------------------------------
 
-// Operand descriptors of a 128-byte-swizzled tile (the header's layout):
-// start address >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45,
-// layout 1 (128-byte swizzle) in 62-63.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+// Operand descriptors of a 128-byte-swizzled tile (the header's layout),
+// at a shared-memory address or a generic pointer: start address >> 4 in
+// bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, layout 1 (128-byte
+// swizzle) in 62-63.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) { return desc_kmajor(smem_u32(p)); }
+
 // lbo: bytes from one 64-column box of the tile to the next
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* p, uint32_t lbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) |
-         (1ull << 62);
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t a, uint32_t lbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
+
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p, uint32_t lbo) { return desc_mnmajor(smem_u32(p), lbo); }
 
 // before the first wgmma of a batch, and after registers it reads or
 // accumulates into were written by other instructions

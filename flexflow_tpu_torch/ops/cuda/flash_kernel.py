@@ -105,11 +105,13 @@ def reset_launches() -> None:
 def supports(sq: int, sk: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this shape: float32 or bfloat16 with
     head_dim any positive multiple of 8, as the reference's supports()
-    (past 128 in fp32 and 256 in bf16 the score contraction streams the
-    loop operand over head_dim in 128-column pieces; the fixed tile stays
-    resident up to head_dim 512 in #2 and #3, 1216 in fp32 #1 and 752 in
-    bf16 #1, and is streamed beside it past that); non-empty sequences. Any sequence length works (the
-    ragged tail of a tile is masked)."""
+    (past 128 in fp32 the score contraction streams the loop operand over
+    head_dim in 128-column pieces, and past 256 in bf16 #2 and #3 do; the
+    fixed tile stays resident up to head_dim 512 in #2 and #3 and 1216 in
+    fp32 #1, and is streamed beside it past that; bf16 #1 past 256 reads
+    every operand in 64-column boxes through one ring, its Q tile resident
+    up to head_dim 640 and streamed past it); non-empty sequences. Any
+    sequence length works (the ragged tail of a tile is masked)."""
     return dtype in _DTYPES and d > 0 and d % 8 == 0 and sq > 0 and sk > 0
 
 
@@ -157,8 +159,10 @@ def _bf16_lib() -> ctypes.CDLL:
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.ff_flash_bf16_cuda_error_string.argtypes = [I]
         lib.ff_flash_bf16_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_flash_bf16_occupancy.argtypes = [I, I, P]
+        lib.ff_flash_bf16_occupancy.argtypes = [I, I, I, P]
         lib.ff_flash_bf16_occupancy.restype = I
+        lib.ff_flash_bf16_wide_boxes.argtypes = [I] * 4
+        lib.ff_flash_bf16_wide_boxes.restype = I
         lib.ff_flash_fwd_bf16.argtypes = [P] * 5 + [I] * 5 + [L] * 9 + [F, I, P]
         lib.ff_flash_fwd_bf16.restype = I
         lib.ff_flash_dq_bf16.argtypes = [P] * 7 + [I] * 5 + [L] * 12 + [F, I, P]
@@ -174,13 +178,15 @@ def _bf16_lib() -> ctypes.CDLL:
 _BF16_KINDS = {"flash_fwd_bf16": 0, "flash_dq_bf16": 1, "flash_dkv_bf16": 2, "flash_fwd_wide_bf16": 0}
 
 
-def occupancy(name: str, d: int) -> Dict[str, int]:
+def occupancy(name: str, d: int, boxes: int = 0) -> Dict[str, int]:
     """What one block of kernel `name` (a LAUNCHES key) takes at head_dim
     d on the current card, and how many blocks fit an SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). For
+    flash_fwd_wide_bf16, `boxes` picks the instantiation (see
+    wide_boxes); 0 takes the one a grid of many waves runs."""
     out = (ctypes.c_int * 5)()
     if name in _BF16_KINDS:
-        code = _bf16_lib().ff_flash_bf16_occupancy(_BF16_KINDS[name], d, out)
+        code = _bf16_lib().ff_flash_bf16_occupancy(_BF16_KINDS[name], d, boxes, out)
     elif name.startswith("flash_fwd"):
         code = _lib().ff_flash_occupancy(d, out)
     else:
@@ -189,6 +195,14 @@ def occupancy(name: str, d: int) -> Dict[str, int]:
         code = _bwd_lib().ff_flash_bwd_occupancy(kind, d, out)
     _raise_on(code, name)
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
+
+
+def wide_boxes(b: int, h: int, sq: int, d: int) -> int:
+    """The 64-column boxes of O that a work tile of bf16 #1's wide body
+    (head_dim past 256) takes for q [b, sq, h, d] on the current card:
+    the instantiation flash_fwd launches at that shape (0 at head_dims the
+    body does not take)."""
+    return _bf16_lib().ff_flash_bf16_wide_boxes(b, h, sq, d)
 
 
 def _scale(d: int, sm_scale: Optional[float]) -> float:

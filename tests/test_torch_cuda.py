@@ -1043,41 +1043,69 @@ def test_bf16_forward_fits_the_card(d):
     assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
+# bf16 #1's wide wgmma body takes output chunks of kB 64-column boxes, the
+# kB (2-4) that wide_boxes picks from the grid (H100, 132 SMs): (b, sq, sk,
+# h, d, kB). Grids of one wave run kB = 2 (2056 at 8 query tiles: kB = 3,
+# 11 chunks in one wave), the timed [8, 512, 4, 320] and its grid at 264
+# run kB = 3, [8, 512, 4, 512] and [4, 512, 8, 1032] run kB = 4.
+WIDE_BF16_SHAPES = [
+    (2, 129, 300, 2, 264, 2), (2, 300, 129, 2, 320, 2), (1, 200, 77, 2, 512, 2),
+    # #1's Q tile streamed beside K (past head_dim 640)
+    (1, 130, 70, 1, 1032, 2), (1, 130, 70, 1, 2056, 2),
+    # chunks of 2 boxes (the last chunk's last box wholly past d at 320,
+    # 520 and 648, part zero-filled at 328), Q resident at 640 and
+    # streamed from 648 (1032: 9 chunks of 2; 2056: 11 chunks of 3), sq !=
+    # sk with ragged last tiles
+    *[(2, 129, 300, 2, d, 3 if d == 2056 else 2) for d in (320, 328, 384, 520, 640, 648, 1032, 2056)],
+    (2, 300, 77, 2, 384, 2),
+    # one visible key (LSE is the score chains' sum alone), query lengths
+    # around a warpgroup's 64 rows and the 128-row tile
+    *[(2, sq, sk, 2, d, 2) for d in (320, 512) for sq, sk in ((300, 1), (64, 64), (65, 70), (128, 128), (129, 129))],
+    # grids of many waves: chunks of 3 boxes (at 264 and 320 chunk 1's
+    # last box wholly past d, at 328 part zero-filled), of 4 (at 392 chunk
+    # 1's last box wholly past d; at 1032 Q streamed, 5 chunks, the last
+    # with one box in d), ragged last tiles and sq != sk at 328 and 392
+    (8, 512, 512, 4, 264, 3), (8, 512, 512, 4, 320, 3), (8, 500, 380, 4, 328, 3),
+    (8, 512, 512, 4, 512, 4), (8, 500, 380, 4, 392, 4), (4, 512, 512, 8, 1032, 4),
+]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize(
-    "shape",
-    [(2, 129, 300, 2, 264), (2, 300, 129, 2, 320), (1, 200, 77, 2, 512),
-     # #1's Q tile streamed beside K (past head_dim 752)
-     (1, 130, 70, 1, 1032), (1, 130, 70, 1, 2056)],
-)
+@pytest.mark.parametrize("shape", WIDE_BF16_SHAPES)
 def test_bf16_flash_kernels_past_256_match_plain_versions(shape, causal):
-    """bf16 #1-#3 past head_dim 256 (#1 on the bf16 file's wide body, #2
-    and #3 on the backward file's wide kernels instantiated for bf16; 3
-    to 17 output chunks, ragged and sq != sk), held with their plain
-    versions against float64 by the bf16 gate; one launch of each counted
-    under name + "_wide_bf16", none of any other body."""
+    """bf16 #1-#3 past head_dim 256 (#1 on the bf16 file's wide wgmma body,
+    the scores once per output chunk of 2-4 boxes, at each of its three
+    instantiations; #2 and #3 on the backward file's wide kernels
+    instantiated for bf16), ragged and sq != sk, at one visible key and
+    around #1's tiles, held with their plain versions against float64 by
+    the bf16 gate (LSE at the reference's 2e-5 against plain); one launch
+    of each counted under name + "_wide_bf16", none of any other body."""
     dev = _card()
-    b, sq, sk, h, d = shape
+    b, sq, sk, h, d, boxes = shape
+    assert fk.wide_boxes(b, h, sq, d) == boxes
     _check_bf16_kernels(_bf16_operands(np.random.default_rng(sq + sk + d + 3), dev, b, sq, sk, h, d, causal))
 
 
-@pytest.mark.parametrize("d", [320, 1032])
-def test_bf16_wide_forward_fits_the_card(d):
-    """bf16 #1's wide body at head_dim 320 (its Q tile resident) and 1032
-    (Q streamed): no spilled registers, and at least one block fits an
-    SM."""
+@pytest.mark.parametrize("boxes", [2, 3, 4])
+@pytest.mark.parametrize("d", [264, 320, 512, 1032])
+def test_bf16_wide_forward_fits_the_card(d, boxes):
+    """bf16 #1's wide wgmma body at each instantiation (output chunks of
+    2, 3 or 4 boxes) at head_dim 264, 320, 512 (Q resident) and 1032 (Q
+    streamed): no spilled registers (its consumers hold O's columns of
+    the chunk, S, a later score chain and P in the 240 registers
+    setmaxnreg gives them), and one block fits an SM."""
     _card()
-    occ = fk.occupancy("flash_fwd_wide_bf16", d)
+    occ = fk.occupancy("flash_fwd_wide_bf16", d, boxes)
     assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
-@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 2056])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512, 2056])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_flash_kernels_are_bit_identical_across_calls(causal, d):
     """No atomics in the bf16 bodies either: two calls give the same bits
     (the wgmma bodies of #1-#3 at 64, 128, 192 and 256, ragged against
     every tile; past head_dim 256 on the wide bodies, #1's Q tile
-    resident at 320 and streamed at 2056)."""
+    resident at 320 and 512 and streamed at 2056)."""
     dev = _card()
     args = _bf16_operands(np.random.default_rng(29), dev, 2, 300, 260, 4, d, causal)
     q, k, v = args[:3]

@@ -724,6 +724,106 @@ def test_wide_forward_accumulation_order_matches_float64_and_jax(d, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[0, 0], atol=FWD_TOL, rtol=0)
 
 
+_WGMMA_KEYS = 64  # flash_bf16_kernel.cu's Wide::kN: keys of a loop tile
+_WGMMA_CHAIN_STEPS = 16  # k16 steps of one fresh score chain (Wide::kChain boxes of 64 columns)
+
+
+def _wgmma_chains(a, b, chain_steps):
+    """a b^T (a [m, d], b [n, d] bf16) in a model of wgmma's bf16 products:
+    each k16 step's exact sum is added to an f32 accumulator that rounds
+    toward zero; every chain_steps steps (None: never) the chain starts
+    afresh in a zeroed accumulator, and the chains are added in f32."""
+    total = torch.zeros(a.shape[0], b.shape[0])
+    steps = (a.shape[1] + 15) // 16
+    per = chain_steps or steps
+    for c0 in range(0, steps, per):
+        acc = torch.zeros_like(total)
+        for st in range(c0, min(c0 + per, steps)):
+            ks = slice(16 * st, 16 * st + 16)
+            acc = _round_toward_zero(acc.double() + a[:, ks].double() @ b[:, ks].double().T)
+        total = total + acc
+    return total
+
+
+def _wide_bf16_forward_model(q, k, v, causal, scale, chain_steps=_WGMMA_CHAIN_STEPS):
+    """bf16 #1's wide body (flash_bf16_kernel.cu
+    flash_fwd_wide_bf16_wgmma_kernel) on one head, q [sq, d], k and v
+    [sk, d] bf16: S of each 64-key tile in fresh chains of 16 k16 steps
+    added in f32 (_wgmma_chains), the online softmax in base 2 with the
+    scale folded in, P rounded to bf16 for O = O corr + P V, whose k16
+    steps add to O rounding toward zero, while l sums the f32 P; O times
+    the f32 reciprocal of max(l, 1e-30), rounded to bf16, and LSE in f32.
+    Row and column tiling leave each entry's arithmetic alone, so the model
+    takes all rows and columns at once. Returns (O bf16, LSE f32)."""
+    sq, d = q.shape
+    sk = k.shape[0]
+    c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((sq,), -1e30)
+    l, o = torch.zeros(sq), torch.zeros(sq, d)
+    for k0 in range(0, sk, _WGMMA_KEYS):
+        kt, vt = k[k0 : k0 + _WGMMA_KEYS], v[k0 : k0 + _WGMMA_KEYS]
+        s = _wgmma_chains(q, kt, chain_steps)
+        qi = torch.arange(sq)[:, None]
+        kj = torch.arange(k0, k0 + kt.shape[0])[None, :]
+        ok = (qi >= kj) if causal else torch.ones_like(s, dtype=torch.bool)
+        m_new = torch.maximum(m, torch.where(ok, s, torch.tensor(-1e30)).amax(dim=1))
+        corr = torch.exp2(((m.double() - m_new.double()) * c.double()).float())
+        mc = m_new * c
+        p = torch.where(ok, torch.exp2((s.double() * c.double() - mc.double()[:, None]).float()), torch.zeros(()))
+        m, l = m_new, l * corr + p.sum(dim=1)
+        o = o * corr[:, None]
+        pb = p.bfloat16().double()
+        for st in range(0, kt.shape[0], 16):
+            o = _round_toward_zero(o.double() + pb[:, st : st + 16] @ vt[st : st + 16].double())
+    lnz = l.clamp_min(1e-30)
+    out = (o * (1.0 / lnz)[:, None]).bfloat16()
+    lse = (m * c + torch.log2(lnz)) * 0.6931471805599453
+    return out, lse
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [320, 1032])
+def test_wide_bf16_forward_score_chains_match_float64_and_jax(d, causal):
+    """bf16 #1's wide body (past head_dim 256) in its order of
+    accumulation: S in fresh truncating chains of 16 k16 steps (4 boxes of
+    64 columns) added in f32, bf16 P into truncating P V steps. O stays
+    within the bf16 tolerances and LSE within the reference's 2e-5 of the
+    float64 function of the same bf16 inputs and of the JAX reference's
+    _fwd_kernel at bf16 in the Pallas interpreter, at head_dim 320 (20
+    k16 steps: chains of 16 and 4) and 1032 (65 steps, 5 chains)."""
+    rng = np.random.RandomState(22)
+    sq, sk = 128, 256
+    q, k, v = (rng.randn(1, s, 1, d).astype(np.float32) for s in (sq, sk, sk))
+    bq, bk, bv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = _wide_bf16_forward_model(bq[0, :, 0], bk[0, :, 0], bv[0, :, 0], causal, scale)
+    exact_o, exact_lse = fk.flash_fwd_ref(bq.double(), bk.double(), bv.double(), causal)
+    np.testing.assert_allclose(o.float().numpy(), exact_o[0, :, 0].numpy(), atol=BF16_FWD_ATOL, rtol=BF16_FWD_RTOL)
+    np.testing.assert_allclose(lse.numpy(), exact_lse[0, 0].numpy(), atol=FWD_TOL, rtol=0)
+    jo, jlse = _jax_flash(*_bf16(q, k, v), causal, return_lse=True)
+    np.testing.assert_allclose(o.float().numpy(), _f32(jo)[0, :, 0], atol=BF16_FWD_ATOL, rtol=BF16_FWD_RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[0, 0], atol=FWD_TOL, rtol=0)
+
+
+def test_fresh_score_chains_drift_less_than_one_chain_at_one_key():
+    """Where one key is visible LSE is the scaled score itself, so its
+    error is the score chain's truncation alone: at head_dim 1032 (65 k16
+    steps) one chain over all of head_dim drifts to 5.1e-6 of the float64
+    LSE, the wide body's fresh chains of 16 steps added in f32 stay at
+    9.7e-7 (3.4x to 5.6x apart over four seeds)."""
+    rng = np.random.RandomState(23)
+    d = 1032
+    q, k, v = (torch.from_numpy(rng.randn(s, d).astype(np.float32)).bfloat16() for s in (300, 1, 1))
+    scale = 1.0 / math.sqrt(d)
+    exact = (q.double() @ k.double().T)[:, 0] * scale
+    err = {}
+    for name, steps in (("fresh", _WGMMA_CHAIN_STEPS), ("one", None)):
+        _, lse = _wide_bf16_forward_model(q, k, v, False, scale, chain_steps=steps)
+        err[name] = float((lse.double() - exact).abs().max())
+    assert err["fresh"] < FWD_TOL
+    assert err["one"] > 3 * err["fresh"], err
+
+
 def test_one_output_chain_over_512_keys_stays_far_inside_the_gradient_gate():
     """The wide kernels' dQ = dS K runs one chain over the keys (no longer
     split into even and odd 8-key steps), as dK and dV always did: over
