@@ -329,14 +329,14 @@ KERNEL_SYMBOLS = {
     "flash_dq": ("flash_dq_mma_kernel",),
     "flash_dkv": ("flash_dkv_mma_kernel",),
     "flash_fwd_wide": ("flash_fwd_wide_kernel",),
-    "flash_dq_wide": ("flash_dq_wide_kernel<float>",),
-    "flash_dkv_wide": ("flash_dkv_wide_kernel<float>",),
+    "flash_dq_wide": ("flash_dq_wide_kernel<",),
+    "flash_dkv_wide": ("flash_dkv_wide_kernel<",),
     "flash_fwd_bf16": ("flash_fwd_bf16_wgmma_kernel",),
     "flash_dq_bf16": ("flash_dq_bf16_wgmma_kernel",),
     "flash_dkv_bf16": ("flash_dkv_bf16_wgmma_kernel",),
     "flash_fwd_wide_bf16": ("flash_fwd_wide_bf16_wgmma_kernel",),
-    "flash_dq_wide_bf16": ("flash_dq_wide_kernel<__nv_bfloat16>",),
-    "flash_dkv_wide_bf16": ("flash_dkv_wide_kernel<__nv_bfloat16>",),
+    "flash_dq_wide_bf16": ("flash_dq_wide_bf16_kernel",),
+    "flash_dkv_wide_bf16": ("flash_dkv_wide_bf16_kernel",),
 }
 
 
@@ -1751,9 +1751,11 @@ def flash_bound_ms(x, name):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sass_opcodes(source):
+def sass_opcodes(source, kernel=None):
     """{opcode: count} over the SASS of the library built from
-    csrc/<source> (cuobjdump beside nvcc); None without cuobjdump."""
+    csrc/<source> (cuobjdump beside nvcc), or with `kernel` (a regular
+    expression) {mangled name: {opcode: count}} of the kernels whose name
+    it matches; None without cuobjdump."""
     import collections
     import re
 
@@ -1764,18 +1766,32 @@ def sass_opcodes(source):
         return None
     res = subprocess.run([tool, "-sass", _build.library_path(source)], capture_output=True, text=True,
                          timeout=120, check=True)
-    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", res.stdout, re.M)
-    return collections.Counter(ops)
+    fn, per = None, collections.defaultdict(collections.Counter)
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.match(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn:
+            per[fn][m.group(1)] += 1
+    if kernel is not None:
+        return {f: ops for f, ops in per.items() if re.search(kernel, f)}
+    return sum(per.values(), collections.Counter())
 
 
-def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
+def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 520, 1032, 1224)):
     """Each flash kernel's ptxas report (registers, spills) at the
     instantiation of each head_dim of `dims` (past 128 the wide bodies:
-    #1's with Q resident up to 1216 and streamed past it, #2 and #3's one
-    for every head_dim, past 256 also for bf16; bf16 #1's wide body past
-    256 by the card's own count of registers and spills), its shared memory and
-    blocks per SM on this card, and the tensor-core (HMMA) instructions
-    of each flash library's SASS."""
+    #1's with Q resident up to 1216 and streamed past it, #2 and #3's
+    with the fixed tile resident up to 512 and streamed past it, past 256
+    also #2 and #3's bf16 body; bf16 #1's wide body past 256 by the card's
+    own count of registers and spills), its shared memory and blocks per
+    SM on this card, and the tensor-core (HMMA) instructions of each flash
+    library's SASS. Fails where fp32 #2 or #3's wide body holds local
+    memory (spills) at any head_dim 136-1224, where ptxas serialized any
+    tensor-core instruction of the backward, or where the SASS of those
+    wide kernels holds no TMA load (UTMALDG) or a cp.async copy (LDGSTS)."""
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
@@ -1801,16 +1817,21 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
             source = fk.SOURCE if base == "flash_fwd" else fk.BWD_SOURCE
             if d <= 128:
                 sym, tag, label = f"{base}_mma_kernel", f"ILi{kdt}E", f"{base}_mma_kernel<{kdt}>"
-            elif base == "flash_fwd":  # the template argument: Q resident (up to 1216) or streamed
-                resident = d <= 1216
+            elif name.endswith("_bf16"):  # #2 and #3's bf16 body past 256
+                sym = label = tag = f"{base}_wide_bf16_kernel"
+            else:  # the template argument: Q (#1) or the fixed tile (#2, #3) resident or streamed
+                resident = d <= (1216 if base == "flash_fwd" else 512)
                 sym, tag = f"{base}_wide_kernel", "ILb1E" if resident else "ILb0E"
                 label = f"{sym}<{'true' if resident else 'false'}>"
-            else:  # #2 and #3 past 128
-                bf16 = name.endswith("_bf16")  # the mangled template argument tells the two apart
-                sym, tag = f"{base}_wide_kernel", "I13__nv_bfloat16E" if bf16 else "IfE"
-                label = f"{sym}<{'__nv_bfloat16' if bf16 else 'float'}>"
-            print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(fk.occupancy(name, d))
+            occ = fk.occupancy(name, d)
+            print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(occ)
                   + f"; ptxas: {ptxas(source, sym, tag)}")
+            if name in ("flash_dq_wide", "flash_dkv_wide"):
+                require(occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1,
+                        f"{name} at head_dim {d} ({label}) spills or does not fit: {occ}")
+    serialized = [line.strip() for line in _build.build_logs.get(fk.BWD_SOURCE, "").splitlines()
+                  if "serialized" in line]
+    require(not serialized, f"ptxas serialized tensor-core instructions of {fk.BWD_SOURCE}: {serialized}")
     for source in (fk.SOURCE, fk.BWD_SOURCE):
         ops = sass_opcodes(source)
         if ops is None:
@@ -1818,6 +1839,12 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 1032, 1224)):
             continue
         print(f"[resources] {source}: {ops.get('HMMA', 0)} HMMA instructions in its SASS; top opcodes "
               + json.dumps(ops.most_common(14)))
+    wide = sass_opcodes(fk.BWD_SOURCE, r"flash_(dq|dkv)_wide_kernelILb[01]E")
+    require(wide is not None and len(wide) == 4, f"{fk.BWD_SOURCE}: the fp32 wide kernels' SASS not read")
+    for fn, ops in sorted(wide.items()):
+        counts = {op: ops.get(op, 0) for op in ("UTMALDG", "LDGSTS", "HMMA")}
+        print(f"[resources] {fn}: " + json.dumps(counts))
+        require(counts["UTMALDG"] > 0 and counts["LDGSTS"] == 0, f"{fn}: TMA loads and cp.async copies {counts}")
 
 
 def check_flash_case(x, tag):
@@ -1939,8 +1966,9 @@ def check_flash_kernels(rows):
     each kernel's worst error into `rows` (past 128 the wide bodies'
     rows), #1's wide body also at its edges (a ragged last piece at 136,
     248, one visible key, one query tile and one row past it, the widest
-    resident Q at 1216 and the first streamed one at 1224); the kernels'
-    resources at head_dim 64-1224."""
+    resident Q at 1216 and the first streamed one at 1224), #2 and #3's at
+    theirs (136, one visible key, the first streamed fixed tile at 520);
+    the kernels' resources at head_dim 64-1224."""
     import torch
 
     device = torch.device("cuda")
@@ -1955,6 +1983,10 @@ def check_flash_kernels(rows):
     cases += [(cb, sq, sk, 2, cd, c) for cb, sq, sk, cd in
               ((2, 200, 77, 136), (2, 77, 200, 248), (2, 300, 1, 256), (2, 32, 40, 264), (2, 33, 40, 264),
                (1, 70, 90, 1216), (1, 70, 90, 1224), (1, 77, 200, 1032)) for c in (False, True)]
+    # #2 and #3's fp32 wide body at its edges: a ragged last TMA box (136),
+    # one visible key both ways, the first streamed fixed tile (520)
+    cases += [(2, 129, 300, 2, 136, True), (2, 300, 1, 2, 320, True), (2, 1, 300, 2, 512, True),
+              (2, 300, 129, 2, 520, False)]
     # the reference's test shapes (tests/test_flash_kernel.py), causal and not
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
     for cb, sq, sk, ch, cd, causal in cases:

@@ -80,14 +80,15 @@
 // These mma kernels take head_dim up to kMmaMaxD = 128: kDT = 4, 8 or 16
 // column tiles of 8. Past it (any multiple of 8) flash_dq_wide_kernel and
 // flash_dkv_wide_kernel compute the scores once per tile pair, over 8
-// warps that hold all of a block's output columns, with the loop operand
-// streamed in 128-column pieces (see them below). On an H100 (700 W) at
-// [8, 512, 4, 256] the pair took 0.95 ms of device time there, where the
-// mma kernels' 32-tile instantiation that took 136-256 before (its output
-// cut into 128-column chunks, the scores recomputed once per chunk) took
-// 1.80.
+// consumer warps that hold all of a block's output columns, with the loop
+// operand streamed in 128-column pieces through a TMA ring that a
+// producer warpgroup keeps full (see them below). bf16 past head_dim 256
+// runs the design they replaced (flash_dq_wide_bf16_kernel,
+// flash_dkv_wide_bf16_kernel: the same roles, with every thread copying
+// the pieces into a cp.async-style ring of 2 slots).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -284,11 +285,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kerne
   store_rows<kDT>(p.out1, ib, ih, p.h, p.sk, r0, d, dt, dv);
 }
 
-// -- head_dim past kStagedMaxD ---------------------------------------------------------
-// flash_dq_wide_kernel and flash_dkv_wide_kernel run one body (wide_body),
-// which names its operands by role. The fixed tile X (dQ: Q and dO; dK/dV:
-// K and V) is kWideRows rows of one block; the loop tiles Y (dQ: K and V;
-// dK/dV: Q and dO) are kWideRows rows each. For each loop tile:
+// -- fp32 past kMmaMaxD: flash_dq_wide_kernel, flash_dkv_wide_kernel -------------------
+// One body (wide_body) runs both, naming its operands by role. The fixed
+// tile X (dQ: Q and dO; dK/dV: K and V) is kWideRows rows of one block;
+// the loop tiles Y (dQ: K and V; dK/dV: Q and dO) are kWideRows rows each.
+// For each loop tile:
 //   scores  S = X0 Y0^T and dP = X1 Y1^T over the whole head_dim, once;
 //   P, dS   P = exp(S scale - LSE) and dS = P (dP - delta) scale, masked;
 //   outputs dQ += dS Y0, or dK += dS^T Y0 and dV += P^T Y1 (there the
@@ -296,80 +297,496 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kerne
 //           transposed).
 // At [8, 512, 4, 320] the pair does 7 products of depth 320 over 8.4 M
 // (query, key) pairs, 113 GFLOP of TF32 mma's in 3xTF32, against 84 MB of
-// operands: operations bound it, and the design keeps the work at those 7
-// products with the copies beside them:
-//   * the scores once per tile pair: a block of 8 warps holds its whole
-//     output (at most kWideOT n-tiles a warp, kWideChunkTiles a block:
+// operands: operations bound it. The block: two consumer warpgroups (8
+// warps) and a producer warpgroup, one block an SM.
+//   * The scores once per tile pair: the 8 consumer warps hold all of the
+//     block's output columns (at most kWideChunkTiles n-tiles a block:
 //     past 512 columns grid z cuts chunks, each computing the scores
-//     again, as the forward's chunks do at every width: 15 products a
-//     pair at 320 where the output is cut into 128-column chunks). The
-//     score products are split over the warps by product (S or dP),
-//     16-row m-tile and half of each piece's k-steps; each warp writes its
-//     fragments to shared memory as they stand, and one pass of all
-//     threads sums the halves and writes dS (and P) there as split 3xTF32
-//     A fragments (big, small), which the warps of the output products
-//     read with 16-byte loads and split no more. The output n-tiles go to
-//     the warps round-robin (warp w owns n-tiles 8u + w), each over both
-//     16-row m-tiles, so a B fragment of Y is split once for two mma's.
-//     32 fixed rows keep dK and dV within 128 registers a thread at 512
-//     columns, and give 128 blocks at [8, 256, 2, 512] (64-row tiles
-//     would leave half of the 132 SMs idle);
-//   * the fixed tile staged once: it stays resident up to
-//     kWideResidentD; past it its pieces ride in the ring beside the loop
-//     pieces;
-//   * copies beside the products: the loop tiles' pieces are one stream
-//     of items through a ring of 2 slots filled by cp.async one item ahead
-//     (per loop tile, its head_dim pieces of Y0 and Y1 for the scores,
-//     then the pieces of the block's output columns of Y0, and of Y1 for
-//     dK/dV: the loop operand is read twice, the fixed one once); one
-//     barrier an item and one for the score partials. Full pieces run with
-//     no test per k-step. The copies cost issue slots more than bandwidth:
-//     with load_tile's index arithmetic per 16-byte copy, the body took
-//     38% less time at [8, 512, 4, 320] with its piece copies removed, and
-//     stage_piece, which has none, took 19% off it (H100, 700 W).
-// A warp's score products take a fresh accumulator per piece (at most 8
-// k-steps, 24 mma's a chain, half the 48 that buckets 0-2 chain per
-// product), added in fp32; the output products chain over the loop tiles
-// into one accumulator, as #3's always did.
-// T = __nv_bfloat16 (mixed precision): the pieces are widened to fp32 as
-// they are staged, every product takes one TF32 pass (exact on bf16
-// values), P and dS are rounded to bf16 before the products that read them
-// (the reference's casts, flash_kernel.py:260, :297, :306), and dQ, dK and
-// dV are rounded to bf16 as they are stored; LSE and delta stay fp32.
+//     again). The score products are split over the warps by product (S
+//     or dP) and quarter of each piece's k-steps, each warp over both
+//     16-row m-tiles, so a B fragment of Y is split once for two mma's
+//     (split by 16-row m-tile and half of the k-steps, the pair took 5-6%
+//     more time); each warp writes its partial fragments to shared memory
+//     as they stand, and one pass sums the quarters. The warp of each
+//     fragment (m-tile, n-tile) is the only reader of its partials, so it
+//     writes dS (and P) over them as split 3xTF32 A fragments (put_a).
+//     dQ's output n-tiles go to the 8 warps round-robin (warp w owns
+//     n-tiles 8u + w), dK's to warps 0-3 and dV's to warps 4-7 (4u + w),
+//     each over both m-tiles. A warp reads the A fragments of its operand
+//     (dS or P) once a loop tile, with 16-byte loads, and holds them in
+//     registers (64) through the tile's output pieces (read once a piece
+//     by every warp for both operands: 2% more time at [8, 512, 4, 320]).
+//     32 fixed rows keep a warp's dK or dV within 128 registers at 512
+//     columns and give 128 blocks at [8, 256, 2, 512].
+//   * Copies under the products, none issued by the consumers: the loop
+//     tile's pieces (128 columns: four TMA boxes of 32 fp32 columns x 32
+//     rows, 128-byte swizzled) stream through a ring of mbarrier slots,
+//     as many as shared memory leaves (up to kMaxStages), kept full by one
+//     thread of the producer warpgroup. Per loop tile the items are its
+//     head_dim pieces of Y0 and Y1 for the scores, then the pieces of the
+//     block's output columns of Y0 (and Y1 for dK/dV). A box past the
+//     tensor's rows or columns arrives zero-filled, so a ragged edge needs
+//     no test in the copy. In the swizzle every fragment read is free of
+//     bank conflicts (the score products' B: row g, column 8 ks + t (+4);
+//     the output products' B: row 2t (+1), column 8j + g).
+//   * The fixed tile staged once: X0 and X1 stay resident for the whole
+//     loop as unsplit A fragments (32 d floats each, one 16-byte read a
+//     fragment) up to kWideResidentD, the widest that leaves room for 2
+//     ring slots; past it their pieces ride in the ring beside Y's.
+//   * Three named barriers of the consumer warps a loop tile (the last
+//     tile's A fragments are read; the score partials are in; dS and P are
+//     in); the ring runs on mbarriers (full: the producer's bytes; empty:
+//     one arrival per consumer warp).
+//   * Registers: the producer warpgroup gives its registers up
+//     (setmaxnreg), so a consumer thread holds 240: dK and dV's 128
+//     accumulators beside the score chains without spilling. Nine warps (a
+//     producer warp) would cap a thread at 168.
+// A warp's score products take a fresh accumulator per piece (at most 4
+// k-steps, 12 mma's a chain), added in fp32; the output products chain
+// over the loop tiles into one accumulator, as #3's always did. dQ's
+// consumers read LSE and delta of their pass rows once with plain loads;
+// dK/dV's producer loads each loop tile's rows (flat TMA boxes) with its
+// first item: even in time with plain loads by the consumers at the top
+// of each tile, which left 12 bytes of spills in the streamed dK/dV.
+// On an H100 (700 W) the pair takes 0.927-0.943 / 0.757-0.765 /
+// 0.193-0.197 ms of device time at [8, 512, 4, 320] / [8, 512, 4, 256] /
+// [8, 256, 2, 512] (causal at 320: 0.664-0.675), where the body it
+// replaced (the same roles, every thread copying the pieces by cp.async
+// into a ring of 2 slots, one block barrier an item) took 1.259-1.273 /
+// 0.960-0.967 / 0.249-0.251 (0.862-0.879) and SDPA's backward takes
+// 0.887-0.903 / 0.685-0.703 / 0.327-0.335 (0.762-0.782). Its copies are
+// hidden (left out, the pair takes the same time; a ring of 2 slots
+// costs 0-2%; cp.async in place of TMA 2.5x), and the hand-offs between
+// the phases (the three named barriers) cost 4-6%; the rest is the
+// mma.sync products, the pair at 37% of the card's 322.5 TFLOP/s TF32
+// mma.sync rate at 320 (scripts/flash_bwd_fp32_variants.py times the
+// ablations).
 
 constexpr int kWideRows = 32;  // rows of the fixed tile and of a loop tile
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWP = 8 * kPieceTiles;        // columns of a streamed piece
-constexpr int kWld = ld_of<kPieceTiles>();  // row stride of a staged piece
-constexpr int kWideOT = 8;                  // output n-tiles of a warp
+constexpr int kWideWarps = 8;  // consumer warps
+constexpr int kWideOT = 8;     // output n-tiles of a warp of the bf16 body (both of its outputs)
 constexpr int kWideChunkTiles = kWideWarps * kWideOT;  // output n-tiles of a block
-constexpr int kSmemMax = 232448;            // dynamic shared memory one block may take
-// widest head_dim whose fixed tile stays resident (asserted below)
+constexpr int kSmemMax = 232448;                       // dynamic shared memory one block may take
+// widest head_dim whose fixed tile stays resident (asserted below for
+// each wide body)
 constexpr int kWideResidentD = 512;
+
+constexpr int kWideThreads = 128 * 3;  // two consumer warpgroups and a producer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kBox = 32 * 32;       // floats of a box: 32 rows of 32 columns (128 bytes)
+constexpr int kPieceBoxes = 4;      // boxes of one operand's piece: 128 columns
+constexpr int kPieceCols = 32 * kPieceBoxes;
+constexpr int kPieceSteps = kPieceCols / 8;  // k-steps of a score piece, n-tiles of an output piece
+constexpr int kMaxStages = 8;                // ring slots: as many as shared memory leaves, at most this
+// dK/dV: LSE and delta of a loop tile's 32 queries in one flat TMA box each,
+// from the 16-byte boundary at or before the tile's first query (a box
+// that starts between raises an illegal instruction); 64 floats apart
+constexpr int kRowBox = 36;
+constexpr int kRowBufs = 2 * 2 * 64;  // floats of the row buffers: [loop tile parity][LSE, delta][64]
 
 // Floats of a ring slot: pieces of Y0 and Y1, and of X0 and X1 when the
 // fixed tile is streamed.
-__host__ __device__ constexpr int wide_slot(bool resident) { return (resident ? 2 : 4) * kWideRows * kWld; }
+__host__ __device__ constexpr int wide_slot(bool resident) { return (resident ? 2 : 4) * kPieceBoxes * kBox; }
 
-// Shared floats of the wide body: the ring (2 slots), the score partials
-// (S and dP, 2 k-halves, 2 m-tiles x 4 n-tiles of fragments), the A
-// fragments (dS, and P for dK/dV; big and small, 8 fragments each) and the
+// Fragment slot (product, k-quarter, m-tile, n-tile) of the score
+// partials; after the pass the warp of (m-tile, n-tile) keeps there its A
+// fragments of the output products: dS (product 0) and P (product 1), big
+// (quarter 0) and small (quarter 1) parts.
+__host__ __device__ constexpr int part_slot(int prod, int kq, int mt, int j) {
+  return ((prod * 4 + kq) * 2 + mt) * 4 + j;
+}
+
+// Shared bytes of the wide body besides its ring: the score partials (64
+// fragments), the resident X0 and X1 (dt k-steps x 2 m-tiles of unsplit A
+// fragments each: 64 d floats), dK/dV's LSE and delta rows of two loop
+// tiles, the mbarriers, and 1024 bytes to align the ring to the swizzle's
+// period.
+__host__ __device__ constexpr int wide_fixed(int d, bool resident) {
+  return 4 * (64 * kFrag + (resident ? 64 * d : 0) + kRowBufs) + 16 * kMaxStages + 1024;
+}
+
+// Ring slots at head_dim d: what shared memory leaves, at most kMaxStages.
+__host__ __device__ constexpr int wide_stages(int d, bool resident) {
+  return (kSmemMax - wide_fixed(d, resident)) / (4 * wide_slot(resident)) < kMaxStages
+             ? (kSmemMax - wide_fixed(d, resident)) / (4 * wide_slot(resident))
+             : kMaxStages;
+}
+
+__host__ __device__ constexpr int wide_bytes(int d, bool resident) {
+  return wide_fixed(d, resident) + 4 * wide_stages(d, resident) * wide_slot(resident);
+}
+
+static_assert(wide_stages(kWideResidentD, true) >= 2 && wide_stages(kWideResidentD + 8, true) < 2,
+              "kWideResidentD is the widest fixed tile that stays resident beside 2 ring slots");
+static_assert(wide_stages(0, false) >= 2, "the streamed body holds 2 ring slots");
+// dK/dV's row buffers: the producer rewrites a tile's buffer two tiles on,
+// once item (it + 2) (kp + op) - stages is free, past the tile's kp score
+// items when stages <= kp + 2 op; that is 6 at the narrowest wide head_dim
+// (2 + 2 2), which has the most slots, and more past it
+static_assert(wide_stages(136, true) <= 6 && wide_stages(0, false) <= 5 + 2 * 3,
+              "dK/dV's pass reads a loop tile's rows before the producer loads those of tile it + 2 over them");
+
+// s[m][j] += X_m Y_j^T over k-steps [k0, k1) of a ring piece (at most
+// kPieceSteps / 4), into a fresh accumulator: both m-tiles of X
+// (resident: xf at the piece's first k-step, fragments [k-step][m-tile];
+// streamed: the piece's boxes xb) against the piece's boxes yb, each B
+// fragment split once for the two m-tiles.
+template <bool kResident>
+__device__ __forceinline__ void score_piece(const float* xf, const float* xb, const float* yb, int k0, int k1,
+                                            float s[2][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float f[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) zero<4>(f[m]);
+#pragma unroll
+  for (int u = 0; u < kPieceSteps / 4; ++u) {
+    const int kk = k0 + u;
+    if (kk < k1) {
+      const int bx = kk >> 2, cc = 8 * (kk & 3) + t;  // box, and the lane's column in it
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float a[4];
+        if constexpr (kResident) {
+          const float4 x = *reinterpret_cast<const float4*>(xf + (2 * kk + m) * kFrag + 4 * lane);
+          a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
+        } else {
+          const float* xt = xb + bx * kBox;
+          a[0] = xt[swz(16 * m + g, cc)], a[1] = xt[swz(16 * m + g + 8, cc)];
+          a[2] = xt[swz(16 * m + g, cc + 4)], a[3] = xt[swz(16 * m + g + 8, cc + 4)];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(a[i], ab[m][i], as[m][i]);
+      }
+      const float* yt = yb + bx * kBox;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bb[2], bs[2];
+        split(yt[swz(8 * j + g, cc)], bb[0], bs[0]);
+        split(yt[swz(8 * j + g, cc + 4)], bb[1], bs[1]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma3_split(f[m][j], ab[m], as[m], bb, bs);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[m][j][e] += f[m][j][e];
+}
+
+// The fp32 wide body of dQ (kDkv false) or dK/dV (the section's header).
+// Grid: (fixed tiles of kWideRows rows, b h, output chunks of at most
+// kWideChunkTiles n-tiles). Tensor maps of the fixed (tx0, tx1) and loop
+// (ty0, ty1) operands, boxes of 32 columns x kWideRows rows, and flat ones
+// of LSE and delta (tl, td; read by dK/dV), boxes of kRowBox values.
+template <bool kDkv, bool kResident>
+__device__ __forceinline__ void wide_body(const Params& p, const CUtensorMap* tx0, const CUtensorMap* tx1,
+                                          const CUtensorMap* ty0, const CUtensorMap* ty1, const CUtensorMap* tl,
+                                          const CUtensorMap* td) {
+  constexpr int kR = kWideRows, kOps = kDkv ? 2 : 1;
+  constexpr int kSlot = wide_slot(kResident);
+  const int d = p.d, dt = d / 8;
+  const int stages = wide_stages(d, kResident);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));
+  float* part = ring + stages * kSlot;  // score partials, then A fragments (part_slot)
+  float* xf = part + 64 * kFrag;        // resident X0, X1: [operand][k-step][m-tile] A fragments
+  float* rows = xf + (kResident ? 64 * d : 0);  // dK/dV: [loop tile parity][LSE, delta][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + kRowBufs);
+  uint64_t* empty = full + kMaxStages;
+  int c0t, cn;  // this block's output columns: n-tiles [c0t, c0t + cn)
+  z_chunk(dt, c0t, cn);
+  const int c0 = 8 * c0t;
+  const int f0 = blockIdx.x * kR, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int xrows = kDkv ? p.sk : p.sq;
+  // loop tiles [l_start, l_start + n kR): dQ's stop at the causal
+  // diagonal, dK/dV's start there
+  int l_start = 0, n;
+  if constexpr (kDkv) {
+    l_start = p.causal ? f0 : 0;
+    n = p.sq > l_start ? (p.sq - l_start + kR - 1) / kR : 0;
+  } else {
+    n = ((p.causal ? min(p.sk, f0 + kR) : p.sk) + kR - 1) / kR;
+  }
+  const int kp = (d + kPieceCols - 1) / kPieceCols;       // score pieces a loop tile
+  const int op = (8 * cn + kPieceCols - 1) / kPieceCols;  // output pieces a loop tile
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], kWideWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * kWideWarps) {  // the producer warpgroup: one thread loads every piece
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x != 32 * kWideWarps) return;
+    hopper::prefetch_map(ty0);
+    hopper::prefetch_map(ty1);
+    if (kDkv) {
+      hopper::prefetch_map(tl);
+      hopper::prefetch_map(td);
+    }
+    if (!kResident) {
+      hopper::prefetch_map(tx0);
+      hopper::prefetch_map(tx1);
+    }
+    int slot = 0, phase = 0;  // of the next item
+    for (int it = 0; it < n; ++it) {
+      const int l0 = l_start + it * kR;
+      for (int r = 0; r < kp + op; ++r) {
+        const bool score = r < kp;
+        const int col = score ? r * kPieceCols : c0 + (r - kp) * kPieceCols;
+        const int boxes = min(kPieceBoxes, ((score ? d : c0 + 8 * cn) - col + 31) / 32);
+        const int pieces = score ? (kResident ? 2 : 4) : kOps;  // operands' pieces of the item
+        float* dst = ring + slot * kSlot;
+        hopper::mbar_wait(&empty[slot], phase ^ 1);
+        // a box past the tensor's rows or columns arrives zero-filled; the
+        // tile's LSE and delta rows ride with its first item, into the
+        // buffer of tile it - 2, whose pass read it before arriving on
+        // that tile's output items (asserted below)
+        const bool with_rows = kDkv && r == 0;
+        hopper::mbar_expect_tx(&full[slot], pieces * boxes * kBox * 4 + (with_rows ? 2 * kRowBox * 4 : 0));
+        if (with_rows) {
+          const int r0 = (int)((((int64_t)ib * p.h + ih) * p.sq + l0) & ~3ll);
+          hopper::tma_load_1d(rows + (it & 1) * 128, tl, &full[slot], r0);
+          hopper::tma_load_1d(rows + (it & 1) * 128 + 64, td, &full[slot], r0);
+        }
+        for (int b = 0; b < boxes; ++b) {
+          const int cb = col + 32 * b;
+          hopper::tma_load_4d(dst + b * kBox, ty0, &full[slot], cb, l0, ih, ib);
+          if (score || kDkv) hopper::tma_load_4d(dst + (kPieceBoxes + b) * kBox, ty1, &full[slot], cb, l0, ih, ib);
+          if (score && !kResident) {
+            hopper::tma_load_4d(dst + (2 * kPieceBoxes + b) * kBox, tx0, &full[slot], cb, f0, ih, ib);
+            hopper::tma_load_4d(dst + (3 * kPieceBoxes + b) * kBox, tx1, &full[slot], cb, f0, ih, ib);
+          }
+        }
+        if (++slot == stages) slot = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+  hopper::regs_inc<kConsumerRegs>();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (kResident) {
+    // X0 and X1 once, unsplit: element (r, c) is A-fragment slot (r / 8) %
+    // 2 + 2 ((c % 8) / 4) of lane (r % 8, c % 4) in fragment (k-step c / 8,
+    // m-tile r / 16); kU 16-byte loads of a thread in flight at once
+    constexpr int kU = 8;
+    const float* x0 = kDkv ? p.k + ib * p.k_sb + ih * p.k_sh : p.q + ib * p.q_sb + ih * p.q_sh;
+    const float* x1 = kDkv ? p.v + ib * p.v_sb + ih * p.v_sh : p.dout + ib * p.g_sb + ih * p.g_sh;
+    const int64_t s0 = kDkv ? p.k_ss : p.q_ss, s1 = kDkv ? p.v_ss : p.g_ss;
+    const int d4 = d / 4, per = kR * d4;
+    for (int i0 = threadIdx.x; i0 < 2 * per; i0 += kU * 32 * kWideWarps) {
+      float4 v[kU];
+      float* f[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int i = i0 + u * 32 * kWideWarps;
+        const int o = i >= per, j = i - o * per, r = j / d4, c = 4 * (j - r * d4);
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        f[u] = i < 2 * per ? xf + o * 32 * d + ((c >> 3) * 2 + (r >> 4)) * kFrag + 16 * (r & 7) + ((r >> 3) & 1) +
+                                 2 * ((c >> 2) & 1)
+                           : nullptr;
+        if (i < 2 * per && f0 + r < xrows)
+          v[u] = __ldg(reinterpret_cast<const float4*>((o ? x1 : x0) + (int64_t)(f0 + r) * (o ? s1 : s0) + c));
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (f[u] != nullptr) f[u][0] = v[u].x, f[u][4] = v[u].y, f[u][8] = v[u].z, f[u][12] = v[u].w;
+    }
+    hopper::bar_sync(1, 32 * kWideWarps);
+  }
+
+  // score role: product (0 S, 1 dP) and quarter of each piece's k-steps,
+  // over both m-tiles
+  const int prod = warp >> 2, kq = warp & 3;
+  // pass role: the scores' fragment (m-tile pmt, n-tile pj)
+  const int pmt = warp >> 2, pj = warp & 3;
+  float lse[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // dQ: of the pass rows, read once
+  if constexpr (!kDkv) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = f0 + 16 * pmt + g + 8 * i;
+      const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
+      lse[i] = r < p.sq ? p.lse[off] : 0.f;
+      dl[i] = r < p.sq ? p.delta[off] : 0.f;
+    }
+  }
+
+  // output role: the operand (dK/dV: 0 for dS, Y0 and dK, 1 for P, Y1 and
+  // dV; dQ: 0) and the warp's place among the kOW warps that share it
+  constexpr int kOW = kDkv ? kWideWarps / 2 : kWideWarps;
+  constexpr int kOT = kWideChunkTiles / kOW;  // output n-tiles of a warp
+  const int oo = warp / kOW, ow = warp % kOW;
+  float acc[2][kOT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) zero<kOT>(acc[m]);
+  float4* const part4 = reinterpret_cast<float4*>(part) + lane;
+  int slot = 0, phase = 0;  // of the next item
+  for (int it = 0; it < n; ++it) {
+    const int l0 = l_start + it * kR;
+    float s[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) zero<4>(s[m]);
+    for (int pc = 0; pc < kp; ++pc) {
+      const float* sl = ring + slot * kSlot;
+      const int ks = min(kPieceSteps, dt - pc * kPieceSteps);
+      const float* xr = xf + prod * 32 * d + pc * kPieceSteps * 2 * kFrag;
+      const float* xb = sl + (2 + prod) * kPieceBoxes * kBox;
+      const float* yb = sl + prod * kPieceBoxes * kBox;
+      hopper::mbar_wait(&full[slot], phase);
+      score_piece<kResident>(xr, xb, yb, kq * ks / 4, (kq + 1) * ks / 4, s);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+      if (++slot == stages) slot = 0, phase ^= 1;
+    }
+    hopper::bar_sync(1, 32 * kWideWarps);  // every warp is done with the last tile's A fragments
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        part4[32 * part_slot(prod, kq, m, j)] = make_float4(s[m][j][0], s[m][j][1], s[m][j][2], s[m][j][3]);
+    hopper::bar_sync(1, 32 * kWideWarps);  // the partials are in
+    {
+      // this thread's 4 scores: S and dP summed over the k-quarters
+      float sv[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 x = part4[32 * part_slot(0, q, pmt, pj)], y = part4[32 * part_slot(1, q, pmt, pj)];
+        sv[0] += x.x, sv[1] += x.y, sv[2] += x.z, sv[3] += x.w;
+        dv[0] += y.x, dv[1] += y.y, dv[2] += y.z, dv[3] += y.w;
+      }
+      // dK/dV: LSE and delta of the pass columns' queries, in the rows that
+      // came with the tile's first item (queries past sq are masked)
+      const float* lb = rows + (it & 1) * 128 + (int)((((int64_t)ib * p.h + ih) * p.sq + l0) & 3) + 8 * pj + 2 * t;
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int fr = f0 + 16 * pmt + g + 8 * (e >> 1), lr = l0 + 8 * pj + 2 * t + (e & 1);
+        const bool ok = kDkv ? visible(p, lr, fr) : visible(p, fr, lr);
+        const float ls = kDkv ? lb[e & 1] : lse[e >> 1], de = kDkv ? lb[64 + (e & 1)] : dl[e >> 1];
+        pv[e] = ok ? expf(sv[e] * p.scale - ls) : 0.f;
+        dsv[e] = pv[e] * (dv[e] - de) * p.scale;
+      }
+      // into this warp's own partial slots, which no other warp reads
+      float* fa = part + 4 * lane;
+      put_a<false>(fa + part_slot(0, 0, pmt, pj) * kFrag, fa + part_slot(0, 1, pmt, pj) * kFrag, dsv);
+      if constexpr (kDkv)
+        put_a<false>(fa + part_slot(1, 0, pmt, pj) * kFrag, fa + part_slot(1, 1, pmt, pj) * kFrag, pv);
+    }
+    hopper::bar_sync(1, 32 * kWideWarps);  // dS (and P) are in
+    // the A fragments of the warp's operand for the whole loop tile, held
+    // in registers through its output pieces
+    uint32_t ab[kR / 8][2][4], as[kR / 8][2][4];
+#pragma unroll
+    for (int kk = 0; kk < kR / 8; ++kk)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* fa = part + 4 * lane;
+        get_a<false>(fa + part_slot(oo, 0, m, kk) * kFrag, fa + part_slot(oo, 1, m, kk) * kFrag, ab[kk][m],
+                     as[kk][m]);
+      }
+#pragma unroll
+    for (int pc = 0; pc < kWideChunkTiles / kPieceSteps; ++pc) {
+      if (pc < op) {
+        const float* sl = ring + slot * kSlot;
+        hopper::mbar_wait(&full[slot], phase);
+#pragma unroll
+        for (int kk = 0; kk < kR / 8; ++kk) {
+#pragma unroll
+          for (int i = 0; i < kPieceSteps / kOW; ++i) {
+            const int nt = kOW * i + ow;  // the warp's n-tile of the piece
+            if (kPieceSteps * pc + nt < cn) {
+              // B: rows 8 kk + 2t (+1) of the piece of the warp's operand,
+              // the lane's column of the n-tile
+              const float* yb = sl + (oo * kPieceBoxes + (nt >> 2)) * kBox;
+              const int cc = 8 * (nt & 3) + g;
+              uint32_t bb[2], bs[2];
+              split(yb[swz(8 * kk + 2 * t, cc)], bb[0], bs[0]);
+              split(yb[swz(8 * kk + 2 * t + 1, cc)], bb[1], bs[1]);
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                mma3_split(acc[m][kPieceSteps / kOW * pc + i], ab[kk][m], as[kk][m], bb, bs);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+        if (++slot == stages) slot = 0, phase ^= 1;
+      }
+    }
+  }
+  const int mine = (cn - ow + kOW - 1) / kOW;  // this warp's n-tiles kOW u + ow below cn
+  float* out = (oo ? p.out1 : p.out0) + c0 + 8 * ow;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) store_rows<kOT, float, kOW>(out, ib, ih, p.h, xrows, f0 + 16 * m + g, d, mine, acc[m]);
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dq_wide_kernel(const Params p, const __grid_constant__ CUtensorMap tx0,
+                         const __grid_constant__ CUtensorMap tx1, const __grid_constant__ CUtensorMap ty0,
+                         const __grid_constant__ CUtensorMap ty1, const __grid_constant__ CUtensorMap tl,
+                         const __grid_constant__ CUtensorMap td) {
+  wide_body<false, kResident>(p, &tx0, &tx1, &ty0, &ty1, &tl, &td);
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dkv_wide_kernel(const Params p, const __grid_constant__ CUtensorMap tx0,
+                          const __grid_constant__ CUtensorMap tx1, const __grid_constant__ CUtensorMap ty0,
+                          const __grid_constant__ CUtensorMap ty1, const __grid_constant__ CUtensorMap tl,
+                          const __grid_constant__ CUtensorMap td) {
+  wide_body<true, kResident>(p, &tx0, &tx1, &ty0, &ty1, &tl, &td);
+}
+
+// -- bf16 past kStagedMaxD: flash_dq_wide_bf16_kernel, flash_dkv_wide_bf16_kernel --------
+// Mixed precision past head_dim 256 (csrc/flash_bf16_kernel.cu's wgmma
+// bodies take bf16 up to it) runs PR 13's design of the fp32 body above,
+// with the same roles, tiles, score split and pass: 8 warps and no
+// producer, the loop operand's 128-column pieces read by all threads,
+// widened to fp32 and stored row-major at a padded stride (kWld) into a
+// ring of 2 slots one item ahead, one block barrier an item and one for
+// the score partials; the fixed tile resident up to kWideResidentD,
+// streamed in the ring past it. Every product takes one TF32 pass (exact
+// on bf16 values), P and dS are rounded to bf16 before the products that
+// read them (the reference's casts, flash_kernel.py:260, :297, :306), and
+// dQ, dK and dV are rounded to bf16 as they are stored; LSE and delta stay
+// fp32. The fp32 body's TMA ring would carry bf16 boxes of 64 columns
+// that the consumers widen as they read them: not built yet (ROADMAP).
+
+constexpr int kBThreads = 32 * kWideWarps;
+constexpr int kWP = 8 * kPieceTiles;        // columns of a streamed piece
+constexpr int kWld = ld_of<kPieceTiles>();  // row stride of a staged piece
+
+// Floats of a ring slot: pieces of Y0 and Y1, and of X0 and X1 when the
+// fixed tile is streamed.
+__host__ __device__ constexpr int bf16_slot(bool resident) { return (resident ? 2 : 4) * kWideRows * kWld; }
+
+// Shared floats of the bf16 body: the ring (2 slots), the score partials,
+// the A fragments (dS and P; big and small, 8 fragments each) and the
 // resident fixed tile (X0, X1 [kWideRows][d + 4]).
-__host__ __device__ constexpr int wide_floats(bool dkv, int d, bool resident) {
-  return 2 * wide_slot(resident) + 32 * kFrag + (dkv ? 4 : 2) * 8 * kFrag +
+__host__ __device__ constexpr int bf16_floats(bool dkv, int d, bool resident) {
+  return 2 * bf16_slot(resident) + 32 * kFrag + (dkv ? 4 : 2) * 8 * kFrag +
          (resident ? 2 * kWideRows * (d + 4) : 0);
 }
 
-static_assert(wide_floats(true, kWideResidentD, true) * 4 <= kSmemMax &&
-                  wide_floats(true, kWideResidentD + 8, true) * 4 > kSmemMax,
-              "kWideResidentD is the widest fixed tile that dK/dV holds resident");
+static_assert(bf16_floats(true, kWideResidentD, true) * 4 <= kSmemMax &&
+                  bf16_floats(true, kWideResidentD + 8, true) * 4 > kSmemMax,
+              "kWideResidentD is the widest fixed tile that bf16 dK/dV holds resident");
 
-// s[j] += X Y_j^T over `cnt` k-steps (all kPieceTiles / 2 when kFull) of a
-// piece, into a fresh accumulator: X the warp's 16 rows at stride ld, Y 32
-// rows at the piece stride, both at the first column of the warp's k-steps.
-template <bool kFull, bool kOne>
-__device__ __forceinline__ void score_piece(const float* X, int ld, const float* Y, float s[4][4], int cnt) {
+// s[j] += X Y_j^T in one TF32 pass over `cnt` k-steps (all kPieceTiles / 2
+// when kFull) of a piece, into a fresh accumulator: X the warp's 16 rows
+// at stride ld, Y 32 rows at the piece stride, both at the first column of
+// the warp's k-steps.
+template <bool kFull>
+__device__ __forceinline__ void score_piece_bf16(const float* X, int ld, const float* Y, float s[4][4], int cnt) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   X += g * ld + t;
   Y += g * kWld + t;
@@ -386,7 +803,7 @@ __device__ __forceinline__ void score_piece(const float* X, int ld, const float*
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float b[2] = {Y[8 * j * kWld + c], Y[8 * j * kWld + c + 4]};
-        mma3<kOne>(f[j], ab, as, b);
+        mma3<true>(f[j], ab, as, b);
       }
     }
   }
@@ -397,47 +814,37 @@ __device__ __forceinline__ void score_piece(const float* X, int ld, const float*
 }
 
 // Columns [0, w) (w a multiple of 8, at most kWP) of rows [row0, row0 +
-// kWideRows) of one head of a [b, s, h, d] tensor (base at the batch, head
-// and first column) into a ring piece [kWideRows][kWld]; rows at or past
-// `rows` are zero. Each thread copies one 16-byte column piece of every
-// kStep-th row, so a copy costs no index arithmetic (load_tile divides by
-// the row width for each): fp32 by cp.async, bf16 read and widened to
-// fp32 (synchronous: the barrier after it publishes the piece).
-template <typename T>
-__device__ __forceinline__ void stage_piece(float* dst, const T* base, int64_t stride, int row0, int rows,
-                                            int w) {
-  constexpr int kE = 16 / sizeof(T);  // elements of one 16-byte copy
-  constexpr int kPerRow = kWP / kE, kStep = kWideThreads / kPerRow;
+// kWideRows) of one head of a bf16 [b, s, h, d] tensor (base at the batch,
+// head and first column), widened to fp32, into a ring piece
+// [kWideRows][kWld]; rows at or past `rows` are zero. Each thread reads one
+// 16-byte column piece of every kStep-th row, so a copy costs no index
+// arithmetic.
+__device__ __forceinline__ void stage_piece(float* dst, const __nv_bfloat16* base, int64_t stride, int row0,
+                                            int rows, int w) {
+  constexpr int kPerRow = kWP / 8, kStep = kBThreads / kPerRow;
   const int c = threadIdx.x % kPerRow, r0 = threadIdx.x / kPerRow;
-  if (kE * c >= w) return;
-  base += kE * c;
-  dst += kE * c;
+  if (8 * c >= w) return;
+  base += 8 * c;
+  dst += 8 * c;
 #pragma unroll
   for (int i = 0; i < kWideRows / kStep; ++i) {
     const int r = r0 + kStep * i;
-    const bool in = row0 + r < rows;
-    const T* src = base + (int64_t)(in ? row0 + r : 0) * stride;
-    if constexpr (sizeof(T) == 4) {
-      cp_async(dst + r * kWld, src, 16, in);
-    } else {
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (in) raw = __ldg(reinterpret_cast<const uint4*>(src));
-      widen_bf16x8(dst + r * kWld, raw);
-    }
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows) raw = __ldg(reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * stride));
+    widen_bf16x8(dst + r * kWld, raw);
   }
 }
 
-// The wide body of dQ (kDkv false) or dK/dV (the header above). Grid:
-// (fixed tiles of kWideRows rows, b h, output chunks of at most
-// kWideChunkTiles n-tiles). Every barrier is reached by all threads.
-template <typename T, bool kDkv>
-__device__ __forceinline__ void wide_body(const Params& p) {
+// The bf16 body of dQ (kDkv false) or dK/dV. Grid as the fp32 body's.
+// Every barrier is reached by all threads.
+template <bool kDkv>
+__device__ __forceinline__ void wide_bf16_body(const Params& p) {
+  using T = __nv_bfloat16;
   constexpr int kR = kWideRows, kOps = kDkv ? 2 : 1;
-  constexpr bool kOne = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   const int d = p.d, dt = d / 8, xld = d + 4;
   const bool resident = d <= kWideResidentD;
-  const int slot = wide_slot(resident);
+  const int slot = bf16_slot(resident);
   float* ring = reinterpret_cast<float*>(smem4);  // [2][slot]
   float* part = ring + 2 * slot;                   // [S, dP][k-half][m-tile][n-tile] fragments
   float* frag = part + 32 * kFrag;                 // [dS, P][big, small][m-tile][k-step] fragments
@@ -471,8 +878,7 @@ __device__ __forceinline__ void wide_body(const Params& p) {
   const int op = (cn + kPieceTiles - 1) / kPieceTiles;  // output pieces a loop tile
   const int per = kp + op, items = n * per;
 
-  // item j into ring slot j % 2, then a commit (an empty group past the
-  // last item keeps one group per item)
+  // item j into ring slot j % 2 (published by the barrier before its use)
   auto stage = [&](int item) {
     if (item < items) {
       const int it = item / per, r = item - it * per, row0 = l_start + it * kR;
@@ -491,11 +897,10 @@ __device__ __forceinline__ void wide_body(const Params& p) {
         if (kDkv) stage_piece(dst + kR * kWld, y1b + col, y1s, row0, yrows, w);
       }
     }
-    cp_async_commit();
   };
-  if (resident) {  // in item 0's group
-    stage_tile<kR, kWideThreads>(xs, xld, x0b, x0s, f0, xrows, d);
-    stage_tile<kR, kWideThreads>(xs + kR * xld, xld, x1b, x1s, f0, xrows, d);
+  if (resident) {
+    load_tile_bf16<kR, kBThreads>(xs, xld, x0b, x0s, f0, xrows, d);
+    load_tile_bf16<kR, kBThreads>(xs + kR * xld, xld, x1b, x1s, f0, xrows, d);
   }
   stage(0);
 
@@ -514,8 +919,8 @@ __device__ __forceinline__ void wide_body(const Params& p) {
     }
   }
 
-  float acc0[2][kWideOT][4];                // dQ, or dK
-  float acc1[2][kDkv ? kWideOT : 1][4];     // dV
+  float acc0[2][kWideOT][4];             // dQ, or dK
+  float acc1[2][kDkv ? kWideOT : 1][4];  // dV
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     zero<kWideOT>(acc0[m]);
@@ -537,7 +942,6 @@ __device__ __forceinline__ void wide_body(const Params& p) {
     float s[4][4];
     zero<4>(s);
     for (int pc = 0; pc < kp; ++pc, ++j) {
-      cp_async_wait_all();
       __syncthreads();  // item j is in; every warp is done with item j - 1, whose slot j + 1 takes
       stage(j + 1);
       const float* sl = ring + (j & 1) * slot;
@@ -547,9 +951,9 @@ __device__ __forceinline__ void wide_body(const Params& p) {
       const int ks = min(kPieceTiles, dt - pc * kPieceTiles), half = (ks + 1) / 2;
       const int k0 = kh ? half : 0, k1 = kh ? ks : half;
       if (ks == kPieceTiles)
-        score_piece<true, kOne>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
+        score_piece_bf16<true>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
       else
-        score_piece<false, kOne>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
+        score_piece_bf16<false>(X + 8 * k0, ld, Y + 8 * k0, s, k1 - k0);
     }
     {
       float4* pw = reinterpret_cast<float4*>(part) + ((prod * 2 + kh) * 2 + smt) * 4 * 32 + lane;
@@ -575,13 +979,12 @@ __device__ __forceinline__ void wide_body(const Params& p) {
         dsv[e] = operand<T>(pe * (dv[e] - de) * p.scale);
       }
       float* fa = frag + (pmt * 4 + pj) * kFrag + 4 * lane;
-      put_a<kOne>(fa, fa + 8 * kFrag, dsv);
-      if constexpr (kDkv) put_a<kOne>(fa + 16 * kFrag, fa + 24 * kFrag, pv);
+      put_a<true>(fa, fa + 8 * kFrag, dsv);
+      if constexpr (kDkv) put_a<true>(fa + 16 * kFrag, fa + 24 * kFrag, pv);
     }
 #pragma unroll
     for (int pc = 0; pc < kWideOT / 2; ++pc) {
       if (pc < op) {
-        cp_async_wait_all();
         __syncthreads();  // item j (and at pc 0 the A fragments) is in; every warp is done with item j - 1
         stage(j + 1);
         const float* sl = ring + (j & 1) * slot;
@@ -593,7 +996,7 @@ __device__ __forceinline__ void wide_body(const Params& p) {
 #pragma unroll
             for (int m = 0; m < 2; ++m) {
               const float* fa = frag + (o * 16 + m * 4 + kk) * kFrag + 4 * lane;
-              get_a<kOne>(fa, fa + 8 * kFrag, ab[o][m], as[o][m]);
+              get_a<true>(fa, fa + 8 * kFrag, ab[o][m], as[o][m]);
             }
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
@@ -604,12 +1007,12 @@ __device__ __forceinline__ void wide_body(const Params& p) {
               split(yb[0], bb[0], bs[0]);
               split(yb[kWld], bb[1], bs[1]);
 #pragma unroll
-              for (int m = 0; m < 2; ++m) mma3_split<kOne>(acc0[m][2 * pc + i], ab[0][m], as[0][m], bb, bs);
+              for (int m = 0; m < 2; ++m) mma3_split<true>(acc0[m][2 * pc + i], ab[0][m], as[0][m], bb, bs);
               if constexpr (kDkv) {
                 split(yb[kR * kWld], bb[0], bs[0]);
                 split(yb[kR * kWld + kWld], bb[1], bs[1]);
 #pragma unroll
-                for (int m = 0; m < 2; ++m) mma3_split<kOne>(acc1[m][2 * pc + i], ab[1][m], as[1][m], bb, bs);
+                for (int m = 0; m < 2; ++m) mma3_split<true>(acc1[m][2 * pc + i], ab[1][m], as[1][m], bb, bs);
               }
             }
           }
@@ -618,7 +1021,6 @@ __device__ __forceinline__ void wide_body(const Params& p) {
       }
     }
   }
-  cp_async_wait_all();  // nothing in flight when the block exits
   const int mine = (cn - warp + 7) / 8;  // this warp's n-tiles 8u + warp below cn
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
@@ -630,14 +1032,12 @@ __device__ __forceinline__ void wide_body(const Params& p) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads, 1) flash_dq_wide_kernel(const Params p) {
-  wide_body<T, false>(p);
+__global__ void __launch_bounds__(kBThreads, 1) flash_dq_wide_bf16_kernel(const Params p) {
+  wide_bf16_body<false>(p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads, 1) flash_dkv_wide_kernel(const Params p) {
-  wide_body<T, true>(p);
+__global__ void __launch_bounds__(kBThreads, 1) flash_dkv_wide_bf16_kernel(const Params p) {
+  wide_bf16_body<true>(p);
 }
 
 // -- launch ----------------------------------------------------------------------------
@@ -650,63 +1050,107 @@ constexpr int kMmaMaxD = 128;
 
 bool wide(int d) { return d > kMmaMaxD; }
 
-// Rows of a block's fixed tile, threads of a block and grid z of the body
-// that takes head_dim d.
-int tile_rows(int d) { return wide(d) ? kWideRows : kTile; }
-int threads_of(int d) { return wide(d) ? kWideThreads : kThreads; }
-int grid_z(int d) { return wide(d) ? (d / 8 + kWideChunkTiles - 1) / kWideChunkTiles : 1; }
+bool resident(int d) { return d <= kWideResidentD; }
+
+int grid_z(int d) { return (d / 8 + kWideChunkTiles - 1) / kWideChunkTiles; }
+
+// 0-2: the mma kernels' buckets; 3 the wide body with X resident, 4 with X streamed
+int slot_of(int d) { return wide(d) ? (resident(d) ? 3 : 4) : bucket(d); }
 
 // The mma kernels: 2 staged tiles of 64 rows and 2 x 2 of kLoop rows at
 // the bucket's stride (+ 2 x 2 LSE / delta rows for dK/dV); the wide
-// kernels: wide_floats.
+// kernels: wide_bytes.
 size_t smem_bytes(int kind, int d) {
-  if (wide(d)) return wide_floats(kind == kDkv, d, d <= kWideResidentD) * sizeof(float);
+  if (wide(d)) return wide_bytes(d, resident(d));
   const size_t ld = 8 * (4 << bucket(d)) + 4;
   return ((2 * kTile + 4 * kLoop) * ld + (kind == kDq ? 0 : 4 * kLoop)) * sizeof(float);
 }
 
+size_t bf16_smem_bytes(int kind, int d) { return bf16_floats(kind == kDkv, d, resident(d)) * sizeof(float); }
+
 void* kernel_of(int kind, int d) {
-  static void* const table[2][4] = {
+  static void* const table[2][5] = {
       {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>, (void*)flash_dq_mma_kernel<16>,
-       (void*)flash_dq_wide_kernel<float>},
+       (void*)flash_dq_wide_kernel<true>, (void*)flash_dq_wide_kernel<false>},
       {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>, (void*)flash_dkv_mma_kernel<16>,
-       (void*)flash_dkv_wide_kernel<float>}};
-  return table[kind][wide(d) ? 3 : bucket(d)];
+       (void*)flash_dkv_wide_kernel<true>, (void*)flash_dkv_wide_kernel<false>}};
+  return table[kind][slot_of(d)];
 }
 
-// The wide kernels instantiated for bf16 (head_dim past kStagedMaxD only;
-// csrc/flash_bf16_kernel.cu's bodies take bf16 up to it).
+int threads_of(int d) { return wide(d) ? kWideThreads : kThreads; }
+
 void* wide_bf16_of(int kind) {
-  return kind == kDq ? (void*)flash_dq_wide_kernel<__nv_bfloat16> : (void*)flash_dkv_wide_kernel<__nv_bfloat16>;
+  return kind == kDq ? (void*)flash_dq_wide_bf16_kernel : (void*)flash_dkv_wide_bf16_kernel;
 }
 
-// fn's dynamic shared memory limit: what kernel `kind` takes at d, for
-// the wide kernels the most of any head_dim (the resident tile at
-// kWideResidentD).
-int set_smem(void* fn, int kind, int d) {
-  const int bytes = (int)smem_bytes(kind, wide(d) ? kWideResidentD : d);
+// fn's dynamic shared memory limit, and the carveout that gives it
+int set_smem(void* fn, int bytes) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   return (int)e;
 }
 
+// Sets each kernel's shared-memory cap once: its size, for the fp32 wide
+// body all a block may take (its ring takes what the rest leaves).
 int configure(int kind, int d) {
-  static bool configured[2][4] = {};
-  const int bi = wide(d) ? 3 : bucket(d);
-  if (configured[kind][bi]) return 0;
-  const int e = set_smem(kernel_of(kind, d), kind, d);
+  static bool configured[2][5] = {};
+  const int si = slot_of(d);
+  if (configured[kind][si]) return 0;
+  const int e = set_smem(kernel_of(kind, d), wide(d) ? kSmemMax : (int)smem_bytes(kind, d));
   if (e) return e;
-  configured[kind][bi] = true;
+  configured[kind][si] = true;
   return 0;
 }
 
-int launch_fn(void* fn, int kind, const Params& p, int b, int rows, cudaStream_t stream) {
-  const int tr = tile_rows(p.d);
-  dim3 grid((rows + tr - 1) / tr, b * p.h, grid_z(p.d));
-  void* args[] = {(void*)&p};
-  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(threads_of(p.d)), args, smem_bytes(kind, p.d), stream);
-  if (e != cudaSuccess) return (int)e;
+// The bf16 body's cap: the most of any head_dim (the resident tile at
+// kWideResidentD).
+int configure_bf16(int kind) {
+  static bool configured[2] = {};
+  if (configured[kind]) return 0;
+  const int e = set_smem(wide_bf16_of(kind), (int)bf16_smem_bytes(kind, kWideResidentD));
+  if (e) return e;
+  configured[kind] = true;
+  return 0;
+}
+
+int launch_status(cudaError_t e) { return e != cudaSuccess ? (int)e : (int)cudaGetLastError(); }
+
+template <bool kRes>
+void launch_wide_as(int kind, dim3 grid, size_t bytes, cudaStream_t stream, const Params& p,
+                    const CUtensorMap* x, const CUtensorMap* y, const CUtensorMap* r) {
+  if (kind == kDq)
+    flash_dq_wide_kernel<kRes><<<grid, kWideThreads, bytes, stream>>>(p, x[0], x[1], y[0], y[1], r[0], r[1]);
+  else
+    flash_dkv_wide_kernel<kRes><<<grid, kWideThreads, bytes, stream>>>(p, x[0], x[1], y[0], y[1], r[0], r[1]);
+}
+
+// The fp32 wide kernels: q, dO, k and v in boxes of 32 columns x
+// kWideRows rows, LSE and delta read flat in boxes of kRowBox values
+// (b h sq below 2^31), maps encoded per call; X = (q, dO) and Y = (k, v)
+// for dQ, the other way round for dK/dV.
+int launch_wide(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
+  CUtensorMap maps[6];
+  const float* ptr[4] = {p.q, p.dout, p.k, p.v};
+  const int64_t st[4][3] = {
+      {p.q_sb, p.q_ss, p.q_sh}, {p.g_sb, p.g_ss, p.g_sh}, {p.k_sb, p.k_ss, p.k_sh}, {p.v_sb, p.v_ss, p.v_sh}};
+  for (int i = 0; i < 4; ++i) {
+    const int e = hopper::encode_bshd_f32(&maps[i], ptr[i], b, i < 2 ? p.sq : p.sk, p.h, p.d, st[i][0], st[i][1],
+                                          st[i][2], kWideRows);
+    if (e) return e;
+  }
+  const int64_t n = (int64_t)b * p.h * p.sq;
+  int e = hopper::encode_flat_f32(&maps[4], p.lse, n, kRowBox);
+  if (!e) e = hopper::encode_flat_f32(&maps[5], p.delta, n, kRowBox);
+  if (e) return e;
+  const CUtensorMap* x = kind == kDq ? maps : maps + 2;
+  const CUtensorMap* y = kind == kDq ? maps + 2 : maps;
+  const dim3 grid((rows + kWideRows - 1) / kWideRows, b * p.h, grid_z(p.d));
+  const size_t bytes = smem_bytes(kind, p.d);
+  if (resident(p.d))
+    launch_wide_as<true>(kind, grid, bytes, stream, p, x, y, maps + 4);
+  else
+    launch_wide_as<false>(kind, grid, bytes, stream, p, x, y, maps + 4);
   return (int)cudaGetLastError();
 }
 
@@ -714,18 +1158,21 @@ int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
-  return launch_fn(kernel_of(kind, p.d), kind, p, b, rows, stream);
+  if (wide(p.d)) return launch_wide(kind, p, b, rows, stream);
+  dim3 grid((rows + kTile - 1) / kTile, b * p.h);
+  void* args[] = {(void*)&p};
+  return launch_status(
+      cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args, smem_bytes(kind, p.d), stream));
 }
 
 int launch_wide_bf16(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(p.d) || p.d <= kStagedMaxD) return (int)cudaErrorInvalidValue;
-  static bool configured[2] = {};
-  if (!configured[kind]) {
-    const int e = set_smem(wide_bf16_of(kind), kind, p.d);
-    if (e) return e;
-    configured[kind] = true;
-  }
-  return launch_fn(wide_bf16_of(kind), kind, p, b, rows, stream);
+  const int err = configure_bf16(kind);
+  if (err) return err;
+  dim3 grid((rows + kWideRows - 1) / kWideRows, b * p.h, grid_z(p.d));
+  void* args[] = {(void*)&p};
+  return launch_status(
+      cudaLaunchKernel(wide_bf16_of(kind), grid, dim3(kBThreads), args, bf16_smem_bytes(kind, p.d), stream));
 }
 
 }  // namespace
@@ -743,10 +1190,14 @@ const char* ff_flash_bwd_cuda_error_string(int code) {
 int ff_flash_bwd_occupancy(int kind, int d, int* out) {
   if (kind < 0 || kind > 3 || !takes(d) || (kind > 1 && d <= kStagedMaxD)) return (int)cudaErrorInvalidValue;
   const int k = kind & 1;
-  void* fn = kind > 1 ? wide_bf16_of(k) : kernel_of(k, d);
-  const int err = kind > 1 ? set_smem(fn, k, d) : configure(k, d);
+  if (kind > 1) {
+    const int err = configure_bf16(k);
+    if (err) return err;
+    return flash::occupancy(wide_bf16_of(k), bf16_smem_bytes(k, d), out, kBThreads);
+  }
+  const int err = configure(k, d);
   if (err) return err;
-  return flash::occupancy(fn, smem_bytes(k, d), out, threads_of(d));
+  return flash::occupancy(kernel_of(k, d), smem_bytes(k, d), out, threads_of(d));
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d], dO [b, sq, h, d] fp32 with head_dim

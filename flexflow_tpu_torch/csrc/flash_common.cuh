@@ -7,9 +7,9 @@
 // in flash_bwd_kernel.cu's header. ops/cuda/_build.py hashes this file into
 // the name of every library whose source includes it.
 //
-// The backward's wide kernels (head_dim past kStagedMaxD) also take bf16
-// operands (mixed precision; their element type T = __nv_bfloat16): each bf16 row is
-// widened to fp32 as it is staged (stage_tile), the products take one TF32
+// The backward's bf16 wide kernels (head_dim past kStagedMaxD; mixed
+// precision, element type T = __nv_bfloat16) widen each bf16 row to fp32
+// as they stage it (load_tile_bf16), the products take one TF32
 // pass (a bf16 value, 8 significant bits, is a TF32 value, so its split has
 // no small part and the pass is exact; kOne below), and the outputs are
 // rounded to bf16 as they are stored (store_rows).
@@ -64,6 +64,12 @@ struct Params {
   float scale;
   int causal;
 };
+
+// Offset of element (r, c) in a TMA box of 32 fp32 columns (128 bytes a
+// row): row r at 128 r bytes, its 16-byte chunk c / 4 at chunk
+// c / 4 ^ r % 8 (TMA's 128-byte swizzle). The fp32 wide bodies of #1-#3
+// read their ring's boxes through it.
+__device__ __forceinline__ int swz(int r, int c) { return r * 32 + (((c >> 2) ^ (r & 7)) << 2) + (c & 3); }
 
 // This block's output columns: n-tiles [c0t, c0t + cn) of the head_dim's
 // dt, cut evenly over the grid's z.
@@ -313,17 +319,6 @@ __device__ __forceinline__ void load_tile_bf16(float* dst, int ld, const __nv_bf
     if (row0 + r < rows) raw = __ldg(reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * s_stride) + c8);
     widen_bf16x8(dst + r * ld + 8 * c8, raw);
   }
-}
-
-// A tile of T rows into fp32 shared memory: cp.async for float (waited on
-// by the caller's cp_async_wait_all), load_tile_bf16 for bf16.
-template <int kRows, int kN = kThreads, typename T>
-__device__ __forceinline__ void stage_tile(float* dst, int ld, const T* base, int64_t s_stride,
-                                           int row0, int rows, int d) {
-  if constexpr (sizeof(T) == 4)
-    load_tile<kRows, kN>(dst, ld, base, s_stride, row0, rows, d);
-  else
-    load_tile_bf16<kRows, kN>(dst, ld, base, s_stride, row0, rows, d);
 }
 
 // A fragment's value as the next product's operand: itself for fp32

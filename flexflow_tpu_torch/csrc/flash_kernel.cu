@@ -389,10 +389,6 @@ static_assert(wide_stages(kWResidentD, true) >= 2 && wide_stages(kWResidentD + 8
               "kWResidentD is the widest head_dim whose Q stays resident beside 2 ring slots");
 static_assert(wide_stages(0, false) >= 2, "the streamed body holds 2 ring slots");
 
-// Offset of element (r, c) in a box: row r at 128 r bytes, its 16-byte
-// chunk c / 4 at chunk c / 4 ^ r % 8 (TMA's 128-byte swizzle).
-__device__ __forceinline__ int swz(int r, int c) { return r * 32 + (((c >> 2) ^ (r & 7)) << 2) + (c & 3); }
-
 template <bool kResident>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_fwd_wide_kernel(const Params p, const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,

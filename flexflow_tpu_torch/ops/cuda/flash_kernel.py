@@ -17,11 +17,12 @@ through a ring of cp.async slots). fp32 #1 past head_dim 128 runs
 flash_kernel.cu's wide body: the scores once per tile pair over a
 resident Q tile, K and V streamed through a TMA ring. #2 and
 #3 run csrc/flash_bwd_kernel.cu's wide kernels past head_dim 128 in fp32
-and past 256 in bf16: they compute the scores once
-per tile pair over a resident fixed tile and stream the loop operand
-through a ring of cp.async slots; bf16 runs them instantiated for bf16
-(rows widened to fp32 as they are staged, one exact TF32 pass per
-product, P and dS rounded to bf16 where the reference casts them):
+and past 256 in bf16: they compute the scores once per tile pair over a
+resident fixed tile, the fp32 body streaming the loop operand through a
+TMA ring that a producer warpgroup keeps full, the bf16 body through a
+ring of 2 slots that all its threads fill (rows widened to fp32 as they
+are staged, one exact TF32 pass per product, P and dS rounded to bf16
+where the reference casts them):
 
   * `flash_fwd(q, k, v, causal, sm_scale)` -> (O [b, sq, h, d],
     LSE [b, h, sq] fp32) — kernel #1;

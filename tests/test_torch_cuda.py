@@ -15,6 +15,9 @@ and dV atol 5e-5 and rtol 5e-4. Their bf16 bodies (mixed precision)
 against float64 of the same bf16 inputs, beside their plain versions
 (the gate is stated above `_bf16_ulp`)."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -763,15 +766,95 @@ def test_flash_backward_is_bit_identical_across_calls(causal, d):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [320, 512, 1032])
+@pytest.mark.parametrize("d", [136, 256, 320, 512, 520, 1032, 1224])
 def test_flash_wide_backward_fits_the_card(d):
-    """#2 and #3 past head_dim 256 at 320 and 512 (the fixed tile
-    resident, 512 the widest it is) and 1032 (streamed): no spilled
-    registers, and at least one block fits an SM."""
+    """#2 and #3's fp32 wide body (a producer warpgroup and two consumer
+    warpgroups, 384 threads) with the fixed tile resident (136-512, 512
+    the widest it is) and streamed (520-1224): no spilled registers or
+    other local memory, and one block fits an SM."""
     _card()
     for name in ("flash_dq_wide", "flash_dkv_wide"):
         occ = fk.occupancy(name, d)
-        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, (name, occ)
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1 and occ["threads"] == 384, (name, occ)
+
+
+# fp32 #2 and #3's wide body at its edges: head_dim 136 (a ragged last TMA
+# box), 248 and 256 (the last full piece), 264, 320, 512 (one block's
+# widest output and widest resident fixed tile), 520 (the first streamed
+# one, 2 output chunks over grid z) and 1032; sq != sk with ragged last
+# tiles both ways, and one visible key (sk 1, or causal at sq 1)
+WIDE_BWD_DIMS = [136, 248, 256, 264, 320, 512, 520, 1032]
+WIDE_BWD_LENGTHS = [(129, 300), (300, 129), (300, 1), (1, 300)]
+
+
+@pytest.mark.parametrize("d", WIDE_BWD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", WIDE_BWD_LENGTHS)
+def test_flash_wide_backward_matches_plain_version_and_float64_at_its_edges(sq, sk, causal, d):
+    """#2 and #3's fp32 wide body against its plain version and against the
+    float64 function of the same inputs, both at the reference's gradient
+    scale; every entry finite, one launch of each counted under
+    flash_dq_wide and flash_dkv_wide, and a second call gives the same
+    bits."""
+    dev = _card()
+    args = _flash_backward_operands(np.random.default_rng(sq * 1000 + sk + d + 29), dev, 2, sq, sk, 2, d, causal)
+    fk.reset_launches()
+    got = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == _flash_launches(flash_dq_wide=1, flash_dkv_wide=1)
+    plain = (fk.flash_dq_ref(*args), *fk.flash_dkv_ref(*args))
+    exact_args = (*(t.double() for t in args[:6]), causal)
+    exact = (fk.flash_dq_ref(*exact_args), *fk.flash_dkv_ref(*exact_args))
+    again = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    for a, p, e, a2 in zip(got, plain, exact, again):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        torch.testing.assert_close(a.double(), e, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("d", [136, 320, 1032])
+def test_flash_wide_backward_reads_strided_operands(d):
+    """#2 and #3's fp32 wide body reads [b, s, h, d] views in place through
+    their strides (the TMA maps take them): q every other head of a
+    wider tensor, k a [b, h, s, d] tensor seen as [b, s, h, d], v and dO
+    column slices of [b, s, h, d + 16] rows. The gradients are the bits
+    of the same call on contiguous copies, within the gate of the plain
+    version."""
+    dev = _card()
+    rng = np.random.default_rng(d + 31)
+    b, sq, sk, h = 2, 200, 77, 2
+    q = _rand(rng, dev, b, sq, 2 * h, d)[:, :, ::2]
+    k = _rand(rng, dev, b, h, sk, d).transpose(1, 2)
+    v = _rand(rng, dev, b, sk, h, d + 16)[..., 8 : 8 + d]
+    do = _rand(rng, dev, b, sq, h, d + 16)[..., 16:]
+    o, lse = fk.flash_fwd_ref(q, k, v, True)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    assert all(fk._readable(t) is t for t in (q, k, v, do))
+    views = (q, k, v, do, lse, delta, True)
+    dense = (*(t.contiguous() for t in (q, k, v, do)), lse, delta, True)
+    got = (fk.flash_dq(*views), *fk.flash_dkv(*views))
+    want = (fk.flash_dq(*dense), *fk.flash_dkv(*dense))
+    plain = (fk.flash_dq_ref(*dense), *fk.flash_dkv_ref(*dense))
+    torch.cuda.synchronize()
+    for a, w, p in zip(got, want, plain):
+        assert torch.equal(a, w)
+        torch.testing.assert_close(a, p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_flash_wide_backward_loads_through_tma_alone():
+    """The SASS of #2 and #3's fp32 wide kernels (X resident and streamed)
+    holds TMA loads (UTMALDG) and no cp.async copy (LDGSTS): the consumer
+    warps issue no copy."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    fk._bwd_lib()
+    wide = chip_smoke.sass_opcodes(fk.BWD_SOURCE, r"flash_(dq|dkv)_wide_kernelILb[01]E")
+    assert wide is not None and len(wide) == 4, wide
+    for fn, ops in wide.items():
+        assert ops["UTMALDG"] > 0 and ops["LDGSTS"] == 0 and ops["HMMA"] > 0, (fn, dict(ops))
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

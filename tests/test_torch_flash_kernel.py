@@ -607,24 +607,17 @@ def _mma_chains(a, b, groups):
 
 
 def test_piece_accumulators_keep_the_wide_score_products_accurate():
-    """The wide backward kernels (past head_dim 256) split each
-    128-column piece's k-steps between two warps, each a fresh chain of
-    at most 8 k-steps (24 mma's) added in fp32 to its partial, and add
-    the two partials: at head_dim 1032 that stays at 6.7e-7 of the
-    largest entry (one chain a k-step: 3.7e-7), where one chain of 387
-    mma's drifts to 8.6e-6."""
+    """fp32 #2 and #3's wide body (past head_dim 128) splits each
+    128-column piece's k-steps among four warps, each a fresh chain of
+    at most 4 k-steps (12 mma's) added in fp32 to its partial, and adds
+    the four partials: at head_dim 1032 that stays at 3.5e-7 of the
+    largest entry, where one chain of 387 mma's drifts to 8.6e-6."""
     rng = np.random.RandomState(13)
     d = 1032
     dt = d // 8
     a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((64, d), (d, 64)))
     exact = a.double() @ b.double()
-    halves = ([], [])
-    for p in range(0, dt, 16):
-        steps = list(range(p, min(p + 16, dt)))
-        cut = (len(steps) + 1) // 2
-        halves[0].append(steps[:cut])
-        halves[1].append(steps[cut:])
-    pieces = _mma_chains(a, b, halves[0]) + _mma_chains(a, b, halves[1])
+    pieces = _wide_score_chains(a, b.T.contiguous())
     chain = _mma_chains(a, b, [list(range(dt))])
     rel = lambda c: float((c.double() - exact).abs().max() / exact.abs().max())
     assert rel(pieces) < 1e-6
@@ -722,6 +715,84 @@ def test_wide_forward_accumulation_order_matches_float64_and_jax(d, causal):
     jo, jlse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal, return_lse=True)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo)[0, :, 0], atol=FWD_TOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[0, 0], atol=FWD_TOL, rtol=0)
+
+
+def _wide_score_chains(a, b):
+    """a b^T (a [m, d], b [n, d] float32) as fp32 #2 and #3's wide body
+    (flash_bwd_kernel.cu wide_body) sums a score product: warp q of a
+    product takes k-steps [q ks / 4, (q + 1) ks / 4) of each 128-column
+    ring piece of ks k-steps as a fresh truncating chain added in fp32 to
+    its partial, piece by piece, and the pass adds the four warps'
+    partials in warp order."""
+    steps = a.shape[1] // 8
+    quarters = ([], [], [], [])
+    for p0 in range(0, steps, _PIECE_STEPS):
+        ks = min(_PIECE_STEPS, steps - p0)
+        for q in range(4):
+            quarters[q].append([p0 + i for i in range(q * ks // 4, (q + 1) * ks // 4)])
+    bt = b.T.contiguous()
+    total = torch.zeros(a.shape[0], b.shape[0])
+    for q in range(4):
+        total = total + _mma_chains(a, bt, quarters[q])
+    return total
+
+
+def _wide_backward_model(q, k, v, do, lse, delta, causal, scale):
+    """fp32 #2 and #3's wide body on one head (q, dO [sq, d], k, v [sk, d],
+    LSE and delta [sq]) in the model of mma.sync's 3xTF32 passes above:
+    dQ's block takes S = Q K^T and dP = dO V^T, dK/dV's the transposed
+    S^T = K Q^T and dP^T = V dO^T, each by _wide_score_chains; P and dS
+    in fp32 (masked entries exactly 0); each output one truncating chain
+    over the loop operand's 8-row k-steps, loop tile after loop tile
+    (dQ += dS K, dK += dS^T Q, dV += P^T dO). Tiles before a causal
+    diagonal add exact zeros, so the chains run over every loop tile.
+    Returns (dQ, dK, dV)."""
+    sq, sk = q.shape[0], k.shape[0]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        ok = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+
+    def probs(s, dp, ok, ls, de):
+        p = torch.where(ok, torch.exp(s * scale - ls), torch.zeros(()))
+        return p, p * (dp - de) * scale
+
+    p, ds = probs(_wide_score_chains(q, k), _wide_score_chains(do, v), ok, lse[:, None], delta[:, None])
+    dq = _mma_chains(ds, k, [list(range(sk // 8))])
+    pt, dst = probs(_wide_score_chains(k, q), _wide_score_chains(v, do), ok.T, lse[None, :], delta[None, :])
+    dk = _mma_chains(dst, q, [list(range(sq // 8))])
+    dv = _mma_chains(pt, do, [list(range(sq // 8))])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [320, 1032])
+def test_wide_backward_accumulation_order_matches_float64_and_jax(d, causal):
+    """fp32 #2 and #3's wide body (past head_dim 128) in its order of
+    accumulation: the score products in fresh truncating chains of a
+    quarter of a 128-column piece, added in fp32, and dQ, dK and dV each one
+    truncating chain over the loop tiles. Its gradients stay within the
+    reference's scale (atol 5e-5, rtol 5e-4) of the float64 function on
+    the same LSE and delta and of the JAX reference's _dq_kernel and
+    _dkv_kernel in the Pallas interpreter, at head_dim 320 (the fixed tile
+    resident in the kernel, 3 pieces) and 1032 (streamed, 9 pieces, the
+    output in 3 column chunks)."""
+    rng = np.random.RandomState(24)
+    sq, sk = 128, 256
+    q, do = (rng.randn(1, sq, 1, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(1, sk, 1, d).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fk.flash_fwd_ref(tq, tk, tv, causal)
+    delta = (tdo * o).sum(-1).transpose(1, 2).contiguous()
+    scale = 1.0 / math.sqrt(d)
+    got = _wide_backward_model(tq[0, :, 0], tk[0, :, 0], tv[0, :, 0], tdo[0, :, 0], lse[0, 0], delta[0, 0],
+                               causal, scale)
+    exact_args = (tq.double(), tk.double(), tv.double(), tdo.double(), lse.double(), delta.double(), causal)
+    exact = (fk.flash_dq_ref(*exact_args), *fk.flash_dkv_ref(*exact_args))
+    for a, e in zip(got, exact):
+        np.testing.assert_allclose(a.numpy(), e[0, :, 0].numpy(), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    _, vjp = jax.vjp(lambda q, k, v: _jax_flash(q, k, v, causal), *map(jnp.asarray, (q, k, v)))
+    for a, j in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(j)[0, :, 0], atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 _WGMMA_KEYS = 64  # flash_bf16_kernel.cu's Wide::kN: keys of a loop tile
