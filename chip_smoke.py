@@ -8,10 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 It imports torch, numpy and the port only, and fails (non-zero exit, no
 result line) on any failed phase:
 
-  1. build   — compiles every kernel source of csrc/ (six) with nvcc
+  1. build   — compiles every kernel source of csrc/ (five) with nvcc
                for sm_90a, all at once, and prints each build's time and
-               ptxas report, and the cluster body's shared memory, blocks
-               per SM and resident clusters at the serving shape;
+               ptxas report;
   2. kernels — after a 2 s warm-up that brings the card to its working
                clock, each decode kernel against its plain PyTorch
                version at the serving path's shapes (8 sequences x 16
@@ -29,10 +28,8 @@ result line) on any failed phase:
                within one bf16 ulp of the output's largest entry, timed at
                their path's width beside bf16 SDPA where PyTorch has one
                and beside their own device time at fp32 q; then all six
-               (#5 at w = 1 and #9 at w <= 16 on the cluster body of
-               paged_split_kernel.cu, the rest on the split-KV body of
-               tree_kernel.cu at head_dim <= 256, all six on
-               decode_kernel.cu's past it), at fp32 and bf16 q, at the
+               (on the split-KV body of tree_kernel.cu at head_dim <= 256,
+               on decode_kernel.cu's past it), at fp32 and bf16 q, at the
                edges of their card tests: widths 1-64, head_dim 16, 24
                (int8 rows in 8-byte loads), 128, 256 and 320 (w = 64
                included), a ragged max_len at 2-row pages, lengths 0 and
@@ -262,12 +259,11 @@ LM_TRAIN = dict(layers=2, steps=4)
 # kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
     "flash_verify": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:235"),
-    # #5 at w = 1 and #9 at w <= 16 (their path widths) on the cluster body
-    "paged_flash_verify": ("paged_split_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
+    "paged_flash_verify": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:342"),
     "paged_flash_verify_quant": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:476"),
     "flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:626"),
     "paged_flash_verify_tree": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:732"),
-    "paged_flash_verify_tree_quant": ("paged_split_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
+    "paged_flash_verify_tree_quant": ("tree_kernel.cu", "flexflow_tpu/ops/pallas/decode_kernel.py:849"),
     "flash_fwd": ("flash_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:129"),
     "flash_dq": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:230"),
     "flash_dkv": ("flash_bwd_kernel.cu", "flexflow_tpu/ops/pallas/flash_kernel.py:269"),
@@ -299,9 +295,8 @@ FLASH_WIDE_BF16 = ("flash_fwd_wide_bf16", "flash_dq_wide_bf16", "flash_dkv_wide_
 # kernel wrapper -> substrings of the device functions its launches run,
 # as the profiler names them: each kernel's own instantiations, so that
 # no kernel's time counts under another's (#4-#9 run on the split body of
-# tree_kernel.cu, #5 at w = 1 and #9 at w <= 16 on the cluster body of
-# paged_split_kernel.cu, all six on decode_kernel.cu's past head_dim 256;
-# each is templated first on q's element type, float or __nv_bfloat16)
+# tree_kernel.cu, and on decode_kernel.cu's past head_dim 256; both are
+# templated first on q's element type, float or __nv_bfloat16)
 _DECODE_SYMBOLS = {
     "flash_verify": (
         "single_query_kernel<{q}, false,",
@@ -309,7 +304,6 @@ _DECODE_SYMBOLS = {
         "decode_attention_kernel<{q}, false, false, false>",
     ),
     "paged_flash_verify": (
-        "paged_decode_split_kernel<{q},",
         "single_query_kernel<{q}, true,",
         "tree_attention_kernel<{q}, true, false, true,",
         "decode_attention_kernel<{q}, true, false, false>",
@@ -324,7 +318,6 @@ _DECODE_SYMBOLS = {
     "paged_flash_verify_tree": ("tree_attention_kernel<{q}, true, false, false,",
                                 "decode_attention_kernel<{q}, true, false, true>"),
     "paged_flash_verify_tree_quant": (
-        "paged_tree_int8_split_kernel<{q},",
         "tree_attention_kernel<{q}, true, true, false,",
         "decode_attention_kernel<{q}, true, true, true>",
     ),
@@ -369,8 +362,8 @@ def build_kernels():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, dk.SPLIT_SOURCE: dk._split_lib, fk.SOURCE: fk._lib,
-              fk.BWD_SOURCE: fk._bwd_lib, fk.BF16_SOURCE: fk._bf16_lib}
+    builds = {dk.SOURCE: dk._lib, dk.TREE_SOURCE: dk._tree_lib, fk.SOURCE: fk._lib, fk.BWD_SOURCE: fk._bwd_lib,
+              fk.BF16_SOURCE: fk._bf16_lib}
     with ThreadPoolExecutor(len(builds)) as pool:
         times = dict(zip(builds, pool.map(timed, builds.values())))
     print(f"[build] {len(times)} sources in {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -379,38 +372,27 @@ def build_kernels():
         for line in _build.build_logs.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
-    # the cluster body's shared memory is dynamic (its ring): what a block
-    # of #5 (w = 1) and #9 (w = 13) takes at the serving shape, and how many
-    # of the grid's 128 clusters the card holds at once
-    import torch
-
-    b, h, d, max_len, page = FLAGSHIP["max_seqs"], FLAGSHIP["heads"], FLAGSHIP["hidden"] // FLAGSHIP["heads"], \
-        FLAGSHIP["max_len"], 16
-    splits, span = dk.pick_cluster_splits(b, h, max_len, page, dk._sm_count(torch.cuda.current_device()))
-    for name, quant in (("#5", False), ("#9", True)):
-        slots = dk.ring_slots(span // page, dk._slot_bytes(page, d, 1 if quant else 4))
-        for qd in (torch.float32, torch.bfloat16):
-            occ = dk.split_occupancy(quant, qd, d, page, slots, splits)
-            print(f"[build] {dk.SPLIT_SOURCE} {name} at {str(qd)[6:]} q, {splits} splits of {span} positions, "
-                  f"{slots} ring slots: " + json.dumps(occ))
     return times
 
 
 # -- 2. kernels vs plain versions ----------------------------------------------
 
 
-def kernel_inputs(device, w, b=8, h=16, d=64, max_len=512, page=16, num_pages=256, seed=SEED):
+def kernel_inputs(device, w, b=8, h=16, d=64, max_len=512, page=16, num_pages=256, seed=SEED, lengths=None):
     """Seeded operands at the serving shapes. Lengths include 0 and
-    max_len - w; block tables hold each sequence's pages in random pool
-    order, sentinels past its length, one row with a sentinel hole inside
-    its visible range and one dead row whose pages are all sentinels."""
+    max_len - w (or are `lengths`, b of them, where given: the other
+    operands stay as they are); block tables hold each sequence's pages
+    in random pool order, sentinels past its length, one row with a
+    sentinel hole inside its visible range and one dead row whose pages
+    are all sentinels."""
     import torch
 
     from flexflow_tpu_torch.ops.attention import tree_allowed_mask
 
     rng = np.random.default_rng(seed + w)
-    lengths = rng.integers(0, max_len - w + 1, size=b).astype(np.int32)
-    lengths[0], lengths[1] = 0, max_len - w
+    drawn = rng.integers(0, max_len - w + 1, size=b).astype(np.int32)
+    drawn[0], drawn[1] = 0, max_len - w
+    lengths = drawn if lengths is None else np.asarray(lengths, dtype=np.int32)
     pages_per_seq = max_len // page
     tables = np.full((b, pages_per_seq), num_pages, dtype=np.int32)
     free = list(rng.permutation(num_pages))

@@ -4,9 +4,7 @@
 // the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16 #1 at any
 // head_dim, #2 and #3 up to 256) and csrc/flash_kernel.cu's wide body
 // (fp32 #1 past head_dim 128, its ring of fp32 boxes: 32 columns, 128
-// bytes a row, in the same swizzle) are built from them, and
-// csrc/paged_split_kernel.cu's ring of whole pages (encode_pages:
-// unswizzled boxes of one head's page).
+// bytes a row, in the same swizzle) are built from them.
 //
 // Operand layout. A tile of a bf16 [b, s, h, d] tensor is loaded by TMA
 // in boxes of 64 head_dim columns (128 bytes) x rows, 128-byte swizzled:
@@ -92,28 +90,6 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h, 
 inline int encode_bshd_f32(CUtensorMap* map, const void* base, int b, int s, int h, int d, int64_t sb,
                            int64_t ss, int64_t sh, int rows) {
   return encode_bshd_as(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, b, s, h, d, sb, ss, sh, rows);
-}
-
-// A map over a paged KV pool [pages, rows, h, d] of `elem`-byte elements
-// (csrc/paged_split_kernel.cu), read in boxes of one head's whole page:
-// d columns x rows, unswizzled, so row r of a box lies at byte r d elem.
-// Strides in elements, each a 16-byte multiple; d elem a 16-byte
-// multiple; d and rows at most 256. Returns 0 or a cudaError_t.
-inline int encode_pages(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int pages,
-                        int rows, int h, int d, int64_t s_page, int64_t s_row, int64_t s_head) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)h, (cuuint64_t)pages};
-  const int64_t st[3] = {s_row, s_head, s_page};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)  // a dimension of size 1 is never stepped: any legal stride
-    strides[i] = dims[i + 1] == 1 && st[i] == 0 ? 16 : (cuuint64_t)st[i] * elem;
-  const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // A map over n contiguous f32 values (a [b, h, s] row statistic read

@@ -16,11 +16,7 @@
 //     1      0      1    _paged_kernel :342 (paged_flash_verify)          #5
 //     1      1      1    _paged_kernel_quant :476                         #6
 // (decode_kernel.cu's body serves all six past head_dim 256, where the
-// wrapper routes them by head_dim alone; #5 at w = 1 and #9 at w <= 16 run
-// on csrc/paged_split_kernel.cu's cluster body wherever TMA can address
-// their pools, decode_kernel.py's split_body_takes, and here only where it
-// cannot: int8 rows of 24 or 40 bytes, bases or strides off 16 bytes,
-// pages past 256 rows or 64 KB.)
+// wrapper routes them by head_dim alone.)
 // w query rows per sequence against the cache, where row j sees position p
 // iff allowed[b, j, p] != 0 (a uint8 mask over logical positions; the
 // tree verifies) or p <= lengths[b] + j (kStair: the staircase of decode
@@ -95,9 +91,8 @@
 //     before K/V are stored, so a block waits on device memory twice per
 //     chunk, not four times; shared memory is 26 KB per block at w <= 16,
 //     head_dim 64, so 8 blocks share an SM;
-//   * one query row of fp32 rows (single_query_kernel, #4 at w = 1, the
-//     slot layout's decode step, and #5 at w = 1 on pools the cluster body
-//     does not take): the 8 x 16 tile would leave 7 of its 8
+//   * one query row of fp32 rows (single_query_kernel, #4 and #5 at
+//     w = 1: every decode step): the 8 x 16 tile would leave 7 of its 8
 //     query rows empty, so the 128 threads go across key rows and
 //     head_dim instead. Half-warp
 //     ty reads positions lo + ty + 8 i, lane tx head_dim columns

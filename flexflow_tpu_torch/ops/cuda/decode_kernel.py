@@ -3,25 +3,18 @@ flexflow_tpu/ops/pallas/decode_kernel.py, kernels #4-#9 of the family).
 
 The device code is CUDA C++ for Hopper, built on first use by
 ops/cuda/_build.py and called through ctypes on PyTorch's current
-stream. Three device bodies, each templated on the layout, the pool type
+stream. Two device bodies, each templated on the layout, the pool type
 and the mask, as the JAX family shares one body between decode and
-verify; every wrapper picks among them by operand geometry alone, before
-any launch (_body):
+verify; every wrapper picks between them by head_dim alone, before any
+launch:
 
-  * csrc/paged_split_kernel.cu, the cluster body, for #5 at w = 1 (every
-    decode step on fp32 pools) and #9 at w <= _SPLIT_TREE_MAX_W (every
-    int8 tree verify), on pools TMA can address (split_body_takes): each
-    split's pages arrive by TMA into a ring of up to ring_slots pages in
-    flight at once, and the splits of a (sequence, head) form a
-    thread-block cluster whose rank 0 merges their partials from
-    distributed shared memory (pick_cluster_splits);
-  * csrc/tree_kernel.cu, the split-KV body, every other case at head_dim
-    <= _TREE_MAX_D (256): one launch per call over (split, head,
-    sequence) blocks; the blocks of a sequence's positions merge their
-    partials in the last of them to finish. It takes all six: the
-    staircase on the contiguous cache (#4), on fp32 pools (#5) and on
-    int8 pools (#6), and the tree mask on the same three (#7, #8, #9). At
-    w = 1 the staircase runs a tile of one query row: fp32 rows (#4, #5) with
+  * csrc/tree_kernel.cu, the split-KV body, at head_dim <= _TREE_MAX_D
+    (256): one launch per call over (split, head, sequence) blocks; the
+    blocks of a sequence's positions merge their partials in the last of
+    them to finish. It serves all six: the staircase on the contiguous
+    cache (#4), on fp32 pools (#5) and on int8 pools (#6), and the tree
+    mask on the same three (#7, #8, #9). At w = 1, every decode step,
+    the staircase runs a tile of one query row: fp32 rows (#4, #5) with
     half-warps across rows, int8 rows (#6) with one 16-byte load per lane
     (4 lanes per row at head_dim 64; two 8-byte loads where the rows are
     not 16-byte aligned, head_dim 24 or 40), over splits of
@@ -89,7 +82,6 @@ from flexflow_tpu_torch.ops.cuda import _build
 
 SOURCE = "decode_kernel.cu"
 TREE_SOURCE = "tree_kernel.cu"
-SPLIT_SOURCE = "paged_split_kernel.cu"
 
 # query rows per sequence the kernels take (the reference's _MAX_W); the
 # tree variants take the same, where the reference stopped at 32
@@ -137,25 +129,8 @@ _BLOCKS_PER_SM = 8
 # shape and at short contexts together (PERF.md, scripts/decode_split_body.py)
 _QUANT_SPAN_UNIT = 128
 
-# the cluster body (paged_split_kernel.cu, whose checks refuse a launch
-# that breaks these): #9 up to this many query rows (its 16-row tile); at
-# most this many splits a (sequence, head), the portable cluster size; a
-# block's ring of pages within this many bytes where it holds more than
-# one (on one H100 16 KB beat 64 at the serving shape: two of #5's four
-# 8 KB pages a split, so that 8 blocks share an SM; all of #9's four 2 KB
-# pages; PERF.md, scripts/decode_split_body.py), and at most
-# _SPLIT_MAX_SLOTS pages; a page's K and V of one head within
-# _SPLIT_MAX_PAGE_BYTES; a TMA box of at most _TMA_MAX_BOX rows and columns
-_SPLIT_TREE_MAX_W = 16
-_SPLIT_MAX_CLUSTER = 8
-_SPLIT_RING_BYTES = 16 * 1024
-_SPLIT_MAX_PAGE_BYTES = 64 * 1024
-_SPLIT_MAX_SLOTS = 32
-_TMA_MAX_BOX = 256
-
 _bound: Optional[ctypes.CDLL] = None
 _tree_bound: Optional[ctypes.CDLL] = None
-_split_bound: Optional[ctypes.CDLL] = None
 # (device index, stream) -> the tree body's per-(sequence, head) arrival
 # counters, zero between calls (each launch leaves them zero)
 _counters: Dict[tuple, torch.Tensor] = {}
@@ -198,22 +173,6 @@ def _tree_lib() -> ctypes.CDLL:
     return _tree_bound
 
 
-def _split_lib() -> ctypes.CDLL:
-    """The built cluster-body library with its C signature declared."""
-    global _split_bound
-    if _split_bound is None:
-        lib = _build.load(SPLIT_SOURCE)
-        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ff_cuda_error_string.argtypes = [I]
-        lib.ff_cuda_error_string.restype = ctypes.c_char_p
-        lib.ff_paged_split_attention.argtypes = [P] * 9 + [I] * 12 + [L] * 12 + [F, P]
-        lib.ff_paged_split_attention.restype = I
-        lib.ff_paged_split_occupancy.argtypes = [I] * 6 + [P]
-        lib.ff_paged_split_occupancy.restype = I
-        _split_bound = lib
-    return _split_bound
-
-
 @functools.lru_cache(maxsize=None)
 def pick_splits(b: int, h: int, max_len: int, unit: int, sms: int, span_unit: int = _TREE_SPAN_UNIT):
     """(splits, span) of the tree body's grid (splits, h, b): each block
@@ -230,67 +189,6 @@ def pick_splits(b: int, h: int, max_len: int, unit: int, sms: int, span_unit: in
     splits = max(1, min(want, most))
     span = -(-(-(-max_len // splits)) // step) * step
     return -(-max_len // span), span
-
-
-@functools.lru_cache(maxsize=None)
-def pick_cluster_splits(b: int, h: int, max_len: int, page_size: int, sms: int):
-    """(splits, span) of the cluster body's grid (splits, h, b), the
-    splits of one (sequence, head) one cluster: each split a whole number
-    of pages and splits x span covering max_len, from the shape alone (as
-    pick_splits): enough splits that the grid holds _BLOCKS_PER_SM blocks
-    per SM, at most _SPLIT_MAX_CLUSTER (the portable cluster size) and at
-    most one a page."""
-    pages = -(-max_len // page_size)
-    want = -(-_BLOCKS_PER_SM * sms // max(1, b * h))
-    splits = max(1, min(want, _SPLIT_MAX_CLUSTER, pages))
-    span = -(-pages // splits) * page_size
-    return -(-max_len // span), span
-
-
-def split_occupancy(quant: bool, q_dtype, d: int, page_size: int, slots: int, splits: int) -> Dict[str, int]:
-    """What one block of the cluster body (#9 with quant, else #5) takes
-    and how many fit, from the built library: registers and local (spill)
-    bytes per thread, dynamic shared bytes, blocks per SM, and clusters of
-    `splits` blocks active at once on the current card."""
-    lib = _split_lib()
-    out = (ctypes.c_int * 5)()
-    code = lib.ff_paged_split_occupancy(int(quant), int(q_dtype == torch.bfloat16), d, page_size, slots, splits, out)
-    _raise_on(code, "split_occupancy", lib)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "active_clusters"), out))
-
-
-def _slot_bytes(page_size: int, d: int, elem: int) -> int:
-    """Shared bytes of one ring slot: a page's K box and V box of one
-    head, each rounded up to TMA's 128-byte boundary."""
-    return 2 * (-(-page_size * d * elem // 128) * 128)
-
-
-def ring_slots(pages: int, slot_bytes: int) -> int:
-    """Pages a block of the cluster body keeps in flight: its split's
-    whole `pages` where _SPLIT_RING_BYTES and _SPLIT_MAX_SLOTS allow, at
-    least one; a split with more pages refills slots as they are read."""
-    return max(1, min(pages, _SPLIT_MAX_SLOTS, _SPLIT_RING_BYTES // slot_bytes))
-
-
-def split_body_takes(w: int, d: int, page_size: int, num_pages: int, quant: bool, tree: bool,
-                     ptrs, strides) -> bool:
-    """Whether the cluster body (paged_split_kernel.cu) takes a paged
-    call, from its geometry alone: #5 at w = 1 (fp32 pools, the
-    staircase) or #9 at w <= _SPLIT_TREE_MAX_W (int8 pools, the tree
-    mask), head_dim at most _TREE_MAX_D, and pools TMA can address in
-    boxes of one head's page: `ptrs` (the K and V bases) and `strides`
-    (their page, row and head strides, in elements) 16-byte multiples, a
-    row of head_dim elements a 16-byte multiple (not int8 head_dim 24 or
-    40), at most _TMA_MAX_BOX rows a page, and one page's K and V within
-    _SPLIT_MAX_PAGE_BYTES. Every other call takes tree_kernel.cu's body."""
-    elem = 1 if quant else 4
-    if quant != tree or w > (_SPLIT_TREE_MAX_W if tree else 1):
-        return False
-    if d > _TREE_MAX_D or page_size > _TMA_MAX_BOX or num_pages < 1 or (d * elem) % 16:
-        return False
-    if any(x % 16 for x in ptrs) or any((s * elem) % 16 for s in strides):
-        return False
-    return _slot_bytes(page_size, d, elem) <= _SPLIT_MAX_PAGE_BYTES
 
 
 @functools.lru_cache(maxsize=None)
@@ -616,40 +514,6 @@ def _launch_tree(name, q, k, v, lengths, sm_scale, tables=None, scales=None, all
     return out
 
 
-def _launch_split(name, q, k, v, lengths, sm_scale, tables=None, scales=None, allowed=None):
-    """#5 at w = 1 (allowed None) or #9 at w <= _SPLIT_TREE_MAX_W on the
-    cluster body of paged_split_kernel.cu, where split_body_takes says so:
-    check the operands, launch it and count the launch. It allocates only
-    the output: the splits merge inside their cluster."""
-    b, w, h, d = q.shape
-    quant = scales is not None
-    num_pages, page_size, max_len, allowed = _geometry(name, q, k, v, lengths, tables, scales, allowed)
-    out = torch.empty((b, w, h, d), dtype=q.dtype, device=q.device)
-    if b == 0:
-        return out
-    lib = _split_lib()
-    splits, span = pick_cluster_splits(b, h, max_len, page_size, _sm_count(q.device.index))
-    slots = ring_slots(span // page_size, _slot_bytes(page_size, d, 1 if quant else 4))
-    ks, vs = scales if quant else (None, None)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.ff_paged_split_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), tables.data_ptr(),
-            lengths.data_ptr(), ptr(allowed), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), int(quant), b, w, h, d, max_len, span, splits, slots,
-            page_size, num_pages, tables.stride(0),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            allowed.stride(0) if quant else 0, allowed.stride(1) if quant else 0,
-            _scale_of(q, sm_scale), stream,
-        )
-    _raise_on(code, name, lib)
-    LAUNCHES[_key(name, q)] += 1
-    return out
-
-
 def _key(name, q):
     """The LAUNCHES key of a launch: bf16 q counts under name + "_bf16"."""
     return name + "_bf16" if q.dtype == torch.bfloat16 else name
@@ -694,21 +558,10 @@ def _no_kernel(name, q):
         raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
-def _body(q, k=None, v=None, tables=None, scales=None, allowed=None):
-    """The device body for a call, from its operands' geometry alone:
-    decode_kernel.cu's past head_dim _TREE_MAX_D; the cluster body for
-    the paged calls split_body_takes takes (#5 at w = 1, #9 at w <= 16 on
-    TMA-addressable pools); the split-KV body of tree_kernel.cu for the
-    rest."""
-    b, w, h, d = q.shape
-    if d > _TREE_MAX_D:
-        return _launch
-    if tables is not None and k.dim() == v.dim() == 4 and split_body_takes(
-        w, d, k.shape[1], k.shape[0], scales is not None, allowed is not None,
-        (k.data_ptr(), v.data_ptr()), k.stride()[:3] + v.stride()[:3],
-    ):
-        return _launch_split
-    return _launch_tree
+def _body(q):
+    """The device body for q's head_dim, by head_dim alone: the split-KV
+    body up to _TREE_MAX_D, decode_kernel.cu's past it."""
+    return _launch if q.shape[-1] > _TREE_MAX_D else _launch_tree
 
 
 def flash_verify(q, k_cache, v_cache, lengths, sm_scale=None):
@@ -734,16 +587,13 @@ def paged_flash_verify(q, k_pool, v_pool, block_tables, lengths, sm_scale=None):
     [b, w, h, d]; k_pool/v_pool: [num_pages, page_size, h, d];
     block_tables: [b, pages_per_seq] int32 (entries outside
     [0, num_pages) are unallocated); lengths: [b] int32. Returns
-    [b, w, h, d] in q's dtype. On the card: at w = 1 the cluster body
-    of paged_split_kernel.cu where split_body_takes says so, else the
-    split-KV body of tree_kernel.cu at head_dim <= 256, decode_kernel.cu's
-    body past it."""
+    [b, w, h, d] in q's dtype. On the card: the split-KV body of
+    tree_kernel.cu at head_dim <= 256 (at w = 1 its one-row tile),
+    decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_ref(q, k_pool, v_pool, block_tables, lengths, sm_scale)
     _no_kernel("paged_flash_verify", q)
-    return _body(q, k_pool, v_pool, block_tables)(
-        "paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables
-    )
+    return _body(q)("paged_flash_verify", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables)
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, **kw):
@@ -767,7 +617,7 @@ def paged_flash_verify_quant(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, sm_scale
         )
     _no_kernel("paged_flash_verify_quant", q)
-    return _body(q, k_pool, v_pool, block_tables, (k_scale, v_scale))(
+    return _body(q)(
         "paged_flash_verify_quant", q, k_pool, v_pool, lengths, sm_scale,
         tables=block_tables, scales=(k_scale, v_scale),
     )
@@ -802,7 +652,7 @@ def paged_flash_verify_tree(q, k_pool, v_pool, block_tables, lengths, allowed, s
             q, k_pool, v_pool, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree", q)
-    return _body(q, k_pool, v_pool, block_tables, allowed=allowed)(
+    return _body(q)(
         "paged_flash_verify_tree", q, k_pool, v_pool, lengths, sm_scale, tables=block_tables, allowed=allowed
     )
 
@@ -812,16 +662,14 @@ def paged_flash_verify_tree_quant(
 ):
     """paged_flash_verify_tree over int8 pools with fp32 per-(page,
     head) scales — #6's dequant and #8's tree mask; head_dim a multiple
-    of 8. On the card: at w <= 16 the cluster body of
-    paged_split_kernel.cu where split_body_takes says so, else the
-    split-KV body of tree_kernel.cu at head_dim <= 256, decode_kernel.cu's
-    body past it."""
+    of 8. On the card: the split-KV body of tree_kernel.cu at head_dim
+    <= 256, decode_kernel.cu's body past it, by head_dim alone."""
     if q.device.type == "cpu":
         return paged_flash_verify_tree_quant_ref(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, allowed, sm_scale
         )
     _no_kernel("paged_flash_verify_tree_quant", q)
-    return _body(q, k_pool, v_pool, block_tables, (k_scale, v_scale), allowed)(
+    return _body(q)(
         "paged_flash_verify_tree_quant", q, k_pool, v_pool, lengths, sm_scale,
         tables=block_tables, scales=(k_scale, v_scale), allowed=allowed,
     )

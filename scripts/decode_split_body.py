@@ -4,423 +4,100 @@ the serving shape of chip_smoke.py (8 sequences x 16 heads x 64, max_len
 512, 16-row pages): #4 (contiguous cache), #5 (fp32 pools) and #6 (int8
 pools) at w = 1 and 5 with kernel_inputs' lengths (0, 512 - w and
 random), each also at w = 1 with every length cut to 16 (the short
-contexts of chip_smoke.py's profiled decode windows), #7, #8 and #9 at w =
+contexts of chip_smoke.py's profiled decode windows), #5 at w = 1 also
+with the flagship burst's lengths (burst_lengths), #7, #8 and #9 at w =
 13 under a seeded draft tree, and #5 at w = 1 and #9 at w = 13 at bf16 q
 too. For each: the profiler's device time per call of the body the
-wrapper takes ("wrapper": the cluster body of paged_split_kernel.cu for #5
-at w = 1 and #9 at w <= 16 where the package has it, else the split-KV
-body of tree_kernel.cu), of tree_kernel.cu's body beside it where they
-differ ("tree_kernel_cu"), and of decode_kernel.cu's body (the route past
-head_dim 256), and the largest error of each and of the plain PyTorch
-version against a float64 evaluation of the same function on the same
-fp32 values (int8 rows dequantized in fp32, as all of them stage them),
-beside each body's error against the plain version, which chip_smoke.py
-gates.
+wrapper takes ("wrapper": the split-KV body of tree_kernel.cu at head_dim
+<= 256) and of decode_kernel.cu's body (the route past head_dim 256), and
+the largest error of each and of the plain PyTorch version against a
+float64 evaluation of the same function on the same fp32 values (int8
+rows dequantized in fp32, as all of them stage them), beside each body's
+error against the plain version, which chip_smoke.py gates.
 
     python3 scripts/decode_split_body.py [--root DIR] [--cases TEXT ...] [--readings N]
-        [--edges] [--bodies NAME ...] [--quant-spans N ...] [--head-dim D]
-    python3 scripts/decode_split_body.py --make-variants [NAME ...]
+        [--bodies NAME ...] [--quant-spans N ...] [--head-dim D] [--serving]
 
 --root DIR measures the flexflow_tpu_torch package under DIR (an unpacked
-earlier commit or a variant, say) instead of this checkout's; the inputs
-and the timers are this checkout's chip_smoke.py either way. --cases keeps
-the cases whose label holds one of the texts; --readings takes that many
-profiler readings a case (default 1); --bodies times only the named ones
-of wrapper, tree_kernel_cu and decode_kernel_cu (each builds its library
-at first use). --edges adds #5 at w = 1 and #9 at
-w = 13 at chip_smoke.py's small b x h edges (2 heads: head_dim 16 and
-256, max_len 250, 2-row pages). --quant-spans also times #6's w = 1 cases
-with each given span unit (a multiple of 64 positions: the split rule's
-step, decode_kernel.py's _QUANT_SPAN_UNIT) in place of the package's own.
---head-dim D takes every case at head_dim D (default 64); past 256 the
-wrapper routes to decode_kernel.cu's body too. Needs a CUDA device;
-prints one JSON line.
-
---make-variants unpacks this checkout's package with the edits of each
-named ablation of the cluster body (default: all) under
-_checkout/variants/<name>/ (git-ignored), to be timed through --root in
-fresh processes, in turns with "." (the kernels build at first use):
-
-  global_merge  the splits' partials through device memory, the last
-                live block of a (sequence, head) to arrive merging them
-                (tree_kernel.cu's arrive_and_merge), launched without
-                clusters
-  one_page      a ring of one page: each page loaded after the last is
-                read
-  whole_split   a ring budget of 64 KB: #5's whole split (four 8 KB pages
-                at the serving shape) in flight at once, 6 blocks a SM
-  tf32_mma      #9's two products on TF32 mma.sync m16n8k8 (the int8
-                values exact in TF32, Q and P vs in two passes, a fresh
-                chain a chunk, fp64 running sums): the option its CPU
-                model turned down (tests/test_torch_decode_kernel.py)
-  no_loads      diagnostic, wrong output: no K/V loads (each page's
-                barrier completed by arrivals alone)
-  no_cluster    diagnostic, wrong output: launched without clusters, each
-                block writing its own partial as the output
-  cluster_no_merge     diagnostic, wrong output: no_cluster's blocks
-                launched as clusters
+earlier commit or a variant, say) instead of this checkout's; the inputs,
+the timers and the profiler's kernel names are this checkout's
+chip_smoke.py either way. --cases keeps the cases whose label holds one of
+the texts; --readings takes that many profiler readings a case (default
+1); --bodies times only the named ones of wrapper and decode_kernel_cu
+(each builds its library at first use). --quant-spans also times #6's w =
+1 cases with each given span unit (a multiple of 64 positions: the split
+rule's step, decode_kernel.py's _QUANT_SPAN_UNIT) in place of the
+package's own. --head-dim D takes every case at head_dim D (default 64);
+past 256 the wrapper routes to decode_kernel.cu's body too. --serving then
+serves the full-width flagship LM of chip_smoke.py (12 layers, seeded
+weights) and gives #5's device time per call on its traffic, from the
+profiler (serving_profile). Needs a CUDA device; prints one JSON line
+last.
 """
 
 import argparse
 import importlib.util
 import json
 import os
-import shutil
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SPLIT = os.path.join("csrc", "paged_split_kernel.cu")
-WRAPPER = os.path.join("ops", "cuda", "decode_kernel.py")
 
-_GLOBAL_MERGE = r"""// variant global_merge: the partials through device memory, the last
-// block of a (sequence, head) to arrive merging them, no cluster
-__device__ float g_part_acc[1 << 22];
-__device__ float2 g_part_ml[1 << 18];
-__device__ unsigned int g_arrivals[1 << 16];
-
-template <typename TQ>
-__device__ void global_merge(const Params& p, int ib, int ih, int live, const float2* ml, const float* acc) {
-  __shared__ float wt_s[kMaxSplits * kTreeW];
-  __shared__ float den_s[kTreeW];
-  __shared__ int last_s;
-  const int tid = threadIdx.x, w = p.w, d4 = p.d / 4, n = max(live, 1), is = blockIdx.x;
-  const int64_t base = ((int64_t)ib * p.h + ih) * p.splits * w;
-  __syncthreads();
-  for (int i = tid; i < w * d4; i += kThreads) {
-    const int j = i / d4, c = i - j * d4;
-    reinterpret_cast<float4*>(g_part_acc + (base + (int64_t)is * w + j) * p.d)[c] =
-        reinterpret_cast<const float4*>(acc + (size_t)j * p.d)[c];
-  }
-  for (int j = tid; j < w; j += kThreads) g_part_ml[base + is * w + j] = ml[j];
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_s = atomicInc(g_arrivals + ib * p.h + ih, (unsigned)(n - 1)) == (unsigned)(n - 1);
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  for (int j = tid; j < w; j += kThreads) {
-    float big = kMask;
-    for (int s = 0; s < n; ++s) {
-      const float2 x = __ldcg(g_part_ml + base + s * w + j);
-      if (x.y > 0.f) big = fmaxf(big, x.x);
-    }
-    float sum = 0.f;
-    for (int s = 0; s < n; ++s) {
-      const float2 x = __ldcg(g_part_ml + base + s * w + j);
-      const float e = x.y > 0.f ? expf(x.x - big) : 0.f;
-      wt_s[s * w + j] = e;
-      sum += e * x.y;
-    }
-    den_s[j] = fmaxf(sum, 1e-30f);
-  }
-  __syncthreads();
-  TQ* out = static_cast<TQ*>(p.out);
-  for (int i = tid; i < w * d4; i += kThreads) {
-    const int j = i / d4, c = i - j * d4;
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < n; ++s) {
-      const float e = wt_s[s * w + j];
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(g_part_acc + (base + (int64_t)s * w + j) * p.d) + c);
-      if (e > 0.f) {
-        num.x += e * a.x;
-        num.y += e * a.y;
-        num.z += e * a.z;
-        num.w += e * a.w;
-      }
-    }
-    const float l = den_s[j];
-    store4<TQ>(out + (((int64_t)ib * w + j) * p.h + ih) * p.d + 4 * c,
-               make_float4(num.x / l, num.y / l, num.z / l, num.w / l));
-  }
-}
-
-"""
-
-_OWN_WRITE = r"""// variant no_cluster: each block writes its own partial as the output
-template <typename TQ>
-__device__ void own_write(const Params& p, int ib, int ih, int live, const float2* ml, const float* acc) {
-  __syncthreads();
-  const int w = p.w, d4 = p.d / 4;
-  TQ* out = static_cast<TQ*>(p.out);
-  for (int i = threadIdx.x; i < w * d4; i += kThreads) {
-    const int j = i / d4, c = i - j * d4;
-    const float4 a = reinterpret_cast<const float4*>(acc + (size_t)j * p.d)[c];
-    const float l = fmaxf(ml[j].y, 1e-30f);
-    store4<TQ>(out + (((int64_t)ib * w + j) * p.h + ih) * p.d + 4 * c,
-               make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
-  }
-}
-
-"""
-
-_MERGE = "cluster_merge<TQ>(p, ib, ih, live, part_ml, part_acc);"  # in each kernel
-_BLOCK = "// #5's block: kR positions"
-_NO_CLUSTER = ("attr[0].val.clusterDim.x = p.splits;", "attr[0].val.clusterDim.x = 1;")
-_TMA = """  hopper::mbar_expect_tx(bar, 2 * p.box_bytes);
-  hopper::tma_load_4d(const_cast<unsigned char*>(box_of(p, r, slot, 0)), tk, bar, 0, 0, ih, page);
-  hopper::tma_load_4d(const_cast<unsigned char*>(box_of(p, r, slot, 1)), tv, bar, 0, 0, ih, page);
-"""
-
-_TIMELINE = r"""namespace {
-
-// variant timeline: per block, globaltimer stamps (0 entry, 1 pages issued,
-// 2 loop done, 3 past the first cluster barrier, 4 merged, 5 past the
-// second), its SM and its pages with positions
-__device__ unsigned long long g_timeline[1 << 15][8];
-__device__ __forceinline__ unsigned long long stamp_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-__device__ __forceinline__ unsigned long long sm_id() {
-  unsigned int r;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
-  return r;
-}
-#define STAMP(k) \
-  if (threadIdx.x == 0) g_timeline[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x][k] = stamp_now()
-"""
-_TIMELINE_READ = r"""
-extern "C" int ff_timeline(void* dst, int blocks) {
-  return (int)cudaMemcpyFromSymbol(dst, g_timeline, (size_t)blocks * 64);
-}
-"""
-_EXIT = "  if (np == 0 && is != 0) return;  // no positions here: not part of the merge"
-_SYNC1 = "  if (live > 1) cluster.sync();  // every live split's partial stands in its block's shared memory"
-_SYNC2 = "  if (live > 1) cluster.sync();  // the peers keep their shared memory until rank 0 has read it"
-
-# variant tf32_mma: #9's products on TF32 mma.sync m16n8k8 (int8 values
-# exact in TF32, Q and P vs split in two passes, fresh accumulators a
-# chunk, fp64 running sums outside), the option its CPU model turned down
-_TF32_DECL_AT = "  uint8_t* vis_s = reinterpret_cast<uint8_t*>(p_s + kWb * kPs);\n"
-_TF32_DECL = _TF32_DECL_AT + r"""  // variant tf32_mma: the K and V tiles hold raw int8 values, their page
-  // scales per row here; the scores and each row's correction
-  __shared__ float rks_s[kChunk], rvs_s[kChunk], corr_s[kWb];
-  __shared__ float s_s[kWb][kChunk + 1];
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  double accC[2 * kCn][4];
-#pragma unroll
-  for (int u = 0; u < 2 * kCn; ++u)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) accC[u][e] = 0.0;
-"""
-_TF32_HELPERS_AT = "// #5's block: kR positions"
-_TF32_HELPERS = r"""// variant tf32_mma: x = big + small, big toward zero in TF32, small
-// rounded to nearest; one m16n8k8 TF32 mma into c
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_two_passes(float (&c)[4], const float (&x)[4], uint32_t b0, uint32_t b1) {
-  uint32_t big[4], small[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) tf32_split(x[e], big[e], small[e]);
-  mma_tf32(c, small, b0, b1);
-  mma_tf32(c, big, b0, b1);
-}
-
-"""
-_TF32_STAGE = ("""        store_dequant(k_s + r * kDs + 16 * sc8, kr, ksc);
-        store_dequant(v_s + r * kDs + 16 * sc8, vr, vsc);
-""", """        store_dequant(k_s + r * kDs + 16 * sc8, kr, 1.f);
-        store_dequant(v_s + r * kDs + 16 * sc8, vr, 1.f);
-        if (sc8 == 0) {
-          rks_s[r] = ksc;
-          rvs_s[r] = vsc;
-        }
-""")
-_TF32_SCORES = ("""      // scores of the thread's (query row, key row) micro-tile over head_dim
-      Acc s[kRm][kKn];
-#pragma unroll
-      for (int i = 0; i < kRm; ++i)
-#pragma unroll
-        for (int j = 0; j < kKn; ++j) s[i][j] = 0;
-      const float4* q4 = reinterpret_cast<const float4*>(q_s + ty * kDs);
-      const float4* k4 = reinterpret_cast<const float4*>(k_s + tx * kDs);
-#pragma unroll 4
-      for (int c = 0; c < d4; ++c) {
-        float4 kk[kKn];
-#pragma unroll
-        for (int j = 0; j < kKn; ++j) kk[j] = k4[j * kTx * (kDs / 4) + c];
-#pragma unroll
-        for (int i = 0; i < kRm; ++i) {
-          const float4 qq = q4[i * kTy * (kDs / 4) + c];
-#pragma unroll
-          for (int j = 0; j < kKn; ++j)
-            s[i][j] += (Acc)(qq.x * kk[j].x + qq.y * kk[j].y + qq.z * kk[j].z + qq.w * kk[j].w);
-        }
-      }
-""", """      // scores by mma.sync: warp w < 2 the keys 8 w .. 8 w + 7, one chain
-      // over head_dim, times each key's page scale
-      if (warp < kChunk / 8) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < d; k += 8) {
-          const float x[4] = {q_s[g * kDs + k + t], q_s[(g + 8) * kDs + k + t], q_s[g * kDs + k + t + 4],
-                              q_s[(g + 8) * kDs + k + t + 4]};
-          mma_two_passes(c, x, __float_as_uint(k_s[(8 * warp + g) * kDs + k + t]),
-                         __float_as_uint(k_s[(8 * warp + g) * kDs + k + t + 4]));
-        }
-        const int n = 8 * warp + 2 * t;
-        s_s[g][n] = c[0] * rks_s[n];
-        s_s[g][n + 1] = c[1] * rks_s[n + 1];
-        s_s[g + 8][n] = c[2] * rks_s[n];
-        s_s[g + 8][n + 1] = c[3] * rks_s[n + 1];
-      }
-      __syncthreads();
-      Acc s[kRm][kKn];
-#pragma unroll
-      for (int i = 0; i < kRm; ++i)
-#pragma unroll
-        for (int j = 0; j < kKn; ++j) s[i][j] = (Acc)s_s[ty + i * kTy][tx + j * kTx];
-""")
-_TF32_P = ("          p_s[row * kPs + tx + j * kTx] = pr;\n",
-           "          p_s[row * kPs + tx + j * kTx] = pr * rvs_s[tx + j * kTx];\n")
-_TF32_CORR = ("""        l_r[i] = l_r[i] * corr + sum;
-        m_r[i] = m_new;
-""", """        l_r[i] = l_r[i] * corr + sum;
-        m_r[i] = m_new;
-        if (tx == 0) corr_s[row] = (float)corr;
-""")
-_TF32_PV = ("""      // acc += p @ V: four key rows per step, each V float4 used for both rows
-      const int rows4 = (rows + 3) & ~3;
-      for (int r = 0; r < rows4; r += 4) {
-        float4 pp[kRm];
-#pragma unroll
-        for (int i = 0; i < kRm; ++i) pp[i] = *reinterpret_cast<const float4*>(p_s + (ty + i * kTy) * kPs + r);
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) {
-          const float* vr = v_s + r * kDs + 4 * tx + 64 * k;
-          const float4 v0 = *reinterpret_cast<const float4*>(vr);
-          const float4 v1 = *reinterpret_cast<const float4*>(vr + kDs);
-          const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * kDs);
-          const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * kDs);
-#pragma unroll
-          for (int i = 0; i < kRm; ++i) {
-            const float px = pp[i].x, py = pp[i].y, pz = pp[i].z, pw = pp[i].w;
-            acc[i][4 * k] += (Acc)(px * v0.x + py * v1.x + pz * v2.x + pw * v3.x);
-            acc[i][4 * k + 1] += (Acc)(px * v0.y + py * v1.y + pz * v2.y + pw * v3.y);
-            acc[i][4 * k + 2] += (Acc)(px * v0.z + py * v1.z + pz * v2.z + pw * v3.z);
-            acc[i][4 * k + 3] += (Acc)(px * v0.w + py * v1.w + pz * v2.w + pw * v3.w);
-          }
-        }
-      }
-""", """      // (P vs) V8 by mma.sync: warp w the output columns 8 (w + 4 u), a
-      // fresh chain a chunk, added to the fp64 sums after each row's
-      // correction
-      {
-        const double c0 = corr_s[g], c1 = corr_s[g + 8];
-#pragma unroll
-        for (int u = 0; u < 2 * kCn; ++u) {
-          const int n0 = 8 * (warp + 4 * u);
-          if (n0 >= d) continue;
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int k = 0; k < kChunk; k += 8) {
-            const float x[4] = {p_s[g * kPs + k + t], p_s[(g + 8) * kPs + k + t], p_s[g * kPs + k + t + 4],
-                                p_s[(g + 8) * kPs + k + t + 4]};
-            mma_two_passes(c, x, __float_as_uint(v_s[(k + t) * kDs + n0 + g]),
-                           __float_as_uint(v_s[(k + t + 4) * kDs + n0 + g]));
-          }
-          accC[u][0] = accC[u][0] * c0 + c[0];
-          accC[u][1] = accC[u][1] * c0 + c[1];
-          accC[u][2] = accC[u][2] * c1 + c[2];
-          accC[u][3] = accC[u][3] * c1 + c[3];
-        }
-      }
-""")
-_TF32_OUT = ("""#pragma unroll
-    for (int k = 0; k < kCn; ++k) {
-      const int c = 4 * tx + 64 * k;
-      if (c < d)
-        *reinterpret_cast<float4*>(part_acc + row * d + c) =
-            make_float4((float)acc[i][4 * k], (float)acc[i][4 * k + 1], (float)acc[i][4 * k + 2],
-                        (float)acc[i][4 * k + 3]);
-    }
-    if (tx == 0) part_ml[row] = make_float2((float)m_r[i], (float)l_r[i]);
-  }
-""", """    if (tx == 0) part_ml[row] = make_float2((float)m_r[i], (float)l_r[i]);
-  }
-#pragma unroll
-  for (int u = 0; u < 2 * kCn; ++u) {
-    const int n = 8 * (warp + 4 * u) + 2 * t;
-    if (n >= d) continue;
-    if (g < w) {
-      part_acc[g * d + n] = (float)accC[u][0];
-      part_acc[g * d + n + 1] = (float)accC[u][1];
-    }
-    if (g + 8 < w) {
-      part_acc[(g + 8) * d + n] = (float)accC[u][2];
-      part_acc[(g + 8) * d + n + 1] = (float)accC[u][3];
-    }
-  }
-""")
-
-# name -> [(file under the package, text, replacement[, times the text appears])]
-VARIANTS = {
-    "global_merge": [(SPLIT, _MERGE, _MERGE.replace("cluster_merge", "global_merge"), 2),
-                     (SPLIT, _BLOCK, _GLOBAL_MERGE + _BLOCK), (SPLIT, *_NO_CLUSTER)],
-    "one_page": [(WRAPPER, "return max(1, min(pages, _SPLIT_MAX_SLOTS, _SPLIT_RING_BYTES // slot_bytes))",
-                  "return 1")],
-    "whole_split": [(WRAPPER, "_SPLIT_RING_BYTES = 16 * 1024", "_SPLIT_RING_BYTES = 64 * 1024")],
-    "no_loads": [(SPLIT, _TMA, "  hopper::mbar_arrive(bar);\n")],
-    "no_cluster": [(SPLIT, _MERGE, _MERGE.replace("cluster_merge", "own_write"), 2),
-                   (SPLIT, _BLOCK, _OWN_WRITE + _BLOCK), (SPLIT, *_NO_CLUSTER)],
-    "cluster_no_merge": [(SPLIT, _MERGE, _MERGE.replace("cluster_merge", "own_write"), 2),
-                         (SPLIT, _BLOCK, _OWN_WRITE + _BLOCK)],
-    "timeline": [
-        (SPLIT, "namespace {\n\nconstexpr int kThreads", _TIMELINE + "\nconstexpr int kThreads"),
-        (SPLIT, "  const int lo = is * p.span;\n", "  const int lo = is * p.span;\n  STAMP(0);\n", 2),
-        (SPLIT, _EXIT, "  STAMP(1);\n  if (threadIdx.x == 0) g_timeline[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
-         " + blockIdx.x][6] = sm_id() << 32 | (unsigned)np;\n" + _EXIT, 2),
-        (SPLIT, "  // the block's 8 half-warp states", "  STAMP(2);\n  // the block's 8 half-warp states"),
-        (SPLIT, "  // this block's partial over the K tile", "  STAMP(2);\n  // this block's partial over the K tile"),
-        (SPLIT, _SYNC1, _SYNC1 + "\n  STAMP(3);"),
-        (SPLIT, _SYNC2, "  STAMP(4);\n" + _SYNC2 + "\n  STAMP(5);"),
-        (SPLIT, '}  // extern "C"', _TIMELINE_READ + '}  // extern "C"'),
-    ],
-    "tf32_mma": [(SPLIT, _TF32_DECL_AT, _TF32_DECL), (SPLIT, _TF32_HELPERS_AT, _TF32_HELPERS + _TF32_HELPERS_AT),
-                 (SPLIT, *_TF32_STAGE), (SPLIT, *_TF32_SCORES), (SPLIT, *_TF32_P), (SPLIT, *_TF32_CORR),
-                 (SPLIT, *_TF32_PV), (SPLIT, *_TF32_OUT)],
-}
-
-
-def make_variant(name):
-    """This checkout's package with the variant's edits under
-    _checkout/variants/name; returns that root."""
-    root = os.path.join(REPO, "_checkout", "variants", name)
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(os.path.join(REPO, "flexflow_tpu_torch"), os.path.join(root, "flexflow_tpu_torch"),
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for f, old, new, *times in VARIANTS[name]:
-        path = os.path.join(root, "flexflow_tpu_torch", f)
-        with open(path) as fh:
-            text = fh.read()
-        if text.count(old) != (times[0] if times else 1):
-            raise SystemExit(f"variant {name}: {old!r} found {text.count(old)} times in {f}")
-        with open(path, "w") as fh:
-            fh.write(text.replace(old, new))
-    return root
-
-# (kernel, w, lengths cut to, q dtype) at the serving shape
+# (kernel, w, lengths cut to or "burst" (burst_lengths), q dtype) at the serving shape
 CASES = (
     ("flash_verify", 1, None, "float32"), ("flash_verify", 1, 16, "float32"), ("flash_verify", 5, None, "float32"),
     ("paged_flash_verify", 1, None, "float32"), ("paged_flash_verify", 1, 16, "float32"),
-    ("paged_flash_verify", 5, None, "float32"), ("paged_flash_verify", 1, None, "bfloat16"),
-    ("paged_flash_verify", 1, 16, "bfloat16"),
+    ("paged_flash_verify", 1, "burst", "float32"), ("paged_flash_verify", 5, None, "float32"),
+    ("paged_flash_verify", 1, None, "bfloat16"), ("paged_flash_verify", 1, 16, "bfloat16"),
+    ("paged_flash_verify", 1, "burst", "bfloat16"),
     ("paged_flash_verify_quant", 1, None, "float32"), ("paged_flash_verify_quant", 1, 16, "float32"),
     ("paged_flash_verify_quant", 5, None, "float32"),
     ("flash_verify_tree", 13, None, "float32"), ("paged_flash_verify_tree", 13, None, "float32"),
     ("paged_flash_verify_tree_quant", 13, None, "float32"), ("paged_flash_verify_tree_quant", 13, None, "bfloat16"),
 )
-# chip_smoke.py's small b x h edges (2 heads), where a cluster of 16 may pay
-EDGES = ((16, 250, 2), (256, 250, 2))
+
+
+def burst_lengths(b, seed):
+    """The lengths of b sequences of chip_smoke.py's flagship burst
+    (mixed_requests: prompts of 1 + i % 6 tokens, then 32 new tokens for
+    even i and 248 for odd i), each at a seeded uniform point of its
+    request's decode: the contexts one decode step of the burst sees."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    new = [32 if i % 2 == 0 else 248 for i in range(b)]
+    return [1 + i % 6 + int(rng.integers(0, new[i])) for i in range(b)]
+
+
+def serving_profile(smoke):
+    """#5's device time per call on the flagship LM's traffic (12 layers
+    at full width, seeded weights): the burst of chip_smoke.py's
+    multistep_burst (NUM_REQUESTS mixed requests in graph windows) under
+    the profiler, then chip_smoke.py's profile_decode window at contexts
+    of 3-19 and of 243-259 tokens and profile_multistep's 4c graph
+    windows; each as step_breakdown gives it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.serving import Request
+
+    geo = smoke.FLAGSHIP
+    model = smoke.build_lm("cuda", **geo)
+    smoke.serve(model, [Request(rid=i, prompt=[1 + i], max_new_tokens=8) for i in range(4)])  # warm-up
+    kernel = "paged_flash_verify"
+    reqs = smoke.mixed_requests(geo["vocab"], geo["max_len"], smoke.NUM_REQUESTS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, stats, launches, _ = smoke.serve(model, reqs, decode_multistep=True, max_fused_steps=smoke.MULTISTEP_STEPS)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    out = {"burst": smoke.step_breakdown("burst, graph windows", events, stats.decode_steps, kernel, launches[kernel])}
+    out["decode 3-19"] = smoke.profile_decode(model, kernel=kernel)["kernel"]
+    out["decode 243-259"] = smoke.profile_decode(model, kernel=kernel, skip=smoke.LONG_WINDOW_SKIP,
+                                                 label="decode, long contexts")["kernel"]
+    out["4c windows"] = smoke.profile_multistep(model, "4c windows", 4, kernel=kernel, decode_multistep=True,
+                                                max_fused_steps=smoke.MULTISTEP_STEPS)["kernel"]
+    return out
 
 
 def operands(dk, name, x, w):
@@ -448,66 +125,18 @@ def operands(dk, name, x, w):
     return ops, kw, k, v, vis
 
 
-def timeline_stats(dk, fn, flush, b, h, max_len, page):
-    """One call of the timeline variant's cluster body after an L2 flush:
-    per block its globaltimer stamps (ns), SM and pages, summarised: the
-    span from the first entry to the last stamp; for the blocks with
-    positions the entry spread, entry to pages issued, the loop, the wait
-    at the first cluster barrier and rank 0's merge (medians and maxima);
-    the live blocks per SM."""
-    import ctypes
-
-    import numpy as np
-    import torch
-
-    splits, _ = dk.pick_cluster_splits(b, h, max_len, page, dk._sm_count(torch.cuda.current_device()))
-    n = b * h * splits
-    lib = dk._split_lib()
-    lib.ff_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    torch.cuda.synchronize()
-    flush()
-    fn()
-    torch.cuda.synchronize()
-    t = np.zeros((n, 8), dtype=np.uint64)
-    if lib.ff_timeline(t.ctypes.data, n):
-        return None
-    t = t.astype(np.int64)
-    live = (t[:, 6] & 0xFFFFFFFF) > 0
-    sm = t[:, 6] >> 32
-    t0 = t[:, 0].min()
-    rank0 = np.arange(n) % splits == 0
-    multi = t[:, 3] > 0
-    us = lambda x: [round(float(np.median(x)) / 1e3, 3), round(float(np.max(x)) / 1e3, 3)] if len(x) else None
-    return {
-        "span_us": round(float(t[:, :6].max() - t0) / 1e3, 3),
-        "entry_us": us(t[live, 0] - t0),
-        "issue_us": us(t[live, 1] - t[live, 0]),
-        "loop_us": us(t[live, 2] - t[live, 1]),
-        "barrier1_us": us(t[live & multi, 3] - t[live & multi, 2]),
-        "merge_us": us(t[rank0 & multi, 4] - t[rank0 & multi, 3]),
-        "end_us": us(t[live, :6].max(axis=1) - t0),
-        "live_blocks_per_sm": [int(np.bincount(sm[live]).max()), round(float(live.sum()) / max(1, len(set(sm[live]))), 2)],
-    }
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO, help="directory holding the flexflow_tpu_torch package to measure")
     ap.add_argument("--cases", nargs="*", default=[], help="keep the cases whose label holds one of these")
     ap.add_argument("--readings", type=int, default=1, help="profiler readings a case and body")
-    ap.add_argument("--edges", action="store_true", help="add #5 and #9 at the small b x h edges")
-    ap.add_argument("--bodies", nargs="*", default=["wrapper", "tree_kernel_cu", "decode_kernel_cu"],
+    ap.add_argument("--serving", action="store_true", help="then #5's device time per call on the flagship's traffic")
+    ap.add_argument("--bodies", nargs="*", default=["wrapper", "decode_kernel_cu"],
                     help="the bodies to time (each builds its library at first use)")
     ap.add_argument("--quant-spans", type=int, nargs="*", default=[],
                     help="also time #6 at w = 1 with each of these span units")
     ap.add_argument("--head-dim", type=int, default=64, help="head_dim of every case")
-    ap.add_argument("--make-variants", nargs="*", choices=list(VARIANTS),
-                    help="unpack these ablations (default: all) under _checkout/variants/ and stop")
     args = ap.parse_args()
-    if args.make_variants is not None:
-        for name in args.make_variants or VARIANTS:
-            print(make_variant(name))
-        return 0
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -524,23 +153,17 @@ def main() -> int:
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     flush = lambda: flush_buf.zero_()
     own_span = getattr(dk, "_QUANT_SPAN_UNIT", None)
-    cluster = hasattr(dk, "_launch_split")
     out = {"package": os.path.dirname(dk.__file__), "device": torch.cuda.get_device_name(0),
-           "quant_span_unit": own_span, "head_dim": args.head_dim, "cluster_body": cluster}
-    cases = [(name, w, cut, qd, {}) for name, w, cut, qd in CASES]
-    if args.edges:
-        cases += [(name, w, None, "float32", dict(h=2, d=d, max_len=max_len, page=page, num_pages=8 * (max_len // page)))
-                  for name, w in (("paged_flash_verify", 1), ("paged_flash_verify_tree_quant", 13))
-                  for d, max_len, page in EDGES]
+           "quant_span_unit": own_span, "head_dim": args.head_dim}
     smoke.warm_card()
-    for name, w, cut, qd, shape in cases:
-        key = f"{name} w={w}" + ("" if cut is None else f" lengths<={cut}") + ("" if qd == "float32" else f" {qd} q")
-        if shape:
-            key += " h=2 d={d} max_len={max_len} page={page}".format(**shape)
+    for name, w, cut, qd in CASES:
+        key = f"{name} w={w}" + {None: "", "burst": " burst lengths"}.get(cut, f" lengths<={cut}") + \
+            ("" if qd == "float32" else f" {qd} q")
         if args.cases and not any(c in key for c in args.cases):
             continue
-        x = smoke.kernel_inputs(dev, w, **({"d": args.head_dim} | shape))
-        if cut is not None:
+        lengths = {"lengths": burst_lengths(8, smoke.SEED)} if cut == "burst" else {}
+        x = smoke.kernel_inputs(dev, w, d=args.head_dim, **lengths)
+        if isinstance(cut, int):
             x["lengths"] = x["lengths"].clamp(max=cut)
         x["q"] = x["q"].to(getattr(torch, qd))
         ops, kw, k, v, vis = operands(dk, name, x, w)
@@ -556,9 +179,6 @@ def main() -> int:
                 "decode_kernel_cu": lambda: dk._launch(name, x["q"], ops[1], ops[2], x["lengths"], None, **kw),
                 "plain": lambda: getattr(dk, name + "_ref")(*ops),
             }
-            split_route = cluster and name.startswith("paged") and dk._body(x["q"], ops[1], ops[2], **kw) is dk._launch_split
-            if split_route:
-                calls["tree_kernel_cu"] = lambda: dk._launch_tree(name, x["q"], ops[1], ops[2], x["lengths"], None, **kw)
             calls = {who: fn for who, fn in calls.items() if who in args.bodies or who == "plain"}
             got = {who: fn() for who, fn in calls.items()}
             torch.cuda.synchronize()
@@ -568,13 +188,11 @@ def main() -> int:
             row.update({f"{who}_vs_fp64": float((t.double() - exact).abs().max()) for who, t in got.items()})
             row.update({f"{who}_vs_plain": float((got[who].float() - got["plain"].float()).abs().max())
                         for who in bodies})
-            if split_route and hasattr(dk._split_lib(), "ff_timeline"):
-                b, _, h, _ = x["q"].shape
-                row["timeline"] = timeline_stats(dk, calls["wrapper"], flush, b, h, x["tables"].shape[1] * ops[1].shape[1],
-                                                 ops[1].shape[1])
             out[key + ("" if span is None else f" span={span}")] = row
         if own_span is not None:
             dk._QUANT_SPAN_UNIT = own_span
+    if args.serving:
+        out["serving"] = serving_profile(smoke)
     print(json.dumps(out))
     return 0
 

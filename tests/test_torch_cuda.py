@@ -262,9 +262,8 @@ def _split_body_operands(w, d, max_len, page, seed):
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("w", [1, 5, 13, 64])
 def test_paged_verify_on_the_split_body_matches_plain_version(w, d, max_len, page):
-    """#5 (the staircase) on the split-KV body of tree_kernel.cu at
-    head_dim 16-256 (at w = 1 on the cluster body of paged_split_kernel.cu,
-    which these pools' geometry takes), atol 1e-4."""
+    """#5 (the staircase; at w = 1 the one-row tile) on the split-KV body
+    of tree_kernel.cu at head_dim 16-256, atol 1e-4."""
     x = _split_body_operands(w, d, max_len, page, 400 + w + d + page)
     _check_split_body("paged_flash_verify", (x["q"], x["kp"], x["vp"], x["tbl"], x["lens"]), ATOL, 7)
 
@@ -306,9 +305,8 @@ def test_int8_decode_on_the_split_body_matches_plain_version(w, d, max_len, page
 @pytest.mark.parametrize("w", [1, 13, 33, 64])
 def test_int8_tree_verify_on_the_split_body_matches_plain_version(w, d, max_len, page):
     """#9 (int8 pools, a seeded random tree per row) on the split-KV body
-    of tree_kernel.cu at head_dim 16-256 (at w <= 16 on the cluster body
-    of paged_split_kernel.cu, which these pools' geometry takes), with a
-    scale-0 page, atol 1e-4 as every decode kernel here: the staged rows equal the plain
+    of tree_kernel.cu at head_dim 16-256, with a scale-0 page, atol 1e-4
+    as every decode kernel here: the staged rows equal the plain
     version's dequant, so only summation order differs, but over 128-256
     columns of values up to 127 x 0.05 that order moves the output by up
     to ~2.5e-5 (1e-5 holds at head_dim 64, chip_smoke.py's shape)."""
@@ -354,20 +352,14 @@ def test_tree_verify_past_256_runs_on_the_decode_body(w):
 
 @pytest.mark.parametrize("d", [256, 320])
 def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
-    """Every decode kernel (#4-#9) goes to decode_kernel.cu's body
-    (_launch) past head_dim 256, whatever the width; at head_dim <= 256 to
-    the split body (_launch_tree), but for #5 at w = 1 and #9 at w <= 16
-    on these TMA-addressable pools, which take the cluster body
-    (_launch_split); a call launches exactly one of them."""
+    """Every decode kernel (#4-#9) goes to the split body (_launch_tree)
+    at head_dim <= 256 and to decode_kernel.cu's body (_launch) past it,
+    whatever the width, and a call launches exactly one of them."""
     calls = []
-    for fn in ("_launch", "_launch_tree", "_launch_split"):
+    for fn in ("_launch", "_launch_tree"):
         real = getattr(dk, fn)
         monkeypatch.setattr(dk, fn, lambda *a, _f=fn, _r=real, **k: calls.append(_f) or _r(*a, **k))
-    want = []
-    for w in (1, 13):
-        body = "_launch_tree" if d <= dk._TREE_MAX_D else "_launch"
-        split = "_launch_split" if d <= dk._TREE_MAX_D else "_launch"
-        want += [body, split if w == 1 else body, body, body, body, split]
+    want = "_launch_tree" if d <= dk._TREE_MAX_D else "_launch"
     for w in (1, 13):
         x = _split_body_operands(w, d, 128, 16, 700 + w + d)
         dk.flash_verify(x["q"], x["k"], x["v"], x["lens"])
@@ -377,82 +369,7 @@ def test_paged_verify_picks_its_body_by_head_dim_alone(monkeypatch, d):
         dk.paged_flash_verify_tree(x["q"], x["kp"], x["vp"], x["tbl"], x["lens"], x["mask"])
         dk.paged_flash_verify_tree_quant(x["q"], x["k8"], x["v8"], x["ks"], x["vs"], x["tbl"], x["lens"], x["mask"])
     torch.cuda.synchronize()
-    assert calls == want
-
-
-# (head_dim, max_len, page): chip_smoke.py's split-body edges that the
-# cluster body takes, and a long max_len whose splits hold more pages than
-# the ring (refilled as they are read)
-CLUSTER_EDGES = [(16, 250, 2), (64, 512, 16), (128, 512, 16), (256, 250, 2), (64, 4096, 16), (256, 2048, 32)]
-
-
-@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,max_len,page", CLUSTER_EDGES)
-def test_cluster_body_matches_plain_versions_at_its_edges(monkeypatch, d, max_len, page, q_dtype):
-    """#5 at w = 1 and #9 at w = 1, 13 and 16 on the cluster body of
-    paged_split_kernel.cu (every call routed there, none elsewhere) at
-    head_dim 16-256, 2- to 32-row pages and max_len 250-4096 (splits of
-    more pages than the ring at 2048 and 4096), with lengths 0 and
-    max_len - w, split boundaries, a sentinel hole, a dead row and a
-    scale-0 page: within 1e-4 of the plain version (#9 within 1e-5 at
-    head_dim 64, chip_smoke.py's gate) at fp32 q, one bf16 ulp of the
-    output beyond it at bf16 q; bit-identical across two calls, the dead
-    row exactly 0, two launches counted under the entry point's name."""
-    calls = []
-    for fn in ("_launch", "_launch_tree", "_launch_split"):
-        real = getattr(dk, fn)
-        monkeypatch.setattr(dk, fn, lambda *a, _f=fn, _r=real, **k: calls.append(_f) or _r(*a, **k))
-    key = "" if q_dtype == torch.float32 else "_bf16"
-    for name, w in (("paged_flash_verify", 1), ("paged_flash_verify_tree_quant", 1),
-                    ("paged_flash_verify_tree_quant", 13), ("paged_flash_verify_tree_quant", 16)):
-        x = _split_body_operands(w, d, max_len, page, 1300 + w + d + page)
-        x = dict(x, q=x["q"].to(q_dtype))
-        args = _decode_calls(x)[name]
-        fn, ref_fn = getattr(dk, name), getattr(dk, name + "_ref")
-        dk.reset_launches()
-        out, again = fn(*args), fn(*args)
-        torch.cuda.synchronize()
-        assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{name + key: 2}), name
-        ref = ref_fn(*args)
-        if q_dtype == torch.bfloat16:
-            _assert_bf16_q_close(out, ref, f"{name} w={w} d={d}")
-        else:
-            atol = 1e-5 if (name.endswith("_quant") and d == 64) else ATOL
-            torch.testing.assert_close(out, ref, atol=atol, rtol=0, msg=f"{name} w={w} d={d}")
-        assert torch.equal(out, again), name
-        assert float(out[7].float().abs().max()) == 0.0, name
-    assert calls == ["_launch_split"] * 8
-
-
-def test_paged_decode_replays_eager_bit_for_bit_in_a_captured_graph():
-    """#5 at w = 1 on the cluster body captured in a CUDA graph (a cluster
-    launch through cudaLaunchKernelEx, tensor maps by value), as the
-    serving engine's multi-step windows capture it: each replay equals an
-    eager call on the same operands bit for bit, also after q and the
-    lengths change in place (the pools do not move), and the capture
-    counts its launch once."""
-    dev = _card()
-    x = _split_body_operands(1, 64, 512, 16, 1400)
-    q, lens = x["q"].clone(), x["lens"].clone()
-    args = (q, x["kp"], x["vp"], x["tbl"], lens)
-    dk.paged_flash_verify(*args)  # warm: the library is built and loaded
-    torch.cuda.synchronize()
-    stream = torch.cuda.Stream(dev)
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    dk.reset_launches()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        with torch.cuda.graph(graph, stream=stream):
-            out = dk.paged_flash_verify(*args)
-    torch.cuda.current_stream(dev).wait_stream(stream)
-    assert dk.LAUNCHES["paged_flash_verify"] == 1
-    rng = np.random.default_rng(1401)
-    for step in range(3):
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, dk.paged_flash_verify(*args)), step
-        q.copy_(_rand(rng, dev, *q.shape))
-        lens.copy_((lens + 7).clamp(max=511))
+    assert calls == [want] * 12
 
 
 def test_quant_and_tree_kernels_reject_what_they_do_not_take():

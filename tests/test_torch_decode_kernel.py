@@ -823,99 +823,14 @@ def test_int8_decode_split_rule(b, h, max_len, unit, want):
     assert (splits, span) == want
 
 
-# -- the cluster body (csrc/paged_split_kernel.cu): #5 at w = 1, #9 at w <= 16 ------
+# -- #9's arithmetic on the split-KV body, and TF32 mma.sync products beside it -------
 
 
-@pytest.mark.parametrize(
-    "b, h, max_len, page, want",
-    [(8, 16, 512, 16, (8, 64)), (8, 2, 250, 2, (8, 32)), (8, 2, 128, 16, (8, 16)), (1, 1, 64, 16, (4, 16)),
-     (64, 32, 4096, 16, (1, 4096)), (8, 16, 4096, 16, (8, 512)), (2, 4, 1000, 8, (8, 128)), (3, 2, 250, 250, (1, 250))],
-)
-def test_cluster_split_rule(b, h, max_len, page, want):
-    """pick_cluster_splits: each split a whole number of pages, the splits
-    just covering max_len, at most the portable cluster size of 8 and one
-    a page, and as many as the grid needs for _BLOCKS_PER_SM blocks per SM
-    on a 132-SM card; at the serving shape 8 splits of 64 positions (4
-    pages), as pick_splits."""
-    splits, span = dk.pick_cluster_splits(b, h, max_len, page, 132)
-    assert span % page == 0 and 1 <= splits <= dk._SPLIT_MAX_CLUSTER == 8
-    assert (splits - 1) * span < max_len <= splits * span
-    assert (splits, span) == want
-
-
-@pytest.mark.parametrize(
-    "pages, page, d, elem, want",
-    [(4, 16, 64, 4, 2), (32, 16, 64, 4, 2), (4, 16, 256, 4, 1), (4, 16, 64, 1, 4), (125, 2, 16, 1, 32),
-     (1, 256, 64, 4, 1), (4, 8, 64, 4, 4)],
-)
-def test_ring_slots(pages, page, d, elem, want):
-    """ring_slots: a split's pages in flight, as many as the ring's 16 KB
-    budget and the 32 issuing lanes allow, at least one: at the serving
-    shape 2 of #5's four 8 KB fp32 pages and all four of #9's 2 KB int8
-    pages."""
-    assert dk.ring_slots(pages, dk._slot_bytes(page, d, elem)) == want
-
-
-_ALIGNED = ((0, 0), (16 * 64 * 4 * 16, 16 * 64 * 4, 64, 16 * 64 * 4 * 16, 16 * 64 * 4, 64))
-
-
-@pytest.mark.parametrize(
-    "w, d, page, quant, tree, ptrs, strides, takes",
-    [
-        (1, 64, 16, False, False, *_ALIGNED, True),     # #5, every decode step
-        (5, 64, 16, False, False, *_ALIGNED, False),    # #5 at w > 1
-        (13, 64, 16, True, True, *_ALIGNED, True),      # #9, every int8 tree verify
-        (16, 64, 32, True, True, *_ALIGNED, True),
-        (17, 64, 16, True, True, *_ALIGNED, False),     # #9 past the 16-row tile
-        (1, 64, 16, True, False, *_ALIGNED, False),     # #6
-        (13, 64, 16, False, True, *_ALIGNED, False),    # #8
-        (1, 320, 16, False, False, *_ALIGNED, False),   # past 256: decode_kernel.cu
-        (13, 24, 2, True, True, *_ALIGNED, False),      # int8 rows of 24 bytes
-        (13, 16, 2, True, True, *_ALIGNED, True),       # int8 rows of 16 bytes
-        (1, 4, 2, False, False, *_ALIGNED, True),
-        (1, 64, 512, False, False, *_ALIGNED, False),   # a page past TMA's 256-row box
-        (1, 256, 256, False, False, *_ALIGNED, False),  # a page past 64 KB
-        (1, 256, 16, False, False, *_ALIGNED, True),    # a 32 KB page: one ring slot
-        (1, 64, 16, False, False, (4, 0), _ALIGNED[1], False),  # a base off 16 bytes
-        (1, 64, 16, False, False, _ALIGNED[0], (16 * 64 * 4 * 16, 16 * 64 * 4, 66, 0, 0, 0), False),
-        (13, 64, 16, True, True, _ALIGNED[0], (16 * 64 * 16, 16 * 64, 72, 0, 0, 0), False),
-    ],
-)
-def test_split_body_routing(w, d, page, quant, tree, ptrs, strides, takes):
-    """split_body_takes, from the geometry alone: #5 at w = 1 and #9 at w
-    <= 16 on pools TMA can address (16-byte bases, strides and rows, pages
-    of at most 256 rows whose K and V fit 64 KB) take the cluster
-    body; every other case stays on tree_kernel.cu or decode_kernel.cu."""
-    assert dk.split_body_takes(w, d, page, 32, quant, tree, ptrs, strides) == takes
-
-
-def test_wrappers_pick_the_cluster_body_by_geometry():
-    """_body on the operands themselves, before any launch: the serving
-    shapes of #5 (w = 1) and #9 (w = 13) take the cluster body, a strided
-    view whose head stride is off 16 bytes and #5 at w = 5 take the
-    split-KV body, head_dim 320 decode_kernel.cu's."""
-    num_pages, page, h = 8, 16, 4
-    tbl = torch.zeros(2, 4, dtype=torch.int32)
-    pool = torch.zeros(num_pages, page, h, 64)
-    pool8 = torch.zeros(num_pages, page, h, 64, dtype=torch.int8)
-    q1, q13 = torch.zeros(2, 1, h, 64), torch.zeros(2, 13, h, 64)
-    scales = (torch.zeros(num_pages, h), torch.zeros(num_pages, h))
-    allowed = torch.ones(2, 13, 64, dtype=torch.bool)
-    assert dk._body(q1, pool, pool, tbl) is dk._launch_split
-    assert dk._body(q13, pool8, pool8, tbl, scales, allowed) is dk._launch_split
-    assert dk._body(torch.zeros(2, 5, h, 64), pool, pool, tbl) is dk._launch_tree
-    odd = torch.zeros(num_pages, page, h, 66)[..., :64]
-    assert dk._body(q1, odd, odd, tbl) is dk._launch_tree
-    assert dk._body(torch.zeros(2, 1, h, 320), pool, pool, tbl) is dk._launch
-    assert dk._body(q13, pool, pool, tbl, allowed=allowed) is dk._launch_tree  # #8
-
-
-def _cluster_merge(parts):
-    """paged_split_kernel.cu's merge at rank 0 of a cluster, in fp32: M =
-    max m_s over the partials with l_s > 0, e_s = e^(m_s - M) (0 where
-    l_s = 0), out = sum e_s acc_s / max(sum e_s l_s, 1e-30), the sums in
-    split order and a partial whose weight is 0 never read (its acc may
-    be unwritten: NaN here)."""
+def _merge_splits(parts):
+    """tree_kernel.cu's merge of a (sequence, head)'s split partials, in
+    fp32: M = max m_s over the partials with l_s > 0, e_s = e^(m_s - M)
+    (0 where l_s = 0), out = sum e_s acc_s / max(sum e_s l_s, 1e-30), the
+    sums in split order and a partial whose weight is 0 never read."""
     m, l, acc = (torch.stack([t.float() for t in ts]) for ts in zip(*parts))
     live = l > 0
     big = m.masked_fill(~live, -1e30).amax(0)
@@ -936,27 +851,25 @@ def _fp32_dot4(a, b):
     return ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
 
 
-def _int8_tree_cluster_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_cores"):
-    """#9 on the cluster body, in the arithmetic order of its products:
-    the splits of pick_cluster_splits, each read in chunks of 32 positions
-    inside batches of the ring's pages. "cuda_cores" (as built): K and V
+def _int8_tree_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_cores"):
+    """#9 in the arithmetic order of its products, over the splits of
+    pick_splits (tree_kernel.cu's grid), each read in chunks of 32
+    positions. "cuda_cores" (tree_kernel.cu's tile at w <= 16): K and V
     rows dequantized in fp32 as the plain version does, scores and P V in
     fp32 4-term partials added into fp64 running sums (scores, m, l,
-    acc), P in fp32. "tf32_mma" (considered, not built): per page, S =
+    acc), P in fp32. "tf32_mma" (an option for a redesign): per page, S =
     ks (Q_big K8 + Q_small K8) and P V = (P vs)_big V8 + (P vs)_small V8
     as chains of m16n8k8 TF32 mma's whose sums round toward zero, into
     fresh accumulators per page, the running sums in fp64. Each split's
-    (m, l, acc) is rounded to fp32 and the splits merge as the cluster's
-    rank 0 does. Returns [b, w, h, d] fp32."""
+    (m, l, acc) is rounded to fp32 and the splits merge as _merge_splits.
+    Returns [b, w, h, d] fp32."""
     b, w, h, d = q.shape
     num_pages, page = k8.shape[:2]
     L = tbl.shape[1] * page
     kst, vst = _stage_int8(k8, ks, tbl), _stage_int8(v8, vs, tbl)
     _, on_page = dk.gather_pages(k8, tbl, ks)
     vis = (dk._tree_visible(mask, lens, w) & on_page[:, None, :])[:, None].expand(b, h, w, L)
-    splits, span = dk.pick_cluster_splits(b, h, L, page, 132)
-    slots = dk.ring_slots(span // page, dk._slot_bytes(page, d, 1))
-    group = max(1, min(slots, 32 // page))
+    splits, span = dk.pick_splits(b, h, L, page, 132)
     scale = 1.0 / math.sqrt(d)
     qh = q.transpose(1, 2)  # [b, h, w, d]
     if products == "tf32_mma":
@@ -972,12 +885,9 @@ def _int8_tree_cluster_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_
         m = torch.full((b, h, w), -1e30, dtype=torch.float64)
         l = torch.zeros(b, h, w, dtype=torch.float64)
         acc = torch.zeros(b, h, w, d, dtype=torch.float64)
-        chunks = []
-        for b0 in range(lo, min(lo + span, L), group * page):
-            b1 = min(b0 + group * page, lo + span, L)
-            step = page if products == "tf32_mma" else 32
-            chunks += [(k0, min(k0 + step, b1)) for k0 in range(b0, b1, step)]
-        for k0, k1 in chunks:
+        hi = min(lo + span, L)
+        step = page if products == "tf32_mma" else 32
+        for k0, k1 in ((k0, min(k0 + step, hi)) for k0 in range(lo, hi, step)):
             seen = vis[..., k0:k1]
             kk, vv = kst[:, k0:k1].transpose(1, 2), vst[:, k0:k1].transpose(1, 2)  # [b, h, n, d]
             if products == "tf32_mma":
@@ -1012,14 +922,14 @@ def _int8_tree_cluster_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_
                 acc = acc * corr[..., None] + four.double().sum(-2)
             m = m_new
         parts.append((m.float(), l.float(), acc.float()))
-    return _cluster_merge(parts).transpose(1, 2)
+    return _merge_splits(parts).transpose(1, 2)
 
 
 @pytest.mark.parametrize("w", [13, 16])
 @pytest.mark.parametrize("page", [16, 32])
-def test_int8_tree_cluster_model_matches_plain_fp64_and_pallas(page, w):
-    """#9 on the cluster body in its arithmetic order (CUDA-core products
-    from the ring's dequantized rows, fp64 running sums, the fp32 cluster
+def test_int8_tree_model_matches_plain_fp64_and_pallas(page, w):
+    """#9 on the split-KV body in its arithmetic order (CUDA-core
+    products from dequantized rows, fp64 running sums, the fp32 split
     merge) against #9's plain version (atol 1e-5, chip_smoke.py's
     ATOL_SPEC_KERNEL), float64 (no further than the plain version is) and
     the Pallas kernel in interpret mode at 32-row pages, with a scale-0
@@ -1027,7 +937,7 @@ def test_int8_tree_cluster_model_matches_plain_fp64_and_pallas(page, w):
     pools, mask, kern = _quant_tree_case(w, page)
     q, k8, v8, ks, vs, tbl, lens = _t(*pools)
     mask = _t(mask)[0]
-    ours = _int8_tree_cluster_model(q, k8, v8, ks, vs, tbl, lens, mask)
+    ours = _int8_tree_model(q, k8, v8, ks, vs, tbl, lens, mask)
     ref = dk.paged_flash_verify_tree_quant_ref(q, k8, v8, ks, vs, tbl, lens, mask)
     exact = dk.paged_flash_verify_tree_quant_ref(q.double(), k8, v8, ks, vs, tbl, lens, mask)
     np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
@@ -1054,56 +964,23 @@ def _smoke_int8_tree(w, **shape):
 
 
 def test_int8_tree_products_chosen_by_their_cpu_model():
-    """Why #9's cluster body keeps its products on the CUDA cores: on the
+    """Why a redesign of #9 keeps its products on the CUDA cores: on the
     inputs of chip_smoke.py's gates at w = 13, at the serving shape and at
     check_split_body_edges' head_dim-256 edge (2 heads, max_len 250,
     2-row pages), the model of TF32 mma.sync products (int8 values exact
     in TF32, Q and P vs split in two TF32 passes, sums rounding toward
     zero, fresh accumulators per page, fp64 running sums) lands further
     than ATOL_SPEC_KERNEL (1e-5) from the plain version at the edge, where
-    the CUDA-core order as built stays within it at both and closer to
-    float64 than the plain version."""
+    the CUDA-core order stays within it at both and closer to float64
+    than the plain version."""
     worst = {"cuda_cores": 0.0, "tf32_mma": 0.0}
     for shape in ({}, dict(h=2, d=256, max_len=250, page=2, num_pages=8 * 125)):
         args = _smoke_int8_tree(13, **shape)
         ref = dk.paged_flash_verify_tree_quant_ref(*args)
         exact = dk.paged_flash_verify_tree_quant_ref(args[0].double(), *args[1:])
         for products in worst:
-            ours = _int8_tree_cluster_model(*args, products=products)
+            ours = _int8_tree_model(*args, products=products)
             worst[products] = max(worst[products], float((ours - ref).abs().max()))
             if products == "cuda_cores":
                 assert float((ours.double() - exact).abs().max()) < float((ref.double() - exact).abs().max())
     assert worst["cuda_cores"] <= ATOL < worst["tf32_mma"]
-
-
-@pytest.mark.parametrize("splits", range(1, 9))
-def test_paged_decode_cluster_merge_matches_plain_and_pallas(splits):
-    """#5 at w = 1 on the cluster body: each split's partial the merge of
-    its 8 half-warps' interleaved positions, the splits (1-8, whole
-    16-row pages) merged as the cluster's rank 0 does, in fp32, a split
-    with no positions leaving l = 0 and an unwritten accumulator (NaN
-    here) that is never read; against #5's plain version and the Pallas
-    kernel in interpret mode, with a sentinel hole and a dead row that
-    gives exactly 0. atol 1e-5: summation order only."""
-    (q, kp, vp, tbl, lens), kern = _stair_case(1)
-    q, kp, vp, tbl, lens = _t(q, kp, vp, tbl, lens)
-    kg, on_page = dk.gather_pages(kp, tbl)
-    vg, _ = dk.gather_pages(vp, tbl)
-    vis = (dk._staircase(lens, 1, 64) & on_page[:, None, :])[:, None].expand(-1, 2, -1, -1)
-    span = -(-4 // splits) * 16
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kg) / math.sqrt(q.shape[-1])
-    end = (lens.long() + 1).clamp(max=64)
-    parts, empty = [], 0
-    for lo in range(0, 64, span):
-        lane = torch.arange(min(span, 64 - lo)) % 8
-        seen = vis[..., lo:lo + span]
-        m, l, acc = _merge([_partial(s[..., lo:lo + span], vg[:, lo:lo + span], seen & (lane == t)) for t in range(8)])
-        dead = (lo >= end)[:, None, None].expand_as(l)
-        acc = acc.masked_fill(dead[..., None], float("nan"))
-        empty += int(dead.sum())
-        parts.append((m.masked_fill(dead, -1e30), l.masked_fill(dead, 0.0), acc))
-    ours = _cluster_merge(parts).transpose(1, 2)
-    np.testing.assert_allclose(ours.numpy(), dk.paged_flash_verify_ref(q, kp, vp, tbl, lens).numpy(), atol=ATOL)
-    np.testing.assert_allclose(ours.numpy(), kern, atol=ATOL)
-    assert float(ours[3].abs().max()) == 0.0 and bool(torch.isfinite(ours).all())
-    assert (empty > 0) == (-(-64 // span) > 1)
