@@ -326,8 +326,8 @@ KERNEL_SYMBOLS = {
     **{name: tuple(x.format(q="float") for x in syms) for name, syms in _DECODE_SYMBOLS.items()},
     **{name + "_bf16": tuple(x.format(q="__nv_bfloat16") for x in syms) for name, syms in _DECODE_SYMBOLS.items()},
     "flash_fwd": ("flash_fwd_mma_kernel",),
-    "flash_dq": ("flash_dq_mma_kernel",),
-    "flash_dkv": ("flash_dkv_mma_kernel",),
+    "flash_dq": ("flash_dq_tf32_kernel",),
+    "flash_dkv": ("flash_dkv_tf32_kernel", "flash_dkv_mma_kernel"),
     "flash_fwd_wide": ("flash_fwd_wide_kernel",),
     "flash_dq_wide": ("flash_dq_wide_kernel<",),
     "flash_dkv_wide": ("flash_dkv_wide_kernel<",),
@@ -1790,11 +1790,13 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 520, 1032, 1224)):
     with the fixed tile resident up to 512 and streamed past it, past 256
     also #2 and #3's bf16 body; bf16 #1's wide body past 256 by the card's
     own count of registers and spills), its shared memory and blocks per
-    SM on this card, and the tensor-core (HMMA) instructions of each flash
-    library's SASS. Fails where fp32 #2 or #3's wide body holds local
-    memory (spills) at any head_dim 136-1224, where ptxas serialized any
-    tensor-core instruction of the backward, or where the SASS of those
-    wide kernels holds no TMA load (UTMALDG) or a cp.async copy (LDGSTS)."""
+    SM on this card, and the tensor-core (HMMA, HGMMA) instructions of
+    each flash library's SASS. Fails where fp32 #2 or #3 holds local
+    memory (spills) at any head_dim of `dims`, where ptxas serialized any
+    tensor-core instruction of the backward, where the SASS of the wide
+    kernels holds no TMA load (UTMALDG) or a cp.async copy (LDGSTS), or
+    where that of the tf32 bodies (up to head_dim 128) holds no wgmma
+    (HGMMA) or TMA load, or a cp.async copy."""
     from flexflow_tpu_torch.ops.cuda import _build
     from flexflow_tpu_torch.ops.cuda import flash_kernel as fk
 
@@ -1818,8 +1820,12 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 520, 1032, 1224)):
                       + json.dumps(fk.occupancy(name, d)))
                 continue
             source = fk.SOURCE if base == "flash_fwd" else fk.BWD_SOURCE
-            if d <= 128:
+            if d <= 128 and (base == "flash_fwd" or (base == "flash_dkv" and d > 64)):
+                # #1, and #3 at 72-128: the 3xTF32 mma.sync bodies
                 sym, tag, label = f"{base}_mma_kernel", f"ILi{kdt}E", f"{base}_mma_kernel<{kdt}>"
+            elif d <= 128:  # #2 and #3's tf32 bodies: Tf32Cfg<boxes, ...> of the bucket
+                sym, tag = f"{base}_tf32_kernel", f"Tf32CfgILi{kdt // 4}E"
+                label = f"{sym}<{'Dq' if base == 'flash_dq' else 'Dkv'}B{kdt // 8}>"
             elif name.endswith("_bf16"):  # #2 and #3's bf16 body past 256
                 sym = label = tag = f"{base}_wide_bf16_kernel"
             else:  # the template argument: Q (#1) or the fixed tile (#2, #3) resident or streamed
@@ -1829,7 +1835,7 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 520, 1032, 1224)):
             occ = fk.occupancy(name, d)
             print(f"[resources] {name} at head_dim {d} ({label}): " + json.dumps(occ)
                   + f"; ptxas: {ptxas(source, sym, tag)}")
-            if name in ("flash_dq_wide", "flash_dkv_wide"):
+            if name in ("flash_dq_wide", "flash_dkv_wide", "flash_dq", "flash_dkv"):
                 require(occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1,
                         f"{name} at head_dim {d} ({label}) spills or does not fit: {occ}")
     serialized = [line.strip() for line in _build.build_logs.get(fk.BWD_SOURCE, "").splitlines()
@@ -1848,6 +1854,16 @@ def flash_resources(dims=(64, 128, 136, 256, 264, 320, 512, 520, 1032, 1224)):
         counts = {op: ops.get(op, 0) for op in ("UTMALDG", "LDGSTS", "HMMA")}
         print(f"[resources] {fn}: " + json.dumps(counts))
         require(counts["UTMALDG"] > 0 and counts["LDGSTS"] == 0, f"{fn}: TMA loads and cp.async copies {counts}")
+    # #2 and #3's tf32 bodies (head_dim up to 128; #3 up to 64): every
+    # product on .tf32 wgmma (HGMMA), loads by TMA alone
+    tf32 = sass_opcodes(fk.BWD_SOURCE, r"flash_(dq|dkv)_tf32_kernel")
+    require(tf32 is not None and any("dq_tf32" in f for f in tf32) and any("dkv_tf32" in f for f in tf32),
+            f"{fk.BWD_SOURCE}: the tf32 bodies' SASS not read")
+    for fn, ops in sorted(tf32.items()):
+        counts = {op: ops.get(op, 0) for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
+        print(f"[resources] {fn}: " + json.dumps(counts))
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["LDGSTS"] == 0,
+                f"{fn}: wgmma products and TMA loads {counts}")
 
 
 def check_flash_case(x, tag):
@@ -1992,10 +2008,20 @@ def check_flash_kernels(rows):
               (2, 300, 129, 2, 520, False)]
     # the reference's test shapes (tests/test_flash_kernel.py), causal and not
     cases += [(cb, sq, sk, 2, 32, c) for cb, sq, sk in ((2, 256, 256), (2, 128, 128), (1, 128, 384)) for c in (False, True)]
-    for cb, sq, sk, ch, cd, causal in cases:
+    # #2 and #3 up to head_dim 128 at each bucket's edges (8 and 32: one
+    # 32-column box; 40 and 64: two; 72 and 128: four), lengths no multiple
+    # of a tile both ways, causal and not
+    bucket_cases = [(2, sq, sk, 2, cd, c) for cd in (8, 32, 40, 64, 72, 128) for sq, sk in ((65, 300), (300, 65))
+                    for c in (False, True)]
+    worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    for cb, sq, sk, ch, cd, causal in cases + bucket_cases:
         x = flash_inputs(device, cb, sq, sk, ch, cd, causal)
         for name, err in check_flash_case(x, f"{(cb, sq, sk, ch, cd)} causal={causal}").items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            if name in worst:
+                worst[name] = max(worst[name], err)
+    print(f"[kernels] #2 and #3 up to head_dim 128: worst |kernel - plain| dQ {worst['flash_dq']:.3e}, "
+          f"dK/dV {worst['flash_dkv']:.3e} (#3 on the 3xTF32 mma.sync body at head_dim 24-128: 4.4e-5)")
     flash_resources()
     return rows
 

@@ -7,11 +7,12 @@
 //
 // What it replaces: two Pallas TPU kernels of
 // flexflow_tpu/ops/pallas/flash_kernel.py —
-//   * flash_dq_mma_kernel replaces _dq_kernel (:230, pallas_call :384):
+//   * flash_dq_tf32_kernel replaces _dq_kernel (:230, pallas_call :384):
 //     dQ = sum over key tiles of dS K, dS = P * (dO V^T - delta) * scale,
 //     P = exp(Q K^T * scale - LSE);
-//   * flash_dkv_mma_kernel replaces _dkv_kernel (:269, pallas_call :419):
-//     dV = sum over query tiles of P^T dO and dK = dS^T Q.
+//   * flash_dkv_tf32_kernel (and flash_dkv_mma_kernel at head_dim 72-128)
+//     replaces _dkv_kernel (:269, pallas_call :419): dV = sum over query
+//     tiles of P^T dO and dK = dS^T Q.
 // As on the TPU the backward is two kernels, one accumulating over key tiles
 // and one over query tiles, so no two blocks write the same output row: no
 // atomics, and the gradients are bit-identical from run to run.
@@ -25,60 +26,69 @@
 // CUTLASS's OpMultiplyAddFastF32 with its default rounding): each operand
 // x is split into big = x with the 13 low mantissa bits cleared and
 // small = tf32_rna(x - big), and
-// a b ~ small_a big_b + big_a small_b + big_a big_b, small terms first,
-// accumulated in fp32 (error ~2^-21 per product; one TF32 pass alone is
-// ~2^-11). The design:
-//   * mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 as inline PTX.
-//     (wgmma on .tf32 wants both operands K-major, and P^T dO and dS^T Q
-//     contract over the row index of a row-major tile, so it would need
-//     transposed staging.)
-//   * The split takes 3 integer and float instructions per value (see
-//     split()): it is the largest share of the instructions a product
-//     issues, and cvt.rna.tf32.f32 compiles to a longer sequence with a
-//     NaN test (4 instructions where 1 or 2 do).
-//   * A block of 4 warps owns one 64-row tile of its fixed operand (queries
-//     for dQ, keys for dK/dV) and loops over the other operand's 32-row
-//     tiles; each warp owns 16 rows. Scores, P and dS live in m16n8
-//     accumulator fragments in registers, where the scale, the mask,
-//     exp(s - lse) and p (dp - delta) scale are applied.
-//   * What holds it on this card is the latency of chains of dependent
-//     mma instructions, not the rate at which the tensor cores take them
-//     (scripts/mma_tf32_rate.py measures that rate): each 3xTF32 product
-//     is 3 mma's into one accumulator. So every loop runs two independent
-//     products side by side (S with dP, dV with dK, and dQ's even and odd
-//     8-key steps into two accumulators), and the 32-row loop tiles keep a
-//     block at 70 KB of shared memory and at most 170 registers, so that 3
-//     blocks (12 warps) share an SM at head_dim <= 64 (1 at head_dim 128,
-//     whose tiles take 135 KB).
-//   * dK/dV computes the transposed scores S^T = K Q^T, so an accumulator
-//     row is one of the warp's own keys. An accumulator fragment feeds the
-//     next product (dS K, P^T dO, dS^T Q) as its A operand directly: a
-//     lane holds columns 2t and 2t + 1 of each 8-wide tile, which are the A
-//     fragment's columns t and t + 4 once the k index inside a k-step is
-//     permuted (slot t -> 2t, slot t + 4 -> 2t + 1), and the B operand's
-//     contraction rows are read in the same order. No shared-memory round
-//     trip and no block-wide barrier between the products.
-//   * Every operand tile is staged once, row-major, with a row stride of
-//     ld = 8 kDT + 4 floats (the bucket's largest head_dim + 4, so every
-//     shared-memory offset is a compile-time constant). Both fragment
-//     reads are then free of bank conflicts: row g, column t (A of every
-//     product, B of the score products: bank g ld + t, and ld / 4 is odd)
-//     and row 2t, column g (B of the products that contract over a tile's
-//     rows: bank 2t ld + g).
-//   * A warp whose 16 x 32 tile of scores is all visible (no ragged edge,
-//     wholly below the causal diagonal) skips the mask tests.
-//   * The next loop tile is loaded with cp.async into a second buffer while
-//     the current tile's products run: one __syncthreads per tile, none
-//     between the products.
-//   * Masked and padded entries weigh exactly 0 whatever the LSE is; rows
-//     past sq or sk are zero-filled by the copies and never stored. The
-//     causal mask is qpos >= kpos from a shared origin (also when
-//     sq != sk); the dQ loop stops at the diagonal key tile and the dK/dV
-//     loop starts at the diagonal query tile.
-//   * [b, s, h, d] operands are read in place through their strides;
-//     LSE and delta are [b, h, sq] rows.
-// These mma kernels take head_dim up to kMmaMaxD = 128: kDT = 4, 8 or 16
-// column tiles of 8. Past it (any multiple of 8) flash_dq_wide_kernel and
+// a b ~ small_a big_b + big_a small_b + big_a big_b, accumulated in fp32
+// (error ~2^-21 per product; one TF32 pass alone is ~2^-11).
+//
+// Up to head_dim 128 (flash_dq_tf32_kernel, flash_dkv_tf32_kernel: one
+// body, tf32_body, below) every product is .tf32 wgmma, issued by a
+// consumer warpgroup of 64 fixed rows over tiles that TMA loads:
+//   * The tensor cores ignore the 13 low bits of a .tf32 operand, so the
+//     raw fp32 tile TMA delivers is already big; only small = (x - big)
+//     plus half a TF32 ulp needs a copy, written once per staged tile (the
+//     fixed tile once a block, each loop tile once a ring slot) by the
+//     producer warpgroups' warps, in the same swizzled layout, not once
+//     per fragment read by every warp as the mma.sync body split them.
+//   * The score products (S = Q K^T and dP = dO V^T in #2; S^T = K Q^T
+//     and dP^T = V dO^T in #3) contract over head_dim, which is contiguous
+//     in every [b, s, h, d] operand, so both operands are K-major as TMA
+//     stores them (32-column boxes, 128-byte swizzle, hopper.cuh): three
+//     passes, small·big, big·small, big·big, at each k8 step, both
+//     operands from shared memory, N = the loop tile's 32 rows.
+//   * The output products (dQ += dS K, dV += P^T dO, dK += dS^T Q)
+//     contract over a tile's rows, which .tf32 wgmma cannot read (no
+//     transpose bit). The split also writes the loop operand transposed,
+//     big and small, each 8-row group in the order the A fragment's k
+//     slots take it, so that dS and P feed the products from registers as
+//     the accumulators hold them (RS, N = the bucket's head_dim).
+//   * A's accumulator layout is mma.sync's m16n8 fragment layout, so the
+//     masks, exponentials and dS are the mma.sync body's.
+//   * A producer warp's one thread keeps TMA loads of the loop tiles in
+//     flight (a ring of kS slots, full, ready and empty mbarriers a slot;
+//     #3's LSE and delta as flat boxes with the tile), and 7 more warps of
+//     two producer warpgroups write the small copies and transposes
+//     (setmaxnreg gives their registers to the consumers).
+//   * Accuracy: the tensor cores round each k8 step's sum into the
+//     accumulator toward zero, so a chain drifts with its length and with
+//     what it holds when each term comes. The score products keep the
+//     small terms in a chain apart from big·big, added in fp32 once done;
+//     at a key seen by 300 queries that keeps dK/dV at 0.33 of the
+//     gradient gate against float64 at head_dim 64, where the three passes
+//     of each k8 step in turn reached 0.72 (a CPU model,
+//     tests/test_torch_flash_kernel.py).
+// The block of each kernel and bucket (Tf32Cfg; DqB0 .. DqB2 below) is
+// what measured fastest (scripts/flash_bwd_tf32_variants.py; H100 80GB
+// HBM3, 700 W, the profiler's device time, fresh processes in turns): at
+// [8, 512, 16, 64] the pair takes 0.419-0.430 ms against the mma.sync
+// body's 0.664-0.667 (causal 0.303-0.310 against 0.479-0.492), and
+// 0.452-0.457 against 0.730-0.738 at [8, 512, 32, 32]. Measured and taken
+// out at [8, 512, 16, 64]: the output products on mma.sync (the score
+// products alone on wgmma, the next tile's issued before this one's
+// pass) 0.707-0.713; 3 split warps in place of 7 0.449-0.463; dK/dV with
+// two consumer warpgroups and one slot 0.488-0.490 (48 bytes of spills,
+// wgmma serialized, C7512). Without the copies the pair would take
+// 0.378-0.391, without the split 0.376: both are partly exposed with the
+// 2 slots that shared memory holds beside the fixed tile. At head_dim
+// 72-128 the fixed tile alone takes 128 KB (raw and small), and #3's slot
+// of transposes 128 KB more, so #3 there stays on the 3xTF32 mma.sync
+// body (flash_dkv_mma_kernel<16>: 4 warps over 64 keys and 32-row query
+// tiles staged by cp.async, each operand split per fragment read; its
+// score products take the small terms of every k-step first, product_nt
+// says why, at 0.678-0.722 ms against 0.611-0.619 without at [8, 512, 8,
+// 128]; its tf32 body with the output products on mma.sync took 18%
+// more), while #2 runs its tf32 body with one ring slot: 0.252-0.259
+// against the mma.sync body's 0.460-0.462.
+//
+// Past head_dim 128 (any multiple of 8) flash_dq_wide_kernel and
 // flash_dkv_wide_kernel compute the scores once per tile pair, over 8
 // consumer warps that hold all of a block's output columns, with the loop
 // operand streamed in 128-column pieces through a TMA ring that a
@@ -107,100 +117,7 @@ __device__ __forceinline__ void load_rows(const Params& p, int ib, int ih, int q
     cp_async(dls + r, p.delta + off, 4, in);
 }
 
-// -- dQ ------------------------------------------------------------------------------
-
-// At most 170 registers where head_dim <= 64, so that 3 blocks share an SM;
-// at head_dim 128 shared memory holds one block anyway.
-__host__ __device__ constexpr int min_blocks(int kDT) { return kDT <= 8 ? 3 : 1; }
-
-// dS of the warp's 16 x kLoop scores in place of dP: p = exp(s scale - lse),
-// ds = p (dp - delta) scale, 0 where masked (kMasked) for rows r0, r0 + 8
-// and keys k0 + 8j + 2t (+1).
-template <bool kMasked>
-__device__ __forceinline__ void ds_rows(const Params& p, int r0, int k0,
-                                        const float lse[2], const float dl[2],
-                                        const float s[kNT][4], float dp[kNT][4]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e >> 1;
-      const bool ok = !kMasked || visible(p, r0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1));
-      const float pr = ok ? expf(s[j][e] * p.scale - lse[i]) : 0.f;
-      dp[j][e] = pr * (dp[j][e] - dl[i]) * p.scale;
-    }
-}
-
-template <int kDT>
-__global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dq_mma_kernel(const Params p) {
-  constexpr int ld = ld_of<kDT>(), tile = kLoop * ld;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // Q [64][ld]
-  float* gs = qs + kTile * ld;                   // dO [64][ld]
-  float* ks = gs + kTile * ld;                   // K [2][kLoop][ld]
-  float* vs = ks + 2 * tile;                     // V [2][kLoop][ld]
-  const int d = p.d, dt = d / 8;
-  const int q0 = blockIdx.x * kTile, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const float* kb = p.k + ib * p.k_sb + ih * p.k_sh;
-  const float* vb = p.v + ib * p.v_sb + ih * p.v_sh;
-  load_tile<kTile>(qs, ld, p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0, p.sq, d);
-  load_tile<kTile>(gs, ld, p.dout + ib * p.g_sb + ih * p.g_sh, p.g_ss, q0, p.sq, d);
-  load_tile<kLoop>(ks, ld, kb, p.k_ss, 0, p.sk, d);
-  load_tile<kLoop>(vs, ld, vb, p.v_ss, 0, p.sk, d);
-  cp_async_commit();
-
-  // this lane's query rows and their LSE and delta, read once
-  const int w0 = q0 + 16 * warp, r0 = w0 + g;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
-    lse[i] = r < p.sq ? p.lse[off] : 0.f;
-    dl[i] = r < p.sq ? p.delta[off] : 0.f;
-  }
-
-  float acc[kDT][4], acc_odd[kDT][4];
-  zero<kDT>(acc);
-  zero<kDT>(acc_odd);
-  const int k_end = p.causal ? min(p.sk, q0 + kTile) : p.sk;
-  const int n = (k_end + kLoop - 1) / kLoop;
-  const float* qw = qs + 16 * warp * ld;
-  const float* gw = gs + 16 * warp * ld;
-  for (int it = 0; it < n; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (it + 1 < n) {
-      const int nb = (it + 1) & 1;
-      load_tile<kLoop>(ks + nb * tile, ld, kb, p.k_ss, (it + 1) * kLoop, p.sk, d);
-      load_tile<kLoop>(vs + nb * tile, ld, vb, p.v_ss, (it + 1) * kLoop, p.sk, d);
-      cp_async_commit();
-    }
-    const float* kt = ks + (it & 1) * tile;
-    const float* vt = vs + (it & 1) * tile;
-    float s[kNT][4], dp[kNT][4];
-    zero<kNT>(s);
-    zero<kNT>(dp);
-    product_nt<kDT, kNT>(qw, kt, s, gw, vt, dp, dt);  // S = Q K^T, dP = dO V^T
-    const int k0 = it * kLoop;
-    const bool all = w0 + 16 <= p.sq && k0 + kLoop <= p.sk && (!p.causal || w0 >= k0 + kLoop - 1);
-    if (all)
-      ds_rows<false>(p, r0, k0, lse, dl, s, dp);
-    else
-      ds_rows<true>(p, r0, k0, lse, dl, s, dp);
-    // dQ += dS K, the even and the odd 8-key steps into two accumulators
-    product_pn<kDT, kNT / 2, 2>(dp, kt, acc, dp + 1, kt + 8 * ld, acc_odd, dt);
-  }
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
-  store_rows<kDT>(p.out0, ib, ih, p.h, p.sq, r0, d, dt, acc);
-}
-
-// -- dK, dV ---------------------------------------------------------------------------
+// -- dK, dV at head_dim 72-128: the 3xTF32 mma.sync body ------------------------------
 
 // P^T and dS^T of the warp's 16 keys x kLoop queries in place of S^T and
 // dP^T, for keys r0, r0 + 8 and the tile's query columns 8j + 2t (+1),
@@ -223,7 +140,7 @@ __device__ __forceinline__ void ds_cols(const Params& p, int r0, int q0,
 }
 
 template <int kDT>
-__global__ void __launch_bounds__(kThreads, min_blocks(kDT)) flash_dkv_mma_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_mma_kernel(const Params p) {
   constexpr int ld = ld_of<kDT>(), tile = kLoop * ld;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // K [64][ld]
@@ -1040,6 +957,427 @@ __global__ void __launch_bounds__(kBThreads, 1) flash_dkv_wide_bf16_kernel(const
   wide_bf16_body<true>(p);
 }
 
+// -- fp32 up to kMmaMaxD: flash_dq_tf32_kernel, flash_dkv_tf32_kernel ------------------
+// One body (tf32_body) runs both, naming its operands by role as the wide
+// body does: the fixed tile X (dQ: Q and dO; dK/dV: K and V) is kM rows of
+// one block, the loop tiles Y (dQ: K and V; dK/dV: Q and dO) are kN rows.
+// Per loop tile:
+//   scores  S = X0 Y0^T and dP = X1 Y1^T, .tf32 wgmma by the consumer
+//           warpgroup of each 64 fixed rows, both operands K-major from
+//           shared memory;
+//   P, dS   in registers, in the wgmma accumulator (the mma.sync m16n8
+//           layout, so the masks and the exponentials are the mma
+//           body's);
+//   outputs dQ += dS Y0, or dK += dS^T Y0 and dV += P^T Y1, .tf32 wgmma
+//           with dS and P as the A operand from registers (the k index
+//           permuted as product_pn's) and B the loop operand's transposed
+//           copies.
+// The header's note says why and what was measured.
+
+// The block of bucket kB (32-column boxes of head_dim: 1, 2 or 4): kWG
+// consumer warpgroups of 64 fixed rows and a ring of kS slots of 32-row
+// loop tiles.
+template <int kB_, int kWG_, int kS_>
+struct Tf32Cfg {
+  static constexpr int kB = kB_, kWG = kWG_, kS = kS_;
+  static constexpr int kN = 32;                          // loop rows: a transposed row is 128 bytes
+  static constexpr int kPW = 2;                          // producer warpgroups
+  static constexpr int kM = 64 * kWG;                    // fixed rows of a block
+  static constexpr int kThreads = 128 * (kWG + kPW);     // the consumers, then the producer warpgroups
+  static constexpr int kXBox = kM * 32, kYBox = kN * 32;  // floats of a 32-column box of X, of Y
+  static constexpr int kFixed = 4 * kB * kXBox;          // X0, X1, then their small copies
+  // Y0, Y1, their small copies, then the transposed tiles (dQ: K^T big and
+  // small; dK/dV: Q^T and dO^T): head_dim rows of the tile's 32 rows, 128
+  // bytes a row, in the boxes' swizzle
+  __host__ __device__ static constexpr int slot(bool dkv) { return (dkv ? 8 : 6) * kB * kYBox; }
+  // dK/dV: a loop tile's LSE and delta in one flat box each, from the
+  // 16-byte boundary at or before its first query (kRowBox values), in
+  // row slots of a multiple of 128 bytes
+  static constexpr int kRowBox = kN + 4, kRowSlot = 32 * ((kN + 4 + 31) / 32);
+  // the producers' warps but the first (whose lane 0 issues the loads)
+  // write the small copies and transposes
+  static constexpr int kSplitters = 128 * kPW - 32;
+  // registers: the launch bound's share of the SM, then moved from the
+  // producers to the consumers by setmaxnreg
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kLaunchRegs = (65536 / kThreads) / 8 * 8;
+  static constexpr int kFreed = (kLaunchRegs - kProducerRegs) * kPW / kWG / 8 * 8;
+  static constexpr int kConsumerRegs = kLaunchRegs + kFreed < 240 ? kLaunchRegs + kFreed : 240;
+  static constexpr int kBars = 2 + 3 * kS;  // full and ready of X; full, ready and empty of each slot
+  static constexpr size_t bytes(bool dkv) {
+    return 1024 + 4 * (kFixed + kS * slot(dkv) + (dkv ? 2 * kS * kRowSlot : 0)) + 8 * kBars;
+  }
+};
+
+// The block of each kernel and bucket (scripts/flash_bwd_tf32_variants.py
+// times the alternatives): head_dim <= 32, <= 64, and dQ's <= 128 (dK/dV
+// runs flash_dkv_mma_kernel there).
+using DqB0 = Tf32Cfg<1, 2, 4>;
+using DkvB0 = Tf32Cfg<1, 2, 4>;
+using DqB1 = Tf32Cfg<2, 2, 2>;
+using DkvB1 = Tf32Cfg<2, 1, 2>;
+using DqB2 = Tf32Cfg<4, 1, 1>;
+
+static_assert(DqB0::bytes(false) <= kSmemMax && DkvB0::bytes(true) <= kSmemMax && DqB1::bytes(false) <= kSmemMax &&
+                  DkvB1::bytes(true) <= kSmemMax && DqB2::bytes(false) <= kSmemMax,
+              "a block's tiles fit the shared memory a block may take");
+
+// x - big, where big is x with its 13 low mantissa bits cleared (what the
+// tensor cores read of x), plus half a TF32 ulp, which they read as
+// tf32_rna(x - big): split()'s small part, as a float to store.
+__device__ __forceinline__ float small_of(float x) {
+  return __uint_as_float(__float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)) + 0x1000u);
+}
+
+// dst[i] = small_of(src[i]) for the n4 float4s of src, thread `i0` of
+// `step` (neighbouring threads on neighbouring 16 bytes). The swizzle
+// moves whole 16-byte chunks, so a copy in the same layout is elementwise.
+__device__ __forceinline__ void write_small(float* dst, const float* src, int n4, int i0, int step) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = i0; i < n4; i += step) {
+    const float4 v = s4[i];
+    d4[i] = make_float4(small_of(v.x), small_of(v.y), small_of(v.z), small_of(v.w));
+  }
+}
+
+// The split of one loop operand whose output product runs on wgmma: its
+// small copy as write_small's, and its transpose, big (the raw values)
+// and small, into tb and ts: row c (a head_dim column, 8-row groups of
+// 1024 bytes) holds the tile's 32 rows (the contraction) in the boxes'
+// 128-byte swizzle, each group of 8 rows in the order the A fragment's k
+// slots take them (slot t: row 2t, slot t + 4: row 2t + 1; product_pn's
+// permutation). Warp w of nw: lane = the tile's row, 4 columns a step;
+// the reads and the writes are free of bank conflicts.
+template <int kB, int kYBox>
+__device__ __forceinline__ void write_split_t(float* small, float* tb, float* ts, const float* raw, int w, int nw,
+                                              int lane) {
+  const int pos = (lane & ~7) + ((lane & 7) >> 1) + 4 * (lane & 1);
+  for (int q = w; q < 8 * kB; q += nw) {
+    const int c0 = 4 * q, off = (c0 >> 5) * kYBox + swz(lane, c0 & 31);
+    const float4 v = *reinterpret_cast<const float4*>(raw + off);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    const float y[4] = {small_of(v.x), small_of(v.y), small_of(v.z), small_of(v.w)};
+    *reinterpret_cast<float4*>(small + off) = make_float4(y[0], y[1], y[2], y[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e, to = c * 32 + (((pos >> 2) ^ (c & 7)) << 2) + (pos & 3);
+      tb[to] = x[e];
+      ts[to] = y[e];
+    }
+  }
+}
+
+// acc (+)= A Yt over a loop tile's 4 k8 steps in 3xTF32 (small·big,
+// big·small, big·big at each step into the one chain): A the
+// warpgroup's 64 x 32 dS or P from registers, the fragments fb (raw bits)
+// and fs (small parts) of each k8 step; Yt a transposed tile of kND
+// head_dim rows (big tb, small ts). Issued inside the caller's fences.
+template <int kND>
+__device__ __forceinline__ void issue_tf32_out(float (&acc)[kND / 2], const uint32_t (&fb)[4][4],
+                                               const uint32_t (&fs)[4][4], const float* tb, const float* ts) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::WgmmaTf32RS<kND>::run(acc, fs[kk], hopper::desc_kmajor_tf32(tb, kk), 1);
+    hopper::WgmmaTf32RS<kND>::run(acc, fb[kk], hopper::desc_kmajor_tf32(ts, kk), 1);
+    hopper::WgmmaTf32RS<kND>::run(acc, fb[kk], hopper::desc_kmajor_tf32(tb, kk), 1);
+  }
+}
+
+// The A fragments of each k8 step kk of a warp's 16 x 32 accumulator f:
+// the values of columns 8 kk + 2t, + 1 in k slots t, t + 4 (rows g, g + 8).
+__device__ __forceinline__ void a_fragments(const float (&f)[16], uint32_t (&fb)[4][4], uint32_t (&fs)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float a[4] = {f[4 * kk], f[4 * kk + 2], f[4 * kk + 1], f[4 * kk + 3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      fb[kk][i] = __float_as_uint(a[i]);
+      fs[kk][i] = __float_as_uint(small_of(a[i]));
+    }
+  }
+}
+
+// big (+)= Xb Yb^T and small (+)= Xs Yb^T + Xb Ys^T over the bucket's kB
+// boxes (4 k8 steps each), in that order at each k8 step (mma3_split's);
+// X the warpgroup's 64 rows in boxes of kXRows rows, Y kN rows, raw (b)
+// and small copies (s) kFar floats past the raw ones. fresh: the chains
+// start over. Issued inside the caller's fences.
+template <int kB, int kN, int kXRows>
+__device__ __forceinline__ void issue_tf32_scores(float (&big)[kN / 2], float (&small)[kN / 2], const float* x,
+                                                  int x_far, const float* y, int y_far) {
+#pragma unroll
+  for (int bx = 0; bx < kB; ++bx)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* xb = x + bx * kXRows * 32;
+      const float* yb = y + bx * kN * 32;
+      const int keep = bx + kk > 0;
+      hopper::WgmmaTf32SS<kN>::run(small, hopper::desc_kmajor_tf32(xb + x_far, kk), hopper::desc_kmajor_tf32(yb, kk),
+                                   keep);
+      hopper::WgmmaTf32SS<kN>::run(small, hopper::desc_kmajor_tf32(xb, kk), hopper::desc_kmajor_tf32(yb + y_far, kk),
+                                   1);
+      hopper::WgmmaTf32SS<kN>::run(big, hopper::desc_kmajor_tf32(xb, kk), hopper::desc_kmajor_tf32(yb, kk), keep);
+    }
+}
+
+// dQ's pass: dS of the warp's 16 x kN scores in place of dP, p = exp(s
+// scale - lse), ds = p (dp - delta) scale, 0 where masked (kMasked), rows
+// r0, r0 + 8 and keys k0 + 8j + 2t (+1).
+template <bool kMasked, int kN>
+__device__ __forceinline__ void tf32_ds_rows(const Params& p, int r0, int k0, const float lse[2], const float dl[2],
+                                             const float (&s)[kN / 2], float (&dp)[kN / 2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const bool ok = !kMasked || visible(p, r0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1));
+      const float pr = ok ? expf(s[4 * j + e] * p.scale - lse[i]) : 0.f;
+      dp[4 * j + e] = pr * (dp[4 * j + e] - dl[i]) * p.scale;
+    }
+}
+
+// dK/dV's pass: P^T and dS^T of the warp's 16 keys (r0, r0 + 8) x the
+// tile's kN queries (q0 + 8j + 2t (+1)), whose LSE and delta are lt, dlt,
+// in place of S^T and dP^T.
+template <bool kMasked, int kN>
+__device__ __forceinline__ void tf32_ds_cols(const Params& p, int r0, int q0, const float* lt, const float* dlt,
+                                             float (&s)[kN / 2], float (&dp)[kN / 2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      const bool ok = !kMasked || visible(p, q0 + col, r0 + 8 * (e >> 1));
+      const float pr = ok ? expf(s[4 * j + e] * p.scale - lt[col]) : 0.f;
+      s[4 * j + e] = pr;
+      dp[4 * j + e] = pr * (dp[4 * j + e] - dlt[col]) * p.scale;
+    }
+}
+
+// The body of dQ (kDkv false) or dK/dV. Grid: (fixed tiles of kM rows,
+// b h). Tensor maps of the fixed (tx0, tx1; boxes of 32 columns x kM rows)
+// and loop (ty0, ty1; 32 x kN) operands, and flat ones of LSE and delta
+// (tl, td; read by dK/dV), boxes of kRowBox values.
+template <bool kDkv, class C>
+__device__ __forceinline__ void tf32_body(const Params& p, const CUtensorMap* tx0, const CUtensorMap* tx1,
+                                          const CUtensorMap* ty0, const CUtensorMap* ty1, const CUtensorMap* tl,
+                                          const CUtensorMap* td) {
+  constexpr int kB = C::kB, kN = C::kN, kS = C::kS, kM = C::kM, kDT = 4 * kB, kSlot = C::slot(kDkv);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* fixed = reinterpret_cast<float*>(smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));
+  float* ring = fixed + C::kFixed;                      // [slot][Y0, Y1, their small copies, transposes]
+  float* rows = ring + kS * kSlot;                      // dK/dV: [slot][LSE, delta][kRowSlot]
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(rows + (kDkv ? 2 * kS * C::kRowSlot : 0));
+  uint64_t* ready_x = full_x + 1;
+  uint64_t* full = ready_x + 1;  // a slot's TMA bytes are in
+  uint64_t* ready = full + kS;   // ... and its small copies
+  uint64_t* empty = ready + kS;  // every consumer warp is done with it
+  const int d = p.d, dt = d / 8;
+  const int f0 = blockIdx.x * kM, ib = blockIdx.y / p.h, ih = blockIdx.y % p.h;
+  const int xrows = kDkv ? p.sk : p.sq;
+  // loop tiles [l_start, l_start + n kN): dQ's stop at the causal
+  // diagonal, dK/dV's start there (none where sq <= f0)
+  int l_start = 0, n;
+  if constexpr (kDkv) {
+    l_start = p.causal ? f0 : 0;
+    n = p.sq > l_start ? (p.sq - l_start + kN - 1) / kN : 0;
+  } else {
+    n = ((p.causal ? min(p.sk, f0 + kM) : p.sk) + kN - 1) / kN;
+  }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_x, 1);
+    hopper::mbar_init(ready_x, C::kSplitters);
+    for (int i = 0; i < kS; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&ready[i], C::kSplitters);
+      hopper::mbar_init(&empty[i], 4 * C::kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi >= C::kWG) {  // the producer warpgroups
+    hopper::regs_dec<C::kProducerRegs>();
+    if (n == 0) return;  // dK/dV of keys no query sees: zeros, nothing loaded
+    if (threadIdx.x < 128 * C::kWG + 32) {  // one thread issues every load
+      if ((threadIdx.x & 31) != 0) return;
+      hopper::prefetch_map(tx0);
+      hopper::prefetch_map(tx1);
+      hopper::prefetch_map(ty0);
+      hopper::prefetch_map(ty1);
+      if (kDkv) {
+        hopper::prefetch_map(tl);
+        hopper::prefetch_map(td);
+      }
+      // boxes past the tensor's rows or columns arrive zero-filled
+      hopper::mbar_expect_tx(full_x, 2 * kB * C::kXBox * 4);
+      for (int bx = 0; bx < kB; ++bx) {
+        hopper::tma_load_4d(fixed + bx * C::kXBox, tx0, full_x, 32 * bx, f0, ih, ib);
+        hopper::tma_load_4d(fixed + (kB + bx) * C::kXBox, tx1, full_x, 32 * bx, f0, ih, ib);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int slot = it % kS, l0 = l_start + it * kN;
+        float* dst = ring + slot * kSlot;
+        hopper::mbar_wait(&empty[slot], ((it / kS) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[slot], 2 * kB * C::kYBox * 4 + (kDkv ? 2 * C::kRowBox * 4 : 0));
+        for (int bx = 0; bx < kB; ++bx) {
+          hopper::tma_load_4d(dst + bx * C::kYBox, ty0, &full[slot], 32 * bx, l0, ih, ib);
+          hopper::tma_load_4d(dst + (kB + bx) * C::kYBox, ty1, &full[slot], 32 * bx, l0, ih, ib);
+        }
+        if constexpr (kDkv) {
+          const int r0 = (int)((((int64_t)ib * p.h + ih) * p.sq + l0) & ~3ll);
+          hopper::tma_load_1d(rows + slot * 2 * C::kRowSlot, tl, &full[slot], r0);
+          hopper::tma_load_1d(rows + slot * 2 * C::kRowSlot + C::kRowSlot, td, &full[slot], r0);
+        }
+      }
+      return;
+    }
+    // the other warps: the small copies (and transposes), once per staged tile
+    const int i0 = threadIdx.x - 128 * C::kWG - 32;
+    hopper::mbar_wait(full_x, 0);
+    write_small(fixed + 2 * kB * C::kXBox, fixed, 2 * kB * C::kXBox / 4, i0, C::kSplitters);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(ready_x);
+    constexpr int kOp = kB * C::kYBox, nw = C::kSplitters / 32;  // floats of one operand's tile; warps
+    const int w = i0 >> 5, lane = i0 & 31;
+    for (int it = 0; it < n; ++it) {
+      const int slot = it % kS;
+      float* sl = ring + slot * kSlot;
+      hopper::mbar_wait(&full[slot], (it / kS) & 1);
+      // Y0 (and for dK/dV Y1) also transposed for its output product
+      write_split_t<kB, C::kYBox>(sl + 2 * kOp, sl + 4 * kOp, sl + 5 * kOp, sl, w, nw, lane);
+      if constexpr (kDkv)
+        write_split_t<kB, C::kYBox>(sl + 3 * kOp, sl + 6 * kOp, sl + 7 * kOp, sl + kOp, w, nw, lane);
+      else
+        write_small(sl + 3 * kOp, sl + kOp, kOp / 4, i0, C::kSplitters);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&ready[slot]);
+    }
+    return;
+  }
+  hopper::regs_inc<C::kConsumerRegs>();
+
+  // a consumer warpgroup: fixed rows f0 + 64 wgi .. + 63, warp w of them 16
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2;
+  const int wf = f0 + 64 * wgi, w0 = wf + 16 * warp, r0 = w0 + g;  // this lane's fixed rows r0, r0 + 8
+  float acc0[kB * 16], acc1[kB * 16];  // dQ (acc1 unused), or dK and dV: wgmma m64n(32 kB) accumulators
+#pragma unroll
+  for (int i = 0; i < kB * 16; ++i) acc0[i] = acc1[i] = 0.f;
+  float lse[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // dQ: of the lane's rows, read once
+  if constexpr (!kDkv) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      const int64_t off = ((int64_t)ib * p.h + ih) * p.sq + r;
+      lse[i] = r < p.sq ? p.lse[off] : 0.f;
+      dl[i] = r < p.sq ? p.delta[off] : 0.f;
+    }
+  }
+  if (n > 0) {
+    hopper::mbar_wait(full_x, 0);
+    hopper::mbar_wait(ready_x, 0);
+  }
+  const float* x0 = fixed + 64 * wgi * 32;  // X0 at the warpgroup's first row; X1 kB boxes on
+  constexpr int kXFar = 2 * kB * C::kXBox, kOp = kB * C::kYBox;  // X raw to small; one loop operand
+  for (int it = 0; it < n; ++it) {
+    const int slot = it % kS, l0 = l_start + it * kN;
+    const uint32_t ph = (it / kS) & 1;
+    hopper::mbar_wait(&full[slot], ph);
+    hopper::mbar_wait(&ready[slot], ph);
+    const float* sl = ring + slot * kSlot;
+    // causal: loop tiles wholly past this warpgroup's diagonal add nothing
+    if (!p.causal || (kDkv ? l0 + kN > wf : l0 <= wf + 63)) {
+      float sb[kN / 2], ss[kN / 2], pb[kN / 2], ps[kN / 2];  // S and dP: big and small chains
+      hopper::fence_regs(sb);
+      hopper::fence_regs(ss);
+      hopper::fence_regs(pb);
+      hopper::fence_regs(ps);
+      hopper::wgmma_fence();
+      issue_tf32_scores<kB, kN, kM>(sb, ss, x0, kXFar, sl, 2 * kOp);                           // S
+      issue_tf32_scores<kB, kN, kM>(pb, ps, x0 + kB * C::kXBox, kXFar, sl + kOp, 2 * kOp);  // dP
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sb);
+      hopper::fence_regs(ss);
+      hopper::fence_regs(pb);
+      hopper::fence_regs(ps);
+      float s[kN / 2], dp[kN / 2];
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        s[i] = sb[i] + ss[i];
+        dp[i] = pb[i] + ps[i];
+      }
+      if constexpr (kDkv) {
+        const float* lt = rows + slot * 2 * C::kRowSlot + (int)((((int64_t)ib * p.h + ih) * p.sq + l0) & 3);
+        const bool all = l0 + kN <= p.sq && w0 + 16 <= p.sk && (!p.causal || l0 >= w0 + 15);
+        if (all)
+          tf32_ds_cols<false, kN>(p, r0, l0, lt, lt + C::kRowSlot, s, dp);
+        else
+          tf32_ds_cols<true, kN>(p, r0, l0, lt, lt + C::kRowSlot, s, dp);
+      } else {
+        const bool all = w0 + 16 <= p.sq && l0 + kN <= p.sk && (!p.causal || w0 >= l0 + kN - 1);
+        if (all)
+          tf32_ds_rows<false, kN>(p, r0, l0, lse, dl, s, dp);
+        else
+          tf32_ds_rows<true, kN>(p, r0, l0, lse, dl, s, dp);
+      }
+      // dQ += dS K, or dK += dS^T Q and dV += P^T dO, over the transposes
+      uint32_t db[4][4], ds[4][4], pfb[4][4], pfs[4][4];
+      a_fragments(dp, db, ds);
+      if constexpr (kDkv) a_fragments(s, pfb, pfs);
+      hopper::fence_regs(acc0);
+      hopper::fence_regs(db);
+      hopper::fence_regs(ds);
+      if constexpr (kDkv) {
+        hopper::fence_regs(acc1);
+        hopper::fence_regs(pfb);
+        hopper::fence_regs(pfs);
+      }
+      hopper::wgmma_fence();
+      issue_tf32_out<kB * 32>(acc0, db, ds, sl + 4 * kOp, sl + 5 * kOp);
+      if constexpr (kDkv) issue_tf32_out<kB * 32>(acc1, pfb, pfs, sl + 6 * kOp, sl + 7 * kOp);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc0);
+      hopper::fence_regs(db);
+      hopper::fence_regs(ds);
+      if constexpr (kDkv) {
+        hopper::fence_regs(acc1);
+        hopper::fence_regs(pfb);
+        hopper::fence_regs(pfs);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+  }
+  using Frag = float(*)[4];  // the accumulator as the m16n8 fragments store_rows takes
+  store_rows<kDT>(p.out0, ib, ih, p.h, xrows, r0, d, dt, reinterpret_cast<Frag>(acc0));
+  if constexpr (kDkv) store_rows<kDT>(p.out1, ib, ih, p.h, xrows, r0, d, dt, reinterpret_cast<Frag>(acc1));
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_dq_tf32_kernel(const Params p, const __grid_constant__ CUtensorMap tx0,
+                         const __grid_constant__ CUtensorMap tx1, const __grid_constant__ CUtensorMap ty0,
+                         const __grid_constant__ CUtensorMap ty1, const __grid_constant__ CUtensorMap tl,
+                         const __grid_constant__ CUtensorMap td) {
+  tf32_body<false, C>(p, &tx0, &tx1, &ty0, &ty1, &tl, &td);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_dkv_tf32_kernel(const Params p, const __grid_constant__ CUtensorMap tx0,
+                          const __grid_constant__ CUtensorMap tx1, const __grid_constant__ CUtensorMap ty0,
+                          const __grid_constant__ CUtensorMap ty1, const __grid_constant__ CUtensorMap tl,
+                          const __grid_constant__ CUtensorMap td) {
+  tf32_body<true, C>(p, &tx0, &tx1, &ty0, &ty1, &tl, &td);
+}
+
 // -- launch ----------------------------------------------------------------------------
 
 enum Kind { kDq = 0, kDkv = 1 };
@@ -1054,30 +1392,42 @@ bool resident(int d) { return d <= kWideResidentD; }
 
 int grid_z(int d) { return (d / 8 + kWideChunkTiles - 1) / kWideChunkTiles; }
 
-// 0-2: the mma kernels' buckets; 3 the wide body with X resident, 4 with X streamed
+// 0-2: the tf32 bodies' buckets; 3 the wide body with X resident, 4 with X streamed
 int slot_of(int d) { return wide(d) ? (resident(d) ? 3 : 4) : bucket(d); }
 
-// The mma kernels: 2 staged tiles of 64 rows and 2 x 2 of kLoop rows at
-// the bucket's stride (+ 2 x 2 LSE / delta rows for dK/dV); the wide
-// kernels: wide_bytes.
+// The tf32 bodies: Tf32Cfg::bytes; the wide kernels: wide_bytes.
+// dK/dV at head_dim 72-128 (bucket 2) runs the 3xTF32 mma.sync body
+// (flash_dkv_mma_kernel<16>): its tf32 body does not fit there with the
+// output products on wgmma (the header says why)
+bool mma_body(int kind, int d) { return kind == kDkv && !wide(d) && bucket(d) == 2; }
+
 size_t smem_bytes(int kind, int d) {
   if (wide(d)) return wide_bytes(d, resident(d));
-  const size_t ld = 8 * (4 << bucket(d)) + 4;
-  return ((2 * kTile + 4 * kLoop) * ld + (kind == kDq ? 0 : 4 * kLoop)) * sizeof(float);
+  const bool dkv = kind == kDkv;
+  if (mma_body(kind, d)) return ((2 * kTile + 4 * kLoop) * ld_of<16>() + (dkv ? 4 * kLoop : 0)) * sizeof(float);
+  const int b = bucket(d);
+  if (dkv) return b == 0 ? DkvB0::bytes(true) : DkvB1::bytes(true);
+  return b == 0 ? DqB0::bytes(false) : b == 1 ? DqB1::bytes(false) : DqB2::bytes(false);
 }
 
 size_t bf16_smem_bytes(int kind, int d) { return bf16_floats(kind == kDkv, d, resident(d)) * sizeof(float); }
 
 void* kernel_of(int kind, int d) {
   static void* const table[2][5] = {
-      {(void*)flash_dq_mma_kernel<4>, (void*)flash_dq_mma_kernel<8>, (void*)flash_dq_mma_kernel<16>,
+      {(void*)flash_dq_tf32_kernel<DqB0>, (void*)flash_dq_tf32_kernel<DqB1>, (void*)flash_dq_tf32_kernel<DqB2>,
        (void*)flash_dq_wide_kernel<true>, (void*)flash_dq_wide_kernel<false>},
-      {(void*)flash_dkv_mma_kernel<4>, (void*)flash_dkv_mma_kernel<8>, (void*)flash_dkv_mma_kernel<16>,
+      {(void*)flash_dkv_tf32_kernel<DkvB0>, (void*)flash_dkv_tf32_kernel<DkvB1>, (void*)flash_dkv_mma_kernel<16>,
        (void*)flash_dkv_wide_kernel<true>, (void*)flash_dkv_wide_kernel<false>}};
   return table[kind][slot_of(d)];
 }
 
-int threads_of(int d) { return wide(d) ? kWideThreads : kThreads; }
+int threads_of(int kind, int d) {
+  if (wide(d)) return kWideThreads;
+  if (mma_body(kind, d)) return kThreads;
+  const int b = bucket(d);
+  if (kind == kDkv) return b == 0 ? DkvB0::kThreads : DkvB1::kThreads;
+  return b == 0 ? DqB0::kThreads : b == 1 ? DqB1::kThreads : DqB2::kThreads;
+}
 
 void* wide_bf16_of(int kind) {
   return kind == kDq ? (void*)flash_dq_wide_bf16_kernel : (void*)flash_dkv_wide_bf16_kernel;
@@ -1154,15 +1504,52 @@ int launch_wide(int kind, const Params& p, int b, int rows, cudaStream_t stream)
   return (int)cudaGetLastError();
 }
 
+// The tf32 bodies (head_dim up to kMmaMaxD) at block C: the fixed
+// operand (dQ: q and dO; dK/dV: k and v) in boxes of 32 columns x C::kM
+// rows, the loop operand in boxes of 32 x C::kN, maps encoded per call;
+// dK/dV also reads LSE and delta flat in boxes of C::kRowBox values (b h
+// sq below 2^31).
+template <class C>
+int launch_tf32(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
+  const bool dkv = kind == kDkv;
+  CUtensorMap maps[6] = {};  // X0, X1, Y0, Y1, LSE, delta
+  const float* ptr[4] = {p.q, p.dout, p.k, p.v};
+  const int64_t st[4][3] = {
+      {p.q_sb, p.q_ss, p.q_sh}, {p.g_sb, p.g_ss, p.g_sh}, {p.k_sb, p.k_ss, p.k_sh}, {p.v_sb, p.v_ss, p.v_sh}};
+  for (int i = 0; i < 4; ++i) {
+    const bool fixed = dkv ? i >= 2 : i < 2;
+    const int e = hopper::encode_bshd_f32(&maps[(fixed ? 0 : 2) + i % 2], ptr[i], b, i < 2 ? p.sq : p.sk, p.h, p.d,
+                                          st[i][0], st[i][1], st[i][2], fixed ? C::kM : C::kN);
+    if (e) return e;
+  }
+  if (dkv) {
+    const int64_t n = (int64_t)b * p.h * p.sq;
+    int e = hopper::encode_flat_f32(&maps[4], p.lse, n, C::kRowBox);
+    if (!e) e = hopper::encode_flat_f32(&maps[5], p.delta, n, C::kRowBox);
+    if (e) return e;
+  }
+  const dim3 grid((rows + C::kM - 1) / C::kM, b * p.h);
+  void* args[] = {(void*)&p, &maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &maps[5]};
+  return launch_status(cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(C::kThreads), args, C::bytes(dkv), stream));
+}
+
 int launch(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
   if (!takes(p.d)) return (int)cudaErrorInvalidValue;
   const int err = configure(kind, p.d);
   if (err) return err;
   if (wide(p.d)) return launch_wide(kind, p, b, rows, stream);
-  dim3 grid((rows + kTile - 1) / kTile, b * p.h);
-  void* args[] = {(void*)&p};
-  return launch_status(
-      cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args, smem_bytes(kind, p.d), stream));
+  if (mma_body(kind, p.d)) {
+    const dim3 grid((rows + kTile - 1) / kTile, b * p.h);
+    void* args[] = {(void*)&p};
+    return launch_status(
+        cudaLaunchKernel(kernel_of(kind, p.d), grid, dim3(kThreads), args, smem_bytes(kind, p.d), stream));
+  }
+  const int bk = bucket(p.d);
+  if (kind == kDkv)
+    return bk == 0 ? launch_tf32<DkvB0>(kind, p, b, rows, stream) : launch_tf32<DkvB1>(kind, p, b, rows, stream);
+  return bk == 0   ? launch_tf32<DqB0>(kind, p, b, rows, stream)
+         : bk == 1 ? launch_tf32<DqB1>(kind, p, b, rows, stream)
+                   : launch_tf32<DqB2>(kind, p, b, rows, stream);
 }
 
 int launch_wide_bf16(int kind, const Params& p, int b, int rows, cudaStream_t stream) {
@@ -1197,7 +1584,7 @@ int ff_flash_bwd_occupancy(int kind, int d, int* out) {
   }
   const int err = configure(k, d);
   if (err) return err;
-  return flash::occupancy(kernel_of(k, d), smem_bytes(k, d), out, threads_of(d));
+  return flash::occupancy(kernel_of(k, d), smem_bytes(k, d), out, threads_of(k, d));
 }
 
 // q [b, sq, h, d], k/v [b, sk, h, d], dO [b, sq, h, d] fp32 with head_dim

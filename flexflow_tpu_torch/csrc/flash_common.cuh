@@ -160,14 +160,17 @@ __device__ __forceinline__ void get_a(const float* big, const float* small, uint
 // the contraction runs over head_dim. Reads: A[g][c], B[8j + g][c] with
 // c = 8 ks + t (+4).
 //
-// One accumulator a product: the tensor cores round an mma's fp32 sum
-// toward zero, an error of up to an ulp of the accumulator that has one
-// sign along a chain, so a chain of 3 dt mma's into one accumulator
-// drifts with its length. Up to head_dim 128 (48 mma's) it stays within
-// the reference's scale; longer contractions (the wide kernels'
-// score_piece, the forward's accumulate_pv) chain at most a few k-steps
-// into a fresh accumulator added with an fp32 add, which rounds to
-// nearest.
+// The tensor cores round an mma's fp32 sum toward zero, an error of up to
+// an ulp of the accumulator that has one sign along a chain, so a chain
+// drifts with its length and with what it holds when each term comes.
+// The small terms of every k-step go in first, while the chain holds
+// little, then the big ones: at head_dim 128 that keeps a key seen by one
+// query within the reference's scale, where the three passes of each
+// k-step in turn (48 mma's) left dV at 1.4x the gate against float64 (a
+// CPU model in tests/test_torch_flash_kernel.py). Longer contractions (the
+// wide kernels' score_piece, the forward's accumulate_pv) chain at most a
+// few k-steps into a fresh accumulator added with an fp32 add, which
+// rounds to nearest.
 template <int kDT, int kNT>
 __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
                                            float acc0[kNT][4], const float* A1,
@@ -181,23 +184,36 @@ __device__ __forceinline__ void product_nt(const float* A0, const float* B0,
   A1 += off;
   B1 += off;
 #pragma unroll
-  for (int ks = 0; ks < kDT; ++ks) {
-    if (ks < dt) {
-      const int c = 8 * ks;
-      const float a0[4] = {A0[c], A0[8 * ld + c], A0[c + 4], A0[8 * ld + c + 4]};
-      const float a1[4] = {A1[c], A1[8 * ld + c], A1[c + 4], A1[8 * ld + c + 4]};
-      uint32_t ab0[4], as0[4], ab1[4], as1[4];
+  for (int pass = 0; pass < 2; ++pass) {  // the small terms, then the big ones
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        split(a0[i], ab0[i], as0[i]);
-        split(a1[i], ab1[i], as1[i]);
-      }
+    for (int ks = 0; ks < kDT; ++ks) {
+      if (ks < dt) {
+        const int c = 8 * ks;
+        const float a0[4] = {A0[c], A0[8 * ld + c], A0[c + 4], A0[8 * ld + c + 4]};
+        const float a1[4] = {A1[c], A1[8 * ld + c], A1[c + 4], A1[8 * ld + c + 4]};
+        uint32_t ab0[4], as0[4], ab1[4], as1[4];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float b0[2] = {B0[8 * j * ld + c], B0[8 * j * ld + c + 4]};
-        const float b1[2] = {B1[8 * j * ld + c], B1[8 * j * ld + c + 4]};
-        mma3(acc0[j], ab0, as0, b0);
-        mma3(acc1[j], ab1, as1, b1);
+        for (int i = 0; i < 4; ++i) {
+          split(a0[i], ab0[i], as0[i]);
+          split(a1[i], ab1[i], as1[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          uint32_t bb0[2], bs0[2], bb1[2], bs1[2];
+          split(B0[8 * j * ld + c], bb0[0], bs0[0]);
+          split(B0[8 * j * ld + c + 4], bb0[1], bs0[1]);
+          split(B1[8 * j * ld + c], bb1[0], bs1[0]);
+          split(B1[8 * j * ld + c + 4], bb1[1], bs1[1]);
+          if (pass == 0) {
+            mma_tf32(acc0[j], as0, bb0);
+            mma_tf32(acc0[j], ab0, bs0);
+            mma_tf32(acc1[j], as1, bb1);
+            mma_tf32(acc1[j], ab1, bs1);
+          } else {
+            mma_tf32(acc0[j], ab0, bb0);
+            mma_tf32(acc1[j], ab1, bb1);
+          }
+        }
       }
     }
   }

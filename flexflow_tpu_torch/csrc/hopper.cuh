@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: TMA tensor
-// maps and loads, mbarriers, wgmma descriptors and the m64nNk16 bf16
-// products, warpgroup register reallocation. Raw PTX in asm volatile, as
-// the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16 #1 at any
-// head_dim, #2 and #3 up to 256) and csrc/flash_kernel.cu's wide body
-// (fp32 #1 past head_dim 128, its ring of fp32 boxes: 32 columns, 128
-// bytes a row, in the same swizzle) are built from them.
+// maps and loads, mbarriers, wgmma descriptors, the m64nNk16 bf16 and
+// m64nNk8 tf32 products, warpgroup register reallocation. Raw PTX in asm
+// volatile, as the rest of csrc/. csrc/flash_bf16_kernel.cu's bodies (bf16
+// #1 at any head_dim, #2 and #3 up to 256), csrc/flash_kernel.cu's wide
+// body (fp32 #1 past head_dim 128, its ring of fp32 boxes: 32 columns, 128
+// bytes a row, in the same swizzle) and csrc/flash_bwd_kernel.cu's fp32
+// bodies of #2 and #3 are built from them.
 //
 // Operand layout. A tile of a bf16 [b, s, h, d] tensor is loaded by TMA
 // in boxes of 64 head_dim columns (128 bytes) x rows, 128-byte swizzled:
@@ -18,6 +19,10 @@
 //     along the columns: V in O += P V, transpose bit set): 8-row groups
 //     1024 bytes apart (SBO), the next 64 columns one box further (LBO,
 //     desc_mnmajor); a k16 step is 16 rows, 2048 bytes.
+// An fp32 box (32 columns, 128 bytes a row, encode_bshd_f32) has the same
+// layout, and .tf32 wgmma reads it K-major only (the contraction along the
+// 32 columns; .tf32 takes no transpose bit): a k8 step is the start
+// address + 32 bytes, as a bf16 k16 step (desc_kmajor_tf32).
 // Boxes start on 1024-byte boundaries (the swizzle's period), so the
 // descriptors' base offset is 0. Elements outside the tensor (rows past
 // s, columns past d) arrive as zeros, so a product over a zero-filled
@@ -220,12 +225,27 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t a) {
 
 __device__ __forceinline__ uint64_t desc_kmajor(const void* p) { return desc_kmajor(smem_u32(p)); }
 
+// K-major descriptor of k8 step kk of an fp32 box (32 columns x 8-row
+// groups, 128-byte swizzled, the box 1024-byte aligned): the same fields as
+// desc_kmajor (SBO 1024 bytes between 8-row groups, LBO unused), the start
+// 8 kk floats (32 kk bytes) into the box's first row. .tf32 wgmma ignores
+// the 13 low mantissa bits of each operand (it reads x truncated to TF32).
+__device__ __forceinline__ uint64_t desc_kmajor_tf32(const float* box, int kk) {
+  return desc_kmajor(smem_u32(box + 8 * kk));
+}
+
 // lbo: bytes from one 64-column box of the tile to the next
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t a, uint32_t lbo) {
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* p, uint32_t lbo) { return desc_mnmajor(smem_u32(p), lbo); }
+
+// after generic-proxy writes to shared memory (st.shared) that a later
+// wgmma or TMA of any thread reads, before the barrier that publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 // before the first wgmma of a batch, and after registers it reads or
 // accumulates into were written by other instructions
@@ -419,6 +439,128 @@ struct WgmmaRS<256, kTB> {
           "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTB));
+  }
+};
+
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in f32 over tf32, issued by one
+// warpgroup, both operands from shared memory, both K-major
+// (desc_kmajor_tf32: A's 64 rows and B's N rows each hold the k8 step's 8
+// contiguous floats). D in the layout of the bf16 products above (warp w
+// rows 16 w .. 16 w + 15, the mma.sync m16n8 accumulator fragment N / 8
+// times); scale_d 0 ignores D's old value. The tensor cores read each
+// operand truncated to TF32 (13 low mantissa bits dropped) and, as
+// mma.sync's, round each k8 step's sum into D toward zero.
+template <int kN>
+struct WgmmaTf32SS;
+
+template <>
+struct WgmmaTf32SS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32SS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32SS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+
+// The same product with A from registers: a in mma.sync's m16n8k8 tf32
+// A-fragment layout (warp w's rows 16 w + g, + 8; k slots t and t + 4),
+// the raw bits of fp32 values or their small parts (the tensor cores read
+// the 13 low mantissa bits as 0). a must stay unchanged until the
+// product is waited for.
+template <int kN>
+struct WgmmaTf32RS;
+
+template <>
+struct WgmmaTf32RS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 

@@ -7,7 +7,9 @@ ops/cuda/_build.py and called through ctypes on PyTorch's current
 stream. float32 operands run the forward in
 flexflow_tpu_torch/csrc/flash_kernel.cu and the backward in
 csrc/flash_bwd_kernel.cu, both with fp32-accurate 3xTF32 products on the
-tensor cores (helpers shared in csrc/flash_common.cuh); bfloat16
+tensor cores (helpers shared in csrc/flash_common.cuh): the backward up
+to head_dim 128 on .tf32 wgmma over tiles that TMA loads, each staged
+tile split once (dK/dV at head_dim 72-128 on mma.sync); bfloat16
 operands (mixed precision) run in csrc/flash_bf16_kernel.cu, one bf16
 pass per product with f32 accumulation, the reference's bodies at bf16
 inputs: #1, #2 and #3 up to head_dim 256 on wgmma over tiles that TMA

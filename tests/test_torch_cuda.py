@@ -752,18 +752,106 @@ def test_flash_forward_is_bit_identical_across_calls(causal, d):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [64, 320, 1032])
+@pytest.mark.parametrize("d", [24, 64, 128, 320, 1032])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_is_bit_identical_across_calls(causal, d):
-    """No atomics: two calls on the same inputs give the same bits (past
-    head_dim 256 on the wide kernels, their fixed tile resident at 320
-    and streamed at 1032)."""
+    """No atomics: two calls on the same inputs give the same bits (up to
+    head_dim 128 on the tf32 bodies, one bucket each at 24, 64 and 128;
+    past 256 on the wide kernels, their fixed tile resident at 320 and
+    streamed at 1032)."""
     dev = _card()
     args = _flash_backward_operands(np.random.default_rng(9), dev, 2, 300, 260, 4, d, causal)
     first = (fk.flash_dq(*args), *fk.flash_dkv(*args))
     second = (fk.flash_dq(*args), *fk.flash_dkv(*args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# fp32 #2 and #3 up to head_dim 128 (flash_dq_tf32_kernel,
+# flash_dkv_tf32_kernel: the score products on .tf32 wgmma over TMA-fed
+# tiles, split once per staged tile) at each bucket's edges: 8 and 32 (one
+# 32-column box), 40 and 64 (two), 72 and 128 (four; 40 and 72 with a
+# ragged last box); lengths no multiple of a tile, sq != sk both ways, one
+# query or one key, and causal blocks of #3 whose keys no query sees
+# (sq 65 against sk 300: no loop tile)
+TF32_BWD_DIMS = [8, 32, 40, 64, 72, 128]
+TF32_BWD_LENGTHS = [(65, 300), (300, 65), (129, 77), (1, 200), (200, 1)]
+
+
+@pytest.mark.parametrize("d", TF32_BWD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", TF32_BWD_LENGTHS)
+def test_flash_tf32_backward_matches_plain_version_and_float64_at_its_edges(sq, sk, causal, d):
+    """#2 and #3's tf32 bodies against their plain versions and the
+    float64 function of the same inputs, at the reference's gradient
+    scale; every entry finite, one launch of each counted under flash_dq
+    and flash_dkv, and a second call gives the same bits."""
+    dev = _card()
+    args = _flash_backward_operands(np.random.default_rng(sq * 1000 + sk + d + 37), dev, 2, sq, sk, 2, d, causal)
+    fk.reset_launches()
+    got = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == _flash_launches(flash_dq=1, flash_dkv=1)
+    plain = (fk.flash_dq_ref(*args), *fk.flash_dkv_ref(*args))
+    exact_args = (*(t.double() for t in args[:6]), causal)
+    exact = (fk.flash_dq_ref(*exact_args), *fk.flash_dkv_ref(*exact_args))
+    again = (fk.flash_dq(*args), *fk.flash_dkv(*args))
+    for a, p, e, a2 in zip(got, plain, exact, again):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        torch.testing.assert_close(a.double(), e, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("d", [24, 64, 128])
+def test_flash_tf32_backward_reads_strided_operands(d):
+    """#2 and #3's tf32 bodies read [b, s, h, d] views in place through
+    their strides (the TMA maps take them), as the wide body's test: the
+    gradients are the bits of the same call on contiguous copies."""
+    dev = _card()
+    rng = np.random.default_rng(d + 41)
+    b, sq, sk, h = 2, 200, 77, 2
+    q = _rand(rng, dev, b, sq, 2 * h, d)[:, :, ::2]
+    k = _rand(rng, dev, b, h, sk, d).transpose(1, 2)
+    v = _rand(rng, dev, b, sk, h, d + 16)[..., 8 : 8 + d]
+    do = _rand(rng, dev, b, sq, h, d + 16)[..., 16:]
+    o, lse = fk.flash_fwd_ref(q, k, v, True)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    assert all(fk._readable(t) is t for t in (q, k, v, do))
+    views = (q, k, v, do, lse, delta, True)
+    dense = (*(t.contiguous() for t in (q, k, v, do)), lse, delta, True)
+    got = (fk.flash_dq(*views), *fk.flash_dkv(*views))
+    want = (fk.flash_dq(*dense), *fk.flash_dkv(*dense))
+    plain = (fk.flash_dq_ref(*dense), *fk.flash_dkv_ref(*dense))
+    torch.cuda.synchronize()
+    for a, w, p in zip(got, want, plain):
+        assert torch.equal(a, w)
+        torch.testing.assert_close(a, p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 128])
+def test_flash_tf32_backward_fits_the_card(d):
+    """#2 and #3's tf32 bodies at each bucket: no spilled registers or
+    other local memory, and a block fits an SM."""
+    _card()
+    for name in ("flash_dq", "flash_dkv"):
+        occ = fk.occupancy(name, d)
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, (name, occ)
+
+
+def test_flash_tf32_backward_issues_wgmma_and_tma_loads():
+    """The SASS of #2 and #3's tf32 bodies (a kernel per bucket they take)
+    holds wgmma (HGMMA) and TMA loads (UTMALDG), and no cp.async copy
+    (LDGSTS); both kernels have one."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    fk._bwd_lib()
+    ops = chip_smoke.sass_opcodes(fk.BWD_SOURCE, r"flash_(dq|dkv)_tf32_kernel")
+    assert ops is not None and any("dq_tf32" in f for f in ops) and any("dkv_tf32" in f for f in ops), ops
+    for fn, c in ops.items():
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["LDGSTS"] == 0, (fn, dict(c))
 
 
 @pytest.mark.parametrize("d", [136, 256, 320, 512, 520, 1032, 1224])
