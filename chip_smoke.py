@@ -95,6 +95,32 @@ result line) on any failed phase:
                this call ([mixed] lines), and profiled windows of (a) and
                (d) with the bf16-q kernel, the GEMMs and the casts per
                step beside the device time of casting the weights alone;
+  4e. features — the serving features of real traffic on the fp32
+               flagship (12 layers), one [features] JSON line a leg:
+               #4, #5 and #6 against their plain versions at chunk widths
+               (w = 16 and 64, staircase offsets) with times and bounds;
+               (a) sampling: phase 3's burst at T = 0.8, seed 1234, twice
+               (identical streams), with decode_multistep (streams equal
+               eager) and a linear n-gram spec leg at T = 0.8 (all
+               FINISHED, acceptance printed); the sampler's bits and
+               tokens on the card equal the CPU's for fixed (seed, slot,
+               position, logits); (b) chunked prefill: 16 prompts of
+               96-448 tokens (32 new) interleaved with 16 of 1-6 tokens
+               (64 new) at token_budget 128, chunk_size 16 beside the
+               monolithic run, on fp32 pools (#5), int8 pools (#6) and the
+               slot layout (#4): greedy streams equal or first part at a
+               near-tie (NEAR_TIE; int8 NEAR_TIE_INT8), the leg's kernel
+               launched (decode steps + chunk steps) x layers times, the
+               short requests' TTFT p50/p95 beside the monolithic run's;
+               (c) prefix cache: 24 requests behind a 256-token system
+               prompt (16 pages) with 8-40 tokens of their own, the
+               first arriving an iteration ahead, shared against
+               unshared, fp32 and int8 pools: streams as (b),
+               pages shared > 0, invariants hold, prefill tokens skipped
+               and TTFT; (d) optimistic admission on (b)'s requests,
+               the 16 long ones first, with kv_pages 128 (half the
+               default pool) against reserve on the same pool: preemptions
+               > 0, every request FINISHED, streams as (b);
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, and
@@ -979,12 +1005,14 @@ def serve(model, requests, instrument=None, **serve_kw):
 
 
 def record_top2(sched, top):
-    """Wrap a plain scheduler's prefill and decode so that top[rid][i] is
-    (gap, first, second, value): the gap between the two largest logits
-    its engine saw when it picked the request's i-th generated token,
-    those two tokens and the largest logit (bf16 logits are read as f32)."""
+    """Wrap a plain scheduler's prefill, chunk steps and decode so that
+    top[rid][i] is (gap, first, second, value): the gap between the two
+    largest logits its engine saw when it picked the request's i-th
+    generated token, those two tokens and the largest logit (bf16 logits
+    are read as f32). A chunk step's record is replaced by the next one's
+    until the request's final chunk, which gives its first token."""
     engine = sched.engine
-    prefill, decode = engine.prefill, engine.decode
+    prefill, decode, chunk = engine.prefill, engine.decode, engine.prefill_chunk
 
     def top2(logits):
         vals, ids = logits.float().topk(2, dim=-1)
@@ -1004,7 +1032,14 @@ def record_top2(sched, top):
             top[sched.running[int(s)].rid].append((float(gaps[s]), *map(int, ids[s]), float(vals[s])))
         return nxt, logits
 
-    engine.prefill, engine.decode = prefill_rec, decode_rec
+    def chunk_rec(params, tokens, chunk_lens, final=None):
+        nxt, logits = chunk(params, tokens, chunk_lens, final)
+        gaps, ids, vals = top2(logits)
+        for s in np.nonzero(chunk_lens)[0]:
+            top[sched.running[int(s)].rid] = [(float(gaps[s]), *map(int, ids[s]), float(vals[s]))]
+        return nxt, logits
+
+    engine.prefill, engine.decode, engine.prefill_chunk = prefill_rec, decode_rec, chunk_rec
 
 
 def record_spec_top(sched, top, out):
@@ -1681,6 +1716,249 @@ def serve_mixed(device, fp32, layers=FLAGSHIP["layers"], small_layers=2):
 
 
 # -- 5. flash kernels vs plain versions --------------------------------------------
+
+
+# -- 4e: serving features under real traffic -----------------------------------------------
+
+FEATURE_T = 0.8
+FEATURE_SEED = 1234
+CHUNKED = dict(token_budget=128, chunk_size=16)
+FEATURE_PAGES = 128  # (d): half the default pool of 8 x 512 / 16 pages
+SYSTEM_PROMPT = 256  # (c): 16 pages of 16 tokens
+CHUNK_WIDTHS = (16, 64)
+CHUNK_KERNELS = ("flash_verify", "paged_flash_verify", "paged_flash_verify_quant")
+
+
+def check_chunk_kernels(device="cuda"):
+    """#4, #5 and #6 at the chunk steps' widths (w = 16 and 64; kernel_inputs'
+    lengths put each row's staircase at a random cursor, 0 and max_len - w
+    included) against their plain versions (ATOL_KERNEL), timed with
+    their bounds and (#4, #5) masked SDPA on the same K/V, gathered from
+    the pages before the timer starts, one [features] kernel line each."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    for w in CHUNK_WIDTHS:
+        x = kernel_inputs(device, w)
+        masks = visible_masks(x)
+        for name in CHUNK_KERNELS:
+            kernel = lambda fn=getattr(dk, name), a=decode_args(x, name): fn(*a)
+            plain = lambda fn=getattr(dk, name + "_ref"), a=decode_args(x, name): fn(*a)
+            out = kernel()
+            torch.cuda.synchronize()
+            err = float((out - plain()).abs().max())
+            require(bool(torch.isfinite(out).all()), f"{name} w={w}: non-finite output")
+            require(err <= ATOL_KERNEL, f"{name} w={w}: error {err} > {ATOL_KERNEL}")
+            t = dict(name=name, w=w, max_abs_err=err, ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+                     device_ms=device_ms(kernel, flush))
+            t["bound_ms"], t["bound_by"] = bound_ms(x, name)
+            t["library_ms"] = None  # no PyTorch call dequantizes int8 pages inside attention
+            if name != "paged_flash_verify_quant":
+                if name == "flash_verify":
+                    kv = (x["k_cache"], x["v_cache"])
+                else:
+                    safe = x["tables"].long().clamp(0, x["k_pool"].shape[0] - 1)
+                    kv = tuple(p[safe].reshape(x["q"].shape[0], -1, *p.shape[2:]) for p in (x["k_pool"], x["v_pool"]))
+                qt, kt, vt = x["q"].transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+                mask = masks[name][0][:, None]
+                t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), flush)
+            print("[features] kernel " + json.dumps(t))
+
+
+def feature_requests(vocab, seed=SEED, long_new=32, short_new=64, long_first=False):
+    """(b)'s traffic: 16 prompts of 96-448 seeded tokens (long_new new
+    tokens each) interleaved with 16 prompts of 1-6 tokens (short_new);
+    `long_first` submits the 16 long ones first ((d): eight long
+    sequences in flight outgrow half the pool)."""
+    from flexflow_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(seed + 4)
+    reqs = []
+    for i in range(16):
+        n = int(rng.integers(96, 449))
+        reqs.append(Request(rid=2 * i, prompt=[int(t) for t in rng.integers(1, vocab, n)], max_new_tokens=long_new))
+        reqs.append(Request(rid=2 * i + 1, prompt=[(i * 7 + j) % vocab for j in range(1 + i % 6)],
+                            max_new_tokens=short_new))
+    if long_first:
+        reqs = reqs[0::2] + reqs[1::2]
+    return reqs
+
+
+def prefix_requests(vocab, seed=SEED):
+    """(c)'s traffic: 24 requests behind one SYSTEM_PROMPT-token system
+    prompt, each with 8-40 seeded tokens of its own, 32 new tokens."""
+    from flexflow_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(seed + 5)
+    system = [int(t) for t in rng.integers(1, vocab, SYSTEM_PROMPT)]
+    return [Request(rid=i, prompt=system + [int(t) for t in rng.integers(1, vocab, int(rng.integers(8, 41)))],
+                    max_new_tokens=32) for i in range(24)]
+
+
+def count_chunk_calls(sched, counter):
+    """Count the engine's chunk steps (the scheduler's and those of
+    prefill_suffix) in counter["chunk_calls"]; track the peak of the
+    shared table entries in counter["peak_shared"]."""
+    engine = sched.engine
+    chunk, end = engine.prefill_chunk, sched._end_iteration
+
+    def counted(*a, **kw):
+        counter["chunk_calls"] += 1
+        return chunk(*a, **kw)
+
+    def ended():
+        end()
+        counter["peak_shared"] = max(counter["peak_shared"], sched.stats.prefix_pages_shared)
+
+    engine.prefill_chunk, sched._end_iteration = counted, ended
+
+
+def feature_leg(name, model, layers, kernel, requests, plain=None, near_tie=None, lead=False, **serve_kw):
+    """One 4e leg: every request FINISHED at full length, `kernel` launched
+    (decode steps + chunk steps) x layers times and no other decode
+    kernel; greedy streams held against `plain`, (streams, top) of the
+    leg's baseline, as compare_streams does (NEAR_TIE, NEAR_TIE_INT8 on
+    int8 pools). A baseline leg (plain=None) records its top two logits.
+    `lead`: the first request arrives one iteration before the rest (a
+    batch admitted together shares nothing among itself, and requests of
+    equal length leave together: a lead staggers them, as arrivals are).
+    Returns (streams, top, summary, stats)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+    from flexflow_tpu_torch.serving import ServeConfig, build_scheduler, latency_percentiles
+
+    counter = dict(chunk_calls=0, peak_shared=0)
+    top = {} if plain is None else plain[1]
+    cfg = dict(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], **serve_kw)
+    sched, _, cache = build_scheduler(model, ServeConfig(**cfg))
+    count_chunk_calls(sched, counter)
+    if plain is None and not serve_kw.get("temperature"):
+        record_top2(sched, top)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dk.reset_launches()
+    reqs = requests()
+    t0 = time.perf_counter()
+    if lead:
+        sched.submit(reqs.pop(0))
+        sched.step()
+    done = sched.run(reqs)
+    stats = sched.stats
+    stats.elapsed_s = time.perf_counter() - t0
+    launches = dict(dk.LAUNCHES)
+    bad = [(r.rid, r.status, r.error, len(r.generated)) for r in done
+           if not r.ok or len(r.generated) != r.max_new_tokens]
+    require(len(done) == len(requests()) and not bad, f"{name}: requests not FINISHED at full length: {bad}")
+    steps = stats.decode_steps + stats.verify_steps + counter["chunk_calls"]
+    require(launches[kernel] == steps * layers,
+            f"{name}: {kernel} launches {launches[kernel]} != ({stats.decode_steps} decode + "
+            f"{stats.verify_steps} verify + {counter['chunk_calls']} chunk steps) x {layers} layers")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    require(not others, f"{name}: other decode kernels launched: {others}")
+    streams = {r.rid: list(r.generated) for r in done}
+    ties = []
+    if plain is not None:
+        if near_tie is None:
+            near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
+        ties, _, _ = compare_streams(name, done, plain[0], top, {}, near_tie)
+    short = [r for r in done if len(r.prompt) <= 6]
+    ttft = latency_percentiles(done, (50, 95), metric="ttft")
+    ttft_short = latency_percentiles(short, (50, 95), metric="ttft")
+    summary = dict(
+        leg=name, layers=layers, requests=len(done), tokens=stats.tokens_generated, elapsed_s=stats.elapsed_s,
+        tokens_per_s=stats.tokens_per_s, ttft_p50_ms=1e3 * ttft[50], ttft_p95_ms=1e3 * ttft[95],
+        short_ttft_p50_ms=1e3 * ttft_short[50] if short else None,
+        short_ttft_p95_ms=1e3 * ttft_short[95] if short else None,
+        decode_steps=stats.decode_steps, verify_steps=stats.verify_steps, chunk_steps=stats.chunk_steps,
+        chunk_calls=counter["chunk_calls"], mean_decode_step_ms=1e3 * stats.mean_decode_step_s,
+        chunk_s=stats.chunk_s, prefill_s=stats.prefill_s, budget_deferrals=stats.budget_deferrals,
+        preemptions=stats.preemptions, peak_in_flight=stats.peak_in_flight, prefix_hits=stats.prefix_hits,
+        peak_prefix_pages_shared=counter["peak_shared"], prefix_tokens_skipped=stats.prefix_tokens_skipped,
+        cow_copies=stats.cow_copies, acceptance_rate=stats.acceptance_rate, kernel=kernel,
+        launches=launches[kernel], near_ties=len(ties),
+    )
+    if getattr(cache, "paged", False):
+        cache.check_invariants()
+    print("[features] " + json.dumps(summary))
+    return streams, top, summary, stats
+
+
+def check_sampler_on_card(device="cuda"):
+    """The sampler's words and tokens on the card equal the CPU's for
+    fixed (seed, slot, position, logits) rows at the flagship's vocab."""
+    import torch
+
+    from flexflow_tpu_torch.serving import sampling
+
+    rng = np.random.default_rng(SEED + 6)
+    n, vocab = 64, FLAGSHIP["vocab"]
+    slots = torch.from_numpy(rng.integers(0, FLAGSHIP["max_seqs"], n))
+    pos = torch.from_numpy(rng.integers(0, FLAGSHIP["max_len"], n))
+    logits = torch.from_numpy((3 * rng.standard_normal((n, vocab))).astype(np.float32))
+    out = {}
+    for dev in ("cpu", device):
+        keys = sampling.row_keys(FEATURE_SEED, slots.to(dev), pos.to(dev))
+        out[dev] = (sampling.random_bits(keys, vocab).cpu(), sampling.uniform(keys, vocab).cpu(),
+                    sampling.sample(logits.to(dev), FEATURE_T, FEATURE_SEED, slots.to(dev), pos.to(dev)).cpu())
+    require(torch.equal(out["cpu"][0], out[device][0]), "sampler: the card's random words differ from the CPU's")
+    require(torch.equal(out["cpu"][1], out[device][1]), "sampler: the card's uniforms differ from the CPU's")
+    same = int((out["cpu"][2] == out[device][2]).sum())
+    require(same == n, f"sampler: {n - same} of {n} tokens differ between the card and the CPU")
+    print(f"[features] sampler: {n} rows x {vocab} words and uniforms bit-equal on the card and the CPU; "
+          f"{same} of {n} tokens equal")
+
+
+def serve_features(device, layers=FLAGSHIP["layers"]):
+    """Phase 4e on the fp32 flagship (see the module docstring)."""
+    geo = dict(FLAGSHIP, layers=layers)
+    vocab = geo["vocab"]
+    model = build_lm(device, **geo)
+    if device == "cuda":
+        check_chunk_kernels(device)
+    sampled = dict(temperature=FEATURE_T, seed=FEATURE_SEED)
+    # (a) sampling
+    burst = lambda: mixed_requests(vocab, geo["max_len"], NUM_REQUESTS)
+    first, _, summary, _ = feature_leg("a: sampled burst", model, layers, "paged_flash_verify", burst, **sampled)
+    again, _, _, _ = feature_leg("a: sampled burst, again", model, layers, "paged_flash_verify", burst, **sampled)
+    require(first == again, "(a): two sampled runs with one seed gave different streams")
+    fused, _, fsum, fstats = feature_leg("a: sampled burst, multistep", model, layers, "paged_flash_verify", burst,
+                                         decode_multistep=True, **sampled)
+    require(fused == first, "(a): sampled multi-step streams differ from eager")
+    require(fstats.multistep_windows > 0, "(a): no fused window ran")
+    spec = lambda: long_requests(vocab, geo["max_len"], SPEC_REQUESTS)
+    _, _, ssum, _ = feature_leg("a: sampled linear spec", model, layers, "paged_flash_verify", spec,
+                                **LINEAR, **sampled)
+    if device == "cuda":
+        check_sampler_on_card(device)
+    # (b) chunked prefill, fp32 pools, int8 pools and the slot layout
+    traffic = lambda: feature_requests(vocab)
+    for leg, kernel, kw in (("fp32", "paged_flash_verify", {}),
+                            ("int8", "paged_flash_verify_quant", dict(kv_dtype="int8")),
+                            ("slot", "flash_verify", dict(kv_layout="slot"))):
+        mono = feature_leg(f"b: {leg} monolithic", model, layers, kernel, traffic, **kw)
+        _, _, _, cstats = feature_leg(f"b: {leg} chunked", model, layers, kernel, traffic, plain=mono[:2],
+                                      **CHUNKED, **kw)
+        require(cstats.chunk_steps > 0, f"(b) {leg}: no chunk step ran")
+    # (c) prefix cache
+    for leg, kernel, kw in (("fp32", "paged_flash_verify", {}),
+                            ("int8", "paged_flash_verify_quant", dict(kv_dtype="int8"))):
+        base = feature_leg(f"c: {leg} unshared", model, layers, kernel, lambda: prefix_requests(vocab), lead=True,
+                           **kw)
+        _, _, psum, _ = feature_leg(f"c: {leg} prefix cache", model, layers, kernel, lambda: prefix_requests(vocab),
+                                    plain=base[:2], lead=True, prefix_cache=True, **kw)
+        require(psum["prefix_hits"] > 0 and psum["peak_prefix_pages_shared"] > 0,
+                f"(c) {leg}: no page was shared: {psum}")
+    # (d) optimistic admission on half the pool
+    heavy = lambda: feature_requests(vocab, long_first=True)
+    reserve = feature_leg("d: reserve", model, layers, "paged_flash_verify", heavy, kv_pages=FEATURE_PAGES)
+    _, _, osum, _ = feature_leg("d: optimistic", model, layers, "paged_flash_verify", heavy, plain=reserve[:2],
+                                kv_pages=FEATURE_PAGES, admission="optimistic")
+    require(osum["preemptions"] > 0, f"(d): optimistic admission preempted nothing: {osum}")
 
 
 def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED, dtype=None):
@@ -2579,6 +2857,9 @@ def main() -> int:
                               ttft_p50_ms=flagship["ttft_p50_ms"], ttft_p95_ms=flagship["ttft_p95_ms"])
     fp32_legs["graph"] = dict(tokens_per_s=graph_a["tokens_per_s"], mean_step_ms=graph_a["step_ms"])
     mixed_serving_launches = serve_mixed("cuda", fp32_legs)
+    gc.collect()
+    # 4e: sampling, chunked prefill, prefix cache and optimistic admission
+    serve_features("cuda")
     gc.collect()
     # after the serving phases, so the decode profile stays the run's
     # first profiler session, as it was before the training phases

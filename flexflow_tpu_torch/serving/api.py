@@ -4,7 +4,12 @@ flexflow_tpu/serving/api.py). `FFModel.generate` delegates here.
 Speculative decoding (`spec_draft="ngram"`, linear or token-tree by
 `spec_branch`) and int8 paged KV pools (`kv_dtype="int8"`) run through
 the CUDA kernels #4-#9 on the card; `decode_multistep=True` fuses runs
-of decode steps into CUDA-graph windows there."""
+of decode steps into CUDA-graph windows there. `temperature` > 0 samples
+with the reference's keys under `seed`; `token_budget` > 0 streams
+prompts in as chunks of `chunk_size` tokens; `prefix_cache` shares the
+pages of common prefixes; `admission="optimistic"` admits on the
+prompt's pages and preempts by recompute, up to `max_preemptions` times a
+request."""
 
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from flexflow_tpu_torch.ops.cuda.decode_kernel import MAX_W
 from flexflow_tpu_torch.serving.engine import GenerationEngine
 from flexflow_tpu_torch.serving.kv_cache import KVCache, PagedKVCache
 from flexflow_tpu_torch.serving.scheduler import (
+    CHUNK_ALIGN,
     ContinuousBatchingScheduler,
     Request,
     StaticBatchingScheduler,
@@ -30,11 +36,9 @@ _SCHEDULERS = {
 # options of the reference's ServeConfig this port does not take yet:
 # field -> (the only value accepted, the ROADMAP item that brings the rest)
 _NOT_PORTED = {
-    "temperature": (0.0, "Port queue: sampling"),
-    "admission": ("reserve", "Port queue: preemption and swap"),
-    "prefix_cache": (False, "Port queue: prefix cache"),
-    "token_budget": (0, "Port queue: chunked prefill"),
     "serve_async": (False, "Port queue: async engine"),
+    "kv_swap": (False, "Port queue: swap-to-host, with the cost model's swap decider"),
+    "prefix_evict": ("none", "Port queue: published-prefix eviction (lru, cost)"),
 }
 
 
@@ -52,21 +56,37 @@ class ServeConfig:
     max_seq_len: int = 256  # max tokens per sequence (prompt + generation)
     scheduler: str = "continuous"  # "continuous" | "static"
     eos_token: Optional[int] = None
+    temperature: float = 0.0  # 0 = greedy
+    seed: int = 0  # sampling keys: fold_in(fold_in(PRNGKey(seed), slot), position)
     prefill_buckets: Tuple[int, ...] = ()  # () = powers of two
     kv_layout: str = "paged"  # "paged" | "slot"
     kv_page_size: int = 0  # 0 = auto (16, halved to divide max_len)
     kv_pages: int = 0  # 0 = max_seqs * max_seq_len / page_size
     decode_kernel: str = "auto"
     debug_invariants: bool = False
-    temperature: float = 0.0
+    # paged admission policy: "reserve" admits only when the pool covers
+    # the request's worst case (no preemption ever); "optimistic" admits
+    # on the prompt's pages and preempts the youngest request by
+    # recompute when the pool runs dry, at most max_preemptions times a
+    # request
     admission: str = "reserve"
+    max_preemptions: int = 3
     kv_dtype: str = "fp32"  # "fp32" | "int8" (paged layout only)
+    # hashed prefix-page cache (paged layout): admissions map registered
+    # full pages matching a prefix of their sequence, copy-on-write at
+    # the first divergent write
     prefix_cache: bool = False
+    prefix_evict: str = "none"
+    kv_swap: bool = False
     spec_draft: str = ""  # "" (off) | "ngram"
     spec_k: int = 4
     spec_branch: int = 1
     spec_ngram: int = 2
+    # chunked prefill (Sarathi-Serve): token_budget > 0 caps each
+    # iteration's token work, prompts streaming in as chunk_size-aligned
+    # chunks beside the in-flight decodes
     token_budget: int = 0
+    chunk_size: int = 16
     serve_async: bool = False
     # device-resident multi-step decode: runs of decode iterations that no
     # host-visible event interrupts fuse into one window of up to
@@ -77,6 +97,8 @@ class ServeConfig:
     max_fused_steps: int = 8
 
     def __post_init__(self):
+        if self.prefix_evict not in ("none", "lru", "cost"):
+            raise ValueError(f"prefix_evict must be 'none', 'lru', or 'cost', got {self.prefix_evict!r}")
         for name, (only, item) in _NOT_PORTED.items():
             if getattr(self, name) != only:
                 raise NotImplementedError(
@@ -89,6 +111,12 @@ class ServeConfig:
             )
         if self.max_seqs < 1 or self.max_seq_len < 2:
             raise ValueError("max_seqs >= 1 and max_seq_len >= 2 required")
+        if self.temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {self.temperature}")
+        if self.admission not in ("reserve", "optimistic"):
+            raise ValueError(f"admission must be 'reserve' or 'optimistic', got {self.admission!r}")
+        if self.max_preemptions < 0:
+            raise ValueError("max_preemptions must be >= 0")
         if self.kv_layout not in ("paged", "slot"):
             raise ValueError(f"kv_layout must be 'paged' or 'slot', got {self.kv_layout!r}")
         if self.kv_page_size < 0 or self.kv_pages < 0:
@@ -105,6 +133,29 @@ class ServeConfig:
                 "kv_dtype='int8' requires kv_layout='paged' (the scale side "
                 "pools are per page)"
             )
+        if self.prefix_cache and self.kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache requires kv_layout='paged' (sharing is "
+                "page-aligned: whole pages map through block tables)"
+            )
+        if self.token_budget < 0 or self.chunk_size < 1:
+            raise ValueError(
+                "token_budget must be >= 0 and chunk_size >= 1, got "
+                f"token_budget={self.token_budget} chunk_size={self.chunk_size}"
+            )
+        if self.token_budget:
+            if self.scheduler != "continuous":
+                raise ValueError("token_budget (chunked prefill) requires the continuous scheduler")
+            if self.token_budget < self.chunk_size:
+                raise ValueError(
+                    f"token_budget {self.token_budget} < chunk_size {self.chunk_size}: "
+                    "an iteration could never fit one chunk"
+                )
+            if self.chunk_size % CHUNK_ALIGN:
+                raise ValueError(
+                    f"chunk_size {self.chunk_size} must be a multiple of {CHUNK_ALIGN} "
+                    f"when decode_kernel is {self.decode_kernel!r}"
+                )
         if self.spec_draft == "model":
             raise NotImplementedError(
                 "ServeConfig.spec_draft='model' is not ported yet (ROADMAP, "
@@ -143,6 +194,7 @@ class ServeConfig:
             kv_page_size=cfg.serve_kv_page_size,
             kv_pages=cfg.serve_kv_pages,
             kv_dtype=cfg.serve_kv_dtype,
+            seed=cfg.seed,
             spec_draft=cfg.serve_spec_draft,
             spec_k=cfg.serve_spec_k,
             spec_branch=cfg.serve_spec_branch,
@@ -174,6 +226,7 @@ def build_scheduler(model, serve: ServeConfig):
             page_size=serve.kv_page_size,
             num_pages=serve.kv_pages,
             kv_dtype=serve.kv_dtype,
+            prefix_cache=serve.prefix_cache,
         )
     else:
         cache = KVCache.from_model(
@@ -183,14 +236,23 @@ def build_scheduler(model, serve: ServeConfig):
             buckets=serve.prefill_buckets or None,
         )
     engine = GenerationEngine(
-        model, cache, decode_kernel=serve.decode_kernel, max_fused_steps=serve.max_fused_steps
+        model,
+        cache,
+        decode_kernel=serve.decode_kernel,
+        max_fused_steps=serve.max_fused_steps,
+        temperature=serve.temperature,
+        seed=serve.seed,
     )
     sched = _SCHEDULERS[serve.scheduler](
         engine,
         proposer=build_proposer(serve),
         spec_k=serve.spec_k,
         spec_branch=serve.spec_branch,
+        admission=serve.admission,
+        max_preemptions=serve.max_preemptions,
         debug_invariants=serve.debug_invariants,
+        token_budget=serve.token_budget,
+        chunk_size=serve.chunk_size,
         decode_multistep=serve.decode_multistep,
         max_fused_steps=serve.max_fused_steps,
     )
@@ -204,7 +266,7 @@ def generate(
     serve: Optional[ServeConfig] = None,
     eos_token: Optional[int] = None,
 ) -> List[List[int]]:
-    """Generate greedy continuations for token-id prompts; returns the
+    """Generate continuations for token-id prompts; returns the
     generated tokens (prompt excluded) in the prompts' order. An invalid
     request becomes a FAILED entry with an empty continuation instead of
     an exception that loses the whole batch."""

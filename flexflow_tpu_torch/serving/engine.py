@@ -21,8 +21,8 @@ mha_project_out) and swaps only the attention core:
     rows go to the cache's scratch row), writes the K/V rows (int8
     included), runs the layers with the decode kernel
     (ops/attention.decode_attention / paged_decode_attention, which
-    reach the CUDA kernels of ops/cuda/decode_kernel.py), takes the
-    greedy argmax and carries lengths / tokens / alive forward as the
+    reach the CUDA kernels of ops/cuda/decode_kernel.py), picks each
+    token (greedy or sampled) and carries lengths / tokens / alive forward as the
     reference's scan body does, writing tokens, logits, mask and a
     finite flag into per-step stacks. `decode` runs it once; the
     multi-step window `decode_multi` runs it k times and reads the host
@@ -57,12 +57,33 @@ decode core routes what the reference dropped to the scratch row. All
 host-built index tensors of a step travel to the device in one int32
 copy.
 
-Greedy argmax picks tokens. The reference's kernel-failure handler,
-which switched the engine to dense attention for good after any kernel
-error, is deliberately absent: a failing kernel, capture or replay
-raises, and nothing on the card falls back to eager steps. Sampling,
-chunked prefill, adapters and the async dispatch / reconcile split are
-not ported yet (ROADMAP, Port queue: serving features).
+Greedy argmax picks tokens at temperature 0; above it `_select` samples
+with the reference's per-row keys, fold_in(fold_in(PRNGKey(seed), slot),
+position) at the cache position the token will occupy (prompt length
+for prefill, lengths + 1 for decode, cursor + chunk for a chunk step),
+through serving/sampling.py's copy of jax.random. The slots' keys,
+fold_in(PRNGKey(seed), slot), are made once per engine and only when it
+samples; the decode core samples on the device from them, so a
+CUDA-graph window samples inside the graph. A chunk step draws only for
+the rows whose chunk ends their prompt.
+
+  * **prefill_chunk**: chunked prefill (the reference's _chunk_impl):
+    the next chunk_lens[s] prompt tokens of each chunking slot, the
+    batch compacted to those slots, through the verify core's staircase
+    (query offset = the slot's cursor) and the decode kernels #4 / #5 /
+    #6 at the step's width (at most decode_kernel.MAX_W rows); the rows
+    are prompt tokens, so lengths advance by the chunk. The last chunk
+    row's logits give the first generated token, sampled at cursor +
+    chunk = the prompt length on a final chunk.
+  * **prefill_suffix**: the prefix-shared admission's prefill of the
+    unshared suffix, as successive chunk steps of at most MAX_W rows.
+
+The reference's kernel-failure handler, which switched the engine to
+dense attention for good after any kernel error, is deliberately
+absent: a failing kernel, capture or replay raises, and nothing on the
+card falls back to eager steps or to a dense path. Adapters and the
+async dispatch / reconcile split are not ported yet (ROADMAP, Port
+queue: serving features).
 """
 
 from __future__ import annotations
@@ -86,6 +107,7 @@ from flexflow_tpu_torch.ops.attention import (
     tree_allowed_mask,
     verify_attention,
 )
+from flexflow_tpu_torch.serving.sampling import sample, slot_keys
 
 
 def _to_device(device, parts: Sequence[np.ndarray]):
@@ -150,14 +172,27 @@ class _GraphWindow:
 class GenerationEngine:
     """Step functions over (params, cache); scheduling lives in
     serving.scheduler. `max_fused_steps` is the deepest decode_multi
-    window (the depth of the captured graph's per-step stacks)."""
+    window (the depth of the captured graph's per-step stacks).
+    temperature 0 is greedy; above it tokens are sampled under `seed`."""
 
-    def __init__(self, model, cache, decode_kernel: str = "auto", max_fused_steps: int = 8):
+    def __init__(
+        self,
+        model,
+        cache,
+        decode_kernel: str = "auto",
+        max_fused_steps: int = 8,
+        temperature: float = 0.0,
+        seed: int = 0,
+    ):
         if model.executor is None:
             raise RuntimeError("compile() the model before serving")
         check_mode(decode_kernel)
         if max_fused_steps < 1:
             raise ValueError(f"max_fused_steps must be >= 1, got {max_fused_steps}")
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        self.temperature = float(temperature)
+        self.seed = int(seed)
         self.model = model
         self.executor = model.executor
         self.cache = cache
@@ -192,6 +227,12 @@ class GenerationEngine:
                 )
         self.paged = bool(getattr(cache, "paged", False))
         self.quantized = bool(getattr(cache, "quantized", False))
+        # [max_seqs, 2]: each slot's fold_in(PRNGKey(seed), slot), the
+        # constant part of its sampling keys (None when greedy)
+        self._slot_keys = (
+            slot_keys(self.seed, torch.arange(cache.spec.max_seqs, device=self.device))
+            if self.temperature > 0.0 else None
+        )
 
     def _forward_logits(self, params, tokens, hook) -> torch.Tensor:
         return self.executor.logits(
@@ -200,10 +241,21 @@ class GenerationEngine:
             op_hooks={OperatorType.MULTIHEAD_ATTENTION: hook},
         )
 
-    @staticmethod
-    def _pick(logits: torch.Tensor) -> np.ndarray:
-        """Greedy: logits [n, vocab] -> token ids [n] on the host."""
-        return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+    def _select_device(self, logits: torch.Tensor, slots: Optional[torch.Tensor],
+                       positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reference's _pick on the device: logits [n, vocab] -> token
+        ids [n] int32, the first maximum at temperature 0 (bf16 logits
+        compare as bf16, as jnp.argmax does; slots and positions unused),
+        else one draw per row keyed by (seed, slot, position) — the cache
+        position the token will occupy. slots None: row i is slot i."""
+        if self.temperature <= 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)
+        keys = self._slot_keys if slots is None else self._slot_keys[slots.long()]
+        return sample(logits, self.temperature, self.seed, None, positions, keys).to(torch.int32)
+
+    def _select(self, logits: torch.Tensor, slots: torch.Tensor, positions: torch.Tensor) -> np.ndarray:
+        """_select_device, read on the host."""
+        return self._select_device(logits, slots, positions).cpu().numpy()
 
     def _rows(self, t: torch.Tensor) -> torch.Tensor:
         """[..., heads, head_dim] -> [N, heads, head_dim]."""
@@ -307,12 +359,12 @@ class GenerationEngine:
             real = pages != spec.num_pages
             dest = (pages * ps + pos % ps)[real]
             parts = quant_plan(dest, ps) if self.quantized else [dest]
-            tok_t, last_t, real_t, *dest_t = _to_device(
-                self.device, [tokens, plens - 1, np.nonzero(real.ravel())[0]] + parts
+            tok_t, last_t, slots_t, plens_t, real_t, *dest_t = _to_device(
+                self.device, [tokens, plens - 1, slots_np, plens, np.nonzero(real.ravel())[0]] + parts
             )
         else:
-            tok_t, last_t, slots_t, pos_t = _to_device(
-                self.device, [tokens, plens - 1, slots_np, np.arange(bucket)]
+            tok_t, last_t, slots_t, plens_t, pos_t = _to_device(
+                self.device, [tokens, plens - 1, slots_np, plens, np.arange(bucket)]
             )
         cache = self.cache
 
@@ -336,10 +388,168 @@ class GenerationEngine:
 
         logits = self._forward_logits(params, tok_t, hook)
         last = logits[torch.arange(n, device=self.device), last_t.long()]
-        nxt = self._pick(last)
+        # the sampled token will sit at cache position len(prompt)
+        nxt = self._select(last, slots_t, plens_t)
         for p, s in zip(prompts, slots):
             cache.lengths[s] = len(p)
         return nxt, last
+
+    # -- chunked prefill -----------------------------------------------------
+
+    @torch.no_grad()
+    def prefill_chunk(
+        self,
+        params,
+        tokens: np.ndarray,
+        chunk_lens: np.ndarray,
+        final: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """One chunked-prefill step (the reference's prefill_chunk).
+        tokens [max_seqs, w]: the next chunk_lens[s] prompt tokens of each
+        chunking slot (rows with chunk_lens 0 take no part). The batch is
+        compacted to the chunking slots; their rows are written at each
+        slot's cursor (paged slots claim those pages first), attend under
+        the verify staircase (query offset = cursor) through kernel #4, #5
+        or #6 at width w <= decode_kernel.MAX_W, and the cursors advance
+        by the chunk. `final` [max_seqs] bool marks the slots whose chunk
+        ends their prompt: only those pick a token (None: every chunking
+        slot does). Returns (next_tokens [max_seqs] on the host, the last
+        chunk row's logits [max_seqs, V] on the device), zero for slots
+        that took no part or picked no token."""
+        spec = self.cache.spec
+        cache = self.cache
+        tokens = np.asarray(tokens, dtype=np.int32)
+        chunk_lens = np.asarray(chunk_lens, dtype=np.int32)
+        if tokens.ndim != 2 or tokens.shape[0] != spec.max_seqs:
+            raise ValueError(f"tokens must be [max_seqs={spec.max_seqs}, w], got {tokens.shape}")
+        w = tokens.shape[1]
+        if not 1 <= w <= dk.MAX_W:
+            raise ValueError(f"a chunk step takes 1 to {dk.MAX_W} token columns, got {w}")
+        if chunk_lens.shape != (spec.max_seqs,):
+            raise ValueError("chunk_lens must be [max_seqs]")
+        for slot in np.nonzero(chunk_lens)[0]:
+            if chunk_lens[slot] > w or int(cache.lengths[slot]) + int(chunk_lens[slot]) > spec.max_len:
+                raise ValueError(
+                    f"slot {int(slot)}: chunk_lens {int(chunk_lens[slot])} "
+                    f"overruns width {w} or max_len {spec.max_len}"
+                )
+        slot_ids = np.nonzero(chunk_lens > 0)[0]
+        if slot_ids.size == 0:
+            raise ValueError("chunk step needs at least one active slot")
+        if self.paged:
+            for slot in slot_ids:
+                start = int(cache.lengths[slot])
+                for p in range(start, start + int(chunk_lens[slot])):
+                    cache.ensure_position(int(slot), p)
+        picks = np.ones(slot_ids.size, dtype=bool) if final is None else np.asarray(final, dtype=bool)[slot_ids]
+        nxt_c, last_c = self._chunk_core(params, tokens[slot_ids], slot_ids, chunk_lens[slot_ids], picks)
+        cache.lengths[slot_ids] += chunk_lens[slot_ids]
+        nxt = np.zeros(spec.max_seqs, dtype=np.int32)
+        nxt[slot_ids] = nxt_c
+        logits = last_c.new_zeros((spec.max_seqs, last_c.shape[-1]))
+        logits[torch.as_tensor(slot_ids, device=last_c.device)] = last_c
+        return nxt, logits
+
+    def _chunk_core(self, params, tokens, slot_ids, chunk_lens, picks):
+        """The compact chunk batch [B, w] of prefill_chunk: returns
+        (next tokens [B] on the host, zero where picks [B] is false,
+        last-row logits [B, V])."""
+        spec = self.cache.spec
+        cache = self.cache
+        B, w = tokens.shape
+        lengths = cache.lengths[slot_ids].astype(np.int64)
+        pos = lengths[:, None] + np.arange(w)[None, :]
+        valid = np.arange(w)[None, :] < chunk_lens[:, None]
+        if self.paged:
+            ps = spec.page_size
+            tables = cache.block_tables[slot_ids]
+            page_idx = np.clip(pos // ps, 0, spec.max_pages_per_seq - 1)
+            entry = np.take_along_axis(tables, page_idx, axis=1).astype(np.int64)
+            flat = (entry * ps + pos % ps)[valid]
+            parts = [tables] + (quant_plan(flat, ps) if self.quantized else [flat])
+        else:
+            flat = (slot_ids[:, None].astype(np.int64) * spec.max_len + pos)[valid]
+            parts = [flat // spec.max_len, flat % spec.max_len]
+        dev = _to_device(
+            self.device,
+            [tokens, lengths, np.nonzero(valid.ravel())[0], slot_ids, chunk_lens - 1, lengths + chunk_lens,
+             np.nonzero(picks)[0]]
+            + parts,
+        )
+        tok_t, len_t, rows_t, slots_t, last_t, end_t, pick_t = dev[:7]
+        tables_t, dest_t = (dev[7], dev[8:]) if self.paged else (None, dev[7:])
+        slots_l = slots_t.long()
+
+        def hook(node, ins, ws, ctx):
+            g = node.guid
+            use_bias = node.params.get("bias", True)
+            q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            self._write(g, self._rows(k)[rows_t], self._rows(v)[rows_t], dest_t)
+            if self.paged:
+                attn = paged_verify_attention(
+                    q, cache.k[g], cache.v[g], tables_t, len_t,
+                    kernel=self.decode_kernel, **self._scales(g),
+                )
+            else:
+                attn = verify_attention(
+                    q, cache.k[g][slots_l], cache.v[g][slots_l], len_t, kernel=self.decode_kernel
+                )
+            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+
+        logits = self._forward_logits(params, tok_t, hook)
+        last = logits[torch.arange(B, device=self.device), last_t.long()]
+        nxt = np.zeros(B, dtype=np.int32)
+        if picks.any():
+            # on a final chunk cursor + chunk is the prompt length: the
+            # monolithic prefill's sampling key
+            pick = pick_t.long()
+            nxt[picks] = self._select(last[pick], slots_t[pick], end_t[pick])
+        return nxt, last
+
+    def prefill_suffix(
+        self,
+        params,
+        prompts: Sequence[Sequence[int]],
+        slots: Sequence[int],
+        cursors: Sequence[int],
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """Prefill only prompt[cursor:] of each prompt: the admission of
+        prefix-shared requests, whose mapped pages already hold positions
+        [0, cursor) (the cache parked their lengths at the cursor). The
+        suffixes run as successive chunk steps of at most MAX_W rows, so
+        a long suffix stays on the decode kernels; each request's token
+        comes from its last step, sampled at its full prompt length.
+        Returns (next_tokens [n] on the host, last_logits [n, V]) in
+        request order."""
+        spec = self.cache.spec
+        if not prompts:
+            raise ValueError("prefill_suffix needs at least one prompt")
+        rest = np.zeros(spec.max_seqs, dtype=np.int64)
+        for p, s, c in zip(prompts, slots, cursors):
+            c = int(c)
+            if not 0 <= c < len(p):
+                raise ValueError(
+                    f"cursor {c} outside [0, {len(p)}): at least one prompt "
+                    "token must be recomputed for sampling logits"
+                )
+            if int(self.cache.lengths[s]) != c:
+                raise ValueError(f"slot {s} holds {int(self.cache.lengths[s])} positions, not its cursor {c}")
+            rest[s] = len(p) - c
+        nxt = np.zeros(len(prompts), dtype=np.int32)
+        last = [None] * len(prompts)
+        while rest.any():
+            w = int(min(dk.MAX_W, rest.max()))
+            tokens = np.zeros((spec.max_seqs, w), dtype=np.int32)
+            chunk = np.minimum(rest, w).astype(np.int32)
+            for p, s in zip(prompts, slots):
+                start = int(self.cache.lengths[s])
+                tokens[s, : chunk[s]] = np.asarray(p[start : start + chunk[s]], dtype=np.int32)
+            step_nxt, step_logits = self.prefill_chunk(params, tokens, chunk, final=(chunk > 0) & (chunk == rest))
+            rest -= chunk
+            for i, s in enumerate(slots):
+                if chunk[s] and not rest[s]:
+                    nxt[i], last[i] = step_nxt[s], step_logits[s]
+        return nxt, torch.stack(last)
 
     # -- decode --------------------------------------------------------------
 
@@ -347,8 +557,8 @@ class GenerationEngine:
         """One fixed-shape decode step on the device, with no host read:
         each slot with alive & (step < limits) writes its K/V row at its
         carried length (through the table snapshot on the paged layout;
-        every other row at the scratch row), attends, and takes the greedy
-        argmax; EOS clears alive, and lengths / tokens move for the active
+        every other row at the scratch row), attends, and picks its token
+        (greedy, or sampled at position length + 1); EOS clears alive, and lengths / tokens move for the active
         slots only (the reference's scan body). Writes tokens, mask and
         the finite flag into st.out[step], the logits into
         st.logits[step], then advances st.step. The same core runs under
@@ -390,7 +600,7 @@ class GenerationEngine:
         logits = self._forward_logits(params, st.tokens[:, None], hook)[:, -1, :]
         if st.logits is None:
             st.logits = torch.empty((st.steps, *logits.shape), dtype=logits.dtype, device=logits.device)
-        nxt = logits.argmax(dim=-1).to(torch.int32)
+        nxt = self._select_device(logits, None, lens + 1 if self.temperature > 0.0 else None)
         hit = act & (st.eos >= 0) & (nxt == st.eos)
         at = st.step.long().view(1)
         row = torch.stack([nxt, act.to(torch.int32), torch.isfinite(logits).all(dim=-1).to(torch.int32)])

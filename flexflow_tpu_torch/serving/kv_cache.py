@@ -6,7 +6,7 @@
 * `PagedKVCache` — PagedAttention pools `[num_pages, page_size, heads,
   head_dim]`, a host-side free-page allocator and per-slot block tables
   (`[max_seqs, max_pages_per_seq]` int32, padded with the sentinel
-  `num_pages`). Admission uses the reference's *reserve* policy: a
+  `num_pages`). Admission uses the reference's *reserve* policy by default: a
   request is admitted only when the free pool covers its worst case on
   top of every in-flight request's outstanding worst case, so a decode
   can always claim its next page.
@@ -30,13 +30,30 @@ pools `k_scale`/`v_scale` [num_pages, heads]; the engine's
 rollback on both layouts: it moves a slot's visible length, compacts a
 token tree's accepted rows into contiguous positions, and on the paged
 layout returns pages past the new length to the pool under the reserve
-ledger. Prefix sharing, swap-to-host, optimistic admission and host
-partitions are not ported yet (ROADMAP, Port queue: serving features).
+ledger.
+
+The paged cache also takes the reference's two other admission tools:
+
+  * **optimistic admission** (`alloc(..., optimistic=True)`): a slot is
+    admitted on the pages its sequence fills now and reserves nothing;
+    a later claim that would eat into other slots' reserve raises
+    PagePoolExhausted, which the scheduler answers by preempting.
+  * **prefix cache** (`prefix_cache=True`): every full page is keyed by a
+    hash chained over its tokens and all before it; `alloc_shared` maps
+    the registered pages matching a prefix of a new sequence (refcounted)
+    and parks the slot's length past them, and the first write into a
+    shared page copies it (`_cow_page`: its K/V rows in every layer, and
+    its per-head scales on int8 pools) unless the slot is its last
+    holder. Pages return to the pool when their last reference drops.
+
+Swap-to-host, published-prefix eviction and host partitions are not
+ported yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -182,10 +199,12 @@ class KVCache:
     def num_free(self) -> int:
         return len(self._free)
 
-    def alloc(self, prompt_len: Optional[int] = None, total_len: Optional[int] = None) -> Optional[int]:
+    def alloc(
+        self, prompt_len: Optional[int] = None, total_len: Optional[int] = None, optimistic: bool = False
+    ) -> Optional[int]:
         """Take the lowest free slot (None when full): every slot holds
-        max_len positions, so the lengths (accepted for signature parity
-        with PagedKVCache) cannot change the verdict."""
+        max_len positions, so the lengths and the policy (accepted for
+        signature parity with PagedKVCache) cannot change the verdict."""
         if not self._free:
             return None
         slot = heapq.heappop(self._free)
@@ -255,11 +274,12 @@ class KVCache:
 
 class PagedKVCache:
     """Block-paged pools + host-side page allocator and block tables
-    (reserve admission, single host)."""
+    (reserve or optimistic admission, an optional prefix cache, single
+    host)."""
 
     paged = True
 
-    def __init__(self, spec: KVCacheSpec, dtype: torch.dtype, device):
+    def __init__(self, spec: KVCacheSpec, dtype: torch.dtype, device, prefix_cache: bool = False):
         if not spec.paged:
             raise ValueError("PagedKVCache needs a spec with page_size > 0")
         if spec.max_len % spec.page_size:
@@ -312,6 +332,23 @@ class PagedKVCache:
         self._held = np.zeros(spec.max_seqs, dtype=np.int64)
         self._max_pages = np.zeros(spec.max_seqs, dtype=np.int64)
         self._reserved = 0
+        # optimistic slots keep _max_pages pinned to their owned pages and
+        # never touch _reserved
+        self._optimistic: set = set()
+        # prefix sharing: per-page reference counts (re-derivable from the
+        # tables), the per-entry shared flag (the mapping aliases a page
+        # another request wrote: the first write through it copies), the
+        # per-slot shared count and the hash index (chained key -> page,
+        # with its inverse). The reserve ledger prices OWNED pages
+        # (_held - _shared): a shared mapping costs nothing until it copies
+        self.prefix_cache = bool(prefix_cache)
+        self._refcounts = np.zeros(spec.num_pages, dtype=np.int32)
+        self._entry_shared = np.zeros((spec.max_seqs, spec.max_pages_per_seq), dtype=bool)
+        self._shared = np.zeros(spec.max_seqs, dtype=np.int64)
+        self._prefix_index: Dict[bytes, int] = {}
+        self._page_keys: Dict[int, bytes] = {}
+        self.prefix_hits = 0  # admissions that mapped >= 1 shared page
+        self.cow_copies = 0  # divergent writes that copied a page
 
     @property
     def num_free(self) -> int:
@@ -324,65 +361,275 @@ class PagedKVCache:
     def _pages_for(self, tokens: int) -> int:
         return -(-int(tokens) // self.spec.page_size)
 
-    def can_admit(self, prompt_len: int = 1, total_len: int = 0) -> bool:
-        """True when a slot is free and the free pool covers this
-        request's worst case on top of every in-flight reservation."""
-        need = self._pages_for(max(prompt_len, total_len))
-        return bool(self._free_slots) and len(self._free_pages) - self._reserved >= need
+    def _owned(self, slot: int) -> int:
+        """Pages the slot holds that came from the free pool (its shared
+        mappings alias pages other requests own)."""
+        return int(self._held[slot]) - int(self._shared[slot])
 
-    def alloc(self, prompt_len: Optional[int] = None, total_len: Optional[int] = None) -> Optional[int]:
+    def _avail(self) -> int:
+        """Admission headroom: free pages minus the growth reserve."""
+        return len(self._free_pages) - self._reserved
+
+    def can_admit(self, prompt_len: int = 1, total_len: int = 0, optimistic: bool = False) -> bool:
+        """True when a slot is free and the free pool covers this
+        request's need on top of every in-flight reservation: its worst
+        case under the reserve policy, the pages its prompt fills now
+        under the optimistic one."""
+        need = self._pages_for(prompt_len if optimistic else max(prompt_len, total_len))
+        return bool(self._free_slots) and self._avail() >= need
+
+    def alloc(
+        self, prompt_len: Optional[int] = None, total_len: Optional[int] = None, optimistic: bool = False
+    ) -> Optional[int]:
         """Admit a sequence: take a slot, allocate the pages its prompt
-        fills now and reserve the rest of its worst case. None when the
-        reserve policy refuses. Omitted lengths reserve and fill max_len."""
+        fills now and (reserve policy) reserve the rest of its worst case.
+        None when the policy refuses. `optimistic` reserves nothing past
+        the prompt's pages. Omitted lengths reserve and fill max_len."""
         spec = self.spec
         if prompt_len is None:
             prompt_len = spec.max_len
         total = max(prompt_len, total_len if total_len is not None else 0)
         if total > spec.max_len:
             raise ValueError(f"sequence of {total} tokens exceeds max_len {spec.max_len}")
-        if not self.can_admit(prompt_len, total):
+        if not self.can_admit(prompt_len, total, optimistic):
             return None
         need_now = self._pages_for(prompt_len)
-        max_p = self._pages_for(total)
         slot = heapq.heappop(self._free_slots)
         self._active.add(slot)
         for i in range(need_now):
-            self.block_tables[slot, i] = heapq.heappop(self._free_pages)
+            self._install_page(slot, i, heapq.heappop(self._free_pages))
         self._held[slot] = need_now
-        self._max_pages[slot] = max_p
-        self._reserved += max_p - need_now
+        if optimistic:
+            self._optimistic.add(slot)
+            self._max_pages[slot] = need_now
+        else:
+            self._max_pages[slot] = self._pages_for(total)
+            self._reserved += int(self._max_pages[slot]) - need_now
         self.lengths[slot] = 0
         return slot
 
-    def ensure_position(self, slot: int, pos: int) -> None:
-        """Make position `pos` of `slot` writable, claiming the next page
-        from the free list when the sequence crosses a page boundary (the
-        admission reserve guarantees the claim)."""
+    # -- prefix sharing (hashed page cache + copy-on-write) --------------------
+
+    def _install_page(self, slot: int, pi: int, page: int) -> None:
+        """Map a freshly popped page into a table entry (refcount 1)."""
+        self.block_tables[slot, pi] = page
+        self._refcounts[page] = 1
+
+    def _incref(self, slot: int, pi: int, page: int) -> None:
+        """Map a live page as a SHARED entry of `slot`."""
+        self.block_tables[slot, pi] = page
+        self._refcounts[page] += 1
+        self._entry_shared[slot, pi] = True
+        self._shared[slot] += 1
+
+    def _decref_page(self, page: int) -> None:
+        """Drop one reference; the last one unpublishes the page and
+        returns it to the free list."""
+        self._refcounts[page] -= 1
+        assert self._refcounts[page] >= 0
+        if self._refcounts[page] == 0:
+            key = self._page_keys.pop(page, None)
+            if key is not None and self._prefix_index.get(key) == page:
+                del self._prefix_index[key]
+            heapq.heappush(self._free_pages, page)
+
+    def _decref_entry(self, slot: int, pi: int) -> None:
+        """Clear one table entry: sentinel the mapping, settle the shared
+        flag and the held count, and drop the page's reference."""
+        page = int(self.block_tables[slot, pi])
+        if page == self.spec.num_pages:
+            return
+        self.block_tables[slot, pi] = self.spec.num_pages
+        self._held[slot] -= 1
+        if self._entry_shared[slot, pi]:
+            self._entry_shared[slot, pi] = False
+            self._shared[slot] -= 1
+        self._decref_page(page)
+
+    @staticmethod
+    def _chain_key(prev: bytes, tokens) -> bytes:
+        """Key of a full page holding `tokens`, chained on the previous
+        page's key: equal keys mean equal content and equal prefix, which
+        is what makes a page's K/V rows reusable."""
+        h = hashlib.blake2b(prev, digest_size=16)
+        h.update(np.asarray(tokens, dtype=np.int64).tobytes())
+        return h.digest()
+
+    def match_prefix(self, tokens: Sequence[int]) -> List[int]:
+        """Longest run of registered pages covering a prefix of `tokens`
+        (full pages only). Read-only."""
+        pages: List[int] = []
+        if not self.prefix_cache:
+            return pages
+        ps = self.spec.page_size
+        key = b""
+        for i in range(len(tokens) // ps):
+            key = self._chain_key(key, tokens[i * ps : (i + 1) * ps])
+            page = self._prefix_index.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def register_prefix(self, slot: int, tokens: Sequence[int], upto) -> None:
+        """Publish the slot's full pages covering tokens[:upto] (capped at
+        its visible length, so only written pages) so later admissions can
+        map them. Idempotent; a content collision keeps the page already
+        in the index."""
+        if not self.prefix_cache:
+            return
         if slot not in self._active:
             raise ValueError(f"slot {slot} is not active")
-        pi = pos // self.spec.page_size
-        if self.block_tables[slot, pi] != self.spec.num_pages:
-            return
-        if not self._free_pages:
+        ps = self.spec.page_size
+        upto = min(int(upto), len(tokens), int(self.lengths[slot]))
+        key = b""
+        for i in range(upto // ps):
+            key = self._chain_key(key, tokens[i * ps : (i + 1) * ps])
+            page = int(self.block_tables[slot, i])
+            if page == self.spec.num_pages:
+                break
+            if key in self._prefix_index or page in self._page_keys:
+                continue
+            self._prefix_index[key] = page
+            self._page_keys[page] = key
+
+    def alloc_shared(
+        self,
+        tokens: Sequence[int],
+        prompt_len: Optional[int] = None,
+        total_len: Optional[int] = None,
+        optimistic: bool = False,
+    ) -> Optional[Tuple[int, int]]:
+        """Admit a sequence with prefix sharing: registered pages matching
+        a prefix of `tokens` are mapped (refcounted) instead of allocated;
+        returns (slot, cursor), the cursor past the shared content, where
+        the slot's length is parked. At least one token is always left to
+        recompute (the request needs its sampling logits), so a
+        whole-sequence match gets cursor len(tokens) - 1 and its first
+        write copies the last shared page. `prompt_len` is the span
+        allocated now (0 under chunked prefill). Plain `alloc` with cursor
+        0 when the prefix cache is off; None when admission is refused."""
+        spec = self.spec
+        ntok = len(tokens)
+        if prompt_len is None:
+            prompt_len = ntok
+        total = max(ntok, prompt_len, total_len if total_len is not None else 0)
+        if total > spec.max_len:
+            raise ValueError(f"sequence of {total} tokens exceeds max_len {spec.max_len}")
+        if not self.prefix_cache:
+            slot = self.alloc(prompt_len, total, optimistic=optimistic)
+            return None if slot is None else (slot, 0)
+        ps = spec.page_size
+        matched = self.match_prefix(tokens)
+        m = len(matched)
+        cursor = min(m * ps, max(0, ntok - 1))
+        # fresh pages now: the unshared rest of the eager span; the worst
+        # case over the slot's life: every page from the cursor's on (the
+        # cursor's page copies when it is still shared)
+        fresh_now = max(0, self._pages_for(prompt_len) - m)
+        max_p = self._pages_for(total) - cursor // ps
+        if not self._free_slots or self._avail() < (fresh_now if optimistic else max_p):
+            return None
+        slot = heapq.heappop(self._free_slots)
+        self._active.add(slot)
+        for i, page in enumerate(matched):
+            self._incref(slot, i, page)
+        for i in range(m, m + fresh_now):
+            self._install_page(slot, i, heapq.heappop(self._free_pages))
+        self._held[slot] = m + fresh_now
+        if optimistic:
+            self._optimistic.add(slot)
+            self._max_pages[slot] = fresh_now
+        else:
+            self._max_pages[slot] = max_p
+            self._reserved += max_p - fresh_now
+        self.lengths[slot] = cursor
+        if m:
+            self.prefix_hits += 1
+        return slot, cursor
+
+    def _claimable(self, slot: int) -> None:
+        """Raise PagePoolExhausted unless `slot` may take one more page
+        from the pool: an optimistic slot only from the headroom above the
+        reserve, a reserve slot from its own reserve."""
+        if slot in self._optimistic:
+            if self._avail() < 1:
+                raise PagePoolExhausted(
+                    f"free-page pool exhausted: optimistic slot {slot} needs a page "
+                    f"but {len(self._free_pages)} free - {self._reserved} reserved "
+                    "leaves none"
+                )
+        elif not self._free_pages:
             raise PagePoolExhausted(
                 "free-page pool exhausted despite the admission reserve — "
                 "allocator invariant violated"
             )
-        self.block_tables[slot, pi] = heapq.heappop(self._free_pages)
+
+    def _cow_page(self, slot: int, pi: int) -> None:
+        """First write into a shared mapping: take the page over when this
+        slot is its last holder (the content is about to diverge, so the
+        index stops advertising it), else pop a fresh page, copy the shared
+        page's K/V rows (and, on int8 pools, its per-head scales) in every
+        layer, and remap the entry; other holders keep the old page."""
+        page = int(self.block_tables[slot, pi])
+        if self._refcounts[page] > 1:
+            self._claimable(slot)
+            new = heapq.heappop(self._free_pages)
+            for g in self.spec.layer_guids:
+                self.k[g][new] = self.k[g][page]
+                self.v[g][new] = self.v[g][page]
+                if self.quantized:
+                    self.k_scale[g][new] = self.k_scale[g][page]
+                    self.v_scale[g][new] = self.v_scale[g][page]
+            self.block_tables[slot, pi] = new
+            self._refcounts[new] = 1
+            self._refcounts[page] -= 1
+            self.cow_copies += 1
+        else:
+            key = self._page_keys.pop(page, None)
+            if key is not None and self._prefix_index.get(key) == page:
+                del self._prefix_index[key]
+        self._entry_shared[slot, pi] = False
+        self._shared[slot] -= 1
+        if slot in self._optimistic:
+            self._max_pages[slot] = self._owned(slot)
+        elif self._owned(slot) <= self._max_pages[slot]:
+            self._reserved -= 1
+
+    def ensure_position(self, slot: int, pos: int) -> None:
+        """Make position `pos` of `slot` writable: claim the page when the
+        sequence crosses a page boundary (the admission reserve guarantees
+        a reserve slot's claim; an optimistic slot's raises
+        PagePoolExhausted when it would eat into the reserve, the
+        scheduler's cue to preempt), and copy a shared page before its
+        first write. Every step claims its write positions here, which
+        makes this the one copy-on-write seam."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not active")
+        pi = pos // self.spec.page_size
+        if self.block_tables[slot, pi] != self.spec.num_pages:
+            if self._entry_shared[slot, pi]:
+                self._cow_page(slot, pi)
+            return
+        self._claimable(slot)
+        self._install_page(slot, pi, heapq.heappop(self._free_pages))
         self._held[slot] += 1
-        if self._held[slot] <= self._max_pages[slot]:
+        if slot in self._optimistic:
+            self._max_pages[slot] = self._owned(slot)
+        elif self._owned(slot) <= self._max_pages[slot]:
             self._reserved -= 1
 
     def free(self, slot: int) -> None:
         if slot not in self._active:
             raise ValueError(f"slot {slot} is not active")
         self._active.remove(slot)
-        self._reserved -= max(0, int(self._max_pages[slot] - self._held[slot]))
+        owned = self._owned(slot)
         for pi in range(self.spec.max_pages_per_seq):
-            page = int(self.block_tables[slot, pi])
-            if page != self.spec.num_pages:
-                heapq.heappush(self._free_pages, page)
-                self.block_tables[slot, pi] = self.spec.num_pages
+            self._decref_entry(slot, pi)
+        if slot in self._optimistic:
+            self._optimistic.discard(slot)
+        else:
+            self._reserved -= max(0, int(self._max_pages[slot]) - owned)
         self._held[slot] = 0
         self._max_pages[slot] = 0
         self.lengths[slot] = 0
@@ -421,14 +668,14 @@ class PagedKVCache:
             moves = _compaction(new_len, src_rows, spec.max_len)
             if moves is not None:
                 self._compact_rows(slot, *moves)
-        old_resv = max(0, int(self._max_pages[slot] - self._held[slot]))
+        old_resv = max(0, int(self._max_pages[slot]) - self._owned(slot))
         for pi in range(keep, spec.max_pages_per_seq):
-            page = int(self.block_tables[slot, pi])
-            if page != spec.num_pages:
-                heapq.heappush(self._free_pages, page)
-                self.block_tables[slot, pi] = spec.num_pages
-                self._held[slot] -= 1
-        self._reserved += max(0, int(self._max_pages[slot] - self._held[slot])) - old_resv
+            self._decref_entry(slot, pi)
+        if slot in self._optimistic:
+            # released pages return to the common pool, not a reserve
+            self._max_pages[slot] = self._owned(slot)
+        else:
+            self._reserved += max(0, int(self._max_pages[slot]) - self._owned(slot)) - old_resv
         self.lengths[slot] = new_len
 
     def _compact_rows(self, slot: int, srcs: np.ndarray, dests: np.ndarray) -> None:
@@ -470,27 +717,49 @@ class PagedKVCache:
 
     def check_invariants(self) -> None:
         """Assert the allocator's accounting re-derives from the block
-        tables: every page is in exactly one table or on the free heap,
-        per-slot ledgers match the tables, visible lengths fit the held
-        pages, and the reserve never promises pages the pool lacks."""
+        tables: the refcounts equal the tables' references and a page has
+        at most one owning (unshared) mapping; every page is live or on the
+        free heap, never both; per-slot ledgers match the tables and
+        visible lengths fit the held pages; the hash index advertises live
+        pages only, bijectively; the reserve re-derives over reserve slots'
+        owned pages and never promises pages the pool lacks; optimistic
+        slots carry no reserve."""
         spec = self.spec
         sentinel = spec.num_pages
-        seen: List[int] = []
+        refs = np.zeros(spec.num_pages, dtype=np.int64)
+        owners = np.zeros(spec.num_pages, dtype=np.int64)
         for s in range(spec.max_seqs):
             row = [int(p) for p in self.block_tables[s] if p != sentinel]
+            for pi in range(spec.max_pages_per_seq):
+                p = int(self.block_tables[s, pi])
+                if p == sentinel:
+                    assert not self._entry_shared[s, pi]
+                    continue
+                refs[p] += 1
+                owners[p] += not self._entry_shared[s, pi]
             assert len(row) == int(self._held[s])
-            seen += row
+            assert int(self._entry_shared[s].sum()) == int(self._shared[s])
             if s not in self._active:
                 assert not row and self.lengths[s] == 0
             else:
                 assert int(self.lengths[s]) <= len(row) * spec.page_size
-        assert len(seen) == len(set(seen))
-        assert set(seen).isdisjoint(self._free_pages)
-        assert len(seen) + len(self._free_pages) == spec.num_pages
+        assert np.array_equal(refs, self._refcounts.astype(np.int64))
+        assert (owners <= 1).all()
+        live = set(np.nonzero(refs)[0].tolist())
+        assert len(self._free_pages) == len(set(self._free_pages))
+        assert live.isdisjoint(self._free_pages)
+        assert len(live) + len(self._free_pages) == spec.num_pages
+        assert len(self._prefix_index) == len(self._page_keys)
+        for key, p in self._prefix_index.items():
+            assert self._page_keys.get(p) == key and refs[p] > 0
         assert self._reserved == sum(
-            max(0, int(self._max_pages[s] - self._held[s])) for s in self._active
+            max(0, int(self._max_pages[s]) - self._owned(s))
+            for s in self._active
+            if s not in self._optimistic
         )
         assert 0 <= self._reserved <= len(self._free_pages)
+        for s in self._optimistic:
+            assert s in self._active and int(self._max_pages[s]) == self._owned(s)
         assert self._active.isdisjoint(self._free_slots)
         assert len(self._active) + len(self._free_slots) == spec.max_seqs
 
@@ -504,10 +773,12 @@ class PagedKVCache:
         page_size: int = 0,
         num_pages: int = 0,
         kv_dtype: str = "fp32",
+        prefix_cache: bool = False,
     ) -> "PagedKVCache":
         """Defaults pick the vLLM-style page size and a pool with exactly
         the slot layout's capacity (max_seqs * max_len rows). kv_dtype
-        "int8" makes int8 pools with fp32 scale side pools."""
+        "int8" makes int8 pools with fp32 scale side pools; prefix_cache
+        turns on the hashed page cache."""
         guids, heads, head_dim = _derive_geometry(model)
         if page_size <= 0:
             page_size = default_page_size(max_len)
@@ -524,4 +795,4 @@ class PagedKVCache:
             num_pages=num_pages,
             kv_dtype=kv_dtype,
         )
-        return PagedKVCache(spec, dtype, model.device)
+        return PagedKVCache(spec, dtype, model.device, prefix_cache=prefix_cache)

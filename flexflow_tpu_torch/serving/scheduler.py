@@ -30,9 +30,31 @@ window inside each request's budget, max_len and (paged) its current
 page, EOS retires a slot inside the window, and the commit rolls back
 what a slot did not take. Fused streams equal one-at-a-time streams.
 
-The async loop, chunked prefill, preemption, swap, tenancy, journal,
-fault injection and telemetry are not ported yet (ROADMAP, Port queue:
-serving features).
+With a `token_budget` (chunked prefill, Sarathi-Serve), admission no
+longer prefills: each iteration plans round-robin chunk grants of
+`chunk_size` tokens (at most decode_kernel.MAX_W per slot) within the
+budget the decode/verify step leaves, runs one chunk step over the
+slots still streaming their prompts in, and emits a request's first
+token when its final chunk commits; that slot decodes from the next
+iteration on.
+
+With a prefix-caching paged cache, admission maps the registered pages
+that match a prefix of the sequence and prefills only the rest
+(engine.prefill_suffix, or chunk steps from the shared cursor); the
+prefill publishes the request's full pages only after it returned.
+
+Under `admission="optimistic"` the paged cache admits on the prompt's
+pages alone; when a page claim finds the pool dry, the youngest running
+request (by (admit_iter, rid)) is preempted: its slot and pages are
+freed and it re-queues at the head, to be re-admitted with prompt +
+generated tokens as its recompute sequence. A request preempted more
+than `max_preemptions` times fails, naming the cause.
+
+Sampling (the engine's temperature and seed) reaches the speculative
+acceptance rules of serving/spec.py as the reference passes them.
+
+The async loop, swap-to-host, DRR tenancy, journal, fault injection and
+telemetry are not ported yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
@@ -45,8 +67,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.ops.cuda.decode_kernel import MAX_W
 from flexflow_tpu_torch.serving.kv_cache import PagePoolExhausted
 from flexflow_tpu_torch.serving.spec import DraftTree, accept_drafts, accept_tree
+
+# chunk widths are the decode kernels' query rows: a multiple of this
+# (the reference's decode_kernel.SUBLANES)
+CHUNK_ALIGN = 8
 
 
 class RequestStatus:
@@ -86,12 +113,20 @@ class Request:
     slot: Optional[int] = None
     status: str = RequestStatus.QUEUED
     error: Optional[str] = None
+    preemptions: int = 0
     submit_iter: int = -1
     admit_iter: int = -1
     finish_iter: int = -1
     submit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    # chunked prefill (token_budget > 0): the sequence being prefilled
+    # (prompt + recompute tokens, fixed at admission) and the cursor of
+    # its committed chunks. prefill_pos < len(prefill_seq) means the
+    # request is still prefilling: it neither decodes nor drafts until its
+    # last chunk lands
+    prefill_seq: List[int] = dataclasses.field(default_factory=list)
+    prefill_pos: int = 0
 
     @property
     def finished(self) -> bool:
@@ -165,8 +200,22 @@ class SchedulerStats:
     multistep_steps: int = 0  # decode steps run inside fused windows
     multistep_cache_entries: int = 0  # captured CUDA graphs alive (gauge)
     # steps that read device results on the host, every kind (prefill
-    # batches, decode and verify steps, fused windows)
+    # batches, decode and verify steps, fused windows, chunk steps)
     host_syncs: int = 0
+    peak_in_flight: int = 0  # max concurrent running requests observed
+    # chunked prefill (token_budget > 0)
+    chunk_steps: int = 0  # chunk steps run
+    chunk_tokens: int = 0  # prompt tokens streamed in through chunks
+    budget_deferrals: int = 0  # prefill-pending slots granted no tokens
+    budget_used: int = 0  # tokens the last iteration charged to its budget
+    chunk_s: float = 0.0  # wall time of chunk steps, as decode_s
+    # optimistic admission
+    preemptions: int = 0  # preempt-and-requeue events
+    # prefix cache (mirrored from the allocator at each iteration end)
+    prefix_hits: int = 0  # admissions that mapped at least one shared page
+    prefix_pages_shared: int = 0  # live shared table entries (gauge)
+    cow_copies: int = 0  # copy-on-write page forks
+    prefix_tokens_skipped: int = 0  # prompt tokens admission did not recompute
 
     @property
     def tokens_per_s(self) -> float:
@@ -223,7 +272,11 @@ class _SchedulerBase:
         proposer=None,
         spec_k: int = 4,
         spec_branch: int = 1,
+        admission: str = "reserve",
+        max_preemptions: int = 3,
         debug_invariants: bool = False,
+        token_budget: int = 0,
+        chunk_size: int = 16,
         decode_multistep: bool = False,
         max_fused_steps: int = 8,
     ):
@@ -249,6 +302,16 @@ class _SchedulerBase:
         # this iteration's drafts, made by _fusable_steps' dry run and
         # consumed by _verify_once, so nothing drafts twice
         self._cached_proposals = None
+        # admission, max_preemptions, token_budget and chunk_size arrive
+        # checked by ServeConfig
+        self.admission = admission
+        self.max_preemptions = int(max_preemptions)
+        self.token_budget = int(token_budget)
+        self.chunk_size = int(chunk_size)
+        # slots whose final chunk committed this iteration: their first
+        # decode/verify waits for the next one
+        self._chunk_unlocked: set = set()
+        self._budget_used_iter = 0
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}  # slot -> request
         self.finished: List[Request] = []
@@ -359,17 +422,66 @@ class _SchedulerBase:
         for req in list(self.running.values()):
             self._fail(req, error)
 
+    # -- preemption (optimistic admission) -----------------------------------
+
+    def _pick_victim(self) -> Optional[Request]:
+        """Youngest-by-admission running request (the vLLM victim rule:
+        the least recompute to lose and, under FIFO, the weakest claim);
+        (admit_iter, rid) makes the choice deterministic."""
+        if not self.running:
+            return None
+        return max(self.running.values(), key=lambda r: (r.admit_iter, r.rid))
+
+    def _preempt(self, req: Request, cause: str = "pool") -> None:
+        """Reclaim the victim's slot and pages and re-queue it at the
+        head, to be re-admitted with prompt + generated as its recompute
+        sequence. A request preempted more than max_preemptions times
+        fails instead, naming the cause."""
+        req.preemptions += 1
+        self.stats.preemptions += 1
+        if req.preemptions > self.max_preemptions:
+            self._fail(
+                req,
+                f"preempted {req.preemptions} times (max_preemptions "
+                f"{self.max_preemptions}; last cause={cause})",
+            )
+            return
+        if self.proposer is not None:
+            self.proposer.retire(req)
+        del self.running[req.slot]
+        self.cache.free(req.slot)
+        req.slot = None
+        req.status = RequestStatus.QUEUED
+        self.queue.appendleft(req)
+
     # -- admission + prefill -------------------------------------------------
 
     def _admit(self) -> List[Request]:
         """FIFO admission into free slots (the head either admits or
         blocks everyone behind it) + one prefill batch for the admitted
-        set. The paged layout also requires the request's worst-case
-        pages to be free."""
+        set. The paged layout also requires free pages: the request's
+        worst case under the reserve policy, only the pages its sequence
+        fills now under the optimistic one. A preempted request re-admits
+        with prompt + generated, whose prefill rebuilds the KV it lost and
+        samples its next token. With a prefix cache, registered pages
+        matching a prefix of the sequence are mapped and only the rest is
+        prefilled; with a token budget nothing is prefilled here: the
+        chunk cursors are armed and the planner streams the sequence in."""
+        optimistic = self.admission == "optimistic"
+        prefix = bool(getattr(self.cache, "prefix_cache", False))
         admitted: List[Request] = []
+        seqs: List[List[int]] = []
+        cursors: List[int] = []
         while self.queue:
             req = self.queue[0]
-            slot = self.cache.alloc(len(req.prompt), len(req.prompt) + req.max_new_tokens)
+            seq = list(req.prompt) + list(req.generated)
+            now = 0 if self.token_budget else len(seq)
+            total = len(req.prompt) + req.max_new_tokens
+            if prefix:
+                res = self.cache.alloc_shared(seq, prompt_len=now, total_len=total, optimistic=optimistic)
+                slot, cursor = (None, 0) if res is None else res
+            else:
+                slot, cursor = self.cache.alloc(now, total, optimistic=optimistic), 0
             if slot is None:
                 break
             self.queue.popleft()
@@ -378,16 +490,42 @@ class _SchedulerBase:
             req.status = RequestStatus.RUNNING
             self.running[slot] = req
             admitted.append(req)
+            seqs.append(seq)
+            cursors.append(cursor)
+            self.stats.prefix_tokens_skipped += cursor
+        self.stats.peak_in_flight = max(self.stats.peak_in_flight, len(self.running))
         if not admitted:
             return admitted
         if self.proposer is not None:
             self.proposer.admit(admitted)
+        if self.token_budget:
+            # shared admissions start their cursors at the shared extent
+            for req, seq, cur in zip(admitted, seqs, cursors):
+                req.prefill_seq = [int(t) for t in seq]
+                req.prefill_pos = cur
+            return admitted
         t0 = time.perf_counter()
         try:
-            nxt, last = self.engine.prefill(
-                self.params, [r.prompt for r in admitted], [r.slot for r in admitted]
-            )
-            finite = _finite_rows(last)
+            plain = [i for i, c in enumerate(cursors) if c == 0]
+            shared = [i for i, c in enumerate(cursors) if c > 0]
+            nxt = np.zeros(len(admitted), dtype=np.int64)
+            finite = np.zeros(len(admitted), dtype=bool)
+            if plain:
+                nxt_p, last_p = self.engine.prefill(
+                    self.params, [seqs[i] for i in plain], [admitted[i].slot for i in plain]
+                )
+                nxt[plain], finite[plain] = nxt_p, _finite_rows(last_p)
+                self.stats.host_syncs += 1
+            if shared:
+                # the mapped pages already hold the prefix's rows
+                nxt_s, last_s = self.engine.prefill_suffix(
+                    self.params,
+                    [seqs[i] for i in shared],
+                    [admitted[i].slot for i in shared],
+                    [cursors[i] for i in shared],
+                )
+                nxt[shared], finite[shared] = nxt_s, _finite_rows(last_s)
+                self.stats.host_syncs += 1
         except Exception as e:  # fault isolation: the batch fails,
             # in-flight slots are untouched and keep decoding
             self.stats.step_faults += 1
@@ -396,7 +534,11 @@ class _SchedulerBase:
             return admitted
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_batches += 1
-        self.stats.host_syncs += 1
+        if prefix:
+            # publish only after the prefill returned: a failed step must
+            # never leave keys pointing at pages it did not write
+            for req, seq in zip(admitted, seqs):
+                self.cache.register_prefix(req.slot, seq, len(seq))
         for i, req in enumerate(admitted):
             if not finite[i]:
                 self._fail(req, f"non-finite prefill logits at iteration {self._iter}")
@@ -416,9 +558,12 @@ class _SchedulerBase:
 
     def _secure_pages(self, widths: Dict[int, int]) -> None:
         """Claim every page this iteration's step writes before the step:
-        slot s writes rows lengths[s] .. lengths[s] + widths[s] - 1.
-        Under the reserve policy the claims are guaranteed, and a
-        PagePoolExhausted fails just that slot."""
+        slot s writes rows lengths[s] .. lengths[s] + widths[s] - 1 (a
+        shared page among them is copied first). Under the reserve policy
+        the claims are guaranteed, and a PagePoolExhausted fails just that
+        slot; under the optimistic one a dry pool preempts the youngest
+        running request and retries, which may preempt the very request
+        claiming (its re-queue ends its claim loop)."""
         if not getattr(self.cache, "paged", False):
             return
         for slot in sorted(widths):
@@ -426,16 +571,32 @@ class _SchedulerBase:
             if req is None:
                 continue
             start = int(self.cache.lengths[slot])
-            try:
-                for pos in range(start, start + widths[slot]):
+            pos = start
+            while req.status == RequestStatus.RUNNING and pos < start + widths[slot]:
+                try:
                     self.cache.ensure_position(slot, pos)
-            except PagePoolExhausted as e:
-                self._fail(req, str(e))
+                    pos += 1
+                except PagePoolExhausted as e:
+                    victim = self._pick_victim() if self.admission == "optimistic" else None
+                    if victim is None:
+                        self._fail(req, str(e))
+                        break
+                    self._preempt(victim)
+
+    def _decodable(self) -> Dict[int, Request]:
+        """The running slots past prefill: not streaming a prompt in, and
+        not in the iteration their final chunk committed."""
+        return {
+            s: r
+            for s, r in self.running.items()
+            if not self._prefill_pending(r) and s not in self._chunk_unlocked
+        }
 
     def _decode_once(self) -> None:
-        """One decode step over every running slot."""
-        self._secure_pages({slot: 1 for slot in self.running})
-        stepped = dict(self.running)
+        """One decode step over every running slot past prefill."""
+        stepped = self._decodable()
+        self._secure_pages({slot: 1 for slot in stepped})
+        stepped = {s: r for s, r in stepped.items() if self.running.get(s) is r}
         if not stepped:
             return
         spec = self.cache.spec
@@ -456,6 +617,7 @@ class _SchedulerBase:
         self.stats.host_syncs += 1
         self.stats.slot_steps += spec.max_seqs
         self.stats.busy_slot_steps += int(active.sum())
+        self._budget_used_iter += int(active.sum())
         for slot, req in stepped.items():
             if self.running.get(slot) is not req:
                 continue
@@ -474,17 +636,21 @@ class _SchedulerBase:
         proposer (its draft cache must advance with every committed
         token) and an iteration where a stateless proposer drafted (a
         verify's acceptance is host logic; the dry run's drafts are kept
-        for _verify_once). Deadlines do not hold fusing: one expiring
-        mid-window is reaped after the window. Per-slot EOS, budget and
-        page-boundary caps are the window's own
-        (_decode_multi_step). The reference's other holds guard features
-        not ported yet: optimistic admission (ROADMAP, Port queue:
-        preemption and swap), chunk streaming (Port queue: chunked
-        prefill) and cancels deferred to a reconcile (Port queue: async
-        engine)."""
+        for _verify_once), optimistic admission (a preemption must never
+        meet an open window), a prompt still streaming in and a final
+        chunk that committed this iteration. Deadlines do not hold fusing:
+        one expiring mid-window is reaped after the window. Per-slot EOS,
+        budget and page-boundary caps are the window's own
+        (_decode_multi_step). The reference's other hold, cancels deferred
+        to a reconcile, guards the async engine, not ported yet (ROADMAP,
+        Port queue: serving features)."""
         if not self.decode_multistep or self.max_fused_steps <= 1:
             return 1
         if self.queue:
+            return 1
+        if self.admission == "optimistic":
+            return 1
+        if self._chunk_unlocked or any(self._prefill_pending(r) for r in self.running.values()):
             return 1
         if self.proposer is not None:
             if not getattr(self.proposer, "stateless", False):
@@ -513,7 +679,7 @@ class _SchedulerBase:
         spec = self.cache.spec
         ps = spec.page_size if getattr(self.cache, "paged", False) else 0
         limits: Dict[int, int] = {}
-        for slot, req in self.running.items():
+        for slot, req in self._decodable().items():
             cur = int(self.cache.lengths[slot])
             cap = min(k, req.max_new_tokens - len(req.generated), spec.max_len - cur)
             if ps:
@@ -524,6 +690,7 @@ class _SchedulerBase:
         stepped = {s: r for s, r in self.running.items() if s in limits}
         if not stepped:
             return
+        self._budget_used_iter += len(stepped)
         tokens = np.zeros(spec.max_seqs, dtype=np.int32)
         active = np.zeros(spec.max_seqs, dtype=bool)
         step_limits = np.zeros(spec.max_seqs, dtype=np.int32)
@@ -578,11 +745,11 @@ class _SchedulerBase:
     # -- speculative decoding --------------------------------------------------
 
     def _propose(self, k: int) -> Dict[int, List[int]]:
-        """Draft tokens for the running slots; a proposer fault degrades
-        THIS iteration to plain decode (empty proposals make every verify
-        row a w=1 decode) instead of killing the run."""
+        """Draft tokens for the running slots past prefill; a proposer
+        fault degrades THIS iteration to plain decode (empty proposals
+        make every verify row a w=1 decode) instead of killing the run."""
         try:
-            return self.proposer.propose(dict(self.running), k)
+            return self.proposer.propose(self._decodable(), k)
         except Exception:
             self.stats.draft_faults += 1
             return {}
@@ -591,7 +758,7 @@ class _SchedulerBase:
         """Tree twin of _propose: one deduped token tree per running slot
         (up to spec_k deep, spec_branch alternatives per level)."""
         try:
-            return self.proposer.propose_trees(dict(self.running), self.spec_k, self.spec_branch)
+            return self.proposer.propose_trees(self._decodable(), self.spec_k, self.spec_branch)
         except Exception:
             self.stats.draft_faults += 1
             return {}
@@ -618,6 +785,7 @@ class _SchedulerBase:
         self.stats.host_syncs += 1
         self.stats.slot_steps += spec.max_seqs
         self.stats.busy_slot_steps += len(plan)
+        self._budget_used_iter += sum(widths[s] for s in plan)
         return logits
 
     def _verify_dispatch_step(self, proposals) -> Optional[_VerifyStep]:
@@ -625,19 +793,26 @@ class _SchedulerBase:
         drafts to its remaining budget and the cache horizon (a verify
         emits up to k_s + 1 tokens and writes k_s + 1 rows, which also
         keeps paged verify inside the admission reserve), claim the pages,
-        and run one batched verify of width spec_k + 1."""
+        and run one batched verify of width spec_k + 1. Under a token
+        budget every verifying slot keeps its one-token floor and drafts
+        fit in what remains, first-come by slot id."""
         spec = self.cache.spec
         k = self.spec_k
         lengths = self.cache.lengths.copy()
         plan: Dict[int, List[int]] = {}
-        for slot, req in sorted(self.running.items()):
+        budget_left = self.token_budget if self.token_budget else None
+        for slot, req in sorted(self._decodable().items()):
             k_s = min(
                 len(proposals.get(slot) or ()),
                 k,
                 req.max_new_tokens - len(req.generated) - 1,
                 spec.max_len - int(lengths[slot]) - 1,
             )
+            if budget_left is not None:
+                k_s = min(k_s, max(0, budget_left - 1))
             plan[slot] = list(proposals.get(slot) or ())[: max(0, k_s)]
+            if budget_left is not None:
+                budget_left -= 1 + len(plan[slot])
         participants = dict(self.running)
 
         def call(plan):
@@ -669,7 +844,12 @@ class _SchedulerBase:
                 self._fail(req, f"non-finite logits at iteration {self._iter}")
                 continue
             accepted, emitted = accept_drafts(
-                step.logits[slot], drafts, slot=slot, base_len=old_len
+                step.logits[slot],
+                drafts,
+                temperature=self.engine.temperature,
+                seed=self.engine.seed,
+                slot=slot,
+                base_len=old_len,
             )
             # commit BEFORE emitting: _emit may retire the request, which
             # frees the slot
@@ -688,13 +868,19 @@ class _SchedulerBase:
         w = 1 + self._tree_nodes
         lengths = self.cache.lengths.copy()
         plan: Dict[int, DraftTree] = {}
-        for slot, req in sorted(self.running.items()):
+        budget_left = self.token_budget if self.token_budget else None
+        for slot, req in sorted(self._decodable().items()):
             # every node writes a cache row (horizon cap), but accepted
-            # tokens are bounded by the depth (request budget cap)
+            # tokens are bounded by the depth (request budget cap); nodes
+            # are charged to the token budget as linear drafts are
             max_nodes = min(self._tree_nodes, spec.max_len - int(lengths[slot]) - 1)
             max_depth = req.max_new_tokens - len(req.generated) - 1
+            if budget_left is not None:
+                max_nodes = min(max_nodes, max(0, budget_left - 1))
             tree = trees.get(slot) or DraftTree([], [])
             plan[slot] = tree.prune(max(0, max_nodes), max(0, max_depth))
+            if budget_left is not None:
+                budget_left -= 1 + plan[slot].nodes
         participants = dict(self.running)
 
         def call(plan):
@@ -731,7 +917,14 @@ class _SchedulerBase:
             if not np.isfinite(step.logits[slot, : 1 + tree.nodes]).all():
                 self._fail(req, f"non-finite logits at iteration {self._iter}")
                 continue
-            path, emitted = accept_tree(step.logits[slot], tree, slot=slot, base_len=old_len)
+            path, emitted = accept_tree(
+                step.logits[slot],
+                tree,
+                temperature=self.engine.temperature,
+                seed=self.engine.seed,
+                slot=slot,
+                base_len=old_len,
+            )
             # node i's row sits at position old_len + 1 + i
             self.cache.truncate(
                 slot, old_len + len(path) + 1, src_rows=[old_len + 1 + n for n in path]
@@ -763,6 +956,123 @@ class _SchedulerBase:
             if step is not None:
                 self._commit_verify(step)
 
+    # -- chunked prefill (token_budget > 0) -------------------------------------
+
+    def _prefill_pending(self, req: Request) -> bool:
+        """True while a chunked request still has prompt tokens whose
+        chunk has not committed (monolithic admissions never are)."""
+        return bool(req.prefill_seq) and req.prefill_pos < len(req.prefill_seq)
+
+    def _reserved_step_tokens(self) -> int:
+        """Tokens this iteration's decode/verify step may take for the
+        slots past prefill: 1 each, plus the drafts under speculation.
+        The chunk planner budgets around it, so decodes keep their cadence
+        while a prompt streams in."""
+        per = 1 + ((self._tree_nodes if self.spec_branch > 1 else self.spec_k) if self.proposer else 0)
+        return per * sum(
+            1
+            for r in self.running.values()
+            if not self._prefill_pending(r) and len(r.generated) < r.max_new_tokens
+        )
+
+    def _plan_chunks(self, reserved: int) -> Dict[int, int]:
+        """Fair-share chunk grants for one iteration: round-robin passes
+        over the prefill-pending slots in admission order, one chunk_size
+        unit (or the remainder) per pass, until the budget left after
+        `reserved` runs out; each slot's grant stops at decode_kernel.MAX_W
+        (the kernels' query rows). A grant that finishes a prompt costs
+        only its own tokens: the slot's first decode waits one iteration
+        (_chunk_unlocked). Pending slots granted nothing count as budget
+        deferrals."""
+        pending = sorted(
+            (r for r in self.running.values() if self._prefill_pending(r)),
+            key=lambda r: (r.admit_iter, r.rid),
+        )
+        if not pending:
+            return {}
+        plan: Dict[int, int] = {r.slot: 0 for r in pending}
+        budget = self.token_budget - int(reserved)
+        progress = True
+        while progress and budget > 0:
+            progress = False
+            for req in pending:
+                rem = len(req.prefill_seq) - req.prefill_pos - plan[req.slot]
+                if rem <= 0 or plan[req.slot] >= MAX_W:
+                    continue
+                unit = min(self.chunk_size, rem, MAX_W - plan[req.slot])
+                if unit > budget:
+                    continue
+                plan[req.slot] += unit
+                budget -= unit
+                progress = True
+        self.stats.budget_deferrals += sum(1 for c in plan.values() if c == 0)
+        return {s: c for s, c in plan.items() if c > 0}
+
+    def _chunk_once(self) -> None:
+        """One chunked-prefill step: plan within the budget the
+        decode/verify step leaves, claim the chunk rows' pages (which may
+        preempt under optimistic admission), run the step at the width of
+        the largest grant padded up to a multiple of chunk_size (never
+        past MAX_W: the padding changes no result), and commit: cursors
+        advance, a prefix cache publishes every committed full page, and a
+        final chunk emits the request's first token."""
+        plan = self._plan_chunks(self._reserved_step_tokens())
+        if not plan:
+            return
+        self._secure_pages(dict(plan))
+        live: Dict[int, int] = {}
+        for slot, c in plan.items():
+            req = self.running.get(slot)
+            if req is not None:  # a preemption may have evicted it
+                c = min(c, len(req.prefill_seq) - req.prefill_pos)
+                if c > 0:
+                    live[slot] = c
+        if not live:
+            return
+        spec = self.cache.spec
+        w = max(live.values())
+        w = min(-(-w // self.chunk_size) * self.chunk_size, MAX_W)
+        tokens = np.zeros((spec.max_seqs, w), dtype=np.int32)
+        chunk_lens = np.zeros(spec.max_seqs, dtype=np.int32)
+        finals = np.zeros(spec.max_seqs, dtype=bool)
+        chunks: Dict[int, tuple] = {}
+        for slot, c in sorted(live.items()):
+            req = self.running[slot]
+            start = req.prefill_pos
+            tokens[slot, :c] = req.prefill_seq[start : start + c]
+            chunk_lens[slot] = c
+            finals[slot] = start + c >= len(req.prefill_seq)
+            chunks[slot] = (req, start, c, finals[slot])
+        t0 = time.perf_counter()
+        try:
+            nxt, logits = self.engine.prefill_chunk(self.params, tokens, chunk_lens, finals)
+            finite = _finite_rows(logits)
+        except Exception as e:
+            self._fail_all_running(f"chunk step failed: {e!r}")
+            return
+        stats = self.stats
+        stats.chunk_s += time.perf_counter() - t0
+        stats.chunk_steps += 1
+        stats.chunk_tokens += int(chunk_lens.sum())
+        stats.host_syncs += 1
+        stats.slot_steps += spec.max_seqs
+        stats.busy_slot_steps += len(chunks)
+        self._budget_used_iter += int(chunk_lens.sum())
+        prefix = bool(getattr(self.cache, "prefix_cache", False))
+        for slot, (req, start, size, final) in sorted(chunks.items()):
+            if self.running.get(slot) is not req:
+                continue
+            if not finite[slot]:
+                self._fail(req, f"non-finite chunk logits at iteration {self._iter}")
+                continue
+            req.prefill_pos = start + size
+            if prefix:
+                # every committed full page becomes matchable at once
+                self.cache.register_prefix(slot, req.prefill_seq, start + size)
+            if final:
+                self._chunk_unlocked.add(slot)
+                self._emit(req, int(nxt[slot]))
+
     def _generate_once(self) -> None:
         """The iteration's generation step over the running slots. The
         fuse probe runs first, under speculation too: an iteration where
@@ -782,10 +1092,17 @@ class _SchedulerBase:
         self._iter += 1
         self.stats.iterations += 1
         self._cached_proposals = None
+        self._budget_used_iter = 0
+        self._chunk_unlocked.clear()
         self._reap_deadlines()
 
     def _end_iteration(self) -> None:
-        self.stats.multistep_cache_entries = getattr(self.engine, "multistep_cache_entries", 0)
+        stats = self.stats
+        stats.budget_used = self._budget_used_iter
+        stats.multistep_cache_entries = getattr(self.engine, "multistep_cache_entries", 0)
+        stats.prefix_hits = getattr(self.cache, "prefix_hits", 0)
+        stats.prefix_pages_shared = int(getattr(self.cache, "_shared", np.zeros(1)).sum())
+        stats.cow_copies = getattr(self.cache, "cow_copies", 0)
         if self.debug_invariants:
             self.cache.check_invariants()
 
@@ -810,11 +1127,15 @@ class _SchedulerBase:
 
 class ContinuousBatchingScheduler(_SchedulerBase):
     """Orca-style: every iteration joins new prefills with in-flight
-    decodes; slots recycle the moment a request retires."""
+    decodes; slots recycle the moment a request retires. With a
+    `token_budget`, each iteration also runs one chunked-prefill step for
+    the slots still streaming their prompts in."""
 
     def step(self) -> None:
         self._begin_iteration()
         self._admit()
+        if self.token_budget and self.running:
+            self._chunk_once()
         if self.running:
             self._generate_once()
         self._end_iteration()

@@ -1464,3 +1464,72 @@ def test_multistep_serving_on_the_card_matches_plain_streams(leg):
     assert stats.multistep_steps > stats.multistep_windows > 0
     assert stats.host_syncs < pstats.host_syncs
     assert stats.multistep_cache_entries == eng.multistep_cache_entries == 1
+
+
+# the serving features of real traffic on the card: each leg's kernel
+# launches (decode + verify + chunk steps) x layers times
+_FEATURE_LEGS = {
+    "sampled": (dict(temperature=0.8, seed=3), "paged_flash_verify"),
+    "sampled_multistep": (dict(temperature=0.8, seed=3, decode_multistep=True), "paged_flash_verify"),
+    "chunked": (dict(token_budget=32, chunk_size=8), "paged_flash_verify"),
+    "chunked_int8": (dict(token_budget=32, chunk_size=8, kv_dtype="int8"), "paged_flash_verify_quant"),
+    "chunked_slot": (dict(token_budget=32, chunk_size=8, kv_layout="slot"), "flash_verify"),
+    "prefix": (dict(prefix_cache=True), "paged_flash_verify"),
+    "prefix_int8": (dict(prefix_cache=True, kv_dtype="int8"), "paged_flash_verify_quant"),
+    "optimistic": (dict(admission="optimistic", kv_pages=8, kv_page_size=8), "paged_flash_verify"),
+}
+
+
+@pytest.mark.parametrize("leg", sorted(_FEATURE_LEGS))
+def test_serving_features_launch_their_kernels_on_the_card(leg):
+    """Sampling, chunked prefill, the prefix cache and optimistic
+    admission on the card: every request finishes at full length, the
+    leg's kernel launches (decode + verify + chunk steps) x layers times
+    and no other decode kernel does, the chunk and prefix legs' greedy
+    streams equal the plain run's (and a sampled run replays itself)."""
+    from flexflow_tpu_torch.serving import Request, build_scheduler
+
+    _card()
+    layers = 2
+    model = _small_lm(layers)
+    kw, kernel = _FEATURE_LEGS[leg]
+    system = list(range(1, 20))
+    prompts = [system + [20 + i] * (i % 5) for i in range(6)] + [[1, 2, 3], [40] * 30]
+
+    def run(**serve_kw):
+        sched, eng, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, debug_invariants=True,
+                                                                **serve_kw))
+        calls = [0]
+        chunk = eng.prefill_chunk
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return chunk(*a, **kw)
+
+        eng.prefill_chunk = counted
+        first = Request(rid=0, prompt=prompts[0], max_new_tokens=12)
+        sched.submit(first)
+        sched.step()  # the first request leads, so later ones can share its pages
+        dk.reset_launches()
+        calls[0] = 0
+        steps0 = sched.stats.decode_steps + sched.stats.verify_steps
+        done = sched.run([Request(rid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts) if i])
+        torch.cuda.synchronize()
+        assert all(r.ok and len(r.generated) == 12 for r in done), [(r.rid, r.status, r.error) for r in done]
+        steps = sched.stats.decode_steps + sched.stats.verify_steps - steps0 + calls[0]
+        return {r.rid: r.generated for r in done}, sched.stats, dict(dk.LAUNCHES), steps
+
+    streams, stats, launches, steps = run(**kw)
+    assert launches[kernel] == steps * layers > 0
+    assert not {k: n for k, n in launches.items() if k != kernel and n}
+    if "temperature" in kw:
+        assert run(**kw)[0] == streams
+    else:
+        base = {k: v for k, v in kw.items() if k in ("kv_dtype", "kv_layout")}
+        assert run(**base)[0] == streams
+    if leg.startswith("chunked"):
+        assert stats.chunk_steps > 0
+    if leg.startswith("prefix"):
+        assert stats.prefix_hits > 0
+    if leg == "optimistic":
+        assert stats.preemptions > 0

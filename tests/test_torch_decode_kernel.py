@@ -35,6 +35,18 @@ from test_torch_flash_kernel import _round_toward_zero, _tf32_split
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The CPU models of the kernels' arithmetic below run thousands of
+    small torch ops; where test processes share the cores, intra-op
+    threads wait at each op's barrier for threads that are not running,
+    so this module's ops run on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _contig(rng, b, w, h, d, max_len, lengths):
     q = rng.standard_normal((b, w, h, d)).astype(np.float32)
     k = rng.standard_normal((b, max_len, h, d)).astype(np.float32)
@@ -880,6 +892,13 @@ def _int8_tree_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_cores"):
         ks_pos = ks[pages].transpose(1, 2)  # [b, h, L]
         vs_pos = vs[pages].transpose(1, 2)
         q_big, q_small = _tf32_split(qh)
+        # each key's score chain starts afresh at its page, so the chains of
+        # every page run at once: one batched product per k8 step and pass
+        raw_all = torch.zeros(b, h, w, L)
+        for c in range(0, d, 8):
+            for x in (q_small, q_big):
+                y = k_raw[..., c:c + 8].permute(0, 2, 3, 1).double()  # [b, h, 8, L]
+                raw_all = _round_toward_zero(raw_all.double() + x[..., c:c + 8].double() @ y)
     parts = []
     for lo in range(0, splits * span, span):
         m = torch.full((b, h, w), -1e30, dtype=torch.float64)
@@ -891,12 +910,7 @@ def _int8_tree_model(q, k8, v8, ks, vs, tbl, lens, mask, products="cuda_cores"):
             seen = vis[..., k0:k1]
             kk, vv = kst[:, k0:k1].transpose(1, 2), vst[:, k0:k1].transpose(1, 2)  # [b, h, n, d]
             if products == "tf32_mma":
-                raw = torch.zeros(b, h, w, k1 - k0)
-                for c in range(0, d, 8):
-                    for x in (q_small, q_big):
-                        y = k_raw[:, k0:k1, :, c:c + 8].permute(0, 2, 3, 1).double()  # [b, h, 8, n]
-                        raw = _round_toward_zero(raw.double() + x[..., c:c + 8].double() @ y)
-                s = ((raw * ks_pos[..., None, k0:k1]) * scale).double()
+                s = ((raw_all[..., k0:k1] * ks_pos[..., None, k0:k1]) * scale).double()
             else:
                 s = _fp32_dot4(qh[:, :, :, None, :], kk[:, :, None, :, :]).double().sum(-1) * scale
             s = s.masked_fill(~seen, -1e30)

@@ -292,15 +292,17 @@ def test_generate_of_a_mixed_model_matches_jax_generate(lms):
     assert all(len(s) == 5 for s in ours)
 
 
-def test_greedy_pick_takes_the_first_of_tied_bf16_logits():
+def test_greedy_pick_takes_the_first_of_tied_bf16_logits(lms):
     """bf16 logits tie far more often than f32 ones: the engine's greedy
-    pick takes the first maximal index, as jnp.argmax does."""
-    from flexflow_tpu_torch.serving.engine import GenerationEngine
-
+    pick (its on-device selection at temperature 0, which prefill, chunk
+    steps and the decode core run) takes the first maximal index, as
+    jnp.argmax does."""
+    _, tm = lms
+    _, engine, _ = build_scheduler(tm, ServeConfig(max_seqs=2, max_seq_len=MAX_LEN))
     rng = np.random.default_rng(3)
     logits = np.round(rng.standard_normal((6, 64)) * 4) / 4  # few distinct values: many ties
     logits[:, 7] = logits[:, 40] = logits.max() + 1.0  # an exact tie at the top of every row
-    ours = GenerationEngine._pick(torch.from_numpy(logits).bfloat16())
+    ours = engine._select_device(torch.from_numpy(logits).bfloat16(), None, None).numpy()
     ref = np.asarray(jnp.argmax(jnp.asarray(logits).astype(jnp.bfloat16), axis=-1))
     np.testing.assert_array_equal(ours, ref)
     assert (ours == 7).all()
