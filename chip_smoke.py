@@ -121,6 +121,32 @@ result line) on any failed phase:
                the 16 long ones first, with kv_pages 128 (half the
                default pool) against reserve on the same pool: preemptions
                > 0, every request FINISHED, streams as (b);
+  4f. async — the double-buffered loop (serve_async=True) beside the
+               sync one, on fresh schedulers in one process, one [async]
+               JSON line a leg (tokens/s of each run, wall ms a step,
+               TTFT p50 / p95, overlap fraction, mean dispatch gap, host
+               syncs per token, drains, pre-proposal hits and misses,
+               evictions): first a chained decode, a multi-step window, a
+               verify and a chunk dispatch of the 12-layer flagship under
+               torch.cuda.set_sync_debug_mode("error") (none may wait for
+               the stream); then at 12 layers (a) phase 3's burst (#5;
+               runs in turns sync, async, async, sync; a profiled window
+               of each loop, device ms against wall ms), (b) (a) at T =
+               0.8, seed 1234, (c) 4e (b)'s traffic chunked (token_budget
+               128, chunk_size 16) on int8 pools under optimistic
+               admission at kv_pages 72 (#6; preemptions > 0), and at 2
+               layers (d) the 8 long requests with linear n-gram spec
+               (spec_k 4; #5 at w = 5) and with tree spec on int8 pools
+               (#9), (e) them with decode_multistep (graph windows through
+               the in-flight deque; profiled windows), (f) them on the slot
+               layout, plain (#4) and tree spec (#7), (g) 4e (c)'s
+               shared-prompt traffic with prefix_evict="lru" on 48 pages
+               (evictions > 0) beside prefix_evict="none". Every request
+               FINISHED, each run's kernel launched (decode + verify +
+               chunk dispatches) x layers times (replays counted); the
+               async streams equal the sync ones in (a), (b), (e) and plain
+               (f), elsewhere they may part only at a near-tie of the sync
+               run's top two logits (NEAR_TIE, int8 NEAR_TIE_INT8);
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, and
@@ -1005,41 +1031,62 @@ def serve(model, requests, instrument=None, **serve_kw):
 
 
 def record_top2(sched, top):
-    """Wrap a plain scheduler's prefill, chunk steps and decode so that
-    top[rid][i] is (gap, first, second, value): the gap between the two
-    largest logits its engine saw when it picked the request's i-th
-    generated token, those two tokens and the largest logit (bf16 logits
-    are read as f32). A chunk step's record is replaced by the next one's
-    until the request's final chunk, which gives its first token."""
+    """Wrap a plain synchronous scheduler's prefill and the reconciles of
+    its chunk and decode steps so that top[rid][i] is (gap, first,
+    second, value): the gap between the two largest logits its engine saw
+    when it picked the request's i-th generated token, those two tokens
+    and the largest logit (bf16 logits are read as f32). A chunk step's
+    record is replaced by the next one's until the request's final chunk,
+    which gives its next token; a preempted request's re-admission keeps
+    the records of the tokens it has."""
     engine = sched.engine
-    prefill, decode, chunk = engine.prefill, engine.decode, engine.prefill_chunk
+    prefill, decode, chunk = engine.prefill, engine.decode_reconcile, engine.prefill_chunk_reconcile
 
     def top2(logits):
         vals, ids = logits.float().topk(2, dim=-1)
         return (vals[:, 0] - vals[:, 1]).cpu().numpy(), ids.cpu().numpy(), vals[:, 0].cpu().numpy()
 
+    def put(slot, rows, row):
+        # the record of the request's next token (a preempted request's
+        # re-admission keeps the records of the tokens it has)
+        req = sched.running[int(slot)]
+        gaps, ids, vals = rows
+        top[req.rid] = top.get(req.rid, [])[: len(req.generated)] + [
+            (float(gaps[row]), *map(int, ids[row]), float(vals[row]))]
+
     def prefill_rec(params, prompts, slots):
         nxt, last = prefill(params, prompts, slots)
-        gaps, ids, vals = top2(last)
+        rows = top2(last)
         for i, s in enumerate(slots):
-            top[sched.running[s].rid] = [(float(gaps[i]), *map(int, ids[i]), float(vals[i]))]
+            put(s, rows, i)
         return nxt, last
 
-    def decode_rec(params, tokens, active):
-        nxt, logits = decode(params, tokens, active)
-        gaps, ids, vals = top2(logits)
-        for s in np.nonzero(active)[0]:
-            top[sched.running[int(s)].rid].append((float(gaps[s]), *map(int, ids[s]), float(vals[s])))
+    def decode_rec(step):
+        nxt, logits = decode(step)
+        rows = top2(logits)
+        for s in np.nonzero(step.active)[0]:
+            put(s, rows, s)
         return nxt, logits
 
-    def chunk_rec(params, tokens, chunk_lens, final=None):
-        nxt, logits = chunk(params, tokens, chunk_lens, final)
-        gaps, ids, vals = top2(logits)
-        for s in np.nonzero(chunk_lens)[0]:
-            top[sched.running[int(s)].rid] = [(float(gaps[s]), *map(int, ids[s]), float(vals[s]))]
+    def chunk_rec(step):
+        nxt, logits = chunk(step)
+        rows = top2(logits)
+        for s in np.nonzero(step.active)[0]:
+            put(s, rows, s)
         return nxt, logits
 
-    engine.prefill, engine.decode, engine.prefill_chunk = prefill_rec, decode_rec, chunk_rec
+    engine.prefill, engine.decode_reconcile, engine.prefill_chunk_reconcile = prefill_rec, decode_rec, chunk_rec
+
+
+def rows_used(logits, plan):
+    """The verify rows whose logits picked the tokens a commit emits: a
+    linear draft's accepted prefix and one more, a tree's root and its
+    accepted path."""
+    from flexflow_tpu_torch.serving import accept_drafts, accept_tree
+
+    if isinstance(plan, list):  # a linear draft
+        return list(range(accept_drafts(logits, plan)[0] + 1))
+    return [0] + [1 + n for n in accept_tree(logits, plan)[0]]
 
 
 def record_spec_top(sched, top, out):
@@ -1048,26 +1095,19 @@ def record_spec_top(sched, top, out):
     (`top`, record_top2) behind the request's i-th generated token: held
     against the plain run's own gap, the logit noise between the two
     runs' GEMM shapes."""
-    from flexflow_tpu_torch.serving import accept_drafts, accept_tree
-
-    def rows_used(logits, plan):
-        if isinstance(plan, list):  # a linear draft
-            return list(range(accept_drafts(logits, plan)[0] + 1))
-        return [0] + [1 + n for n in accept_tree(logits, plan)[0]]
-
     def wrap(commit):
-        def recorded(step):
-            for slot, plan in step.plan.items():
+        def recorded(step, logits):
+            for slot, plan in (step.tree_plan or step.plan).items():
                 req = step.participants[slot]
                 if sched.running.get(slot) is not req:
                     continue
                 base = len(req.generated)
-                for k, r in enumerate(rows_used(step.logits[slot], plan)):
+                for k, r in enumerate(rows_used(logits[slot], plan)):
                     if base + k < len(top[req.rid]):
                         _, t1, t2, _ = top[req.rid][base + k]
-                        row = step.logits[slot, r]
+                        row = logits[slot, r]
                         out.setdefault(req.rid, {})[base + k] = float(row[t1] - row[t2])
-            return commit(step)
+            return commit(step, logits)
 
         return recorded
 
@@ -1801,10 +1841,11 @@ def prefix_requests(vocab, seed=SEED):
 
 def count_chunk_calls(sched, counter):
     """Count the engine's chunk steps (the scheduler's and those of
-    prefill_suffix) in counter["chunk_calls"]; track the peak of the
-    shared table entries in counter["peak_shared"]."""
+    prefill_suffix, all dispatched through prefill_chunk_dispatch) in
+    counter["chunk_calls"]; track the peak of the shared table entries
+    in counter["peak_shared"]."""
     engine = sched.engine
-    chunk, end = engine.prefill_chunk, sched._end_iteration
+    chunk, end = engine.prefill_chunk_dispatch, sched._end_iteration
 
     def counted(*a, **kw):
         counter["chunk_calls"] += 1
@@ -1814,7 +1855,7 @@ def count_chunk_calls(sched, counter):
         end()
         counter["peak_shared"] = max(counter["peak_shared"], sched.stats.prefix_pages_shared)
 
-    engine.prefill_chunk, sched._end_iteration = counted, ended
+    engine.prefill_chunk_dispatch, sched._end_iteration = counted, ended
 
 
 def feature_leg(name, model, layers, kernel, requests, plain=None, near_tie=None, lead=False, **serve_kw):
@@ -1959,6 +2000,263 @@ def serve_features(device, layers=FLAGSHIP["layers"]):
     _, _, osum, _ = feature_leg("d: optimistic", model, layers, "paged_flash_verify", heavy, plain=reserve[:2],
                                 kv_pages=FEATURE_PAGES, admission="optimistic")
     require(osum["preemptions"] > 0, f"(d): optimistic admission preempted nothing: {osum}")
+
+
+# -- 4f. the async double-buffered serving loop ----------------------------------------
+
+# (c): 4e (b)'s interleaved traffic never runs a pool of 80-128 pages dry
+# (the CPU rehearsal preempted nothing there); at 72 pages it preempts
+# and every request still finishes inside the default bound of 3
+ASYNC_PAGES_CHUNKED = 72
+ASYNC_PAGES_PREFIX = 48  # (g): 768 rows, three max_len sequences: released published pages must be evicted
+
+
+def check_dispatch_sync(model):
+    """One chained decode dispatch, one multi-step window dispatch, one
+    verify dispatch and one chunk dispatch under
+    torch.cuda.set_sync_debug_mode("error"): none may wait for the
+    stream. Each runs once first outside the mode (kernel builds, the
+    graph's capture), and every step is reconciled outside it."""
+    import torch
+
+    from flexflow_tpu_torch.serving import ServeConfig, build_scheduler
+
+    _, eng, cache = build_scheduler(model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"]))
+    params, S = model.params, FLAGSHIP["max_seqs"]
+    prompts = [[1 + j for j in range(12)], [20 + j for j in range(7)]]
+    slots = [cache.alloc(len(p), FLAGSHIP["max_len"]) for p in prompts]
+    first, _ = eng.prefill(params, prompts, slots)
+    chunk_slot = cache.alloc(0, FLAGSHIP["max_len"])
+    active = np.zeros(S, dtype=bool)
+    active[slots] = True
+    tokens = np.zeros(S, dtype=np.int32)
+    tokens[slots] = first
+
+    def halves():
+        d1 = eng.decode_dispatch(params, tokens, active)
+        d2 = eng.decode_dispatch(params, tokens, active, chain=d1, chain_mask=active)
+        w = eng.decode_multi_dispatch(params, tokens, active, np.where(active, 3, 0))
+        vt = np.zeros((S, 5), dtype=np.int32)
+        vt[slots, 0] = tokens[slots]
+        v = eng.verify_dispatch(params, vt, np.where(active, 5, 0))
+        ct = np.zeros((S, 16), dtype=np.int32)
+        ct[chunk_slot] = np.arange(1, 17)
+        cl = np.zeros(S, dtype=np.int32)
+        cl[chunk_slot] = 16
+        return d1, d2, w, v, eng.prefill_chunk_dispatch(params, ct, cl)
+
+    def reconcile(steps):
+        d1, d2, w, v, c = steps
+        eng.decode_reconcile(d1)
+        eng.decode_reconcile(d2)
+        eng.decode_multi_reconcile(w)
+        eng.verify_reconcile(v)
+        eng.prefill_chunk_reconcile(c)
+
+    reconcile(halves())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = halves()
+    except RuntimeError as e:
+        raise SystemExit(f"[async] a dispatch half waited for the stream: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reconcile(steps)
+    torch.cuda.synchronize()
+    print("[async] chained decode, multi-step window, verify and chunk dispatches ran under "
+          "set_sync_debug_mode('error') without a synchronizing call")
+
+
+def record_verify_top2(sched, top):
+    """Wrap a synchronous scheduler's verify commits so that top[rid]
+    gains, for each token a verify emits, the record record_top2 keeps
+    (the top two of the verify row that picked it)."""
+    def wrap(commit):
+        def recorded(step, logits):
+            for slot, plan in (step.tree_plan or step.plan).items():
+                req = step.participants[slot]
+                if sched.running.get(slot) is not req:
+                    continue
+                recs = top.setdefault(req.rid, [])
+                del recs[len(req.generated):]
+                for r in rows_used(logits[slot], plan):
+                    row = logits[slot, r]
+                    second, first = np.argsort(row)[-2:]
+                    recs.append((float(row[first] - row[second]), int(first), int(second), float(row[first])))
+            return commit(step, logits)
+
+        return recorded
+
+    sched._commit_verify = wrap(sched._commit_verify)
+    sched._commit_verify_tree = wrap(sched._commit_verify_tree)
+
+
+def async_run(model, requests, serve_async, top=None, lead=False, **serve_kw):
+    """One run of `requests()` on a fresh scheduler (the async one when
+    `serve_async`): `top` records the run's top two logits per token
+    (record_top2, record_verify_top2). Returns (finished, stats,
+    launches, counter: chunk dispatches, drains that gave pages back,
+    elapsed)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+    from flexflow_tpu_torch.serving import ServeConfig, build_scheduler
+
+    counter = dict(chunk_calls=0, peak_shared=0, drains=0)
+    cfg = dict(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], serve_async=serve_async, **serve_kw)
+    sched, _, cache = build_scheduler(model, ServeConfig(**cfg))
+    count_chunk_calls(sched, counter)
+    reclaim = sched._reclaim_inflight_pages
+
+    def counted_reclaim():
+        drained = reclaim()
+        counter["drains"] += int(drained)
+        return drained
+
+    sched._reclaim_inflight_pages = counted_reclaim
+    if top is not None:
+        record_top2(sched, top)
+        record_verify_top2(sched, top)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dk.reset_launches()
+    reqs = requests()
+    t0 = time.perf_counter()
+    if lead:
+        sched.submit(reqs.pop(0))
+        sched.step()
+    done = sched.run(reqs)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    counter["elapsed_s"] = time.perf_counter() - t0
+    if getattr(cache, "paged", False):
+        cache.check_invariants()
+    return done, sched.stats, dict(dk.LAUNCHES), counter
+
+
+def async_summary(name, mode, layers, kernel, requests, done, stats, launches, counter):
+    """Gates of one run: every request FINISHED at full length, `kernel`
+    launched (decode + verify + chunk dispatches) x layers times (replays
+    counted) and no other decode kernel. Returns its summary."""
+    from flexflow_tpu_torch.serving import latency_percentiles
+
+    bad = [(r.rid, r.status, r.error, len(r.generated)) for r in done
+           if not r.ok or len(r.generated) != r.max_new_tokens]
+    require(len(done) == len(requests()) and not bad, f"{name} {mode}: requests not FINISHED at full length: {bad}")
+    steps = stats.decode_steps + stats.verify_steps + counter["chunk_calls"]
+    require(launches[kernel] == steps * layers,
+            f"{name} {mode}: {kernel} launches {launches[kernel]} != ({stats.decode_steps} decode + "
+            f"{stats.verify_steps} verify + {counter['chunk_calls']} chunk steps) x {layers} layers")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    require(not others, f"{name} {mode}: other decode kernels launched: {others}")
+    ttft = latency_percentiles(done, (50, 95), metric="ttft")
+    return dict(
+        leg=name, mode=mode, layers=layers, tokens=stats.tokens_generated, elapsed_s=counter["elapsed_s"],
+        tokens_per_s=stats.tokens_generated / counter["elapsed_s"], steps=steps,
+        wall_ms_per_step=1e3 * counter["elapsed_s"] / steps, ttft_p50_ms=1e3 * ttft[50], ttft_p95_ms=1e3 * ttft[95],
+        overlap_fraction=stats.overlap_fraction, mean_dispatch_gap_ms=1e3 * stats.mean_dispatch_gap_s,
+        host_syncs_per_token=stats.host_syncs_per_token, dispatches=stats.dispatch_count,
+        commit_wait_s=stats.commit_wait_s, preemptions=stats.preemptions, drains=counter["drains"],
+        chunk_steps=stats.chunk_steps, windows=stats.multistep_windows, verify_steps=stats.verify_steps,
+        acceptance_rate=stats.acceptance_rate, pre_proposal_hits=stats.pre_proposal_hits,
+        pre_proposal_misses=stats.pre_proposal_misses, prefix_hits=stats.prefix_hits,
+        prefix_evictions=stats.prefix_evictions, kernel=kernel, launches=launches[kernel],
+    )
+
+
+def async_leg(name, model, layers, kernel, requests, exact=True, near_tie=None, profile=None, lead=False,
+              turns=("sync", "async"), **serve_kw):
+    """A leg of phase 4f: the sync loop and the async one on fresh
+    schedulers, in `turns`, none of them instrumented beyond counting.
+    `exact`: the async streams equal the sync streams token for token;
+    else (speculation, chunks, preemption, shared prefixes: a step may
+    compute a row at another offset) they may part only at a near-tie of
+    the sync run's top two logits, which one more sync run records where
+    they part (compare_streams; NEAR_TIE, NEAR_TIE_INT8 on int8 pools).
+    Runs of one loop give one stream. `profile`: iterations of a profiled
+    window of busy slots per loop (device ms against wall ms). Prints one
+    [async] line; returns (the sync streams, the sync top two or None,
+    {mode: summary of its first run})."""
+    runs, streams = {"sync": [], "async": []}, {}
+    for mode in turns:
+        done, stats, launches, counter = async_run(model, requests, mode == "async", lead=lead, **serve_kw)
+        summary = async_summary(name, mode, layers, kernel, requests, done, stats, launches, counter)
+        got = {r.rid: list(r.generated) for r in done}
+        require(streams.setdefault(mode, got) == got, f"{name}: two {mode} runs gave different streams")
+        runs[mode].append((summary, done))
+    out = {mode: dict(runs[mode][0][0], tokens_per_s_turns=[r[0]["tokens_per_s"] for r in runs[mode]])
+           for mode in runs}
+    identical, top = streams["async"] == streams["sync"], None
+    if exact:
+        require(identical, f"{name}: the async streams differ from the sync streams")
+    elif not identical:
+        top = {}
+        done, *_ = async_run(model, requests, False, top=top, lead=lead, **serve_kw)
+        require({r.rid: list(r.generated) for r in done} == streams["sync"], f"{name}: the recorded sync run differs")
+        if near_tie is None:
+            near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
+        ties, _, _ = compare_streams(name, runs["async"][0][1], streams["sync"], top, {}, near_tie)
+        out["async"]["near_ties"] = len(ties)
+    if profile and model.device.type == "cuda":
+        for mode in ("sync", "async"):
+            prof = profile_multistep(model, f"{name}, {mode}", profile, serve_async=mode == "async", **serve_kw)
+            out[mode].update(profiled_device_ms_per_step=prof["device_ms_per_step"],
+                             profiled_wall_ms_per_step=prof["wall_ms_per_step"], busy_share=prof["device_busy_share"])
+    mean = lambda mode: float(np.mean(out[mode]["tokens_per_s_turns"]))
+    line = dict(leg=name, sync=out["sync"], async_=out["async"], tokens_per_s_ratio=mean("async") / mean("sync"),
+                identical=identical)
+    print("[async] " + json.dumps(line).replace('"async_"', '"async"'))
+    return streams["sync"], top, out
+
+
+def serve_async_legs(device, layers=FLAGSHIP["layers"], small_layers=2):
+    """Phase 4f (see the module docstring): each leg's async run beside
+    its sync run on fresh schedulers, at full width; (a)-(c) at `layers`,
+    (d)-(g) at `small_layers`."""
+    vocab, max_len = FLAGSHIP["vocab"], FLAGSHIP["max_len"]
+    model = build_lm(device, **dict(FLAGSHIP, layers=layers))
+    if device == "cuda":
+        check_dispatch_sync(model)
+    burst = lambda: mixed_requests(vocab, max_len, NUM_REQUESTS)
+    async_leg("a: burst, fp32 paged", model, layers, "paged_flash_verify", burst, profile=16,
+              turns=("sync", "async", "async", "sync"))
+    async_leg("b: sampled burst", model, layers, "paged_flash_verify", burst, temperature=FEATURE_T,
+              seed=FEATURE_SEED)
+    _, _, c = async_leg("c: chunked, int8, optimistic", model, layers, "paged_flash_verify_quant",
+                        lambda: feature_requests(vocab), exact=False, kv_dtype="int8",
+                        admission="optimistic", kv_pages=ASYNC_PAGES_CHUNKED, **CHUNKED)
+    require(c["async"]["preemptions"] > 0, f"(c): the async loop preempted nothing: {c['async']}")
+    del model
+    small = build_lm(device, **dict(FLAGSHIP, layers=small_layers))
+    long_ = lambda: long_requests(vocab, max_len, SPEC_REQUESTS)
+    _, _, d = async_leg("d: linear spec, fp32 paged", small, small_layers, "paged_flash_verify", long_, exact=False,
+                        **LINEAR)
+    require(d["async"]["pre_proposal_hits"] + d["async"]["pre_proposal_misses"] > 0,
+            "(d): the async loop drafted no pre-proposal")
+    async_leg("d: tree spec, int8 paged", small, small_layers, "paged_flash_verify_tree_quant", long_, exact=False,
+              kv_dtype="int8", **TREE)
+    _, _, e = async_leg("e: multistep, fp32 paged", small, small_layers, "paged_flash_verify", long_, profile=4,
+                        decode_multistep=True, max_fused_steps=MULTISTEP_STEPS)
+    require(e["async"]["windows"] > 0, f"(e): no fused window ran: {e['async']}")
+    async_leg("f: plain, slot", small, small_layers, "flash_verify", long_, kv_layout="slot")
+    async_leg("f: tree spec, slot", small, small_layers, "flash_verify_tree", long_, exact=False, kv_layout="slot",
+              **TREE)
+    shared = lambda: prefix_requests(vocab)
+    lru = dict(lead=True, prefix_cache=True, kv_pages=ASYNC_PAGES_PREFIX)
+    lru_streams, _, g = async_leg("g: prefix cache, lru", small, small_layers, "paged_flash_verify", shared,
+                                  exact=False, prefix_evict="lru", **lru)
+    require(min(g["sync"]["prefix_evictions"], g["async"]["prefix_evictions"]) > 0,
+            f"(g): no published page was evicted: {g}")
+    done, stats, launches, counter = async_run(small, shared, False, **lru)
+    none = async_summary("g: prefix cache, none", "sync", small_layers, "paged_flash_verify", shared, done, stats,
+                         launches, counter)
+    if {r.rid: list(r.generated) for r in done} != lru_streams:
+        top = {}
+        async_run(small, shared, False, top=top, prefix_evict="lru", **lru)
+        none["near_ties"] = len(compare_streams("g: none against lru", done, lru_streams, top, {}, NEAR_TIE)[0])
+    print("[async] " + json.dumps(dict(leg="g: prefix_evict none beside lru", none=none,
+                                       lru_evictions=g["sync"]["prefix_evictions"])))
 
 
 def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED, dtype=None):
@@ -2860,6 +3158,9 @@ def main() -> int:
     gc.collect()
     # 4e: sampling, chunked prefill, prefix cache and optimistic admission
     serve_features("cuda")
+    gc.collect()
+    # 4f: the async double-buffered loop beside the sync one
+    serve_async_legs("cuda")
     gc.collect()
     # after the serving phases, so the decode profile stays the run's
     # first profiler session, as it was before the training phases

@@ -63,3 +63,9 @@ class FFConfig:
     # host once (CUDA graphs on the card)
     serve_decode_multistep: bool = False
     serve_max_fused_steps: int = 8
+    # the double-buffered async serving loop (continuous scheduler only)
+    serve_async: bool = False
+    # the hashed prefix-page cache (paged layout) and its eviction of
+    # released published pages under pool pressure: "none" | "lru"
+    serve_prefix_cache: bool = False
+    serve_prefix_evict: str = "none"

@@ -4,9 +4,10 @@ scheduler (scheduler), speculative decoding's drafts and acceptance
 rules (spec) and the ServeConfig / generate() surface (api)."""
 
 from flexflow_tpu_torch.serving.api import ServeConfig, build_proposer, build_scheduler, generate
-from flexflow_tpu_torch.serving.engine import GenerationEngine
+from flexflow_tpu_torch.serving.engine import GenerationEngine, InflightStep
 from flexflow_tpu_torch.serving.kv_cache import KVCache, KVCacheSpec, PagedKVCache
 from flexflow_tpu_torch.serving.scheduler import (
+    AsyncContinuousBatchingScheduler,
     ContinuousBatchingScheduler,
     Request,
     RequestStatus,
@@ -22,9 +23,11 @@ from flexflow_tpu_torch.serving.spec import (
 )
 
 __all__ = [
+    "AsyncContinuousBatchingScheduler",
     "ContinuousBatchingScheduler",
     "DraftTree",
     "GenerationEngine",
+    "InflightStep",
     "KVCache",
     "KVCacheSpec",
     "NGramDraftProposer",

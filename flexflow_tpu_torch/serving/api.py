@@ -9,7 +9,9 @@ with the reference's keys under `seed`; `token_budget` > 0 streams
 prompts in as chunks of `chunk_size` tokens; `prefix_cache` shares the
 pages of common prefixes; `admission="optimistic"` admits on the
 prompt's pages and preempts by recompute, up to `max_preemptions` times a
-request."""
+request; `prefix_evict="lru"` keeps released published prefix pages
+until the pool needs them; `serve_async` serves with the double-buffered
+AsyncContinuousBatchingScheduler."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from flexflow_tpu_torch.serving.engine import GenerationEngine
 from flexflow_tpu_torch.serving.kv_cache import KVCache, PagedKVCache
 from flexflow_tpu_torch.serving.scheduler import (
     CHUNK_ALIGN,
+    AsyncContinuousBatchingScheduler,
     ContinuousBatchingScheduler,
     Request,
     StaticBatchingScheduler,
@@ -34,11 +37,11 @@ _SCHEDULERS = {
 }
 
 # options of the reference's ServeConfig this port does not take yet:
-# field -> (the only value accepted, the ROADMAP item that brings the rest)
+# field -> (the values accepted, the ROADMAP item that brings the rest)
 _NOT_PORTED = {
-    "serve_async": (False, "Port queue: async engine"),
-    "kv_swap": (False, "Port queue: swap-to-host, with the cost model's swap decider"),
-    "prefix_evict": ("none", "Port queue: published-prefix eviction (lru, cost)"),
+    "kv_swap": ((False,), "Port queue: swap-to-host, with the cost model's swap decider"),
+    "prefix_evict": (("none", "lru"), "Port queue: cost-priced prefix eviction, with the cost model's "
+                                      "build_evict_pricer"),
 }
 
 
@@ -76,6 +79,8 @@ class ServeConfig:
     # full pages matching a prefix of their sequence, copy-on-write at
     # the first divergent write
     prefix_cache: bool = False
+    # "lru": a published page whose last holder leaves stays matchable
+    # until the pool needs it back (least recently released first)
     prefix_evict: str = "none"
     kv_swap: bool = False
     spec_draft: str = ""  # "" (off) | "ngram"
@@ -87,6 +92,9 @@ class ServeConfig:
     # chunks beside the in-flight decodes
     token_budget: int = 0
     chunk_size: int = 16
+    # the double-buffered loop: each step's reconcile runs an iteration
+    # after its dispatch, the host's next dispatch overlapping its device
+    # work (continuous scheduler only)
     serve_async: bool = False
     # device-resident multi-step decode: runs of decode iterations that no
     # host-visible event interrupts fuse into one window of up to
@@ -99,11 +107,11 @@ class ServeConfig:
     def __post_init__(self):
         if self.prefix_evict not in ("none", "lru", "cost"):
             raise ValueError(f"prefix_evict must be 'none', 'lru', or 'cost', got {self.prefix_evict!r}")
-        for name, (only, item) in _NOT_PORTED.items():
-            if getattr(self, name) != only:
+        for name, (taken, item) in _NOT_PORTED.items():
+            if getattr(self, name) not in taken:
                 raise NotImplementedError(
                     f"ServeConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (ROADMAP, {item}); this port takes {only!r}"
+                    f"yet (ROADMAP, {item}); this port takes {' or '.join(map(repr, taken))}"
                 )
         if self.scheduler not in _SCHEDULERS:
             raise ValueError(
@@ -111,6 +119,11 @@ class ServeConfig:
             )
         if self.max_seqs < 1 or self.max_seq_len < 2:
             raise ValueError("max_seqs >= 1 and max_seq_len >= 2 required")
+        if self.serve_async and self.scheduler != "continuous":
+            raise ValueError(
+                "serve_async requires the continuous scheduler (the static "
+                "baseline is deliberately synchronous)"
+            )
         if self.temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {self.temperature}")
         if self.admission not in ("reserve", "optimistic"):
@@ -137,6 +150,11 @@ class ServeConfig:
             raise ValueError(
                 "prefix_cache requires kv_layout='paged' (sharing is "
                 "page-aligned: whole pages map through block tables)"
+            )
+        if self.prefix_evict != "none" and not self.prefix_cache:
+            raise ValueError(
+                "prefix_evict needs prefix_cache=True (only published "
+                "prefix pages are ever evictable)"
             )
         if self.token_budget < 0 or self.chunk_size < 1:
             raise ValueError(
@@ -201,6 +219,9 @@ class ServeConfig:
             decode_kernel=cfg.serve_decode_kernel,
             decode_multistep=cfg.serve_decode_multistep,
             max_fused_steps=cfg.serve_max_fused_steps,
+            serve_async=cfg.serve_async,
+            prefix_cache=cfg.serve_prefix_cache,
+            prefix_evict=cfg.serve_prefix_evict,
         )
 
 
@@ -227,6 +248,7 @@ def build_scheduler(model, serve: ServeConfig):
             num_pages=serve.kv_pages,
             kv_dtype=serve.kv_dtype,
             prefix_cache=serve.prefix_cache,
+            prefix_evict=serve.prefix_evict,
         )
     else:
         cache = KVCache.from_model(
@@ -243,7 +265,9 @@ def build_scheduler(model, serve: ServeConfig):
         temperature=serve.temperature,
         seed=serve.seed,
     )
-    sched = _SCHEDULERS[serve.scheduler](
+    # __post_init__ holds serve_async to the continuous scheduler
+    cls = AsyncContinuousBatchingScheduler if serve.serve_async else _SCHEDULERS[serve.scheduler]
+    sched = cls(
         engine,
         proposer=build_proposer(serve),
         spec_k=serve.spec_k,

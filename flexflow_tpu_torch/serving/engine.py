@@ -78,18 +78,35 @@ the rows whose chunk ends their prompt.
   * **prefill_suffix**: the prefix-shared admission's prefill of the
     unshared suffix, as successive chunk steps of at most MAX_W rows.
 
+Every decode, multi-step window, verify and chunk step is split, as the
+reference's are, into a **dispatch** (claim pages, stage the inputs,
+enqueue the step, advance the host lengths, open the cache's in-flight
+window, issue the read-back) and a **reconcile** (wait for the
+read-back, close the window), which hand each other an `InflightStep`:
+host snapshots of what the commit needs beside the step's device
+tensors. `decode`, `decode_multi`, `verify`, `verify_tree` and
+`prefill_chunk` are dispatch + immediate reconcile; the async scheduler
+runs the halves an iteration apart and chains a decode's input tokens
+on the in-flight step's `device_next` on the device. On the card the
+dispatch side never waits for the stream: every host-to-device copy is
+`non_blocking` from a fresh pinned snapshot the step keeps until its
+reconcile, every device-to-host copy is issued at dispatch, non_blocking
+into pinned memory, with a CUDA event the reconcile waits on, and the
+finite flags of each row come back in that same read. On the CPU both
+halves run eagerly and the reconcile just reads the tensors.
+
 The reference's kernel-failure handler, which switched the engine to
 dense attention for good after any kernel error, is deliberately
 absent: a failing kernel, capture or replay raises, and nothing on the
-card falls back to eager steps or to a dense path. Adapters and the
-async dispatch / reconcile split are not ported yet (ROADMAP, Port
-queue: serving features).
+card falls back to eager steps or to a dense path. Adapters are not
+ported yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,11 +127,24 @@ from flexflow_tpu_torch.ops.attention import (
 from flexflow_tpu_torch.serving.sampling import sample, slot_keys
 
 
-def _to_device(device, parts: Sequence[np.ndarray]):
-    """Copy host int arrays to `device` in one int32 transfer; returns a
-    device view per part, shaped like it."""
+def _snapshot(device, host: np.ndarray, keep: List[torch.Tensor]) -> torch.Tensor:
+    """The source of a host-to-device copy of `host` that never waits for
+    the stream (copy it with non_blocking=True): a fresh snapshot, so no
+    later write to `host` reaches the copy, pinned on the card and held
+    in `keep` until the step reconciles."""
+    t = torch.from_numpy(np.array(host))
+    if device.type == "cuda":
+        t = t.pin_memory()
+        keep.append(t)
+    return t
+
+
+def _to_device(device, parts: Sequence[np.ndarray], keep: Optional[List[torch.Tensor]] = None):
+    """Copy host int arrays to `device` in one int32 transfer (from a
+    _snapshot); returns a device view per part, shaped like it."""
+    device = torch.device(device)
     flat = np.concatenate([np.asarray(p, dtype=np.int32).ravel() for p in parts])
-    buf = torch.from_numpy(flat).to(device)
+    buf = _snapshot(device, flat, [] if keep is None else keep).to(device, non_blocking=True)
     out, off = [], 0
     for p in parts:
         n = int(np.prod(np.shape(p), dtype=np.int64))
@@ -135,20 +165,24 @@ def quant_plan(dest: np.ndarray, page_size: int):
 class _CoreState:
     """The decode core's device tensors. The inputs are views of one
     int32 buffer `inp`, [tokens | lengths | alive | limits | eos | step |
-    block tables], so a window's host inputs reach the device in one
-    copy; the per-step stacks tokens / mask / finite are views of one
-    int32 buffer `out` [steps, 3, max_seqs], so the host reads them in
-    one copy, and `logits` [steps, max_seqs, V] stays on the device."""
+    block tables | chain mask], so a window's host inputs reach the
+    device in one copy (the chain mask [max_seqs] only for a chained
+    decode step's state); the per-step stacks tokens / mask / finite are
+    views of one int32 buffer `out` [steps, 3, max_seqs], so the host
+    reads them in one copy, and `logits` [steps, max_seqs, V] stays on
+    the device."""
 
-    def __init__(self, max_seqs: int, table_cols: int, steps: int, device):
+    def __init__(self, max_seqs: int, table_cols: int, steps: int, device, chained: bool = False):
         S = max_seqs
         self.steps = steps
         # every run loads all of `inp` first and reads `out` only at the
         # steps it ran, so neither needs zeroing
-        self.inp = torch.empty(5 * S + 1 + S * table_cols, dtype=torch.int32, device=device)
+        n = 5 * S + 1 + S * table_cols
+        self.inp = torch.empty(n + (S if chained else 0), dtype=torch.int32, device=device)
         self.tokens, self.lengths, self.alive, self.limits, self.eos = self.inp[: 5 * S].view(5, S)
         self.step = self.inp[5 * S]
-        self.tables = self.inp[5 * S + 1:].view(S, table_cols) if table_cols else None
+        self.tables = self.inp[5 * S + 1:n].view(S, table_cols) if table_cols else None
+        self.chain_mask = self.inp[n:] if chained else None
         self.out = torch.empty((steps, 3, S), dtype=torch.int32, device=device)
         self.logits: Optional[torch.Tensor] = None  # made at the first step, when V is known
 
@@ -167,6 +201,50 @@ class _GraphWindow:
     weights: Tuple[int, ...]
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Optional[Dict[str, int]] = None
+    # a dispatched window over this state is not yet reconciled: the next
+    # replay would overwrite its static outputs
+    inflight: bool = False
+
+
+@dataclasses.dataclass
+class InflightStep:
+    """One dispatched step not yet reconciled (the reference's
+    InflightStep): the only record that crosses from a dispatch to its
+    reconcile. Host snapshots (numpy, copied at dispatch) of what the
+    commit reads — the pre-step lengths, the active rows, the
+    scheduler's participants, plans and chunk cursors —
+    beside the step's device tensors, the pinned host buffer its one
+    read-back lands in and the event that marks it landed."""
+
+    kind: str  # "decode" | "multistep" | "verify" | "verify_tree" | "chunk"
+    active: np.ndarray  # bool [max_seqs]: the rows the step ran for
+    lengths: np.ndarray  # int32 [max_seqs]: cache lengths before the step
+    dispatch_t: float = 0.0  # wall clock at the end of the dispatch
+    # chunk: slot -> (start, size, final) and slot -> the sequence being
+    # prefilled, the cursor snapshot the commit reads
+    chunks: Optional[Dict[int, tuple]] = None
+    chunk_seqs: Optional[Dict[int, list]] = None
+    device_next: Optional[torch.Tensor] = None  # decode: tokens [max_seqs] int32, for chaining
+    device_logits: Optional[torch.Tensor] = None  # [max_seqs, V], [k, max_seqs, V] or [max_seqs, w, V]
+    k_steps: int = 1  # multistep: the window's depth
+    step_limits: Optional[np.ndarray] = None  # multistep: int32 [max_seqs] per-slot caps
+    # the one read-back: a pinned host tensor (the tensor itself on the
+    # CPU), the event recorded after its copy, and the staged inputs kept
+    # alive until the reconcile
+    readback: Optional[torch.Tensor] = None
+    done: Optional["torch.cuda.Event"] = None
+    staged: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    window: Optional[_GraphWindow] = None  # multistep on the card: its captured state
+    # filled by the reconcile: per-row finite flags ([max_seqs], [k,
+    # max_seqs] for a window)
+    finite: Optional[np.ndarray] = None
+    # scheduler-side snapshot: slot -> Request at dispatch, the draft
+    # plan (token lists; the trees of a tree verify) and the dispatching
+    # iteration
+    participants: Dict[int, object] = dataclasses.field(default_factory=dict)
+    plan: Optional[Dict[int, list]] = None
+    tree_plan: Optional[Dict[int, object]] = None
+    iteration: int = -1
 
 
 class GenerationEngine:
@@ -256,6 +334,28 @@ class GenerationEngine:
     def _select(self, logits: torch.Tensor, slots: torch.Tensor, positions: torch.Tensor) -> np.ndarray:
         """_select_device, read on the host."""
         return self._select_device(logits, slots, positions).cpu().numpy()
+
+    def _issue_readback(self, step: InflightStep, t: torch.Tensor) -> None:
+        """Issue the step's one device-to-host read of `t` at dispatch: on
+        the card a non_blocking copy into fresh pinned memory and an event
+        recorded after it; on the CPU the tensor itself. The last act of
+        every dispatch: stamps its end."""
+        if self.device.type != "cuda":
+            step.readback = t
+        else:
+            step.readback = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            step.readback.copy_(t, non_blocking=True)
+            step.done = torch.cuda.Event()
+            step.done.record()
+        step.dispatch_t = time.perf_counter()
+
+    @staticmethod
+    def _wait(step: InflightStep) -> np.ndarray:
+        """The reconcile's read: wait for the step's event, then the host
+        copy (numpy)."""
+        if step.done is not None:
+            step.done.synchronize()
+        return step.readback.numpy()
 
     def _rows(self, t: torch.Tensor) -> torch.Tensor:
         """[..., heads, head_dim] -> [N, heads, head_dim]."""
@@ -397,25 +497,25 @@ class GenerationEngine:
     # -- chunked prefill -----------------------------------------------------
 
     @torch.no_grad()
-    def prefill_chunk(
+    def prefill_chunk_dispatch(
         self,
         params,
         tokens: np.ndarray,
         chunk_lens: np.ndarray,
         final: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, torch.Tensor]:
-        """One chunked-prefill step (the reference's prefill_chunk).
-        tokens [max_seqs, w]: the next chunk_lens[s] prompt tokens of each
-        chunking slot (rows with chunk_lens 0 take no part). The batch is
-        compacted to the chunking slots; their rows are written at each
-        slot's cursor (paged slots claim those pages first), attend under
-        the verify staircase (query offset = cursor) through kernel #4, #5
-        or #6 at width w <= decode_kernel.MAX_W, and the cursors advance
-        by the chunk. `final` [max_seqs] bool marks the slots whose chunk
-        ends their prompt: only those pick a token (None: every chunking
-        slot does). Returns (next_tokens [max_seqs] on the host, the last
-        chunk row's logits [max_seqs, V] on the device), zero for slots
-        that took no part or picked no token."""
+    ) -> InflightStep:
+        """Dispatch one chunked-prefill step (the reference's
+        prefill_chunk_dispatch). tokens [max_seqs, w]: the next
+        chunk_lens[s] prompt tokens of each chunking slot (rows with
+        chunk_lens 0 take no part). The batch is compacted to the
+        chunking slots; their rows are written at each slot's cursor
+        (paged slots claim those pages first), attend under the verify
+        staircase (query offset = cursor) through kernel #4, #5 or #6 at
+        width w <= decode_kernel.MAX_W, and the cursors advance by the
+        chunk at dispatch: prompt rows are accepted by construction, so
+        the next chunk may dispatch before this one reconciles. `final`
+        [max_seqs] bool marks the slots whose chunk ends their prompt:
+        only those pick a token (None: every chunking slot does)."""
         spec = self.cache.spec
         cache = self.cache
         tokens = np.asarray(tokens, dtype=np.int32)
@@ -441,19 +541,61 @@ class GenerationEngine:
                 start = int(cache.lengths[slot])
                 for p in range(start, start + int(chunk_lens[slot])):
                     cache.ensure_position(int(slot), p)
+        lengths = cache.lengths.copy()
         picks = np.ones(slot_ids.size, dtype=bool) if final is None else np.asarray(final, dtype=bool)[slot_ids]
-        nxt_c, last_c = self._chunk_core(params, tokens[slot_ids], slot_ids, chunk_lens[slot_ids], picks)
-        cache.lengths[slot_ids] += chunk_lens[slot_ids]
-        nxt = np.zeros(spec.max_seqs, dtype=np.int32)
-        nxt[slot_ids] = nxt_c
+        keep: List[torch.Tensor] = []
+        out_c, last_c, slots_t = self._chunk_core(
+            params, tokens[slot_ids], slot_ids, chunk_lens[slot_ids], picks, keep
+        )
         logits = last_c.new_zeros((spec.max_seqs, last_c.shape[-1]))
-        logits[torch.as_tensor(slot_ids, device=last_c.device)] = last_c
-        return nxt, logits
+        logits[slots_t.long()] = last_c
+        cache.lengths[slot_ids] += chunk_lens[slot_ids]
+        cache.begin_inflight()
+        step = InflightStep(
+            kind="chunk",
+            active=chunk_lens > 0,
+            lengths=lengths,
+            device_logits=logits,
+            staged=keep,
+        )
+        self._issue_readback(step, out_c)
+        return step
 
-    def _chunk_core(self, params, tokens, slot_ids, chunk_lens, picks):
-        """The compact chunk batch [B, w] of prefill_chunk: returns
-        (next tokens [B] on the host, zero where picks [B] is false,
-        last-row logits [B, V])."""
+    def prefill_chunk_reconcile(self, step: InflightStep) -> Tuple[np.ndarray, torch.Tensor]:
+        """Wait for a chunk step's read-back and close its window.
+        Returns (next_tokens [max_seqs] on the host, the last chunk row's
+        logits [max_seqs, V] on the device), zero for slots that took no
+        part or picked no token; `step.finite` [max_seqs] gets each row's
+        finite flag (False where a slot took no part)."""
+        try:
+            host = self._wait(step)
+        finally:
+            self.cache.end_inflight()
+        spec = self.cache.spec
+        slot_ids = np.nonzero(step.active)[0]
+        nxt = np.zeros(spec.max_seqs, dtype=np.int32)
+        step.finite = np.zeros(spec.max_seqs, dtype=bool)
+        nxt[slot_ids] = host[0]
+        step.finite[slot_ids] = host[1] != 0
+        return nxt, step.device_logits
+
+    def prefill_chunk(
+        self,
+        params,
+        tokens: np.ndarray,
+        chunk_lens: np.ndarray,
+        final: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """One chunked-prefill step, synchronous: prefill_chunk_dispatch
+        and its reconcile. Returns (next_tokens [max_seqs] on the host,
+        the last chunk row's logits [max_seqs, V] on the device)."""
+        return self.prefill_chunk_reconcile(self.prefill_chunk_dispatch(params, tokens, chunk_lens, final))
+
+    def _chunk_core(self, params, tokens, slot_ids, chunk_lens, picks, keep):
+        """The compact chunk batch [B, w] of prefill_chunk_dispatch, on
+        the device only: returns ([2, B] int32 of the next tokens, zero
+        where picks [B] is false, and each row's finite flag; the
+        last-row logits [B, V]; the slots [B] on the device)."""
         spec = self.cache.spec
         cache = self.cache
         B, w = tokens.shape
@@ -475,6 +617,7 @@ class GenerationEngine:
             [tokens, lengths, np.nonzero(valid.ravel())[0], slot_ids, chunk_lens - 1, lengths + chunk_lens,
              np.nonzero(picks)[0]]
             + parts,
+            keep,
         )
         tok_t, len_t, rows_t, slots_t, last_t, end_t, pick_t = dev[:7]
         tables_t, dest_t = (dev[7], dev[8:]) if self.paged else (None, dev[7:])
@@ -498,13 +641,14 @@ class GenerationEngine:
 
         logits = self._forward_logits(params, tok_t, hook)
         last = logits[torch.arange(B, device=self.device), last_t.long()]
-        nxt = np.zeros(B, dtype=np.int32)
+        nxt = torch.zeros(B, dtype=torch.int32, device=self.device)
         if picks.any():
             # on a final chunk cursor + chunk is the prompt length: the
             # monolithic prefill's sampling key
             pick = pick_t.long()
-            nxt[picks] = self._select(last[pick], slots_t[pick], end_t[pick])
-        return nxt, last
+            nxt[pick] = self._select_device(last[pick], slots_t[pick], end_t[pick])
+        out = torch.stack([nxt, torch.isfinite(last).all(dim=-1).to(torch.int32)])
+        return out, last, slots_t
 
     def prefill_suffix(
         self,
@@ -611,28 +755,37 @@ class GenerationEngine:
         st.alive.masked_fill_(hit, 0)
         st.step.add_(1)
 
-    def _load_state(self, st: _CoreState, tokens, active, limits, eos) -> None:
+    def _load_state(self, st: _CoreState, tokens, active, limits, eos, keep: List[torch.Tensor],
+                    chain_mask=None) -> None:
         """The core's inputs for a run from step 0, in one host-to-device
-        copy: the host lengths and (paged) a table snapshot."""
+        copy (from a _snapshot): the host lengths, (paged) the tables and
+        (a chained state) the chain mask."""
         cache = self.cache
         parts = [tokens, cache.lengths, active, limits, eos, [0]]
         if self.paged:
             parts.append(cache.block_tables)
+        if chain_mask is not None:
+            parts.append(chain_mask)
         host = np.concatenate([np.asarray(a, dtype=np.int32).ravel() for a in parts])
-        st.inp.copy_(torch.from_numpy(host))
+        st.inp.copy_(_snapshot(self.device, host, keep), non_blocking=True)
 
     @torch.no_grad()
-    def decode(
+    def decode_dispatch(
         self,
         params,
         tokens: np.ndarray,
         active_mask: np.ndarray,
-    ) -> Tuple[np.ndarray, torch.Tensor]:
-        """One decode iteration over every slot: writes each active
-        slot's new K/V row at its length, bumps active lengths. tokens
-        [max_seqs] is the last emitted token per slot (free slots carry
-        anything). Returns (next_tokens [max_seqs] on the host, logits
-        [max_seqs, V] on the device). One eager run of the decode core."""
+        chain: Optional[InflightStep] = None,
+        chain_mask: Optional[np.ndarray] = None,
+    ) -> InflightStep:
+        """Dispatch one decode iteration over every slot: claim each
+        active slot's next page (paged), run the decode core once, bump
+        the active host lengths and issue the read-back of the tokens and
+        finite flags. tokens [max_seqs] is the last emitted token per slot
+        (free slots carry anything). Where `chain_mask` is set, the input
+        token is instead the in-flight decode step `chain`'s device_next,
+        taken on the device (the async loop's chained decode: no host
+        round trip between two steps)."""
         spec = self.cache.spec
         cache = self.cache
         active = np.asarray(active_mask, dtype=bool)
@@ -641,12 +794,52 @@ class GenerationEngine:
             # boundary BEFORE the step (the admission reserve guarantees it)
             for slot in np.nonzero(active)[0]:
                 cache.ensure_position(int(slot), int(cache.lengths[slot]))
-        st = _CoreState(spec.max_seqs, self._table_cols(), 1, self.device)
-        self._load_state(st, tokens, active, active, np.full(spec.max_seqs, -1))
+        lengths = cache.lengths.copy()
+        keep: List[torch.Tensor] = []
+        chained = chain is not None and chain_mask is not None and bool(np.any(chain_mask))
+        st = _CoreState(spec.max_seqs, self._table_cols(), 1, self.device, chained=chained)
+        self._load_state(st, tokens, active, active, np.full(spec.max_seqs, -1), keep,
+                         chain_mask if chained else None)
+        if chained:
+            st.tokens.copy_(torch.where(st.chain_mask != 0, chain.device_next, st.tokens))
         self._decode_core(params, st)
-        nxt = st.out[0, 0].cpu().numpy()
         cache.lengths[active] += 1
-        return nxt, st.logits[0]
+        cache.begin_inflight()
+        step = InflightStep(
+            kind="decode",
+            active=active.copy(),
+            lengths=lengths,
+            device_next=st.out[0, 0],
+            device_logits=st.logits[0],
+            staged=keep,
+        )
+        self._issue_readback(step, st.out[0])
+        return step
+
+    def decode_reconcile(self, step: InflightStep) -> Tuple[np.ndarray, torch.Tensor]:
+        """Wait for a decode step's read-back and close its window.
+        Returns (next_tokens [max_seqs] on the host, logits [max_seqs, V]
+        on the device); `step.finite` [max_seqs] gets each row's finite
+        flag from the same read."""
+        try:
+            host = self._wait(step)
+        finally:
+            self.cache.end_inflight()
+        step.finite = host[2] != 0
+        return host[0], step.device_logits
+
+    @torch.no_grad()
+    def decode(
+        self,
+        params,
+        tokens: np.ndarray,
+        active_mask: np.ndarray,
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """One decode iteration over every slot, synchronous: writes each
+        active slot's new K/V row at its length, bumps active lengths.
+        Returns (next_tokens [max_seqs] on the host, logits [max_seqs, V]
+        on the device). One eager run of the decode core."""
+        return self.decode_reconcile(self.decode_dispatch(params, tokens, active_mask))
 
     def _table_cols(self) -> int:
         return self.cache.spec.max_pages_per_seq if self.paged else 0
@@ -659,28 +852,24 @@ class GenerationEngine:
         return len(self._graphs)
 
     @torch.no_grad()
-    def decode_multi(
+    def decode_multi_dispatch(
         self,
         params,
         tokens: np.ndarray,
         active_mask: np.ndarray,
         step_limits: np.ndarray,
         eos_tokens: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
-        """A synchronous window of k = max(step_limits over active slots)
-        fused decode steps (reference decode_multi). tokens [max_seqs]:
-        the last emitted token per slot; step_limits [max_seqs]: steps
-        each slot runs at most; eos_tokens [max_seqs] (-1 = none): EOS
-        retires a slot inside the window, after it emits the EOS token.
-        Claims every page the window can touch first, snapshots the
-        tables once, runs the decode core k times (on the card: k
-        replays of a captured CUDA graph) and reads the host once.
-
-        Returns (tokens_ks [k, max_seqs] on the host, logits_ks [k,
-        max_seqs, V] on the device, mask_ks [k, max_seqs] bool on the
-        host: the steps each slot took); `window_finite` [k, max_seqs]
-        comes from the same read. The host lengths advance by the FULL
-        limits: the caller truncates slots that retired early."""
+    ) -> InflightStep:
+        """Dispatch a window of k = max(step_limits over active slots)
+        fused decode steps (reference decode_multi_dispatch). tokens
+        [max_seqs]: the last emitted token per slot; step_limits
+        [max_seqs]: steps each slot runs at most; eos_tokens [max_seqs]
+        (-1 = none): EOS retires a slot inside the window, after it emits
+        the EOS token. Claims every page the window can touch first,
+        snapshots the tables once, runs the decode core k times (on the
+        card: k replays of a captured CUDA graph) and issues one
+        read-back. The host lengths advance by the FULL limits: the
+        caller truncates slots that retired early."""
         spec = self.cache.spec
         cache = self.cache
         active = np.asarray(active_mask, dtype=bool)
@@ -702,36 +891,90 @@ class GenerationEngine:
                 start = int(cache.lengths[slot])
                 for pos in range(start, start + int(limits[slot])):
                     cache.ensure_position(int(slot), pos)
+        lengths = cache.lengths.copy()
         eos = np.full(spec.max_seqs, -1, dtype=np.int32) if eos_tokens is None else eos_tokens
+        keep: List[torch.Tensor] = []
+        win = None
         if self.device.type == "cuda":
-            st, logits = self._graph_window(params, tokens, active, limits, eos, k)
+            win, st, logits = self._graph_window(params, tokens, active, limits, eos, k, keep)
         else:
             st = _CoreState(spec.max_seqs, self._table_cols(), k, self.device)
-            self._load_state(st, tokens, active, limits, eos)
+            self._load_state(st, tokens, active, limits, eos, keep)
             for _ in range(k):
                 self._decode_core(params, st)
             logits = st.logits
-        host = st.out[:k].cpu().numpy()  # the window's one host read
         cache.lengths[active] += limits[active]
-        self.window_finite = host[:, 2].astype(bool)
-        return host[:, 0], logits, host[:, 1].astype(bool)
+        cache.begin_inflight()
+        step = InflightStep(
+            kind="multistep",
+            active=active.copy(),
+            lengths=lengths,
+            device_logits=logits,
+            k_steps=k,
+            step_limits=limits,
+            staged=keep,
+            window=win,
+        )
+        # the window's one host read, issued before any later replay can
+        # overwrite the captured state's stacks
+        self._issue_readback(step, st.out[:k])
+        if win is not None:
+            win.inflight = True
+        return step
 
-    def _graph_window(self, params, tokens, active, limits, eos, k):
+    def decode_multi_reconcile(self, step: InflightStep) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
+        """Wait for a window's read-back and close its in-flight window.
+        Returns (tokens_ks [k, max_seqs] on the host, logits_ks [k,
+        max_seqs, V] on the device, mask_ks [k, max_seqs] bool on the
+        host: the steps each slot took); `step.finite` and
+        `window_finite` [k, max_seqs] come from the same read."""
+        try:
+            host = self._wait(step)
+        finally:
+            self.cache.end_inflight()
+            if step.window is not None:
+                step.window.inflight = False
+        step.finite = self.window_finite = host[:, 2] != 0
+        return host[:, 0], step.device_logits, host[:, 1] != 0
+
+    def decode_multi(
+        self,
+        params,
+        tokens: np.ndarray,
+        active_mask: np.ndarray,
+        step_limits: np.ndarray,
+        eos_tokens: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
+        """A synchronous window (reference decode_multi):
+        decode_multi_dispatch and its reconcile."""
+        return self.decode_multi_reconcile(
+            self.decode_multi_dispatch(params, tokens, active_mask, step_limits, eos_tokens)
+        )
+
+    def _graph_window(self, params, tokens, active, limits, eos, k, keep):
         """k steps of the decode core on the card as replays of one
         captured CUDA graph over static state, captured at the first
         window (and again for other weights): that window's first step
         runs eagerly on the capture stream, which warms it, and the graph
-        is captured after it. A failed capture or replay raises. Returns
-        (the state, a copy of the window's logits [k, max_seqs, V])."""
+        is captured after it. A failed capture or replay raises, and so
+        does a replay while an earlier window over the same state is not
+        yet reconciled (its outputs would be overwritten). Returns (the
+        window, its state, a copy of the window's logits [k, max_seqs,
+        V])."""
         spec = self.cache.spec
         key = ("paged" if self.paged else "slot", spec.kv_dtype, spec.max_seqs)
         weights = tuple(w.data_ptr() for ws in params.values() for w in ws)
         win = self._graphs.get(key)
+        if win is not None and win.inflight:
+            raise RuntimeError(
+                "a decode window was dispatched while an earlier window over the same captured "
+                "state is not reconciled: reconcile it first"
+            )
         if win is None or win.weights != weights:
             st = _CoreState(spec.max_seqs, self._table_cols(), self.max_fused_steps, self.device)
             win = self._graphs[key] = _GraphWindow(st, torch.cuda.Stream(self.device), weights)
         st = win.state
-        self._load_state(st, tokens, active, limits, eos)
+        self._load_state(st, tokens, active, limits, eos, keep)
         done = 0
         if win.graph is None:
             here = torch.cuda.current_stream(self.device)
@@ -753,7 +996,7 @@ class GenerationEngine:
             for name, n in win.launches.items():
                 dk.LAUNCHES[name] += n
         # the stacks are overwritten by the next window
-        return st, st.logits[:k].clone()
+        return win, st, st.logits[:k].clone()
 
     # -- speculative verify ----------------------------------------------------
 
@@ -779,7 +1022,7 @@ class GenerationEngine:
         return np.nonzero(valid.ravel())[0], flat[valid]
 
     @torch.no_grad()
-    def _verify(self, params, tokens, draft_lens, parents=None) -> np.ndarray:
+    def _verify_dispatch(self, params, tokens, draft_lens, parents=None) -> InflightStep:
         spec = self.cache.spec
         cache = self.cache
         tokens = np.asarray(tokens, dtype=np.int32)
@@ -816,7 +1059,8 @@ class GenerationEngine:
             host += [dest // spec.max_len, dest % spec.max_len]
         if parents is not None:
             host.append(parents)
-        dev = _to_device(self.device, host)
+        keep: List[torch.Tensor] = []
+        dev = _to_device(self.device, host, keep)
         # the tree mask, once per step for every layer
         allowed = tree_allowed_mask(dev.pop(), dev[1], w, spec.max_len) if parents is not None else None
         tok_t, len_t, rows_t = dev[:3]
@@ -839,37 +1083,46 @@ class GenerationEngine:
                 )
             return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
 
+        logits = self._forward_logits(params, tok_t, hook)
+        cache.begin_inflight()
+        step = InflightStep(
+            kind="verify" if parents is None else "verify_tree",
+            active=draft_lens > 0,
+            lengths=lengths,
+            device_logits=logits,
+            staged=keep,
+        )
         # numpy has no bfloat16: a mixed-precision model's bf16 logits
         # reach the host as float32, exactly (the reference's
         # np.asarray(...).astype(np.float32))
-        return self._forward_logits(params, tok_t, hook).float().cpu().numpy()
+        self._issue_readback(step, logits.float())
+        return step
 
-    def verify(self, params, tokens: np.ndarray, draft_lens: np.ndarray) -> np.ndarray:
-        """One speculative verify step (SpecInfer's scoring call),
-        synchronous. tokens [max_seqs, w]: column 0 is each slot's last
-        emitted (not yet cached) token, columns 1..draft_lens[s]-1 its
-        drafted continuation; draft_lens [max_seqs] = real rows per slot
-        (0 for inactive slots). Writes the real rows' K/V (claiming paged
-        slots' pages first) under the staircase mask and does NOT advance
-        lengths. Returns the logits [max_seqs, w, V] on the host: row
-        [s, j] is the model's distribution for the token following
-        tokens[s, j]."""
-        return self._verify(params, tokens, draft_lens)
+    def verify_dispatch(self, params, tokens: np.ndarray, draft_lens: np.ndarray) -> InflightStep:
+        """Dispatch one speculative verify step (SpecInfer's scoring
+        call). tokens [max_seqs, w]: column 0 is each slot's last emitted
+        (not yet cached) token, columns 1..draft_lens[s]-1 its drafted
+        continuation; draft_lens [max_seqs] = real rows per slot (0 for
+        inactive slots). Writes the real rows' K/V (claiming paged slots'
+        pages first) under the staircase mask and does NOT advance
+        lengths: the caller accepts a prefix against the step's snapshot
+        lengths and commits it with cache.truncate."""
+        return self._verify_dispatch(params, tokens, draft_lens)
 
-    def verify_tree(
+    def verify_tree_dispatch(
         self,
         params,
         tokens: np.ndarray,
         draft_lens: np.ndarray,
         parents: np.ndarray,
-    ) -> np.ndarray:
-        """Token-tree verify: as verify, with columns 1.. holding draft
-        tree nodes in topological order and parents [max_seqs, w] mapping
-        each row to its parent row (-1 for row 0, chain padding past
-        draft_lens). Row j attends the committed prefix and its own
+    ) -> InflightStep:
+        """Token-tree verify: as verify_dispatch, with columns 1.. holding
+        draft tree nodes in topological order and parents [max_seqs, w]
+        mapping each row to its parent row (-1 for row 0, chain padding
+        past draft_lens). Row j attends the committed prefix and its own
         root-to-j chain only; the mask is built once per step from
         `parents`, so every tree topology of width w runs the same
-        kernels."""
+        kernels. The step carries a host copy of `parents`."""
         parents = np.asarray(parents, dtype=np.int32)
         tokens = np.asarray(tokens)
         if parents.shape != tokens.shape:
@@ -878,4 +1131,29 @@ class GenerationEngine:
             )
         if np.any(parents >= np.arange(tokens.shape[1])[None, :]):
             raise ValueError("parents must be topological: parents[:, j] < j")
-        return self._verify(params, tokens, draft_lens, parents)
+        return self._verify_dispatch(params, tokens, draft_lens, parents)
+
+    def verify_reconcile(self, step: InflightStep) -> np.ndarray:
+        """Wait for a verify step's logits and close its window. Returns
+        the logits [max_seqs, w, V] on the host (float32): row [s, j] is
+        the model's distribution for the token following tokens[s, j]."""
+        try:
+            return self._wait(step)
+        finally:
+            self.cache.end_inflight()
+
+    def verify(self, params, tokens: np.ndarray, draft_lens: np.ndarray) -> np.ndarray:
+        """One speculative verify step, synchronous (verify_dispatch and
+        its reconcile): the logits [max_seqs, w, V] on the host."""
+        return self.verify_reconcile(self.verify_dispatch(params, tokens, draft_lens))
+
+    def verify_tree(
+        self,
+        params,
+        tokens: np.ndarray,
+        draft_lens: np.ndarray,
+        parents: np.ndarray,
+    ) -> np.ndarray:
+        """Synchronous token-tree verify (verify_tree_dispatch and its
+        reconcile): the logits [max_seqs, w, V] on the host."""
+        return self.verify_reconcile(self.verify_tree_dispatch(params, tokens, draft_lens, parents))

@@ -45,9 +45,26 @@ The paged cache also takes the reference's two other admission tools:
     shared page copies it (`_cow_page`: its K/V rows in every layer, and
     its per-head scales on int8 pools) unless the slot is its last
     holder. Pages return to the pool when their last reference drops.
+  * **published-prefix eviction** (`prefix_evict="lru"`): a published
+    page whose last reference drops is kept, still matchable, as an
+    eviction candidate; when the free heap runs dry the least recently
+    released one is unpublished and reused, before any live request is
+    preempted, and a new admission that matches it maps it again at no
+    cost to the pool.
 
-Swap-to-host, published-prefix eviction and host partitions are not
-ported yet (ROADMAP, Port queue: serving features).
+Both caches take the async loop's in-flight window
+(`begin_inflight` at a step's dispatch, `end_inflight` at its
+reconcile, in dispatch order). The slot layout only counts them. On the
+paged layout a page released while a window is open (a retire, a
+preemption, a verify's rollback) goes to `_limbo`, tagged with the
+newest open window, and returns to the free heap when that window
+closes: a step still in flight may write rows through its table
+snapshot, and the page must not reach a new owner before it has.
+Retained prefix pages carry the same tag and become evictable only once
+their window has closed.
+
+Swap-to-host, cost-priced eviction and host partitions are not ported
+yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
@@ -165,6 +182,16 @@ def _compaction(new_len: int, src_rows: Sequence[int], max_len: int):
     return np.asarray(srcs, dtype=np.int64), np.asarray(dests, dtype=np.int64)
 
 
+def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index array on `device` without waiting for the stream: on
+    the card a non_blocking copy from pinned memory (the async loop may
+    have a step in flight when a commit moves rows)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _stores(guids, rows: int, row_shape, dtype, device):
     """One zeroed [rows + 1, *row_shape] tensor per layer: the visible
     rows and the scratch row after them."""
@@ -194,6 +221,26 @@ class KVCache:
         self.lengths = np.zeros(spec.max_seqs, dtype=np.int32)
         self._free: List[int] = list(range(spec.max_seqs))
         self._active: set = set()
+        self._inflight_depth = 0
+
+    # -- in-flight window (async dispatch) -------------------------------------
+
+    def begin_inflight(self) -> None:
+        """Open an in-flight window (a dispatched step not yet
+        reconciled). The slot layout pins nothing: a stale row an
+        in-flight step writes for a retired slot lands at a position the
+        next occupant overwrites before its length exposes it."""
+        self._inflight_depth += 1
+
+    def end_inflight(self) -> None:
+        if self._inflight_depth <= 0:
+            raise RuntimeError("end_inflight without a matching begin_inflight")
+        self._inflight_depth -= 1
+
+    @property
+    def pinned_pages(self) -> int:
+        """Signature parity with PagedKVCache: the slot layout pins nothing."""
+        return 0
 
     @property
     def num_free(self) -> int:
@@ -241,7 +288,7 @@ class KVCache:
         if src_rows is not None and len(src_rows):
             moves = _compaction(new_len, src_rows, self.spec.max_len)
             if moves is not None:
-                si, di = (torch.as_tensor(m, device=self.device) for m in moves)
+                si, di = (_index(m, self.device) for m in moves)
                 for g in self.spec.layer_guids:
                     # the gather on the right copies before the scatter
                     self.k[g][slot, di] = self.k[g][slot, si]
@@ -279,9 +326,13 @@ class PagedKVCache:
 
     paged = True
 
-    def __init__(self, spec: KVCacheSpec, dtype: torch.dtype, device, prefix_cache: bool = False):
+    def __init__(
+        self, spec: KVCacheSpec, dtype: torch.dtype, device, prefix_cache: bool = False, prefix_evict: str = "none"
+    ):
         if not spec.paged:
             raise ValueError("PagedKVCache needs a spec with page_size > 0")
+        if prefix_evict not in ("none", "lru"):
+            raise ValueError(f"prefix_evict must be 'none' or 'lru', got {prefix_evict!r}")
         if spec.max_len % spec.page_size:
             raise ValueError(
                 f"max_len {spec.max_len} is not divisible by page_size {spec.page_size}"
@@ -349,6 +400,58 @@ class PagedKVCache:
         self._page_keys: Dict[int, bytes] = {}
         self.prefix_hits = 0  # admissions that mapped >= 1 shared page
         self.cow_copies = 0  # divergent writes that copied a page
+        # published-prefix eviction: page -> (LRU stamp, the window open
+        # at its release) for each retained publication-only page
+        # (refcount 0, off the free heap, still in the hash index)
+        self.prefix_evict = prefix_evict
+        self._pub_only: Dict[int, Tuple[int, int]] = {}
+        self._evict_tick = 0
+        self.prefix_evictions = 0
+        # in-flight windows: ids up to _window_seq were opened, up to
+        # _window_closed reconciled; _limbo holds (page, window id) of
+        # each page released while a window was open
+        self._window_seq = 0
+        self._window_closed = 0
+        self._limbo: List[Tuple[int, int]] = []
+
+    # -- in-flight window (async dispatch) -------------------------------------
+
+    @property
+    def _inflight_depth(self) -> int:
+        return self._window_seq - self._window_closed
+
+    def begin_inflight(self) -> None:
+        """Open an in-flight window: a dispatched step holds a snapshot of
+        the block tables, so a page released from now on is pinned until
+        every step dispatched before the release has reconciled."""
+        self._window_seq += 1
+
+    def end_inflight(self) -> None:
+        """Close the oldest open window (steps reconcile in dispatch
+        order); the limbo pages waiting only on it return to the heap."""
+        if self._window_closed >= self._window_seq:
+            raise RuntimeError("end_inflight without a matching begin_inflight")
+        self._window_closed += 1
+        if self._limbo:
+            kept = []
+            for p, wid in self._limbo:
+                if wid <= self._window_closed:
+                    heapq.heappush(self._free_pages, p)
+                else:
+                    kept.append((p, wid))
+            self._limbo = kept
+
+    @property
+    def pinned_pages(self) -> int:
+        """Pages released inside an open window, unavailable until the
+        steps that may still write them reconcile."""
+        return len(self._limbo)
+
+    def _release_page(self, page: int) -> None:
+        if self._window_seq > self._window_closed:
+            self._limbo.append((page, self._window_seq))
+        else:
+            heapq.heappush(self._free_pages, page)
 
     @property
     def num_free(self) -> int:
@@ -356,6 +459,7 @@ class PagedKVCache:
 
     @property
     def num_free_pages(self) -> int:
+        """Pages on the free heap (pinned and retained pages are not)."""
         return len(self._free_pages)
 
     def _pages_for(self, tokens: int) -> int:
@@ -367,8 +471,36 @@ class PagedKVCache:
         return int(self._held[slot]) - int(self._shared[slot])
 
     def _avail(self) -> int:
-        """Admission headroom: free pages minus the growth reserve."""
-        return len(self._free_pages) - self._reserved
+        """Admission headroom: free pages plus evictable retained prefix
+        pages minus the growth reserve. Pinned pages do not count, so a
+        view one step stale only under-promises."""
+        return len(self._free_pages) + self._evictable_count() - self._reserved
+
+    def _evictable_count(self) -> int:
+        """Retained prefix pages whose window has closed."""
+        return sum(1 for _, wid in self._pub_only.values() if wid <= self._window_closed)
+
+    def _evict_prefix_page(self) -> None:
+        """Unpublish the least recently released evictable prefix page
+        and push it onto the free heap."""
+        cands = [(stamp, p) for p, (stamp, wid) in self._pub_only.items() if wid <= self._window_closed]
+        if not cands:
+            raise PagePoolExhausted("no evictable publication-only page")
+        _, page = min(cands)
+        del self._pub_only[page]
+        key = self._page_keys.pop(page, None)
+        if key is not None and self._prefix_index.get(key) == page:
+            del self._prefix_index[key]
+        heapq.heappush(self._free_pages, page)
+        self.prefix_evictions += 1
+
+    def _pop_free_page(self) -> int:
+        """The one pop of the free heap: a dry heap first evicts a
+        retained prefix page, so live requests are served from idle
+        published pages before anyone is preempted."""
+        if not self._free_pages:
+            self._evict_prefix_page()
+        return heapq.heappop(self._free_pages)
 
     def can_admit(self, prompt_len: int = 1, total_len: int = 0, optimistic: bool = False) -> bool:
         """True when a slot is free and the free pool covers this
@@ -397,7 +529,7 @@ class PagedKVCache:
         slot = heapq.heappop(self._free_slots)
         self._active.add(slot)
         for i in range(need_now):
-            self._install_page(slot, i, heapq.heappop(self._free_pages))
+            self._install_page(slot, i, self._pop_free_page())
         self._held[slot] = need_now
         if optimistic:
             self._optimistic.add(slot)
@@ -416,22 +548,30 @@ class PagedKVCache:
         self._refcounts[page] = 1
 
     def _incref(self, slot: int, pi: int, page: int) -> None:
-        """Map a live page as a SHARED entry of `slot`."""
+        """Map a live (or retained) page as a SHARED entry of `slot`; a
+        retained page is live again and no longer an eviction candidate."""
         self.block_tables[slot, pi] = page
         self._refcounts[page] += 1
         self._entry_shared[slot, pi] = True
         self._shared[slot] += 1
+        self._pub_only.pop(page, None)
 
     def _decref_page(self, page: int) -> None:
-        """Drop one reference; the last one unpublishes the page and
-        returns it to the free list."""
+        """Drop one reference. Under prefix_evict="lru" the last one of a
+        published page retains it as an eviction candidate; otherwise it
+        unpublishes the page and releases it (through limbo while a
+        window is open)."""
         self._refcounts[page] -= 1
         assert self._refcounts[page] >= 0
         if self._refcounts[page] == 0:
+            if self.prefix_evict != "none" and page in self._page_keys:
+                self._evict_tick += 1
+                self._pub_only[page] = (self._evict_tick, self._window_seq)
+                return
             key = self._page_keys.pop(page, None)
             if key is not None and self._prefix_index.get(key) == page:
                 del self._prefix_index[key]
-            heapq.heappush(self._free_pages, page)
+            self._release_page(page)
 
     def _decref_entry(self, slot: int, pi: int) -> None:
         """Clear one table entry: sentinel the mapping, settle the shared
@@ -528,14 +668,17 @@ class PagedKVCache:
         # cursor's page copies when it is still shared)
         fresh_now = max(0, self._pages_for(prompt_len) - m)
         max_p = self._pages_for(total) - cursor // ps
-        if not self._free_slots or self._avail() < (fresh_now if optimistic else max_p):
+        # matched retained pages are about to be mapped, not evicted: the
+        # headroom they give as candidates is not there for this admission
+        avail = self._avail() - sum(1 for page in matched if page in self._pub_only)
+        if not self._free_slots or avail < (fresh_now if optimistic else max_p):
             return None
         slot = heapq.heappop(self._free_slots)
         self._active.add(slot)
         for i, page in enumerate(matched):
             self._incref(slot, i, page)
         for i in range(m, m + fresh_now):
-            self._install_page(slot, i, heapq.heappop(self._free_pages))
+            self._install_page(slot, i, self._pop_free_page())
         self._held[slot] = m + fresh_now
         if optimistic:
             self._optimistic.add(slot)
@@ -559,7 +702,12 @@ class PagedKVCache:
                     f"but {len(self._free_pages)} free - {self._reserved} reserved "
                     "leaves none"
                 )
-        elif not self._free_pages:
+        elif not self._free_pages and not self._evictable_count():
+            if self._limbo:
+                raise PagePoolExhausted(
+                    f"free-page pool exhausted: {len(self._limbo)} pages pinned by an "
+                    "in-flight step — reconcile the pipeline to release them"
+                )
             raise PagePoolExhausted(
                 "free-page pool exhausted despite the admission reserve — "
                 "allocator invariant violated"
@@ -574,7 +722,7 @@ class PagedKVCache:
         page = int(self.block_tables[slot, pi])
         if self._refcounts[page] > 1:
             self._claimable(slot)
-            new = heapq.heappop(self._free_pages)
+            new = self._pop_free_page()
             for g in self.spec.layer_guids:
                 self.k[g][new] = self.k[g][page]
                 self.v[g][new] = self.v[g][page]
@@ -612,7 +760,7 @@ class PagedKVCache:
                 self._cow_page(slot, pi)
             return
         self._claimable(slot)
-        self._install_page(slot, pi, heapq.heappop(self._free_pages))
+        self._install_page(slot, pi, self._pop_free_page())
         self._held[slot] += 1
         if slot in self._optimistic:
             self._max_pages[slot] = self._owned(slot)
@@ -697,7 +845,7 @@ class PagedKVCache:
         df = pages[dests // ps].astype(np.int64) * ps + dests % ps
         first = np.nonzero(df % ps == 0)[0]  # moves onto a page's first row
         si, di, spi, dpi, fi, fpi = (
-            torch.as_tensor(a, device=self.device)
+            _index(a, self.device)
             for a in (sf, df, sf // ps, df // ps, first, df[first] // ps)
         )
         flat = (-1, spec.num_heads, spec.head_dim)
@@ -718,12 +866,15 @@ class PagedKVCache:
     def check_invariants(self) -> None:
         """Assert the allocator's accounting re-derives from the block
         tables: the refcounts equal the tables' references and a page has
-        at most one owning (unshared) mapping; every page is live or on the
-        free heap, never both; per-slot ledgers match the tables and
-        visible lengths fit the held pages; the hash index advertises live
-        pages only, bijectively; the reserve re-derives over reserve slots'
-        owned pages and never promises pages the pool lacks; optimistic
-        slots carry no reserve."""
+        at most one owning (unshared) mapping; every page is live, on the
+        free heap, pinned in limbo or retained as a published-only page,
+        exactly one of them; per-slot ledgers match the tables and visible
+        lengths fit the held pages; the hash index advertises live or
+        retained pages only, bijectively; limbo exists only inside a
+        window; the reserve re-derives over reserve slots' owned pages and
+        never promises pages the pool (limbo and retained pages included)
+        lacks; optimistic slots carry no reserve. Holds inside an
+        in-flight window too."""
         spec = self.spec
         sentinel = spec.num_pages
         refs = np.zeros(spec.num_pages, dtype=np.int64)
@@ -746,18 +897,27 @@ class PagedKVCache:
         assert np.array_equal(refs, self._refcounts.astype(np.int64))
         assert (owners <= 1).all()
         live = set(np.nonzero(refs)[0].tolist())
-        assert len(self._free_pages) == len(set(self._free_pages))
-        assert live.isdisjoint(self._free_pages)
-        assert len(live) + len(self._free_pages) == spec.num_pages
+        pub_only = set(self._pub_only)
+        assert not pub_only or self.prefix_evict != "none"
+        for p in pub_only:
+            assert refs[p] == 0 and p in self._page_keys
+        limbo = [p for p, _ in self._limbo]
+        free = self._free_pages
+        assert len(free) == len(set(free)) and len(limbo) == len(set(limbo))
+        assert live.isdisjoint(free) and live.isdisjoint(limbo) and set(limbo).isdisjoint(free)
+        assert pub_only.isdisjoint(free) and pub_only.isdisjoint(limbo)
+        assert len(live) + len(free) + len(limbo) + len(pub_only) == spec.num_pages
+        assert self._inflight_depth >= 0
+        assert not self._limbo or self._inflight_depth > 0
         assert len(self._prefix_index) == len(self._page_keys)
         for key, p in self._prefix_index.items():
-            assert self._page_keys.get(p) == key and refs[p] > 0
+            assert self._page_keys.get(p) == key and (refs[p] > 0 or p in pub_only)
         assert self._reserved == sum(
             max(0, int(self._max_pages[s]) - self._owned(s))
             for s in self._active
             if s not in self._optimistic
         )
-        assert 0 <= self._reserved <= len(self._free_pages)
+        assert 0 <= self._reserved <= len(free) + len(limbo) + len(pub_only)
         for s in self._optimistic:
             assert s in self._active and int(self._max_pages[s]) == self._owned(s)
         assert self._active.isdisjoint(self._free_slots)
@@ -774,11 +934,13 @@ class PagedKVCache:
         num_pages: int = 0,
         kv_dtype: str = "fp32",
         prefix_cache: bool = False,
+        prefix_evict: str = "none",
     ) -> "PagedKVCache":
         """Defaults pick the vLLM-style page size and a pool with exactly
         the slot layout's capacity (max_seqs * max_len rows). kv_dtype
         "int8" makes int8 pools with fp32 scale side pools; prefix_cache
-        turns on the hashed page cache."""
+        turns on the hashed page cache and prefix_evict="lru" its
+        retention of released published pages."""
         guids, heads, head_dim = _derive_geometry(model)
         if page_size <= 0:
             page_size = default_page_size(max_len)
@@ -795,4 +957,4 @@ class PagedKVCache:
             num_pages=num_pages,
             kv_dtype=kv_dtype,
         )
-        return PagedKVCache(spec, dtype, model.device, prefix_cache=prefix_cache)
+        return PagedKVCache(spec, dtype, model.device, prefix_cache=prefix_cache, prefix_evict=prefix_evict)

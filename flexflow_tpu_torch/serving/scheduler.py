@@ -53,8 +53,18 @@ than `max_preemptions` times fails, naming the cause.
 Sampling (the engine's temperature and seed) reaches the speculative
 acceptance rules of serving/spec.py as the reference passes them.
 
-The async loop, swap-to-host, DRR tenancy, journal, fault injection and
-telemetry are not ported yet (ROADMAP, Port queue: serving features).
+Every step is a dispatch and a reconcile (engine.InflightStep): the
+dispatch side claims pages, builds the step's inputs from live state and
+enqueues it; the commit runs after the reconcile against the step's
+snapshot only (its participants, lengths, plans and chunk cursors),
+never live scheduler or cache state. The synchronous schedulers
+reconcile at once. `AsyncContinuousBatchingScheduler` (serve_async=True)
+runs the two an iteration apart: while step N runs on the device the
+host admits, claims pages and dispatches step N + 1, its input tokens
+chained on N's outputs on the device, and only then commits N.
+
+Swap-to-host, DRR tenancy, journal, fault injection and telemetry are
+not ported yet (ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +137,9 @@ class Request:
     # last chunk lands
     prefill_seq: List[int] = dataclasses.field(default_factory=list)
     prefill_pos: int = 0
+    # the dispatch cursor: tokens handed to a chunk step, possibly still
+    # in flight (prefill_pos is the committed one)
+    prefill_dispatched: int = 0
 
     @property
     def finished(self) -> bool:
@@ -216,6 +229,17 @@ class SchedulerStats:
     prefix_pages_shared: int = 0  # live shared table entries (gauge)
     cow_copies: int = 0  # copy-on-write page forks
     prefix_tokens_skipped: int = 0  # prompt tokens admission did not recompute
+    prefix_evictions: int = 0  # retained published pages reclaimed (prefix_evict)
+    # the dispatch / reconcile split (the sync loops fill them too, with
+    # an overlap window of about nothing)
+    dispatch_count: int = 0  # steps dispatched, every kind
+    dispatch_gap_sum_s: float = 0.0  # wall time between consecutive dispatches
+    commit_wait_s: float = 0.0  # time blocked on device outputs at reconcile
+    overlapped_host_s: float = 0.0  # host time between a dispatch and its reconcile
+    # async speculation: pre-proposals drafted while a verify was in
+    # flight, used as they were or rolled back at its reconcile
+    pre_proposal_hits: int = 0
+    pre_proposal_misses: int = 0
 
     @property
     def tokens_per_s(self) -> float:
@@ -244,20 +268,29 @@ class SchedulerStats:
             return 0.0
         return self.draft_tokens_accepted / self.draft_tokens_proposed
 
+    @property
+    def mean_dispatch_gap_s(self) -> float:
+        """Mean wall time between consecutive dispatches: the host's
+        critical path per step (under the sync loop it includes the wait
+        for the device)."""
+        if self.dispatch_count <= 1:
+            return 0.0
+        return self.dispatch_gap_sum_s / (self.dispatch_count - 1)
 
-@dataclasses.dataclass
-class _VerifyStep:
-    """A verify step's record for its commit: the per-slot drafts (token
-    lists, or DraftTrees), the cache lengths before the step, the
-    requests that took part, and the host logits [max_seqs, w, V]."""
-
-    plan: Dict[int, object]
-    lengths: np.ndarray
-    participants: Dict[int, Request]
-    logits: np.ndarray
+    @property
+    def overlap_fraction(self) -> float:
+        """Of the time from a step's dispatch to the end of its
+        reconcile's wait, the share the host spent on other work instead
+        of blocked on the device: ~0 for the sync loop, toward 1 when the
+        async loop hides the host behind the device."""
+        window = self.overlapped_host_s + self.commit_wait_s
+        if window <= 0.0:
+            return 0.0
+        return self.overlapped_host_s / window
 
 
 def _finite_rows(logits: torch.Tensor) -> np.ndarray:
+    """Per-row finite flags of prefill logits, read on the host."""
     return torch.isfinite(logits).all(dim=-1).cpu().numpy()
 
 
@@ -312,6 +345,7 @@ class _SchedulerBase:
         # decode/verify waits for the next one
         self._chunk_unlocked: set = set()
         self._budget_used_iter = 0
+        self._last_dispatch_t: Optional[float] = None
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}  # slot -> request
         self.finished: List[Request] = []
@@ -502,7 +536,7 @@ class _SchedulerBase:
             # shared admissions start their cursors at the shared extent
             for req, seq, cur in zip(admitted, seqs, cursors):
                 req.prefill_seq = [int(t) for t in seq]
-                req.prefill_pos = cur
+                req.prefill_pos = req.prefill_dispatched = cur
             return admitted
         t0 = time.perf_counter()
         try:
@@ -563,7 +597,9 @@ class _SchedulerBase:
         the claims are guaranteed, and a PagePoolExhausted fails just that
         slot; under the optimistic one a dry pool preempts the youngest
         running request and retries, which may preempt the very request
-        claiming (its re-queue ends its claim loop)."""
+        claiming (its re-queue ends its claim loop). Pages pinned by an
+        in-flight step come back first: the async loop drains its
+        pipeline and retries before it fails or preempts anyone."""
         if not getattr(self.cache, "paged", False):
             return
         for slot in sorted(widths):
@@ -577,11 +613,19 @@ class _SchedulerBase:
                     self.cache.ensure_position(slot, pos)
                     pos += 1
                 except PagePoolExhausted as e:
+                    if self._reclaim_inflight_pages():
+                        continue
                     victim = self._pick_victim() if self.admission == "optimistic" else None
                     if victim is None:
                         self._fail(req, str(e))
                         break
                     self._preempt(victim)
+
+    def _reclaim_inflight_pages(self) -> bool:
+        """Reconcile the steps in flight so that the pages they pin return
+        to the pool; True when there was one. The synchronous loops never
+        have one."""
+        return False
 
     def _decodable(self) -> Dict[int, Request]:
         """The running slots past prefill: not streaming a prompt in, and
@@ -592,39 +636,129 @@ class _SchedulerBase:
             if not self._prefill_pending(r) and s not in self._chunk_unlocked
         }
 
-    def _decode_once(self) -> None:
-        """One decode step over every running slot past prefill."""
-        stepped = self._decodable()
+    # -- dispatch / reconcile ----------------------------------------------------
+
+    _STEP_TIME = {"decode": "decode_s", "multistep": "decode_s", "verify": "verify_s",
+                  "verify_tree": "verify_s", "chunk": "chunk_s"}
+
+    def _note_dispatch(self, step, t0: float) -> None:
+        """Stamp a dispatched step with its iteration; count it, the gap
+        since the previous dispatch and its dispatch's host time (into
+        its kind's wall-time stat)."""
+        stats = self.stats
+        stats.dispatch_count += 1
+        step.iteration = self._iter
+        if self._last_dispatch_t is not None:
+            stats.dispatch_gap_sum_s += step.dispatch_t - self._last_dispatch_t
+        self._last_dispatch_t = step.dispatch_t
+        name = self._STEP_TIME[step.kind]
+        setattr(stats, name, getattr(stats, name) + step.dispatch_t - t0)
+
+    def _reconcile_step(self, step) -> None:
+        """Wait for a step's read-back (one host sync), then commit it
+        against its own snapshot. A reconcile that raises fails every
+        running request."""
+        engine = self.engine
+        t0 = time.perf_counter()
+        self.stats.overlapped_host_s += max(0.0, t0 - step.dispatch_t)
+        try:
+            if step.kind == "decode":
+                out = engine.decode_reconcile(step)
+            elif step.kind == "multistep":
+                out = engine.decode_multi_reconcile(step)
+            elif step.kind == "chunk":
+                out = engine.prefill_chunk_reconcile(step)
+            else:
+                out = engine.verify_reconcile(step)
+        except Exception as e:
+            self._fail_all_running(f"{step.kind} step failed: {e!r}")
+            return
+        wait = time.perf_counter() - t0
+        stats = self.stats
+        stats.commit_wait_s += wait
+        name = self._STEP_TIME[step.kind]
+        setattr(stats, name, getattr(stats, name) + wait)
+        stats.host_syncs += 1
+        if step.kind == "decode":
+            self._commit_decode(step, out[0])
+        elif step.kind == "multistep":
+            self._commit_multistep(step, out[0], out[2])
+        elif step.kind == "chunk":
+            self._commit_chunk(step, out[0])
+        elif step.kind == "verify_tree":
+            self._commit_verify_tree(step, out)
+        else:
+            self._commit_verify(step, out)
+
+    @staticmethod
+    def _chains(chain, slot: int, req: Request) -> bool:
+        """Whether `req`'s next input token is the in-flight decode step
+        `chain`'s output for its slot."""
+        return (
+            chain is not None
+            and chain.kind == "decode"
+            and bool(chain.active[slot])
+            and chain.participants.get(slot) is req
+        )
+
+    def _decode_dispatch_step(self, chain=None):
+        """Dispatch one decode step over every running slot past prefill.
+        `chain` is the async loop's in-flight decode step: its slots take
+        their input token from its device output, and a slot whose
+        in-flight step emits its last budgeted token is not stepped (its
+        result would be discarded). Returns the InflightStep, or None."""
+        stepped: Dict[int, Request] = {}
+        for slot, req in self._decodable().items():
+            if len(req.generated) + int(self._chains(chain, slot, req)) >= req.max_new_tokens:
+                continue
+            stepped[slot] = req
         self._secure_pages({slot: 1 for slot in stepped})
         stepped = {s: r for s, r in stepped.items() if self.running.get(s) is r}
         if not stepped:
-            return
+            return None
         spec = self.cache.spec
         tokens = np.zeros(spec.max_seqs, dtype=np.int32)
         active = np.zeros(spec.max_seqs, dtype=bool)
+        chain_mask = np.zeros(spec.max_seqs, dtype=bool)
         for slot, req in stepped.items():
             tokens[slot] = req.generated[-1]
             active[slot] = True
+            chain_mask[slot] = self._chains(chain, slot, req)
         t0 = time.perf_counter()
         try:
-            nxt, logits = self.engine.decode(self.params, tokens, active)
-            finite = _finite_rows(logits)
+            step = self.engine.decode_dispatch(
+                self.params, tokens, active, chain=chain, chain_mask=chain_mask if chain is not None else None
+            )
         except Exception as e:
             self._fail_all_running(f"decode step failed: {e!r}")
-            return
-        self.stats.decode_s += time.perf_counter() - t0
-        self.stats.decode_steps += 1
-        self.stats.host_syncs += 1
-        self.stats.slot_steps += spec.max_seqs
-        self.stats.busy_slot_steps += int(active.sum())
+            return None
+        step.participants = stepped
+        self._note_dispatch(step, t0)
+        stats = self.stats
+        stats.decode_steps += 1
+        stats.slot_steps += spec.max_seqs
+        stats.busy_slot_steps += int(active.sum())
         self._budget_used_iter += int(active.sum())
-        for slot, req in stepped.items():
-            if self.running.get(slot) is not req:
+        return step
+
+    def _commit_decode(self, step, nxt) -> None:
+        """Emit each participant's token; a participant that retired, was
+        preempted or whose slot turned over while the step was in flight
+        fails the identity check and its token is discarded."""
+        for slot in np.nonzero(step.active)[0]:
+            req = step.participants.get(int(slot))
+            if req is None or self.running.get(int(slot)) is not req:
                 continue
-            if not finite[slot]:
-                self._fail(req, f"non-finite logits at iteration {self._iter}")
+            if not step.finite[slot]:
+                self._fail(req, f"non-finite logits at iteration {step.iteration}")
                 continue
             self._emit(req, int(nxt[slot]))
+
+    def _decode_once(self) -> None:
+        """One synchronous decode step: dispatch and reconcile."""
+        step = self._decode_dispatch_step()
+        if step is not None:
+            self._reconcile_step(step)
 
     # -- device-resident multi-step decode (decode_multistep=True) -------------
 
@@ -637,13 +771,12 @@ class _SchedulerBase:
         token) and an iteration where a stateless proposer drafted (a
         verify's acceptance is host logic; the dry run's drafts are kept
         for _verify_once), optimistic admission (a preemption must never
-        meet an open window), a prompt still streaming in and a final
-        chunk that committed this iteration. Deadlines do not hold fusing:
-        one expiring mid-window is reaped after the window. Per-slot EOS,
+        meet an open window), a prompt still streaming in, a final chunk
+        that committed this iteration and cancels deferred to a
+        reconcile (async loop). Deadlines do not hold fusing: one
+        expiring mid-window is reaped after the window. Per-slot EOS,
         budget and page-boundary caps are the window's own
-        (_decode_multi_step). The reference's other hold, cancels deferred
-        to a reconcile, guards the async engine, not ported yet (ROADMAP,
-        Port queue: serving features)."""
+        (_decode_multi_dispatch_step)."""
         if not self.decode_multistep or self.max_fused_steps <= 1:
             return 1
         if self.queue:
@@ -651,6 +784,8 @@ class _SchedulerBase:
         if self.admission == "optimistic":
             return 1
         if self._chunk_unlocked or any(self._prefill_pending(r) for r in self.running.values()):
+            return 1
+        if getattr(self, "_pending_cancels", None):
             return 1
         if self.proposer is not None:
             if not getattr(self.proposer, "stateless", False):
@@ -670,12 +805,12 @@ class _SchedulerBase:
         self._cached_proposals = ("linear", proposals)
         return any(len(d) > 0 for d in proposals.values())
 
-    def _decode_multi_step(self, k: int) -> None:
-        """One fused window of up to k decode steps, dispatched and
-        committed synchronously. Per slot the window stops at the
-        request's remaining budget, the cache horizon and (paged) the
-        slot's next page boundary, so it claims at most one fresh page
-        per slot, as a plain decode step does."""
+    def _decode_multi_dispatch_step(self, k: int):
+        """Dispatch one fused window of up to k decode steps. Per slot the
+        window stops at the request's remaining budget, the cache horizon
+        and (paged) the slot's next page boundary, so it claims at most
+        one fresh page per slot, as a plain decode step does. Returns the
+        InflightStep, or None."""
         spec = self.cache.spec
         ps = spec.page_size if getattr(self.cache, "paged", False) else 0
         limits: Dict[int, int] = {}
@@ -689,8 +824,7 @@ class _SchedulerBase:
         self._secure_pages({slot: 1 for slot in limits})
         stepped = {s: r for s, r in self.running.items() if s in limits}
         if not stepped:
-            return
-        self._budget_used_iter += len(stepped)
+            return None
         tokens = np.zeros(spec.max_seqs, dtype=np.int32)
         active = np.zeros(spec.max_seqs, dtype=bool)
         step_limits = np.zeros(spec.max_seqs, dtype=np.int32)
@@ -701,42 +835,48 @@ class _SchedulerBase:
             step_limits[slot] = limits[slot]
             if req.eos_token is not None:
                 eos[slot] = int(req.eos_token)
-        lengths = self.cache.lengths.copy()
         t0 = time.perf_counter()
         try:
-            toks_ks, _, mask_ks = self.engine.decode_multi(
-                self.params, tokens, active, step_limits, eos_tokens=eos
-            )
-            finite = self.engine.window_finite
+            step = self.engine.decode_multi_dispatch(self.params, tokens, active, step_limits, eos_tokens=eos)
         except Exception as e:  # a failed capture or replay: no eager retry
             self._fail_all_running(f"multistep decode failed: {e!r}")
-            return
-        kmax = int(step_limits.max())
+            return None
+        step.participants = stepped
+        self._note_dispatch(step, t0)
+        kmax = int(step.k_steps)
         stats = self.stats
-        stats.decode_s += time.perf_counter() - t0
         stats.multistep_windows += 1
         stats.multistep_steps += kmax
         stats.decode_steps += kmax
-        stats.host_syncs += 1
         stats.slot_steps += spec.max_seqs * kmax
         stats.busy_slot_steps += int(step_limits.sum())
-        self._commit_multistep(stepped, lengths, step_limits, toks_ks, mask_ks, finite)
+        self._budget_used_iter += len(stepped)
+        return step
 
-    def _commit_multistep(self, stepped, lengths, step_limits, toks_ks, mask_ks, finite) -> None:
+    def _decode_multi_step(self, k: int) -> None:
+        """One synchronous fused window of up to k decode steps: dispatch
+        and reconcile."""
+        step = self._decode_multi_dispatch_step(k)
+        if step is not None:
+            self._reconcile_step(step)
+
+    def _commit_multistep(self, step, toks_ks, mask_ks) -> None:
         """Per slot: roll the cache back from the full-limit advance to
         the steps the window took (an EOS inside the window clears the
         mask of every later step, so `taken` ends at the EOS), then emit
         the taken tokens in order. Rollback runs before any emit: _emit
         may retire the request, which frees the slot."""
-        for slot, req in stepped.items():
-            if self.running.get(slot) is not req:
+        for slot in np.nonzero(step.active)[0]:
+            slot = int(slot)
+            req = step.participants.get(slot)
+            if req is None or self.running.get(slot) is not req:
                 continue
             taken = int(mask_ks[:, slot].sum())
-            if taken < int(step_limits[slot]):
-                self.cache.truncate(slot, int(lengths[slot]) + taken)
+            if taken < int(step.step_limits[slot]):
+                self.cache.truncate(slot, int(step.lengths[slot]) + taken)
             for i in range(taken):
-                if not finite[i, slot]:
-                    self._fail(req, f"non-finite logits at iteration {self._iter} (window step {i})")
+                if not step.finite[i, slot]:
+                    self._fail(req, f"non-finite logits at iteration {step.iteration} (window step {i})")
                     break
                 self._emit(req, int(toks_ks[i, slot]))
                 if self.running.get(slot) is not req:
@@ -763,42 +903,17 @@ class _SchedulerBase:
             self.stats.draft_faults += 1
             return {}
 
-    def _run_verify(self, plan, widths: Dict[int, int], call) -> Optional[np.ndarray]:
-        """Claim every page the plan's rows write (`widths` rows per
-        slot), then run the engine's verify `call(plan)`; bookkeeping
-        shared by both verify kinds. Returns the host logits, or None
-        when nothing ran."""
-        self._secure_pages(widths)
-        for slot in [s for s in plan if s not in self.running]:
-            del plan[slot]  # a failed page claim retired it
-        if not plan:
-            return None
-        t0 = time.perf_counter()
-        try:
-            logits = call(plan)
-        except Exception as e:
-            self._fail_all_running(f"verify step failed: {e!r}")
-            return None
-        spec = self.cache.spec
-        self.stats.verify_s += time.perf_counter() - t0
-        self.stats.verify_steps += 1
-        self.stats.host_syncs += 1
-        self.stats.slot_steps += spec.max_seqs
-        self.stats.busy_slot_steps += len(plan)
-        self._budget_used_iter += sum(widths[s] for s in plan)
-        return logits
-
-    def _verify_dispatch_step(self, proposals) -> Optional[_VerifyStep]:
-        """One linear speculative step up to its logits: cap each slot's
-        drafts to its remaining budget and the cache horizon (a verify
-        emits up to k_s + 1 tokens and writes k_s + 1 rows, which also
-        keeps paged verify inside the admission reserve), claim the pages,
-        and run one batched verify of width spec_k + 1. Under a token
+    def _verify_dispatch_step(self, proposals):
+        """Dispatch one linear speculative step: cap each slot's drafts to
+        its remaining budget and the cache horizon (a verify emits up to
+        k_s + 1 tokens and writes k_s + 1 rows, which also keeps paged
+        verify inside the admission reserve), claim the pages, and
+        dispatch one batched verify of width spec_k + 1. Under a token
         budget every verifying slot keeps its one-token floor and drafts
-        fit in what remains, first-come by slot id."""
+        fit in what remains, first-come by slot id. Returns the
+        InflightStep, or None."""
         spec = self.cache.spec
         k = self.spec_k
-        lengths = self.cache.lengths.copy()
         plan: Dict[int, List[int]] = {}
         budget_left = self.token_budget if self.token_budget else None
         for slot, req in sorted(self._decodable().items()):
@@ -806,45 +921,59 @@ class _SchedulerBase:
                 len(proposals.get(slot) or ()),
                 k,
                 req.max_new_tokens - len(req.generated) - 1,
-                spec.max_len - int(lengths[slot]) - 1,
+                spec.max_len - int(self.cache.lengths[slot]) - 1,
             )
             if budget_left is not None:
                 k_s = min(k_s, max(0, budget_left - 1))
             plan[slot] = list(proposals.get(slot) or ())[: max(0, k_s)]
             if budget_left is not None:
                 budget_left -= 1 + len(plan[slot])
-        participants = dict(self.running)
-
-        def call(plan):
-            tokens = np.zeros((spec.max_seqs, k + 1), dtype=np.int32)
-            draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
-            for slot, drafts in plan.items():
-                tokens[slot, 0] = participants[slot].generated[-1]
-                tokens[slot, 1 : 1 + len(drafts)] = drafts
-                draft_lens[slot] = 1 + len(drafts)
-            return self.engine.verify(self.params, tokens, draft_lens)
-
-        logits = self._run_verify(plan, {s: 1 + len(d) for s, d in plan.items()}, call)
-        if logits is None:
+        # a page claim may preempt plan slots: the arrays build after it
+        self._secure_pages({s: 1 + len(d) for s, d in plan.items()})
+        plan = {s: d for s, d in plan.items() if s in self.running}
+        if not plan:
             return None
-        return _VerifyStep(plan, lengths, participants, logits)
+        tokens = np.zeros((spec.max_seqs, k + 1), dtype=np.int32)
+        draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
+        for slot, drafts in plan.items():
+            tokens[slot, 0] = self.running[slot].generated[-1]
+            tokens[slot, 1 : 1 + len(drafts)] = drafts
+            draft_lens[slot] = 1 + len(drafts)
+        t0 = time.perf_counter()
+        try:
+            step = self.engine.verify_dispatch(self.params, tokens, draft_lens)
+        except Exception as e:
+            self._fail_all_running(f"verify step failed: {e!r}")
+            return None
+        step.plan = plan
+        step.participants = {s: self.running[s] for s in plan}
+        self._note_dispatch(step, t0)
+        self._count_verify(len(plan), draft_lens)
+        return step
 
-    def _commit_verify(self, step: _VerifyStep) -> None:
+    def _count_verify(self, slots: int, draft_lens: np.ndarray) -> None:
+        stats = self.stats
+        stats.verify_steps += 1
+        stats.slot_steps += self.cache.spec.max_seqs
+        stats.busy_slot_steps += slots
+        self._budget_used_iter += int(draft_lens.sum())
+
+    def _commit_verify(self, step, logits: np.ndarray) -> None:
         """Per slot: accept a prefix of the drafts against the step's
         pre-step lengths, roll the cache to the accepted length (paged
         slots return surplus pages), and emit accepted + 1 tokens. EOS
         inside the accepted run retires the request at the EOS."""
         for slot in sorted(step.plan):
-            req = step.participants[slot]
-            if self.running.get(slot) is not req:
+            req = step.participants.get(slot)
+            if req is None or self.running.get(slot) is not req:
                 continue
             drafts = step.plan[slot]
             old_len = int(step.lengths[slot])
-            if not np.isfinite(step.logits[slot, : 1 + len(drafts)]).all():
-                self._fail(req, f"non-finite logits at iteration {self._iter}")
+            if not np.isfinite(logits[slot, : 1 + len(drafts)]).all():
+                self._fail(req, f"non-finite logits at iteration {step.iteration}")
                 continue
             accepted, emitted = accept_drafts(
-                step.logits[slot],
+                logits[slot],
                 drafts,
                 temperature=self.engine.temperature,
                 seed=self.engine.seed,
@@ -859,21 +988,21 @@ class _SchedulerBase:
             self.stats.draft_tokens_accepted += accepted
             self._emit_run(req, emitted)
 
-    def _verify_tree_dispatch_step(self, trees) -> Optional[_VerifyStep]:
-        """One tree speculative step up to its logits: prune each slot's
-        tree to its budget (depth) and horizon (nodes), claim the pages
-        its 1 + nodes rows need, and run one batched tree verify of fixed
-        width 1 + spec_k * spec_branch."""
+    def _verify_tree_dispatch_step(self, trees):
+        """Dispatch one tree speculative step: prune each slot's tree to
+        its budget (depth) and horizon (nodes), claim the pages its
+        1 + nodes rows need, and dispatch one batched tree verify of
+        fixed width 1 + spec_k * spec_branch. Returns the InflightStep,
+        or None."""
         spec = self.cache.spec
         w = 1 + self._tree_nodes
-        lengths = self.cache.lengths.copy()
         plan: Dict[int, DraftTree] = {}
         budget_left = self.token_budget if self.token_budget else None
         for slot, req in sorted(self._decodable().items()):
             # every node writes a cache row (horizon cap), but accepted
             # tokens are bounded by the depth (request budget cap); nodes
             # are charged to the token budget as linear drafts are
-            max_nodes = min(self._tree_nodes, spec.max_len - int(lengths[slot]) - 1)
+            max_nodes = min(self._tree_nodes, spec.max_len - int(self.cache.lengths[slot]) - 1)
             max_depth = req.max_new_tokens - len(req.generated) - 1
             if budget_left is not None:
                 max_nodes = min(max_nodes, max(0, budget_left - 1))
@@ -881,44 +1010,51 @@ class _SchedulerBase:
             plan[slot] = tree.prune(max(0, max_nodes), max(0, max_depth))
             if budget_left is not None:
                 budget_left -= 1 + plan[slot].nodes
-        participants = dict(self.running)
-
-        def call(plan):
-            tokens = np.zeros((spec.max_seqs, w), dtype=np.int32)
-            draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
-            # pad rows and columns keep a chain topology (parent j - 1)
-            parents = np.tile(np.arange(-1, w - 1, dtype=np.int32), (spec.max_seqs, 1))
-            for slot, tree in plan.items():
-                tokens[slot, 0] = participants[slot].generated[-1]
-                tokens[slot, 1 : 1 + tree.nodes] = tree.tokens
-                parents[slot] = tree.row_parents(w)
-                draft_lens[slot] = 1 + tree.nodes
-            return self.engine.verify_tree(self.params, tokens, draft_lens, parents)
-
-        logits = self._run_verify(plan, {s: 1 + t.nodes for s, t in plan.items()}, call)
-        if logits is None:
+        self._secure_pages({s: 1 + t.nodes for s, t in plan.items()})
+        plan = {s: t for s, t in plan.items() if s in self.running}
+        if not plan:
             return None
+        tokens = np.zeros((spec.max_seqs, w), dtype=np.int32)
+        draft_lens = np.zeros(spec.max_seqs, dtype=np.int32)
+        # pad rows and columns keep a chain topology (parent j - 1)
+        parents = np.tile(np.arange(-1, w - 1, dtype=np.int32), (spec.max_seqs, 1))
+        for slot, tree in plan.items():
+            tokens[slot, 0] = self.running[slot].generated[-1]
+            tokens[slot, 1 : 1 + tree.nodes] = tree.tokens
+            parents[slot] = tree.row_parents(w)
+            draft_lens[slot] = 1 + tree.nodes
+        t0 = time.perf_counter()
+        try:
+            step = self.engine.verify_tree_dispatch(self.params, tokens, draft_lens, parents)
+        except Exception as e:
+            self._fail_all_running(f"tree verify step failed: {e!r}")
+            return None
+        step.plan = {s: list(t.tokens) for s, t in plan.items()}
+        step.tree_plan = plan
+        step.participants = {s: self.running[s] for s in plan}
+        self._note_dispatch(step, t0)
+        self._count_verify(len(plan), draft_lens)
         self.stats.tree_verify_steps += 1
         self.stats.tree_nodes_proposed += sum(t.nodes for t in plan.values())
-        return _VerifyStep(plan, lengths, participants, logits)
+        return step
 
-    def _commit_verify_tree(self, step: _VerifyStep) -> None:
+    def _commit_verify_tree(self, step, logits: np.ndarray) -> None:
         """Per slot: walk the tree against the logits, accept the longest
         surviving root-to-leaf path, compact its scattered rows into
         contiguous positions (truncate with src_rows; dead branches' rows
         and pages go back in the same call), and emit len(path) + 1
         tokens. Proposed counts the tree's depth, accepted the path."""
-        for slot in sorted(step.plan):
-            req = step.participants[slot]
-            if self.running.get(slot) is not req:
+        for slot in sorted(step.tree_plan):
+            req = step.participants.get(slot)
+            if req is None or self.running.get(slot) is not req:
                 continue
-            tree = step.plan[slot]
+            tree = step.tree_plan[slot]
             old_len = int(step.lengths[slot])
-            if not np.isfinite(step.logits[slot, : 1 + tree.nodes]).all():
-                self._fail(req, f"non-finite logits at iteration {self._iter}")
+            if not np.isfinite(logits[slot, : 1 + tree.nodes]).all():
+                self._fail(req, f"non-finite logits at iteration {step.iteration}")
                 continue
             path, emitted = accept_tree(
-                step.logits[slot],
+                logits[slot],
                 tree,
                 temperature=self.engine.temperature,
                 seed=self.engine.seed,
@@ -941,20 +1077,18 @@ class _SchedulerBase:
                 break  # EOS or budget mid-verify: nothing past it
 
     def _verify_once(self) -> None:
-        """One speculative iteration: draft (or take _fusable_steps' dry
-        run's drafts), one batched verify, and the commit,
-        synchronously."""
+        """One synchronous speculative iteration: draft (or take
+        _fusable_steps' dry run's drafts), dispatch one batched verify
+        and reconcile it."""
         cached, self._cached_proposals = self._cached_proposals, None
         if self.spec_branch > 1:
             trees = cached[1] if cached is not None and cached[0] == "tree" else self._propose_trees()
             step = self._verify_tree_dispatch_step(trees)
-            if step is not None:
-                self._commit_verify_tree(step)
         else:
             proposals = cached[1] if cached is not None and cached[0] == "linear" else self._propose(self.spec_k)
             step = self._verify_dispatch_step(proposals)
-            if step is not None:
-                self._commit_verify(step)
+        if step is not None:
+            self._reconcile_step(step)
 
     # -- chunked prefill (token_budget > 0) -------------------------------------
 
@@ -977,15 +1111,15 @@ class _SchedulerBase:
 
     def _plan_chunks(self, reserved: int) -> Dict[int, int]:
         """Fair-share chunk grants for one iteration: round-robin passes
-        over the prefill-pending slots in admission order, one chunk_size
-        unit (or the remainder) per pass, until the budget left after
-        `reserved` runs out; each slot's grant stops at decode_kernel.MAX_W
-        (the kernels' query rows). A grant that finishes a prompt costs
-        only its own tokens: the slot's first decode waits one iteration
-        (_chunk_unlocked). Pending slots granted nothing count as budget
-        deferrals."""
+        over the slots with prompt tokens not yet dispatched, in admission
+        order, one chunk_size unit (or the remainder) per pass, until the
+        budget left after `reserved` runs out; each slot's grant stops at
+        decode_kernel.MAX_W (the kernels' query rows). A grant that
+        finishes a prompt costs only its own tokens: the slot's first
+        decode waits one iteration (_chunk_unlocked). Pending slots
+        granted nothing count as budget deferrals."""
         pending = sorted(
-            (r for r in self.running.values() if self._prefill_pending(r)),
+            (r for r in self.running.values() if r.prefill_dispatched < len(r.prefill_seq)),
             key=lambda r: (r.admit_iter, r.rid),
         )
         if not pending:
@@ -996,7 +1130,7 @@ class _SchedulerBase:
         while progress and budget > 0:
             progress = False
             for req in pending:
-                rem = len(req.prefill_seq) - req.prefill_pos - plan[req.slot]
+                rem = len(req.prefill_seq) - req.prefill_dispatched - plan[req.slot]
                 if rem <= 0 or plan[req.slot] >= MAX_W:
                     continue
                 unit = min(self.chunk_size, rem, MAX_W - plan[req.slot])
@@ -1008,27 +1142,25 @@ class _SchedulerBase:
         self.stats.budget_deferrals += sum(1 for c in plan.values() if c == 0)
         return {s: c for s, c in plan.items() if c > 0}
 
-    def _chunk_once(self) -> None:
-        """One chunked-prefill step: plan within the budget the
-        decode/verify step leaves, claim the chunk rows' pages (which may
-        preempt under optimistic admission), run the step at the width of
-        the largest grant padded up to a multiple of chunk_size (never
-        past MAX_W: the padding changes no result), and commit: cursors
-        advance, a prefix cache publishes every committed full page, and a
-        final chunk emits the request's first token."""
-        plan = self._plan_chunks(self._reserved_step_tokens())
+    def _chunk_dispatch_step(self, plan: Dict[int, int]):
+        """Dispatch one chunked-prefill step: claim the chunk rows' pages
+        (which may preempt under optimistic admission), dispatch the step
+        at the width of the largest grant padded up to a multiple of
+        chunk_size (never past MAX_W: the padding changes no result) and
+        advance the dispatch cursors. The cursors and sequences the
+        commit needs ride the step. Returns the InflightStep, or None."""
         if not plan:
-            return
+            return None
         self._secure_pages(dict(plan))
         live: Dict[int, int] = {}
         for slot, c in plan.items():
             req = self.running.get(slot)
             if req is not None:  # a preemption may have evicted it
-                c = min(c, len(req.prefill_seq) - req.prefill_pos)
+                c = min(c, len(req.prefill_seq) - req.prefill_dispatched)
                 if c > 0:
                     live[slot] = c
         if not live:
-            return
+            return None
         spec = self.cache.spec
         w = max(live.values())
         w = min(-(-w // self.chunk_size) * self.chunk_size, MAX_W)
@@ -1038,40 +1170,58 @@ class _SchedulerBase:
         chunks: Dict[int, tuple] = {}
         for slot, c in sorted(live.items()):
             req = self.running[slot]
-            start = req.prefill_pos
+            start = req.prefill_dispatched
             tokens[slot, :c] = req.prefill_seq[start : start + c]
             chunk_lens[slot] = c
             finals[slot] = start + c >= len(req.prefill_seq)
-            chunks[slot] = (req, start, c, finals[slot])
+            chunks[slot] = (start, c, bool(finals[slot]))
         t0 = time.perf_counter()
         try:
-            nxt, logits = self.engine.prefill_chunk(self.params, tokens, chunk_lens, finals)
-            finite = _finite_rows(logits)
+            step = self.engine.prefill_chunk_dispatch(self.params, tokens, chunk_lens, finals)
         except Exception as e:
             self._fail_all_running(f"chunk step failed: {e!r}")
-            return
+            return None
+        for slot, (start, c, _) in chunks.items():
+            self.running[slot].prefill_dispatched = start + c
+        step.participants = {s: self.running[s] for s in chunks}
+        step.chunks = chunks
+        step.chunk_seqs = {s: self.running[s].prefill_seq for s in chunks}
+        self._note_dispatch(step, t0)
         stats = self.stats
-        stats.chunk_s += time.perf_counter() - t0
         stats.chunk_steps += 1
         stats.chunk_tokens += int(chunk_lens.sum())
-        stats.host_syncs += 1
         stats.slot_steps += spec.max_seqs
         stats.busy_slot_steps += len(chunks)
         self._budget_used_iter += int(chunk_lens.sum())
+        return step
+
+    def _commit_chunk(self, step, nxt) -> None:
+        """Per participant, from the step's own cursor record: advance
+        the committed cursor, publish every committed full page (prefix
+        cache), and on a final chunk emit the request's first token."""
         prefix = bool(getattr(self.cache, "prefix_cache", False))
-        for slot, (req, start, size, final) in sorted(chunks.items()):
-            if self.running.get(slot) is not req:
+        for slot in sorted(step.chunks):
+            req = step.participants.get(slot)
+            if req is None or self.running.get(slot) is not req:
                 continue
-            if not finite[slot]:
-                self._fail(req, f"non-finite chunk logits at iteration {self._iter}")
+            start, size, final = step.chunks[slot]
+            if not step.finite[slot]:
+                self._fail(req, f"non-finite chunk logits at iteration {step.iteration}")
                 continue
             req.prefill_pos = start + size
             if prefix:
                 # every committed full page becomes matchable at once
-                self.cache.register_prefix(slot, req.prefill_seq, start + size)
+                self.cache.register_prefix(slot, step.chunk_seqs[slot], start + size)
             if final:
                 self._chunk_unlocked.add(slot)
                 self._emit(req, int(nxt[slot]))
+
+    def _chunk_once(self) -> None:
+        """One synchronous chunked-prefill step: plan within the budget
+        the decode/verify step leaves, dispatch, reconcile."""
+        step = self._chunk_dispatch_step(self._plan_chunks(self._reserved_step_tokens()))
+        if step is not None:
+            self._reconcile_step(step)
 
     def _generate_once(self) -> None:
         """The iteration's generation step over the running slots. The
@@ -1103,6 +1253,7 @@ class _SchedulerBase:
         stats.prefix_hits = getattr(self.cache, "prefix_hits", 0)
         stats.prefix_pages_shared = int(getattr(self.cache, "_shared", np.zeros(1)).sum())
         stats.cow_copies = getattr(self.cache, "cow_copies", 0)
+        stats.prefix_evictions = getattr(self.cache, "prefix_evictions", 0)
         if self.debug_invariants:
             self.cache.check_invariants()
 
@@ -1139,6 +1290,210 @@ class ContinuousBatchingScheduler(_SchedulerBase):
         if self.running:
             self._generate_once()
         self._end_iteration()
+
+
+class AsyncContinuousBatchingScheduler(ContinuousBatchingScheduler):
+    """The double-buffered Orca loop (serve_async=True; the reference's
+    AsyncContinuousBatchingScheduler): each step's dispatch and reconcile
+    run an iteration apart, so while step N runs on the device the host
+    reaps queued deadlines, admits, claims pages and dispatches step
+    N + 1, whose input tokens chain on N's outputs on the device, and
+    only then waits for N to emit its tokens and retire requests. The
+    synchronous ContinuousBatchingScheduler is the reference its streams
+    are held to.
+
+    Terminal events land one step late: a request that ends in step N is
+    still stepped in N + 1, and the commit's identity check discards
+    that token; the slot layout's stale row is overwritten before any
+    length exposes it, and the paged cache pins every page released
+    while a step is in flight. `cancel` of a running request and the
+    reaping of running deadlines wait for the next reconcile; queued
+    requests cancel and time out at once. A page claim that finds the
+    pool dry because of pinned pages drains the pipeline and retries
+    before it preempts anyone.
+
+    A fused window cannot chain (its last token is k steps deep), so any
+    step in flight drains before a window dispatches, and an open window
+    drains at the next iteration's top. Two verifies cannot pipeline
+    either (the next one's inputs are acceptance decisions): instead a
+    stateless proposer drafts for verify N + 1 while N runs, against N's
+    full-accept prediction, and the drafts are kept only where the
+    prediction held (stats.pre_proposal_hits / misses). Token trees
+    draft fresh."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._inflight: deque = deque()  # InflightSteps, oldest first
+        self._pending_cancels: set = set()
+
+    # -- one-step-stale control events -------------------------------------------
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request: a queued one at once, a running one at the
+        next reconcile while a step is in flight (its in-flight work is
+        discarded)."""
+        req = self._by_rid.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        if req.slot is not None and self._inflight:
+            self._pending_cancels.add(rid)
+            return True
+        return super().cancel(rid)
+
+    def _reap_deadlines(self) -> None:
+        now = time.perf_counter()
+        for req in [r for r in self.queue if r.deadline_exceeded(now)]:
+            self._finalize(req, RequestStatus.TIMED_OUT)
+        if not self._inflight:
+            for req in [r for r in list(self.running.values()) if r.deadline_exceeded(now)]:
+                self._finalize(req, RequestStatus.TIMED_OUT)
+
+    def _after_reconcile(self) -> None:
+        """The deferred control events, at the commit boundary: the
+        cancels queued while the step was in flight, then running
+        deadlines."""
+        for rid in sorted(self._pending_cancels):
+            req = self._by_rid.get(rid)
+            if req is not None and req.status not in TERMINAL_STATUSES:
+                self._finalize(req, RequestStatus.CANCELLED)
+        self._pending_cancels.clear()
+        now = time.perf_counter()
+        for req in [r for r in list(self.running.values()) if r.deadline_exceeded(now)]:
+            self._finalize(req, RequestStatus.TIMED_OUT)
+
+    # -- the pipeline ----------------------------------------------------------
+
+    def _reconcile_front(self) -> None:
+        self._reconcile_step(self._inflight.popleft())
+        self._after_reconcile()
+
+    def _drain_inflight(self) -> bool:
+        drained = bool(self._inflight)
+        while self._inflight:
+            self._reconcile_front()
+        return drained
+
+    def _reclaim_inflight_pages(self) -> bool:
+        # the pages the steps in flight pin come back at their reconcile:
+        # the drain stalls the pipeline but keeps the allocator sound
+        return self._drain_inflight()
+
+    def work_pending(self) -> bool:
+        return bool(self.queue or self.running or self._inflight)
+
+    def step(self) -> None:
+        self._begin_iteration()
+        self._admit()
+        if self.proposer is not None:
+            self._verify_iteration_async()
+        else:
+            self._decode_iteration_async()
+        self._end_iteration()
+
+    def _dispatch_chunk(self) -> int:
+        """Dispatch this iteration's chunk step, if any, into the
+        pipeline: it has no host data dependency (the engine advances
+        the cursors at dispatch). Returns the steps it added."""
+        if not (self.token_budget and self.running):
+            return 0
+        step = self._chunk_dispatch_step(self._plan_chunks(self._reserved_step_tokens()))
+        if step is None:
+            return 0
+        self._inflight.append(step)
+        return 1
+
+    def _decode_iteration_async(self) -> None:
+        """Dispatch decode N + 1, chained on the newest in-flight decode
+        step N, then reconcile N. Under a token budget a chunk step
+        dispatches ahead of the decode and both ride the device while the
+        host reconciles the previous iteration's. An iteration that
+        dispatches nothing drains the pipeline, so that its pinned pages
+        and terminal events land."""
+        if any(s.kind == "multistep" for s in self._inflight):
+            self._drain_inflight()
+        keep = self._dispatch_chunk()
+        if self.running:
+            k = self._fusable_steps()
+            if k > 1:
+                # nothing streams in (k > 1), so no chunk was dispatched;
+                # the window's input tokens must be committed first
+                self._drain_inflight()
+                step = self._decode_multi_dispatch_step(k)
+            else:
+                # an interleaved chunk step never carries the decoding
+                # slots' next tokens: chain on the newest decode step
+                chain = next((s for s in reversed(self._inflight) if s.kind == "decode"), None)
+                step = self._decode_dispatch_step(chain=chain)
+            if step is not None:
+                self._inflight.append(step)
+                keep += 1
+        while len(self._inflight) > keep:
+            self._reconcile_front()
+        if not keep:
+            self._drain_inflight()
+
+    def _verify_iteration_async(self) -> None:
+        """While verify N is in flight, draft for N + 1 against its
+        predicted outcome; dispatch this iteration's chunk step (it
+        overlaps verify N on the device and stays in flight through this
+        iteration's verify), reconcile N, then dispatch verify N + 1 with
+        the pre-proposals that survived."""
+        pre = self._pre_propose()
+        keep = self._dispatch_chunk()
+        while len(self._inflight) > keep:
+            self._reconcile_front()
+        if self.running:
+            if self.spec_branch > 1:
+                step = self._verify_tree_dispatch_step(self._propose_trees())
+            else:
+                step = self._verify_dispatch_step(self._merge_proposals(pre))
+            if step is not None:
+                self._inflight.append(step)
+
+    # -- speculative pre-proposals -------------------------------------------------
+
+    def _pre_propose(self) -> Dict[int, Tuple[int, List[int]]]:
+        """Draft for the next verify while the current one is in flight,
+        against each slot's predicted history: its committed tokens plus
+        the in-flight drafts, all accepted. Only stateless proposers
+        pre-draft. Returns slot -> (the predicted generated length, the
+        draft), one token longer than spec_k: the prediction cannot know
+        the verify's own token, so a pre-proposal survives only when its
+        first token turns out to be that token."""
+        if not self._inflight or self.proposer is None or not getattr(self.proposer, "stateless", False):
+            return {}
+        step = self._inflight[-1]
+        if step.kind != "verify" or not step.plan:
+            return {}
+        seqs: Dict[int, List[int]] = {}
+        basis: Dict[int, int] = {}
+        for slot, drafts in step.plan.items():
+            req = step.participants.get(slot)
+            if req is None or self.running.get(slot) is not req:
+                continue
+            seqs[slot] = list(req.prompt) + list(req.generated) + [int(t) for t in drafts]
+            basis[slot] = len(req.generated) + len(drafts)
+        if not seqs:
+            return {}
+        proposals = self.proposer.propose_sequences(seqs, self.spec_k + 1)
+        return {s: (basis[s], [int(t) for t in proposals.get(s) or ()]) for s in seqs}
+
+    def _merge_proposals(self, pre: Dict[int, Tuple[int, List[int]]]) -> Dict[int, List[int]]:
+        """Fresh proposals, overlaid with the pre-proposals whose
+        prediction held: the in-flight verify accepted every draft (the
+        stream grew by drafts + 1) and the pre-draft's first token is
+        that verify's own token. Every other pre-proposal is a miss."""
+        proposals = self._propose(self.spec_k)
+        for slot, (basis, prop) in pre.items():
+            req = self.running.get(slot)
+            if req is None:
+                continue
+            if len(req.generated) == basis + 1 and len(prop) > 1 and prop[0] == int(req.generated[-1]):
+                proposals[slot] = prop[1:]
+                self.stats.pre_proposal_hits += 1
+            else:
+                self.stats.pre_proposal_misses += 1
+        return proposals
 
 
 class StaticBatchingScheduler(_SchedulerBase):

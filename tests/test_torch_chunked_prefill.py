@@ -95,13 +95,14 @@ def test_chunk_widths_stop_at_the_kernels_rows(lms, monolithic, monkeypatch):
     from flexflow_tpu_torch.serving.engine import GenerationEngine
 
     widths = []
-    real = GenerationEngine.prefill_chunk
+    real = GenerationEngine.prefill_chunk_dispatch
 
     def spy(self, params, tokens, chunk_lens, final=None):
         widths.append((tokens.shape[1], int(np.max(chunk_lens))))
         return real(self, params, tokens, chunk_lens, final)
 
-    monkeypatch.setattr(GenerationEngine, "prefill_chunk", spy)
+    # every chunk step, the scheduler's and prefill_suffix's, dispatches here
+    monkeypatch.setattr(GenerationEngine, "prefill_chunk_dispatch", spy)
     ours, _, _ = serve(PORT, tm, PROMPTS, MAX_NEW, token_budget=64, chunk_size=8)
     assert ours == monolithic["paged"]
     assert widths and all(w <= 16 and c <= w for w, c in widths)

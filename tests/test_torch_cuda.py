@@ -1500,13 +1500,14 @@ def test_serving_features_launch_their_kernels_on_the_card(leg):
         sched, eng, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, debug_invariants=True,
                                                                 **serve_kw))
         calls = [0]
-        chunk = eng.prefill_chunk
+        chunk = eng.prefill_chunk_dispatch
 
+        # every chunk step, the scheduler's and prefill_suffix's, dispatches here
         def counted(*a, **kw):
             calls[0] += 1
             return chunk(*a, **kw)
 
-        eng.prefill_chunk = counted
+        eng.prefill_chunk_dispatch = counted
         first = Request(rid=0, prompt=prompts[0], max_new_tokens=12)
         sched.submit(first)
         sched.step()  # the first request leads, so later ones can share its pages
@@ -1533,3 +1534,156 @@ def test_serving_features_launch_their_kernels_on_the_card(leg):
         assert stats.prefix_hits > 0
     if leg == "optimistic":
         assert stats.preemptions > 0
+
+
+# the async double-buffered serving loop on the card
+_ASYNC_LEGS = {"paged": (dict(), "paged_flash_verify"), "int8": (dict(kv_dtype="int8"), "paged_flash_verify_quant")}
+
+
+@pytest.mark.parametrize("leg", sorted(_ASYNC_LEGS))
+def test_async_serving_on_the_card_matches_sync_streams(leg):
+    """serve_async=True on the card at 2 layers, fp32 and int8 pools: the
+    streams equal the sync loop's token for token, the leg's kernel
+    launches dispatched steps x layers times, and the async loop spends
+    a larger share of each step's window on other host work."""
+    from flexflow_tpu_torch.serving import AsyncContinuousBatchingScheduler, Request, build_scheduler
+
+    _card()
+    layers = 2
+    model = _small_lm(layers)
+    kw, kernel = _ASYNC_LEGS[leg]
+    prompts = [[1, 2, 3], [4], [5, 6, 7, 8, 9], [10, 11], [12], [13, 14, 15]]
+    runs = {}
+    for serve_async in (False, True):
+        sched, _, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, serve_async=serve_async,
+                                                              debug_invariants=True, **kw))
+        assert isinstance(sched, AsyncContinuousBatchingScheduler) == serve_async
+        dk.reset_launches()
+        done = sched.run([Request(rid=i, prompt=p, max_new_tokens=20) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        assert all(r.ok and len(r.generated) == 20 for r in done), [(r.rid, r.status, r.error) for r in done]
+        assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{kernel: sched.stats.dispatch_count * layers})
+        runs[serve_async] = ({r.rid: r.generated for r in done}, sched.stats)
+        cache.check_invariants()
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1].overlap_fraction > runs[False][1].overlap_fraction
+
+
+def _two_slots(model, **kw):
+    """A scheduler's engine and cache with two prefilled slots and one
+    empty slot for a chunk step; returns (engine, cache, the two slots,
+    the empty slot, their next tokens [4], the active mask [4])."""
+    from flexflow_tpu_torch.serving import build_scheduler
+
+    _, eng, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, **kw))
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5]]
+    slots = [cache.alloc(len(p), 64) for p in prompts]
+    first, _ = eng.prefill(model.params, prompts, slots)
+    empty = cache.alloc(0, 64)
+    tokens = np.zeros(4, dtype=np.int32)
+    tokens[slots] = first
+    active = np.zeros(4, dtype=bool)
+    active[slots] = True
+    return eng, cache, slots, empty, tokens, active
+
+
+@pytest.mark.parametrize("leg", ["paged", "int8", "slot"])
+def test_async_dispatch_halves_do_not_sync(leg):
+    """A chained decode dispatch, a multi-step window's dispatch, a verify
+    dispatch and a chunk dispatch under
+    torch.cuda.set_sync_debug_mode("error"): none waits for the stream
+    (after one warm-up of each outside the mode: kernel builds and the
+    window's graph capture)."""
+    _card()
+    model = _small_lm(2)
+    kw = {"paged": {}, "int8": dict(kv_dtype="int8"), "slot": dict(kv_layout="slot")}[leg]
+    eng, cache, slots, empty, tokens, active = _two_slots(model, **kw)
+    params = model.params
+
+    def dispatch():
+        d1 = eng.decode_dispatch(params, tokens, active)
+        d2 = eng.decode_dispatch(params, tokens, active, chain=d1, chain_mask=active)
+        w = eng.decode_multi_dispatch(params, tokens, active, np.where(active, 3, 0))
+        vt = np.zeros((4, 5), dtype=np.int32)
+        vt[slots, 0] = tokens[slots]
+        v = eng.verify_dispatch(params, vt, np.where(active, 5, 0))
+        ct = np.zeros((4, 8), dtype=np.int32)
+        ct[empty] = np.arange(1, 9)
+        cl = np.zeros(4, dtype=np.int32)
+        cl[empty] = 8
+        c = eng.prefill_chunk_dispatch(params, ct, cl)
+        return d1, d2, w, v, c
+
+    def reconcile(steps):
+        d1, d2, w, v, c = steps
+        return (eng.decode_reconcile(d1)[0], eng.decode_reconcile(d2)[0], eng.decode_multi_reconcile(w)[0],
+                eng.verify_reconcile(v), eng.prefill_chunk_reconcile(c)[0])
+
+    reconcile(dispatch())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n1, n2, toks, logits, chunk = reconcile(steps)
+    assert np.isfinite(logits).all() and steps[0].finite[slots].all() and steps[1].finite[slots].all()
+    assert cache.pinned_pages == 0
+
+
+def test_chained_decode_reads_pinned_snapshots():
+    """Two chained decode dispatches while the stream is held busy (every
+    copy they issue is still queued), the host arrays they read (input
+    tokens, chain mask, lengths, block tables) overwritten right after
+    each: the tokens equal two synchronous decode steps'. A copy that read
+    the host arrays when it ran, not at the dispatch, would see the
+    overwrites."""
+    _card()
+    model = _small_lm(2)
+    eng_a, _, slots, _, tokens, active = _two_slots(model)
+    n1, _ = eng_a.decode(model.params, tokens, active)
+    step2 = np.where(active, n1, tokens).astype(np.int32)
+    n2, _ = eng_a.decode(model.params, step2, active)
+    eng, cache, _, _, tokens, active = _two_slots(model)
+    torch.cuda.synchronize()
+
+    def clobber():
+        saved = cache.lengths.copy(), cache.block_tables.copy()
+        cache.lengths[:] = 3
+        cache.block_tables[:] = 0
+        return saved
+
+    torch.cuda._sleep(200_000_000)  # hold the stream: the copies below stay queued
+    d1 = eng.decode_dispatch(model.params, tokens, active)
+    saved = clobber()
+    tokens[:] = 1
+    cache.lengths[:], cache.block_tables[:] = saved
+    mask = active.copy()
+    d2 = eng.decode_dispatch(model.params, tokens, active, chain=d1, chain_mask=mask)
+    saved = clobber()
+    mask[:] = False
+    tokens[:] = 2
+    torch.cuda.synchronize()
+    cache.lengths[:], cache.block_tables[:] = saved
+    got1, _ = eng.decode_reconcile(d1)
+    got2, _ = eng.decode_reconcile(d2)
+    np.testing.assert_array_equal(got1[slots], n1[slots])
+    np.testing.assert_array_equal(got2[slots], n2[slots])
+
+
+def test_graph_window_is_not_replayed_while_in_flight():
+    """A second window over the captured state while the first is not
+    reconciled would overwrite its outputs: the engine refuses it, and
+    takes it once the first has reconciled."""
+    _card()
+    model = _small_lm(2)
+    eng, _, slots, _, tokens, active = _two_slots(model)
+    limits = np.where(active, 3, 0)
+    first = eng.decode_multi_dispatch(model.params, tokens, active, limits)
+    with pytest.raises(RuntimeError, match="not reconciled"):
+        eng.decode_multi_dispatch(model.params, tokens, active, limits)
+    toks, _, mask = eng.decode_multi_reconcile(first)
+    assert mask[:, slots].all()
+    nxt = np.where(active, toks[-1], tokens).astype(np.int32)
+    eng.decode_multi_reconcile(eng.decode_multi_dispatch(model.params, nxt, active, limits))
+    assert eng.multistep_cache_entries == 1

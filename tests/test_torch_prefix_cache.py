@@ -166,7 +166,9 @@ def test_suffix_past_the_kernel_rows_runs_in_steps(lms, monkeypatch):
 
 
 def test_unported_prefix_and_swap_options_raise():
-    """prefix_evict "lru" / "cost" and kv_swap name their ROADMAP item."""
-    for kw in (dict(prefix_evict="lru"), dict(prefix_evict="cost"), dict(kv_swap=True)):
+    """prefix_evict "cost" and kv_swap name their ROADMAP item; "lru" is
+    taken."""
+    for kw in (dict(prefix_evict="cost"), dict(kv_swap=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeConfig(prefix_cache=True, **kw)
+    assert ServeConfig(prefix_cache=True, prefix_evict="lru").prefix_evict == "lru"

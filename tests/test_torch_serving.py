@@ -192,9 +192,8 @@ def test_request_lifecycle(lms):
 
 
 def test_serve_config_takes_only_the_slice():
-    for kw in (dict(spec_draft="model"), dict(serve_async=True), dict(kv_swap=True),
-               dict(prefix_evict="lru", prefix_cache=True), dict(prefix_evict="cost", prefix_cache=True),
-               dict(decode_kernel="pallas")):
+    for kw in (dict(spec_draft="model"), dict(kv_swap=True),
+               dict(prefix_evict="cost", prefix_cache=True), dict(decode_kernel="pallas")):
         with pytest.raises(NotImplementedError):
             ServeConfig(**kw)
     for kw in (dict(kv_layout="ring"), dict(max_seq_len=30, kv_page_size=16),
@@ -204,12 +203,13 @@ def test_serve_config_takes_only_the_slice():
                dict(admission="eager"), dict(max_preemptions=-1), dict(prefix_cache=True, kv_layout="slot"),
                dict(token_budget=-1), dict(token_budget=64, chunk_size=0),
                dict(token_budget=8, chunk_size=16), dict(token_budget=64, chunk_size=12),
-               dict(token_budget=64, scheduler="static"), dict(prefix_evict="fifo")):
+               dict(token_budget=64, scheduler="static"), dict(prefix_evict="fifo"),
+               dict(serve_async=True, scheduler="static"), dict(prefix_evict="lru")):
         with pytest.raises(ValueError):
             ServeConfig(**kw)
     # the serving features this slice ports, all at once
     ServeConfig(temperature=0.8, seed=7, token_budget=128, chunk_size=16, prefix_cache=True,
-                admission="optimistic", max_preemptions=2)
+                admission="optimistic", max_preemptions=2, prefix_evict="lru", serve_async=True)
     # the widest verify the decode kernels take: 1 + 9 * 7 = 64 rows
     ServeConfig(spec_draft="ngram", spec_k=9, spec_branch=7, kv_dtype="int8")
     assert ServeConfig().kv_layout == "paged" and ServeConfig().scheduler == "continuous"

@@ -50,9 +50,10 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def build_lms():
-    """(jax model, port model): 2 layers, hidden 64, 4 heads, vocab 64."""
-    arch = dict(vocab_size=VOCAB, hidden=64, num_heads=4, num_layers=2, ff_dim=128)
+def build_lms(vocab=VOCAB, hidden=64, ff_dim=128):
+    """(jax model, port model): 2 layers, 4 heads, by default hidden 64
+    and vocab 64."""
+    arch = dict(vocab_size=vocab, hidden=hidden, num_heads=4, num_layers=2, ff_dim=ff_dim)
     jm = JFFModel(JFFConfig(batch_size=2, seed=0))
     tok = jm.create_tensor([2, MAX_LEN], dtype=JDataType.INT32, name="tokens")
     jax_build_decoder_lm(jm, tok, **arch)
