@@ -147,6 +147,37 @@ result line) on any failed phase:
                async streams equal the sync ones in (a), (b), (e) and plain
                (f), elsewhere they may part only at a near-tie of the sync
                run's top two logits (NEAR_TIE, int8 NEAR_TIE_INT8);
+  4g. tenancy and model draft — multi-tenant serving and the small-model
+               draft on the fp32 flagship (12 layers), one [tenancy] JSON
+               line a leg: (a) phase 3's burst with no pool, then with a
+               pool of two loaded adapters (rank 8, seeds 0 and 1) and
+               every request on the base model, eager, with
+               decode_multistep and with serve_async: streams equal
+               phase 3's; profiled decode steps with and without the pool
+               (eager and as graph windows: wall and device ms a step,
+               device ops added); (b) the burst with adapters rotating 0 /
+               1 / none: each adapter's streams equal those of the burst
+               run with every request on that adapter, the base ones
+               phase 3's, and each adapter moves the first logits of a
+               prompt by more than 1e-3; (c) 32 requests of 4 + U[0, 128)
+               prompt tokens and 64 new, gold / bronze alternating,
+               adapters rotating, at token_budget 128, chunk_size 16 with
+               classes "gold:4,bronze:1" beside no classes: streams equal
+               up to a near-tie, every bronze request finishes, gold's
+               mean admit iteration below bronze's, TTFT p50 / p95 by
+               class; the same on int8 pools under optimistic admission
+               at TENANT_PAGES pages beside reserve: preemptions > 0, the
+               victims' classes printed; (d) spec_draft="model": the
+               flagship as its own draft on fp32 pools (acceptance 1.0
+               but at near-ties of the verify logits, streams phase 3's),
+               a seeded 2-layer draft at full width with spec_k 4, linear
+               on fp32 pools (#5 at w = 5), tree (spec_branch 3) on int8
+               pools (#9) beside a plain int8 run and linear under
+               serve_async (streams the sync run's, or phase 3's up to a
+               near-tie). Every request FINISHED, each leg's target
+               kernel launched (decode + verify + chunk steps) x layers
+               times (replays counted) and the draft's #4 draft steps x 2;
+               the phase's time is printed;
   5. flash kernels — #1-#3 against their plain versions at the flagship
                training shape (q, k, v [8, 512, 16, 64]), causal and
                not, ragged (sq 500, sq != sk, head_dim 24, 128, and
@@ -2259,6 +2290,288 @@ def serve_async_legs(device, layers=FLAGSHIP["layers"], small_layers=2):
                                        lru_evictions=g["sync"]["prefix_evictions"])))
 
 
+# -- 4g. multi-tenant serving and the small-model draft --------------------------------
+
+TENANT = dict(adapters=2, adapter_rank=8)  # two resident adapters of rank 8 (seeds 0 and 1)
+TENANT_CLASSES = "gold:4,bronze:1"
+# (c)'s int8 optimistic leg: 8 slots of at most 13 pages never run a pool
+# of 80-128 pages dry on this traffic; 72 preempts (twice, by the page
+# ledger alone, which is the same at any width)
+TENANT_PAGES = 72
+DRAFT_LAYERS = 2  # the small draft LM of (d), at the flagship's full width
+
+
+def load_adapters(engine):
+    """Load adapters 0 and 1 (rank 8, seeds 0 and 1) into the engine's
+    pool, if it has one."""
+    from flexflow_tpu_torch.serving import make_lora_weights
+
+    if engine.adapters is not None:
+        for aid in (0, 1):
+            engine.adapters.load(aid, make_lora_weights(engine.adapters.spec, 8, seed=aid))
+
+
+def with_adapters(requests, adapters):
+    """`requests()` with request i on adapters[i % len(adapters)] (-1:
+    the base model)."""
+    def make():
+        reqs = requests()
+        for i, r in enumerate(reqs):
+            r.adapter_id = adapters[i % len(adapters)]
+        return reqs
+
+    return make
+
+
+def tenant_requests(vocab, classes=True, seed=SEED):
+    """(c)'s traffic: 32 requests of 4 + U[0, 128) seeded prompt tokens and
+    64 new tokens, gold / bronze alternating (`classes`), adapters
+    rotating 0 / 1 / none, all submitted at once."""
+    from flexflow_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(seed + 7)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(1, vocab, 4 + int(rng.integers(0, 128)))],
+                    max_new_tokens=64, priority_class=("gold" if i % 2 == 0 else "bronze") if classes else "",
+                    adapter_id=(0, 1, -1)[i % 3]) for i in range(32)]
+
+
+def record_rejections(sched, gaps):
+    """Wrap a linear speculative scheduler's verify commits so that `gaps`
+    gains, for each draft token the target rejects, the gap between the
+    target's top logit and the rejected token's on the verify row."""
+    from flexflow_tpu_torch.serving import accept_drafts
+
+    commit = sched._commit_verify
+
+    def recorded(step, logits):
+        for slot, drafts in step.plan.items():
+            if sched.running.get(slot) is not step.participants[slot]:
+                continue
+            accepted, _ = accept_drafts(logits[slot], drafts)
+            if accepted < len(drafts):
+                row = logits[slot, accepted]
+                gaps.append(float(row.max() - row[drafts[accepted]]))
+        return commit(step, logits)
+
+    sched._commit_verify = recorded
+
+
+def tenant_leg(name, model, layers, kernel, requests, plain=None, near_tie=None, record=False, draft=None,
+               rejections=None, **serve_kw):
+    """One 4g leg on a fresh scheduler (with `adapters` in `serve_kw`,
+    adapters 0 and 1 load first); `draft` is the (draft model, its
+    layers) of spec_draft="model". Every request
+    FINISHED at full length; `kernel` launched (decode + verify + chunk
+    steps) x layers times (replays counted), the draft's #4 draft steps x
+    its layers, and no other decode kernel. `record` keeps the run's top
+    two logits per token (a baseline); `plain`, (streams, top) of a
+    baseline, holds the streams to it as compare_streams does (NEAR_TIE,
+    NEAR_TIE_INT8 on int8 pools); `rejections`, a list, takes the gap
+    of each rejected draft token (record_rejections). Prints one
+    [tenancy] line; returns (streams, top, summary, finished requests)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.cuda import decode_kernel as dk
+    from flexflow_tpu_torch.serving import ServeConfig, build_scheduler, latency_percentiles
+
+    counter = dict(chunk_calls=0, peak_shared=0)
+    cfg = dict(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"], **serve_kw)
+    sched, engine, cache = build_scheduler(model, ServeConfig(**cfg), draft_model=draft[0] if draft else None)
+    load_adapters(engine)
+    count_chunk_calls(sched, counter)
+    top = {} if record else (plain[1] if plain else None)
+    if record:
+        record_top2(sched, top)
+    if rejections is not None:
+        record_rejections(sched, rejections)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dk.reset_launches()
+    reqs = requests()
+    t0 = time.perf_counter()
+    done = sched.run(reqs)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(dk.LAUNCHES)
+    stats = sched.stats
+    bad = [(r.rid, r.status, r.error, len(r.generated)) for r in done
+           if not r.ok or len(r.generated) != r.max_new_tokens]
+    require(len(done) == len(reqs) and not bad, f"{name}: requests not FINISHED at full length: {bad}")
+    steps = stats.decode_steps + stats.verify_steps + counter["chunk_calls"]
+    require(launches[kernel] == steps * layers,
+            f"{name}: {kernel} launches {launches[kernel]} != ({stats.decode_steps} decode + {stats.verify_steps} "
+            f"verify + {counter['chunk_calls']} chunk steps) x {layers} layers")
+    want = {kernel}
+    proposer = sched.proposer if draft else None
+    if draft:
+        require(kernel != "flash_verify", f"{name}: the target and the draft both run #4")
+        require(launches["flash_verify"] == proposer.draft_steps * draft[1] > 0,
+                f"{name}: the draft's flash_verify launches {launches['flash_verify']} != "
+                f"{proposer.draft_steps} draft steps x {draft[1]} layers")
+        want.add("flash_verify")
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    require(not others, f"{name}: other decode kernels launched: {others}")
+    streams = {r.rid: list(r.generated) for r in done}
+    ties = []
+    if plain is not None:
+        if near_tie is None:
+            near_tie = NEAR_TIE_INT8 if serve_kw.get("kv_dtype") == "int8" else NEAR_TIE
+        ties, _, _ = compare_streams(name, done, plain[0], top, {}, near_tie)
+    if getattr(cache, "paged", False):
+        cache.check_invariants()
+    if engine.adapters is not None:
+        engine.adapters.check_invariants()
+    ttft = latency_percentiles(done, (50, 95), metric="ttft")
+    summary = dict(
+        leg=name, layers=layers, requests=len(done), tokens=stats.tokens_generated, elapsed_s=elapsed,
+        tokens_per_s=stats.tokens_generated / elapsed, steps=steps, wall_ms_per_step=1e3 * elapsed / steps,
+        ttft_p50_ms=1e3 * ttft[50], ttft_p95_ms=1e3 * ttft[95], decode_steps=stats.decode_steps,
+        verify_steps=stats.verify_steps, chunk_steps=stats.chunk_steps, windows=stats.multistep_windows,
+        preemptions=stats.preemptions, acceptance_rate=stats.acceptance_rate, kernel=kernel,
+        launches=launches[kernel], near_ties=len(ties),
+    )
+    if draft:
+        summary.update(draft_steps=proposer.draft_steps, catchup_feeds=proposer.catchup_feeds,
+                       draft_tokens=proposer.draft_tokens, draft_launches=launches["flash_verify"])
+    if rejections is not None:
+        summary.update(rejections=len(rejections), max_rejection_gap=max(rejections, default=0.0))
+    print("[tenancy] " + json.dumps(summary))
+    return streams, top, summary, done
+
+
+def adapter_bite(model):
+    """The first-step logits of one prompt prefilled into three slots on
+    adapters 0, 1 and none: each adapter row's largest |change| from the
+    base row."""
+    from flexflow_tpu_torch.serving import ServeConfig, build_scheduler
+
+    _, eng, cache = build_scheduler(model, ServeConfig(max_seqs=FLAGSHIP["max_seqs"], max_seq_len=FLAGSHIP["max_len"],
+                                                       **TENANT))
+    load_adapters(eng)
+    prompt = [(7 * j + 3) % FLAGSHIP["vocab"] for j in range(6)]
+    slots = [cache.alloc(len(prompt), 64) for _ in range(3)]
+    eng.adapters.attach(slots[0], 0)
+    eng.adapters.attach(slots[1], 1)
+    _, last = eng.prefill(model.params, [prompt] * 3, slots)
+    last = last.float()
+    return {f"adapter_{aid}": float((last[aid] - last[2]).abs().max()) for aid in (0, 1)}
+
+
+def serve_tenancy(device, burst, layers=FLAGSHIP["layers"], draft_layers=DRAFT_LAYERS):
+    """Phase 4g on the fp32 flagship (see the module docstring): `burst` is
+    phase 3's streams."""
+    t_phase = time.perf_counter()
+    geo = dict(FLAGSHIP, layers=layers)
+    vocab = geo["vocab"]
+    model = build_lm(device, **geo)
+    burst_reqs = lambda: mixed_requests(vocab, geo["max_len"], NUM_REQUESTS)
+    kernel, quant = "paged_flash_verify", "paged_flash_verify_quant"
+    # (a) identity: a loaded pool serving only the base model, beside no pool
+    nopool, top, npsum, _ = tenant_leg("a: no pool", model, layers, kernel, burst_reqs, record=True)
+    require(nopool == burst, "(a): the burst without a pool differs from phase 3's streams")
+    base = (nopool, top)
+    ident, _, isum, _ = tenant_leg("a: identity, eager", model, layers, kernel, burst_reqs, **TENANT)
+    require(ident == burst, "(a): a pool serving the base model changed phase 3's streams")
+    if device == "cuda":
+        # a pool's rows all compute their deltas (base rows gather the
+        # zero sentinel and are selected away): the device work of
+        # adapter rows at the same shapes
+        prof = {}
+        for tag, kw in (("no pool", {}), ("pool", TENANT)):
+            for mode, mkw in (("eager", {}), ("windows", dict(decode_multistep=True, max_fused_steps=MULTISTEP_STEPS))):
+                prof[tag, mode] = profile_multistep(model, f"4g: {tag}, {mode}", 16 if mode == "eager" else 4,
+                                                    **kw, **mkw)
+        added = {}
+        for mode in ("eager", "windows"):
+            a, b = prof["pool", mode], prof["no pool", mode]
+            added[mode] = dict(
+                wall_ms_per_step=[b["wall_ms_per_step"], a["wall_ms_per_step"]],
+                wall_ratio=a["wall_ms_per_step"] / b["wall_ms_per_step"],
+                device_ms_added_per_step=(a["device_ms_per_step"] - b["device_ms_per_step"]
+                                          if a["device_ms_per_step"] and b["device_ms_per_step"] else None),
+                device_ops_added_per_step=a["device_ops_per_step"] - b["device_ops_per_step"],
+            )
+        print("[tenancy] " + json.dumps(dict(leg="a: what a pool adds a decode step (no pool, pool)", **added)))
+    fused, _, fsum, _ = tenant_leg("a: identity, multistep", model, layers, kernel, burst_reqs,
+                                   decode_multistep=True, **TENANT)
+    require(fused == burst and fsum["windows"] > 0, "(a): multistep streams differ from phase 3's, or no window ran")
+    asyn, _, _, _ = tenant_leg("a: identity, async", model, layers, kernel, burst_reqs, serve_async=True,
+                               **TENANT)
+    require(asyn == burst, "(a): async streams differ from phase 3's")
+    # (b) mixed adapters, each stream against its adapter's batch alone
+    mixed, _, msum, _ = tenant_leg("b: adapters 0 / 1 / none", model, layers, kernel,
+                                   with_adapters(burst_reqs, (0, 1, -1)), **TENANT)
+    for aid in (0, 1):
+        alone, _, _, _ = tenant_leg(f"b: every request on adapter {aid}", model, layers, kernel,
+                                    with_adapters(burst_reqs, (aid,)), **TENANT)
+        bad = [rid for rid in mixed if rid % 3 == aid and mixed[rid] != alone[rid]]
+        require(not bad, f"(b): requests {bad} on adapter {aid} differ from their adapter's batch alone")
+    bad = [rid for rid in mixed if rid % 3 == 2 and mixed[rid] != burst[rid]]
+    require(not bad, f"(b): base-model requests {bad} differ from phase 3's streams")
+    moved = sum(1 for rid in mixed if rid % 3 != 2 and mixed[rid] != burst[rid])
+    bite = adapter_bite(model)
+    require(min(bite.values()) > 1e-3, f"(b): an adapter moved the first logits by no more than 1e-3: {bite}")
+    print("[tenancy] " + json.dumps(dict(
+        leg="b: isolation", first_logit_change=bite, adapter_streams_unlike_base=moved,
+        wall_ms_per_step=dict(no_pool=npsum["wall_ms_per_step"], identity=isum["wall_ms_per_step"],
+                              mixed=msum["wall_ms_per_step"]))))
+    # (c) weighted fairness under a token budget, beside the same traffic without classes
+    fifo, ftop, _, _ = tenant_leg("c: no classes", model, layers, kernel, lambda: tenant_requests(vocab, False),
+                                  record=True, **CHUNKED, **TENANT)
+    _, _, csum, done = tenant_leg("c: gold:4,bronze:1", model, layers, kernel, lambda: tenant_requests(vocab),
+                                  plain=(fifo, ftop), classes=TENANT_CLASSES, **CHUNKED, **TENANT)
+    by_class = {c: [r for r in done if r.priority_class == c] for c in ("gold", "bronze")}
+    require(all(r.ok for r in by_class["bronze"]) and len(by_class["bronze"]) == 16, "(c): a bronze request starved")
+    admit = {c: float(np.mean([r.admit_iter for r in rs])) for c, rs in by_class.items()}
+    require(admit["gold"] < admit["bronze"], f"(c): gold was not admitted ahead of bronze: {admit}")
+    from flexflow_tpu_torch.serving import latency_percentiles
+
+    ttft = {c: {p: 1e3 * v for p, v in latency_percentiles(rs, (50, 95), metric="ttft").items()}
+            for c, rs in by_class.items()}
+    print("[tenancy] " + json.dumps(dict(leg="c: per class", mean_admit_iteration=admit, ttft_ms=ttft)))
+    int8 = tenant_leg("c: int8, reserve", model, layers, quant, lambda: tenant_requests(vocab),
+                      record=True, kv_dtype="int8", classes=TENANT_CLASSES, **CHUNKED, **TENANT)
+    victims = []
+    from flexflow_tpu_torch.serving.scheduler import _SchedulerBase
+
+    real = _SchedulerBase._preempt
+
+    def spy(self, req, *a, **kw):
+        victims.append(req.priority_class)
+        return real(self, req, *a, **kw)
+
+    _SchedulerBase._preempt = spy
+    try:
+        _, _, osum, _ = tenant_leg("c: int8, optimistic", model, layers, quant, lambda: tenant_requests(vocab),
+                                   plain=int8[:2], kv_dtype="int8", classes=TENANT_CLASSES,
+                                   admission="optimistic", kv_pages=TENANT_PAGES, **CHUNKED, **TENANT)
+    finally:
+        _SchedulerBase._preempt = real
+    require(osum["preemptions"] > 0, f"(c): optimistic admission on {TENANT_PAGES} pages preempted nothing")
+    print("[tenancy] " + json.dumps(dict(leg="c: victims", classes=victims,
+                                         gold=victims.count("gold"), bronze=victims.count("bronze"))))
+    # (d) the small-model draft: the target as its own draft, then a 2-layer draft
+    gaps = []
+    _, _, ssum, _ = tenant_leg("d: self-draft, fp32 paged", model, layers, kernel, burst_reqs, plain=base,
+                               draft=(model, layers), rejections=gaps, spec_draft="model", spec_k=4)
+    require(all(g <= NEAR_TIE for g in gaps),
+            f"(d): the self-draft was rejected off a near-tie: {max(gaps, default=0.0)}")
+    require(gaps or ssum["acceptance_rate"] == 1.0, f"(d): self-draft acceptance {ssum['acceptance_rate']}")
+    small = build_lm(device, **dict(FLAGSHIP, layers=draft_layers, seed=SEED + 1))
+    spec = dict(spec_draft="model", spec_k=4)
+    lin, _, _, _ = tenant_leg("d: 2-layer draft, linear, fp32 paged", model, layers, kernel, burst_reqs, plain=base,
+                              draft=(small, draft_layers), **spec)
+    plain8 = tenant_leg("d: plain, int8 paged", model, layers, quant, burst_reqs, record=True, kv_dtype="int8")
+    tenant_leg("d: 2-layer draft, tree, int8 paged", model, layers, "paged_flash_verify_tree_quant", burst_reqs,
+               plain=plain8[:2], draft=(small, draft_layers), kv_dtype="int8", spec_branch=3, **spec)
+    _, _, _, adone = tenant_leg("d: 2-layer draft, linear, async", model, layers, kernel, burst_reqs,
+                                draft=(small, draft_layers), serve_async=True, **spec)
+    if {r.rid: list(r.generated) for r in adone} != lin:
+        compare_streams("d: async against phase 3", adone, burst, top, {}, NEAR_TIE)
+    print(f"[tenancy] phase 4g: {time.perf_counter() - t_phase:.1f} s")
+
+
 def flash_inputs(device, b, sq, sk, h, d, causal, seed=SEED, dtype=None):
     """Seeded q, k, v, dO (float32, or `dtype`) and the plain forward's
     (O, LSE) and delta (summed in float32)."""
@@ -3161,6 +3474,10 @@ def main() -> int:
     gc.collect()
     # 4f: the async double-buffered loop beside the sync one
     serve_async_legs("cuda")
+    gc.collect()
+    # 4g: multi-tenant serving (adapters, weighted-fair classes) and the
+    # small-model draft
+    serve_tenancy("cuda", burst)
     gc.collect()
     # after the serving phases, so the decode profile stays the run's
     # first profiler session, as it was before the training phases

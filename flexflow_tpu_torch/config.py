@@ -69,3 +69,9 @@ class FFConfig:
     # released published pages under pool pressure: "none" | "lru"
     serve_prefix_cache: bool = False
     serve_prefix_evict: str = "none"
+    # multi-tenant serving: resident LoRA adapters (0 = no pool), their
+    # largest rank, and the priority classes ("name:weight[:ttft_ms[:itl_ms]]",
+    # comma-separated; "" = none)
+    serve_adapters: int = 0
+    serve_adapter_rank: int = 8
+    serve_classes: str = ""

@@ -119,6 +119,29 @@ def mha_project_out(attn, ws, ctx=None, use_bias=True):
     return y
 
 
+def lora_delta_qkv(x, a_qkv, b_qkv):
+    """Batched LoRA deltas of the Q/K/V projections (S-LoRA / Punica): a
+    row's (x @ A) @ B in float32, each row with its own factors, summed
+    over the rank slices of its adapter's pages (a rank-r product is a
+    sum over rank slices, and the pages split the rank). x: [b, s, e];
+    a_qkv [b, e, 3K], the row's A columns of q, k, v in turn (K = pages
+    x page_rank, the pool's zero sentinel page where a row has fewer or
+    none); b_qkv [b, 3, K, n], the B rows of q, k, v. Returns three
+    [b, s, n] float32 deltas; each row's depends on that row alone.
+    Plain PyTorch products, as the reference's jnp.einsum outside any
+    kernel (serving/tenancy/adapters.py gathers the factors)."""
+    u = torch.bmm(x.float(), a_qkv)
+    K = b_qkv.shape[2]
+    return tuple(torch.bmm(u[..., j * K:(j + 1) * K], b_qkv[:, j]) for j in range(3))
+
+
+def lora_delta_out(attn, a_o, b_o):
+    """LoRA delta of the output projection, applied to the attention
+    core's output attn [b, s, h, d]: a_o [b, h*d, K], b_o [b, K, e].
+    Returns a [b, s, e] float32 delta, row by row as lora_delta_qkv."""
+    return torch.bmm(torch.bmm(attn.reshape(*attn.shape[:2], -1).float(), a_o), b_o)
+
+
 def decode_attention(q, k_cache, v_cache, lengths, kernel="auto"):
     """One-query attention against the contiguous cache. q: [b, 1, h, d]
     float32, or bfloat16 from a mixed-precision model's projections;

@@ -461,11 +461,13 @@ class FFModel:
         max_new_tokens: int = 16,
         serve_config=None,
         eos_token=None,
+        draft_model=None,
     ):
         """Greedy autoregressive generation with continuous batching over
         a paged KV cache (serving/api.py): token-id prompts in, generated
         token lists out. The model must be compiled, take a single int
-        token input and use causal self-attention."""
+        token input and use causal self-attention. `draft_model` supplies
+        the small draft LM when serve_config.spec_draft is "model"."""
         from flexflow_tpu_torch.serving.api import ServeConfig, generate
 
         if self.executor is None:
@@ -478,4 +480,5 @@ class FFModel:
             max_new_tokens=max_new_tokens,
             serve=serve_config,
             eos_token=eos_token,
+            draft_model=draft_model,
         )

@@ -1,7 +1,8 @@
 """Continuous-batching inference over the compiled PCG: KV caches
 (kv_cache), prefill/decode/verify steps (engine), the iteration-level
 scheduler (scheduler), speculative decoding's drafts and acceptance
-rules (spec) and the ServeConfig / generate() surface (api)."""
+rules (spec), multi-tenant adapters and weighted-fair classes (tenancy)
+and the ServeConfig / generate() surface (api)."""
 
 from flexflow_tpu_torch.serving.api import ServeConfig, build_proposer, build_scheduler, generate
 from flexflow_tpu_torch.serving.engine import GenerationEngine, InflightStep
@@ -17,21 +18,35 @@ from flexflow_tpu_torch.serving.scheduler import (
 )
 from flexflow_tpu_torch.serving.spec import (
     DraftTree,
+    ModelDraftProposer,
     NGramDraftProposer,
     accept_drafts,
     accept_tree,
 )
+from flexflow_tpu_torch.serving.tenancy import (
+    AdapterPool,
+    AdapterPoolExhausted,
+    DeficitRoundRobin,
+    PriorityClass,
+    make_lora_weights,
+    parse_classes,
+)
 
 __all__ = [
+    "AdapterPool",
+    "AdapterPoolExhausted",
     "AsyncContinuousBatchingScheduler",
     "ContinuousBatchingScheduler",
+    "DeficitRoundRobin",
     "DraftTree",
     "GenerationEngine",
     "InflightStep",
     "KVCache",
     "KVCacheSpec",
+    "ModelDraftProposer",
     "NGramDraftProposer",
     "PagedKVCache",
+    "PriorityClass",
     "Request",
     "RequestStatus",
     "SchedulerStats",
@@ -43,4 +58,6 @@ __all__ = [
     "build_scheduler",
     "generate",
     "latency_percentiles",
+    "make_lora_weights",
+    "parse_classes",
 ]

@@ -11,7 +11,11 @@ pages of common prefixes; `admission="optimistic"` admits on the
 prompt's pages and preempts by recompute, up to `max_preemptions` times a
 request; `prefix_evict="lru"` keeps released published prefix pages
 until the pool needs them; `serve_async` serves with the double-buffered
-AsyncContinuousBatchingScheduler."""
+AsyncContinuousBatchingScheduler. `adapters` > 0 attaches a paged
+multi-LoRA AdapterPool (requests pick an adapter by `adapter_id`);
+`classes` with more than one class makes admission, chunk grants and
+preemption weighted-fair; `spec_draft="model"` drafts with a second,
+smaller decoder LM passed as `draft_model`."""
 
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from flexflow_tpu_torch.serving.scheduler import (
     Request,
     StaticBatchingScheduler,
 )
-from flexflow_tpu_torch.serving.spec import NGramDraftProposer
+from flexflow_tpu_torch.serving.spec import ModelDraftProposer, NGramDraftProposer
+from flexflow_tpu_torch.serving.tenancy import AdapterPool, parse_classes
 
 _SCHEDULERS = {
     "continuous": ContinuousBatchingScheduler,
@@ -52,8 +57,10 @@ class ServeConfig:
     cache and no speculation. kv_dtype "int8" stores the paged pools as
     int8 with an fp32 scale per (page, head). spec_draft "ngram" turns
     on speculative decoding with prompt-lookup drafts of spec_k tokens
-    (n-gram size spec_ngram); spec_branch > 1 verifies a token tree of
-    up to spec_k * spec_branch nodes instead of one chain."""
+    (n-gram size spec_ngram), "model" with a small draft LM's (the
+    draft_model of build_scheduler / generate); spec_branch > 1 verifies
+    a token tree of up to spec_k * spec_branch nodes instead of one
+    chain."""
 
     max_seqs: int = 8  # KV-cache slots = max in-flight requests
     max_seq_len: int = 256  # max tokens per sequence (prompt + generation)
@@ -83,7 +90,7 @@ class ServeConfig:
     # until the pool needs it back (least recently released first)
     prefix_evict: str = "none"
     kv_swap: bool = False
-    spec_draft: str = ""  # "" (off) | "ngram"
+    spec_draft: str = ""  # "" (off) | "ngram" | "model"
     spec_k: int = 4
     spec_branch: int = 1
     spec_ngram: int = 2
@@ -103,6 +110,16 @@ class ServeConfig:
     # stepping one at a time
     decode_multistep: bool = False
     max_fused_steps: int = 8
+    # multi-tenant serving (serving/tenancy/): adapters > 0 attaches a
+    # paged multi-LoRA AdapterPool for that many resident adapters of
+    # rank <= adapter_rank (requests pick one by Request.adapter_id, -1 =
+    # the base model); classes, "name:weight[:ttft_ms[:itl_ms]]" entries
+    # comma-separated: more than one class makes admission and chunk
+    # grants weighted-fair (deficit round-robin) and preemption victims
+    # class-priced
+    adapters: int = 0
+    adapter_rank: int = 8
+    classes: str = ""
 
     def __post_init__(self):
         if self.prefix_evict not in ("none", "lru", "cost"):
@@ -174,13 +191,8 @@ class ServeConfig:
                     f"chunk_size {self.chunk_size} must be a multiple of {CHUNK_ALIGN} "
                     f"when decode_kernel is {self.decode_kernel!r}"
                 )
-        if self.spec_draft == "model":
-            raise NotImplementedError(
-                "ServeConfig.spec_draft='model' is not ported yet (ROADMAP, "
-                "Port queue: the small-model draft); this port takes '' or 'ngram'"
-            )
-        if self.spec_draft not in ("", "ngram"):
-            raise ValueError(f"spec_draft must be '' or 'ngram', got {self.spec_draft!r}")
+        if self.spec_draft not in ("", "ngram", "model"):
+            raise ValueError(f"spec_draft must be '', 'ngram' or 'model', got {self.spec_draft!r}")
         if self.spec_k < 1 or self.spec_branch < 1 or self.spec_ngram < 1:
             raise ValueError("spec_k, spec_branch and spec_ngram must be >= 1")
         if self.spec_draft:
@@ -199,6 +211,12 @@ class ServeConfig:
                 "static baseline is the reference the fused loop is proved "
                 "identical against)"
             )
+        if self.adapters < 0:
+            raise ValueError(f"adapters must be >= 0 (0 = no pool), got {self.adapters}")
+        if self.adapters and self.adapter_rank < 1:
+            raise ValueError(f"adapter_rank must be >= 1, got {self.adapter_rank}")
+        if self.classes:
+            parse_classes(self.classes)  # raises on malformed text
 
     @staticmethod
     def from_config(cfg) -> "ServeConfig":
@@ -222,22 +240,44 @@ class ServeConfig:
             serve_async=cfg.serve_async,
             prefix_cache=cfg.serve_prefix_cache,
             prefix_evict=cfg.serve_prefix_evict,
+            adapters=cfg.serve_adapters,
+            adapter_rank=cfg.serve_adapter_rank,
+            classes=cfg.serve_classes,
         )
 
 
-def build_proposer(serve: ServeConfig):
+def build_proposer(serve: ServeConfig, draft_model=None):
     """The DraftProposer a ServeConfig asks for (None when speculative
-    decoding is off)."""
+    decoding is off). A "model" draft needs a second compiled decoder LM
+    sharing the target's vocabulary."""
     if not serve.spec_draft:
         return None
-    return NGramDraftProposer(n=serve.spec_ngram)
+    if serve.spec_draft == "ngram":
+        return NGramDraftProposer(n=serve.spec_ngram)
+    if draft_model is None:
+        raise ValueError(
+            "spec_draft='model' needs a compiled draft_model (a small decoder LM with the target's vocabulary)"
+        )
+    return ModelDraftProposer(
+        draft_model,
+        max_seqs=serve.max_seqs,
+        max_len=serve.max_seq_len,
+        buckets=serve.prefill_buckets or None,
+        decode_kernel=serve.decode_kernel,
+    )
 
 
-def build_scheduler(model, serve: ServeConfig):
+def build_scheduler(model, serve: ServeConfig, draft_model=None):
     """(scheduler, engine, cache) wired to a compiled model — the pieces
     generate() uses, exposed for callers that drive iterations
     themselves. A model compiled with allow_mixed_precision serves with
-    bf16 activations and logits over the same fp32 or int8 pools."""
+    bf16 activations and logits over the same fp32 or int8 pools.
+    `draft_model` is the draft LM of spec_draft="model". With
+    serve.adapters the engine carries an AdapterPool (`engine.adapters`,
+    empty: load adapters into it before submitting requests that name
+    them). Victims of a multiclass scheduler are priced by resident
+    tokens: the reference's cost-model pricer waits for the cost model
+    (ROADMAP, Port queue)."""
     if serve.kv_layout == "paged":
         cache = PagedKVCache.from_model(
             model,
@@ -257,6 +297,11 @@ def build_scheduler(model, serve: ServeConfig):
             max_len=serve.max_seq_len,
             buckets=serve.prefill_buckets or None,
         )
+    adapters = None
+    if serve.adapters:
+        adapters = AdapterPool.from_model(
+            model, max_seqs=serve.max_seqs, max_adapters=serve.adapters, max_rank=serve.adapter_rank
+        )
     engine = GenerationEngine(
         model,
         cache,
@@ -264,12 +309,13 @@ def build_scheduler(model, serve: ServeConfig):
         max_fused_steps=serve.max_fused_steps,
         temperature=serve.temperature,
         seed=serve.seed,
+        adapters=adapters,
     )
     # __post_init__ holds serve_async to the continuous scheduler
     cls = AsyncContinuousBatchingScheduler if serve.serve_async else _SCHEDULERS[serve.scheduler]
     sched = cls(
         engine,
-        proposer=build_proposer(serve),
+        proposer=build_proposer(serve, draft_model),
         spec_k=serve.spec_k,
         spec_branch=serve.spec_branch,
         admission=serve.admission,
@@ -279,6 +325,7 @@ def build_scheduler(model, serve: ServeConfig):
         chunk_size=serve.chunk_size,
         decode_multistep=serve.decode_multistep,
         max_fused_steps=serve.max_fused_steps,
+        classes=parse_classes(serve.classes) if serve.classes else None,
     )
     return sched, engine, cache
 
@@ -289,15 +336,17 @@ def generate(
     max_new_tokens: int = 16,
     serve: Optional[ServeConfig] = None,
     eos_token: Optional[int] = None,
+    draft_model=None,
 ) -> List[List[int]]:
     """Generate continuations for token-id prompts; returns the
     generated tokens (prompt excluded) in the prompts' order. An invalid
     request becomes a FAILED entry with an empty continuation instead of
-    an exception that loses the whole batch."""
+    an exception that loses the whole batch. `draft_model` is the draft
+    LM of spec_draft="model"."""
     serve = serve or ServeConfig()
     if eos_token is None:
         eos_token = serve.eos_token
-    sched, _, _ = build_scheduler(model, serve)
+    sched, _, _ = build_scheduler(model, serve, draft_model=draft_model)
     reqs = [
         Request(
             rid=i,

@@ -95,11 +95,20 @@ into pinned memory, with a CUDA event the reconcile waits on, and the
 finite flags of each row come back in that same read. On the CPU both
 halves run eagerly and the reconcile just reads the tensors.
 
+With an adapter pool (serving/tenancy/adapters.py) every step kind
+adds the per-row LoRA deltas (plain PyTorch, as the reference's) right
+after the Q/K/V projections, before the cache writes, and after the
+output projection; rows serving the base model take the unmodified
+tensors through a select. The tables of a step travel in its one int32
+copy: the prefill batch's row tables, the slot tables of decode and
+verify (the decode core's in `_CoreState.inp`, so a graph replay reads
+the attachments of its own window), and the chunk step's compacted to
+its slots. Without a pool no adapter op runs.
+
 The reference's kernel-failure handler, which switched the engine to
 dense attention for good after any kernel error, is deliberately
 absent: a failing kernel, capture or replay raises, and nothing on the
-card falls back to eager steps or to a dense path. Adapters are not
-ported yet (ROADMAP, Port queue: serving features).
+card falls back to eager steps or to a dense path.
 """
 
 from __future__ import annotations
@@ -125,6 +134,7 @@ from flexflow_tpu_torch.ops.attention import (
     verify_attention,
 )
 from flexflow_tpu_torch.serving.sampling import sample, slot_keys
+from flexflow_tpu_torch.serving.tenancy.adapters import adapter_rows, apply_adapter_out, apply_adapter_qkv
 
 
 def _snapshot(device, host: np.ndarray, keep: List[torch.Tensor]) -> torch.Tensor:
@@ -165,24 +175,30 @@ def quant_plan(dest: np.ndarray, page_size: int):
 class _CoreState:
     """The decode core's device tensors. The inputs are views of one
     int32 buffer `inp`, [tokens | lengths | alive | limits | eos | step |
-    block tables | chain mask], so a window's host inputs reach the
-    device in one copy (the chain mask [max_seqs] only for a chained
-    decode step's state); the per-step stacks tokens / mask / finite are
-    views of one int32 buffer `out` [steps, 3, max_seqs], so the host
-    reads them in one copy, and `logits` [steps, max_seqs, V] stays on
-    the device."""
+    block tables | adapter tables | adapter flags | chain mask], so a
+    window's host inputs reach the device in one copy (the adapter
+    tables [max_seqs, adapter_cols] and flags [max_seqs] only with an
+    adapter pool, the chain mask [max_seqs] only for a chained decode
+    step's state); the per-step stacks tokens / mask / finite are views
+    of one int32 buffer `out` [steps, 3, max_seqs], so the host reads
+    them in one copy, and `logits` [steps, max_seqs, V] stays on the
+    device."""
 
-    def __init__(self, max_seqs: int, table_cols: int, steps: int, device, chained: bool = False):
+    def __init__(self, max_seqs: int, table_cols: int, steps: int, device, chained: bool = False,
+                 adapter_cols: int = 0):
         S = max_seqs
         self.steps = steps
         # every run loads all of `inp` first and reads `out` only at the
         # steps it ran, so neither needs zeroing
         n = 5 * S + 1 + S * table_cols
-        self.inp = torch.empty(n + (S if chained else 0), dtype=torch.int32, device=device)
+        m = n + (S * (adapter_cols + 1) if adapter_cols else 0)
+        self.inp = torch.empty(m + (S if chained else 0), dtype=torch.int32, device=device)
         self.tokens, self.lengths, self.alive, self.limits, self.eos = self.inp[: 5 * S].view(5, S)
         self.step = self.inp[5 * S]
         self.tables = self.inp[5 * S + 1:n].view(S, table_cols) if table_cols else None
-        self.chain_mask = self.inp[n:] if chained else None
+        self.adapter_tables = self.inp[n:m - S].view(S, adapter_cols) if adapter_cols else None
+        self.has_adapter = self.inp[m - S:m] if adapter_cols else None
+        self.chain_mask = self.inp[m:] if chained else None
         self.out = torch.empty((steps, 3, S), dtype=torch.int32, device=device)
         self.logits: Optional[torch.Tensor] = None  # made at the first step, when V is known
 
@@ -251,7 +267,9 @@ class GenerationEngine:
     """Step functions over (params, cache); scheduling lives in
     serving.scheduler. `max_fused_steps` is the deepest decode_multi
     window (the depth of the captured graph's per-step stacks).
-    temperature 0 is greedy; above it tokens are sampled under `seed`."""
+    temperature 0 is greedy; above it tokens are sampled under `seed`.
+    `adapters`, an AdapterPool over the same model, adds each slot's
+    LoRA deltas to every step (None: no adapter op runs)."""
 
     def __init__(
         self,
@@ -261,6 +279,7 @@ class GenerationEngine:
         max_fused_steps: int = 8,
         temperature: float = 0.0,
         seed: int = 0,
+        adapters=None,
     ):
         if model.executor is None:
             raise RuntimeError("compile() the model before serving")
@@ -277,6 +296,7 @@ class GenerationEngine:
         self.device = model.device
         self.decode_kernel = decode_kernel
         self.max_fused_steps = int(max_fused_steps)
+        self.adapters = adapters
         # captured windows by (layout, kv_dtype, max_seqs): one engine
         # serves one cache, so at most one entry
         self._graphs: Dict[tuple, _GraphWindow] = {}
@@ -356,6 +376,27 @@ class GenerationEngine:
         if step.done is not None:
             step.done.synchronize()
         return step.readback.numpy()
+
+    def _adapter_views(self, dev: List[torch.Tensor]):
+        """Split a step's device views at the adapter tables and flags a
+        host part list carried there (`_adapter_parts`): returns ((tables,
+        has), or None without a pool, and the views after them)."""
+        if self.adapters is None:
+            return None, dev
+        return (dev[0], dev[1] != 0), dev[2:]
+
+    def _adapter_gather(self, rows):
+        """The step's AdapterGather of (tables, has) rows (None without a
+        pool)."""
+        return None if rows is None else self.adapters.gather(*rows)
+
+    def _adapter_parts(self) -> List[np.ndarray]:
+        """The slot tables and flags of the adapter pool, as host parts of
+        a step's one copy ([] without a pool)."""
+        return [] if self.adapters is None else list(self.adapters.slot_tables())
+
+    def _adapter_cols(self) -> int:
+        return 0 if self.adapters is None else self.adapters.spec.pages_per_adapter
 
     def _rows(self, t: torch.Tensor) -> torch.Tensor:
         """[..., heads, head_dim] -> [N, heads, head_dim]."""
@@ -451,6 +492,7 @@ class GenerationEngine:
             tokens[i, : len(p)] = np.asarray(p, dtype=np.int32)
             plens[i] = len(p)
         slots_np = np.asarray(slots, dtype=np.int32)
+        ad_parts = [] if self.adapters is None else list(self.adapters.row_tables(slots, n))
         if self.paged:
             ps = spec.page_size
             pos = np.arange(bucket)
@@ -459,19 +501,23 @@ class GenerationEngine:
             real = pages != spec.num_pages
             dest = (pages * ps + pos % ps)[real]
             parts = quant_plan(dest, ps) if self.quantized else [dest]
-            tok_t, last_t, slots_t, plens_t, real_t, *dest_t = _to_device(
-                self.device, [tokens, plens - 1, slots_np, plens, np.nonzero(real.ravel())[0]] + parts
+            tok_t, last_t, slots_t, plens_t, real_t, *rest = _to_device(
+                self.device, [tokens, plens - 1, slots_np, plens, np.nonzero(real.ravel())[0]] + ad_parts + parts
             )
+            rows, dest_t = self._adapter_views(rest)
         else:
-            tok_t, last_t, slots_t, plens_t, pos_t = _to_device(
-                self.device, [tokens, plens - 1, slots_np, plens, np.arange(bucket)]
+            tok_t, last_t, slots_t, plens_t, pos_t, *rest = _to_device(
+                self.device, [tokens, plens - 1, slots_np, plens, np.arange(bucket)] + ad_parts
             )
+            rows, _ = self._adapter_views(rest)
+        ad = self._adapter_gather(rows)
         cache = self.cache
 
         def hook(node, ins, ws, ctx):
             g = node.guid
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            q, k, v = apply_adapter_qkv(ins[0], q, k, v, ad, g)
             if self.paged:
                 kf, vf = self._rows(k), self._rows(v)
                 trip = self._write(g, kf[real_t], vf[real_t], dest_t, round_trip=True)
@@ -484,7 +530,7 @@ class GenerationEngine:
             else:
                 cache.commit(g, slots_t[:, None], pos_t[None, :], k, v)
             attn = scaled_dot_product_attention(q, k, v, causal=True)
-            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+            return [apply_adapter_out(attn, mha_project_out(attn, ws, ctx, use_bias=use_bias), ad, g)]
 
         logits = self._forward_logits(params, tok_t, hook)
         last = logits[torch.arange(n, device=self.device), last_t.long()]
@@ -616,17 +662,22 @@ class GenerationEngine:
             self.device,
             [tokens, lengths, np.nonzero(valid.ravel())[0], slot_ids, chunk_lens - 1, lengths + chunk_lens,
              np.nonzero(picks)[0]]
+            + self._adapter_parts()
             + parts,
             keep,
         )
         tok_t, len_t, rows_t, slots_t, last_t, end_t, pick_t = dev[:7]
-        tables_t, dest_t = (dev[7], dev[8:]) if self.paged else (None, dev[7:])
+        rows, rest = self._adapter_views(dev[7:])
+        tables_t, dest_t = (rest[0], rest[1:]) if self.paged else (None, rest)
         slots_l = slots_t.long()
+        # the slot tables, compacted to the chunk batch's rows
+        ad = self._adapter_gather(adapter_rows(rows, slots_l))
 
         def hook(node, ins, ws, ctx):
             g = node.guid
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            q, k, v = apply_adapter_qkv(ins[0], q, k, v, ad, g)
             self._write(g, self._rows(k)[rows_t], self._rows(v)[rows_t], dest_t)
             if self.paged:
                 attn = paged_verify_attention(
@@ -637,7 +688,7 @@ class GenerationEngine:
                 attn = verify_attention(
                     q, cache.k[g][slots_l], cache.v[g][slots_l], len_t, kernel=self.decode_kernel
                 )
-            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+            return [apply_adapter_out(attn, mha_project_out(attn, ws, ctx, use_bias=use_bias), ad, g)]
 
         logits = self._forward_logits(params, tok_t, hook)
         last = logits[torch.arange(B, device=self.device), last_t.long()]
@@ -719,11 +770,15 @@ class GenerationEngine:
         else:
             dest = torch.arange(spec.max_seqs, device=lens.device) * spec.max_len + lens.long()
         dest = torch.where(act, dest, cache.scratch_row)
+        ad = None
+        if st.adapter_tables is not None:
+            ad = self.adapters.gather(st.adapter_tables, st.has_adapter != 0)
 
         def hook(node, ins, ws, ctx):
             g = node.guid
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            q, k, v = apply_adapter_qkv(ins[0], q, k, v, ad, g)
             if self.quantized:
                 for store, scale, rows in ((cache.k_store, cache.k_scale_store, k),
                                            (cache.v_store, cache.v_scale_store, v)):
@@ -739,7 +794,7 @@ class GenerationEngine:
                 )
             else:
                 attn = decode_attention(q, cache.k[g], cache.v[g], lens, kernel=self.decode_kernel)
-            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+            return [apply_adapter_out(attn, mha_project_out(attn, ws, ctx, use_bias=use_bias), ad, g)]
 
         logits = self._forward_logits(params, st.tokens[:, None], hook)[:, -1, :]
         if st.logits is None:
@@ -758,12 +813,14 @@ class GenerationEngine:
     def _load_state(self, st: _CoreState, tokens, active, limits, eos, keep: List[torch.Tensor],
                     chain_mask=None) -> None:
         """The core's inputs for a run from step 0, in one host-to-device
-        copy (from a _snapshot): the host lengths, (paged) the tables and
-        (a chained state) the chain mask."""
+        copy (from a _snapshot): the host lengths, (paged) the tables,
+        (with a pool) the adapter slot tables and (a chained state) the
+        chain mask."""
         cache = self.cache
         parts = [tokens, cache.lengths, active, limits, eos, [0]]
         if self.paged:
             parts.append(cache.block_tables)
+        parts += self._adapter_parts()
         if chain_mask is not None:
             parts.append(chain_mask)
         host = np.concatenate([np.asarray(a, dtype=np.int32).ravel() for a in parts])
@@ -797,7 +854,8 @@ class GenerationEngine:
         lengths = cache.lengths.copy()
         keep: List[torch.Tensor] = []
         chained = chain is not None and chain_mask is not None and bool(np.any(chain_mask))
-        st = _CoreState(spec.max_seqs, self._table_cols(), 1, self.device, chained=chained)
+        st = _CoreState(spec.max_seqs, self._table_cols(), 1, self.device, chained=chained,
+                        adapter_cols=self._adapter_cols())
         self._load_state(st, tokens, active, active, np.full(spec.max_seqs, -1), keep,
                          chain_mask if chained else None)
         if chained:
@@ -898,7 +956,7 @@ class GenerationEngine:
         if self.device.type == "cuda":
             win, st, logits = self._graph_window(params, tokens, active, limits, eos, k, keep)
         else:
-            st = _CoreState(spec.max_seqs, self._table_cols(), k, self.device)
+            st = _CoreState(spec.max_seqs, self._table_cols(), k, self.device, adapter_cols=self._adapter_cols())
             self._load_state(st, tokens, active, limits, eos, keep)
             for _ in range(k):
                 self._decode_core(params, st)
@@ -971,7 +1029,8 @@ class GenerationEngine:
                 "state is not reconciled: reconcile it first"
             )
         if win is None or win.weights != weights:
-            st = _CoreState(spec.max_seqs, self._table_cols(), self.max_fused_steps, self.device)
+            st = _CoreState(spec.max_seqs, self._table_cols(), self.max_fused_steps, self.device,
+                            adapter_cols=self._adapter_cols())
             win = self._graphs[key] = _GraphWindow(st, torch.cuda.Stream(self.device), weights)
         st = win.state
         self._load_state(st, tokens, active, limits, eos, keep)
@@ -1051,7 +1110,7 @@ class GenerationEngine:
                     cache.ensure_position(int(slot), p)
         lengths = cache.lengths.copy()
         rows, dest = self._verify_scatter_dest(w, lengths, draft_lens)
-        host = [tokens, lengths, rows]
+        host = [tokens, lengths, rows] + self._adapter_parts()
         if self.paged:
             ps = spec.page_size
             host += [cache.block_tables] + (quant_plan(dest, ps) if self.quantized else [dest])
@@ -1064,12 +1123,15 @@ class GenerationEngine:
         # the tree mask, once per step for every layer
         allowed = tree_allowed_mask(dev.pop(), dev[1], w, spec.max_len) if parents is not None else None
         tok_t, len_t, rows_t = dev[:3]
-        tables_t, dest_t = (dev[3], dev[4:]) if self.paged else (None, dev[3:])
+        rows, rest = self._adapter_views(dev[3:])
+        tables_t, dest_t = (rest[0], rest[1:]) if self.paged else (None, rest)
+        ad = self._adapter_gather(rows)
 
         def hook(node, ins, ws, ctx):
             g = node.guid
             use_bias = node.params.get("bias", True)
             q, k, v = mha_project_qkv(ins, ws, ctx, use_bias=use_bias)
+            q, k, v = apply_adapter_qkv(ins[0], q, k, v, ad, g)
             self._write(g, self._rows(k)[rows_t], self._rows(v)[rows_t], dest_t)
             if self.paged:
                 attn = paged_verify_attention(
@@ -1081,7 +1143,7 @@ class GenerationEngine:
                     q, cache.k[g], cache.v[g], len_t,
                     kernel=self.decode_kernel, allowed=allowed,
                 )
-            return [mha_project_out(attn, ws, ctx, use_bias=use_bias)]
+            return [apply_adapter_out(attn, mha_project_out(attn, ws, ctx, use_bias=use_bias), ad, g)]
 
         logits = self._forward_logits(params, tok_t, hook)
         cache.begin_inflight()

@@ -259,6 +259,19 @@ class KVCache:
         self.lengths[slot] = 0
         return slot
 
+    def claim(self, slot: int) -> None:
+        """Allocate one specific free slot: the small-model draft keeps its
+        cache slot-aligned with the target's (serving/spec.py
+        ModelDraftProposer), mirroring the target's admission."""
+        if slot in self._active:
+            raise ValueError(f"slot {slot} is already active")
+        if slot not in self._free:
+            raise ValueError(f"slot {slot} is not a valid free slot")
+        self._free.remove(slot)
+        heapq.heapify(self._free)
+        self._active.add(slot)
+        self.lengths[slot] = 0
+
     def free(self, slot: int) -> None:
         if slot not in self._active:
             raise ValueError(f"slot {slot} is not active")

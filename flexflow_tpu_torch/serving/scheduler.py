@@ -63,8 +63,18 @@ runs the two an iteration apart: while step N runs on the device the
 host admits, claims pages and dispatches step N + 1, its input tokens
 chained on N's outputs on the device, and only then commits N.
 
-Swap-to-host, DRR tenancy, journal, fault injection and telemetry are
-not ported yet (ROADMAP, Port queue: serving features).
+With more than one priority class (`classes`, serving/tenancy/
+fairness.py), admission serves per-class FIFO queues in deficit
+round-robin order (a selected head that cannot be admitted still blocks
+everyone behind it), the chunk planner's grants are DRR serves of one
+persistent instance, and preemption victims are the cheapest by class
+weight x resident tokens, youngest first on ties. One class or none
+leaves every decision as it is without classes. With an adapter pool on
+the engine, admission attaches each slot to its request's adapter and
+every release of a slot detaches it.
+
+Swap-to-host, journal, fault injection and telemetry are not ported yet
+(ROADMAP, Port queue: serving features).
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ import torch
 from flexflow_tpu_torch.ops.cuda.decode_kernel import MAX_W
 from flexflow_tpu_torch.serving.kv_cache import PagePoolExhausted
 from flexflow_tpu_torch.serving.spec import DraftTree, accept_drafts, accept_tree
+from flexflow_tpu_torch.serving.tenancy.fairness import DeficitRoundRobin
 
 # chunk widths are the decode kernels' query rows: a multiple of this
 # (the reference's decode_kernel.SUBLANES)
@@ -118,6 +129,12 @@ class Request:
     max_new_tokens: int = 16
     eos_token: Optional[int] = None
     deadline_s: Optional[float] = None
+    # multi-tenant serving: a free-form tenant tag, the priority class
+    # ("" = the first configured class) and the LoRA adapter serving the
+    # request (-1 = the base model)
+    tenant: str = ""
+    priority_class: str = ""
+    adapter_id: int = -1
 
     generated: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
@@ -296,7 +313,10 @@ def _finite_rows(logits: torch.Tensor) -> np.ndarray:
 
 class _SchedulerBase:
     """Shared admission/decode/verify machinery. `proposer` switches the
-    per-iteration step from plain decode to speculative draft/verify."""
+    per-iteration step from plain decode to speculative draft/verify.
+    `classes` ({name: PriorityClass}, config order = scheduling order)
+    with more than one entry makes admission and chunk grants
+    weighted-fair and victims class-priced."""
 
     def __init__(
         self,
@@ -312,6 +332,7 @@ class _SchedulerBase:
         chunk_size: int = 16,
         decode_multistep: bool = False,
         max_fused_steps: int = 8,
+        classes=None,
     ):
         self.engine = engine
         self.cache = engine.cache
@@ -352,6 +373,18 @@ class _SchedulerBase:
         self.stats = SchedulerStats()
         self._by_rid: Dict[int, Request] = {}
         self._iter = 0
+        # multi-tenancy: one class or none keeps FIFO admission, the
+        # round-robin planner and youngest-first victims
+        self.classes = dict(classes) if classes else None
+        self._multiclass = bool(self.classes) and len(self.classes) > 1
+        self._default_class = next(iter(self.classes)) if self.classes else ""
+        self._admit_drr: Optional[DeficitRoundRobin] = None
+        self._grant_drr: Optional[DeficitRoundRobin] = None  # chunk grants, made at first use
+        if self._multiclass:
+            self._admit_drr = DeficitRoundRobin({n: c.weight for n, c in self.classes.items()}, unit=1.0)
+        # the engine's adapter pool (None: no adapters anywhere); the
+        # scheduler owns attach / detach
+        self.adapters = getattr(engine, "adapters", None)
 
     # -- submission / cancellation -------------------------------------------
 
@@ -396,6 +429,25 @@ class _SchedulerBase:
                 f"request {request.rid}: prompt+max_new_tokens {need} "
                 f"exceeds cache max_len {self.cache.spec.max_len}"
             )
+        if request.priority_class and (self.classes is None or request.priority_class not in self.classes):
+            raise ValueError(
+                f"request {request.rid}: unknown priority class "
+                f"{request.priority_class!r} (configured: "
+                f"{sorted(self.classes) if self.classes else []})"
+            )
+        if request.adapter_id != -1:
+            if self.adapters is None:
+                raise ValueError(
+                    f"request {request.rid}: adapter_id {request.adapter_id} "
+                    "but the engine has no adapter pool (--adapters)"
+                )
+            if request.adapter_id not in self.adapters.loaded:
+                raise ValueError(f"request {request.rid}: adapter {request.adapter_id} is not loaded")
+
+    def _class_of(self, req: Request) -> str:
+        """The request's priority class: the first configured class when
+        it names none."""
+        return req.priority_class or self._default_class
 
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or running request. False for unknown or
@@ -421,13 +473,12 @@ class _SchedulerBase:
             if self.proposer is not None:
                 self.proposer.retire(req)
             del self.running[req.slot]
+            if self.adapters is not None:
+                self.adapters.detach(req.slot)
             self.cache.free(req.slot)
             req.slot = None
         else:
-            for i, queued in enumerate(self.queue):
-                if queued is req:
-                    del self.queue[i]
-                    break
+            self._dequeue(req)
         self.finished.append(req)
         stats = self.stats
         if status == RequestStatus.FINISHED:
@@ -458,12 +509,24 @@ class _SchedulerBase:
 
     # -- preemption (optimistic admission) -----------------------------------
 
+    def _victim_cost(self, req: Request) -> float:
+        """Class-priced eviction cost (multiclass only): the request's
+        resident tokens (prompt + generated, the recompute bill) times
+        its class weight. The reference can price the recompute through
+        its search cost model instead, which the port does not have yet
+        (ROADMAP, Port queue)."""
+        return float(len(req.prompt) + len(req.generated)) * self.classes[self._class_of(req)].weight
+
     def _pick_victim(self) -> Optional[Request]:
         """Youngest-by-admission running request (the vLLM victim rule:
         the least recompute to lose and, under FIFO, the weakest claim);
-        (admit_iter, rid) makes the choice deterministic."""
+        (admit_iter, rid) makes the choice deterministic. Multiclass: the
+        cheapest by `_victim_cost`, ties broken youngest first by the
+        same key."""
         if not self.running:
             return None
+        if self._multiclass:
+            return min(self.running.values(), key=lambda r: (self._victim_cost(r), -r.admit_iter, -r.rid))
         return max(self.running.values(), key=lambda r: (r.admit_iter, r.rid))
 
     def _preempt(self, req: Request, cause: str = "pool") -> None:
@@ -483,12 +546,44 @@ class _SchedulerBase:
         if self.proposer is not None:
             self.proposer.retire(req)
         del self.running[req.slot]
+        if self.adapters is not None:
+            self.adapters.detach(req.slot)
         self.cache.free(req.slot)
         req.slot = None
         req.status = RequestStatus.QUEUED
         self.queue.appendleft(req)
 
     # -- admission + prefill -------------------------------------------------
+
+    def _dequeue(self, req: Request) -> None:
+        """Remove `req` from the queue by identity (the multiclass head
+        need not be the queue's front, and Request's dataclass equality
+        could match a twin)."""
+        for i, queued in enumerate(self.queue):
+            if queued is req:
+                del self.queue[i]
+                return
+
+    def _admission_head(self):
+        """The request admission tries next: the queue's front, or under
+        multiclass the DRR-selected class's front (per-class FIFO is the
+        queue filtered by class, so a preempted request's appendleft
+        keeps it at its class's front). Returns (request, commit), where
+        commit charges the serve and is called only when the admission
+        lands (select is pure; None without multiclass)."""
+        if not self._multiclass:
+            return self.queue[0], None
+        heads: Dict[str, Request] = {}
+        for r in self.queue:
+            heads.setdefault(self._class_of(r), r)
+        backlogged = list(heads)
+        self._admit_drr.settle(backlogged)
+        name, rounds = self._admit_drr.select({c: 1.0 for c in backlogged})
+
+        def commit(drr=self._admit_drr):
+            drr.charge(name, rounds, backlogged, cost=1.0)
+
+        return heads[name], commit
 
     def _admit(self) -> List[Request]:
         """FIFO admission into free slots (the head either admits or
@@ -500,14 +595,17 @@ class _SchedulerBase:
         samples its next token. With a prefix cache, registered pages
         matching a prefix of the sequence are mapped and only the rest is
         prefilled; with a token budget nothing is prefilled here: the
-        chunk cursors are armed and the planner streams the sequence in."""
+        chunk cursors are armed and the planner streams the sequence in.
+        Multiclass changes which head is tried (`_admission_head`), not
+        the blocking rule. Each admitted slot attaches to its request's
+        adapter before the prefill."""
         optimistic = self.admission == "optimistic"
         prefix = bool(getattr(self.cache, "prefix_cache", False))
         admitted: List[Request] = []
         seqs: List[List[int]] = []
         cursors: List[int] = []
         while self.queue:
-            req = self.queue[0]
+            req, drr_commit = self._admission_head()
             seq = list(req.prompt) + list(req.generated)
             now = 0 if self.token_budget else len(seq)
             total = len(req.prompt) + req.max_new_tokens
@@ -518,10 +616,14 @@ class _SchedulerBase:
                 slot, cursor = self.cache.alloc(now, total, optimistic=optimistic), 0
             if slot is None:
                 break
-            self.queue.popleft()
+            self._dequeue(req)
             req.slot = slot
             req.admit_iter = self._iter
             req.status = RequestStatus.RUNNING
+            if self.adapters is not None:
+                self.adapters.attach(slot, req.adapter_id)
+            if drr_commit is not None:
+                drr_commit()
             self.running[slot] = req
             admitted.append(req)
             seqs.append(seq)
@@ -1117,7 +1219,8 @@ class _SchedulerBase:
         decode_kernel.MAX_W (the kernels' query rows). A grant that
         finishes a prompt costs only its own tokens: the slot's first
         decode waits one iteration (_chunk_unlocked). Pending slots
-        granted nothing count as budget deferrals."""
+        granted nothing count as budget deferrals. Multiclass grants
+        through `_plan_chunks_drr` instead."""
         pending = sorted(
             (r for r in self.running.values() if r.prefill_dispatched < len(r.prefill_seq)),
             key=lambda r: (r.admit_iter, r.rid),
@@ -1126,21 +1229,70 @@ class _SchedulerBase:
             return {}
         plan: Dict[int, int] = {r.slot: 0 for r in pending}
         budget = self.token_budget - int(reserved)
-        progress = True
-        while progress and budget > 0:
-            progress = False
-            for req in pending:
-                rem = len(req.prefill_seq) - req.prefill_dispatched - plan[req.slot]
-                if rem <= 0 or plan[req.slot] >= MAX_W:
-                    continue
-                unit = min(self.chunk_size, rem, MAX_W - plan[req.slot])
-                if unit > budget:
-                    continue
-                plan[req.slot] += unit
-                budget -= unit
-                progress = True
+        if self._multiclass:
+            self._plan_chunks_drr(pending, plan, budget)
+        else:
+            progress = True
+            while progress and budget > 0:
+                progress = False
+                for req in pending:
+                    unit = self._grant_unit(req, plan, budget)
+                    if unit:
+                        plan[req.slot] += unit
+                        budget -= unit
+                        progress = True
         self.stats.budget_deferrals += sum(1 for c in plan.values() if c == 0)
         return {s: c for s, c in plan.items() if c > 0}
+
+    def _grant_unit(self, req: Request, plan: Dict[int, int], budget: int) -> int:
+        """The next chunk unit a pending request may be granted on top of
+        plan[req.slot]: chunk_size tokens, or what is left of its
+        sequence, or what keeps its grant within MAX_W; 0 when it has
+        nothing left, is at MAX_W, or the unit exceeds `budget`."""
+        rem = len(req.prefill_seq) - req.prefill_dispatched - plan[req.slot]
+        if rem <= 0 or plan[req.slot] >= MAX_W:
+            return 0
+        unit = min(self.chunk_size, rem, MAX_W - plan[req.slot])
+        return unit if unit <= budget else 0
+
+    def _plan_chunks_drr(self, pending: List[Request], plan: Dict[int, int], budget: int) -> None:
+        """Weighted-fair grants: each DRR serve grants one chunk unit (up
+        to chunk_size tokens) to the selected class's next pending
+        request, so prefill bandwidth under the budget divides by class
+        weight; within a class requests rotate in admission order. The
+        DRR persists across iterations (carried deficits make the shares
+        hold over time), and idle classes settle to zero. Mutates `plan`."""
+        drr = self._grant_drr
+        if drr is None:
+            weights = {n: c.weight for n, c in self.classes.items()}
+            drr = self._grant_drr = DeficitRoundRobin(weights, unit=float(max(1, self.chunk_size)))
+        by_class: Dict[str, List[Request]] = {}
+        for r in pending:
+            by_class.setdefault(self._class_of(r), []).append(r)
+        drr.settle(list(by_class))
+        rr: Dict[str, int] = {c: 0 for c in by_class}
+        while budget > 0:
+            costs: Dict[str, float] = {}
+            heads: Dict[str, Tuple[Request, int, int]] = {}
+            for c, reqs in by_class.items():
+                n = len(reqs)
+                for j in range(n):
+                    pos = (rr[c] + j) % n
+                    unit = self._grant_unit(reqs[pos], plan, budget)
+                    if unit:
+                        costs[c] = float(unit)
+                        heads[c] = (reqs[pos], unit, pos)
+                        break
+            if not costs:
+                break
+            name, rounds = drr.select(costs)
+            req, unit, pos = heads[name]
+            plan[req.slot] += unit
+            budget -= unit
+            drr.charge(name, rounds, list(costs), cost=float(unit))
+            rr[name] = (pos + 1) % len(by_class[name])
+        if self.debug_invariants:
+            drr.check_invariants(max_cost=float(max(1, self.chunk_size)))
 
     def _chunk_dispatch_step(self, plan: Dict[int, int]):
         """Dispatch one chunked-prefill step: claim the chunk rows' pages
@@ -1256,6 +1408,10 @@ class _SchedulerBase:
         stats.prefix_evictions = getattr(self.cache, "prefix_evictions", 0)
         if self.debug_invariants:
             self.cache.check_invariants()
+            if self.adapters is not None:
+                self.adapters.check_invariants()
+            if self._admit_drr is not None:
+                self._admit_drr.check_invariants(max_cost=1.0)
 
     def work_pending(self) -> bool:
         """Anything submitted but not yet terminal."""

@@ -11,10 +11,9 @@ agrees with plus one token from the target itself. Greedy acceptance is
 exact-match, so greedy speculative decode is token-for-token the plain
 greedy stream: the draft changes when tokens arrive, never which.
 
-The draft source here is `NGramDraftProposer` (weight-free prompt
-lookup). The reference's small-model draft (`ModelDraftProposer`) is not
-ported yet: `ServeConfig(spec_draft="model")` raises and names the
-ROADMAP item.
+The draft sources are `NGramDraftProposer` (weight-free prompt lookup)
+and `ModelDraftProposer` (a second, smaller decoder LM with its own slot
+cache, greedy, decoding through kernel #4).
 
 Rollback is the cache-side half: verify writes K/V rows for all its
 rows, then `cache.truncate(slot, new_len, src_rows)` commits the
@@ -28,6 +27,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 # -- acceptance --------------------------------------------------------------
@@ -467,4 +467,142 @@ class NGramDraftProposer(DraftProposer):
             if cont:
                 self.lookup_hits += 1
                 out[slot] = cont
+        return out
+
+
+class ModelDraftProposer(DraftProposer):
+    """Small-model draft (SpecInfer's SSM): a second compiled decoder LM
+    with its own slot-layout KVCache and GenerationEngine, slot-aligned
+    with the target through `KVCache.claim`. Drafting is k greedy decode
+    steps of the draft engine; between verify iterations the draft cache
+    rolls back to the target's accepted length with the same `truncate`
+    call, and the next propose() replays the accepted tokens the draft
+    cache is missing (catch-up feeds) before drafting fresh ones, so the
+    draft state always extends a prefix of the target's committed
+    history.
+
+    The draft model must share the target's vocabulary. The draft engine
+    runs greedily (temperature 0), so its proposal is a point mass, which
+    the acceptance rules cover exactly. `draft_steps` counts its decode
+    steps, split into `catchup_feeds` (replayed committed tokens) and
+    `draft_tokens` (fresh drafts)."""
+
+    def __init__(self, draft_model, max_seqs: int, max_len: int, buckets=None, decode_kernel: str = "auto"):
+        from flexflow_tpu_torch.serving.engine import GenerationEngine
+        from flexflow_tpu_torch.serving.kv_cache import KVCache
+
+        self.model = draft_model
+        self.cache = KVCache.from_model(draft_model, max_seqs=max_seqs, max_len=max_len, buckets=buckets)
+        self.engine = GenerationEngine(draft_model, self.cache, decode_kernel=decode_kernel)
+        self.params = draft_model.params
+        self.draft_steps = 0
+        self.catchup_feeds = 0
+        self.draft_tokens = 0
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def admit(self, requests) -> None:
+        """Mirror the target's admission: claim the same slot ids and
+        prefill the draft cache with each request's committed history
+        (the prompt, plus the tokens a preempted request already
+        generated). The prefill's own next token is unused: drafts start
+        from the target's last emitted token at the next propose()."""
+        for req in requests:
+            self.cache.claim(req.slot)
+        self.engine.prefill(
+            self.params,
+            [list(r.prompt) + list(r.generated) for r in requests],
+            [r.slot for r in requests],
+        )
+
+    def retire(self, request) -> None:
+        self.cache.free(request.slot)
+
+    def rollback(self, slot: int, new_len: int) -> None:
+        """Keep the prefix of the draft cache that matches the target's
+        committed history. The draft may hold fewer positions than the
+        target committed (a full accept never wrote the last draft
+        token): the next propose() replays the gap as catch-up feeds."""
+        self.cache.truncate(slot, min(int(new_len), int(self.cache.lengths[slot])))
+
+    # -- drafting ------------------------------------------------------------
+
+    def _draft(self, running, k: int, roots: bool):
+        """Greedy draft steps over every running slot: first the
+        committed tokens the draft cache has not seen (at least the last
+        emitted token), then the draft's own continuations, up to k
+        fresh tokens a slot. Returns (slot -> drafts, slot -> the logits
+        row [V] its first fresh draft came from, read on the host only
+        when `roots` and only for the rows that need it)."""
+        spec = self.cache.spec
+        pending: Dict[int, List[int]] = {}
+        drafts: Dict[int, List[int]] = {}
+        root_logits: Dict[int, np.ndarray] = {}
+        for slot, req in running.items():
+            hist = list(req.prompt) + list(req.generated)
+            done = int(self.cache.lengths[slot])
+            pending[slot] = [int(t) for t in hist[done:]]
+            drafts[slot] = []
+        while True:
+            feeds: Dict[int, int] = {}
+            for slot in running:
+                if int(self.cache.lengths[slot]) >= spec.max_len:
+                    continue  # draft cache horizon reached
+                if pending[slot]:
+                    feeds[slot] = pending[slot][0]
+                elif drafts[slot] and len(drafts[slot]) < k:
+                    feeds[slot] = drafts[slot][-1]
+            if not feeds:
+                break
+            tokens = np.zeros(spec.max_seqs, dtype=np.int32)
+            active = np.zeros(spec.max_seqs, dtype=bool)
+            for slot, tok in feeds.items():
+                tokens[slot] = tok
+                active[slot] = True
+            nxt, logits = self.engine.decode(self.params, tokens, active)
+            self.draft_steps += 1
+            rooted = []
+            for slot in feeds:
+                if pending[slot]:
+                    pending[slot].pop(0)
+                    self.catchup_feeds += 1
+                    if pending[slot]:
+                        continue  # a catch-up feed: its prediction is known
+                self.draft_tokens += 1
+                if roots and not drafts[slot]:
+                    rooted.append(slot)
+                drafts[slot].append(int(nxt[slot]))
+            if rooted:
+                rows = logits[torch.as_tensor(rooted, device=logits.device)].float().cpu().numpy()
+                root_logits.update(zip(rooted, rows))
+        return drafts, root_logits
+
+    def propose(self, running, k: int) -> Dict[int, List[int]]:
+        if not running or k < 1:
+            return {}
+        drafts, _ = self._draft(running, k, roots=False)
+        return {s: d for s, d in drafts.items() if d}
+
+    def propose_trees(self, running, k: int, branch: int) -> Dict[int, DraftTree]:
+        """Tree drafts: the greedy spine propose() would emit, plus up to
+        branch - 1 single-node alternates at the root, the runners-up of
+        the draft's first fresh logits row. They cost no extra draft
+        step and never enter the draft cache (only the spine is fed), so
+        rollback stays the linear protocol."""
+        if not running or k < 1:
+            return {}
+        drafts, root_logits = self._draft(running, k, roots=branch > 1)
+        out: Dict[int, DraftTree] = {}
+        for slot, spine in drafts.items():
+            if not spine:
+                continue
+            chains: List[List[int]] = [list(spine)]
+            row = root_logits.get(slot)
+            if row is not None:
+                for t in np.argsort(row)[::-1]:
+                    if len(chains) >= branch:
+                        break
+                    if int(t) != spine[0]:
+                        chains.append([int(t)])
+            out[slot] = DraftTree.from_chains(chains)
         return out

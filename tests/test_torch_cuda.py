@@ -1687,3 +1687,167 @@ def test_graph_window_is_not_replayed_while_in_flight():
     nxt = np.where(active, toks[-1], tokens).astype(np.int32)
     eng.decode_multi_reconcile(eng.decode_multi_dispatch(model.params, nxt, active, limits))
     assert eng.multistep_cache_entries == 1
+
+
+# -- multi-tenant serving: adapters in graph windows and async dispatches ---------------
+
+
+def _tenant_engine(model, **kw):
+    """An engine with an adapter pool (two adapters of rank 8, adapter 0
+    loaded) over 4 slots: two prompts prefilled into slots attached to
+    adapter 0 and to the base model, and one empty slot for a chunk
+    step; returns (engine, cache, the two slots, the empty slot, their
+    next tokens [4], the active mask [4])."""
+    from flexflow_tpu_torch.serving import build_scheduler, make_lora_weights
+
+    _, eng, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, adapters=2, adapter_rank=8, **kw))
+    eng.adapters.load(0, make_lora_weights(eng.adapters.spec, 8, seed=0))
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5]]
+    slots = [cache.alloc(len(p), 64) for p in prompts]
+    eng.adapters.attach(slots[0], 0)
+    first, _ = eng.prefill(model.params, prompts, slots)
+    empty = cache.alloc(0, 64)
+    tokens = np.zeros(4, dtype=np.int32)
+    tokens[slots] = first
+    active = np.zeros(4, dtype=bool)
+    active[slots] = True
+    return eng, cache, slots, empty, tokens, active
+
+
+def _eager_steps(eng, params, cur, active, k):
+    """k eager decode steps: [(tokens [4], logits [4, V])] and the next
+    input tokens."""
+    out = []
+    for _ in range(k):
+        nxt, logits = eng.decode(params, cur, active)
+        out.append((nxt.copy(), logits.clone()))
+        cur = np.where(active, nxt, cur).astype(np.int32)
+    return out, cur
+
+
+def _assert_window(toks, logits, mask, want, slots):
+    for i, (want_t, want_l) in enumerate(want):
+        assert mask[i][slots].all()
+        np.testing.assert_array_equal(toks[i][slots], want_t[slots], err_msg=f"step {i}")
+        assert torch.equal(logits[i][slots], want_l[slots]), f"step {i}"
+
+
+@pytest.mark.parametrize("leg", sorted(_WINDOW_LEGS))
+def test_adapter_graph_window_equals_eager_core(leg):
+    """A batch of an adapter row and a base row in a decode_multi window
+    (replays of the captured core, the adapter tables in its one input
+    copy) equals the eager core's steps, tokens and logits exactly, with
+    the leg's kernel launched replays x layers times; the base row equals
+    a pool-free engine's and the adapter row differs from it."""
+    from flexflow_tpu_torch.serving import build_scheduler
+
+    _card()
+    layers, K = 2, 4
+    model = _small_lm(layers)
+    kw, kernel = _WINDOW_LEGS[leg]
+    eng_a, _, slots, _, cur, active = _tenant_engine(model, **kw)
+    want, _ = _eager_steps(eng_a, model.params, cur, active, K)
+    eng, _, _, _, cur, _ = _tenant_engine(model, **kw)
+    dk.reset_launches()
+    toks, logits, mask = eng.decode_multi(model.params, cur, active, np.where(active, K, 0))
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == dict(dict.fromkeys(dk.LAUNCHES, 0), **{kernel: K * layers})
+    _assert_window(toks, logits, mask, want, slots)
+    _, bare, cache = build_scheduler(model, ServeConfig(max_seqs=4, max_seq_len=64, **kw))
+    got = [cache.alloc(n, 64) for n in (8, 3)]
+    first, _ = bare.prefill(model.params, [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5]], got)
+    base_cur = np.zeros(4, dtype=np.int32)
+    base_cur[got] = first
+    base, _ = _eager_steps(bare, model.params, base_cur, active, 1)
+    assert torch.equal(want[0][1][slots[1]], base[0][1][slots[1]])
+    assert float((want[0][1][slots[0]] - base[0][1][slots[0]]).abs().max()) > 1e-3
+
+
+def test_adapter_load_between_windows_reaches_only_the_later_one():
+    """A window dispatched while the stream is held, then (still in
+    flight) slot 0 moves to adapter 1, loaded in place into the pages
+    adapter 0 had: the in-flight window computes with adapter 0 and the
+    next window with adapter 1, each equal to the eager core's steps of
+    the same sequence of loads."""
+    from flexflow_tpu_torch.serving import make_lora_weights
+
+    _card()
+    K = 3
+    model = _small_lm(2)
+    params = model.params
+
+    def move(eng, slot):
+        pages = eng.adapters.adapter_tables[0].copy()
+        eng.adapters.detach(slot)
+        eng.adapters.unload(0)
+        eng.adapters.load(1, make_lora_weights(eng.adapters.spec, 8, seed=1))
+        eng.adapters.attach(slot, 1)
+        assert np.array_equal(eng.adapters.adapter_tables[1], pages)
+
+    eng_a, _, slots, _, cur, active = _tenant_engine(model)
+    first, cur = _eager_steps(eng_a, params, cur, active, K)
+    second, cur = _eager_steps(eng_a, params, cur, active, K)
+    move(eng_a, slots[0])
+    third, _ = _eager_steps(eng_a, params, cur, active, K)
+    eng, _, _, _, cur, _ = _tenant_engine(model)
+    limits = np.where(active, K, 0)
+    toks, logits, mask = eng.decode_multi(params, cur, active, limits)  # captures the graph
+    _assert_window(toks, logits, mask, first, slots)
+    cur = np.where(active, toks[-1], cur).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # hold the stream: the window stays queued
+    step = eng.decode_multi_dispatch(params, cur, active, limits)
+    move(eng, slots[0])
+    toks, logits, mask = eng.decode_multi_reconcile(step)
+    _assert_window(toks, logits, mask, second, slots)
+    cur = np.where(active, toks[-1], cur).astype(np.int32)
+    toks, logits, mask = eng.decode_multi(params, cur, active, limits)
+    _assert_window(toks, logits, mask, third, slots)
+
+
+@pytest.mark.parametrize("leg", ["paged", "int8", "slot"])
+def test_async_dispatch_with_adapters_does_not_sync(leg):
+    """The dispatch halves of a chained decode, a multi-step window, a
+    verify and a chunk step of an engine with an adapter pool (one slot
+    on an adapter, one on the base model) under
+    torch.cuda.set_sync_debug_mode("error"): none waits for the stream,
+    and the chunk slot on an adapter too."""
+    _card()
+    model = _small_lm(2)
+    kw = {"paged": {}, "int8": dict(kv_dtype="int8"), "slot": dict(kv_layout="slot")}[leg]
+    eng, cache, slots, empty, tokens, active = _tenant_engine(model, **kw)
+    eng.adapters.attach(empty, 0)
+    params = model.params
+
+    def dispatch():
+        d1 = eng.decode_dispatch(params, tokens, active)
+        d2 = eng.decode_dispatch(params, tokens, active, chain=d1, chain_mask=active)
+        w = eng.decode_multi_dispatch(params, tokens, active, np.where(active, 3, 0))
+        vt = np.zeros((4, 5), dtype=np.int32)
+        vt[slots, 0] = tokens[slots]
+        v = eng.verify_dispatch(params, vt, np.where(active, 5, 0))
+        ct = np.zeros((4, 8), dtype=np.int32)
+        ct[empty] = np.arange(1, 9)
+        cl = np.zeros(4, dtype=np.int32)
+        cl[empty] = 8
+        return d1, d2, w, v, eng.prefill_chunk_dispatch(params, ct, cl)
+
+    def reconcile(steps):
+        d1, d2, w, v, c = steps
+        eng.decode_reconcile(d1)
+        eng.decode_reconcile(d2)
+        eng.decode_multi_reconcile(w)
+        logits = eng.verify_reconcile(v)
+        eng.prefill_chunk_reconcile(c)
+        return logits
+
+    reconcile(dispatch())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    logits = reconcile(steps)
+    assert np.isfinite(logits).all() and steps[0].finite[slots].all() and steps[4].finite[empty]
+    eng.adapters.check_invariants()

@@ -192,8 +192,7 @@ def test_request_lifecycle(lms):
 
 
 def test_serve_config_takes_only_the_slice():
-    for kw in (dict(spec_draft="model"), dict(kv_swap=True),
-               dict(prefix_evict="cost", prefix_cache=True), dict(decode_kernel="pallas")):
+    for kw in (dict(kv_swap=True), dict(prefix_evict="cost", prefix_cache=True), dict(decode_kernel="pallas")):
         with pytest.raises(NotImplementedError):
             ServeConfig(**kw)
     for kw in (dict(kv_layout="ring"), dict(max_seq_len=30, kv_page_size=16),
@@ -204,12 +203,15 @@ def test_serve_config_takes_only_the_slice():
                dict(token_budget=-1), dict(token_budget=64, chunk_size=0),
                dict(token_budget=8, chunk_size=16), dict(token_budget=64, chunk_size=12),
                dict(token_budget=64, scheduler="static"), dict(prefix_evict="fifo"),
-               dict(serve_async=True, scheduler="static"), dict(prefix_evict="lru")):
+               dict(serve_async=True, scheduler="static"), dict(prefix_evict="lru"),
+               dict(adapters=-1), dict(classes="gold:4,gold:1"), dict(classes="gold:x")):
         with pytest.raises(ValueError):
             ServeConfig(**kw)
     # the serving features this slice ports, all at once
     ServeConfig(temperature=0.8, seed=7, token_budget=128, chunk_size=16, prefix_cache=True,
                 admission="optimistic", max_preemptions=2, prefix_evict="lru", serve_async=True)
+    # multi-tenancy and the small-model draft
+    ServeConfig(adapters=2, adapter_rank=8, classes="gold:4,bronze:1", spec_draft="model", spec_k=4)
     # the widest verify the decode kernels take: 1 + 9 * 7 = 64 rows
     ServeConfig(spec_draft="ngram", spec_k=9, spec_branch=7, kv_dtype="int8")
     assert ServeConfig().kv_layout == "paged" and ServeConfig().scheduler == "continuous"

@@ -50,11 +50,12 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def build_lms(vocab=VOCAB, hidden=64, ff_dim=128):
-    """(jax model, port model): 2 layers, 4 heads, by default hidden 64
-    and vocab 64."""
-    arch = dict(vocab_size=vocab, hidden=hidden, num_heads=4, num_layers=2, ff_dim=ff_dim)
-    jm = JFFModel(JFFConfig(batch_size=2, seed=0))
+def build_lms(vocab=VOCAB, hidden=64, ff_dim=128, layers=2, seed=0, mixed=False):
+    """(jax model, port model): 4 heads, by default 2 layers, hidden 64
+    and vocab 64, weights from `seed`; `mixed` compiles both with
+    allow_mixed_precision."""
+    arch = dict(vocab_size=vocab, hidden=hidden, num_heads=4, num_layers=layers, ff_dim=ff_dim)
+    jm = JFFModel(JFFConfig(batch_size=2, seed=seed, allow_mixed_precision=mixed))
     tok = jm.create_tensor([2, MAX_LEN], dtype=JDataType.INT32, name="tokens")
     jax_build_decoder_lm(jm, tok, **arch)
     jm.compile(
@@ -63,7 +64,7 @@ def build_lms(vocab=VOCAB, hidden=64, ff_dim=128):
         metrics=[],
         devices=jax.devices()[:1],
     )
-    tm = FFModel(FFConfig(batch_size=2, seed=0))
+    tm = FFModel(FFConfig(batch_size=2, seed=seed, allow_mixed_precision=mixed))
     tok = tm.create_tensor([2, MAX_LEN], dtype=DataType.INT32, name="tokens")
     build_decoder_lm(tm, tok, **arch)
     tm.compile(device="cpu")
@@ -77,17 +78,23 @@ def prompts(seed, lengths):
     return [[int(t) for t in rng.randint(1, VOCAB, size=n)] for n in lengths]
 
 
-def serve(side, model, prompts, max_new, max_seq_len=MAX_LEN, budget_trace=None, **kw):
+def serve(side, model, prompts, max_new, max_seq_len=MAX_LEN, budget_trace=None, loras=None, req_kw=None,
+          draft_model=None, **kw):
     """Serve `prompts` (max_new tokens each) through one package's
     continuous scheduler, the port's with its cache invariants checked
     after every iteration. `budget_trace`, a list, takes each
-    iteration's budget used. Returns ({rid: (status, generated,
+    iteration's budget used. `loras` ({adapter_id: weights}) are loaded
+    into the engine's adapter pool first; `req_kw[i]` are request i's
+    further fields (adapter_id, priority_class); `draft_model` is the
+    draft LM of spec_draft="model". Returns ({rid: (status, generated,
     preemptions)}, stats, scheduler)."""
     build, serve_cls, req_cls = side
     kw = dict(dict(max_seqs=SLOTS, max_seq_len=max_seq_len, kv_page_size=PAGE, debug_invariants=side is PORT), **kw)
-    sched, _, _ = build(model, serve_cls(**kw))
+    sched, engine, _ = build(model, serve_cls(**kw), **({"draft_model": draft_model} if draft_model else {}))
+    for aid, weights in (loras or {}).items():
+        engine.adapters.load(aid, weights)
     for i, (p, n) in enumerate(zip(prompts, max_new)):
-        sched.submit(req_cls(rid=i, prompt=list(p), max_new_tokens=n))
+        sched.submit(req_cls(rid=i, prompt=list(p), max_new_tokens=n, **(req_kw[i] if req_kw else {})))
     while sched.work_pending():
         sched.step()
         if budget_trace is not None:
